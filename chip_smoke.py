@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -9,11 +9,14 @@ raises (exit code 1):
 1. device   -- a CUDA card is required; prints its name and power limit.
 2. build    -- compiles ``medical_image_analysis_tpu_torch/csrc/mamba_fused.cu``
                with nvcc for sm_90a into ``build/kernels/``.
-3. kernels  -- both fused-Mamba kernels against their plain PyTorch versions
-               on the card, at the ARM-B layer shapes of the
-               ``r2gengpt_mimic`` preset (K=4, L=197, D=768, N=16, R=48),
-               batch 1 and 6, fp32 and bf16 sources; the device time of
-               each beside its plain version's.
+3. kernels  -- both fused-Mamba forward kernels against their plain
+               PyTorch versions on the card, at the ARM-B layer shapes of
+               the ``r2gengpt_mimic`` preset (K=4, L=197, D=768, N=16,
+               R=48), batch 1 and 6, fp32 and bf16 sources; the device time
+               of each beside its plain version's.
+   kernels_bwd -- the backward kernel (``scan_bwd``) against
+               ``scan_bwd_plain`` at the same shapes: the max error of each
+               output and the device times.
 4. serve    -- the preset at full width (ARM-B 768x12 + qwen1_5_1_8b with
                Qwen1.5's vocabulary of 151,936; random weights from a seed)
                behind ``cli.demo.make_server``: synthetic 224x224 PNGs are
@@ -21,6 +24,18 @@ raises (exit code 1):
                each kernel must have launched once per ARM layer per request.
 5. tower    -- ``encode_img`` of one image through the kernels and through
                the plain versions; the relative gap is held to a bound.
+6. train    -- the preset at full width through ``cli.train.main``
+               in-process: frozen LLM with LoRA r16 on q/v, trainable
+               tower, accumulation 2, remat, batch 6 x 2 views x 224^2, on
+               the synthetic dataset (32 samples: 5 steps), then one
+               validation (beam 3, 120 tokens). Every loss is finite, every
+               trainable tensor moved and no frozen one did, the delta file
+               exists, and each kernel launched as often as the design says
+               (printed). Step and validation seconds, peak device memory.
+7. train_grads -- one micro-batch at full width: the tower's and the
+               projector's gradients through the kernels against those
+               through the plain versions, from one cotangent at the
+               projector's output, within a relative bound.
 
 Then one JSON line of the kernels, and the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -37,6 +52,7 @@ import io
 import json
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -48,12 +64,17 @@ import torch
 SEED = 0
 VOCAB = 151936  # Qwen1.5's published vocabulary, used as a size only
 REQUESTS = 3
+TRAIN_SAMPLES = 32  # data.dataset=synthetic's train split
+VAL_SAMPLES = 8  # and its val split
 PRESET = (Path(__file__).resolve().parent / "medical_image_analysis_tpu"
           / "configs" / "presets" / "r2gengpt_mimic.yaml")
 REPLACES = {
     "mamba_xdbl": "medical_image_analysis_tpu/ops/mamba_fused.py:111",
     "mamba_scan": "medical_image_analysis_tpu/ops/mamba_fused.py:145",
+    "mamba_scan_bwd": "medical_image_analysis_tpu/ops/mamba_fused.py:197",
 }
+BWD_OUTPUTS = ("du", "u", "dsilu", "dxdbl", "dA", "dD", "ddt_bias",
+               "ddt_proj_w")
 
 # Tolerances, relative to max(1, max |plain|):
 # x_dbl is fp32 from identical inputs; only the order of the sum over D
@@ -63,8 +84,12 @@ XDBL_RTOL = 1e-4
 # round once to bf16 at the end, where they may land one bf16 step
 # (2^-8 relative) apart.
 Y_RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# The backward's outputs are fp32 on both sides from the same inputs, for
+# either source dtype; the sums over D and over L run in another order.
+BWD_RTOL = 1e-4
 # The tower through 12 layers, fp32: reordered sums, compounded per layer
-# and rescaled by the final LayerNorm and projector.
+# and rescaled by the final LayerNorm and projector. The same bound holds
+# the tower's and projector's gradients, relative to each tensor's largest.
 TOWER_RTOL = 1e-3
 
 
@@ -148,17 +173,21 @@ def preset_layer(cfg, dev, gen):
     return arm.layers[0].mixer, seq_len, (seq_len - 1) // 2
 
 
+def _layer_weights(mixer) -> dict:
+    with torch.no_grad():
+        w = dict(conv_w=mixer.conv_w, conv_b=mixer.conv_b,
+                 x_proj_w=mixer.x_proj_w, dt_proj_w=mixer.dt_proj_w,
+                 dt_bias=mixer.dt_bias, A=-torch.exp(mixer.A_log), D=mixer.D)
+        return {k: v.detach().float().contiguous() for k, v in w.items()}
+
+
 def phase_kernels(cfg, dev, gen, batches=(1, 6)) -> dict:
     """Kernels against plain versions; returns the serving-shape row
     (batch 1, fp32) for the kernels' JSON line."""
     from medical_image_analysis_tpu_torch.ops import mamba_fused as mf
 
     mixer, seq_len, cls_pos = preset_layer(cfg, dev, gen)
-    with torch.no_grad():
-        w = dict(conv_w=mixer.conv_w, conv_b=mixer.conv_b,
-                 x_proj_w=mixer.x_proj_w, dt_proj_w=mixer.dt_proj_w,
-                 dt_bias=mixer.dt_bias, A=-torch.exp(mixer.A_log), D=mixer.D)
-        w = {k: v.detach().float().contiguous() for k, v in w.items()}
+    w = _layer_weights(mixer)
     serving = {}
     for b in batches:
         x = torch.randn(b, seq_len, mixer.d_inner, device=dev, generator=gen)
@@ -212,6 +241,59 @@ def phase_kernels(cfg, dev, gen, batches=(1, 6)) -> dict:
                     "mamba_scan": (err_y, t["scan"], t["scan_plain"]),
                 }
     return serving
+
+
+def phase_kernels_bwd(cfg, dev, gen, batches=(1, 6)) -> tuple:
+    """The backward kernel against its plain version; returns the
+    training-shape row (batch 6 = 3 samples x 2 views, fp32 sources, as
+    the tower trains): (max abs err over the outputs, ms, plain ms)."""
+    from medical_image_analysis_tpu_torch.ops import mamba_fused as mf
+
+    mixer, seq_len, cls_pos = preset_layer(cfg, dev, gen)
+    w = _layer_weights(mixer)
+    training = None
+    for b in batches:
+        x = torch.randn(b, seq_len, mixer.d_inner, device=dev, generator=gen)
+        dy = torch.randn(b, mixer.k, seq_len, mixer.d_inner, device=dev,
+                         generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            xr = x.to(dtype)
+            xc = mixer._col_major(xr, cls_pos).contiguous()
+            x_dbl = mf.xdbl_plain(xr, xc, w["conv_w"], w["conv_b"],
+                                  w["x_proj_w"])
+            args = (xr, xc, x_dbl, w["conv_w"], w["conv_b"], w["dt_proj_w"],
+                    w["dt_bias"], w["A"], w["D"], dy.to(dtype))
+            want = mf.scan_bwd_plain(*args)
+            got = mf.scan_bwd(*args)
+            _sync(dev)
+            errs = {}
+            for name, g, wv in zip(BWD_OUTPUTS, got, want):
+                _check(g.shape == wv.shape and g.dtype == torch.float32,
+                       f"mamba_scan_bwd {name}: shape or dtype")
+                err, scale = _max_err(g, wv)
+                _check(err <= BWD_RTOL * scale,
+                       f"mamba_scan_bwd B={b} {dtype} {name}: max abs err "
+                       f"{err:.3e} > {BWD_RTOL} x {scale:.3f}")
+                errs[name] = err
+            t = {}
+            for name, fn, iters in (  # in turns: plain, kernel, kernel, plain
+                ("plain", lambda: mf.scan_bwd_plain(*args), 2),
+                ("kernel", lambda: mf.scan_bwd(*args), 20),
+                ("kernel", lambda: mf.scan_bwd(*args), 20),
+                ("plain", lambda: mf.scan_bwd_plain(*args), 2),
+            ):
+                t[name] = t.get(name, 0.0) + device_ms(fn, iters) / 2
+            _phase(
+                "kernels_bwd", B=b, K=mixer.k, L=seq_len, D=mixer.d_inner,
+                N=mixer.n, R=mixer.rank,
+                src="fp32" if dtype == torch.float32 else "bf16",
+                errs=json.dumps({k: f"{v:.3e}" for k, v in errs.items()},
+                                separators=(",", ":")),
+                bwd_ms=f"{t['kernel']:.4f}", bwd_plain_ms=f"{t['plain']:.4f}",
+            )
+            if b == 6 and dtype == torch.float32:
+                training = (max(errs.values()), t["kernel"], t["plain"])
+    return training
 
 
 def _png(rng, size: int) -> bytes:
@@ -333,6 +415,193 @@ def phase_tower(pipe, png: bytes, reps: int = 3):
            plain_ms=f"{ms['plain']:.3f}")
 
 
+def _fingerprint(t: torch.Tensor) -> tuple:
+    with torch.no_grad():
+        return (t.sum(dtype=torch.float64).item(),
+                t.abs().sum(dtype=torch.float64).item())
+
+
+def phase_train(config: str, vocab: int, save_dir: Path,
+                device: str = "cuda") -> dict:
+    """Train the preset for one epoch through the CLI; returns the model,
+    the batch size and accumulation, and the launch counts of the run."""
+    from medical_image_analysis_tpu_torch.cli import train as cli_train
+    from medical_image_analysis_tpu_torch.ops import mamba_fused as mf
+
+    seen = {}
+
+    def on_start(model, state):
+        seen["model"], seen["state"] = model, state
+        seen["trainable"] = {n: p.detach().clone()
+                             for n, p in state.params.items()}
+        seen["frozen"] = {n: _fingerprint(p) for n, p in state.frozen.items()}
+
+    argv = [
+        "--config", config,
+        "--set", "data.dataset=synthetic",
+        "--set", f"model.llm_kwargs.vocab_size={vocab}",
+        "--set", "train.epochs=1",
+        "--set", "train.save_state_every_epochs=2",
+        "--set", "train.log_every=1",
+        "--set", f"train.save_dir={save_dir}",
+        "--device", device,
+    ]
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    mf.reset_launches()
+    t0 = time.perf_counter()
+    scores = cli_train.main(argv, on_start=on_start)
+    _sync(torch.device(device))
+    total_s = time.perf_counter() - t0
+    launches = dict(mf.launches)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+
+    model, state = seen["model"], seen["state"]
+    import yaml
+
+    with open(save_dir / "config.yaml") as f:
+        cfg = yaml.safe_load(f)
+    batch, accum = cfg["data"]["batch_size"], cfg["train"]["accum_steps"]
+    val_bs = cfg["data"]["val_batch_size"] or batch
+    with open(save_dir / "log.txt") as f:
+        records = [json.loads(line) for line in f]
+    steps = [r for r in records if "step" in r]
+    vals = [r for r in records if "val_s" in r]
+    n_steps = TRAIN_SAMPLES // batch
+    _check(len(steps) == n_steps, f"{len(steps)} steps, expected {n_steps}")
+    _check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+               for r in steps), "a non-finite loss or grad norm")
+    _check(len(vals) == 1 and all(np.isfinite(v) for v in scores.values()),
+           "validation missing or non-finite scores")
+    deltas = sorted(save_dir.glob("checkpoint_epoch0_*.pt"))
+    _check(len(deltas) == 1 and (save_dir / "checkpoint_best.pt").exists(),
+           "delta checkpoint not written")
+    moved = sum(not torch.equal(p, seen["trainable"][n])
+                for n, p in state.params.items())
+    _check(moved == len(state.params),
+           f"{len(state.params) - moved} trainable tensors did not move")
+    still = sum(_fingerprint(p) == seen["frozen"][n]
+                for n, p in state.frozen.items())
+    _check(still == len(state.frozen),
+           f"{len(state.frozen) - still} frozen tensors moved")
+
+    # What the design implies: with remat, each ARM layer runs both forward
+    # kernels twice per micro-batch (the checkpointed forward and its
+    # recompute in the backward) and the backward kernel once; validation
+    # encodes each val batch once (no gradient, no recompute).
+    depth = len(model.vision.arm.layers)
+    val_batches = -(-VAL_SAMPLES // val_bs)
+    fwd_step, bwd_step = depth * accum * 2, depth * accum
+    want = {
+        "mamba_xdbl": n_steps * fwd_step + val_batches * depth,
+        "mamba_scan": n_steps * fwd_step + val_batches * depth,
+        "mamba_scan_bwd": n_steps * bwd_step,
+    }
+    print(f"train: launches reckoned: per step {depth} layers x {accum} "
+          f"micro-batches x 2 forwards = {fwd_step} of each forward kernel "
+          f"and {depth} x {accum} = {bwd_step} backward; {n_steps} steps + "
+          f"{val_batches} val batches x {depth} layers -> "
+          f"{json.dumps(want, separators=(',', ':'))}", flush=True)
+    if not cuda:  # CPU tensors take the plain versions (a rehearsal)
+        want = dict.fromkeys(want, 0)
+    _check(launches == want, f"launches {launches}, expected {want}")
+    step_s = [r["step_s"] for r in steps]
+    _phase(
+        "train", preset=Path(config).name, steps=n_steps, batch=batch,
+        accum=accum, trainable=len(state.params), frozen=len(state.frozen),
+        trainable_params=sum(p.numel() for p in state.params.values()),
+        losses=",".join(f"{r['loss']:.4f}" for r in steps),
+        grad_norms=",".join(f"{r['grad_norm']:.4f}" for r in steps),
+        step_s=",".join(f"{v:.3f}" for v in step_s),
+        val_s=f"{vals[0]['val_s']:.3f}", total_s=f"{total_s:.2f}",
+        peak_mem_gib=f"{peak / 2**30:.3f}",
+        bleu4=f"{scores['Bleu_4']:.4f}",
+        launches=json.dumps(launches, separators=(",", ":")),
+    )
+    return {"model": model, "state": state, "batch": batch, "accum": accum,
+            "launches": launches}
+
+
+def phase_train_grads(model, state, config: str, batch: int, accum: int):
+    """One micro-batch of the preset's data: the tower's and projector's
+    gradients through the kernels against those through the plain
+    versions, both driven by one cotangent at the projector's output.
+
+    That cotangent is the loss's gradient w.r.t. the image tokens, taken
+    once (plain path). Taken through the whole model instead, the two
+    paths' gradients differ by a few percent: the bf16 LLM rounds the
+    image tokens, and a 1e-6 gap in them flips some roundings by one bf16
+    step, which the LLM's backward carries into every gradient. That gap
+    is printed (``e2e_``), not bounded.
+    """
+    from medical_image_analysis_tpu_torch.configs.config import load_config
+    from medical_image_analysis_tpu_torch.models.mamba import set_scan_backend
+    from medical_image_analysis_tpu_torch.ops import mamba_fused as mf
+    from medical_image_analysis_tpu_torch.train.loop import (
+        _device_batch,
+        build_data,
+    )
+
+    cfg = load_config(config, ["data.dataset=synthetic", "data.num_workers=1"])
+    _, _, batcher, _ = build_data(cfg)
+    train_b = batcher("train")
+    try:
+        host = next(train_b.batches(shuffle=False))
+    finally:
+        train_b.close()
+    dev = next(model.parameters()).device
+    micro = {k: v[: batch // accum]
+             for k, v in _device_batch(host, dev).items()}
+    names = [n for n in state.params if n.startswith(("base/vision/",
+                                                      "base/proj"))]
+    tensors = [state.params[n] for n in names]
+
+    def loss_of(tokens):
+        prompt = model._wrap(tokens, micro["before_ids"], micro["after_ids"])
+        return model._loss(prompt, micro["target_ids"], micro["target_mask"])
+
+    set_scan_backend(model, "plain")
+    tokens = model.encode_img(micro["images"]).detach().requires_grad_()
+    (cotangent,) = torch.autograd.grad(loss_of(tokens), tokens)
+    grads, e2e, secs = {}, {}, {}
+    for backend in ("auto", "plain"):
+        set_scan_backend(model, backend)
+        mf.reset_launches()
+        t0 = time.perf_counter()
+        out = model.encode_img(micro["images"])
+        grads[backend] = torch.autograd.grad(out, tensors, cotangent)
+        _sync(dev)
+        secs[backend] = time.perf_counter() - t0
+        if backend == "auto" and dev.type == "cuda":
+            depth = len(model.vision.arm.layers)
+            _check(mf.launches == {"mamba_xdbl": 2 * depth,
+                                   "mamba_scan": 2 * depth,
+                                   "mamba_scan_bwd": depth},
+                   f"train_grads launches {mf.launches}")
+        e2e[backend] = torch.autograd.grad(
+            loss_of(model.encode_img(micro["images"])), tensors)
+    set_scan_backend(model, "auto")
+
+    def worst(a, b):
+        out = (0.0, "")
+        for n, g, gp in zip(names, a, b):
+            _check(bool(torch.isfinite(g).all()), f"non-finite grad of {n}")
+            rel = ((g - gp).abs().max()
+                   / gp.abs().max().clamp_min(1e-30)).item()
+            out = max(out, (rel, n))
+        return out
+
+    rel, at = worst(grads["auto"], grads["plain"])
+    e2e_rel, e2e_at = worst(e2e["auto"], e2e["plain"])
+    _check(rel <= TOWER_RTOL,
+           f"grad of {at}: max rel err {rel:.3e} > {TOWER_RTOL}")
+    _phase("train_grads", tensors=len(names), micro_batch=batch // accum,
+           max_rel_err=f"{rel:.3e}", at=at, bound=TOWER_RTOL,
+           e2e_max_rel_err=f"{e2e_rel:.3e}", e2e_at=e2e_at,
+           kernel_s=f"{secs['auto']:.3f}", plain_s=f"{secs['plain']:.3f}")
+
+
 def main() -> None:
     phase_device()
     dev = torch.device("cuda")
@@ -341,21 +610,32 @@ def main() -> None:
 
     cfg = load_config(str(PRESET))
     phase_build()
-    serving = phase_kernels(cfg, dev, gen)
+    measured = phase_kernels(cfg, dev, gen)
+    measured["mamba_scan_bwd"] = phase_kernels_bwd(cfg, dev, gen)
     pipe, png, launches, depth = phase_serve(str(PRESET), VOCAB, "cuda",
                                              REQUESTS)
-    for name in REPLACES:
+    for name in ("mamba_xdbl", "mamba_scan"):
         _check(launches.get(name, 0) == depth * REQUESTS,
                f"{name} launched {launches.get(name, 0)} times while serving; "
                f"expected {depth} layers x {REQUESTS} requests")
+    _check(launches.get("mamba_scan_bwd") == 0,
+           "the backward kernel launched while serving")
     phase_tower(pipe, png)
+    del pipe
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        run = phase_train(str(PRESET), VOCAB, Path(tmp))
+    phase_train_grads(run["model"], run["state"], str(PRESET), run["batch"],
+                      run["accum"])
     from medical_image_analysis_tpu_torch.ops.mamba_fused import KERNEL_SOURCE
 
+    # launches: the main path's runs, serving and training
     kernels = [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": REPLACES[name], "launches": launches[name],
-         "max_abs_err": serving[name][0], "ms": serving[name][1],
-         "plain_ms": serving[name][2]}
+         "replaces": REPLACES[name],
+         "launches": launches[name] + run["launches"][name],
+         "max_abs_err": measured[name][0], "ms": measured[name][1],
+         "plain_ms": measured[name][2]}
         for name in REPLACES
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,0 +1,108 @@
+"""Checkpoint files of the port: trainable-only deltas and full train states.
+
+Counterpart of ``medical_image_analysis_tpu/ckpt/checkpoint.py`` in the
+port's own format, ``torch.save`` of dicts of tensors named by flax path
+(the JAX package writes msgpack; reading those is ROADMAP.md, queue 1,
+item 9):
+
+- a delta holds the trainable tensors and ``{config, epoch, step}``;
+  :func:`merge_delta` copies its tensors over the named ones it finds;
+- a train state (``state_epoch<NNNNN>.pt``) holds every tensor of the run
+  (frozen and trainable, LoRA adapters included), the optimizer state,
+  the step and the EMA shadow; it is written atomically, and only the
+  ``keep`` newest are kept. :func:`auto_resume_helper` finds the newest.
+
+Files are loaded with ``weights_only=True``: they hold tensors, numbers,
+strings and containers only.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+
+import torch
+
+_STATE_RE = re.compile(r"state_epoch(\d+)\.pt$")
+
+
+def _cpu(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: _cpu(v) for k, v in tree.items()}
+    return tree
+
+
+def _save_atomic(obj, path: str) -> None:
+    tmp = path + ".tmp"
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+
+
+def save_delta(path: str, params: dict[str, torch.Tensor],
+               trainable_mask: dict[str, bool] | None = None,
+               config: dict | None = None, epoch: int = 0, step: int = 0):
+    """Trainable-only delta: ``{"model": {name: tensor}, "meta": {config,
+    epoch, step}}``; names whose mask is False are left out."""
+    model = {
+        n: p for n, p in params.items()
+        if trainable_mask is None or trainable_mask[n]
+    }
+    _save_atomic({"model": _cpu(model),
+                  "meta": {"config": dict(config or {}), "epoch": int(epoch),
+                           "step": int(step)}}, path)
+
+
+def load_delta(path: str) -> tuple[dict, dict]:
+    """Returns (tensors by name, meta {config, epoch, step})."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    return obj["model"], obj["meta"]
+
+
+@torch.no_grad()
+def merge_delta(params: dict[str, torch.Tensor], delta: dict) -> dict:
+    """Copy every delta tensor into the tensor of the same name (in
+    place, in its dtype and device); names absent from ``params`` are an
+    error, names absent from ``delta`` keep their values."""
+    unknown = sorted(set(delta) - set(params))
+    if unknown:
+        raise KeyError(f"merge_delta: unknown names {unknown[:5]}")
+    for n, v in delta.items():
+        params[n].copy_(v)
+    return params
+
+
+def delta_filename(epoch: int, step: int, scores: dict | None = None) -> str:
+    """checkpoint_epoch{e}_step{s}_bleu{b}_cider{c}.pt"""
+    scores = scores or {}
+    b = scores.get("Bleu_4", 0.0)
+    c = scores.get("CIDEr", 0.0)
+    return f"checkpoint_epoch{epoch}_step{step}_bleu{b:.4f}_cider{c:.4f}.pt"
+
+
+def save_train_state(save_dir: str, state: dict, epoch: int,
+                     keep: int = 3) -> str:
+    """Write ``state`` (a dict of tensors and numbers) for ``epoch``
+    atomically; prune to the ``keep`` newest states."""
+    os.makedirs(save_dir, exist_ok=True)
+    path = os.path.join(save_dir, f"state_epoch{epoch:05d}.pt")
+    _save_atomic({"state": _cpu(state), "epoch": int(epoch)}, path)
+    states = sorted(f for f in os.listdir(save_dir) if _STATE_RE.search(f))
+    for old in states[:-keep]:
+        os.remove(os.path.join(save_dir, old))
+    return path
+
+
+def auto_resume_helper(save_dir: str) -> str | None:
+    """The newest train state in ``save_dir``, or None."""
+    if not os.path.isdir(save_dir):
+        return None
+    states = sorted(f for f in os.listdir(save_dir) if _STATE_RE.search(f))
+    return os.path.join(save_dir, states[-1]) if states else None
+
+
+def restore_train_state(path: str) -> tuple[dict, int]:
+    """Returns (state, epoch), tensors on the CPU."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    return obj["state"], int(obj["epoch"])

@@ -12,6 +12,8 @@ name, with these conversions:
 
 One function serves ``ARM``, ``TransformerLM`` and ``R2GenGPT``: pass the
 ``params`` subtree whose root matches the port module's root.
+:func:`flax_named_parameters` names the port's parameters the other way
+round, and :func:`lora_from_jax` carries a JAX LoRA tree.
 """
 
 from __future__ import annotations
@@ -21,6 +23,9 @@ import re
 import numpy as np
 import torch
 import torch.nn as nn
+
+from ..models.common import RMSNorm
+from ..peft.lora import flax_path
 
 
 def _key(path: list[str]) -> str:
@@ -66,3 +71,48 @@ def load_jax_params(module: nn.Module, params) -> nn.Module:
     """
     module.load_state_dict(state_dict_from_jax(params), strict=True)
     return module
+
+
+_PARAMETRIZED = ".parametrizations.weight"
+
+
+def flax_named_parameters(module: nn.Module) -> dict[str, nn.Parameter]:
+    """Every parameter of ``module`` under its flax path: the inverse of
+    :func:`state_dict_from_jax`'s naming (``layers.<i>`` -> ``layers_<i>``;
+    Linear and Conv2d ``weight`` -> ``kernel``, norm ``weight`` ->
+    ``scale``, Embedding ``weight`` -> ``embedding``). A weight with a
+    LoRA parametrization is named by its frozen original."""
+    owners = dict(module.named_modules())
+    out = {}
+    for name, p in module.named_parameters():
+        mod_name, _, leaf = name.rpartition(".")
+        if mod_name.endswith(_PARAMETRIZED) and leaf == "original":
+            mod_name, leaf = mod_name[: -len(_PARAMETRIZED)], "weight"
+        owner = owners[mod_name] if mod_name else module
+        if leaf == "weight":
+            if isinstance(owner, (nn.Linear, nn.Conv2d)):
+                leaf = "kernel"
+            elif isinstance(owner, (nn.LayerNorm, RMSNorm)):
+                leaf = "scale"
+            elif isinstance(owner, nn.Embedding):
+                leaf = "embedding"
+        path = flax_path(mod_name)
+        out[f"{path}/{leaf}" if path else leaf] = p
+    return out
+
+
+def lora_from_jax(lora, device=None) -> dict[str, dict[str, torch.Tensor]]:
+    """A LoRA tree of the JAX package's ``init_lora``,
+    ``{"params/<path>/kernel": {"a", "b"}}``, as the port's adapters
+    (``peft.lora``): the same layouts (``a (d_in, r)``, ``b (r, d_out)``),
+    keys without the leading ``params/``, fp32 tensors that require grad.
+    """
+    out = {}
+    for key, ab in lora.items():
+        key = key[len("params/"):] if key.startswith("params/") else key
+        out[key] = {
+            name: torch.tensor(np.array(ab[name], dtype=np.float32),
+                               device=device).requires_grad_()
+            for name in ("a", "b")
+        }
+    return out

@@ -165,3 +165,8 @@ def make_config(d: dict | None = None, overrides: list[str] | None = None
         node[parts[-1]] = loaded
     return _from_dict(RunConfig, d)
 
+
+def save_config(cfg: RunConfig, path: str):
+    with open(path, "w") as f:
+        yaml.safe_dump(dataclasses.asdict(cfg), f, sort_keys=False)
+

@@ -1,0 +1,313 @@
+"""Annotation parsing and fixed-shape batching for the MRG recipes.
+
+Counterpart of the parts of ``medical_image_analysis_tpu/data/datasets.py``
+that ``fit_mrg`` reaches for ``task=r2gengpt``: ``Sample``,
+``load_annotations`` (annotation.json with train/val/test splits of
+{id, report, image_path[...]} records), ``drop_unclear_reports``,
+``load_chexbert_csv``, ``group_study_two_views``, ``MRGBatcher`` (without
+context sampling), ``prefetch`` and the image loaders. Every batch has the
+same shapes (views padded by repetition, reports padded to ``max_len``),
+as in the JAX package. Context sampling (R2GenCSR) is not ported yet
+(ROADMAP.md, queue 1, item 12).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import queue as queue_mod
+import threading
+from typing import Iterator
+
+import numpy as np
+
+from .preprocessing import decode_scaled, host_preprocess
+from .report_cleaning import clean_report
+from .tokenizer import WordTokenizer
+
+
+@dataclasses.dataclass
+class Sample:
+    id: str
+    image_paths: list[str]
+    report: str
+    study_id: str | None = None
+    # Draft report from an earlier model pass (MAC-RRG `Draft_text`).
+    draft: str | None = None
+
+
+def load_annotations(path: str, dataset: str) -> dict[str, list[Sample]]:
+    with open(path) as f:
+        ann = json.load(f)
+    out = {}
+    for split in ("train", "val", "test"):
+        samples = []
+        for rec in ann.get(split, []):
+            report = rec.get("report") or rec.get("image_finding") or ""
+            report = clean_report(report, dataset)
+            paths = rec.get("image_path") or []
+            if isinstance(paths, str):
+                paths = [paths]
+            samples.append(Sample(
+                str(rec.get("id")), paths, report,
+                study_id=(
+                    str(rec["study_id"]) if "study_id" in rec else None
+                ),
+                draft=rec.get("Draft_text"),
+            ))
+        out[split] = samples
+    return out
+
+
+def drop_unclear_reports(samples: list[Sample], min_words: int = 3):
+    """Remove degenerate reports (too short to describe findings)."""
+    return [s for s in samples if len(s.report.split()) >= min_words]
+
+
+def load_chexbert_csv(path: str) -> dict[str, np.ndarray]:
+    """ann_chexbert.csv (id + 14 label columns) -> {id: (14,) int labels},
+    with -1 and blanks mapped to 0."""
+    import csv
+
+    out = {}
+    with open(path, newline="") as f:
+        reader = csv.DictReader(f)
+        cols = [c for c in reader.fieldnames if c not in ("id", "image_path")]
+        for row in reader:
+            vals = []
+            for c in cols:
+                v = row.get(c, "")
+                try:
+                    v = float(v)
+                except (TypeError, ValueError):
+                    v = 0.0
+                vals.append(1 if v == 1 else 0)
+            out[str(row.get("id"))] = np.asarray(vals, np.int32)
+    return out
+
+
+def group_study_two_views(
+    samples: list[Sample], rng: np.random.Generator | None = None
+) -> list[Sample]:
+    """MIMIC study-grouped two-view sampling: pool image paths per
+    study_id; a sample with 2 pooled paths uses both, >2 keeps its own
+    plus one random pooled path, 1 duplicates itself."""
+    rng = rng or np.random.default_rng(0)
+    pooled: dict[str, list[str]] = {}
+    for s in samples:
+        if s.study_id is not None:
+            pooled.setdefault(s.study_id, []).extend(s.image_paths)
+    out = []
+    for s in samples:
+        group = pooled.get(s.study_id or "", s.image_paths)
+        if len(group) == 2:
+            paths = list(group)
+        elif len(group) > 2:
+            paths = s.image_paths + [group[int(rng.integers(len(group)))]]
+        else:
+            paths = s.image_paths + s.image_paths
+        out.append(dataclasses.replace(s, image_paths=paths[:2]))
+    return out
+
+
+class MRGBatcher:
+    """Host-side batch assembly with fixed shapes.
+
+    ``image_loader(sample) -> (V, H, W, 3) float32`` is injected so that
+    tests can substitute synthetic pixels for disk reads. A thread pool of
+    ``num_workers`` loads the views of a batch (PIL decoding releases the
+    GIL); ``close`` shuts it down.
+    """
+
+    def __init__(
+        self,
+        samples: list[Sample],
+        tokenizer: WordTokenizer,
+        image_loader,
+        batch_size: int,
+        max_len: int = 100,
+        num_views: int = 2,
+        prompt_before: str = "<bos> human : generate a comprehensive report",
+        prompt_after: str = "assistant :",
+        num_workers: int = 8,
+        seed: int = 0,
+        regroup_views: bool = False,
+    ):
+        self.samples = samples
+        self.tok = tokenizer
+        self.image_loader = image_loader
+        self.batch_size = batch_size
+        self.max_len = max_len
+        self.num_views = num_views
+        # MIMIC two-view pooling re-samples the extra view per epoch.
+        self.regroup_views = regroup_views
+        self.seed = seed
+        self.rng = np.random.default_rng(seed)
+        self._pool = None
+        if num_workers > 1:
+            from concurrent.futures import ThreadPoolExecutor
+
+            self._pool = ThreadPoolExecutor(max_workers=num_workers)
+        self.before_ids = np.asarray(
+            tokenizer.encode(prompt_before.replace("<bos>", ""), add_bos=True)
+        )
+        self.after_ids = np.asarray(tokenizer.encode(prompt_after))
+
+    def close(self) -> None:
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+            self._pool = None
+
+    def _views(self, sample: Sample) -> np.ndarray:
+        imgs = self.image_loader(sample)  # (V', H, W, 3)
+        v = imgs.shape[0]
+        if v < self.num_views:  # pad by repeating the first view
+            reps = [imgs] + [imgs[:1]] * (self.num_views - v)
+            imgs = np.concatenate(reps, axis=0)
+        return imgs[: self.num_views]
+
+    def _encode_report(self, report: str):
+        ids = self.tok.encode(report, max_len=self.max_len - 1, add_eos=True)
+        return self.tok.pad(ids, self.max_len)
+
+    def batches(self, shuffle: bool = True, drop_last: bool = True,
+                epoch: int | None = None) -> Iterator[dict]:
+        """With ``epoch``, ordering and sampling are a function of
+        (seed, epoch) alone, so a resumed run sees the same batches."""
+        rng = (
+            np.random.default_rng((self.seed, epoch))
+            if epoch is not None
+            else self.rng
+        )
+        samples = self.samples
+        if self.regroup_views:
+            samples = group_study_two_views(samples, rng)
+        order = np.arange(len(samples))
+        if shuffle:
+            rng.shuffle(order)
+        bs = self.batch_size
+        end = len(order) - (len(order) % bs if drop_last else 0)
+        for i in range(0, end, bs):
+            chunk = [samples[j] for j in order[i : i + bs]]
+            if len(chunk) < bs:
+                chunk = chunk + [chunk[-1]] * (bs - len(chunk))
+            if self._pool is not None:
+                images = np.stack(list(self._pool.map(self._views, chunk)))
+            else:
+                images = np.stack([self._views(s) for s in chunk])
+            tgt, msk = zip(*(self._encode_report(s.report) for s in chunk))
+            yield dict(
+                images=images.astype(np.float32),
+                before_ids=np.tile(self.before_ids, (bs, 1)),
+                after_ids=np.tile(self.after_ids, (bs, 1)),
+                target_ids=np.asarray(tgt, np.int32),
+                target_mask=np.asarray(msk, np.int32),
+                ids=[s.id for s in chunk],
+                reports=[s.report for s in chunk],
+            )
+
+
+def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
+    """Assemble up to ``depth`` items ahead on a background thread.
+
+    An exception in the producer is raised in the consumer. If the
+    consumer stops early, the producer stops at its next item.
+    """
+    q: queue_mod.Queue = queue_mod.Queue(maxsize=depth)
+    done = object()
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue_mod.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            for item in iterator:
+                if not put(item):
+                    return
+            put((done, None))
+        except BaseException as e:  # handed to the consumer, re-raised there
+            put((done, e))
+
+    thread = threading.Thread(target=worker, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if isinstance(item, tuple) and len(item) == 2 and item[0] is done:
+                if item[1] is not None:
+                    raise item[1]
+                return
+            yield item
+    finally:
+        stop.set()
+        thread.join(timeout=10)
+
+
+def disk_image_loader(base_dir: str, input_size: int,
+                      fast_decode: bool = True):
+    """Scaled JPEG/PNG decode + ``host_preprocess`` of every view."""
+
+    def load(sample: Sample) -> np.ndarray:
+        views = []
+        for p in sample.image_paths:
+            arr = decode_scaled(
+                os.path.join(base_dir, p), input_size, fast=fast_decode)
+            views.append(host_preprocess(arr, input_size))
+        return np.stack(views)
+
+    return load
+
+
+def synthetic_annotations(
+    n_train: int = 32, n_val: int = 8, n_test: int = 8, seed: int = 0
+) -> dict[str, list[Sample]]:
+    """Synthetic X-ray-like dataset for tests and benchmarks."""
+    rng = np.random.default_rng(seed)
+    phrases = [
+        "the lungs are clear", "no acute cardiopulmonary abnormality",
+        "there is a small left pleural effusion",
+        "heart size is normal", "no focal consolidation",
+        "mild cardiomegaly is present", "no pneumothorax",
+        "degenerative changes of the spine",
+    ]
+
+    def make(i):
+        k = rng.integers(2, 5)
+        picked = rng.choice(phrases, k, replace=False)
+        report = " . ".join(picked) + " ."
+        draft = " . ".join(picked[: max(int(k) - 1, 1)]) + " ."
+        return Sample(
+            f"s{i}", [f"img_{i}_0.png", f"img_{i}_1.png"], report,
+            draft=draft,
+        )
+
+    return {
+        "train": [make(i) for i in range(n_train)],
+        "val": [make(10_000 + i) for i in range(n_val)],
+        "test": [make(20_000 + i) for i in range(n_test)],
+    }
+
+
+def synthetic_image_loader(size: int = 64, views: int = 2):
+    """Gaussian pixels seeded per sample.
+
+    As in the JAX package, the seed is Python's ``hash(sample.id)``, which
+    changes between processes (string hashing is randomised): two
+    processes see different pixels for one sample, while the two packages
+    see the same pixels within one process (ROADMAP.md, section 3).
+    """
+
+    def load(sample: Sample) -> np.ndarray:
+        seed = abs(hash(sample.id)) % (2**32)
+        rng = np.random.default_rng(seed)
+        return rng.standard_normal((views, size, size, 3)).astype(np.float32)
+
+    return load

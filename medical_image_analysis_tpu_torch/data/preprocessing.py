@@ -1,9 +1,10 @@
 """Host-side image preprocessing (numpy + PIL).
 
-Counterpart of ``medical_image_analysis_tpu/data/preprocessing.py:
-host_preprocess``: resize to ``input_size`` (bicubic), rescale 1/255,
-normalise with the ImageNet mean and std. The port keeps its own copy
-because the JAX file imports jax.
+Counterpart of ``medical_image_analysis_tpu/data/preprocessing.py``:
+``host_preprocess`` (resize to ``input_size``, bicubic; rescale 1/255;
+normalise with the ImageNet mean and std) and ``decode_scaled``. The port
+keeps its own copy because the JAX file imports jax. DICOM decoding
+(``data/dicom.py``) is not ported yet (ROADMAP.md, queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -24,3 +25,36 @@ def host_preprocess(img: np.ndarray, size: int) -> np.ndarray:
         img = np.asarray(pil)
     arr = img.astype(np.float32) / 255.0
     return (arr - IMAGENET_MEAN) / IMAGENET_STD
+
+
+def decode_scaled(fp, size: int, fast: bool = True) -> np.ndarray:
+    """Decode an image file or file object to uint8 (size, size, 3).
+
+    ``fast=True`` uses libjpeg's DCT-domain scaled decode
+    (``PIL.Image.draft``) to the nearest power-of-2 scale >= size and
+    resizes in the native mode before expanding to RGB; ``fast=False``
+    decodes in full and leaves the resize to :func:`host_preprocess`.
+    """
+    import PIL.Image
+
+    if isinstance(fp, str):
+        is_dicom = fp.lower().endswith(".dcm")
+    else:  # file-like: sniff the Part-10 magic at offset 128
+        pos = fp.tell()
+        fp.seek(128)
+        is_dicom = fp.read(4) == b"DICM"
+        fp.seek(pos)
+    if is_dicom:
+        raise NotImplementedError(
+            "DICOM decoding (data/dicom.py) is not ported yet (ROADMAP.md, "
+            "queue 1, item 9)"
+        )
+    with PIL.Image.open(fp) as pil:
+        if fast:
+            pil.draft(pil.mode if pil.mode in ("L", "RGB") else None,
+                      (size, size))
+            pil = pil.resize((size, size), PIL.Image.BICUBIC)
+            if pil.mode != "RGB":
+                pil = pil.convert("RGB")
+            return np.asarray(pil, np.uint8)
+        return np.asarray(pil.convert("RGB"), np.uint8)

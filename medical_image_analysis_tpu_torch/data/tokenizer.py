@@ -1,14 +1,14 @@
-"""Word-level tokenizer: the serving subset of the JAX package's.
+"""Word-level tokenizer built from the training corpus.
 
 Counterpart of ``medical_image_analysis_tpu/data/tokenizer.py:
-WordTokenizer`` (same special ids, vocabulary file and decode rules), so
-that the port imports nothing of the JAX package. Building a vocabulary
-from a corpus belongs to the training recipes and is not ported yet.
+WordTokenizer`` (same special ids, vocabulary file, corpus rule and
+decode rules), so that the port imports nothing of the JAX package.
 """
 
 from __future__ import annotations
 
 import json
+from collections import Counter
 from typing import Iterable
 
 
@@ -18,6 +18,17 @@ class WordTokenizer:
     def __init__(self, vocab: list[str]):
         self.itos = ["<pad>", "<bos>", "<eos>", "<unk>"] + list(vocab)
         self.stoi = {w: i for i, w in enumerate(self.itos)}
+
+    @classmethod
+    def from_corpus(cls, texts: Iterable[str], min_freq: int = 3,
+                    max_vocab: int = 8192) -> "WordTokenizer":
+        counter = Counter()
+        for t in texts:
+            counter.update(t.split())
+        vocab = [
+            w for w, c in counter.most_common(max_vocab) if c >= min_freq
+        ]
+        return cls(vocab)
 
     @property
     def vocab_size(self) -> int:
@@ -34,6 +45,10 @@ class WordTokenizer:
             ids = ids[:max_len]
         return ids
 
+    def pad(self, ids: list[int], max_len: int) -> tuple[list[int], list[int]]:
+        mask = [1] * len(ids) + [0] * (max_len - len(ids))
+        return ids + [self.PAD] * (max_len - len(ids)), mask
+
     def decode(self, ids: Iterable[int]) -> str:
         words = []
         for i in ids:
@@ -45,8 +60,12 @@ class WordTokenizer:
             words.append(self.itos[i] if i < len(self.itos) else "<unk>")
         return " ".join(words)
 
+    def save(self, path: str):
+        with open(path, "w") as f:
+            json.dump(self.itos[4:], f)
+
     @classmethod
     def load(cls, path: str) -> "WordTokenizer":
-        """A vocabulary saved by the JAX package's ``WordTokenizer.save``."""
+        """A vocabulary saved by ``save`` (this one or the JAX package's)."""
         with open(path) as f:
             return cls(json.load(f))

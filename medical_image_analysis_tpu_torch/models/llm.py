@@ -22,6 +22,7 @@ import dataclasses
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .common import RMSNorm
 
@@ -38,6 +39,7 @@ class LLMConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     attn_bias: bool = False  # Qwen2 q/k/v biases
+    remat: bool = False  # checkpoint each block under a gradient
     dtype: torch.dtype = torch.bfloat16
 
     @property
@@ -314,9 +316,14 @@ class TransformerLM(nn.Module):
                 )
 
         new_cache = [] if cache is not None else None
+        remat = cfg.remat and cache is None and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
             layer_cache = cache[i] if cache is not None else None
-            x, lc = layer(x, positions, mask, layer_cache, beam)
+            if remat:  # flax nn.remat(LlamaBlock)
+                x, lc = checkpoint(layer, x, positions, mask,
+                                   use_reentrant=False)
+            else:
+                x, lc = layer(x, positions, mask, layer_cache, beam)
             if new_cache is not None:
                 new_cache.append(lc)
 

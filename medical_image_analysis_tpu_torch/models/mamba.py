@@ -22,6 +22,7 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.causal_conv import causal_conv1d
 from ..ops.mamba_fused import mamba_fused_dirs
@@ -211,7 +212,9 @@ class ARM(nn.Module):
 
     Takes (B, H, W, 3) channels-last images; returns the full token
     sequence (B, num_patches + 1, D) after the final LayerNorm (cls at
-    ``num_patches // 2``).
+    ``num_patches // 2``). ``remat`` checkpoints each block under a
+    gradient (flax ``nn.remat(MambaBlock)``): its activations are
+    recomputed in the backward instead of kept.
     """
 
     def __init__(
@@ -227,9 +230,11 @@ class ARM(nn.Module):
         drop_path_rate: float = 0.1,
         scan_backend: str = "auto",
         img_size: int = 224,
+        remat: bool = False,
         device=None,
     ):
         super().__init__()
+        self.remat = remat
         num_patches = (img_size // patch_size) ** 2
         self.patch_embed = PatchEmbed(patch_size, embed_dim, device=device)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim,
@@ -263,8 +268,13 @@ class ARM(nn.Module):
         cls = self.cls_token.expand(b, 1, d).to(x.dtype)
         x = insert_token(x, cls, pos)
         x = x + self.pos_embed.to(x.dtype)
+        remat = self.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer(x, pos, deterministic)
+            if remat:
+                x = checkpoint(layer, x, pos, deterministic,
+                               use_reentrant=False)
+            else:
+                x = layer(x, pos, deterministic)
         return self.norm_f(x)
 
 

@@ -1,7 +1,8 @@
-"""Fused multi-direction Mamba forward: two CUDA kernels and their plain versions.
+"""Fused multi-direction Mamba layer: CUDA kernels and their plain versions.
 
 Counterpart of ``medical_image_analysis_tpu/ops/mamba_fused.py``
-(``mamba_fused_dirs``, forward only). The layer runs in two launches:
+(``mamba_fused_dirs`` and its custom VJP). The forward runs in two
+launches:
 
 - ``xdbl_fwd``: per direction, ``x_dbl = silu(conv(x_dir) + b) @ Wx^T``
   in fp32 (kernel ``mamba_xdbl_kernel``, replacing the Pallas
@@ -11,14 +12,20 @@ Counterpart of ``medical_image_analysis_tpu/ops/mamba_fused.py``
   SOURCE order in the source dtype (kernel ``mamba_scan_kernel``,
   replacing the Pallas ``_fused_fwd_kernel``).
 
+The backward (:class:`MambaFusedFn`) runs ``scan_bwd``, the scan's
+adjoint (kernel ``mamba_scan_bwd_kernel``, replacing the Pallas
+``_fused_bwd_kernel``), and closes the x_proj and conv transposes in
+plain PyTorch (:func:`_close_bwd`), as the JAX package leaves them to XLA.
+
 The kernels are in ``csrc/mamba_fused.cu``, whose header says what bounds
 each on the H100 and how its design answers that. Directions are
 [row, row-rev, col, col-rev]: direction k reads ``xc`` when k >= 2 and
 scans it back to front when k is odd.
 
 Each wrapper runs its kernel on a CUDA tensor and its plain version
-(``xdbl_plain``, ``scan_plain``) on a CPU tensor; there is no fallback
-between the two. ``launches`` counts kernel launches per wrapper.
+(``xdbl_plain``, ``scan_plain``, ``scan_bwd_plain``) on a CPU tensor;
+there is no fallback between the two. ``launches`` counts kernel
+launches per wrapper.
 """
 
 from __future__ import annotations
@@ -32,12 +39,14 @@ from .build import load_library
 from .selective_scan import softplus
 
 KERNEL_SOURCE = "medical_image_analysis_tpu_torch/csrc/mamba_fused.cu"
-launches = {"mamba_xdbl": 0, "mamba_scan": 0}
+launches = {"mamba_xdbl": 0, "mamba_scan": 0, "mamba_scan_bwd": 0}
 
 _SCAN_STATES = (4, 16)  # d_state values the scan kernel is built for
 _MAX_TAPS = 4
 _XDBL_MAX_ROWS = 8
 _XDBL_SMEM_FLOATS = 12288  # 48 KiB of staged conv output per block
+_BWD_THREADS = 64  # channels per block of the backward kernel
+_BWD_CHUNK = 8  # rows per chunk of the backward kernel (its carries)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -59,6 +68,11 @@ def build() -> tuple[ctypes.CDLL, str]:
         _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ]
     lib.mia_mamba_scan.restype = _I
+    lib.mia_mamba_scan_bwd.argtypes = [
+        _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+    ]
+    lib.mia_mamba_scan_bwd.restype = _I
     return lib, log
 
 
@@ -122,9 +136,93 @@ def scan_plain(xr, xc, xdbl, conv_w, conv_b, dt_proj_w, dt_bias, A, D,
         h = a * h + (dt[:, :, t] * u[:, :, t])[..., None] * bmat[:, :, t, None, :]
         ys.append(torch.sum(cmat[:, :, t, None, :] * h, dim=-1))
     y = torch.stack(ys, dim=2) + u * D[None, :, None, :]
-    y = torch.cat([y[:, k : k + 1].flip(2) if k % 2 else y[:, k : k + 1]
-                   for k in range(k_dirs)], dim=1)
-    return y.to(xr.dtype)
+    return _flip_reversed(y).to(xr.dtype)
+
+
+def _flip_reversed(t):
+    """(B, K, L, ...) scan order <-> source order (odd directions flip)."""
+    return torch.cat([t[:, k : k + 1].flip(2) if k % 2 else t[:, k : k + 1]
+                      for k in range(t.shape[1])], dim=1)
+
+
+def scan_bwd_plain(xr, xc, xdbl, conv_w, conv_b, dt_proj_w, dt_bias, A, D,
+                   dy, delta_softplus=True, use_conv=True):
+    """Plain version of ``scan_bwd``: the adjoint of ``scan_plain`` as an
+    explicit reverse loop over L (the body of ``_fused_bwd_kernel``).
+
+    Returns fp32 ``(du, u, dsilu, dxdbl, dA, dD, ddt_bias, ddt_proj_w)``:
+    du, u, dsilu (B*K, L, D) and dxdbl (B*K, L, R+2N) in scan order; dA
+    (B*K, D, N); dD, ddt_bias (B*K, D); ddt_proj_w (B*K, D, R). du is the
+    gradient w.r.t. u = silu(conv(x)) through the scan and the D skip only;
+    the x_proj path reaches u through dxdbl.
+    """
+    k_dirs, d_in, n = A.shape
+    rank = dt_proj_w.shape[2]
+    x = _scan_order(xr, xc, k_dirs)
+    b, _, seq_len, _ = x.shape
+    if use_conv:
+        taps = conv_w.shape[1]
+        xp = F.pad(x, (0, 0, taps - 1, 0))
+        pre = conv_b[None, :, None, :].expand_as(x)
+        for j in range(taps):
+            pre = pre + conv_w[None, :, j, None, :] * xp[:, :, j : j + seq_len]
+        sig = torch.sigmoid(pre)
+        u = pre * sig
+        dsilu = sig * (1.0 + pre * (1.0 - sig))
+    else:
+        u, dsilu = x, torch.ones_like(x)
+    x_dbl = xdbl.reshape(b, k_dirs, seq_len, -1)
+    dt_raw = torch.einsum("bklr,kdr->bkld", x_dbl[..., :rank], dt_proj_w)
+    dt_raw = dt_raw + dt_bias[None, :, None, :]
+    if delta_softplus:
+        dt, sg = softplus(dt_raw), torch.sigmoid(dt_raw)
+    else:
+        dt, sg = dt_raw, torch.ones_like(dt_raw)
+    bmat = x_dbl[..., rank : rank + n]
+    cmat = x_dbl[..., rank + n : rank + 2 * n]
+    dy = _flip_reversed(dy.float())  # scan order
+    dtu = dt * u
+
+    h = u.new_zeros(b, k_dirs, d_in, n)
+    hs = []  # hs[t]: the state after row t
+    for t in range(seq_len):
+        a = torch.exp(dt[:, :, t, :, None] * A[None])
+        h = a * h + dtu[:, :, t, :, None] * bmat[:, :, t, None, :]
+        hs.append(h)
+
+    g = torch.zeros_like(h)
+    d_a = torch.zeros_like(h)
+    du, ddt, dbm, dcm = [], [], [], []
+    for t in range(seq_len - 1, -1, -1):
+        dyt = dy[:, :, t]
+        p = cmat[:, :, t, None, :] * dyt[..., None] + g
+        h_prev = hs[t - 1] if t > 0 else torch.zeros_like(h)
+        a = torch.exp(dt[:, :, t, :, None] * A[None])
+        dloga = p * h_prev * a
+        d_a = d_a + dloga * dt[:, :, t, :, None]
+        gb = torch.sum(p * bmat[:, :, t, None, :], dim=-1)
+        ddt_t = (torch.sum(dloga * A[None], dim=-1) + gb * u[:, :, t])
+        ddt.append(ddt_t * sg[:, :, t])
+        du.append(dt[:, :, t] * gb + dyt * D[None])
+        dbm.append(torch.sum(p * dtu[:, :, t, :, None], dim=2))
+        dcm.append(torch.sum(hs[t] * dyt[..., None], dim=2))
+        g = a * p
+
+    def seq(rows):  # reversed list of (B, K, ...) -> (B, K, L, ...)
+        return torch.stack(rows[::-1], dim=2)
+
+    ddt = seq(ddt)
+    dxdbl = torch.cat([
+        torch.einsum("bkld,kdr->bklr", ddt, dt_proj_w), seq(dbm), seq(dcm),
+    ], dim=-1)
+    ddtw = torch.einsum("bkld,bklr->bkdr", ddt, x_dbl[..., :rank])
+
+    def rows(t):
+        return t.reshape(b * k_dirs, *t.shape[2:])
+
+    return (rows(seq(du)), rows(u), rows(dsilu), rows(dxdbl), rows(d_a),
+            rows(torch.sum(dy * u, dim=2)), rows(torch.sum(ddt, dim=2)),
+            rows(ddtw))
 
 
 # --------------------------------------------------------------------------
@@ -248,6 +346,148 @@ def scan_fwd(xr, xc, xdbl, conv_w, conv_b, dt_proj_w, dt_bias, A, D,
     return y
 
 
+def scan_bwd(xr, xc, xdbl, conv_w, conv_b, dt_proj_w, dt_bias, A, D, dy,
+             delta_softplus=True, use_conv=True):
+    """Adjoint of :func:`scan_fwd`; the outputs of :func:`scan_bwd_plain`.
+
+    dy (B, K, L, D) in source order and the sources' dtype. The kernel
+    writes per-block partials of dxdbl, summed here over the blocks.
+    """
+    if _on_cpu(xr):
+        return scan_bwd_plain(xr, xc, xdbl, conv_w, conv_b, dt_proj_w,
+                              dt_bias, A, D, dy, delta_softplus, use_conv)
+    k_dirs, d_in, n = A.shape
+    rank = dt_proj_w.shape[2]
+    taps = conv_w.shape[1]
+    _check_sources(xr, xc, k_dirs, d_in)
+    b, seq_len, _ = xr.shape
+    if n not in _SCAN_STATES or not 1 <= taps <= _MAX_TAPS:
+        raise ValueError(f"mamba_scan_bwd: d_state={n}, taps={taps} "
+                         f"unsupported (d_state in {_SCAN_STATES}, taps <= "
+                         f"{_MAX_TAPS})")
+    c = rank + 2 * n
+    _check_f32(
+        xr.device, xdbl=(xdbl, (b * k_dirs, seq_len, c)),
+        conv_w=(conv_w, (k_dirs, taps, d_in)), conv_b=(conv_b, (k_dirs, d_in)),
+        dt_proj_w=(dt_proj_w, (k_dirs, d_in, rank)),
+        dt_bias=(dt_bias, (k_dirs, d_in)), A=(A, (k_dirs, d_in, n)),
+        D=(D, (k_dirs, d_in)),
+    )
+    if (dy.dtype != xr.dtype or dy.device != xr.device
+            or tuple(dy.shape) != (b, k_dirs, seq_len, d_in)
+            or not dy.is_contiguous()):
+        raise ValueError(
+            f"mamba_scan_bwd: dy must be a contiguous {xr.dtype} tensor of "
+            f"shape {(b, k_dirs, seq_len, d_in)} on {xr.device}; got "
+            f"{dy.dtype} {tuple(dy.shape)} on {dy.device}")
+    bk = b * k_dirs
+    nblk = -(-d_in // _BWD_THREADS)
+    nchunks = -(-seq_len // _BWD_CHUNK)
+
+    def f32(*shape):
+        return torch.empty(*shape, device=xr.device, dtype=torch.float32)
+
+    carries = f32(bk, nchunks, n, d_in)
+    du, u, ds = (f32(bk, seq_len, d_in) for _ in range(3))
+    part = f32(bk, nblk, seq_len, c)
+    d_a, d_d, ddb, ddtw = (f32(bk, d_in, n), f32(bk, d_in), f32(bk, d_in),
+                           f32(bk, d_in, rank))
+    lib, _ = build()
+    err = lib.mia_mamba_scan_bwd(
+        xr.data_ptr(), None if xc is None else xc.data_ptr(),
+        int(xr.dtype == torch.bfloat16), xdbl.data_ptr(), conv_w.data_ptr(),
+        conv_b.data_ptr(), dt_proj_w.data_ptr(), dt_bias.data_ptr(),
+        A.data_ptr(), D.data_ptr(), dy.data_ptr(), carries.data_ptr(),
+        du.data_ptr(), u.data_ptr(), ds.data_ptr(), part.data_ptr(),
+        d_a.data_ptr(), d_d.data_ptr(), ddb.data_ptr(), ddtw.data_ptr(),
+        b, k_dirs, seq_len, d_in, n, rank, taps, int(use_conv),
+        int(delta_softplus), torch.cuda.current_stream(xr.device).cuda_stream,
+    )
+    _raise_on(err, "mamba_scan_bwd")
+    launches["mamba_scan_bwd"] += 1
+    return du, u, ds, part.sum(dim=1), d_a, d_d, ddb, ddtw
+
+
+def _close_bwd(xr, xc, conv_w, x_proj_w, use_conv, du, u, dsilu, dxdbl,
+               d_a, d_d, ddb, ddtw):
+    """The part of ``_core_bwd`` that the JAX package leaves to XLA
+    (``ops/mamba_fused.py:563-671``): the x_proj and conv transposes and
+    the sums over the batch. Plain PyTorch, in fp32.
+
+    Returns the grads of (xr, xc, conv_w, conv_b, x_proj_w, dt_proj_w,
+    dt_bias, A, D).
+    """
+    k_dirs = x_proj_w.shape[0]
+    b, seq_len, d_in = xr.shape
+
+    def dirs(t):  # (B*K, ...) -> (B, K, ...)
+        return t.reshape(b, k_dirs, *t.shape[1:])
+
+    du, u, dsilu, dxdbl = map(dirs, (du, u, dsilu, dxdbl))
+    # du_total: the scan path plus the x_proj path, both w.r.t. u
+    du_total = du + torch.einsum("bklc,kcd->bkld", dxdbl, x_proj_w)
+    if use_conv:
+        taps = conv_w.shape[1]
+        dpre = du_total * dsilu
+        # transposed causal conv: dx[t] = sum_j w[j] dpre[t + taps-1-j]
+        dpre_pad = F.pad(dpre, (0, 0, 0, taps - 1))
+        dx = sum(conv_w[None, :, j, None, :]
+                 * dpre_pad[:, :, taps - 1 - j : taps - 1 - j + seq_len]
+                 for j in range(taps))
+        x_pad = F.pad(_scan_order(xr, xc, k_dirs), (0, 0, taps - 1, 0))
+        dconv_w = torch.stack([
+            torch.einsum("bkld,bkld->kd", dpre, x_pad[:, :, j : j + seq_len])
+            for j in range(taps)
+        ], dim=1)
+        dconv_b = dpre.sum(dim=(0, 2))
+    else:
+        dx = du_total
+        dconv_w = torch.zeros_like(conv_w)
+        dconv_b = torch.zeros(k_dirs, d_in, device=xr.device)
+    dwx = torch.einsum("bklc,bkld->kcd", dxdbl, u)
+    dx = _flip_reversed(dx)  # source order
+    dxr = dx[:, : min(k_dirs, 2)].sum(dim=1).to(xr.dtype)
+    dxc = None if xc is None else dx[:, 2:].sum(dim=1).to(xc.dtype)
+    return (dxr, dxc, dconv_w, dconv_b, dwx, dirs(ddtw).sum(0),
+            dirs(ddb).sum(0), dirs(d_a).sum(0), dirs(d_d).sum(0))
+
+
+class MambaFusedFn(torch.autograd.Function):
+    """``y_dirs`` of the fused layer with its backward, as the JAX
+    package's ``_mamba_fused_core`` custom VJP.
+
+    Forward: ``xdbl_fwd`` + ``scan_fwd`` (or their plain versions when
+    ``plain``); it saves its inputs and x_dbl, and is deterministic, so a
+    checkpointed block may run it again. Backward: ``scan_bwd`` (or
+    ``scan_bwd_plain``) + :func:`_close_bwd`. Weights are fp32 and
+    contiguous (see :func:`mamba_fused_dirs`).
+    """
+
+    @staticmethod
+    def forward(ctx, xr, xc, conv_w, conv_b, x_proj_w, dt_proj_w, dt_bias,
+                A, D, delta_softplus, use_conv, plain):
+        fwd_x, fwd_s = (xdbl_plain, scan_plain) if plain else (xdbl_fwd,
+                                                                scan_fwd)
+        x_dbl = fwd_x(xr, xc, conv_w, conv_b, x_proj_w, use_conv)
+        y = fwd_s(xr, xc, x_dbl, conv_w, conv_b, dt_proj_w, dt_bias, A, D,
+                  delta_softplus, use_conv)
+        ctx.save_for_backward(xr, xc, conv_w, conv_b, x_proj_w, dt_proj_w,
+                              dt_bias, A, D, x_dbl)
+        ctx.flags = (delta_softplus, use_conv, plain)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        (xr, xc, conv_w, conv_b, x_proj_w, dt_proj_w, dt_bias, A, D,
+         x_dbl) = ctx.saved_tensors
+        delta_softplus, use_conv, plain = ctx.flags
+        bwd = scan_bwd_plain if plain else scan_bwd
+        outs = bwd(xr, xc, x_dbl, conv_w, conv_b, dt_proj_w, dt_bias, A, D,
+                   dy.contiguous(), delta_softplus, use_conv)
+        grads = _close_bwd(xr, xc, conv_w, x_proj_w, use_conv, *outs)
+        return (*grads, None, None, None)
+
+
 def mamba_fused_dirs(
     xr: torch.Tensor,
     xc: torch.Tensor | None,
@@ -262,7 +502,7 @@ def mamba_fused_dirs(
     use_conv: bool = True,
     plain: bool = False,
 ) -> torch.Tensor:
-    """Fused multi-direction Mamba inner function (forward).
+    """Fused multi-direction Mamba inner function, differentiable.
 
     Args:
       xr: (B, L, D) row-major scan source; xc: (B, L, D) column-major
@@ -270,8 +510,8 @@ def mamba_fused_dirs(
       conv_w: (K, taps, D) or None (no conv); conv_b: (K, D) or None.
       x_proj_w: (K, R+2N, D); dt_proj_w: (K, D, R); dt_bias: (K, D).
       A: (K, D, N) (negative reals); D: (K, D).
-      plain: run the plain versions on any device (for comparisons);
-          otherwise the kernels run on CUDA tensors.
+      plain: run the plain versions, forward and backward, on any device
+          (for comparisons); otherwise the kernels run on CUDA tensors.
     Returns:
       y_dirs (B, K, L, D) in **source** order for every direction, in
       the sources' dtype.
@@ -292,10 +532,5 @@ def mamba_fused_dirs(
     conv_w, conv_b, x_proj_w, dt_proj_w, dt_bias, A, D = map(
         prep, (conv_w, conv_b, x_proj_w, dt_proj_w, dt_bias, A, D)
     )
-    if plain:
-        x_dbl = xdbl_plain(xr, xc, conv_w, conv_b, x_proj_w, use_conv)
-        return scan_plain(xr, xc, x_dbl, conv_w, conv_b, dt_proj_w, dt_bias,
-                          A, D, delta_softplus, use_conv)
-    x_dbl = xdbl_fwd(xr, xc, conv_w, conv_b, x_proj_w, use_conv)
-    return scan_fwd(xr, xc, x_dbl, conv_w, conv_b, dt_proj_w, dt_bias, A, D,
-                    delta_softplus, use_conv)
+    return MambaFusedFn.apply(xr, xc, conv_w, conv_b, x_proj_w, dt_proj_w,
+                              dt_bias, A, D, delta_softplus, use_conv, plain)

@@ -9,6 +9,10 @@ Tolerances, relative to max(1, max |plain|): x_dbl is fp32 from identical
 inputs, so only the order of the sum over D differs (1e-4). y from fp32
 sources likewise (1e-4); from bf16 sources both sides compute in fp32 and
 round once to bf16, where they may land one bf16 step (2^-8) apart (1e-2).
+The backward's outputs are fp32 on both sides from the same inputs, for
+either source dtype: the sums over D and over L run in another order, so
+1e-4. Gradients of a layer or a tower through the kernels against the
+plain versions, fp32: 1e-4 relative to the largest plain gradient.
 """
 
 import numpy as np
@@ -20,6 +24,10 @@ from medical_image_analysis_tpu_torch.models.mamba import ARM, set_scan_backend
 from medical_image_analysis_tpu_torch.ops import mamba_fused as mf
 
 Y_RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+BWD_RTOL = 1e-4
+GRAD_RTOL = 1e-4
+BWD_OUTPUTS = ("du", "u", "dsilu", "dxdbl", "dA", "dD", "ddt_bias",
+               "ddt_proj_w")
 
 
 @pytest.fixture
@@ -88,6 +96,99 @@ def test_kernels_match_plain(cuda, dtype, k_dirs, b, l, d, n, r, use_conv):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("k_dirs,b,l,d,n,r,use_conv", [
+    (1, 2, 10, 8, 4, 4, True),
+    (2, 2, 10, 8, 4, 4, True),
+    (4, 2, 10, 8, 4, 4, True),
+    (4, 2, 10, 8, 4, 4, False),
+    (4, 2, 197, 768, 16, 48, True),  # an ARM-B layer
+], ids=["k1", "k2", "k4", "k4-noconv", "arm-b"])
+def test_scan_bwd_matches_plain(cuda, dtype, k_dirs, b, l, d, n, r,
+                                use_conv):
+    xr, xc, w = _inputs(cuda, dtype, k_dirs, b, l, d, n, r, seed=k_dirs + l)
+    x_dbl = mf.xdbl_plain(xr, xc, w["conv_w"], w["conv_b"], w["x_proj_w"],
+                          use_conv)
+    dy = torch.randn(b, k_dirs, l, d, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(l))
+    args = (xr, xc, x_dbl, w["conv_w"], w["conv_b"], w["dt_proj_w"],
+            w["dt_bias"], w["A"], w["D"], dy.to(dtype), True, use_conv)
+    before = mf.launches["mamba_scan_bwd"]
+    want = mf.scan_bwd_plain(*args)
+    got = mf.scan_bwd(*args)
+    torch.cuda.synchronize()
+    assert mf.launches["mamba_scan_bwd"] == before + 1
+    for name, g, wv in zip(BWD_OUTPUTS, got, want):
+        assert g.shape == wv.shape and g.dtype == torch.float32, name
+        err, scale = _err(g, wv)
+        assert err <= BWD_RTOL * scale, (name, err, scale)
+
+
+def _grads(module, loss_fn):
+    module.zero_grad(set_to_none=True)
+    loss_fn().backward()
+    return {k: p.grad.detach().clone() for k, p in module.named_parameters()
+            if p.grad is not None}
+
+
+def _assert_grads_close(got, want):
+    assert got.keys() == want.keys()
+    for name in want:
+        err = (got[name] - want[name]).abs().max().item()
+        scale = want[name].abs().max().item()
+        assert err <= GRAD_RTOL * max(scale, 1e-30), (name, err, scale)
+
+
+@pytest.mark.cuda
+def test_mixer_grads_through_kernels_match_plain(cuda):
+    """Every mixer parameter gets its gradient through the kernels, equal
+    to the plain path's (the kernel path once returned y without a
+    grad_fn, and only the z half of in_proj and out_proj got one)."""
+    gen = torch.Generator(cuda).manual_seed(1)
+    arm = ARM(patch_size=16, embed_dim=64, depth=1, img_size=64,
+              device=cuda)
+    init_params(arm, gen)
+    mixer = arm.layers[0].mixer
+    x = torch.randn(2, 17, 64, device=cuda, generator=gen)
+    w = torch.randn(2, 17, 64, device=cuda, generator=gen)
+
+    def loss():
+        return (mixer(x, 8) * w).sum()
+
+    got = _grads(mixer, loss)
+    set_scan_backend(mixer, "plain")
+    want = _grads(mixer, loss)
+    assert set(want) == {name for name, _ in mixer.named_parameters()}
+    _assert_grads_close(got, want)
+
+
+@pytest.mark.cuda
+def test_tiny_arm_remat_grads_match_plain(cuda):
+    """ARM(remat=True): each layer runs both forward kernels twice (the
+    checkpointed forward and its recompute) and the backward once."""
+    gen = torch.Generator(cuda).manual_seed(2)
+    arm = ARM(patch_size=16, embed_dim=64, depth=3, img_size=64,
+              remat=True, device=cuda)
+    init_params(arm, gen)
+    x = torch.randn(2, 64, 64, 3, device=cuda, generator=gen)
+    w = torch.randn(2, 17, 64, device=cuda, generator=gen)
+
+    def loss():
+        return (arm(x) * w).sum()
+
+    mf.reset_launches()
+    got = _grads(arm, loss)
+    torch.cuda.synchronize()
+    assert mf.launches == {"mamba_xdbl": 6, "mamba_scan": 6,
+                           "mamba_scan_bwd": 3}
+    set_scan_backend(arm, "plain")
+    want = _grads(arm, loss)
+    assert mf.launches["mamba_scan_bwd"] == 3
+    _assert_grads_close(got, want)
+
+
+@pytest.mark.cuda
 def test_tiny_arm_through_kernels_matches_plain(cuda):
     """Every layer launches both kernels; the tower agrees with the plain
     versions in fp32 within reordered-sum error."""
@@ -100,10 +201,12 @@ def test_tiny_arm_through_kernels_matches_plain(cuda):
     with torch.no_grad():
         got = arm(x)
         torch.cuda.synchronize()
-        assert mf.launches == {"mamba_xdbl": 3, "mamba_scan": 3}
+        assert mf.launches == {"mamba_xdbl": 3, "mamba_scan": 3,
+                               "mamba_scan_bwd": 0}
         set_scan_backend(arm, "plain")
         want = arm(x)
-    assert mf.launches == {"mamba_xdbl": 3, "mamba_scan": 3}
+    assert mf.launches == {"mamba_xdbl": 3, "mamba_scan": 3,
+                           "mamba_scan_bwd": 0}
     err, scale = _err(got, want)
     assert err <= 1e-4 * scale
 
@@ -121,3 +224,24 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         mf.xdbl_fwd(xr, None, w["conv_w"], w["conv_b"], w["x_proj_w"])
     with pytest.raises(ValueError, match="fp32 tensor"):
         mf.xdbl_fwd(xr, xc, w["conv_w"].cpu(), w["conv_b"], w["x_proj_w"])
+
+
+@pytest.mark.cuda
+def test_scan_bwd_refuses_what_the_kernel_does_not_take(cuda):
+    xr, xc, w = _inputs(cuda, torch.float32, 4, 2, 10, 8, 4, 4, seed=0)
+    x_dbl = mf.xdbl_plain(xr, xc, w["conv_w"], w["conv_b"], w["x_proj_w"])
+    dy = torch.zeros(2, 4, 10, 8, device=cuda)
+    rest = (w["conv_w"], w["conv_b"], w["dt_proj_w"], w["dt_bias"], w["A"],
+            w["D"])
+    with pytest.raises(ValueError, match="dy must be"):
+        mf.scan_bwd(xr, xc, x_dbl, *rest, dy.bfloat16())
+    with pytest.raises(ValueError, match="dy must be"):
+        mf.scan_bwd(xr, xc, x_dbl, *rest, dy[:, :2])
+    with pytest.raises(ValueError, match="fp32 tensor"):
+        mf.scan_bwd(xr, xc, x_dbl[:, :5], *rest, dy)
+    with pytest.raises(ValueError, match="d_state"):
+        a3 = w["A"][..., :3].contiguous()
+        x3 = x_dbl[..., :10].contiguous()
+        mf.scan_bwd(xr, xc, x3, *rest[:4], a3, w["D"], dy)
+    with pytest.raises(TypeError, match="not f32/bf16"):
+        mf.scan_bwd(xr.half(), xc.half(), x_dbl, *rest, dy.half())

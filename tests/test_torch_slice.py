@@ -155,8 +155,10 @@ def test_preset_builds_published_widths():
     model = build_mrg_model(cfg, 151936, device="meta")
     arm = model.vision.arm
     assert len(arm.layers) == 12 and arm.pos_embed.shape == (1, 197, 768)
+    # train.remat: true in the preset checkpoints both towers' blocks
+    assert arm.remat
     assert model.llm_cfg == dataclasses.replace(
-        llm.LLM_CONFIGS["qwen1_5_1_8b"], vocab_size=151936)
+        llm.LLM_CONFIGS["qwen1_5_1_8b"], vocab_size=151936, remat=True)
     assert model.llm.lm_head.weight.shape == (151936, 2048)
 
 
