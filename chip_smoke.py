@@ -8,7 +8,8 @@ raises (exit code 1):
 
 1. device   -- a CUDA card is required; prints its name and power limit.
 2. build    -- compiles ``medical_image_analysis_tpu_torch/csrc/mamba_fused.cu``
-               with nvcc for sm_90a into ``build/kernels/``.
+               and ``csrc/scan_n1.cu`` with nvcc for sm_90a into
+               ``build/kernels/``, one nvcc per source, both at once.
 3. kernels  -- both fused-Mamba forward kernels against their plain
                PyTorch versions on the card, at the ARM-B layer shapes of
                the ``r2gengpt_mimic`` preset (K=4, L=197, D=768, N=16,
@@ -36,6 +37,26 @@ raises (exit code 1):
                projector's gradients through the kernels against those
                through the plain versions, from one cotangent at the
                projector's output, within a relative bound.
+8. kernels_n1 -- the d_state=1 scan's forward kernel (``scan_n1_fwd``)
+               against ``scan_n1_fwd_plain`` at the four stage shapes of
+               vssm1_base at every batch the main path gives it (B=12
+               tower images, 36 context images, 4 images of validation's
+               last batch; fp32), stage 2 in bf16 and stage 0 at B=1; max
+               error and device times.
+   kernels_n1_bwd -- its backward kernel against ``scan_n1_bwd_plain`` at
+               the training batch (B=12), stage 2 in bf16 and stage 0 at
+               B=1, every output.
+9. train_csr -- the ``r2gencsr_iu`` preset with ``model.vision=vssm``,
+               ``vision_size=base`` and the vssm1 ``vision_kwargs``
+               (vssm1_base + qwen1_5_0_5b at full width, 3 + 3 context
+               images per study, LoRA r16, trainable tower) through
+               ``cli.train.main``: 5 steps and one validation (beam 3, 100
+               tokens). The same checks as ``train``; each scan kernel
+               launched as often as the design says.
+10. train_csr_grads -- one batch: the vssm1 tower's and the projector's
+               gradients through the kernels against the plain versions,
+               from one cotangent at ``encode_img``'s outputs, and the
+               context residuals (36 context images) likewise.
 
 Then one JSON line of the kernels, and the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -68,11 +89,29 @@ TRAIN_SAMPLES = 32  # data.dataset=synthetic's train split
 VAL_SAMPLES = 8  # and its val split
 PRESET = (Path(__file__).resolve().parent / "medical_image_analysis_tpu"
           / "configs" / "presets" / "r2gengpt_mimic.yaml")
+CSR_PRESET = PRESET.parent / "r2gencsr_iu.yaml"
+# vssm1_base through the JAX package's own entry point (vision=vssm, size
+# base, and the d_state=1 family's kwargs)
+VSSM1_OVERRIDES = (
+    "model.vision=vssm", "model.vision_size=base",
+    "model.vision_kwargs={d_state: 1, disable_z: true, conv_bias: false, "
+    "patch_embed_version: v2}",
+)
 REPLACES = {
     "mamba_xdbl": "medical_image_analysis_tpu/ops/mamba_fused.py:111",
     "mamba_scan": "medical_image_analysis_tpu/ops/mamba_fused.py:145",
     "mamba_scan_bwd": "medical_image_analysis_tpu/ops/mamba_fused.py:197",
+    "scan_n1_fwd": "medical_image_analysis_tpu/ops/scan_n1.py:89",
+    "scan_n1_bwd": "medical_image_analysis_tpu/ops/scan_n1.py:150",
 }
+# vssm1_base's stages at 224^2: (H = W, model dim); d_inner = 2 dim, R = dim/16
+N1_STAGES = ((56, 128), (28, 256), (14, 512), (7, 1024))
+N1_BATCH = 12  # 6 studies x 2 views, the tower images of a training step
+# The forward's other batches on the main path: the context tower's 6
+# studies x (3 + 3) images, and validation's last batch (8 val samples in
+# batches of 6), whose 2 studies give 4 images and 12 context images.
+N1_FWD_BATCHES = (N1_BATCH, 36, 4)
+N1_OUTPUTS = ("du", "dxdbl", "dA", "dD", "ddt_bias", "ddt_proj_w")
 BWD_OUTPUTS = ("du", "u", "dsilu", "dxdbl", "dA", "dD", "ddt_bias",
                "ddt_proj_w")
 
@@ -81,9 +120,9 @@ BWD_OUTPUTS = ("du", "u", "dsilu", "dxdbl", "dA", "dD", "ddt_bias",
 # differs.
 XDBL_RTOL = 1e-4
 # y: fp32 as x_dbl. From bf16 sources both sides compute in fp32 and
-# round once to bf16 at the end, where they may land one bf16 step
-# (2^-8 relative) apart.
-Y_RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# round to bf16 (the d_state=1 scan: each direction, then the pair's sum),
+# where they may land one bf16 step apart: 2^-7 of the largest value.
+Y_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-7}
 # The backward's outputs are fp32 on both sides from the same inputs, for
 # either source dtype; the sums over D and over L run in another order.
 BWD_RTOL = 1e-4
@@ -147,15 +186,20 @@ def phase_device() -> None:
 
 
 def phase_build() -> None:
-    from medical_image_analysis_tpu_torch.ops import mamba_fused
+    from concurrent.futures import ThreadPoolExecutor
+
+    from medical_image_analysis_tpu_torch.ops import mamba_fused, scan_n1
 
     t0 = time.perf_counter()
-    _, log = mamba_fused.build()
+    with ThreadPoolExecutor(max_workers=2) as pool:  # one nvcc per source
+        logs = list(pool.map(lambda m: m.build()[1], (mamba_fused, scan_n1)))
     secs = time.perf_counter() - t0
-    for line in log.splitlines():  # ptxas: registers, shared memory, spills
-        if "ptxas info" in line or "spill" in line:
-            print(line.strip(), file=sys.stderr)
-    _phase("build", seconds=f"{secs:.2f}", source=mamba_fused.KERNEL_SOURCE)
+    for log in logs:  # ptxas: registers, shared memory, spills
+        for line in log.splitlines():
+            if "ptxas info" in line or "spill" in line:
+                print(line.strip(), file=sys.stderr)
+    _phase("build", seconds=f"{secs:.2f}",
+           sources=",".join((mamba_fused.KERNEL_SOURCE, scan_n1.KERNEL_SOURCE)))
 
 
 def preset_layer(cfg, dev, gen):
@@ -421,12 +465,14 @@ def _fingerprint(t: torch.Tensor) -> tuple:
                 t.abs().sum(dtype=torch.float64).item())
 
 
-def phase_train(config: str, vocab: int, save_dir: Path,
-                device: str = "cuda") -> dict:
-    """Train the preset for one epoch through the CLI; returns the model,
-    the batch size and accumulation, and the launch counts of the run."""
+def _train_through_cli(argv: list[str], save_dir: Path, device: str) -> dict:
+    """``cli.train.main(argv)`` for one epoch, with the kernels' counts at 0
+    just before and read just after. Checks what every training run must
+    show: the steps of the epoch, each finite; one validation with finite
+    scores; the delta written; every trainable tensor moved and no frozen
+    one. Returns the model, the state, the run's config and counts, and the
+    fields that the phases print."""
     from medical_image_analysis_tpu_torch.cli import train as cli_train
-    from medical_image_analysis_tpu_torch.ops import mamba_fused as mf
 
     seen = {}
 
@@ -436,25 +482,15 @@ def phase_train(config: str, vocab: int, save_dir: Path,
                              for n, p in state.params.items()}
         seen["frozen"] = {n: _fingerprint(p) for n, p in state.frozen.items()}
 
-    argv = [
-        "--config", config,
-        "--set", "data.dataset=synthetic",
-        "--set", f"model.llm_kwargs.vocab_size={vocab}",
-        "--set", "train.epochs=1",
-        "--set", "train.save_state_every_epochs=2",
-        "--set", "train.log_every=1",
-        "--set", f"train.save_dir={save_dir}",
-        "--device", device,
-    ]
     cuda = torch.device(device).type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    mf.reset_launches()
+    _reset_launches()
     t0 = time.perf_counter()
-    scores = cli_train.main(argv, on_start=on_start)
+    scores = cli_train.main([*argv, "--device", device], on_start=on_start)
     _sync(torch.device(device))
     total_s = time.perf_counter() - t0
-    launches = dict(mf.launches)
+    launches = _all_launches()
     peak = torch.cuda.max_memory_allocated() if cuda else 0
 
     model, state = seen["model"], seen["state"]
@@ -462,8 +498,7 @@ def phase_train(config: str, vocab: int, save_dir: Path,
 
     with open(save_dir / "config.yaml") as f:
         cfg = yaml.safe_load(f)
-    batch, accum = cfg["data"]["batch_size"], cfg["train"]["accum_steps"]
-    val_bs = cfg["data"]["val_batch_size"] or batch
+    batch = cfg["data"]["batch_size"]
     with open(save_dir / "log.txt") as f:
         records = [json.loads(line) for line in f]
     steps = [r for r in records if "step" in r]
@@ -485,42 +520,78 @@ def phase_train(config: str, vocab: int, save_dir: Path,
                 for n, p in state.frozen.items())
     _check(still == len(state.frozen),
            f"{len(state.frozen) - still} frozen tensors moved")
+    fields = dict(
+        steps=n_steps, batch=batch, trainable=len(state.params),
+        frozen=len(state.frozen),
+        trainable_params=sum(p.numel() for p in state.params.values()),
+        losses=",".join(f"{r['loss']:.4f}" for r in steps),
+        grad_norms=",".join(f"{r['grad_norm']:.4f}" for r in steps),
+        step_s=",".join(f"{r['step_s']:.3f}" for r in steps),
+        val_s=f"{vals[0]['val_s']:.3f}", total_s=f"{total_s:.2f}",
+        peak_mem_gib=f"{peak / 2**30:.3f}", bleu4=f"{scores['Bleu_4']:.4f}",
+        launches=json.dumps(launches, separators=(",", ":")),
+    )
+    val_bs = cfg["data"]["val_batch_size"] or batch
+    return {"model": model, "state": state, "cfg": cfg, "cuda": cuda,
+            "n_steps": n_steps, "val_batches": -(-VAL_SAMPLES // val_bs),
+            "launches": launches, "fields": fields}
+
+
+def _check_launches(run: dict, reckoned: dict, phase: str, how: str) -> None:
+    """The run's counts against the design's reckoning (every kernel not
+    named there at 0); a CPU rehearsal launches none."""
+    want = {name: reckoned.get(name, 0) for name in run["launches"]}
+    print(f"{phase}: launches reckoned: {how} -> "
+          f"{json.dumps(want, separators=(',', ':'))}", flush=True)
+    if not run["cuda"]:  # CPU tensors take the plain versions
+        want = dict.fromkeys(want, 0)
+    _check(run["launches"] == want,
+           f"{phase}: launches {run['launches']}, expected {want}")
+
+
+def phase_train(config: str, vocab: int, save_dir: Path,
+                device: str = "cuda") -> dict:
+    """Train the preset for one epoch through the CLI; returns the model,
+    the batch size and accumulation, and the launch counts of the run."""
+    argv = ["--config", config]
+    for item in ("data.dataset=synthetic", f"model.llm_kwargs.vocab_size={vocab}",
+                 "train.epochs=1", "train.save_state_every_epochs=2",
+                 "train.log_every=1", f"train.save_dir={save_dir}"):
+        argv += ["--set", item]
+    run = _train_through_cli(argv, save_dir, device)
+    model, n_steps = run["model"], run["n_steps"]
+    accum = run["cfg"]["train"]["accum_steps"]
 
     # What the design implies: with remat, each ARM layer runs both forward
     # kernels twice per micro-batch (the checkpointed forward and its
     # recompute in the backward) and the backward kernel once; validation
     # encodes each val batch once (no gradient, no recompute).
     depth = len(model.vision.arm.layers)
-    val_batches = -(-VAL_SAMPLES // val_bs)
+    val_batches = run["val_batches"]
     fwd_step, bwd_step = depth * accum * 2, depth * accum
-    want = {
-        "mamba_xdbl": n_steps * fwd_step + val_batches * depth,
-        "mamba_scan": n_steps * fwd_step + val_batches * depth,
-        "mamba_scan_bwd": n_steps * bwd_step,
-    }
-    print(f"train: launches reckoned: per step {depth} layers x {accum} "
-          f"micro-batches x 2 forwards = {fwd_step} of each forward kernel "
-          f"and {depth} x {accum} = {bwd_step} backward; {n_steps} steps + "
-          f"{val_batches} val batches x {depth} layers -> "
-          f"{json.dumps(want, separators=(',', ':'))}", flush=True)
-    if not cuda:  # CPU tensors take the plain versions (a rehearsal)
-        want = dict.fromkeys(want, 0)
-    _check(launches == want, f"launches {launches}, expected {want}")
-    step_s = [r["step_s"] for r in steps]
-    _phase(
-        "train", preset=Path(config).name, steps=n_steps, batch=batch,
-        accum=accum, trainable=len(state.params), frozen=len(state.frozen),
-        trainable_params=sum(p.numel() for p in state.params.values()),
-        losses=",".join(f"{r['loss']:.4f}" for r in steps),
-        grad_norms=",".join(f"{r['grad_norm']:.4f}" for r in steps),
-        step_s=",".join(f"{v:.3f}" for v in step_s),
-        val_s=f"{vals[0]['val_s']:.3f}", total_s=f"{total_s:.2f}",
-        peak_mem_gib=f"{peak / 2**30:.3f}",
-        bleu4=f"{scores['Bleu_4']:.4f}",
-        launches=json.dumps(launches, separators=(",", ":")),
-    )
-    return {"model": model, "state": state, "batch": batch, "accum": accum,
-            "launches": launches}
+    fwd = n_steps * fwd_step + val_batches * depth
+    _check_launches(
+        run, {"mamba_xdbl": fwd, "mamba_scan": fwd,
+              "mamba_scan_bwd": n_steps * bwd_step}, "train",
+        f"per step {depth} layers x {accum} micro-batches x 2 forwards = "
+        f"{fwd_step} of each forward kernel and {depth} x {accum} = "
+        f"{bwd_step} backward; {n_steps} steps + {val_batches} val batches "
+        f"x {depth} layers")
+    _phase("train", preset=Path(config).name, accum=accum, **run["fields"])
+    return {"model": model, "state": run["state"],
+            "batch": run["cfg"]["data"]["batch_size"], "accum": accum,
+            "launches": run["launches"]}
+
+
+def _worst_rel(names, got, want) -> tuple[float, str]:
+    """The largest max |got - want| / max |want| over the named gradients,
+    and its name; every gradient must be finite."""
+    out = (0.0, "")
+    for n, g, gp in zip(names, got, want):
+        _check(bool(torch.isfinite(g).all()), f"non-finite grad of {n}")
+        rel = ((g - gp).abs().max() / gp.abs().max().clamp_min(1e-30)).item()
+        out = max(out, (rel, n))
+    return out
 
 
 def phase_train_grads(model, state, config: str, batch: int, accum: int):
@@ -583,20 +654,265 @@ def phase_train_grads(model, state, config: str, batch: int, accum: int):
             loss_of(model.encode_img(micro["images"])), tensors)
     set_scan_backend(model, "auto")
 
-    def worst(a, b):
-        out = (0.0, "")
-        for n, g, gp in zip(names, a, b):
-            _check(bool(torch.isfinite(g).all()), f"non-finite grad of {n}")
-            rel = ((g - gp).abs().max()
-                   / gp.abs().max().clamp_min(1e-30)).item()
-            out = max(out, (rel, n))
-        return out
-
-    rel, at = worst(grads["auto"], grads["plain"])
-    e2e_rel, e2e_at = worst(e2e["auto"], e2e["plain"])
+    rel, at = _worst_rel(names, grads["auto"], grads["plain"])
+    e2e_rel, e2e_at = _worst_rel(names, e2e["auto"], e2e["plain"])
     _check(rel <= TOWER_RTOL,
            f"grad of {at}: max rel err {rel:.3e} > {TOWER_RTOL}")
     _phase("train_grads", tensors=len(names), micro_batch=batch // accum,
+           max_rel_err=f"{rel:.3e}", at=at, bound=TOWER_RTOL,
+           e2e_max_rel_err=f"{e2e_rel:.3e}", e2e_at=e2e_at,
+           kernel_s=f"{secs['auto']:.3f}", plain_s=f"{secs['plain']:.3f}")
+
+
+def _n1_case(dev, gen, hw: int, dim: int, batch: int, dtype):
+    """An initialised vssm1_base SS2D's scan weights at one stage, and
+    random sources of its shape: (args of scan_n1_fwd, D, R)."""
+    from medical_image_analysis_tpu_torch.models.common import init_params
+    from medical_image_analysis_tpu_torch.models.vmamba import SS2D
+    from medical_image_analysis_tpu_torch.ops import scan_n1 as sn
+
+    m = SS2D(dim, d_state=1, disable_z=True, conv_bias=False, device=dev)
+    init_params(m, gen)
+    d_in = m.d_inner
+    x = torch.randn(batch, hw, hw, d_in, device=dev, generator=gen)
+    x = torch.nn.functional.silu(x).to(dtype)  # as SS2D feeds the scan
+    xr = x.reshape(batch, hw * hw, d_in)
+    xc = x.transpose(1, 2).reshape(batch, hw * hw, d_in).contiguous()
+    with torch.no_grad():
+        a = -torch.exp(m.A_log.float())
+        x_dbl = sn._x_dbl(xr, xc, m.x_proj_w)
+        w = sn._weights(m.dt_proj_w, m.dt_bias, a, m.D)
+    return (xr, xc, x_dbl, *w), d_in, m.rank
+
+
+def _n1_cases(batches=None):
+    """(stage, batch, dtype): the four stages at each of ``batches`` (by
+    default the training batch) in fp32, stage 2 at the training batch in
+    bf16, stage 0 at batch 1."""
+    cases = [(i, b, torch.float32) for b in batches or (N1_BATCH,)
+             for i in range(len(N1_STAGES))]
+    return cases + [(2, N1_BATCH, torch.bfloat16), (0, 1, torch.float32)]
+
+
+def _in_turns(plain_fn, kernel_fn, plain_iters, kernel_iters):
+    """Device ms of each, timed in turns: plain, kernel, kernel, plain."""
+    t = {}
+    for name, fn, iters in (("plain", plain_fn, plain_iters),
+                            ("kernel", kernel_fn, kernel_iters),
+                            ("kernel", kernel_fn, kernel_iters),
+                            ("plain", plain_fn, plain_iters)):
+        t[name] = t.get(name, 0.0) + device_ms(fn, iters) / 2
+    return t
+
+
+def phase_kernels_n1(dev, gen) -> tuple:
+    """The forward kernel against its plain version at every batch the
+    main path gives it; returns the JSON row (max abs error over the fp32
+    cases, and stage 0's times at the training batch, the longest chain of
+    the main path)."""
+    from medical_image_analysis_tpu_torch.ops import scan_n1 as sn
+
+    worst, row = 0.0, None
+    for stage, b, dtype in _n1_cases(N1_FWD_BATCHES):
+        hw, dim = N1_STAGES[stage]
+        args, d_in, rank = _n1_case(dev, gen, hw, dim, b, dtype)
+        want = sn.scan_n1_fwd_plain(*args)
+        got = sn.scan_n1_fwd(*args)
+        _sync(dev)
+        _check(got.shape == want.shape and got.dtype == dtype,
+               "scan_n1_fwd output shape or dtype")
+        err, scale = _max_err(got, want)
+        _check(err <= Y_RTOL[dtype] * scale,
+               f"scan_n1_fwd stage {stage} B={b} {dtype}: max abs err "
+               f"{err:.3e} > {Y_RTOL[dtype]} x {scale:.3f}")
+        t = _in_turns(lambda: sn.scan_n1_fwd_plain(*args),
+                      lambda: sn.scan_n1_fwd(*args), 2, 20)
+        _phase("kernels_n1", stage=stage, B=b, L=hw * hw, D=d_in, R=rank,
+               src="fp32" if dtype == torch.float32 else "bf16",
+               err=f"{err:.3e}", ms=f"{t['kernel']:.4f}",
+               plain_ms=f"{t['plain']:.4f}")
+        if dtype == torch.float32:
+            worst = max(worst, err)
+            if stage == 0 and b == N1_BATCH:
+                row = (t["kernel"], t["plain"])
+    return (worst, *row)
+
+
+def phase_kernels_n1_bwd(dev, gen) -> tuple:
+    """The backward kernel against its plain version, every output; the
+    JSON row as ``phase_kernels_n1``'s."""
+    from medical_image_analysis_tpu_torch.ops import scan_n1 as sn
+
+    worst, row = 0.0, None
+    for stage, b, dtype in _n1_cases():
+        hw, dim = N1_STAGES[stage]
+        args, d_in, rank = _n1_case(dev, gen, hw, dim, b, dtype)
+        dy = torch.randn(2, b, hw * hw, d_in, device=dev,
+                         generator=gen).to(dtype)
+        want = sn.scan_n1_bwd_plain(*args, dy)
+        got = sn.scan_n1_bwd(*args, dy)
+        _sync(dev)
+        errs = {}
+        for name, g, wv in zip(N1_OUTPUTS, got, want):
+            _check(g.shape == wv.shape and g.dtype == torch.float32,
+                   f"scan_n1_bwd {name}: shape or dtype")
+            err, scale = _max_err(g, wv)
+            _check(err <= BWD_RTOL * scale,
+                   f"scan_n1_bwd stage {stage} B={b} {dtype} {name}: max abs "
+                   f"err {err:.3e} > {BWD_RTOL} x {scale:.3f}")
+            errs[name] = err
+        t = _in_turns(lambda: sn.scan_n1_bwd_plain(*args, dy),
+                      lambda: sn.scan_n1_bwd(*args, dy), 1, 10)
+        _phase("kernels_n1_bwd", stage=stage, B=b, L=hw * hw, D=d_in, R=rank,
+               src="fp32" if dtype == torch.float32 else "bf16",
+               errs=json.dumps({k: f"{v:.3e}" for k, v in errs.items()},
+                               separators=(",", ":")),
+               ms=f"{t['kernel']:.4f}", plain_ms=f"{t['plain']:.4f}")
+        if dtype == torch.float32:
+            worst = max(worst, max(errs.values()))
+            if stage == 0 and b == N1_BATCH:
+                row = (t["kernel"], t["plain"])
+    return (worst, *row)
+
+
+def _all_launches() -> dict:
+    from medical_image_analysis_tpu_torch.ops import mamba_fused as mf
+    from medical_image_analysis_tpu_torch.ops import scan_n1 as sn
+
+    return {**mf.launches, **sn.launches}
+
+
+def _reset_launches() -> None:
+    from medical_image_analysis_tpu_torch.ops import mamba_fused as mf
+    from medical_image_analysis_tpu_torch.ops import scan_n1 as sn
+
+    mf.reset_launches()
+    sn.reset_launches()
+
+
+def phase_train_csr(vocab: int, save_dir: Path, device: str = "cuda",
+                    overrides=()) -> dict:
+    """R2GenCSR on vssm1_base for one epoch through the CLI; returns the
+    model, the state, the overrides and the launch counts of the run.
+
+    ``overrides`` come after the slice's own (a CPU rehearsal shrinks the
+    widths with them)."""
+    sets = ("data.dataset=synthetic", *VSSM1_OVERRIDES,
+            f"model.llm_kwargs.vocab_size={vocab}", "train.epochs=1",
+            "train.save_state_every_epochs=2", "train.log_every=1",
+            f"train.save_dir={save_dir}", *overrides)
+    argv = ["--config", str(CSR_PRESET)]
+    for item in sets:
+        argv += ["--set", item]
+    run = _train_through_cli(argv, save_dir, device)
+    model, state, n_steps = run["model"], run["state"], run["n_steps"]
+    kinds = {k: any(n.startswith(k) for n in state.params)
+             for k in ("base/vision/", "base/proj/", "base/ctx_proj/",
+                       "base/pos_marker", "base/neg_marker", "lora/")}
+    _check(all(kinds.values()), f"trainable groups {kinds}")
+
+    # What the design implies: every SS2D launches the forward kernel once
+    # for the study's images (with a gradient) and once for the context
+    # images (without), and the backward kernel once; validation runs both
+    # forwards per val batch. No remat for the VSSM, as in the JAX package.
+    blocks = sum(model.vision.vssm.depths)
+    val_batches = run["val_batches"]
+    n_ctx = run["cfg"]["data"]["n_context"]
+    _check_launches(
+        run, {"scan_n1_fwd": (n_steps + val_batches) * 2 * blocks,
+              "scan_n1_bwd": n_steps * blocks}, "train_csr",
+        f"{blocks} SS2D blocks x 2 towers (study images with grad, "
+        f"{2 * n_ctx} context images per study without) x ({n_steps} steps "
+        f"+ {val_batches} val batches) forward, {blocks} x {n_steps} backward")
+    _phase("train_csr", preset=CSR_PRESET.name, n_context=n_ctx,
+           blocks=blocks, llm=f"{model.llm_cfg.dim}x{model.llm_cfg.n_layers}",
+           params=sum(p.numel() for p in model.parameters()), **run["fields"])
+    return {"model": model, "state": state, "launches": run["launches"],
+            "overrides": sets}
+
+
+def phase_train_csr_grads(model, state, overrides) -> None:
+    """One batch of the slice's data: the vssm1 tower's and the
+    projector's gradients through the kernels against those through the
+    plain versions, both driven by one cotangent at ``encode_img``'s two
+    outputs (the projected tokens and the global feature that the context
+    residuals subtract from), taken once from the loss (plain path).
+    Through the whole loss the two paths differ by the bf16 LLM's
+    roundings (see ``phase_train_grads``): printed (``e2e_``), not bounded.
+    The context residuals (the tower without a gradient, on the batch's
+    context images) are held to the same bound.
+    """
+    from medical_image_analysis_tpu_torch.configs.config import load_config
+    from medical_image_analysis_tpu_torch.models.mamba import set_scan_backend
+    from medical_image_analysis_tpu_torch.ops import scan_n1 as sn
+    from medical_image_analysis_tpu_torch.train.loop import (
+        _device_batch,
+        build_data,
+    )
+
+    cfg = load_config(str(CSR_PRESET),
+                      [*overrides, "data.num_workers=1"])
+    _, _, batcher, _ = build_data(cfg)
+    train_b = batcher("train", n_context=cfg.data.n_context)
+    try:
+        host = next(train_b.batches(shuffle=False))
+    finally:
+        train_b.close()
+    dev = next(model.parameters()).device
+    b = _device_batch(host, dev)
+    names = [n for n in state.params if n.startswith(("base/vision/",
+                                                      "base/proj"))]
+    tensors = [state.params[n] for n in names]
+    blocks = sum(model.vision.vssm.depths)
+
+    def loss_of(img, global_feat):
+        prompt = model.context_prompt(img, global_feat, b["context_images"],
+                                      b["before_ids"], b["after_ids"])
+        return model._loss(prompt, b["target_ids"], b["target_mask"])
+
+    set_scan_backend(model, "plain")
+    outs = [o.detach().requires_grad_() for o in model.encode_img(b["images"])]
+    cotangents = torch.autograd.grad(loss_of(*outs), outs)
+    ctx = {}
+    with torch.no_grad():
+        for backend in ("auto", "plain"):
+            set_scan_backend(model, backend)
+            sn.reset_launches()
+            ctx[backend] = model.context_residuals(outs[1],
+                                                   b["context_images"])
+            if backend == "auto" and dev.type == "cuda":
+                _check(sn.launches == {"scan_n1_fwd": blocks,
+                                       "scan_n1_bwd": 0},
+                       f"context_residuals launches {sn.launches}")
+    grads, e2e, secs = {}, {}, {}
+    for backend in ("auto", "plain"):
+        set_scan_backend(model, backend)
+        sn.reset_launches()
+        t0 = time.perf_counter()
+        outs = model.encode_img(b["images"])
+        grads[backend] = torch.autograd.grad(outs, tensors, cotangents)
+        _sync(dev)
+        secs[backend] = time.perf_counter() - t0
+        if backend == "auto" and dev.type == "cuda":
+            _check(sn.launches == {"scan_n1_fwd": blocks,
+                                   "scan_n1_bwd": blocks},
+                   f"train_csr_grads launches {sn.launches}")
+        e2e[backend] = torch.autograd.grad(
+            loss_of(*model.encode_img(b["images"])), tensors)
+    set_scan_backend(model, "auto")
+
+    rel, at = _worst_rel(names, grads["auto"], grads["plain"])
+    e2e_rel, e2e_at = _worst_rel(names, e2e["auto"], e2e["plain"])
+    ctx_rel, _ = _worst_rel(["context residuals"], [ctx["auto"]],
+                            [ctx["plain"]])
+    _check(rel <= TOWER_RTOL,
+           f"grad of {at}: max rel err {rel:.3e} > {TOWER_RTOL}")
+    _check(ctx_rel <= TOWER_RTOL,
+           f"context residuals: max rel err {ctx_rel:.3e} > {TOWER_RTOL}")
+    _phase("train_csr_grads", tensors=len(names), batch=cfg.data.batch_size,
+           context_images=b["context_images"].shape[0]
+           * b["context_images"].shape[1],
+           ctx_max_rel_err=f"{ctx_rel:.3e}",
            max_rel_err=f"{rel:.3e}", at=at, bound=TOWER_RTOL,
            e2e_max_rel_err=f"{e2e_rel:.3e}", e2e_at=e2e_at,
            kernel_s=f"{secs['auto']:.3f}", plain_s=f"{secs['plain']:.3f}")
@@ -612,6 +928,9 @@ def main() -> None:
     phase_build()
     measured = phase_kernels(cfg, dev, gen)
     measured["mamba_scan_bwd"] = phase_kernels_bwd(cfg, dev, gen)
+    measured["scan_n1_fwd"] = phase_kernels_n1(dev, gen)
+    measured["scan_n1_bwd"] = phase_kernels_n1_bwd(dev, gen)
+    _reset_launches()
     pipe, png, launches, depth = phase_serve(str(PRESET), VOCAB, "cuda",
                                              REQUESTS)
     for name in ("mamba_xdbl", "mamba_scan"):
@@ -627,17 +946,29 @@ def main() -> None:
         run = phase_train(str(PRESET), VOCAB, Path(tmp))
     phase_train_grads(run["model"], run["state"], str(PRESET), run["batch"],
                       run["accum"])
-    from medical_image_analysis_tpu_torch.ops.mamba_fused import KERNEL_SOURCE
+    train_launches = run["launches"]
+    del run
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_csr_") as tmp:
+        csr = phase_train_csr(VOCAB, Path(tmp))
+    phase_train_csr_grads(csr["model"], csr["state"], csr["overrides"])
+    from medical_image_analysis_tpu_torch.ops import mamba_fused, scan_n1
 
-    # launches: the main path's runs, serving and training
+    # launches: the main paths' runs (serving, the two trainings), each
+    # read just after it was driven with the counts at 0
+    main_runs = {name: launches.get(name, 0) + train_launches.get(name, 0)
+                 + csr["launches"].get(name, 0) for name in REPLACES}
     kernels = [
-        {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": REPLACES[name],
-         "launches": launches[name] + run["launches"][name],
+        {"name": name, "route": "cuda",
+         "source": (scan_n1 if name.startswith("scan_n1")
+                    else mamba_fused).KERNEL_SOURCE,
+         "replaces": REPLACES[name], "launches": main_runs[name],
          "max_abs_err": measured[name][0], "ms": measured[name][1],
          "plain_ms": measured[name][2]}
         for name in REPLACES
     ]
+    _check(all(k["launches"] > 0 for k in kernels),
+           f"a kernel of the main paths never launched: {main_runs}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

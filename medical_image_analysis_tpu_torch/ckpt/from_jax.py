@@ -5,12 +5,15 @@ name, with these conversions:
 
 - ``layers_<i>`` (flax lists) -> ``layers.<i>`` (``nn.ModuleList``);
 - Dense ``kernel (in, out)`` -> Linear ``weight (out, in)``;
-- Conv ``kernel`` HWIO -> Conv2d ``weight`` OIHW;
+- Conv ``kernel`` HWIO -> Conv2d ``weight`` OIHW (the SS2D depthwise
+  conv: (3, 3, 1, D) -> (D, 1, 3, 3));
 - norm ``scale`` and Embed ``embedding`` -> ``weight``;
 - ``A_log``, ``D``, ``dt_bias``, ``conv_w``, ``conv_b``, ``x_proj_w``,
-  ``dt_proj_w``, ``cls_token`` and ``pos_embed`` keep their layout.
+  ``dt_proj_w``, ``cls_token``, ``pos_embed``, ``pos_marker`` and
+  ``neg_marker`` keep their layout.
 
-One function serves ``ARM``, ``TransformerLM`` and ``R2GenGPT``: pass the
+One function serves ``ARM``, ``VSSM`` (and its ``SS2D`` and ``VSSBlock``),
+``TransformerLM``, ``R2GenGPT`` and ``R2GenCSR``: pass the
 ``params`` subtree whose root matches the port module's root.
 :func:`flax_named_parameters` names the port's parameters the other way
 round, and :func:`lora_from_jax` carries a JAX LoRA tree.

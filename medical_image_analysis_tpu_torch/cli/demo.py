@@ -55,7 +55,7 @@ def _tokenizer(args, cfg):
     if cfg.data.tokenizer_dir:
         raise NotImplementedError(
             "HF tokenizer files (data.tokenizer_dir) are not ported yet "
-            "(ROADMAP.md, queue 1, slice 1 item 10)"
+            "(ROADMAP.md, queue 1, item 9)"
         )
     return WordTokenizer(["the", "lungs", "are", "clear", "."])
 
@@ -69,9 +69,13 @@ def build_pipeline(args) -> Pipeline:
     if args.delta:
         raise NotImplementedError(
             "delta checkpoints are not ported yet (ROADMAP.md, queue 1, "
-            "slice 1 item 10)"
+            "item 9)"
         )
     cfg = load_config(args.config) if args.config else make_config({})
+    if cfg.model.task != "r2gengpt":
+        raise NotImplementedError(
+            f"the demo serves task=r2gengpt (on either tower), as the JAX "
+            f"package's demo does; got task={cfg.model.task!r}")
     tok = _tokenizer(args, cfg)
     vocab_size = getattr(args, "vocab_size", None) or tok.vocab_size
     if vocab_size < tok.vocab_size:

@@ -1,14 +1,15 @@
-"""Annotation parsing and fixed-shape batching for the MRG recipes.
+"""Annotation parsing, fixed-shape batching and context-sample retrieval.
 
 Counterpart of the parts of ``medical_image_analysis_tpu/data/datasets.py``
-that ``fit_mrg`` reaches for ``task=r2gengpt``: ``Sample``,
-``load_annotations`` (annotation.json with train/val/test splits of
-{id, report, image_path[...]} records), ``drop_unclear_reports``,
-``load_chexbert_csv``, ``group_study_two_views``, ``MRGBatcher`` (without
-context sampling), ``prefetch`` and the image loaders. Every batch has the
-same shapes (views padded by repetition, reports padded to ``max_len``),
-as in the JAX package. Context sampling (R2GenCSR) is not ported yet
-(ROADMAP.md, queue 1, item 12).
+that ``fit_mrg`` reaches for ``task=r2gengpt`` and ``task=r2gencsr``:
+``Sample``, ``load_annotations`` (annotation.json with train/val/test
+splits of {id, report, image_path[...]} records), ``drop_unclear_reports``,
+``load_chexbert_csv``, ``context_index_split``, ``draw_context_ids``,
+``sample_context_ids``, ``group_study_two_views``, ``MRGBatcher`` (with
+R2GenCSR's positive/negative context exemplars), ``prefetch`` and the
+image loaders. Every batch has the same shapes (views padded by
+repetition, reports padded to ``max_len``), as in the JAX package, and
+the same seed draws the same samples and context ids.
 """
 
 from __future__ import annotations
@@ -25,6 +26,9 @@ import numpy as np
 from .preprocessing import decode_scaled, host_preprocess
 from .report_cleaning import clean_report
 from .tokenizer import WordTokenizer
+
+# R2GenCSR splits its context exemplars on this disease keyword
+DEFAULT_CONTEXT_KEYWORD = "effusion"
 
 
 @dataclasses.dataclass
@@ -87,6 +91,70 @@ def load_chexbert_csv(path: str) -> dict[str, np.ndarray]:
     return out
 
 
+def context_index_split(
+    samples: list[Sample],
+    mode: str = "keyword",
+    keyword: str | list[str] = DEFAULT_CONTEXT_KEYWORD,
+    chexbert_labels: dict[str, np.ndarray] | None = None,
+) -> tuple[list[int], list[int]] | None:
+    """The (positive, negative) index split of ``samples``, computed once.
+
+    ``random`` mode has no split (None); ``keyword`` splits on the
+    presence of a keyword in the report; ``chexbert`` on the no-finding
+    column of a CheXbert csv (positives: any finding), with the rule
+    labeler for samples the csv lacks. An empty side falls back to all
+    samples.
+    """
+    if mode == "random":
+        return None
+    if mode == "chexbert":
+        from ..evalx.chexbert import extract_labels
+
+        def no_finding(s: Sample) -> bool:
+            if chexbert_labels is not None and s.id in chexbert_labels:
+                return bool(chexbert_labels[s.id][-1] == 1)
+            return bool(extract_labels(s.report)[-1] == 1)
+
+        flags = [no_finding(s) for s in samples]
+    else:
+        kws = [keyword] if isinstance(keyword, str) else list(keyword)
+        flags = [not any(k in s.report for k in kws) for s in samples]
+    pos = [i for i, f in enumerate(flags) if not f]
+    neg = [i for i, f in enumerate(flags) if f]
+    everything = list(range(len(samples)))
+    return pos or everything, neg or everything
+
+
+def draw_context_ids(
+    rng: np.random.Generator,
+    split: tuple[list[int], list[int]] | None,
+    n_samples: int,
+    n: int,
+) -> tuple[list[int], list[int]]:
+    """``n`` positive and ``n`` negative ids for one study, from a split of
+    :func:`context_index_split` (uniform over all samples without one)."""
+    if split is None:
+        idx = rng.choice(n_samples, 2 * n, replace=n_samples < 2 * n)
+        return list(idx[:n]), list(idx[n:])
+    pos, neg = split
+    pi = rng.choice(pos, n, replace=len(pos) < n)
+    ni = rng.choice(neg, n, replace=len(neg) < n)
+    return list(pi), list(ni)
+
+
+def sample_context_ids(
+    rng: np.random.Generator,
+    samples: list[Sample],
+    n: int,
+    mode: str = "keyword",
+    keyword: str | list[str] = DEFAULT_CONTEXT_KEYWORD,
+    chexbert_labels: dict[str, np.ndarray] | None = None,
+) -> tuple[list[int], list[int]]:
+    """Split and draw in one call, for one-shot callers."""
+    split = context_index_split(samples, mode, keyword, chexbert_labels)
+    return draw_context_ids(rng, split, len(samples), n)
+
+
 def group_study_two_views(
     samples: list[Sample], rng: np.random.Generator | None = None
 ) -> list[Sample]:
@@ -117,7 +185,10 @@ class MRGBatcher:
     ``image_loader(sample) -> (V, H, W, 3) float32`` is injected so that
     tests can substitute synthetic pixels for disk reads. A thread pool of
     ``num_workers`` loads the views of a batch (PIL decoding releases the
-    GIL); ``close`` shuts it down.
+    GIL); ``close`` shuts it down. With ``n_context > 0`` each batch also
+    holds ``context_images`` (B, 2 n_context, H, W, 3): the first view of
+    ``n_context`` positive, then ``n_context`` negative samples of the
+    batcher's own split, drawn per study after the batch's order.
     """
 
     def __init__(
@@ -130,11 +201,22 @@ class MRGBatcher:
         num_views: int = 2,
         prompt_before: str = "<bos> human : generate a comprehensive report",
         prompt_after: str = "assistant :",
+        n_context: int = 0,
+        context_mode: str = "keyword",
+        context_keyword: str | list[str] = DEFAULT_CONTEXT_KEYWORD,
+        chexbert_labels: dict | None = None,
         num_workers: int = 8,
         seed: int = 0,
         regroup_views: bool = False,
     ):
         self.samples = samples
+        self.n_context = n_context
+        # the O(dataset) split (the rule labeler in chexbert mode), once
+        self._context_split = (
+            context_index_split(samples, context_mode, context_keyword,
+                                chexbert_labels)
+            if n_context > 0 else None
+        )
         self.tok = tokenizer
         self.image_loader = image_loader
         self.batch_size = batch_size
@@ -158,6 +240,11 @@ class MRGBatcher:
         if self._pool is not None:
             self._pool.shutdown(wait=True)
             self._pool = None
+
+    def _map(self, fn, items) -> list:
+        if self._pool is not None:
+            return list(self._pool.map(fn, items))
+        return [fn(x) for x in items]
 
     def _views(self, sample: Sample) -> np.ndarray:
         imgs = self.image_loader(sample)  # (V', H, W, 3)
@@ -192,12 +279,9 @@ class MRGBatcher:
             chunk = [samples[j] for j in order[i : i + bs]]
             if len(chunk) < bs:
                 chunk = chunk + [chunk[-1]] * (bs - len(chunk))
-            if self._pool is not None:
-                images = np.stack(list(self._pool.map(self._views, chunk)))
-            else:
-                images = np.stack([self._views(s) for s in chunk])
+            images = np.stack(self._map(self._views, chunk))
             tgt, msk = zip(*(self._encode_report(s.report) for s in chunk))
-            yield dict(
+            batch = dict(
                 images=images.astype(np.float32),
                 before_ids=np.tile(self.before_ids, (bs, 1)),
                 after_ids=np.tile(self.after_ids, (bs, 1)),
@@ -206,6 +290,19 @@ class MRGBatcher:
                 ids=[s.id for s in chunk],
                 reports=[s.report for s in chunk],
             )
+            if self.n_context > 0:
+                # the draws in the JAX order: per study, positives first
+                ids = []
+                for _ in chunk:
+                    pi, ni = draw_context_ids(rng, self._context_split,
+                                              len(self.samples),
+                                              self.n_context)
+                    ids += pi + ni
+                ctx = self._map(lambda j: self._views(self.samples[j])[0],
+                                ids)
+                batch["context_images"] = np.stack(ctx).reshape(
+                    bs, 2 * self.n_context, *ctx[0].shape).astype(np.float32)
+            yield batch
 
 
 def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:

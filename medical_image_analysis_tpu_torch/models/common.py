@@ -116,6 +116,23 @@ class DropPath(nn.Module):
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
+class Mlp(nn.Module):
+    """Transformer MLP block: fc1, exact erf GELU, fc2 (flax ``Mlp`` with
+    ``_gelu_exact``)."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int | None = None,
+                 dropout: float = 0.0, device=None):
+        super().__init__()
+        self.dropout = dropout
+        self.fc1 = nn.Linear(in_dim, hidden_dim, device=device)
+        self.fc2 = nn.Linear(hidden_dim, out_dim or in_dim, device=device)
+
+    def forward(self, x, deterministic: bool = True):
+        train = not deterministic
+        x = F.dropout(F.gelu(self.fc1(x)), self.dropout, train)
+        return F.dropout(self.fc2(x), self.dropout, train)
+
+
 def insert_token(x: torch.Tensor, token: torch.Tensor, pos: int):
     """Insert a (B, 1, D) token at position ``pos`` of (B, L, D)."""
     return torch.cat([x[:, :pos], token, x[:, pos:]], dim=1)

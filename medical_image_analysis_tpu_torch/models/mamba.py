@@ -41,6 +41,29 @@ _NUM_DIRS = {"none": 1, "v2": 2, "v3": 4}
 SCAN_BACKENDS = ("auto", "plain", "ref")
 
 
+def _uniform(t: torch.Tensor, scale: float, gen: torch.Generator) -> None:
+    tmp = torch.empty(t.shape, device=t.device)
+    t.copy_(tmp.uniform_(-scale, scale, generator=gen))
+
+
+@torch.no_grad()
+def init_ssm_params(m: nn.Module, gen: torch.Generator) -> None:
+    """The JAX package's initializers for a mixer's ``x_proj_w``,
+    ``dt_proj_w``, ``dt_bias``, ``A_log`` and ``D`` (MambaMixer, SS2D)."""
+    _uniform(m.x_proj_w, m.d_inner**-0.5, gen)
+    _uniform(m.dt_proj_w, m.rank**-0.5, gen)
+    dt_min, dt_max, floor = m.dt_range
+    u = torch.empty(m.dt_bias.shape, device=m.dt_bias.device)
+    u.uniform_(0.0, 1.0, generator=gen)
+    dt = torch.exp(u * (math.log(dt_max) - math.log(dt_min))
+                   + math.log(dt_min)).clamp_min(floor)
+    # softplus^-1 so that softplus(bias) lands in [dt_min, dt_max]
+    m.dt_bias.copy_(dt + torch.log(-torch.expm1(-dt)))
+    a = torch.arange(1, m.n + 1, dtype=torch.float32, device=m.A_log.device)
+    m.A_log.copy_(torch.log(a).expand_as(m.A_log))
+    m.D.fill_(1.0)
+
+
 class MambaMixer(nn.Module):
     """Selective-state-space mixer with 1/2/4-directional scans."""
 
@@ -90,26 +113,10 @@ class MambaMixer(nn.Module):
 
     @torch.no_grad()
     def init_own_params(self, gen: torch.Generator):
-        def uniform(t, scale):
-            tmp = torch.empty(t.shape, device=t.device)
-            t.copy_(tmp.uniform_(-scale, scale, generator=gen))
-
-        uniform(self.conv_w, self.d_conv**-0.5)
+        _uniform(self.conv_w, self.d_conv**-0.5, gen)
         if self.conv_b is not None:
-            uniform(self.conv_b, self.d_conv**-0.5)
-        uniform(self.x_proj_w, self.d_inner**-0.5)
-        uniform(self.dt_proj_w, self.rank**-0.5)
-        dt_min, dt_max, floor = self.dt_range
-        u = torch.empty(self.dt_bias.shape, device=self.dt_bias.device)
-        u.uniform_(0.0, 1.0, generator=gen)
-        dt = torch.exp(u * (math.log(dt_max) - math.log(dt_min))
-                       + math.log(dt_min)).clamp_min(floor)
-        # softplus^-1 so that softplus(bias) lands in [dt_min, dt_max]
-        self.dt_bias.copy_(dt + torch.log(-torch.expm1(-dt)))
-        a = torch.arange(1, self.n + 1, dtype=torch.float32,
-                         device=self.A_log.device)
-        self.A_log.copy_(torch.log(a).expand_as(self.A_log))
-        self.D.fill_(1.0)
+            _uniform(self.conv_b, self.d_conv**-0.5, gen)
+        init_ssm_params(self, gen)
 
     def _col_major(self, t, cls_pos):
         """Row-major tokens -> column-major (with middle-cls splicing)."""
@@ -283,11 +290,12 @@ def arm_cls_index(num_patches: int) -> int:
 
 
 def set_scan_backend(module: nn.Module, backend: str) -> None:
-    """Set ``scan_backend`` on every MambaMixer under ``module``."""
+    """Set ``scan_backend`` on every mixer under ``module``: the ARM's
+    ``MambaMixer`` and VMamba's ``SS2D``."""
     if backend not in SCAN_BACKENDS:
         raise ValueError(f"scan_backend {backend!r} not in {SCAN_BACKENDS}")
     for m in module.modules():
-        if isinstance(m, MambaMixer):
+        if hasattr(m, "scan_backend"):
             m.scan_backend = backend
 
 

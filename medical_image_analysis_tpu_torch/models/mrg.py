@@ -1,4 +1,4 @@
-"""Medical report generation: R2GenGPT (ARM tower) in PyTorch.
+"""Medical report generation: R2GenGPT and R2GenCSR in PyTorch.
 
 Counterpart of ``medical_image_analysis_tpu/models/mrg.py``:
 ``encoder -> LayerNorm + Linear projector -> [prompt, visual, text] ->
@@ -7,6 +7,7 @@ with the shared-prompt split beam cache.
 
 Batch convention (as in the JAX package):
   images       (B, V, H, W, 3)    V views, channels-last
+  context_images (B, 2N, H, W, 3) R2GenCSR: N positive, then N negative
   before_ids   (B, Lb)  prompt text before the image (starts with BOS)
   after_ids    (B, La)  prompt text after the image
   target_ids   (B, Lt)  report tokens, target_mask (B, Lt) 1 = real
@@ -30,6 +31,7 @@ from .llm import (
     split_beam_cache,
 )
 from .mamba import ARM
+from .vmamba import VSSM
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,20 +73,30 @@ def _encode_views(vision_fn, images, use_feature_mean=True):
 
 
 class VisionEncoder(nn.Module):
-    """Encoder dispatch -> tokens (B, L, D). The port has the ARM tower."""
+    """Encoder dispatch -> tokens (B, L, D): the ARM tower, or the VSSM's
+    last feature map flattened row-major. ``out_dim`` is D."""
 
     def __init__(self, chosen: str = "arm", arm_kwargs: Any = None,
-                 device=None):
+                 vssm_kwargs: Any = None, device=None):
         super().__init__()
-        if chosen != "arm":
+        self.chosen = chosen
+        if chosen == "arm":
+            self.arm = ARM(**(arm_kwargs or {}), device=device)
+            self.out_dim = self.arm.norm_f.normalized_shape[0]
+        elif chosen == "vssm":
+            self.vssm = VSSM(**(vssm_kwargs or {}), device=device)
+            self.out_dim = self.vssm.dims[-1]
+        else:
             raise NotImplementedError(
                 f"vision tower {chosen!r} is not ported yet (ROADMAP.md, "
-                "queue 1: vssm in slice 2, vit in slice 3, swin in slice 4)"
+                "queue 1: vit in slice 3, swin in slice 4)"
             )
-        self.chosen = chosen
-        self.arm = ARM(**(arm_kwargs or {}), device=device)
 
     def forward(self, x, deterministic: bool = True):
+        if self.chosen == "vssm":
+            fmap = self.vssm(x, pool=False, deterministic=deterministic)
+            b, h, w, c = fmap.shape
+            return fmap.reshape(b, h * w, c)
         return self.arm(x, deterministic)
 
 
@@ -213,9 +225,10 @@ class R2GenGPT(nn.Module, MRGMixin):
         self.llm_cfg = llm_cfg
         self.use_feature_mean = use_feature_mean
         self.global_only = global_only
-        self.vision = VisionEncoder(chosen, vision_kwargs, device=device)
+        self.vision = VisionEncoder(
+            chosen, **{f"{chosen}_kwargs": vision_kwargs}, device=device)
         self.llm = TransformerLM(llm_cfg, device=device)
-        vis_dim = self.vision.arm.norm_f.normalized_shape[0]
+        vis_dim = self.vision.out_dim
         self.proj_norm = layer_norm(vis_dim, device=device)
         self.proj = nn.Linear(vis_dim, llm_cfg.dim, device=device)
 
@@ -242,10 +255,92 @@ class R2GenGPT(nn.Module, MRGMixin):
         return self._generate(prompt, gcfg)
 
 
-class R2GenCSR:
-    """Context-sample retrieval MRG: not ported yet."""
+class R2GenCSR(nn.Module, MRGMixin):
+    """Context-sample retrieval MRG.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "R2GenCSR is not ported yet (ROADMAP.md, queue 1, slice 2)"
+    The context images (N positive then N negative exemplars per study,
+    drawn by the data layer) are encoded by the same tower without a
+    gradient and pooled; the prompt carries the residuals (the study's
+    global image feature minus each context feature, through ``ctx_proj``)
+    behind learnable positive and negative marker embeddings, then the
+    study's projected image tokens.
+    """
+
+    def __init__(
+        self,
+        llm_cfg: LLMConfig,
+        chosen: str = "vssm",
+        vision_kwargs: Any = None,
+        use_feature_mean: bool = True,
+        device=None,
+    ):
+        super().__init__()
+        self.llm_cfg = llm_cfg
+        self.use_feature_mean = use_feature_mean
+        self.vision = VisionEncoder(
+            chosen, **{f"{chosen}_kwargs": vision_kwargs}, device=device)
+        self.llm = TransformerLM(llm_cfg, device=device)
+        vis_dim = self.vision.out_dim
+        self.proj_norm = layer_norm(vis_dim, device=device)
+        self.proj = nn.Linear(vis_dim, llm_cfg.dim, device=device)
+        self.ctx_proj = nn.Linear(vis_dim, llm_cfg.dim, device=device)
+        self.pos_marker = nn.Parameter(
+            torch.empty(1, 1, llm_cfg.dim, device=device))
+        self.neg_marker = nn.Parameter(
+            torch.empty(1, 1, llm_cfg.dim, device=device))
+
+    @torch.no_grad()
+    def init_own_params(self, gen: torch.Generator):
+        for marker in (self.pos_marker, self.neg_marker):
+            tmp = torch.empty(marker.shape, device=marker.device)
+            marker.copy_(tmp.normal_(0.0, 0.02, generator=gen))
+
+    def encode_img(self, images, deterministic: bool = True):
+        """(projected image tokens (B, L, dim), global feature (B, D_vis))."""
+        tokens = _encode_views(
+            lambda x: self.vision(x, deterministic), images,
+            self.use_feature_mean,
         )
+        return self.proj(self.proj_norm(tokens)), tokens.mean(dim=1)
+
+    def context_residuals(self, global_feat, context_images):
+        """(B, D_vis) global features minus the pooled features of the
+        (B, N, H, W, 3) context images, in LLM space. The context tower runs
+        without a gradient (the JAX package's ``stop_gradient``)."""
+        b, n = context_images.shape[:2]
+        flat = context_images.reshape(b * n, *context_images.shape[2:])
+        with torch.no_grad():
+            ctx = self.vision(flat, True).mean(dim=1).reshape(b, n, -1)
+        return self.ctx_proj(global_feat[:, None, :] - ctx)
+
+    def _prompt(self, images, context_images, before_ids, after_ids,
+                deterministic):
+        img, global_feat = self.encode_img(images, deterministic)
+        return self.context_prompt(img, global_feat, context_images,
+                                   before_ids, after_ids)
+
+    def context_prompt(self, img, global_feat, context_images, before_ids,
+                       after_ids):
+        """The prompt from ``encode_img``'s outputs: [before, pos marker,
+        positive residuals, neg marker, negative residuals, image tokens,
+        after]."""
+        ctx = self.context_residuals(global_feat, context_images)
+        b, n = ctx.shape[0], ctx.shape[1] // 2
+        pos = self.pos_marker.expand(b, 1, self.llm_cfg.dim)
+        neg = self.neg_marker.expand(b, 1, self.llm_cfg.dim)
+        ctx_emb = torch.cat([pos, ctx[:, :n], neg, ctx[:, n:]], dim=1)
+        return self._wrap(torch.cat([ctx_emb, img], dim=1), before_ids,
+                          after_ids)
+
+    def forward(self, images, context_images, before_ids, after_ids,
+                target_ids, target_mask, deterministic: bool = True):
+        prompt = self._prompt(images, context_images, before_ids, after_ids,
+                              deterministic)
+        return self._loss(prompt, target_ids, target_mask)
+
+    @torch.no_grad()
+    def generate(self, images, context_images, before_ids, after_ids,
+                 gcfg: GenerateConfig = GenerateConfig()):
+        prompt = self._prompt(images, context_images, before_ids, after_ids,
+                              True)
+        return self._generate(prompt, gcfg)

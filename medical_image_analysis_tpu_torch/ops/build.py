@@ -25,7 +25,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_lock = threading.Lock()
+_locks: dict[str, threading.Lock] = {}
+_locks_lock = threading.Lock()
 _loaded: dict[str, tuple[ctypes.CDLL, str]] = {}
 
 
@@ -47,9 +48,13 @@ def load_library(name: str) -> tuple[ctypes.CDLL, str]:
     """Return ``(library, build_log)`` for ``csrc/<name>.cu``.
 
     ``build_log`` is nvcc's output (ptxas register and shared-memory
-    counts) when this call compiled the library, else "cached".
+    counts) when this call compiled the library, else "cached". Each
+    source has its own lock, so that threads build different sources at
+    once.
     """
-    with _lock:
+    with _locks_lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _loaded:
             return _loaded[name]
         src = CSRC_DIR / f"{name}.cu"

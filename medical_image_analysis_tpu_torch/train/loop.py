@@ -1,8 +1,10 @@
-"""The MRG training recipe on one device: ``fit_mrg`` for R2GenGPT + ARM.
+"""The MRG training recipe on one device: ``fit_mrg`` for R2GenGPT and
+R2GenCSR, on the ARM or the VSSM tower.
 
 Counterpart of ``medical_image_analysis_tpu/train/loop.py`` (``vision_preset``,
-``build_mrg_model``, ``build_data``, ``trainable_mask``, the r2gengpt
-branch of ``make_task_adapter``, ``fit_mrg``, ``evaluate_mrg``, ``fit``):
+``build_mrg_model``, ``build_data``, ``trainable_mask``, the r2gengpt and
+r2gencsr branches of ``make_task_adapter``, ``fit_mrg``, ``evaluate_mrg``,
+``fit``):
 build the data and the model from a seed, freeze the LLM and/or the tower,
 put LoRA on the LLM's q/v projections, train with accumulation and remat,
 validate by beam search with NLG and clinical-efficacy scores, and save
@@ -44,6 +46,7 @@ from ..data.datasets import (
     drop_unclear_reports,
     group_study_two_views,
     load_annotations,
+    load_chexbert_csv,
     prefetch,
     synthetic_annotations,
     synthetic_image_loader,
@@ -54,7 +57,8 @@ from ..evalx.nlg import compute_nlg_scores
 from ..models.common import init_params
 from ..models.llm import LLM_CONFIGS
 from ..models.mamba import ARM_CONFIGS
-from ..models.mrg import R2GenGPT
+from ..models.mrg import R2GenCSR, R2GenGPT
+from ..models.vmamba import VSSM_CONFIGS
 from ..peft.lora import apply_lora, init_lora, llama_qv_rules, vision_qv_rules
 from ..utils.logging import JsonlLogger, MetricLogger
 from .optim import make_adamw, scaled_lr, warmup_cosine
@@ -62,7 +66,6 @@ from .train_state import TrainState, make_train_step
 
 # ROADMAP.md, queue 1: where each task the JAX package trains is ported.
 _NOT_PORTED = {
-    "r2gencsr": "slice 2, item 12",
     "mae": "slice 3, item 13",
     "swinchex": "slice 4, item 14",
     "dp": "slice 4, item 14",
@@ -78,30 +81,38 @@ _NOT_PORTED = {
 
 
 _TOWERS_NOT_PORTED = {
-    "vssm": "slice 2, item 10",
     "vit": "slice 3, item 13",
     "swin": "slice 4, item 14",
 }
 
 
 def vision_preset(family: str, size: str, extra: dict | None = None) -> dict:
-    if family != "arm":
+    """The tower's kwargs. As in the JAX package, ``vssm`` names the
+    d_state=16 ``vssm_*`` configs; the d_state=1 ``vssm1_*`` family is
+    reached through ``extra`` (``model.vision_kwargs``)."""
+    if family == "arm":
+        base = dict(ARM_CONFIGS[f"arm_{size}_pz16"])
+    elif family == "vssm":
+        base = dict(VSSM_CONFIGS[f"vssm_{size}"])
+    else:
         raise NotImplementedError(
             f"vision tower {family!r} is not ported yet (ROADMAP.md, queue 1, "
             f"{_TOWERS_NOT_PORTED.get(family, 'slice 5')})"
         )
-    base = dict(ARM_CONFIGS[f"arm_{size}_pz16"])
     base.update(extra or {})
     return base
 
 
-def build_mrg_model(cfg: RunConfig, vocab_size: int, device=None) -> R2GenGPT:
-    """R2GenGPT with an ARM tower and a ``cfg.model.llm`` decoder.
+def build_mrg_model(cfg: RunConfig, vocab_size: int,
+                    device=None) -> R2GenGPT | R2GenCSR:
+    """R2GenGPT or R2GenCSR with an ARM or VSSM tower and a
+    ``cfg.model.llm`` decoder.
 
     Parameters are allocated on ``device`` and left uninitialised by
     this function: call ``models.common.init_params`` with a seeded
     generator, or load weights (``ckpt.from_jax``). ``train.remat``
-    checkpoints every ARM and LLM block under a gradient.
+    checkpoints every ARM and LLM block under a gradient (not the VSSM's,
+    as in the JAX package).
     ``model.llm_kwargs["vocab_size"]`` may size the LM's vocabulary above
     the tokenizer's ``vocab_size`` (ids past the tokenizer decode as
     ``<unk>``).
@@ -112,11 +123,10 @@ def build_mrg_model(cfg: RunConfig, vocab_size: int, device=None) -> R2GenGPT:
             "loading checkpoints (model.llm_weights_dir, model.vision_init) "
             "is not ported yet (ROADMAP.md, queue 1, item 9)"
         )
-    if m.task != "r2gengpt" or m.vision != "arm":
+    if m.task not in ("r2gengpt", "r2gencsr"):
         raise NotImplementedError(
-            f"task={m.task!r} with vision={m.vision!r} is not ported yet; "
-            "the port builds task=r2gengpt with vision=arm (ROADMAP.md, "
-            "queue 1)"
+            f"task {m.task!r} is not ported yet (ROADMAP.md, queue 1, "
+            f"{_NOT_PORTED.get(m.task, 'slice 5')})"
         )
     llm_kw = {"vocab_size": vocab_size, **(m.llm_kwargs or {})}
     llm_cfg = dataclasses.replace(LLM_CONFIGS[m.llm], **llm_kw)
@@ -124,12 +134,15 @@ def build_mrg_model(cfg: RunConfig, vocab_size: int, device=None) -> R2GenGPT:
         raise ValueError(f"model.llm_kwargs vocab_size {llm_cfg.vocab_size} "
                          f"is below the tokenizer's {vocab_size}")
     vk = vision_preset(m.vision, m.vision_size, m.vision_kwargs)
-    vk.setdefault("img_size", cfg.data.input_size)
+    if m.vision == "arm":
+        vk.setdefault("img_size", cfg.data.input_size)
     if cfg.train.remat:
         llm_cfg = dataclasses.replace(llm_cfg, remat=True)
-        vk.setdefault("remat", True)
-    return R2GenGPT(llm_cfg=llm_cfg, chosen=m.vision, vision_kwargs=vk,
-                    device=device, **(m.task_kwargs or {}))
+        if m.vision == "arm":
+            vk.setdefault("remat", True)
+    cls = R2GenCSR if m.task == "r2gencsr" else R2GenGPT
+    return cls(llm_cfg=llm_cfg, chosen=m.vision, vision_kwargs=vk,
+               device=device, **(m.task_kwargs or {}))
 
 
 def build_data(cfg: RunConfig):
@@ -162,8 +175,9 @@ def build_data(cfg: RunConfig):
     tok = WordTokenizer.from_corpus(
         (s.report for s in ann["train"]), min_freq=d.vocab_min_freq
     )
+    chexbert = load_chexbert_csv(d.chexbert_csv) if d.chexbert_csv else None
 
-    def batcher(split):
+    def batcher(split, n_context=0):
         bs = (
             d.val_batch_size
             if split != "train" and d.val_batch_size > 0
@@ -172,7 +186,10 @@ def build_data(cfg: RunConfig):
         return MRGBatcher(
             ann[split], tok, loader, bs, max_len=d.max_len,
             num_views=d.num_views, prompt_before=d.prompt,
-            prompt_after=d.prompt_after, num_workers=d.num_workers,
+            prompt_after=d.prompt_after, n_context=n_context,
+            context_mode=d.context_retrieval_mode,
+            context_keyword=d.context_keyword, chexbert_labels=chexbert,
+            num_workers=d.num_workers,
             regroup_views=two_view and split == "train",
         )
 
@@ -192,28 +209,32 @@ def trainable_mask(names, freeze_llm: bool,
 
 @dataclasses.dataclass
 class TaskAdapter:
-    """Batch -> positional arguments of the model's loss and generate."""
+    """Batch -> positional arguments of the model's loss and generate, and
+    the context exemplars per study that the batchers draw."""
 
     loss_args: Any
     gen_args: Any
+    n_context: int = 0
 
 
 def make_task_adapter(cfg: RunConfig) -> TaskAdapter:
     task = cfg.model.task
-    if task != "r2gengpt":
+    if task not in ("r2gengpt", "r2gencsr"):
         raise NotImplementedError(
             f"task {task!r} is not ported yet (ROADMAP.md, queue 1, "
             f"{_NOT_PORTED.get(task, 'slice 5')})"
-        )
-    if cfg.data.n_context:
-        raise NotImplementedError(
-            "context sampling (data.n_context) is not ported yet "
-            "(ROADMAP.md, queue 1, item 12)"
         )
 
     def base(b):
         return (b["before_ids"], b["after_ids"])
 
+    if task == "r2gencsr":
+        return TaskAdapter(
+            loss_args=lambda b: (b["images"], b["context_images"], *base(b),
+                                 b["target_ids"], b["target_mask"]),
+            gen_args=lambda b: (b["images"], b["context_images"], *base(b)),
+            n_context=cfg.data.n_context,
+        )
     return TaskAdapter(
         loss_args=lambda b: (b["images"], *base(b), b["target_ids"],
                              b["target_mask"]),
@@ -274,7 +295,7 @@ def evaluate_mrg(batcher: MRGBatcher, tok, gen_fn, device,
 
 
 def fit_mrg(cfg: RunConfig, device="cuda", on_start=None) -> dict:
-    """SFT of R2GenGPT: returns the last validation's scores (and
+    """SFT of R2GenGPT or R2GenCSR: returns the last validation's scores (and
     ``val_score``), or the scores of an eval-only run.
 
     ``on_start(model, state)``, when given, is called once the model and
@@ -351,7 +372,7 @@ def fit_mrg(cfg: RunConfig, device="cuda", on_start=None) -> dict:
     ema = state.ema_params if t.ema_decay > 0 else None
 
     def score(split: str, dump_name: str, weights=None) -> dict:
-        vb = batcher(split)
+        vb = batcher(split, n_context=ad.n_context)
         try:
             with _swapped(state.params, weights):
                 return evaluate_mrg(
@@ -380,7 +401,7 @@ def fit_mrg(cfg: RunConfig, device="cuda", on_start=None) -> dict:
         return scores
 
     step = make_train_step(loss_fn, t.accum_steps, t.ema_decay)
-    train_b = batcher("train")
+    train_b = batcher("train", n_context=ad.n_context)
     ml = MetricLogger()
     results: dict = {}
     best_score = float("-inf")
@@ -459,6 +480,6 @@ def _maybe_resume(state: TrainState, t) -> int:
 
 
 def fit(cfg: RunConfig, device="cuda", on_start=None) -> dict:
-    """The JAX package's dispatch by ``model.task``: r2gengpt is the task
-    ported, and ``fit_mrg`` raises for the others."""
+    """The JAX package's dispatch by ``model.task``: r2gengpt and r2gencsr
+    are the tasks ported, and ``fit_mrg`` raises for the others."""
     return fit_mrg(cfg, device, on_start)
