@@ -7,9 +7,10 @@ Run from the repository root. Each phase prints one line, and any failure
 raises (exit code 1):
 
 1. device   -- a CUDA card is required; prints its name and power limit.
-2. build    -- compiles ``medical_image_analysis_tpu_torch/csrc/mamba_fused.cu``
-               and ``csrc/scan_n1.cu`` with nvcc for sm_90a into
-               ``build/kernels/``, one nvcc per source, both at once.
+2. build    -- compiles ``medical_image_analysis_tpu_torch/csrc/mamba_fused.cu``,
+               ``csrc/scan_n1.cu`` and ``csrc/vit_block.cu`` with nvcc for
+               sm_90a into ``build/kernels/``, one nvcc per source, all at
+               once.
 3. kernels  -- both fused-Mamba forward kernels against their plain
                PyTorch versions on the card, at the ARM-B layer shapes of
                the ``r2gengpt_mimic`` preset (K=4, L=197, D=768, N=16,
@@ -57,6 +58,36 @@ raises (exit code 1):
                gradients through the kernels against the plain versions,
                from one cotangent at ``encode_img``'s outputs, and the
                context residuals (36 context images) likewise.
+11. kernels_vit -- the ViT block's two forward kernels (``vit_attn_fwd``,
+               ``vit_mlp_fwd``) against their plain versions at the shapes
+               of ``mae_hd_1280``'s main path, B=16 as it trains: the
+               encoder (L=1401, d=768, 12 heads) and the decoder (L=6401,
+               d=512, 16 heads) in fp32; the 224^2 MAE's encoder (L=50) and
+               decoder (L=197), and bench.py's encode in bf16 (B=64, L=145).
+               The plain versions walk the heads one at a time, so the
+               decoder's holds one head's (16, 6401, 6401) fp32 scores,
+               2.6 GB, a few at a time. Each line: max error against its
+               bound, the kernel's ms, the plain version's, and
+               ``library_ms``, the sub-layer composed of ``F.layer_norm``,
+               ``F.linear`` and ``F.scaled_dot_product_attention`` (a
+               yardstick the port never calls).
+    kernels_vit_bwd -- the two backward kernels against the plain
+               backwards (``attn_block_bwd_plain``, ``mlp_block_bwd_plain``,
+               per head as above; the CPU tests hold them to ``jax.vjp``
+               of the TPU kernels) at the same fp32 shapes, every output;
+               ms of the kernel, of the plain backward, and of the library
+               composition's forward + backward.
+12. train_mae -- the ``mae_hd_1280`` preset (MAE ViT-B/16 + 512x8 decoder,
+               1280^2 images, region masking: encoder L=1401, decoder
+               L=6401, batch 16, fp32) through ``cli.train.main`` on the
+               synthetic dataset for 3 epochs (6 steps), no train state
+               written: every loss finite, every parameter moved, each of
+               the four ViT kernels launched 20 sub-layers x 6 steps times;
+               step and set-up seconds, peak device memory.
+13. train_mae_grads -- one batch of the preset (16 images) with the first
+               step's masking noise: the loss and every parameter's
+               gradient through the kernels against the plain versions
+               (``set_fused(model, False)``), within a relative bound.
 
 Then one JSON line of the kernels, and the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -103,6 +134,10 @@ REPLACES = {
     "mamba_scan_bwd": "medical_image_analysis_tpu/ops/mamba_fused.py:197",
     "scan_n1_fwd": "medical_image_analysis_tpu/ops/scan_n1.py:89",
     "scan_n1_bwd": "medical_image_analysis_tpu/ops/scan_n1.py:150",
+    "vit_attn_fwd": "medical_image_analysis_tpu/ops/vit_block.py:81",
+    "vit_mlp_fwd": "medical_image_analysis_tpu/ops/vit_block.py:126",
+    "vit_attn_bwd": "medical_image_analysis_tpu/ops/vit_block.py:298",
+    "vit_mlp_bwd": "medical_image_analysis_tpu/ops/vit_block.py:235",
 }
 # vssm1_base's stages at 224^2: (H = W, model dim); d_inner = 2 dim, R = dim/16
 N1_STAGES = ((56, 128), (28, 256), (14, 512), (7, 1024))
@@ -130,6 +165,29 @@ BWD_RTOL = 1e-4
 # and rescaled by the final LayerNorm and projector. The same bound holds
 # the tower's and projector's gradients, relative to each tensor's largest.
 TOWER_RTOL = 1e-3
+MAE_PRESET = PRESET.parent / "mae_hd_1280.yaml"
+MAE_EPOCHS = 3  # 2 steps an epoch of the synthetic train split at batch 16
+# (B, L, d, heads, dtype): the ViT sub-layers on the main path of
+# mae_hd_1280 (encoder 1 + 1100 + 300 tokens, decoder 1 + 6400), the 224^2
+# MAE's (1 + 49, 1 + 196) and bench.py's encode at 384^2 in bf16.
+VIT_CASES = (
+    (16, 1401, 768, 12, torch.float32),
+    (16, 6401, 512, 16, torch.float32),
+    (16, 50, 768, 12, torch.float32),
+    (16, 197, 512, 16, torch.float32),
+    (64, 145, 768, 12, torch.bfloat16),
+)
+# fp32: reordered sums, 1e-4 of max(1, max |plain|). bf16: both sides round
+# at the TPU kernel's points, but the kernel rounds exp(s - m) before the
+# softmax's division and the plain version after it, so two bf16 steps.
+VIT_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-6}
+VIT_GRADS = {"attn": ("dx", "dwqkv", "dbqkv", "dwo", "dbo", "dg", "db"),
+             "mlp": ("dx", "dw1", "db1", "dw2", "db2", "dg", "db")}
+# The published H100 SXM peaks (NVIDIA's H100 datasheet) that bound_ms
+# divides by: HBM bytes per second, and operations per second by type
+# (fp32 outside the tensor cores; bf16 inputs on the tensor cores).
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
 
 def _phase(phase: str, /, **fields) -> None:
@@ -162,6 +220,28 @@ def device_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _bound(tensors, ops: float, dtype=torch.float32) -> tuple[float, str]:
+    """The least time (ms) the card could take for a call: its inputs read
+    once and its outputs written once at the HBM rate, or its operations at
+    the peak rate of their type, whichever is larger; and which it is."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors
+                 if t is not None)
+    by_bytes = nbytes / HBM_BYTES_S * 1e3
+    by_ops = ops / PEAK_OPS_S[dtype] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                            "operations")
+
+
+# Operations of the scan kernels per (image, direction, row, channel),
+# counted from the algorithm (a multiply-add is two, an exp or a softplus
+# one each): the causal conv and SiLU 13, dt_proj 2R, softplus 4, the
+# N-state update and readout 7N, the D skip 2; the backward recomputes the
+# forward and runs the adjoint (2R + 10N). The d_state=1 scan: dt_proj 2R,
+# softplus, decay, update, readout and skip 13; its backward as above.
+def _mamba_ops(rank, n):
+    return 13 + 2 * rank + 4 + 7 * n + 2
+
+
 def _max_err(got, want):
     err = (got.float() - want.float()).abs().max().item()
     scale = max(1.0, want.float().abs().max().item())
@@ -188,18 +268,17 @@ def phase_device() -> None:
 def phase_build() -> None:
     from concurrent.futures import ThreadPoolExecutor
 
-    from medical_image_analysis_tpu_torch.ops import mamba_fused, scan_n1
-
+    modules = _kernel_modules()
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:  # one nvcc per source
-        logs = list(pool.map(lambda m: m.build()[1], (mamba_fused, scan_n1)))
+    with ThreadPoolExecutor(max_workers=len(modules)) as pool:  # one nvcc each
+        logs = list(pool.map(lambda m: m.build()[1], modules))
     secs = time.perf_counter() - t0
     for log in logs:  # ptxas: registers, shared memory, spills
         for line in log.splitlines():
             if "ptxas info" in line or "spill" in line:
                 print(line.strip(), file=sys.stderr)
     _phase("build", seconds=f"{secs:.2f}",
-           sources=",".join((mamba_fused.KERNEL_SOURCE, scan_n1.KERNEL_SOURCE)))
+           sources=",".join(m.KERNEL_SOURCE for m in modules))
 
 
 def preset_layer(cfg, dev, gen):
@@ -280,9 +359,14 @@ def phase_kernels(cfg, dev, gen, batches=(1, 6)) -> dict:
                 scan_plain_ms=f"{t['scan_plain']:.4f}",
             )
             if b == 1 and dtype == torch.float32:
+                elems = b * mixer.k * seq_len * mixer.d_inner
                 serving = {
-                    "mamba_xdbl": (err_x, t["xdbl"], t["xdbl_plain"]),
-                    "mamba_scan": (err_y, t["scan"], t["scan_plain"]),
+                    "mamba_xdbl": (err_x, t["xdbl"], t["xdbl_plain"],
+                                   *_bound([*xargs, got_x], elems * (
+                                       2 * got_x.shape[-1] + 13))),
+                    "mamba_scan": (err_y, t["scan"], t["scan_plain"],
+                                   *_bound([*sargs, got_y], elems * _mamba_ops(
+                                       mixer.rank, mixer.n))),
                 }
     return serving
 
@@ -336,7 +420,11 @@ def phase_kernels_bwd(cfg, dev, gen, batches=(1, 6)) -> tuple:
                 bwd_ms=f"{t['kernel']:.4f}", bwd_plain_ms=f"{t['plain']:.4f}",
             )
             if b == 6 and dtype == torch.float32:
-                training = (max(errs.values()), t["kernel"], t["plain"])
+                elems = b * mixer.k * seq_len * mixer.d_inner
+                ops = elems * (2 * _mamba_ops(mixer.rank, mixer.n)
+                               + 2 * mixer.rank + 10 * mixer.n)
+                training = (max(errs.values()), t["kernel"], t["plain"],
+                            *_bound([*args, *got], ops))
     return training
 
 
@@ -465,13 +553,15 @@ def _fingerprint(t: torch.Tensor) -> tuple:
                 t.abs().sum(dtype=torch.float64).item())
 
 
-def _train_through_cli(argv: list[str], save_dir: Path, device: str) -> dict:
-    """``cli.train.main(argv)`` for one epoch, with the kernels' counts at 0
-    just before and read just after. Checks what every training run must
-    show: the steps of the epoch, each finite; one validation with finite
-    scores; the delta written; every trainable tensor moved and no frozen
-    one. Returns the model, the state, the run's config and counts, and the
-    fields that the phases print."""
+def _train_through_cli(argv: list[str], save_dir: Path, device: str,
+                       epochs: int = 1, validated: bool = True) -> dict:
+    """``cli.train.main(argv)`` for ``epochs``, with the kernels' counts at
+    0 just before and read just after. Checks what every training run must
+    show: the steps of the epochs, each finite; finite scores; every
+    trainable tensor moved and no frozen one; when ``validated``, one
+    validation and the delta written. Returns the model, the state, the
+    run's config and counts, and the fields that the phases print (set-up
+    seconds: from the call to the first step)."""
     from medical_image_analysis_tpu_torch.cli import train as cli_train
 
     seen = {}
@@ -481,6 +571,8 @@ def _train_through_cli(argv: list[str], save_dir: Path, device: str) -> dict:
         seen["trainable"] = {n: p.detach().clone()
                              for n, p in state.params.items()}
         seen["frozen"] = {n: _fingerprint(p) for n, p in state.frozen.items()}
+        _sync(torch.device(device))
+        seen["setup_s"] = time.perf_counter() - t0
 
     cuda = torch.device(device).type == "cuda"
     if cuda:
@@ -503,15 +595,17 @@ def _train_through_cli(argv: list[str], save_dir: Path, device: str) -> dict:
         records = [json.loads(line) for line in f]
     steps = [r for r in records if "step" in r]
     vals = [r for r in records if "val_s" in r]
-    n_steps = TRAIN_SAMPLES // batch
+    n_steps = epochs * (TRAIN_SAMPLES // batch)
     _check(len(steps) == n_steps, f"{len(steps)} steps, expected {n_steps}")
     _check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
                for r in steps), "a non-finite loss or grad norm")
-    _check(len(vals) == 1 and all(np.isfinite(v) for v in scores.values()),
-           "validation missing or non-finite scores")
-    deltas = sorted(save_dir.glob("checkpoint_epoch0_*.pt"))
-    _check(len(deltas) == 1 and (save_dir / "checkpoint_best.pt").exists(),
-           "delta checkpoint not written")
+    _check(all(np.isfinite(v) for v in scores.values()), "non-finite scores")
+    if validated:
+        _check(len(vals) == 1, "validation missing")
+        deltas = sorted(save_dir.glob("checkpoint_epoch0_*.pt"))
+        _check(len(deltas) == 1
+               and (save_dir / "checkpoint_best.pt").exists(),
+               "delta checkpoint not written")
     moved = sum(not torch.equal(p, seen["trainable"][n])
                 for n, p in state.params.items())
     _check(moved == len(state.params),
@@ -527,10 +621,13 @@ def _train_through_cli(argv: list[str], save_dir: Path, device: str) -> dict:
         losses=",".join(f"{r['loss']:.4f}" for r in steps),
         grad_norms=",".join(f"{r['grad_norm']:.4f}" for r in steps),
         step_s=",".join(f"{r['step_s']:.3f}" for r in steps),
-        val_s=f"{vals[0]['val_s']:.3f}", total_s=f"{total_s:.2f}",
-        peak_mem_gib=f"{peak / 2**30:.3f}", bleu4=f"{scores['Bleu_4']:.4f}",
+        setup_s=f"{seen['setup_s']:.2f}", total_s=f"{total_s:.2f}",
+        peak_mem_gib=f"{peak / 2**30:.3f}",
         launches=json.dumps(launches, separators=(",", ":")),
     )
+    if validated:
+        fields.update(val_s=f"{vals[0]['val_s']:.3f}",
+                      bleu4=f"{scores['Bleu_4']:.4f}")
     val_bs = cfg["data"]["val_batch_size"] or batch
     return {"model": model, "state": state, "cfg": cfg, "cuda": cuda,
             "n_steps": n_steps, "val_batches": -(-VAL_SAMPLES // val_bs),
@@ -734,7 +831,8 @@ def phase_kernels_n1(dev, gen) -> tuple:
         if dtype == torch.float32:
             worst = max(worst, err)
             if stage == 0 and b == N1_BATCH:
-                row = (t["kernel"], t["plain"])
+                ops = 4 * b * hw * hw * d_in * (2 * rank + 13)
+                row = (t["kernel"], t["plain"], *_bound([*args, got], ops))
     return (worst, *row)
 
 
@@ -771,23 +869,30 @@ def phase_kernels_n1_bwd(dev, gen) -> tuple:
         if dtype == torch.float32:
             worst = max(worst, max(errs.values()))
             if stage == 0 and b == N1_BATCH:
-                row = (t["kernel"], t["plain"])
+                ops = 4 * b * hw * hw * d_in * (2 * (2 * rank + 13) + 2 * rank
+                                                + 10)
+                row = (t["kernel"], t["plain"],
+                       *_bound([*args, dy, *got], ops))
     return (worst, *row)
 
 
-def _all_launches() -> dict:
-    from medical_image_analysis_tpu_torch.ops import mamba_fused as mf
-    from medical_image_analysis_tpu_torch.ops import scan_n1 as sn
+def _kernel_modules():
+    from medical_image_analysis_tpu_torch.ops import (
+        mamba_fused,
+        scan_n1,
+        vit_block,
+    )
 
-    return {**mf.launches, **sn.launches}
+    return mamba_fused, scan_n1, vit_block
+
+
+def _all_launches() -> dict:
+    return {k: v for m in _kernel_modules() for k, v in m.launches.items()}
 
 
 def _reset_launches() -> None:
-    from medical_image_analysis_tpu_torch.ops import mamba_fused as mf
-    from medical_image_analysis_tpu_torch.ops import scan_n1 as sn
-
-    mf.reset_launches()
-    sn.reset_launches()
+    for m in _kernel_modules():
+        m.reset_launches()
 
 
 def phase_train_csr(vocab: int, save_dir: Path, device: str = "cuda",
@@ -918,6 +1023,274 @@ def phase_train_csr_grads(model, state, overrides) -> None:
            kernel_s=f"{secs['auto']:.3f}", plain_s=f"{secs['plain']:.3f}")
 
 
+def _vit_weights(d: int, heads: int, dtype, dev, gen):
+    """An initialised ``TransformerBlock``'s attention and MLP weights in
+    ``dtype``, with biases and LayerNorm affines moved off their zero and
+    one initial values, as training moves them."""
+    from medical_image_analysis_tpu_torch.models.common import init_params
+    from medical_image_analysis_tpu_torch.models.vit import TransformerBlock
+
+    blk = TransformerBlock(d, heads, device=dev)
+    init_params(blk, gen)
+    with torch.no_grad():
+        for p in (blk.qkv_bias, blk.proj_bias, blk.fc1_bias, blk.fc2_bias,
+                  blk.ln1_bias, blk.ln2_bias):
+            p.normal_(0.0, 0.02, generator=gen)
+        for p in (blk.ln1_scale, blk.ln2_scale):
+            p.normal_(1.0, 0.02, generator=gen)
+
+    def w(*ps):
+        return tuple(p.detach().to(dtype).contiguous() for p in ps)
+
+    return {"attn": w(blk.qkv_kernel, blk.qkv_bias, blk.proj_kernel,
+                      blk.proj_bias, blk.ln1_scale, blk.ln1_bias),
+            "mlp": w(blk.fc1_kernel, blk.fc1_bias, blk.fc2_kernel,
+                     blk.fc2_bias, blk.ln2_scale, blk.ln2_bias)}
+
+
+def attn_library(x, wqkv, bqkv, wo, bo, g, b, heads):
+    """The attention sub-layer as a composition of PyTorch calls
+    (``F.layer_norm``, ``F.linear``, ``F.scaled_dot_product_attention``):
+    the yardstick timed beside the kernels (``library_ms``). The port never
+    calls it."""
+    F = torch.nn.functional
+    bsz, seq, d = x.shape
+    h = F.layer_norm(x, (d,), g, b, 1e-6)
+    qkv = F.linear(h, wqkv.t(), bqkv).view(bsz, seq, 3, heads, d // heads)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    o = F.scaled_dot_product_attention(q, k, v).transpose(1, 2)
+    return x + F.linear(o.reshape(bsz, seq, d), wo.t(), bo)
+
+
+def mlp_library(x, w1, b1, w2, b2, g, b):
+    """The MLP sub-layer as a composition of PyTorch calls; a yardstick as
+    :func:`attn_library`."""
+    F = torch.nn.functional
+    h = F.layer_norm(x, (x.shape[-1],), g, b, 1e-6)
+    hidden = F.gelu(F.linear(h, w1.t(), b1), approximate="tanh")
+    return x + F.linear(hidden, w2.t(), b2)
+
+
+def _vit_fns(kind: str, heads: int):
+    """(kernel, plain, library, kernel bwd, plain bwd) of one sub-layer, each
+    taking (x, *weights[, dy])."""
+    from medical_image_analysis_tpu_torch.ops import vit_block as vb
+
+    if kind == "mlp":
+        return (vb.mlp_block_fwd, vb.mlp_block_plain, mlp_library,
+                vb.mlp_block_bwd, vb.mlp_block_bwd_plain)
+
+    def bind(fn):
+        return lambda x, *a: fn(x, *a[:6], heads, *a[6:])
+
+    return tuple(bind(f) for f in (
+        vb.attn_block_fwd, vb.attn_block_plain, attn_library,
+        vb.attn_block_bwd, vb.attn_block_bwd_plain))
+
+
+def _iters(ops: float) -> int:
+    """Calls to time: about 0.5 TFLOP of work, 2 to 20 calls."""
+    return max(2, min(20, int(5e11 / ops)))
+
+
+def _dtype_name(dtype) -> str:
+    return "fp32" if dtype == torch.float32 else "bf16"
+
+
+def phase_kernels_vit(dev, gen) -> dict:
+    """Both forward kernels against their plain versions at ``VIT_CASES``;
+    returns the JSON rows (the encoder of mae_hd_1280, B=16, fp32)."""
+    from medical_image_analysis_tpu_torch.ops import vit_block as vb
+
+    rows = {}
+    for b, l, d, heads, dtype in VIT_CASES:
+        weights = _vit_weights(d, heads, dtype, dev, gen)
+        x = torch.randn(b, l, d, device=dev, generator=gen).to(dtype)
+        for kind in ("attn", "mlp"):
+            kernel, plain, library, _, _ = _vit_fns(kind, heads)
+            args = (x, *weights[kind])
+            ops = vb.flops(f"{kind}_fwd", b, l, d, heads, 4 * d)
+            iters = _iters(ops)
+            got = kernel(*args)
+            _sync(dev)
+            _check(got.shape == x.shape and got.dtype == dtype
+                   and bool(torch.isfinite(got).all()),
+                   f"vit_{kind}_fwd output shape, dtype or finiteness")
+            err, scale = _max_err(got, plain(*args))
+            _check(err <= VIT_RTOL[dtype] * scale,
+                   f"vit_{kind}_fwd B={b} L={l} {dtype}: max abs err "
+                   f"{err:.3e} > {VIT_RTOL[dtype]} x {scale:.3f}")
+            t = _in_turns(lambda: plain(*args), lambda: kernel(*args),
+                          iters, iters)
+            lib_ms = device_ms(lambda: library(*args), iters)
+            bound = _bound([*args, got], ops, dtype)
+            _phase("kernels_vit", kernel=f"vit_{kind}_fwd", B=b, L=l, d=d,
+                   heads=heads, dtype=_dtype_name(dtype), err=f"{err:.3e}",
+                   ms=f"{t['kernel']:.4f}", plain_ms=f"{t['plain']:.4f}",
+                   library_ms=f"{lib_ms:.4f}", bound_ms=f"{bound[0]:.4f}",
+                   bound_by=bound[1],
+                   tflops=f"{ops / t['kernel'] / 1e9:.2f}")
+            if (b, l, dtype) == (16, 1401, torch.float32):
+                rows[f"vit_{kind}_fwd"] = (err, t["kernel"], t["plain"],
+                                           *bound, lib_ms)
+            del got
+    return rows
+
+
+def phase_kernels_vit_bwd(dev, gen) -> dict:
+    """Both backward kernels against the plain backwards at the fp32
+    cases, every output; ms of the kernel, of the plain backward and of the
+    library composition's forward + backward. Returns the JSON rows (the
+    encoder, B=16)."""
+    from medical_image_analysis_tpu_torch.ops import vit_block as vb
+
+    rows = {}
+    for b, l, d, heads, dtype in VIT_CASES:
+        if dtype != torch.float32:
+            continue
+        weights = _vit_weights(d, heads, dtype, dev, gen)
+        x = torch.randn(b, l, d, device=dev, generator=gen)
+        dy = torch.randn(b, l, d, device=dev, generator=gen)
+        for kind in ("attn", "mlp"):
+            _, _, library, kernel, plain_bwd = _vit_fns(kind, heads)
+            args = (x, *weights[kind])
+            ops = vb.flops(f"{kind}_bwd", b, l, d, heads, 4 * d)
+            iters = _iters(ops)
+            got = kernel(*args, dy)
+            want = plain_bwd(*args, dy)
+            _sync(dev)
+            errs = {}
+            for name, g, wv in zip(VIT_GRADS[kind], got, want):
+                _check(g.shape == wv.shape and g.dtype == torch.float32
+                       and bool(torch.isfinite(g).all()),
+                       f"vit_{kind}_bwd {name}: shape, dtype or finiteness")
+                err, scale = _max_err(g, wv)
+                _check(err <= BWD_RTOL * scale,
+                       f"vit_{kind}_bwd B={b} L={l} {name}: max abs err "
+                       f"{err:.3e} > {BWD_RTOL} x {scale:.3f}")
+                errs[name] = err
+            del want
+            t = _in_turns(lambda: plain_bwd(*args, dy),
+                          lambda: kernel(*args, dy), iters, iters)
+            lib_leaves = [a.detach().clone().requires_grad_() for a in args]
+            lib_ms = device_ms(lambda: torch.autograd.grad(
+                library(*lib_leaves), lib_leaves, dy), iters)
+            bound = _bound([*args, dy, *got], ops)
+            _phase("kernels_vit_bwd", kernel=f"vit_{kind}_bwd", B=b, L=l,
+                   d=d, heads=heads,
+                   errs=json.dumps({k: f"{v:.3e}" for k, v in errs.items()},
+                                   separators=(",", ":")),
+                   ms=f"{t['kernel']:.4f}", plain_ms=f"{t['plain']:.4f}",
+                   library_ms=f"{lib_ms:.4f}", bound_ms=f"{bound[0]:.4f}",
+                   bound_by=bound[1], tflops=f"{ops / t['kernel'] / 1e9:.2f}")
+            if (b, l) == (16, 1401):
+                rows[f"vit_{kind}_bwd"] = (max(errs.values()), t["kernel"],
+                                           t["plain"], *bound, lib_ms)
+            del got, lib_leaves
+    return rows
+
+
+def phase_train_mae(save_dir: Path, device: str = "cuda",
+                    overrides=()) -> dict:
+    """The mae_hd_1280 preset through the CLI for ``MAE_EPOCHS`` epochs;
+    returns the model, the state, the overrides and the launch counts.
+    ``overrides`` come after the phase's own (a CPU rehearsal shrinks the
+    widths and the images with them)."""
+    from medical_image_analysis_tpu_torch.models.vit import region_split
+
+    sets = ("data.dataset=synthetic", f"train.epochs={MAE_EPOCHS}",
+            f"train.save_state_every_epochs={MAE_EPOCHS + 1}",
+            "train.log_every=1", f"train.save_dir={save_dir}", *overrides)
+    argv = ["--config", str(MAE_PRESET)]
+    for item in sets:
+        argv += ["--set", item]
+    run = _train_through_cli(argv, save_dir, device, epochs=MAE_EPOCHS,
+                             validated=False)
+    model, n_steps, cfg = run["model"], run["n_steps"], run["cfg"]
+    l = model.num_patches(torch.empty(1, cfg["data"]["input_size"],
+                                      cfg["data"]["input_size"], 1))
+    idx_out, idx_in = region_split(l)
+    keep = (int(len(idx_out) * (1 - cfg["model"]["mask_ratio"]))
+            + int(len(idx_in) * (1 - cfg["model"]["mask_ratio_inner"])))
+
+    # What the design implies: every TransformerBlock runs its attention and
+    # MLP sub-layers through one forward and one backward wrapper call a
+    # step (no remat, no validation).
+    blocks = len(model.blocks) + len(model.decoder_blocks)
+    _check_launches(
+        run, dict.fromkeys(("vit_attn_fwd", "vit_mlp_fwd", "vit_attn_bwd",
+                            "vit_mlp_bwd"), blocks * n_steps), "train_mae",
+        f"{len(model.blocks)} encoder + {len(model.decoder_blocks)} decoder "
+        f"blocks, each one attention and one MLP sub-layer forward and "
+        f"backward, x {n_steps} steps")
+    _phase("train_mae", preset=MAE_PRESET.name,
+           params=sum(p.numel() for p in model.parameters()),
+           encoder_tokens=1 + keep, decoder_tokens=1 + l, **run["fields"])
+    return {"model": model, "state": run["state"],
+            "launches": run["launches"], "overrides": sets}
+
+
+def phase_train_mae_grads(model, overrides) -> None:
+    """One batch of the preset's data with the first step's masking noise:
+    the loss and every parameter's gradient through the kernels against
+    the plain versions, forward and backward (``set_fused(model,
+    False)``)."""
+    from medical_image_analysis_tpu_torch.ckpt.from_jax import (
+        flax_named_parameters,
+    )
+    from medical_image_analysis_tpu_torch.configs.config import load_config
+    from medical_image_analysis_tpu_torch.models.vit import set_fused
+    from medical_image_analysis_tpu_torch.ops import vit_block as vb
+    from medical_image_analysis_tpu_torch.train.loop import (
+        build_data,
+        mae_loss_fn,
+        mae_mask_noise,
+    )
+
+    cfg = load_config(str(MAE_PRESET), [*overrides, "data.num_workers=1"])
+    _, _, batcher, _ = build_data(cfg)
+    train_b = batcher("train")
+    try:
+        host = next(train_b.batches(shuffle=False))
+    finally:
+        train_b.close()
+    dev = next(model.parameters()).device
+    batch = cfg.data.batch_size
+    imgs = torch.from_numpy(host["images"][:, 0]).to(dev)
+    _check(imgs.shape[0] == batch, f"a batch of {imgs.shape[0]} images")
+    noise = mae_mask_noise(cfg.train.seed, 0, batch, model.num_patches(imgs),
+                           dev)
+    loss_fn = mae_loss_fn(model, cfg.model)
+    named = flax_named_parameters(model)
+    names, tensors = list(named), list(named.values())
+    blocks = len(model.blocks) + len(model.decoder_blocks)
+    losses, grads, secs = {}, {}, {}
+    for fused in (True, False):
+        set_fused(model, fused)
+        vb.reset_launches()
+        t0 = time.perf_counter()
+        loss = loss_fn({"images": imgs, "mask_noise": noise})
+        grads[fused] = torch.autograd.grad(loss, tensors)
+        _sync(dev)
+        secs[fused] = time.perf_counter() - t0
+        losses[fused] = loss.item()
+        del loss
+        if fused and dev.type == "cuda":
+            _check(vb.launches == dict.fromkeys(vb.launches, blocks),
+                   f"train_mae_grads launches {vb.launches}")
+    set_fused(model, True)
+    loss_rel = abs(losses[True] - losses[False]) / abs(losses[False])
+    rel, at = _worst_rel(names, grads[True], grads[False])
+    _check(loss_rel <= TOWER_RTOL,
+           f"loss: rel err {loss_rel:.3e} > {TOWER_RTOL}")
+    _check(rel <= TOWER_RTOL,
+           f"grad of {at}: max rel err {rel:.3e} > {TOWER_RTOL}")
+    _phase("train_mae_grads", tensors=len(names), batch=batch,
+           loss=f"{losses[True]:.6f}", loss_rel_err=f"{loss_rel:.3e}",
+           max_rel_err=f"{rel:.3e}", at=at, bound=TOWER_RTOL,
+           kernel_s=f"{secs[True]:.3f}", plain_s=f"{secs[False]:.3f}")
+
+
 def main() -> None:
     phase_device()
     dev = torch.device("cuda")
@@ -952,21 +1325,32 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_csr_") as tmp:
         csr = phase_train_csr(VOCAB, Path(tmp))
     phase_train_csr_grads(csr["model"], csr["state"], csr["overrides"])
-    from medical_image_analysis_tpu_torch.ops import mamba_fused, scan_n1
+    csr_launches = csr["launches"]
+    del csr
+    torch.cuda.empty_cache()
+    measured.update(phase_kernels_vit(dev, gen))
+    measured.update(phase_kernels_vit_bwd(dev, gen))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mae_") as tmp:
+        mae = phase_train_mae(Path(tmp))
+    phase_train_mae_grads(mae["model"], mae["overrides"])
 
-    # launches: the main paths' runs (serving, the two trainings), each
+    # launches: the main paths' runs (serving, the three trainings), each
     # read just after it was driven with the counts at 0
-    main_runs = {name: launches.get(name, 0) + train_launches.get(name, 0)
-                 + csr["launches"].get(name, 0) for name in REPLACES}
-    kernels = [
-        {"name": name, "route": "cuda",
-         "source": (scan_n1 if name.startswith("scan_n1")
-                    else mamba_fused).KERNEL_SOURCE,
-         "replaces": REPLACES[name], "launches": main_runs[name],
-         "max_abs_err": measured[name][0], "ms": measured[name][1],
-         "plain_ms": measured[name][2]}
-        for name in REPLACES
-    ]
+    main_runs = {name: sum(run.get(name, 0) for run in (
+        launches, train_launches, csr_launches, mae["launches"]))
+        for name in REPLACES}
+    sources = {k: m.KERNEL_SOURCE for m in _kernel_modules()
+               for k in m.launches}
+    kernels = []
+    for name in REPLACES:
+        err, ms, plain_ms, bound_ms, bound_by, *lib = measured[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": sources[name],
+            "replaces": REPLACES[name], "launches": main_runs[name],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib[0] if lib else None})
     _check(all(k["launches"] > 0 for k in kernels),
            f"a kernel of the main paths never launched: {main_runs}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -12,8 +12,15 @@ name, with these conversions:
   ``dt_proj_w``, ``cls_token``, ``pos_embed``, ``pos_marker`` and
   ``neg_marker`` keep their layout.
 
+The MAE needs no rule of its own: its blocks are modules named as the
+flax ones (``block<i>``, ``dec_block<i>``) whose parameters are raw
+``self.param``s in flax's layout (``qkv_kernel`` (d, 3d), ``ln1_scale``,
+...), copied as they are; ``decoder_embed`` and ``decoder_pred`` are
+Dense, ``patch_embed/proj`` a conv, ``encoder_norm`` and ``decoder_norm``
+LayerNorms, ``cls_token`` and ``mask_token`` plain parameters.
+
 One function serves ``ARM``, ``VSSM`` (and its ``SS2D`` and ``VSSBlock``),
-``TransformerLM``, ``R2GenGPT`` and ``R2GenCSR``: pass the
+``TransformerLM``, ``R2GenGPT``, ``R2GenCSR`` and ``MAE``: pass the
 ``params`` subtree whose root matches the port module's root.
 :func:`flax_named_parameters` names the port's parameters the other way
 round, and :func:`lora_from_jax` carries a JAX LoRA tree.

@@ -99,6 +99,15 @@ class PatchEmbed(nn.Module):
         x = self.proj(x)  # (B, dim, h, w)
         return x.flatten(2).transpose(1, 2)
 
+    def embed_flat(self, patches: torch.Tensor) -> torch.Tensor:
+        """Embed already-patchified pixels (B, K, p*p*C), each patch in the
+        conv's (p, p, C) order (``models.vit.patchify``): the conv as the
+        product with its kernel flattened in that order (MAE's mask-first
+        path embeds only the kept patches)."""
+        w = self.proj.weight  # (dim, C, p, p)
+        w = w.permute(0, 2, 3, 1).reshape(w.shape[0], -1)
+        return F.linear(patches.to(w.dtype), w, self.proj.bias)
+
 
 class DropPath(nn.Module):
     """Stochastic depth: drop the residual branch per sample."""

@@ -89,7 +89,7 @@ class VisionEncoder(nn.Module):
         else:
             raise NotImplementedError(
                 f"vision tower {chosen!r} is not ported yet (ROADMAP.md, "
-                "queue 1: vit in slice 3, swin in slice 4)"
+                "queue 1: vit and swin in slice 4)"
             )
 
     def forward(self, x, deterministic: bool = True):

@@ -1,14 +1,16 @@
-"""The MRG training recipe on one device: ``fit_mrg`` for R2GenGPT and
-R2GenCSR, on the ARM or the VSSM tower.
+"""The training recipes on one device: ``fit_mrg`` for R2GenGPT and
+R2GenCSR, on the ARM or the VSSM tower, and ``fit_mae`` for MAE pretraining.
 
 Counterpart of ``medical_image_analysis_tpu/train/loop.py`` (``vision_preset``,
 ``build_mrg_model``, ``build_data``, ``trainable_mask``, the r2gengpt and
 r2gencsr branches of ``make_task_adapter``, ``fit_mrg``, ``evaluate_mrg``,
-``fit``):
+``fit_mae``, ``fit``):
 build the data and the model from a seed, freeze the LLM and/or the tower,
 put LoRA on the LLM's q/v projections, train with accumulation and remat,
 validate by beam search with NLG and clinical-efficacy scores, and save
 trainable-only deltas, the best one, and full train states for resume.
+MAE pretraining trains every parameter of the masked autoencoder and saves
+full train states.
 
 The other tasks, towers and options raise ``NotImplementedError`` naming
 their ROADMAP.md item. Beyond the JAX recipe, each step's loss, grad norm,
@@ -58,6 +60,7 @@ from ..models.common import init_params
 from ..models.llm import LLM_CONFIGS
 from ..models.mamba import ARM_CONFIGS
 from ..models.mrg import R2GenCSR, R2GenGPT
+from ..models.vit import MAE
 from ..models.vmamba import VSSM_CONFIGS
 from ..peft.lora import apply_lora, init_lora, llama_qv_rules, vision_qv_rules
 from ..utils.logging import JsonlLogger, MetricLogger
@@ -66,7 +69,6 @@ from .train_state import TrainState, make_train_step
 
 # ROADMAP.md, queue 1: where each task the JAX package trains is ported.
 _NOT_PORTED = {
-    "mae": "slice 3, item 13",
     "swinchex": "slice 4, item 14",
     "dp": "slice 4, item 14",
     "emrrg": "slice 5, item 16",
@@ -81,7 +83,7 @@ _NOT_PORTED = {
 
 
 _TOWERS_NOT_PORTED = {
-    "vit": "slice 3, item 13",
+    "vit": "slice 4, item 14",
     "swin": "slice 4, item 14",
 }
 
@@ -479,7 +481,99 @@ def _maybe_resume(state: TrainState, t) -> int:
     return epoch + 1
 
 
+def build_mae_model(cfg: RunConfig, device=None) -> MAE:
+    """The MAE as the JAX ``fit_mae`` builds it: patch 16 and 3 channels,
+    whatever ``model.vision_kwargs`` says besides (ROADMAP.md, section 3).
+    Parameters are left uninitialised (``models.common.init_params``)."""
+    return MAE(patch_size=16, in_chans=3, **(cfg.model.vision_kwargs or {}),
+               device=device)
+
+
+def mae_mask_noise(seed: int, step: int, n: int, l: int,
+                   device) -> torch.Tensor:
+    """The masking noise (n, l) of training step ``step``: a function of
+    (seed, step) alone, so that a resumed run masks as the unbroken run
+    would; accumulation hands each micro-batch its own rows."""
+    key = int(np.random.SeedSequence([seed, step]).generate_state(1)[0])
+    return torch.rand(n, l, generator=torch.Generator(device).manual_seed(key),
+                      device=device)
+
+
+def mae_loss_fn(model: MAE, m):
+    """``loss_fn(batch)`` of MAE pretraining over ``batch["images"]`` (B, H,
+    W, C) and ``batch["mask_noise"]`` (B, L), with the config's masking."""
+
+    def loss_fn(batch):
+        loss, _, _ = model(batch["images"], batch["mask_noise"], m.mask_type,
+                           m.mask_ratio, m.mask_ratio_inner,
+                           deterministic=False)
+        return loss
+
+    return loss_fn
+
+
+def fit_mae(cfg: RunConfig, device="cuda", on_start=None) -> dict:
+    """MAE pretraining (random or region masking): returns the mean loss of
+    the run's steps. ``on_start`` as in :func:`fit_mrg`."""
+    t, m = cfg.train, cfg.model
+    device = torch.device(device)
+    os.makedirs(t.save_dir, exist_ok=True)
+    logger = JsonlLogger(t.save_dir)
+    ann, _, batcher, _ = build_data(cfg)
+    model = build_mae_model(cfg, device)
+    init_params(model, torch.Generator(device).manual_seed(t.seed))
+    params = flax_named_parameters(model)
+    n_params = sum(p.numel() for p in params.values())
+    print(f"[fit_mae] data ready, {n_params} params initialized", flush=True)
+
+    bs = cfg.data.batch_size
+    steps_per_epoch = max(len(ann["train"]) // bs, 1)
+    lr = t.lr if t.blr <= 0 else scaled_lr(t.blr, bs)
+    tx = make_adamw(params, warmup_cosine(lr, t.warmup_steps,
+                                          steps_per_epoch * t.epochs),
+                    weight_decay=t.weight_decay, grad_clip=t.grad_clip)
+    state = TrainState(params, tx, ema=t.ema_decay > 0)
+    start_epoch = _maybe_resume(state, t)
+    if on_start is not None:
+        on_start(model, state)
+
+    step = make_train_step(mae_loss_fn(model, m), t.accum_steps, t.ema_decay)
+    train_b = batcher("train")
+    ml = MetricLogger()
+    try:
+        for epoch in range(start_epoch, t.epochs):
+            it = prefetch(train_b.batches(epoch=epoch))
+            t_prev = time.perf_counter()
+            for batch in ml.log_every(it, t.log_every, f"mae epoch {epoch}",
+                                      total=steps_per_epoch):
+                imgs = torch.from_numpy(batch["images"][:, 0]).to(device)
+                noise = mae_mask_noise(t.seed, state.step, imgs.shape[0],
+                                       model.num_patches(imgs), device)
+                metrics = step(state, {"images": imgs, "mask_noise": noise})
+                loss = float(metrics["loss"])  # waits for the step's loss
+                now = time.perf_counter()
+                logger.write({"epoch": epoch, "step": state.step,
+                              "loss": loss,
+                              "grad_norm": float(metrics["grad_norm"]),
+                              "lr": metrics["lr"], "step_s": now - t_prev})
+                t_prev = now
+                ml.update(loss=loss)
+            if (epoch + 1) % t.save_state_every_epochs == 0:
+                save_train_state(t.save_dir, state.state_dict(), epoch,
+                                 keep=t.keep_states)
+            if t.max_epochs_this_run and (
+                epoch - start_epoch + 1 >= t.max_epochs_this_run
+            ):
+                break
+    finally:
+        train_b.close()
+    return {"loss": ml.meters["loss"].global_avg}
+
+
 def fit(cfg: RunConfig, device="cuda", on_start=None) -> dict:
-    """The JAX package's dispatch by ``model.task``: r2gengpt and r2gencsr
-    are the tasks ported, and ``fit_mrg`` raises for the others."""
+    """The JAX package's dispatch by ``model.task``: ``mae`` to
+    :func:`fit_mae`; r2gengpt and r2gencsr to :func:`fit_mrg`, which raises
+    for the tasks not ported yet."""
+    if cfg.model.task == "mae":
+        return fit_mae(cfg, device, on_start)
     return fit_mrg(cfg, device, on_start)

@@ -414,3 +414,198 @@ def test_tiny_vssm1_through_kernels_matches_plain(cuda):
         want = m(x, pool=False)
     err, scale = _err(got, want)
     assert err <= 1e-4 * scale
+
+
+# --------------------------------------------------------------------------
+# The ViT block's sub-layers (ops/vit_block.py): forward and backward
+# --------------------------------------------------------------------------
+
+VIT_SHAPES = [  # (B, L, d, heads)
+    (2, 13, 64, 4),     # ragged L, head width 16
+    (3, 70, 128, 4),    # L past one 64-row tile, head width 32
+    (2, 50, 768, 12),   # the 224^2 MAE encoder, head width 64
+    (1, 197, 512, 16),  # the 224^2 MAE decoder
+    (1, 33, 256, 2),    # head width 128
+]
+# fp32: reordered sums, 1e-4 of max(1, max |plain|). bf16: both sides round
+# h, q/k/v, p, the head outputs and the sub-layer's output; the kernel
+# rounds p before the softmax's division and the plain version after, so
+# the outputs may land two bf16 steps apart.
+VIT_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-6}
+ATTN_GRADS = ("dx", "dwqkv", "dbqkv", "dwo", "dbo", "dg", "db")
+MLP_GRADS = ("dx", "dw1", "db1", "dw2", "db2", "dg", "db")
+
+
+def _vit_inputs(dev, dtype, b, l, d, seed, hidden=None):
+    rng = np.random.default_rng(seed)
+    hidden = hidden or 4 * d
+
+    def t(*shape, scale=0.5, shift=0.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale + shift)
+                                .astype(np.float32)).to(dev).to(dtype)
+
+    x = t(b, l, d, scale=1.0)
+    attn = (t(d, 3 * d, scale=d**-0.5), t(3 * d, scale=0.1),
+            t(d, d, scale=d**-0.5), t(d, scale=0.1), t(d, scale=0.1,
+                                                        shift=1.0),
+            t(d, scale=0.1))
+    mlp = (t(d, hidden, scale=d**-0.5), t(hidden, scale=0.1),
+           t(hidden, d, scale=hidden**-0.5), t(d, scale=0.1),
+           t(d, scale=0.1, shift=1.0), t(d, scale=0.1))
+    dy = t(b, l, d, scale=1.0)
+    return x, attn, mlp, dy
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,l,d,heads", VIT_SHAPES,
+                         ids=["hd16", "hd32", "enc224", "dec224", "hd128"])
+def test_vit_fwd_kernels_match_plain(cuda, dtype, b, l, d, heads):
+    from medical_image_analysis_tpu_torch.ops import vit_block as vb
+
+    x, attn, mlp, _ = _vit_inputs(cuda, dtype, b, l, d, seed=l + d)
+    before = dict(vb.launches)
+    for name, plain, kernel, args in (
+        ("vit_attn_fwd", vb.attn_block_plain, vb.attn_block_fwd,
+         (x, *attn, heads)),
+        ("vit_mlp_fwd", vb.mlp_block_plain, vb.mlp_block_fwd, (x, *mlp)),
+    ):
+        want = plain(*args)
+        got = kernel(*args)
+        torch.cuda.synchronize()
+        assert vb.launches[name] == before[name] + 1
+        assert got.dtype == dtype and got.shape == x.shape
+        err, scale = _err(got, want)
+        assert err <= VIT_RTOL[dtype] * scale, (name, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,d,heads", VIT_SHAPES,
+                         ids=["hd16", "hd32", "enc224", "dec224", "hd128"])
+def test_vit_bwd_kernels_match_plain(cuda, b, l, d, heads):
+    """Every output of both backward kernels against the plain backward,
+    and the plain backward against autograd of the plain forward."""
+    from medical_image_analysis_tpu_torch.ops import vit_block as vb
+
+    x, attn, mlp, dy = _vit_inputs(cuda, torch.float32, b, l, d, seed=l)
+    for name, plain_fwd, plain, kernel, args, names in (
+        ("vit_attn_bwd", vb.attn_block_plain, vb.attn_block_bwd_plain,
+         vb.attn_block_bwd, (x, *attn, heads), ATTN_GRADS),
+        ("vit_mlp_bwd", vb.mlp_block_plain, vb.mlp_block_bwd_plain,
+         vb.mlp_block_bwd, (x, *mlp), MLP_GRADS),
+    ):
+        before = vb.launches[name]
+        want = plain(*args, dy)
+        got = kernel(*args, dy)
+        torch.cuda.synchronize()
+        assert vb.launches[name] == before + 1
+        leaves = [a.clone().requires_grad_() if torch.is_tensor(a) else a
+                  for a in args]
+        auto = torch.autograd.grad(
+            plain_fwd(*leaves), [a for a in leaves if torch.is_tensor(a)], dy)
+        for n, g, wv, av in zip(names, got, want, auto):
+            assert g.shape == wv.shape and g.dtype == torch.float32, n
+            err, scale = _err(g, wv)
+            assert err <= BWD_RTOL * scale, (name, n, err, scale)
+            err, scale = _err(wv, av)
+            assert err <= BWD_RTOL * scale, (name, n, "autograd", err, scale)
+
+
+@pytest.mark.cuda
+def test_vit_bwd_is_deterministic(cuda):
+    """Split-K partials and per-block sums in a fixed order: two runs give
+    the same bits."""
+    from medical_image_analysis_tpu_torch.ops import vit_block as vb
+
+    x, attn, mlp, dy = _vit_inputs(cuda, torch.float32, 4, 333, 256, seed=3)
+    for fn, args in ((vb.attn_block_bwd, (x, *attn, 8)),
+                     (vb.mlp_block_bwd, (x, *mlp))):
+        first = fn(*args, dy)
+        second = fn(*args, dy)
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_vit_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from medical_image_analysis_tpu_torch.ops import vit_block as vb
+
+    x, attn, mlp, dy = _vit_inputs(cuda, torch.float32, 2, 10, 64, seed=0)
+    with pytest.raises(ValueError, match="head width"):
+        vb.attn_block_fwd(x, *attn, 8)  # head width 8
+    with pytest.raises(TypeError, match="dtype"):
+        vb.mlp_block_fwd(x.half(), *(w.half() for w in mlp))
+    with pytest.raises(ValueError, match="w1 must be"):
+        vb.mlp_block_fwd(x, mlp[0].t(), *mlp[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        vb.mlp_block_fwd(x.transpose(0, 1), *mlp)
+    xb = x.bfloat16()
+    with pytest.raises(TypeError, match="dtype"):
+        vb.mlp_block_bwd(xb, *(w.bfloat16() for w in mlp), dy.bfloat16())
+    with pytest.raises(ValueError, match="dy must be"):
+        vb.attn_block_bwd(x, *attn, 4, dy[:1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask_type", ["random", "region"])
+def test_tiny_mae_through_kernels_matches_plain(cuda, mask_type):
+    """Each TransformerBlock launches the four kernels once a step; the
+    loss and every parameter's gradient agree with the plain versions
+    (``set_fused(model, False)``)."""
+    from medical_image_analysis_tpu_torch.models.vit import MAE, set_fused
+    from medical_image_analysis_tpu_torch.ops import vit_block as vb
+
+    gen = torch.Generator(cuda).manual_seed(4)
+    model = MAE(embed_dim=64, depth=2, num_heads=4, decoder_embed_dim=64,
+                decoder_depth=1, decoder_num_heads=2, device=cuda)
+    init_params(model, gen)
+    imgs = torch.randn(2, 128, 128, 3, device=cuda, generator=gen)
+    noise = torch.rand(2, 64, device=cuda, generator=gen)
+
+    def loss():
+        return model(imgs, noise, mask_type, 0.75, 0.85,
+                     deterministic=False)[0]
+
+    vb.reset_launches()
+    got_loss = loss().item()
+    got = _grads(model, loss)
+    torch.cuda.synchronize()
+    assert vb.launches == {"vit_attn_fwd": 6, "vit_mlp_fwd": 6,
+                           "vit_attn_bwd": 3, "vit_mlp_bwd": 3}
+    set_fused(model, False)
+    want_loss = loss().item()
+    want = _grads(model, loss)
+    assert vb.launches["vit_attn_fwd"] == 6
+    assert abs(got_loss - want_loss) <= 1e-5 * abs(want_loss)
+    _assert_grads_close(got, want)
+
+
+@pytest.mark.cuda
+def test_block_with_drop_path_trains_through_kernels(cuda):
+    """Stochastic depth in training stays on the kernels: the branch is
+    dropped around the wrappers' output, and the gradients agree with the
+    plain versions under the same keep masks."""
+    from medical_image_analysis_tpu_torch.models.vit import (
+        TransformerBlock,
+        set_fused,
+    )
+    from medical_image_analysis_tpu_torch.ops import vit_block as vb
+
+    gen = torch.Generator(cuda).manual_seed(6)
+    block = TransformerBlock(64, 4, drop_path=0.5, device=cuda)
+    init_params(block, gen)
+    x = torch.randn(8, 13, 64, device=cuda, generator=gen)
+
+    def loss():
+        torch.manual_seed(0)  # the same keep masks on both paths
+        return (block(x, deterministic=False) ** 2).sum()
+
+    vb.reset_launches()
+    got = _grads(block, loss)
+    torch.cuda.synchronize()
+    assert vb.launches == dict.fromkeys(vb.launches, 1)
+    set_fused(block, False)
+    want = _grads(block, loss)
+    assert vb.launches == dict.fromkeys(vb.launches, 1)
+    _assert_grads_close(got, want)
