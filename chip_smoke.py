@@ -8,9 +8,9 @@ raises (exit code 1):
 
 1. device   -- a CUDA card is required; prints its name and power limit.
 2. build    -- compiles ``medical_image_analysis_tpu_torch/csrc/mamba_fused.cu``,
-               ``csrc/scan_n1.cu`` and ``csrc/vit_block.cu`` with nvcc for
-               sm_90a into ``build/kernels/``, one nvcc per source, all at
-               once.
+               ``csrc/scan_n1.cu``, ``csrc/vit_block.cu`` and
+               ``csrc/swin_block.cu`` with nvcc for sm_90a into
+               ``build/kernels/``, one nvcc per source, all at once.
 3. kernels  -- both fused-Mamba forward kernels against their plain
                PyTorch versions on the card, at the ARM-B layer shapes of
                the ``r2gengpt_mimic`` preset (K=4, L=197, D=768, N=16,
@@ -88,6 +88,38 @@ raises (exit code 1):
                step's masking noise: the loss and every parameter's
                gradient through the kernels against the plain versions
                (``set_fused(model, False)``), within a relative bound.
+14. kernels_swin -- the Swin window-attention sub-layer (``swin_attn_fwd``)
+               against ``swin_attn_block_plain`` at the four stage shapes of
+               swin_large at B=64 (shifted and unshifted where the stage has
+               both) and of swin_base at B=12, fp32, and swin_large's stage 0
+               in bf16: max error against its bound, ms of the kernel, the
+               plain version and ``library_ms`` (``F.layer_norm``,
+               ``F.linear``, ``F.scaled_dot_product_attention`` with the
+               bias and mask as ``attn_mask``), the bound and TFLOP/s.
+15. train_cls -- the ``swinchex`` preset (swin_large, 14 two-way heads,
+               B=64, 224^2, mixup 0.8 / cutmix 1.0, fp32) through
+               ``cli.train.main`` on ``synthetic_learnable`` data (256 train
+               samples: 4 steps; one validation of the 64 val samples):
+               finite losses, every parameter moved, the Swin kernel
+               launched 24 times (one per block) per validation batch and
+               never in a training step; acc_mean, auc_mean, step and
+               validation seconds, peak device memory.
+16. tower_cls -- one validation batch of 64 through the trained SwinCheX:
+               logits through the kernel against ``set_fused(model,
+               False)`` within a relative bound, and a forward + backward
+               with a gradient that launches it no time.
+17. train_cls_vssm, train_cls_dp -- ``vssm_classify`` (vssm_tiny, B=128,
+               EMA; the fused-Mamba kernels, d_state 16 without a conv) and
+               ``dp_finetune`` (ViT-B/16, B=64, EMA; the four ViT kernels) at
+               full width on the same data: 2 steps and one validation each,
+               launches reckoned and printed, step seconds.
+18. train_csr_swin -- the ``r2gencsr_iu`` preset as it stands (swin_base +
+               qwen1_5_0_5b, 3 + 3 context images, LoRA r16, trainable
+               tower) on the synthetic dataset: 5 steps and one validation
+               (beam 3, 100 tokens), the checks of ``train_csr``; the Swin
+               kernel launches for the context images of each step and for
+               both towers of each validation batch, and the context
+               residuals through the kernel match the plain versions'.
 
 Then one JSON line of the kernels, and the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -118,7 +150,7 @@ VOCAB = 151936  # Qwen1.5's published vocabulary, used as a size only
 REQUESTS = 3
 TRAIN_SAMPLES = 32  # data.dataset=synthetic's train split
 VAL_SAMPLES = 8  # and its val split
-PRESET = (Path(__file__).resolve().parent / "medical_image_analysis_tpu"
+PRESET = (Path(__file__).resolve().parent / "medical_image_analysis_tpu_torch"
           / "configs" / "presets" / "r2gengpt_mimic.yaml")
 CSR_PRESET = PRESET.parent / "r2gencsr_iu.yaml"
 # vssm1_base through the JAX package's own entry point (vision=vssm, size
@@ -138,6 +170,7 @@ REPLACES = {
     "vit_mlp_fwd": "medical_image_analysis_tpu/ops/vit_block.py:126",
     "vit_attn_bwd": "medical_image_analysis_tpu/ops/vit_block.py:298",
     "vit_mlp_bwd": "medical_image_analysis_tpu/ops/vit_block.py:235",
+    "swin_attn_fwd": "medical_image_analysis_tpu/ops/swin_block.py:43",
 }
 # vssm1_base's stages at 224^2: (H = W, model dim); d_inner = 2 dim, R = dim/16
 N1_STAGES = ((56, 128), (28, 256), (14, 512), (7, 1024))
@@ -183,6 +216,21 @@ VIT_CASES = (
 VIT_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-6}
 VIT_GRADS = {"attn": ("dx", "dwqkv", "dbqkv", "dwo", "dbo", "dg", "db"),
              "mlp": ("dx", "dw1", "db1", "dw2", "db2", "dg", "db")}
+# Classification on synthetic_learnable data: its val split has 64 samples;
+# the train split is sized so that each preset takes the steps named above.
+CLS_PRESET = PRESET.parent / "swinchex.yaml"
+LEARNABLE_VAL = 64
+CLS_TRAIN = {"swinchex.yaml": 256, "vssm_classify.yaml": 256,
+             "dp_finetune.yaml": 128}
+# (name, embed dim, heads per stage, images): the Swin towers on this
+# slice's paths at 224^2 (patch 4, window 7: a 56^2 map at stage 0, 7^2 at
+# stage 3): swinchex's swin_large at its batch of 64, and r2gencsr_iu's
+# swin_base at the training step's 6 studies x 2 views.
+SWIN_TOWERS = (("swin_large", 192, (6, 12, 24, 48), 64),
+               ("swin_base", 128, (4, 8, 16, 32), 12))
+# The kernel's fp32 result against the plain version's: reordered sums,
+# 1e-4 of max(1, max |plain|); bf16 as the ViT kernels (VIT_RTOL).
+SWIN_RTOL = VIT_RTOL
 # The published H100 SXM peaks (NVIDIA's H100 datasheet) that bound_ms
 # divides by: HBM bytes per second, and operations per second by type
 # (fp32 outside the tensor cores; bf16 inputs on the tensor cores).
@@ -559,9 +607,9 @@ def _train_through_cli(argv: list[str], save_dir: Path, device: str,
     0 just before and read just after. Checks what every training run must
     show: the steps of the epochs, each finite; finite scores; every
     trainable tensor moved and no frozen one; when ``validated``, one
-    validation and the delta written. Returns the model, the state, the
-    run's config and counts, and the fields that the phases print (set-up
-    seconds: from the call to the first step)."""
+    validation and, for report generation, the delta written. Returns the
+    model, the state, the run's config and counts, and the fields that the
+    phases print (set-up seconds: from the call to the first step)."""
     from medical_image_analysis_tpu_torch.cli import train as cli_train
 
     seen = {}
@@ -591,17 +639,25 @@ def _train_through_cli(argv: list[str], save_dir: Path, device: str,
     with open(save_dir / "config.yaml") as f:
         cfg = yaml.safe_load(f)
     batch = cfg["data"]["batch_size"]
+    classify = cfg["model"]["task"] in ("swinchex", "dp")
+    if cfg["data"]["dataset"] == "synthetic_learnable":
+        train_samples = cfg["data"]["synthetic_train_size"] or 512
+        val_samples = LEARNABLE_VAL
+    else:
+        train_samples, val_samples = TRAIN_SAMPLES, VAL_SAMPLES
     with open(save_dir / "log.txt") as f:
         records = [json.loads(line) for line in f]
     steps = [r for r in records if "step" in r]
     vals = [r for r in records if "val_s" in r]
-    n_steps = epochs * (TRAIN_SAMPLES // batch)
+    n_steps = epochs * (train_samples // batch)
     _check(len(steps) == n_steps, f"{len(steps)} steps, expected {n_steps}")
     _check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
                for r in steps), "a non-finite loss or grad norm")
-    _check(all(np.isfinite(v) for v in scores.values()), "non-finite scores")
+    _check(all(np.isfinite(np.asarray(v, np.float64)).all()
+               for v in scores.values()), "non-finite scores")
     if validated:
         _check(len(vals) == 1, "validation missing")
+    if validated and not classify:
         deltas = sorted(save_dir.glob("checkpoint_epoch0_*.pt"))
         _check(len(deltas) == 1
                and (save_dir / "checkpoint_best.pt").exists(),
@@ -626,11 +682,16 @@ def _train_through_cli(argv: list[str], save_dir: Path, device: str,
         launches=json.dumps(launches, separators=(",", ":")),
     )
     if validated:
-        fields.update(val_s=f"{vals[0]['val_s']:.3f}",
-                      bleu4=f"{scores['Bleu_4']:.4f}")
+        fields.update(val_s=f"{vals[0]['val_s']:.3f}")
+        fields.update({k: f"{scores[k]:.4f}" for k in (
+            "acc_mean", "auc_mean", "instance_f1", "Bleu_4") if k in scores})
     val_bs = cfg["data"]["val_batch_size"] or batch
+    val_batches = -(-val_samples // val_bs)
+    if not classify:  # fit_mrg scores at most val_max_batches batches
+        val_batches = min(val_batches,
+                          cfg["train"]["val_max_batches"] or val_batches)
     return {"model": model, "state": state, "cfg": cfg, "cuda": cuda,
-            "n_steps": n_steps, "val_batches": -(-VAL_SAMPLES // val_bs),
+            "n_steps": n_steps, "val_batches": val_batches,
             "launches": launches, "fields": fields}
 
 
@@ -880,10 +941,11 @@ def _kernel_modules():
     from medical_image_analysis_tpu_torch.ops import (
         mamba_fused,
         scan_n1,
+        swin_block,
         vit_block,
     )
 
-    return mamba_fused, scan_n1, vit_block
+    return mamba_fused, scan_n1, vit_block, swin_block
 
 
 def _all_launches() -> dict:
@@ -902,19 +964,9 @@ def phase_train_csr(vocab: int, save_dir: Path, device: str = "cuda",
 
     ``overrides`` come after the slice's own (a CPU rehearsal shrinks the
     widths with them)."""
-    sets = ("data.dataset=synthetic", *VSSM1_OVERRIDES,
-            f"model.llm_kwargs.vocab_size={vocab}", "train.epochs=1",
-            "train.save_state_every_epochs=2", "train.log_every=1",
-            f"train.save_dir={save_dir}", *overrides)
-    argv = ["--config", str(CSR_PRESET)]
-    for item in sets:
-        argv += ["--set", item]
-    run = _train_through_cli(argv, save_dir, device)
-    model, state, n_steps = run["model"], run["state"], run["n_steps"]
-    kinds = {k: any(n.startswith(k) for n in state.params)
-             for k in ("base/vision/", "base/proj/", "base/ctx_proj/",
-                       "base/pos_marker", "base/neg_marker", "lora/")}
-    _check(all(kinds.values()), f"trainable groups {kinds}")
+    sets = (*VSSM1_OVERRIDES, *overrides)
+    run = _csr_through_cli(vocab, save_dir, device, sets)
+    model, n_steps = run["model"], run["n_steps"]
 
     # What the design implies: every SS2D launches the forward kernel once
     # for the study's images (with a gradient) and once for the context
@@ -932,8 +984,27 @@ def phase_train_csr(vocab: int, save_dir: Path, device: str = "cuda",
     _phase("train_csr", preset=CSR_PRESET.name, n_context=n_ctx,
            blocks=blocks, llm=f"{model.llm_cfg.dim}x{model.llm_cfg.n_layers}",
            params=sum(p.numel() for p in model.parameters()), **run["fields"])
-    return {"model": model, "state": state, "launches": run["launches"],
-            "overrides": sets}
+    return {"model": model, "state": run["state"], "launches": run["launches"],
+            "overrides": run["sets"]}
+
+
+def _csr_through_cli(vocab: int, save_dir: Path, device: str, overrides):
+    """The r2gencsr_iu preset for one epoch on the synthetic dataset
+    through the CLI, ``overrides`` after the phase's own; checks, beyond
+    ``_train_through_cli``'s, that every trainable group of the recipe is
+    there. Returns that function's result and the ``--set`` items."""
+    sets = ("data.dataset=synthetic", f"model.llm_kwargs.vocab_size={vocab}",
+            "train.epochs=1", "train.save_state_every_epochs=2",
+            "train.log_every=1", f"train.save_dir={save_dir}", *overrides)
+    argv = ["--config", str(CSR_PRESET)]
+    for item in sets:
+        argv += ["--set", item]
+    run = _train_through_cli(argv, save_dir, device)
+    kinds = {k: any(n.startswith(k) for n in run["state"].params)
+             for k in ("base/vision/", "base/proj/", "base/ctx_proj/",
+                       "base/pos_marker", "base/neg_marker", "lora/")}
+    _check(all(kinds.values()), f"trainable groups {kinds}")
+    return {**run, "sets": sets}
 
 
 def phase_train_csr_grads(model, state, overrides) -> None:
@@ -1239,7 +1310,7 @@ def phase_train_mae_grads(model, overrides) -> None:
         flax_named_parameters,
     )
     from medical_image_analysis_tpu_torch.configs.config import load_config
-    from medical_image_analysis_tpu_torch.models.vit import set_fused
+    from medical_image_analysis_tpu_torch.models.common import set_fused
     from medical_image_analysis_tpu_torch.ops import vit_block as vb
     from medical_image_analysis_tpu_torch.train.loop import (
         build_data,
@@ -1291,6 +1362,306 @@ def phase_train_mae_grads(model, overrides) -> None:
            kernel_s=f"{secs[True]:.3f}", plain_s=f"{secs[False]:.3f}")
 
 
+def _swin_cases():
+    """(tower, stage, windows, C, heads, nW, dtype): every stage of
+    ``SWIN_TOWERS`` in fp32 (swin_large's shifted and unshifted where the
+    stage has both, swin_base's shifted where it has one), and swin_large's
+    stage 0, shifted, in bf16. At stage 3 the window covers the 7 x 7 map,
+    so its blocks are unshifted."""
+    cases = []
+    for name, embed, heads, images in SWIN_TOWERS:
+        for stage, h in enumerate(heads):
+            per_image = (56 >> stage) ** 2 // 49
+            shifts = [per_image] if per_image > 1 else []
+            if per_image == 1 or name == "swin_large":
+                shifts.append(1)  # the mask of an unshifted block: zeros
+            cases += [(name, stage, images * per_image, embed << stage, h, nw,
+                       torch.float32) for nw in shifts]
+    name, embed, heads, images = SWIN_TOWERS[0]
+    return cases + [(name, 0, images * 64, embed, heads[0], 64,
+                     torch.bfloat16)]
+
+
+def _swin_inputs(windows, d, heads, nw, dtype, dev, gen):
+    """Windows (windows, 49, d) in ``dtype``, an initialised
+    ``WindowAttention``'s weights with its biases, norm affine and bias
+    table moved off their initial values, the (heads, 49, 49) bias and the
+    (nW, 49, 49) shift mask (zeros (1, 49, 49) unshifted)."""
+    from medical_image_analysis_tpu_torch.models.common import init_params
+    from medical_image_analysis_tpu_torch.models.swin import (
+        WindowAttention,
+        _shift_attn_mask,
+    )
+
+    attn = WindowAttention(d, heads, 7, device=dev)
+    init_params(attn, gen)
+    with torch.no_grad():
+        attn.relative_position_bias_table.normal_(0.0, 0.5, generator=gen)
+        for p in (attn.qkv.bias, attn.proj.bias):
+            p.normal_(0.0, 0.02, generator=gen)
+        g = torch.randn(d, device=dev, generator=gen) * 0.02 + 1.0
+        b = torch.randn(d, device=dev, generator=gen) * 0.02
+        w = tuple(t.to(dtype).contiguous() for t in (
+            attn.qkv.weight.t(), attn.qkv.bias, attn.proj.weight.t(),
+            attn.proj.bias, g, b))
+        bias = attn.rel_bias().contiguous()
+    side = 7 * int(round(nw**0.5))
+    mask = (torch.from_numpy(_shift_attn_mask(side, side, 7, 3)).to(dev)
+            if nw > 1 else torch.zeros(1, 49, 49, device=dev))
+    x = torch.randn(windows, 49, d, device=dev, generator=gen).to(dtype)
+    return x, w, bias, mask
+
+
+def swin_attn_library(x, wqkv, bqkv, wo, bo, g, b, bias, mask, heads):
+    """The Swin window-attention sub-layer as a composition of PyTorch
+    calls, the bias and shift mask summed into SDPA's ``attn_mask``: the
+    yardstick timed beside the kernel (``library_ms``). The port never
+    calls it."""
+    F = torch.nn.functional
+    bn, l, d = x.shape
+    nw = mask.shape[0]
+    h = F.layer_norm(x, (d,), g, b, 1e-5)
+    qkv = F.linear(h, wqkv.t(), bqkv).view(bn, l, 3, heads, d // heads)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    am = (bias[None] + mask[:, None]).to(x.dtype)  # (nW, heads, L, L)
+    am = am.expand(bn // nw, nw, heads, l, l).reshape(bn, heads, l, l)
+    o = F.scaled_dot_product_attention(q, k, v, attn_mask=am).transpose(1, 2)
+    return x + F.linear(o.reshape(bn, l, d), wo.t(), bo)
+
+
+def phase_kernels_swin(dev, gen) -> tuple:
+    """The Swin kernel against its plain version at ``_swin_cases``;
+    returns the JSON row: swin_large's stage 2 (18 of its 24 blocks) at
+    B=64, shifted, fp32."""
+    from medical_image_analysis_tpu_torch.ops import swin_block as sb
+
+    row = None
+    for name, stage, bn, d, heads, nw, dtype in _swin_cases():
+        x, w, bias, mask = _swin_inputs(bn, d, heads, nw, dtype, dev, gen)
+        args = (x, *w, bias, mask, heads)
+        ops = sb.flops(bn, 49, d, heads)
+        iters = _iters(ops)
+        got = sb.swin_attn_fwd(*args)
+        _sync(dev)
+        _check(got.shape == x.shape and got.dtype == dtype
+               and bool(torch.isfinite(got).all()),
+               "swin_attn_fwd output shape, dtype or finiteness")
+        err, scale = _max_err(got, sb.swin_attn_block_plain(*args))
+        _check(err <= SWIN_RTOL[dtype] * scale,
+               f"swin_attn_fwd {name} stage {stage} nW={nw} {dtype}: max abs "
+               f"err {err:.3e} > {SWIN_RTOL[dtype]} x {scale:.3f}")
+        t = _in_turns(lambda: sb.swin_attn_block_plain(*args),
+                      lambda: sb.swin_attn_fwd(*args), iters, iters)
+        lib_ms = device_ms(lambda: swin_attn_library(*args), iters)
+        bound = _bound([x, *w, bias, mask, got], ops, dtype)
+        _phase("kernels_swin", tower=name, stage=stage, windows=bn, L=49,
+               C=d, heads=heads, nW=nw, dtype=_dtype_name(dtype),
+               err=f"{err:.3e}", ms=f"{t['kernel']:.4f}",
+               plain_ms=f"{t['plain']:.4f}", library_ms=f"{lib_ms:.4f}",
+               bound_ms=f"{bound[0]:.4f}", bound_by=bound[1],
+               tflops=f"{ops / t['kernel'] / 1e9:.2f}")
+        if (name, stage, nw, dtype) == ("swin_large", 2, 4, torch.float32):
+            row = (err, t["kernel"], t["plain"], *bound, lib_ms)
+        del got
+    return row
+
+
+def _cls_through_cli(preset: str, save_dir: Path, device: str, overrides=()):
+    """A classification preset for one epoch on ``synthetic_learnable``
+    data through the CLI (``CLS_TRAIN`` train samples, the 64 val samples),
+    ``overrides`` after the phase's own; returns ``_train_through_cli``'s
+    result and the ``--set`` items."""
+    sets = ("data.dataset=synthetic_learnable",
+            f"data.synthetic_train_size={CLS_TRAIN[preset]}",
+            "train.epochs=1", "train.save_state_every_epochs=2",
+            "train.log_every=1", f"train.save_dir={save_dir}", *overrides)
+    argv = ["--config", str(PRESET.parent / preset)]
+    for item in sets:
+        argv += ["--set", item]
+    return {**_train_through_cli(argv, save_dir, device), "sets": sets}
+
+
+def phase_train_cls(save_dir: Path, device: str = "cuda",
+                    overrides=()) -> dict:
+    """SwinCheX (the swinchex preset) for one epoch through the CLI; returns
+    the run (model, state, launches, ``--set`` items)."""
+    run = _cls_through_cli(CLS_PRESET.name, save_dir, device, overrides)
+    model, n_steps, cfg = run["model"], run["n_steps"], run["cfg"]
+    _check((cfg["train"]["mixup"], cfg["train"]["cutmix"]) == (0.8, 1.0),
+           "swinchex without its mixup 0.8 / cutmix 1.0")
+    # What the design implies: a training step needs a gradient through
+    # every block, so it takes the unfused route (no launch); validation
+    # runs under no_grad, one launch per block and val batch.
+    blocks = sum(model.backbone.depths)
+    val_batches = run["val_batches"]
+    _check_launches(
+        run, {"swin_attn_fwd": blocks * val_batches}, "train_cls",
+        f"0 in {n_steps} training steps (unfused route); {blocks} blocks x "
+        f"{val_batches} val batch(es) under no_grad")
+    _phase("train_cls", preset=CLS_PRESET.name,
+           params=sum(p.numel() for p in model.parameters()),
+           images=cfg["data"]["input_size"], **run["fields"])
+    return run
+
+
+def _val_batch(preset: str, sets, dev) -> torch.Tensor:
+    """The first validation batch's images (B, H, W, 3) of a classification
+    preset's data, on ``dev``."""
+    from medical_image_analysis_tpu_torch.configs.config import load_config
+    from medical_image_analysis_tpu_torch.train.loop import build_data
+
+    cfg = load_config(str(PRESET.parent / preset), [*sets, "data.num_workers=1"])
+    _, _, batcher, _ = build_data(cfg)
+    vb = batcher("val")
+    try:
+        host = next(vb.batches(shuffle=False, drop_last=False))
+    finally:
+        vb.close()
+    return torch.from_numpy(host["images"][:, 0]).to(dev)
+
+
+def phase_tower_cls(model, sets) -> None:
+    """One validation batch through the trained SwinCheX: logits through
+    the kernel against the plain versions (``set_fused(model, False)``),
+    in turns, wall seconds of each; then a forward and backward with a
+    gradient, which must launch the kernel no time."""
+    from medical_image_analysis_tpu_torch.models.common import set_fused
+    from medical_image_analysis_tpu_torch.ops import swin_block as sb
+
+    dev = next(model.parameters()).device
+    imgs = _val_batch(CLS_PRESET.name, sets, dev)
+    blocks = sum(model.backbone.depths)
+    out, secs = {}, {}
+    with torch.no_grad():
+        for fused in (False, True, True, False):
+            set_fused(model, fused)
+            sb.reset_launches()
+            _sync(dev)
+            t0 = time.perf_counter()
+            out[fused] = model(imgs)
+            _sync(dev)
+            secs[fused] = secs.get(fused, 0.0) + (time.perf_counter() - t0) / 2
+            if fused and dev.type == "cuda":
+                _check(sb.launches["swin_attn_fwd"] == blocks,
+                       f"tower_cls launches {sb.launches}, expected {blocks}")
+    set_fused(model, True)
+    got, want = out[True], out[False]
+    _check(bool(torch.isfinite(got).all()) and got.shape == want.shape
+           == (imgs.shape[0], 14, 2), f"logits {tuple(got.shape)}")
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    _check(rel <= TOWER_RTOL, f"tower_cls max rel err {rel:.3e} > "
+           f"{TOWER_RTOL}")
+    sb.reset_launches()
+    model(imgs[:8]).float().sum().backward()
+    model.zero_grad(set_to_none=True)
+    _check(sb.launches["swin_attn_fwd"] == 0,
+           f"{sb.launches['swin_attn_fwd']} launches with a gradient")
+    _phase("tower_cls", batch=imgs.shape[0], shape=tuple(got.shape),
+           max_rel_err=f"{rel:.3e}", bound=TOWER_RTOL, launches=blocks,
+           grad_launches=0, kernel_s=f"{secs[True]:.3f}",
+           plain_s=f"{secs[False]:.3f}")
+
+
+def phase_train_cls_other(preset: str, save_dir: Path, device: str = "cuda",
+                          overrides=()) -> dict:
+    """``vssm_classify`` (phase ``train_cls_vssm``) or ``dp_finetune``
+    (``train_cls_dp``) for one epoch through the CLI, launches reckoned;
+    returns the run."""
+    run = _cls_through_cli(preset, save_dir, device, overrides)
+    model, n_steps, val_b = run["model"], run["n_steps"], run["val_batches"]
+    if preset == "vssm_classify.yaml":
+        # every SS2D (d_state 16, no conv in the fused layer) launches both
+        # forward kernels once per forward and the backward once per step;
+        # no remat
+        phase, blocks = "train_cls_vssm", sum(model.backbone.depths)
+        fwd = (n_steps + val_b) * blocks
+        reckoned = {"mamba_xdbl": fwd, "mamba_scan": fwd,
+                    "mamba_scan_bwd": n_steps * blocks}
+        how = (f"{blocks} SS2D blocks x ({n_steps} steps + {val_b} val "
+               f"batches) forward, x {n_steps} steps backward")
+    else:
+        # every TransformerBlock: one call of each forward wrapper per
+        # forward, one of each backward wrapper per step
+        phase, blocks = "train_cls_dp", len(model.encoder.blocks)
+        reckoned = {
+            **dict.fromkeys(("vit_attn_fwd", "vit_mlp_fwd"),
+                            (n_steps + val_b) * blocks),
+            **dict.fromkeys(("vit_attn_bwd", "vit_mlp_bwd"),
+                            n_steps * blocks)}
+        how = (f"{blocks} ViT blocks x ({n_steps} steps + {val_b} val "
+               f"batches) forward, x {n_steps} steps backward")
+    _check_launches(run, reckoned, phase, how)
+    _phase(phase, preset=preset,
+           params=sum(p.numel() for p in model.parameters()),
+           ema=run["cfg"]["train"]["ema_decay"], **run["fields"])
+    return run
+
+
+def phase_train_csr_swin(vocab: int, save_dir: Path, device: str = "cuda",
+                         overrides=()) -> dict:
+    """R2GenCSR on its own Swin tower (the preset as it stands) for one
+    epoch through the CLI; then, on the first training batch, both towers
+    under no_grad (``encode_img`` and the context residuals, as validation
+    runs them) through the kernel against the plain versions. Returns the
+    run."""
+    from medical_image_analysis_tpu_torch.configs.config import load_config
+    from medical_image_analysis_tpu_torch.models.common import set_fused
+    from medical_image_analysis_tpu_torch.ops import swin_block as sb
+    from medical_image_analysis_tpu_torch.train.loop import (
+        _device_batch,
+        build_data,
+    )
+
+    run = _csr_through_cli(vocab, save_dir, device, overrides)
+    model, n_steps, val_b = run["model"], run["n_steps"], run["val_batches"]
+    _check(run["cfg"]["model"]["vision"] == "swin", "not the Swin tower")
+    # What the design implies: the study images need a gradient (the tower
+    # trains), so they take the unfused route; the context images run
+    # under no_grad, one launch per block a step; validation runs both
+    # towers under no_grad.
+    blocks = sum(model.vision.swin.depths)
+    n_ctx = run["cfg"]["data"]["n_context"]
+    _check_launches(
+        run, {"swin_attn_fwd": blocks * (n_steps + 2 * val_b)},
+        "train_csr_swin",
+        f"{blocks} blocks x {n_steps} steps for the {2 * n_ctx} context "
+        f"images per study (none for the study images: a gradient), + "
+        f"{blocks} x 2 towers x {val_b} val batches")
+    _phase("train_csr_swin", preset=CSR_PRESET.name, n_context=n_ctx,
+           blocks=blocks, llm=f"{model.llm_cfg.dim}x{model.llm_cfg.n_layers}",
+           params=sum(p.numel() for p in model.parameters()), **run["fields"])
+
+    cfg = load_config(str(CSR_PRESET), [*run["sets"], "data.num_workers=1"])
+    _, _, batcher, _ = build_data(cfg)
+    train_b = batcher("train", n_context=cfg.data.n_context)
+    try:
+        host = next(train_b.batches(shuffle=False))
+    finally:
+        train_b.close()
+    dev = next(model.parameters()).device
+    b = _device_batch(host, dev)
+    outs = {}
+    with torch.no_grad():
+        for fused in (True, False):
+            set_fused(model, fused)
+            sb.reset_launches()
+            tok, glob = model.encode_img(b["images"])
+            outs[fused] = (tok, glob, model.context_residuals(
+                glob, b["context_images"]))
+            if fused and dev.type == "cuda":
+                _check(sb.launches["swin_attn_fwd"] == 2 * blocks,
+                       f"train_csr_swin towers: launches {sb.launches}")
+    set_fused(model, True)
+    rel, at = _worst_rel(("image tokens", "global feature",
+                          "context residuals"), outs[True], outs[False])
+    _check(rel <= TOWER_RTOL, f"{at}: max rel err {rel:.3e} > {TOWER_RTOL}")
+    _phase("train_csr_swin_towers", images=b["images"].shape[0]
+           * b["images"].shape[1], context_images=b["context_images"].shape[0]
+           * b["context_images"].shape[1], max_rel_err=f"{rel:.3e}", at=at,
+           bound=TOWER_RTOL)
+    return run
+
+
 def main() -> None:
     phase_device()
     dev = torch.device("cuda")
@@ -1334,12 +1705,29 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mae_") as tmp:
         mae = phase_train_mae(Path(tmp))
     phase_train_mae_grads(mae["model"], mae["overrides"])
+    runs = [launches, train_launches, csr_launches, mae["launches"]]
+    del mae
+    torch.cuda.empty_cache()
 
-    # launches: the main paths' runs (serving, the three trainings), each
+    measured["swin_attn_fwd"] = phase_kernels_swin(dev, gen)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cls_") as tmp:
+        cls = phase_train_cls(Path(tmp))
+    phase_tower_cls(cls["model"], cls["sets"])
+    runs.append(cls["launches"])
+    del cls
+    for preset in ("vssm_classify.yaml", "dp_finetune.yaml"):
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_cls_") as tmp:
+            runs.append(phase_train_cls_other(preset, Path(tmp))["launches"])
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_csr_swin_") as tmp:
+        runs.append(phase_train_csr_swin(VOCAB, Path(tmp))["launches"])
+
+    # launches: the main paths' runs (serving, the seven trainings), each
     # read just after it was driven with the counts at 0
-    main_runs = {name: sum(run.get(name, 0) for run in (
-        launches, train_launches, csr_launches, mae["launches"]))
-        for name in REPLACES}
+    main_runs = {name: sum(run.get(name, 0) for run in runs)
+                 for name in REPLACES}
     sources = {k: m.KERNEL_SOURCE for m in _kernel_modules()
                for k in m.launches}
     kernels = []

@@ -19,8 +19,18 @@ flax ones (``block<i>``, ``dec_block<i>``) whose parameters are raw
 Dense, ``patch_embed/proj`` a conv, ``encoder_norm`` and ``decoder_norm``
 LayerNorms, ``cls_token`` and ``mask_token`` plain parameters.
 
+The Swin modules need none either: ``WindowAttention``'s ``qkv`` and
+``proj`` (flax ``_DenseParams``) are ``nn.Linear`` and ``norm1``
+(``_LNParams``) an ``nn.LayerNorm``, so the Dense and norm rules carry
+them; ``relative_position_bias_table`` keeps its ((2ws-1)^2, heads)
+layout, and ``patch_embed`` is a conv. ``SwinCheX``'s heads
+(``head<i>_fc<j>``, ``head<i>_out``), the classifiers' ``head`` and the
+ViT's ``block<i>`` are Dense or raw parameters likewise. The tests load
+each of them strictly from a JAX ``init``.
+
 One function serves ``ARM``, ``VSSM`` (and its ``SS2D`` and ``VSSBlock``),
-``TransformerLM``, ``R2GenGPT``, ``R2GenCSR`` and ``MAE``: pass the
+``SwinTransformer``, ``SwinCheX``, ``VSSMClassifier``, ``DPClassifier``,
+``ViT``, ``TransformerLM``, ``R2GenGPT``, ``R2GenCSR`` and ``MAE``: pass the
 ``params`` subtree whose root matches the port module's root.
 :func:`flax_named_parameters` names the port's parameters the other way
 round, and :func:`lora_from_jax` carries a JAX LoRA tree.

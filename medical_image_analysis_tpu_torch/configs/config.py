@@ -4,7 +4,9 @@ Counterpart of ``medical_image_analysis_tpu/configs/config.py``, with the
 same dataclasses and the same YAML keys, so that the JAX package's
 presets load unchanged. The port keeps its own copy because the JAX file
 imports flax (through ``models/mrg.py``). The presets are data files read
-by path from :data:`PRESET_DIR`.
+by path from :data:`PRESET_DIR`, the port's byte-identical copies of the
+JAX package's ``configs/presets`` (``tests/test_torch_classify.py`` holds
+them equal).
 """
 
 from __future__ import annotations
@@ -17,10 +19,7 @@ import yaml
 
 from ..models.mrg import GenerateConfig
 
-PRESET_DIR = (
-    Path(__file__).resolve().parents[2]
-    / "medical_image_analysis_tpu" / "configs" / "presets"
-)
+PRESET_DIR = Path(__file__).resolve().parent / "presets"
 
 
 @dataclasses.dataclass

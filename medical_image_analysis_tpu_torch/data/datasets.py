@@ -408,3 +408,151 @@ def synthetic_image_loader(size: int = 64, views: int = 2):
         return rng.standard_normal((views, size, size, 3)).astype(np.float32)
 
     return load
+
+
+# Learnable synthetic corpus: reports generated from a label grammar and
+# images rendered from the same labels, so that image -> report (and image
+# -> CheXpert labels) carries real signal without real data. Each finding
+# has a distinct visual mark and a fixed positive/negative sentence; the
+# report is a function of the 6-bit label vector (64 distinct reports).
+LEARNABLE_FINDINGS = [
+    ("cardiomegaly", "mild cardiomegaly is present",
+     "heart size is normal"),
+    ("left_effusion", "there is a small left pleural effusion",
+     "no left pleural effusion"),
+    ("right_effusion", "there is a small right pleural effusion",
+     "no right pleural effusion"),
+    ("pneumothorax", "there is a left apical pneumothorax",
+     "no pneumothorax is seen"),
+    ("consolidation", "focal consolidation in the right lung",
+     "no focal consolidation"),
+    ("spine", "degenerative changes of the spine",
+     "the spine is unremarkable"),
+]
+
+
+def learnable_report(bits: int) -> str:
+    parts = [pos if (bits >> k) & 1 else neg
+             for k, (_, pos, neg) in enumerate(LEARNABLE_FINDINGS)]
+    return " . ".join(parts) + " ."
+
+
+def learnable_synthetic_annotations(
+    n_train: int = 512, n_val: int = 64, n_test: int = 64, seed: int = 0,
+    holdout: int = 0,
+) -> dict[str, list[Sample]]:
+    """Label-grammar corpus; the 6-bit label vector rides in the id.
+
+    ``holdout > 0`` reserves that many of the 64 finding combinations for
+    val/test only (every sentence is seen in training, the held-out
+    combinations never are).
+    """
+    rng = np.random.default_rng(seed)
+    n_f = len(LEARNABLE_FINDINGS)
+    all_bits = np.arange(2**n_f)
+    if holdout:
+        held_set = {int(b) for b in rng.choice(all_bits, size=holdout,
+                                               replace=False)}
+        train_bits = np.asarray([b for b in all_bits
+                                 if int(b) not in held_set])
+        eval_bits = np.asarray(sorted(held_set))
+    else:
+        train_bits = eval_bits = all_bits
+
+    def make(i, pool):
+        bits = int(pool[rng.integers(0, len(pool))])
+        report = learnable_report(bits)
+        drop = rng.integers(0, n_f)
+        draft = " . ".join(
+            s for k, s in enumerate(report.rstrip(" .").split(" . "))
+            if k != drop
+        ) + " ."
+        return Sample(f"ls{i}_{bits}", [f"v0_{i}.png", f"v1_{i}.png"],
+                      report, draft=draft)
+
+    return {
+        "train": [make(i, train_bits) for i in range(n_train)],
+        "val": [make(10_000 + i, eval_bits) for i in range(n_val)],
+        "test": [make(20_000 + i, eval_bits) for i in range(n_test)],
+    }
+
+
+def render_learnable_image(bits: int, size: int,
+                           rng: np.random.Generator) -> np.ndarray:
+    """Chest-radiograph-like rendering of a 6-bit finding vector, (size,
+    size, 3) in [0, 1]."""
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    img = np.full((size, size), 0.15, np.float32)
+
+    def ellipse(cx, cy, rx, ry, value):
+        img[((xx - cx) / rx) ** 2 + ((yy - cy) / ry) ** 2 <= 1.0] += value
+
+    ellipse(0.30, 0.45, 0.18, 0.30, 0.35)  # lung fields
+    ellipse(0.70, 0.45, 0.18, 0.30, 0.35)
+    ellipse(0.52, 0.62, 0.22 if bits & 1 else 0.12, 0.16, -0.20)  # heart
+    if (bits >> 1) & 1:  # left effusion: bright base, viewer right
+        img[(yy > 0.62) & (xx > 0.58) & (xx < 0.90)] += 0.30
+    if (bits >> 2) & 1:  # right effusion
+        img[(yy > 0.62) & (xx > 0.10) & (xx < 0.42)] += 0.30
+    if (bits >> 3) & 1:  # pneumothorax: dark apical rim
+        img[(yy < 0.25) & (xx > 0.58) & (xx < 0.92)] *= 0.3
+    if (bits >> 4) & 1:  # consolidation blob mid-right lung
+        ellipse(0.30, 0.40, 0.07, 0.07, 0.45)
+    if (bits >> 5) & 1:  # spine hardware: bright midline bar
+        img[:, int(0.48 * size):int(0.52 * size)] += 0.35
+    img += rng.standard_normal((size, size)).astype(np.float32) * 0.03
+    img = np.clip(img, 0.0, 1.0)
+    return np.repeat(img[:, :, None], 3, axis=2)
+
+
+def learnable_image_loader(size: int = 224, views: int = 2):
+    """The rendered views of a learnable sample, preprocessed. Seeded by
+    ``hash(sample.id)`` as :func:`synthetic_image_loader` is."""
+
+    def load(sample: Sample) -> np.ndarray:
+        bits = int(sample.id.rsplit("_", 1)[1])
+        rng = np.random.default_rng(abs(hash(sample.id)) % (2**32))
+        return np.stack([
+            host_preprocess(np.round(render_learnable_image(bits, size, rng)
+                                     * 255).astype(np.uint8), size)
+            for _ in range(views)
+        ])
+
+    return load
+
+
+def mixup_cutmix(
+    rng: np.random.Generator,
+    images: np.ndarray,
+    labels: np.ndarray,
+    mixup_alpha: float = 0.8,
+    cutmix_alpha: float = 1.0,
+    prob: float = 1.0,
+    switch_prob: float = 0.5,
+):
+    """Batch mixup/cutmix (timm semantics, SwinCheX ``data/build.py``) over
+    channels-last images (B, ..., H, W, C): returns (mixed images, soft
+    labels). Cutmix pastes a box of half-sides ``rh // 2``, ``rw // 2``
+    clipped to the image, and ``lam`` is recomputed from the clipped box.
+    Labels may be multi-hot."""
+    b = images.shape[0]
+    labels = labels.astype(np.float32)
+    if rng.random() > prob:
+        return images, labels
+    perm = rng.permutation(b)
+    if rng.random() < switch_prob and cutmix_alpha > 0:
+        lam = float(rng.beta(cutmix_alpha, cutmix_alpha))
+        h, w = images.shape[-3], images.shape[-2]
+        rh, rw = int(h * np.sqrt(1 - lam)), int(w * np.sqrt(1 - lam))
+        cy, cx = int(rng.integers(h)), int(rng.integers(w))
+        y0, y1 = max(cy - rh // 2, 0), min(cy + rh // 2, h)
+        x0, x1 = max(cx - rw // 2, 0), min(cx + rw // 2, w)
+        mixed = images.copy()
+        mixed[..., y0:y1, x0:x1, :] = images[perm][..., y0:y1, x0:x1, :]
+        lam = 1.0 - ((y1 - y0) * (x1 - x0) / (h * w))
+    else:
+        lam = (float(rng.beta(mixup_alpha, mixup_alpha)) if mixup_alpha > 0
+               else 1.0)
+        mixed = lam * images + (1.0 - lam) * images[perm]
+    soft = lam * labels + (1.0 - lam) * labels[perm]
+    return mixed.astype(images.dtype), soft

@@ -76,13 +76,9 @@ class MeteorTables:
         return cls(synonyms=syn, paraphrases=para)
 
 
-# The bundled tables stay in the JAX package's tree; they are read by
-# path, so the port imports nothing of that package.
-_DATA_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
-        __file__)))),
-    "medical_image_analysis_tpu", "evalx", "data",
-)
+# The bundled tables: the port's byte-identical copies of the JAX
+# package's ``evalx/data`` files.
+_DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 _DEFAULT = object()  # sentinel: "use the bundled tables"
 
 

@@ -142,6 +142,15 @@ class Mlp(nn.Module):
         return F.dropout(self.fc2(x), self.dropout, train)
 
 
+def set_fused(module: nn.Module, fused: bool) -> None:
+    """Every kernel-backed module under ``module`` (those with a ``plain``
+    switch: the ViT ``TransformerBlock``, the Swin ``WindowAttention``)
+    through its kernel wrappers (``fused``) or its plain versions."""
+    for m in module.modules():
+        if hasattr(m, "plain"):
+            m.plain = not fused
+
+
 def insert_token(x: torch.Tensor, token: torch.Tensor, pos: int):
     """Insert a (B, 1, D) token at position ``pos`` of (B, L, D)."""
     return torch.cat([x[:, :pos], token, x[:, pos:]], dim=1)

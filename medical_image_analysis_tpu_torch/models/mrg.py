@@ -31,6 +31,8 @@ from .llm import (
     split_beam_cache,
 )
 from .mamba import ARM
+from .swin import SwinTransformer
+from .vit import ViT
 from .vmamba import VSSM
 
 
@@ -73,30 +75,40 @@ def _encode_views(vision_fn, images, use_feature_mean=True):
 
 
 class VisionEncoder(nn.Module):
-    """Encoder dispatch -> tokens (B, L, D): the ARM tower, or the VSSM's
-    last feature map flattened row-major. ``out_dim`` is D."""
+    """Encoder dispatch -> tokens (B, L, D): the Swin tower's final tokens,
+    the VSSM's last feature map flattened row-major, the ARM tower, or the
+    ViT's patch tokens (cls dropped). ``out_dim`` is D."""
 
-    def __init__(self, chosen: str = "arm", arm_kwargs: Any = None,
-                 vssm_kwargs: Any = None, device=None):
+    def __init__(self, chosen: str = "swin", swin_kwargs: Any = None,
+                 vssm_kwargs: Any = None, arm_kwargs: Any = None,
+                 vit_kwargs: Any = None, device=None):
         super().__init__()
         self.chosen = chosen
-        if chosen == "arm":
-            self.arm = ARM(**(arm_kwargs or {}), device=device)
-            self.out_dim = self.arm.norm_f.normalized_shape[0]
+        if chosen == "swin":
+            self.swin = SwinTransformer(**(swin_kwargs or {}), device=device)
+            self.out_dim = self.swin.out_dim
         elif chosen == "vssm":
             self.vssm = VSSM(**(vssm_kwargs or {}), device=device)
             self.out_dim = self.vssm.dims[-1]
+        elif chosen == "arm":
+            self.arm = ARM(**(arm_kwargs or {}), device=device)
+            self.out_dim = self.arm.norm_f.normalized_shape[0]
+        elif chosen == "vit":
+            self.vit = ViT(**(vit_kwargs or {}), device=device)
+            self.out_dim = self.vit.cls_token.shape[-1]
         else:
-            raise NotImplementedError(
-                f"vision tower {chosen!r} is not ported yet (ROADMAP.md, "
-                "queue 1: vit and swin in slice 4)"
-            )
+            raise ValueError(f"unknown vision tower {chosen!r}")
 
     def forward(self, x, deterministic: bool = True):
+        if self.chosen == "swin":
+            return self.swin(x, deterministic)
         if self.chosen == "vssm":
             fmap = self.vssm(x, pool=False, deterministic=deterministic)
             b, h, w, c = fmap.shape
             return fmap.reshape(b, h * w, c)
+        if self.chosen == "vit":
+            # MAE-pretrained ViT patch features: the patch tokens
+            return self.vit(x, deterministic)[:, 1:]
         return self.arm(x, deterministic)
 
 

@@ -3,11 +3,11 @@
 Counterpart of ``medical_image_analysis_tpu/models/vit.py``
 (``sincos_pos_embed_2d``, ``TransformerBlock``, ``patchify``,
 ``unpatchify``, ``random_mask_ids``, ``random_masking``,
-``region_masking``, ``MAE``, ``MAE_CONFIGS``, ``build_mae``), with the
-region masking's ids split out (``region_split``, ``region_mask_ids``) and
-``set_fused`` for the plain comparison path. Inputs are
-channels-last (B, H, W, C), as in the JAX package. ``ViT`` is not ported
-yet (ROADMAP.md, queue 1, item 14).
+``region_masking``, ``ViT``, ``VIT_CONFIGS``, ``MAE``, ``MAE_CONFIGS``,
+``build_mae``), with the region masking's ids split out
+(``region_split``, ``region_mask_ids``); ``models.common.set_fused``
+switches the blocks to the plain comparison path. Inputs are
+channels-last (B, H, W, C), as in the JAX package.
 
 Masking takes its noise from the caller: ``noise`` (B, L) uniform in [0, 1)
 stands for the JAX package's ``jax.random.uniform(rng, (n, l))`` in random
@@ -121,14 +121,6 @@ class TransformerBlock(nn.Module):
         return x + self.dp2(y - x, deterministic) if dropping else y
 
 
-def set_fused(module: nn.Module, fused: bool) -> None:
-    """Every ``TransformerBlock`` under ``module`` through the kernel
-    wrappers (``fused``) or the plain versions."""
-    for m in module.modules():
-        if isinstance(m, TransformerBlock):
-            m.plain = not fused
-
-
 def patchify(imgs: torch.Tensor, p: int) -> torch.Tensor:
     """(B, H, W, C) -> (B, L, p*p*C)."""
     b, h, w, c = imgs.shape
@@ -206,6 +198,62 @@ def region_masking(x: torch.Tensor, noise: torch.Tensor,
     ids_keep, mask, ids_restore = region_mask_ids(noise, mask_ratio_outer,
                                                   mask_ratio_inner)
     return subset_gather(x, ids_keep, ids_restore), mask, ids_restore
+
+
+class ViT(nn.Module):
+    """Plain ViT encoder returning tokens (B, 1 + L, D), cls first: the
+    patch embedding, the cls token, fixed sin-cos positions (or a learned
+    ``pos_embed`` of ``img_size``'s grid when ``fixed_sincos_pos`` is off),
+    ``block{i}`` on the ViT kernels, and the final ``norm`` when
+    ``final_norm``."""
+
+    def __init__(self, patch_size: int = 16, embed_dim: int = 768,
+                 depth: int = 12, num_heads: int = 12, mlp_ratio: float = 4.0,
+                 drop_path_rate: float = 0.0, fixed_sincos_pos: bool = True,
+                 final_norm: bool = True, img_size: int = 224, device=None):
+        super().__init__()
+        self.patch_embed = PatchEmbed(patch_size, embed_dim, device=device)
+        self.cls_token = nn.Parameter(torch.empty(1, 1, embed_dim,
+                                                  device=device))
+        self.pos_embed = None
+        if not fixed_sincos_pos:
+            self.pos_embed = nn.Parameter(torch.empty(
+                1, (img_size // patch_size) ** 2 + 1, embed_dim,
+                device=device))
+        self.blocks = []
+        for i in range(depth):
+            rate = drop_path_rate * i / max(depth - 1, 1)
+            self.blocks.append(TransformerBlock(embed_dim, num_heads,
+                                                mlp_ratio, rate,
+                                                device=device))
+            self.add_module(f"block{i}", self.blocks[-1])
+        self.norm = layer_norm(embed_dim, device=device) if final_norm else None
+
+    @torch.no_grad()
+    def init_own_params(self, gen: torch.Generator):
+        trunc_normal_(self.cls_token, 0.02, gen)
+        if self.pos_embed is not None:
+            trunc_normal_(self.pos_embed, 0.02, gen)
+
+    def forward(self, x: torch.Tensor, deterministic: bool = True):
+        x = self.patch_embed(x)
+        b, l, d = x.shape
+        pos = (self.pos_embed if self.pos_embed is not None
+               else _pos(d, int(math.isqrt(l)), x))
+        x = x + pos[:, 1:].to(x.dtype)
+        cls = (self.cls_token + pos[:, :1]).expand(b, 1, d).to(x.dtype)
+        x = torch.cat([cls, x], dim=1)
+        for blk in self.blocks:
+            x = blk(x, deterministic)
+        return x if self.norm is None else self.norm(x)
+
+
+VIT_CONFIGS = {
+    "vit_tiny": dict(patch_size=16, embed_dim=192, depth=12, num_heads=3),
+    "vit_base": dict(patch_size=16, embed_dim=768, depth=12, num_heads=12),
+    "vit_large": dict(patch_size=16, embed_dim=1024, depth=24,
+                      num_heads=16),
+}
 
 
 class MAE(nn.Module):

@@ -309,12 +309,12 @@ class _Launcher:
     def like(self, *shape):
         return torch.empty(*shape, device=self.x.device, dtype=self.x.dtype)
 
-    def ln_stats(self, x2):
+    def ln_stats(self, x2, eps=EPS):
         rows, d = x2.shape
         mu, rstd = self.f32(rows), self.f32(rows)
         _raise_on(self.lib.mia_vit_ln_stats(
             x2.data_ptr(), self.bf16, mu.data_ptr(), rstd.data_ptr(), rows,
-            d, EPS, self.stream), "vit_ln_stats")
+            d, eps, self.stream), "vit_ln_stats")
         return mu, rstd
 
     def gemm(self, a, b, m, n, k, *, a_trans=False, b_trans=False,

@@ -1,16 +1,19 @@
 """The training recipes on one device: ``fit_mrg`` for R2GenGPT and
-R2GenCSR, on the ARM or the VSSM tower, and ``fit_mae`` for MAE pretraining.
+R2GenCSR, on the ARM, VSSM, Swin or ViT tower, ``fit_mae`` for MAE
+pretraining, and ``fit_classify`` for SwinCheX, the VSSM classifier and the
+DP ViT classifier.
 
 Counterpart of ``medical_image_analysis_tpu/train/loop.py`` (``vision_preset``,
 ``build_mrg_model``, ``build_data``, ``trainable_mask``, the r2gengpt and
 r2gencsr branches of ``make_task_adapter``, ``fit_mrg``, ``evaluate_mrg``,
-``fit_mae``, ``fit``):
+``fit_mae``, ``fit_classify``, ``fit``):
 build the data and the model from a seed, freeze the LLM and/or the tower,
 put LoRA on the LLM's q/v projections, train with accumulation and remat,
 validate by beam search with NLG and clinical-efficacy scores, and save
 trainable-only deltas, the best one, and full train states for resume.
 MAE pretraining trains every parameter of the masked autoencoder and saves
-full train states.
+full train states; so does classification, with labels extracted from the
+reports, mixup/cutmix, EMA, and a validation of AUC and accuracy.
 
 The other tasks, towers and options raise ``NotImplementedError`` naming
 their ROADMAP.md item. Beyond the JAX recipe, each step's loss, grad norm,
@@ -47,20 +50,35 @@ from ..data.datasets import (
     disk_image_loader,
     drop_unclear_reports,
     group_study_two_views,
+    learnable_image_loader,
+    learnable_synthetic_annotations,
     load_annotations,
     load_chexbert_csv,
+    mixup_cutmix,
     prefetch,
     synthetic_annotations,
     synthetic_image_loader,
 )
 from ..data.tokenizer import WordTokenizer
-from ..evalx.chexbert import clinical_efficacy
+from ..evalx.chexbert import clinical_efficacy, extract_labels
+from ..evalx.classification import (
+    multilabel_auc,
+    pedestrian_metrics,
+    per_label_accuracy,
+)
 from ..evalx.nlg import compute_nlg_scores
+from ..models.classifiers import (
+    DPClassifier,
+    VSSMClassifier,
+    swinchex_loss,
+    weighted_bce_loss,
+)
 from ..models.common import init_params
 from ..models.llm import LLM_CONFIGS
 from ..models.mamba import ARM_CONFIGS
 from ..models.mrg import R2GenCSR, R2GenGPT
-from ..models.vit import MAE
+from ..models.swin import SWIN_CONFIGS, SwinCheX, SwinTransformer
+from ..models.vit import MAE, VIT_CONFIGS
 from ..models.vmamba import VSSM_CONFIGS
 from ..peft.lora import apply_lora, init_lora, llama_qv_rules, vision_qv_rules
 from ..utils.logging import JsonlLogger, MetricLogger
@@ -69,8 +87,6 @@ from .train_state import TrainState, make_train_step
 
 # ROADMAP.md, queue 1: where each task the JAX package trains is ported.
 _NOT_PORTED = {
-    "swinchex": "slice 4, item 14",
-    "dp": "slice 4, item 14",
     "emrrg": "slice 5, item 16",
     "am_mrg": "slice 5, item 16",
     "r2gen_kg": "slice 5, item 16",
@@ -81,33 +97,28 @@ _NOT_PORTED = {
     "mamba_lm_sft": "slice 5, item 16",
 }
 
-
-_TOWERS_NOT_PORTED = {
-    "vit": "slice 4, item 14",
-    "swin": "slice 4, item 14",
-}
+_IMAGE_SIZED = ("arm", "swin", "vit")  # towers that take ``img_size``
 
 
 def vision_preset(family: str, size: str, extra: dict | None = None) -> dict:
     """The tower's kwargs. As in the JAX package, ``vssm`` names the
     d_state=16 ``vssm_*`` configs; the d_state=1 ``vssm1_*`` family is
     reached through ``extra`` (``model.vision_kwargs``)."""
-    if family == "arm":
-        base = dict(ARM_CONFIGS[f"arm_{size}_pz16"])
-    elif family == "vssm":
-        base = dict(VSSM_CONFIGS[f"vssm_{size}"])
-    else:
-        raise NotImplementedError(
-            f"vision tower {family!r} is not ported yet (ROADMAP.md, queue 1, "
-            f"{_TOWERS_NOT_PORTED.get(family, 'slice 5')})"
-        )
+    configs = {"arm": (ARM_CONFIGS, f"arm_{size}_pz16"),
+               "vssm": (VSSM_CONFIGS, f"vssm_{size}"),
+               "swin": (SWIN_CONFIGS, f"swin_{size}"),
+               "vit": (VIT_CONFIGS, f"vit_{size}")}
+    if family not in configs:
+        raise ValueError(f"unknown vision tower {family!r}")
+    table, key = configs[family]
+    base = dict(table[key])
     base.update(extra or {})
     return base
 
 
 def build_mrg_model(cfg: RunConfig, vocab_size: int,
                     device=None) -> R2GenGPT | R2GenCSR:
-    """R2GenGPT or R2GenCSR with an ARM or VSSM tower and a
+    """R2GenGPT or R2GenCSR with an ARM, VSSM, Swin or ViT tower and a
     ``cfg.model.llm`` decoder.
 
     Parameters are allocated on ``device`` and left uninitialised by
@@ -136,7 +147,7 @@ def build_mrg_model(cfg: RunConfig, vocab_size: int,
         raise ValueError(f"model.llm_kwargs vocab_size {llm_cfg.vocab_size} "
                          f"is below the tokenizer's {vocab_size}")
     vk = vision_preset(m.vision, m.vision_size, m.vision_kwargs)
-    if m.vision == "arm":
+    if m.vision in _IMAGE_SIZED:
         vk.setdefault("img_size", cfg.data.input_size)
     if cfg.train.remat:
         llm_cfg = dataclasses.replace(llm_cfg, remat=True)
@@ -154,10 +165,11 @@ def build_data(cfg: RunConfig):
         ann = synthetic_annotations()
         loader = synthetic_image_loader(d.input_size, d.num_views)
     elif d.dataset == "synthetic_learnable":
-        raise NotImplementedError(
-            "data.dataset=synthetic_learnable is not ported yet (ROADMAP.md, "
-            "queue 1, item 9)"
+        ann = learnable_synthetic_annotations(
+            n_train=d.synthetic_train_size or 512,
+            holdout=d.synthetic_holdout,
         )
+        loader = learnable_image_loader(d.input_size, d.num_views)
     else:
         ann = load_annotations(d.annotation_path, d.dataset)
         loader = disk_image_loader(d.base_dir, d.input_size)
@@ -387,17 +399,7 @@ def fit_mrg(cfg: RunConfig, device="cuda", on_start=None) -> dict:
             vb.close()
 
     if t.eval_only:
-        # trainer.test/validate: the resumed state's weights (its EMA
-        # shadow when enabled), with a delta merged over them, scored.
-        if ema is not None:
-            with torch.no_grad():
-                for n, p in state.params.items():
-                    p.copy_(ema[n])
-        if t.init_delta:
-            delta, meta = load_delta(t.init_delta)
-            merge_delta(state.params, delta)
-            print(f"[eval_only] merged delta {t.init_delta} "
-                  f"(epoch {meta['epoch']})")
+        _load_eval_only_weights(state, t)
         scores = score(t.eval_split, f"result_{t.eval_split}.json")
         logger.write({"eval_only": t.eval_split, **scores})
         return scores
@@ -465,6 +467,21 @@ def fit_mrg(cfg: RunConfig, device="cuda", on_start=None) -> dict:
     finally:
         train_b.close()
     return results
+
+
+def _load_eval_only_weights(state: TrainState, t) -> None:
+    """trainer.test/validate: the resumed state's weights (its EMA shadow
+    when enabled), with ``train.init_delta`` merged over them, into the
+    model's parameters."""
+    if state.ema_params is not None and t.ema_decay > 0:
+        with torch.no_grad():
+            for n, p in state.params.items():
+                p.copy_(state.ema_params[n])
+    if t.init_delta:
+        delta, meta = load_delta(t.init_delta)
+        merge_delta(state.params, delta)
+        print(f"[eval_only] merged delta {t.init_delta} "
+              f"(epoch {meta['epoch']})")
 
 
 def _maybe_resume(state: TrainState, t) -> int:
@@ -570,10 +587,166 @@ def fit_mae(cfg: RunConfig, device="cuda", on_start=None) -> dict:
     return {"loss": ml.meters["loss"].global_avg}
 
 
+def build_classifier(cfg: RunConfig, device=None):
+    """``(model, loss head, head kind)`` of a classification recipe, as the
+    JAX ``fit_classify`` builds them: ``dp`` a ViT ``DPClassifier`` with
+    the weighted BCE, ``swinchex`` on ``vision=vssm`` a ``VSSMClassifier``
+    with the same loss, else ``SwinCheX`` with its per-head 2-way CE; 14
+    labels. Parameters are left uninitialised."""
+    m = cfg.model
+    if m.vision_init:
+        raise NotImplementedError(
+            "model.vision_init (the MAE encoder graft) is not ported yet "
+            "(ROADMAP.md, queue 1, item 9)")
+    size = cfg.data.input_size
+    if m.task == "dp":
+        vk = {"img_size": size,
+              **vision_preset("vit", m.vision_size, m.vision_kwargs)}
+        return (DPClassifier(14, vit_kwargs=vk, device=device),
+                weighted_bce_loss, "sigmoid")
+    if m.vision == "vssm":
+        vk = vision_preset("vssm", m.vision_size, m.vision_kwargs)
+        return (VSSMClassifier(14, vssm_kwargs=vk, device=device),
+                weighted_bce_loss, "sigmoid")
+    vk = {"img_size": size,
+          **vision_preset("swin", m.vision_size, m.vision_kwargs)}
+    backbone = SwinTransformer(**vk, device=device)
+    return SwinCheX(backbone, 14, device=device), swinchex_loss, "twoway"
+
+
+def classify_metrics(logits: np.ndarray, labels: np.ndarray,
+                     head_kind: str) -> dict:
+    """Validation metrics of one split's logits and labels: per-label
+    accuracy and mean AUC of the 2-way heads (positive-class softmax
+    probability), or mean AUC and the pedestrian metrics of sigmoid
+    scores."""
+    if head_kind == "twoway":
+        e = np.exp(logits - logits.max(-1, keepdims=True))
+        scores = (e / e.sum(-1, keepdims=True))[..., 1]
+        return {**per_label_accuracy(logits, labels),
+                "auc_mean": multilabel_auc(scores, labels)["auc_mean"]}
+    scores = 1.0 / (1.0 + np.exp(-logits))
+    return {"auc_mean": multilabel_auc(scores, labels)["auc_mean"],
+            **pedestrian_metrics(scores, labels)}
+
+
+def report_labels(reports) -> np.ndarray:
+    """(N, 14) fp32 CheXpert labels of the reports."""
+    return np.stack([extract_labels(r) for r in reports]).astype(np.float32)
+
+
+def fit_classify(cfg: RunConfig, device="cuda", on_start=None) -> dict:
+    """Classification: SwinCheX (``swinchex`` + ``vision=swin``), the VMamba
+    classification runner (``swinchex`` + ``vision=vssm``) or the DP ViT
+    (``dp``), labels extracted from the reports with the CheXpert rule
+    labeler. Every parameter trains (AdamW at ``train.lr``, warmup cosine),
+    with batch mixup/cutmix drawn from ``(seed, epoch, step)`` when
+    ``train.mixup`` or ``train.cutmix`` is set, and EMA weights for
+    validation when ``train.ema_decay`` is. Returns the mean training loss
+    and the last validation's metrics (or the metrics of an eval-only
+    run). ``on_start`` as in :func:`fit_mrg`."""
+    t = cfg.train
+    device = torch.device(device)
+    os.makedirs(t.save_dir, exist_ok=True)
+    logger = JsonlLogger(t.save_dir)
+    ann, _, batcher, _ = build_data(cfg)
+    bs = cfg.data.batch_size
+    if len(ann["train"]) < bs:
+        raise ValueError(f"{len(ann['train'])} train samples, fewer than a "
+                         f"batch of {bs}")
+    model, loss_head, head_kind = build_classifier(cfg, device)
+    init_params(model, torch.Generator(device).manual_seed(t.seed))
+    params = flax_named_parameters(model)
+    print(f"[fit_classify] data ready, "
+          f"{sum(p.numel() for p in params.values())} params initialized",
+          flush=True)
+    steps = max(len(ann["train"]) // bs, 1) * t.epochs
+    tx = make_adamw(params, warmup_cosine(t.lr, t.warmup_steps, steps),
+                    weight_decay=t.weight_decay, grad_clip=t.grad_clip)
+    state = TrainState(params, tx, ema=t.ema_decay > 0)
+    start_epoch = _maybe_resume(state, t)
+    if on_start is not None:
+        on_start(model, state)
+
+    def loss_fn(batch):
+        return loss_head(model(batch["images"][:, 0]), batch["labels"])
+
+    def run_eval(split: str, weights=None) -> dict:
+        vb = batcher(split)
+        all_logits, all_labels = [], []
+        try:
+            with _swapped(state.params, weights), torch.no_grad():
+                for batch in vb.batches(shuffle=False, drop_last=False):
+                    images = torch.from_numpy(batch["images"][:, 0])
+                    all_logits.append(model(images.to(device)).cpu().numpy())
+                    all_labels.append(report_labels(batch["reports"]))
+        finally:
+            vb.close()
+        # the final batch is padded by repeating its last sample: keep one
+        # row per sample, or the metrics lean toward the duplicates
+        n_val = len(vb.samples)
+        return classify_metrics(np.concatenate(all_logits)[:n_val],
+                                np.concatenate(all_labels)[:n_val],
+                                head_kind)
+
+    if t.eval_only:
+        _load_eval_only_weights(state, t)
+        scores = run_eval(t.eval_split)
+        logger.write({"eval_only": t.eval_split, **scores})
+        return scores
+
+    step = make_train_step(loss_fn, t.accum_steps, t.ema_decay)
+    train_b = batcher("train")
+    ema = state.ema_params if t.ema_decay > 0 else None
+    ml = MetricLogger()
+    results: dict = {}
+    try:
+        for epoch in range(start_epoch, t.epochs):
+            it = prefetch(train_b.batches(epoch=epoch))
+            t_prev = time.perf_counter()
+            for i, batch in enumerate(ml.log_every(
+                    it, t.log_every, f"cls epoch {epoch}",
+                    total=len(ann["train"]) // bs)):
+                labels = report_labels(batch["reports"])
+                images = batch["images"]
+                if t.mixup > 0 or t.cutmix > 0:
+                    images, labels = mixup_cutmix(
+                        np.random.default_rng((t.seed, epoch, i)), images,
+                        labels, mixup_alpha=t.mixup, cutmix_alpha=t.cutmix)
+                metrics = step(state, _device_batch(
+                    {"images": images, "labels": labels}, device))
+                loss = float(metrics["loss"])  # waits for the step's loss
+                now = time.perf_counter()
+                logger.write({"epoch": epoch, "step": state.step,
+                              "loss": loss,
+                              "grad_norm": float(metrics["grad_norm"]),
+                              "lr": metrics["lr"], "step_s": now - t_prev})
+                t_prev = now
+                ml.update(loss=loss)
+            if (epoch + 1) % t.save_state_every_epochs == 0:
+                save_train_state(t.save_dir, state.state_dict(), epoch,
+                                 keep=t.keep_states)
+            if (epoch + 1) % t.val_every_epochs == 0:
+                t0 = time.perf_counter()
+                results = run_eval("val", ema)
+                logger.write({"epoch": epoch,
+                              "val_s": time.perf_counter() - t0, **results})
+            if t.max_epochs_this_run and (
+                epoch - start_epoch + 1 >= t.max_epochs_this_run
+            ):
+                break
+    finally:
+        train_b.close()
+    return {"loss": ml.meters["loss"].global_avg, **results}
+
+
 def fit(cfg: RunConfig, device="cuda", on_start=None) -> dict:
     """The JAX package's dispatch by ``model.task``: ``mae`` to
-    :func:`fit_mae`; r2gengpt and r2gencsr to :func:`fit_mrg`, which raises
-    for the tasks not ported yet."""
+    :func:`fit_mae`; ``swinchex`` and ``dp`` to :func:`fit_classify`;
+    r2gengpt and r2gencsr to :func:`fit_mrg`, which raises for the tasks
+    not ported yet."""
     if cfg.model.task == "mae":
         return fit_mae(cfg, device, on_start)
+    if cfg.model.task in ("swinchex", "dp"):
+        return fit_classify(cfg, device, on_start)
     return fit_mrg(cfg, device, on_start)

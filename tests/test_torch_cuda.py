@@ -553,7 +553,8 @@ def test_tiny_mae_through_kernels_matches_plain(cuda, mask_type):
     """Each TransformerBlock launches the four kernels once a step; the
     loss and every parameter's gradient agree with the plain versions
     (``set_fused(model, False)``)."""
-    from medical_image_analysis_tpu_torch.models.vit import MAE, set_fused
+    from medical_image_analysis_tpu_torch.models.common import set_fused
+    from medical_image_analysis_tpu_torch.models.vit import MAE
     from medical_image_analysis_tpu_torch.ops import vit_block as vb
 
     gen = torch.Generator(cuda).manual_seed(4)
@@ -586,10 +587,8 @@ def test_block_with_drop_path_trains_through_kernels(cuda):
     """Stochastic depth in training stays on the kernels: the branch is
     dropped around the wrappers' output, and the gradients agree with the
     plain versions under the same keep masks."""
-    from medical_image_analysis_tpu_torch.models.vit import (
-        TransformerBlock,
-        set_fused,
-    )
+    from medical_image_analysis_tpu_torch.models.common import set_fused
+    from medical_image_analysis_tpu_torch.models.vit import TransformerBlock
     from medical_image_analysis_tpu_torch.ops import vit_block as vb
 
     gen = torch.Generator(cuda).manual_seed(6)
@@ -609,3 +608,103 @@ def test_block_with_drop_path_trains_through_kernels(cuda):
     want = _grads(block, loss)
     assert vb.launches == dict.fromkeys(vb.launches, 1)
     _assert_grads_close(got, want)
+
+
+# The Swin window-attention sub-layer at two swin_large stage shapes (B=2
+# images: stage 0 with 128 windows, C=192, 6 heads, shifted nW=64; stage 3
+# with 2 windows, C=1536, 48 heads, unshifted). fp32: reordered sums, 1e-4
+# of max(1, max |plain|); bf16: the plain version rounds p after the
+# softmax's division as the kernel does, but the sums run in another order,
+# so two bf16 steps.
+SWIN_SHAPES = ((128, 192, 6, 64), (2, 1536, 48, 1))
+SWIN_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-6}
+
+
+def _swin_inputs(dev, dtype, bn, d, heads, nw, seed):
+    from medical_image_analysis_tpu_torch.models.swin import _shift_attn_mask
+
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0, shift=0.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale + shift)
+                                .astype(np.float32)).to(dev)
+
+    x = t(bn, 49, d).to(dtype)
+    w = [t(d, 3 * d, scale=d**-0.5), t(3 * d, scale=0.1),
+         t(d, d, scale=d**-0.5), t(d, scale=0.1), t(d, scale=0.1, shift=1.0),
+         t(d, scale=0.1)]
+    bias = t(heads, 49, 49, scale=0.5)
+    mask = (torch.from_numpy(_shift_attn_mask(56, 56, 7, 3)).to(dev)
+            if nw > 1 else torch.zeros(1, 49, 49, device=dev))
+    return x, [a.to(dtype) for a in w], bias, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("bn,d,heads,nw", SWIN_SHAPES,
+                         ids=["stage0-shifted", "stage3-unshifted"])
+def test_swin_attn_kernel_matches_plain(cuda, dtype, bn, d, heads, nw):
+    from medical_image_analysis_tpu_torch.ops import swin_block as sb
+
+    x, w, bias, mask = _swin_inputs(cuda, dtype, bn, d, heads, nw, bn)
+    sb.reset_launches()
+    got = sb.swin_attn_fwd(x, *w, bias, mask, heads)
+    torch.cuda.synchronize()
+    assert sb.launches["swin_attn_fwd"] == 1
+    want = sb.swin_attn_block_plain(x, *w, bias, mask, heads)
+    assert got.shape == x.shape and got.dtype == dtype
+    assert got.data_ptr() != x.data_ptr()
+    err = (got.float() - want.float()).abs().max().item()
+    scale = max(1.0, want.float().abs().max().item())
+    assert err <= SWIN_RTOL[dtype] * scale, (err, scale)
+
+
+@pytest.mark.cuda
+def test_swinchex_through_kernel_matches_plain(cuda):
+    """A two-stage SwinCheX at 112^2 under no_grad: one kernel call per
+    block, logits within 1e-4 of the plain versions' (``set_fused(model,
+    False)``); with a gradient no call at all."""
+    from medical_image_analysis_tpu_torch.models.common import set_fused
+    from medical_image_analysis_tpu_torch.models.swin import (
+        SwinCheX,
+        SwinTransformer,
+    )
+    from medical_image_analysis_tpu_torch.ops import swin_block as sb
+
+    gen = torch.Generator(cuda).manual_seed(8)
+    model = SwinCheX(SwinTransformer(embed_dim=64, depths=(2, 2),
+                                     num_heads=(2, 4), img_size=112,
+                                     device=cuda), 14, device=cuda)
+    init_params(model, gen)
+    x = torch.randn(4, 112, 112, 3, device=cuda, generator=gen)
+    sb.reset_launches()
+    with torch.no_grad():
+        got = model(x)
+        torch.cuda.synchronize()
+        assert sb.launches["swin_attn_fwd"] == 4
+        set_fused(model, False)
+        want = model(x)
+    assert sb.launches["swin_attn_fwd"] == 4
+    scale = max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= 1e-4 * scale
+    set_fused(model, True)
+    model(x).sum().backward()
+    assert sb.launches["swin_attn_fwd"] == 4
+
+
+@pytest.mark.cuda
+def test_swin_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from medical_image_analysis_tpu_torch.ops import swin_block as sb
+
+    x, w, bias, mask = _swin_inputs(cuda, torch.float32, 128, 192, 6, 64, 1)
+    with pytest.raises(ValueError, match="head width"):
+        sb.swin_attn_fwd(x, *w, bias, mask, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        sb.swin_attn_fwd(x.transpose(0, 1), *w, bias, mask, 6)
+    with pytest.raises(ValueError, match="mask"):
+        sb.swin_attn_fwd(x, *w, bias, mask[:, :, :48], 6)
+    with pytest.raises(ValueError, match="multiple"):
+        sb.swin_attn_fwd(x[:100].contiguous(), *w, bias, mask, 6)
+    with pytest.raises(TypeError, match="dtype"):
+        sb.swin_attn_fwd(x.double(), *w, bias, mask, 6)

@@ -28,7 +28,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-PRESET = ROOT / "medical_image_analysis_tpu" / "configs" / "presets" / "mae_hd_1280.yaml"
+PRESET = (ROOT / "medical_image_analysis_tpu_torch" / "configs" / "presets"
+          / "mae_hd_1280.yaml")
 # kernel families by name; the rest are PyTorch's own kernels
 FAMILIES = (("vit gemm", "gemm_kernel"), ("vit attention fwd", "attn_fwd_kernel"),
             ("vit attention dK/dV", "attn_dkv_kernel"),
