@@ -8,8 +8,9 @@ raises (exit code 1):
 
 1. device   -- a CUDA card is required; prints its name and power limit.
 2. build    -- compiles ``medical_image_analysis_tpu_torch/csrc/mamba_fused.cu``,
-               ``csrc/scan_n1.cu``, ``csrc/vit_block.cu`` and
-               ``csrc/swin_block.cu`` with nvcc for sm_90a into
+               ``csrc/scan_n1.cu``, ``csrc/vit_block.cu``,
+               ``csrc/swin_block.cu``, ``csrc/selective_scan.cu`` and
+               ``csrc/attention.cu`` with nvcc for sm_90a into
                ``build/kernels/``, one nvcc per source, all at once.
 3. kernels  -- both fused-Mamba forward kernels against their plain
                PyTorch versions on the card, at the ARM-B layer shapes of
@@ -120,6 +121,33 @@ raises (exit code 1):
                kernel launches for the context images of each step and for
                both towers of each validation batch, and the context
                residuals through the kernel match the plain versions'.
+19. kernels_ss, kernels_ss_bwd -- the general selective scan's forward and
+               backward kernels (``ops/selective_scan_pallas.py``) against
+               their plain versions, every output, at ARM-B's layer shapes
+               (K=4, L=197, D=768, N=16; B=1 forward, B=6 backward; fp32
+               and bf16) and vssm_tiny's four stage shapes at B=128 (fp32,
+               stage 0 also bf16): max errors, ms of the kernel and of the
+               plain version, the bound.
+20. train_cls_vssm_pallas -- ``vssm_classify`` with ``--set
+               model.vision_kwargs={scan_backend: pallas}`` (vssm_tiny at
+               full width, 11 SS2D blocks, d_state 16, B=128, EMA,
+               mixup/cutmix, fp32) through ``cli.train.main`` on the data of
+               ``train_cls_vssm``: 2 steps and one validation, the scan
+               kernels' launches reckoned, the fused layer's 0; step and
+               validation seconds and peak memory beside ``train_cls_vssm``'s.
+21. tower_arm_pallas -- ``r2gengpt_mimic``'s ARM-B tower on the same
+               ``--set``, remat, one micro-batch of 6 images: the tower's and
+               projector's gradients through the kernels against
+               ``pallas_plain`` within TOWER_RTOL; the gap to the fused
+               layer printed.
+22. kernels_attn -- ``fused_attention``'s kernel against its plain version
+               at ViT-B's widths (B=64, L=197, 12 heads of 64), fp32 and
+               bf16, with and without a causal mask; ``library_ms`` is
+               ``F.scaled_dot_product_attention``; ViT-B at 384^2 (L=577)
+               takes the einsum route and launches nothing.
+23. attn     -- ``models/vit.py:Attention(768, 12)`` on (64, 197, 768):
+               the kernel against ``set_fused(model, False)``, then 0
+               launches under a gradient.
 
 Then one JSON line of the kernels, and the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -171,6 +199,11 @@ REPLACES = {
     "vit_attn_bwd": "medical_image_analysis_tpu/ops/vit_block.py:298",
     "vit_mlp_bwd": "medical_image_analysis_tpu/ops/vit_block.py:235",
     "swin_attn_fwd": "medical_image_analysis_tpu/ops/swin_block.py:43",
+    "selective_scan_fwd":
+        "medical_image_analysis_tpu/ops/selective_scan_pallas.py:108",
+    "selective_scan_bwd":
+        "medical_image_analysis_tpu/ops/selective_scan_pallas.py:164",
+    "fused_attention": "medical_image_analysis_tpu/ops/attention.py:28",
 }
 # vssm1_base's stages at 224^2: (H = W, model dim); d_inner = 2 dim, R = dim/16
 N1_STAGES = ((56, 128), (28, 256), (14, 512), (7, 1024))
@@ -231,6 +264,26 @@ SWIN_TOWERS = (("swin_large", 192, (6, 12, 24, 48), 64),
 # The kernel's fp32 result against the plain version's: reordered sums,
 # 1e-4 of max(1, max |plain|); bf16 as the ViT kernels (VIT_RTOL).
 SWIN_RTOL = VIT_RTOL
+# The general selective scan on this slice's paths (scan_backend=pallas):
+# ARM-B's layers (K=4 directions, L = 196 patches + cls, d_inner 768,
+# d_state 16) at the serving batch (forward) and the training micro-batch
+# of 3 samples x 2 views (backward), and vssm_tiny's four stages at 224^2
+# (L = 56^2 .. 7^2, d_inner 192 .. 1536, d_state 16) at vssm_classify's
+# batch of 128.
+SS_ARM = (4, 197, 768, 16)  # K, L, d_inner, N
+SS_ARM_BATCH = {"fwd": 1, "bwd": 6}
+SS_VSSM_STAGES = ((3136, 192), (784, 384), (196, 768), (49, 1536))
+SS_VSSM_BATCH = 128
+VSSM_PALLAS = "model.vision_kwargs={scan_backend: pallas}"
+# The fused attention at dp_finetune's ViT-B widths (B=64, L=197, 12
+# heads of 64), and ViT-B at 384^2 (L=577), where the JAX dispatch takes
+# the einsum route (8 x 577^2 x 4 bytes > 8 MiB).
+ATTN_VIT_B = (64, 197, 12, 64)
+ATTN_EINSUM = (8, 577, 12, 64)
+# The kernel's fp32 result against the plain version's: reordered sums,
+# 1e-4 of max(1, max |plain|); bf16 as the ViT kernels (VIT_RTOL): p is
+# rounded before the product and the output after it.
+ATTN_RTOL = VIT_RTOL
 # The published H100 SXM peaks (NVIDIA's H100 datasheet) that bound_ms
 # divides by: HBM bytes per second, and operations per second by type
 # (fp32 outside the tensor cores; bf16 inputs on the tensor cores).
@@ -939,13 +992,16 @@ def phase_kernels_n1_bwd(dev, gen) -> tuple:
 
 def _kernel_modules():
     from medical_image_analysis_tpu_torch.ops import (
+        attention,
         mamba_fused,
         scan_n1,
+        selective_scan_pallas,
         swin_block,
         vit_block,
     )
 
-    return mamba_fused, scan_n1, vit_block, swin_block
+    return (mamba_fused, scan_n1, vit_block, swin_block,
+            selective_scan_pallas, attention)
 
 
 def _all_launches() -> dict:
@@ -1564,12 +1620,25 @@ def phase_tower_cls(model, sets) -> None:
 
 def phase_train_cls_other(preset: str, save_dir: Path, device: str = "cuda",
                           overrides=()) -> dict:
-    """``vssm_classify`` (phase ``train_cls_vssm``) or ``dp_finetune``
+    """``vssm_classify`` (phase ``train_cls_vssm``; ``train_cls_vssm_pallas``
+    when ``overrides`` set ``scan_backend: pallas``) or ``dp_finetune``
     (``train_cls_dp``) for one epoch through the CLI, launches reckoned;
     returns the run."""
     run = _cls_through_cli(preset, save_dir, device, overrides)
     model, n_steps, val_b = run["model"], run["n_steps"], run["val_batches"]
-    if preset == "vssm_classify.yaml":
+    if preset == "vssm_classify.yaml" and VSSM_PALLAS in overrides:
+        # every SS2D launches the general scan's forward kernel once per
+        # forward and its backward once per step, the fused layer never;
+        # no remat
+        phase, blocks = "train_cls_vssm_pallas", sum(model.backbone.depths)
+        _check(model.backbone.stage0_block0.op.scan_backend == "pallas",
+               "vssm_classify not on scan_backend=pallas")
+        reckoned = {"selective_scan_fwd": (n_steps + val_b) * blocks,
+                    "selective_scan_bwd": n_steps * blocks}
+        how = (f"{blocks} SS2D blocks x ({n_steps} steps + {val_b} val "
+               f"batches) forward, x {n_steps} steps backward; 0 of the "
+               f"fused layer")
+    elif preset == "vssm_classify.yaml":
         # every SS2D (d_state 16, no conv in the fused layer) launches both
         # forward kernels once per forward and the backward once per step;
         # no remat
@@ -1662,6 +1731,296 @@ def phase_train_csr_swin(vocab: int, save_dir: Path, device: str = "cuda",
     return run
 
 
+def _ss_case(dev, gen, batch: int, k: int, l: int, d: int, n: int, dtype):
+    """The folded inputs of one general-scan call at a main-path shape: an
+    initialised SS2D's A, D and delta bias (its 4 directions of d
+    channels), u = silu(N(0, 1)) and delta ~ N(0, 0.5) in ``dtype``, and B
+    and C read in place from a random (batch * k, L, R + 2N) x_dbl, as the
+    models hand them over."""
+    from medical_image_analysis_tpu_torch.models.common import init_params
+    from medical_image_analysis_tpu_torch.models.vmamba import SS2D
+
+    m = SS2D(d // 2, d_state=n, device=dev)
+    init_params(m, gen)
+    rows, r = batch * k, m.rank
+    with torch.no_grad():
+        a = -torch.exp(m.A_log.float())[:k].contiguous()
+        dv, db = (p.detach()[:k].contiguous() for p in (m.D, m.dt_bias))
+    u = torch.nn.functional.silu(
+        torch.randn(rows, l, d, device=dev, generator=gen)).to(dtype)
+    delta = (torch.randn(rows, l, d, device=dev, generator=gen)
+             * 0.5).to(dtype)
+    x_dbl = torch.randn(rows, l, r + 2 * n, device=dev, generator=gen)
+    x_dbl = x_dbl.to(dtype)
+    return u, delta, a, x_dbl[..., r : r + n], x_dbl[..., r + n :], dv, db
+
+
+def _ss_cases(kind: str):
+    """(case, batch, K, L, D, N, dtype): ARM-B at the phase's batch in fp32
+    and bf16, vssm_tiny's four stages at B=128 in fp32, stage 0 in bf16."""
+    k, l, d, n = SS_ARM
+    cases = [("arm_b", SS_ARM_BATCH[kind], k, l, d, n, dtype)
+             for dtype in (torch.float32, torch.bfloat16)]
+    cases += [(f"vssm_tiny_s{i}", SS_VSSM_BATCH, 4, l, d, 16, torch.float32)
+              for i, (l, d) in enumerate(SS_VSSM_STAGES)]
+    return cases + [("vssm_tiny_s0", SS_VSSM_BATCH, 4, *SS_VSSM_STAGES[0],
+                     16, torch.bfloat16)]
+
+
+def phase_kernels_ss(dev, gen, kind: str) -> tuple:
+    """The general scan's forward (``kind="fwd"``, phase ``kernels_ss``) or
+    backward kernel (``"bwd"``, ``kernels_ss_bwd``) against its plain
+    version at ``_ss_cases``, every output: fp32 outputs within BWD_RTOL
+    (1e-4) of max(1, max |plain|), outputs rounded to bf16 on both sides
+    within one bf16 step (Y_RTOL). The plain versions hold B=128, so every
+    case compares and times at the batch it prints. Returns the JSON row:
+    vssm_tiny's stage 0 at B=128, fp32, the longest chain of the main
+    path (no library call computes the scan: ``library_ms`` null)."""
+    from medical_image_analysis_tpu_torch.ops import selective_scan_pallas as ssp
+
+    row = None
+    names = (("y",) if kind == "fwd" else
+             ("du", "ddelta", "dA", "dB", "dC", "dD", "ddelta_bias"))
+    for case, b, k, l, d, n, dtype in _ss_cases(kind):
+        args = _ss_case(dev, gen, b, k, l, d, n, dtype)
+        if kind == "fwd":
+            def plain():
+                return (ssp.selective_scan_fwd_plain(*args, True),)
+
+            def kernel():
+                return (ssp.selective_scan_fwd(*args, True),)
+            extra = []
+        else:
+            dy = torch.randn(b * k, l, d, device=dev, generator=gen).to(dtype)
+
+            def plain():
+                return ssp.selective_scan_bwd_plain(*args, dy, True)
+
+            def kernel():
+                return ssp.selective_scan_bwd(*args, dy, True)
+            extra = [dy]
+        want, got = plain(), kernel()
+        _sync(dev)
+        errs = {}
+        for name, g, w in zip(names, got, want):
+            _check(g.shape == w.shape and g.dtype == w.dtype
+                   and bool(torch.isfinite(g).all()),
+                   f"selective_scan_{kind} {name}: shape, dtype or finiteness")
+            err, scale = _max_err(g, w)
+            tol = Y_RTOL[g.dtype] if g.dtype == torch.bfloat16 else BWD_RTOL
+            _check(err <= tol * scale,
+                   f"selective_scan_{kind} {case} B={b} {dtype} {name}: max "
+                   f"abs err {err:.3e} > {tol} x {scale:.3f}")
+            errs[name] = err
+        del want
+        t = _in_turns(plain, kernel, 1, 20 if case == "arm_b" else 3)
+        bound = _bound([*args, *extra, *got],
+                       ssp.flops(kind, b * k, l, d, n))
+        _phase("kernels_ss" if kind == "fwd" else "kernels_ss_bwd",
+               case=case, B=b, K=k, L=l, D=d, N=n, src=_dtype_name(dtype),
+               errs=json.dumps({k_: f"{v:.3e}" for k_, v in errs.items()},
+                               separators=(",", ":")),
+               ms=f"{t['kernel']:.4f}", plain_ms=f"{t['plain']:.4f}",
+               bound_ms=f"{bound[0]:.4f}", bound_by=bound[1])
+        if (case, dtype) == ("vssm_tiny_s0", torch.float32):
+            row = (max(errs.values()), t["kernel"], t["plain"], *bound)
+        del args, got, extra
+        torch.cuda.empty_cache()
+    return row
+
+
+def phase_tower_arm_pallas(dev, gen) -> dict:
+    """``r2gengpt_mimic``'s ARM-B tower on ``scan_backend=pallas``
+    (``build_mrg_model`` with that ``--set``; random weights from the seed;
+    the LLM, which this phase does not run, cut to one layer and a
+    1,000-token vocabulary) on one micro-batch of 3 samples x 2 views at
+    224^2, remat on as the preset trains: ``encode_img`` forward and a
+    backward from one cotangent at the projector's output, through the
+    kernels and through ``pallas_plain``. The tower's and projector's
+    gradients must agree within TOWER_RTOL (``train_grads``'s bound); the
+    gap to the fused layer (``auto``, whose x_dbl is fp32 by design) is
+    printed, not bounded. Returns the kernel run's launch counts."""
+    from medical_image_analysis_tpu_torch.configs.config import load_config
+    from medical_image_analysis_tpu_torch.models.common import init_params
+    from medical_image_analysis_tpu_torch.models.mamba import set_scan_backend
+    from medical_image_analysis_tpu_torch.train.loop import build_mrg_model
+
+    cfg = load_config(str(PRESET), [VSSM_PALLAS,
+                                    "model.llm_kwargs={n_layers: 1}"])
+    model = build_mrg_model(cfg, 1000, device=dev)
+    init_params(model, gen)
+    arm = model.vision.arm
+    depth = len(arm.layers)
+    _check(arm.remat and arm.layers[0].mixer.scan_backend == "pallas",
+           "the ARM tower is not on remat + scan_backend=pallas")
+    micro = cfg.data.batch_size // cfg.train.accum_steps
+    size = cfg.data.input_size
+    images = torch.randn(micro, cfg.data.num_views, size, size, 3,
+                         device=dev, generator=gen)
+    named = [(n, p) for n, p in model.named_parameters()
+             if n.startswith(("vision.", "proj"))]
+    names, tensors = [n for n, _ in named], [p for _, p in named]
+    cot = None
+    for backend in ("pallas", "pallas_plain", "auto"):
+        # warm-up: each route's first forward and backward, with their
+        # one-time set-up, kept out of the timed runs below
+        set_scan_backend(model, backend)
+        out = model.encode_img(images)
+        if cot is None:
+            cot = torch.randn(out.shape, device=dev, generator=gen)
+        torch.autograd.grad(out, tensors, cot)
+        del out
+    grads, secs, launches = {}, {}, None
+    for backend in ("pallas", "pallas_plain", "auto"):
+        set_scan_backend(model, backend)
+        _reset_launches()
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = model.encode_img(images)
+        grads[backend] = torch.autograd.grad(out, tensors, cot)
+        _sync(dev)
+        secs[backend] = time.perf_counter() - t0
+        if backend == "pallas":
+            launches = _all_launches()
+            want = {k: 0 for k in launches}
+            want.update(selective_scan_fwd=2 * depth,
+                        selective_scan_bwd=depth)
+            print(f"tower_arm_pallas: launches reckoned: {depth} layers x 2 "
+                  f"forwards (remat) and {depth} backwards -> "
+                  f"{json.dumps(want, separators=(',', ':'))}", flush=True)
+            if dev.type != "cuda":  # CPU tensors take the plain versions
+                want = dict.fromkeys(want, 0)
+            _check(launches == want, f"tower_arm_pallas launches {launches}")
+        del out
+    rel, at = _worst_rel(names, grads["pallas"], grads["pallas_plain"])
+    fused_rel, fused_at = _worst_rel(names, grads["pallas"], grads["auto"])
+    _check(rel <= TOWER_RTOL,
+           f"tower_arm_pallas grad of {at}: max rel err {rel:.3e} > "
+           f"{TOWER_RTOL}")
+    _phase("tower_arm_pallas", images=micro * cfg.data.num_views,
+           layers=depth, tensors=len(names), max_rel_err=f"{rel:.3e}", at=at,
+           bound=TOWER_RTOL, fused_gap=f"{fused_rel:.3e}", fused_at=fused_at,
+           kernel_s=f"{secs['pallas']:.3f}",
+           plain_s=f"{secs['pallas_plain']:.3f}",
+           fused_s=f"{secs['auto']:.3f}")
+    return launches
+
+
+def phase_kernels_attn(dev, gen) -> tuple:
+    """``fused_attention`` (its kernel route) against ``attention_plain`` at
+    ViT-B's widths (B=64, L=197, 12 heads of 64), fp32 and bf16, without a
+    mask and with a causal one, q, k and v read in place from one (B, L, 3,
+    H, hd) product: max error against ATTN_RTOL, ms of the kernel, the
+    plain version and ``library_ms`` (``F.scaled_dot_product_attention``
+    with the mask as ``attn_mask``), the bound and TFLOP/s. Then ViT-B at
+    384^2 (L=577), where the dispatch takes the einsum route: 0 launches.
+    Returns the JSON row (fp32, no mask)."""
+    from medical_image_analysis_tpu_torch.ops import attention as att
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, l, h, hd = ATTN_VIT_B
+    row = None
+    for dtype in (torch.float32, torch.bfloat16):
+        for masked in (False, True):
+            qkv = torch.randn(b, l, 3, h, hd, device=dev, generator=gen)
+            q, k, v = qkv.to(dtype).unbind(2)
+            mask = (torch.full((l, l), float("-inf"), device=dev).triu(1)
+                    if masked else None)
+            before = att.launches["fused_attention"]
+            got = att.fused_attention(q, k, v, mask)
+            _sync(dev)
+            _check(att.launches["fused_attention"]
+                   == before + (dev.type == "cuda"),
+                   "fused_attention did not take its kernel route")
+            _check(got.shape == q.shape and got.dtype == dtype
+                   and bool(torch.isfinite(got).all()),
+                   "fused_attention output shape, dtype or finiteness")
+            err, scale = _max_err(got, att.attention_plain(q, k, v, mask))
+            _check(err <= ATTN_RTOL[dtype] * scale,
+                   f"fused_attention {dtype} mask={masked}: max abs err "
+                   f"{err:.3e} > {ATTN_RTOL[dtype]} x {scale:.3f}")
+            ops = att.flops(b, l, h, hd)
+            iters = _iters(ops)
+            t = _in_turns(lambda: att.attention_plain(q, k, v, mask),
+                          lambda: att.fused_attention(q, k, v, mask),
+                          iters, iters)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            am = None if mask is None else mask.to(dtype)
+            lib_ms = device_ms(lambda: sdpa(qt, kt, vt, attn_mask=am), iters)
+            bound = _bound([q, k, v, mask, got], ops, dtype)
+            _phase("kernels_attn", B=b, L=l, heads=h, hd=hd,
+                   dtype=_dtype_name(dtype),
+                   mask="causal" if masked else "none", err=f"{err:.3e}",
+                   ms=f"{t['kernel']:.4f}", plain_ms=f"{t['plain']:.4f}",
+                   library_ms=f"{lib_ms:.4f}", bound_ms=f"{bound[0]:.4f}",
+                   bound_by=bound[1], tflops=f"{ops / t['kernel'] / 1e9:.2f}")
+            if dtype == torch.float32 and not masked:
+                row = (err, t["kernel"], t["plain"], *bound, lib_ms)
+    b, l, h, hd = ATTN_EINSUM
+    q, k, v = torch.randn(3, b, l, h, hd, device=dev, generator=gen).unbind(0)
+    before = att.launches["fused_attention"]
+    out = att.fused_attention(q, k, v)
+    _sync(dev)
+    _check(att.launches["fused_attention"] == before,
+           "the einsum route launched the kernel")
+    _check(out.shape == q.shape and bool(torch.isfinite(out).all()),
+           "einsum route output shape or finiteness")
+    _phase("kernels_attn", B=b, L=l, heads=h, hd=hd, dtype="fp32",
+           route="einsum", tile_bytes=8 * l * l * 4, launches=0)
+    return row
+
+
+def phase_attn(dev, gen) -> dict:
+    """``models/vit.py:Attention(768, 12)`` on (64, 197, 768) with seeded
+    weights (biases moved off zero): the module through the kernel against
+    ``set_fused(model, False)`` within ATTN_RTOL, then a forward and
+    backward with a gradient, which must launch the kernel no time. Returns
+    the kernel run's launch counts (the counts at 0 just before it)."""
+    from medical_image_analysis_tpu_torch.models.common import (
+        init_params,
+        set_fused,
+    )
+    from medical_image_analysis_tpu_torch.models.vit import Attention
+    from medical_image_analysis_tpu_torch.ops import attention as att
+
+    b, l, h, hd = ATTN_VIT_B
+    m = Attention(h * hd, h, device=dev)
+    init_params(m, gen)
+    with torch.no_grad():
+        for p in (m.qkv.bias, m.proj.bias):
+            p.normal_(0.0, 0.02, generator=gen)
+    x = torch.randn(b, l, h * hd, device=dev, generator=gen)
+    out, secs = {}, {}
+    for fused in (True, False):
+        set_fused(m, fused)
+        _reset_launches()
+        _sync(dev)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out[fused] = m(x)
+        _sync(dev)
+        secs[fused] = time.perf_counter() - t0
+        if fused:
+            launches = _all_launches()
+            want = dict.fromkeys(launches, 0)
+            want["fused_attention"] = int(dev.type == "cuda")
+            _check(launches == want, f"attn launches {launches}")
+    set_fused(m, True)
+    err, scale = _max_err(out[True], out[False])
+    _check(err <= ATTN_RTOL[torch.float32] * scale,
+           f"attn: max abs err {err:.3e} > {ATTN_RTOL[torch.float32]} x "
+           f"{scale:.3f}")
+    att.reset_launches()
+    m(x).sum().backward()
+    _sync(dev)
+    _check(att.launches["fused_attention"] == 0,
+           f"{att.launches['fused_attention']} launches with a gradient")
+    _phase("attn", shape=tuple(x.shape), heads=h, max_abs_err=f"{err:.3e}",
+           bound=ATTN_RTOL[torch.float32], launches=1, grad_launches=0,
+           kernel_s=f"{secs[True]:.4f}", plain_s=f"{secs[False]:.4f}")
+    return launches
+
+
 def main() -> None:
     phase_device()
     dev = torch.device("cuda")
@@ -1716,16 +2075,39 @@ def main() -> None:
     phase_tower_cls(cls["model"], cls["sets"])
     runs.append(cls["launches"])
     del cls
+    cls_fields = {}
     for preset in ("vssm_classify.yaml", "dp_finetune.yaml"):
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory(prefix="chip_smoke_cls_") as tmp:
-            runs.append(phase_train_cls_other(preset, Path(tmp))["launches"])
+            other = phase_train_cls_other(preset, Path(tmp))
+        runs.append(other["launches"])
+        cls_fields[preset] = other["fields"]
+        del other
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_csr_swin_") as tmp:
         runs.append(phase_train_csr_swin(VOCAB, Path(tmp))["launches"])
 
-    # launches: the main paths' runs (serving, the seven trainings), each
-    # read just after it was driven with the counts at 0
+    torch.cuda.empty_cache()
+    measured["selective_scan_fwd"] = phase_kernels_ss(dev, gen, "fwd")
+    measured["selective_scan_bwd"] = phase_kernels_ss(dev, gen, "bwd")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cls_") as tmp:
+        pallas = phase_train_cls_other("vssm_classify.yaml", Path(tmp),
+                                       overrides=(VSSM_PALLAS,))
+    runs.append(pallas["launches"])
+    fused = cls_fields["vssm_classify.yaml"]
+    _phase("train_cls_vssm_pallas_vs_fused", **{
+        f"{k}{suffix}": f[k] for k in ("step_s", "val_s", "peak_mem_gib")
+        for suffix, f in (("", pallas["fields"]), ("_fused", fused))})
+    del pallas
+    torch.cuda.empty_cache()
+    runs.append(phase_tower_arm_pallas(dev, gen))
+    torch.cuda.empty_cache()
+    measured["fused_attention"] = phase_kernels_attn(dev, gen)
+    runs.append(phase_attn(dev, gen))
+
+    # launches: the main paths' runs (serving, the eight trainings, the
+    # ARM tower on scan_backend=pallas, the Attention module), each read
+    # just after it was driven with the counts at 0
     main_runs = {name: sum(run.get(name, 0) for run in runs)
                  for name in REPLACES}
     sources = {k: m.KERNEL_SOURCE for m in _kernel_modules()

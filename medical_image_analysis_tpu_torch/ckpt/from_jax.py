@@ -25,8 +25,10 @@ The Swin modules need none either: ``WindowAttention``'s ``qkv`` and
 them; ``relative_position_bias_table`` keeps its ((2ws-1)^2, heads)
 layout, and ``patch_embed`` is a conv. ``SwinCheX``'s heads
 (``head<i>_fc<j>``, ``head<i>_out``), the classifiers' ``head`` and the
-ViT's ``block<i>`` are Dense or raw parameters likewise. The tests load
-each of them strictly from a JAX ``init``.
+ViT's ``block<i>`` are Dense or raw parameters likewise, and so are the
+ViT ``Attention``'s ``qkv`` and ``proj`` (Dense, transposed). The tests
+load each of them strictly from a JAX ``init``. A mixer's parameters
+(``MambaMixer``, ``SS2D``) do not depend on its ``scan_backend``.
 
 One function serves ``ARM``, ``VSSM`` (and its ``SS2D`` and ``VSSBlock``),
 ``SwinTransformer``, ``SwinCheX``, ``VSSMClassifier``, ``DPClassifier``,

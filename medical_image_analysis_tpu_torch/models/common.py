@@ -144,8 +144,9 @@ class Mlp(nn.Module):
 
 def set_fused(module: nn.Module, fused: bool) -> None:
     """Every kernel-backed module under ``module`` (those with a ``plain``
-    switch: the ViT ``TransformerBlock``, the Swin ``WindowAttention``)
-    through its kernel wrappers (``fused``) or its plain versions."""
+    switch: the ViT ``TransformerBlock`` and ``Attention``, the Swin
+    ``WindowAttention``) through its kernel wrappers (``fused``) or its
+    plain versions."""
     for m in module.modules():
         if hasattr(m, "plain"):
             m.plain = not fused

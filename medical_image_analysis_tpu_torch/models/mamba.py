@@ -12,7 +12,19 @@ names and layouts follow the flax modules (``conv_w (K, d_conv, d_inner)``,
   on CPU tensors;
 - ``"plain"``: the same fused semantics through the plain versions on
   any device (the comparison path on the card);
+- ``"pallas"``: the JAX package's general selective-scan route
+  (``mamba.py:163-227``): the K direction sequences, one ``causal_conv1d``
+  over K x d_inner channels, the ``x_dbl`` and ``dt`` einsums in the
+  input dtype (the ``ref`` path's precision, not the fused layer's fp32),
+  then :func:`..ops.selective_scan_pallas.selective_scan_dirs`, whose
+  wrappers launch the CUDA kernels on CUDA tensors and run their plain
+  versions on CPU tensors;
+- ``"pallas_plain"``: the ``"pallas"`` route through the scan's plain
+  versions on any device (its comparison path on the card);
 - ``"ref"``: per-direction ``causal_conv1d`` + ``selective_scan_ref``.
+
+No preset picks ``"pallas"``; ``--set model.vision_kwargs={scan_backend:
+pallas}`` does, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -27,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.causal_conv import causal_conv1d
 from ..ops.mamba_fused import mamba_fused_dirs
 from ..ops.selective_scan import selective_scan_ref
+from ..ops.selective_scan_pallas import selective_scan_dirs
 from .common import (
     DropPath,
     PatchEmbed,
@@ -38,7 +51,7 @@ from .common import (
 )
 
 _NUM_DIRS = {"none": 1, "v2": 2, "v3": 4}
-SCAN_BACKENDS = ("auto", "plain", "ref")
+SCAN_BACKENDS = ("auto", "plain", "pallas", "pallas_plain", "ref")
 
 
 def _uniform(t: torch.Tensor, scale: float, gen: torch.Generator) -> None:
@@ -140,9 +153,41 @@ class MambaMixer(nn.Module):
             y = y / self.k
         return self.out_proj(y)
 
+    def _pallas_dirs(self, xi, a, cls_pos):
+        """Every direction's y (B, K, L, d_inner) in source order, through
+        one conv over all directions and ``selective_scan_dirs``."""
+        k, rank, n = self.k, self.rank, self.n
+        seqs = [xi]
+        if k >= 2:
+            seqs.append(xi.flip(1))
+        if k == 4:
+            xc = self._col_major(xi, cls_pos)
+            seqs += [xc, xc.flip(1)]
+        x_dirs = torch.stack(seqs, dim=1)  # (B, K, L, d_inner)
+        b, _, l, d = x_dirs.shape
+        # one causal conv over all directions: direction -> channels
+        h = causal_conv1d(
+            x_dirs.transpose(1, 2).reshape(b, l, k * d),
+            self.conv_w.transpose(0, 1).reshape(self.d_conv, k * d),
+            None if self.conv_b is None else self.conv_b.reshape(k * d),
+            activation="silu",
+        ).reshape(b, l, k, d).transpose(1, 2)
+        x_dbl = torch.einsum("bkld,kcd->bklc", h, self.x_proj_w)
+        dt = torch.einsum("bklr,kdr->bkld", x_dbl[..., :rank],
+                          self.dt_proj_w)
+        y = selective_scan_dirs(
+            h, dt, a, x_dbl[..., rank : rank + n], x_dbl[..., rank + n :],
+            self.D, self.dt_bias, delta_softplus=True,
+            plain=self.scan_backend == "pallas_plain",
+        )
+        return torch.stack([y[:, i].flip(1) if i % 2 else y[:, i]
+                            for i in range(k)], dim=1)
+
     def forward(self, x: torch.Tensor, cls_pos: int | None = None):
         xi, z = self.in_proj(x).chunk(2, dim=-1)
         a = -torch.exp(self.A_log.float())
+        if self.scan_backend in ("pallas", "pallas_plain"):
+            return self._merge(self._pallas_dirs(xi, a, cls_pos), z, cls_pos)
         if self.scan_backend != "ref":
             xc = self._col_major(xi, cls_pos) if self.k == 4 else None
             y_dirs = mamba_fused_dirs(

@@ -221,7 +221,7 @@ class R2GenGPT(nn.Module, MRGMixin):
     def __init__(
         self,
         llm_cfg: LLMConfig,
-        chosen: str = "arm",
+        chosen: str = "swin",
         vision_kwargs: Any = None,
         projector: str = "linear",
         use_feature_mean: bool = True,
@@ -281,7 +281,7 @@ class R2GenCSR(nn.Module, MRGMixin):
     def __init__(
         self,
         llm_cfg: LLMConfig,
-        chosen: str = "vssm",
+        chosen: str = "swin",
         vision_kwargs: Any = None,
         use_feature_mean: bool = True,
         device=None,

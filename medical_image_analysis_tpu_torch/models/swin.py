@@ -28,10 +28,11 @@ The choice reads the grad mode and ``deterministic``, never a failure. So a
 training step of ``swinchex`` launches the kernel zero times, and a
 validation batch of swin_large launches it 24 times (2 + 2 + 18 + 2 blocks).
 
-The windows' resolution is fixed at construction (``img_size``): a
-block's window and shift are ``min(window_size, resolution)`` and 0 when
-the window covers the map, and the bias table is sized by that window, as
-the JAX package sizes it from the input it first sees.
+A block derives its window, shift and shift mask from each input's (H, W),
+as the JAX block does, so any map whose sides the window divides is taken,
+square or not. ``img_size`` only sizes each stage's bias table (the window
+of that stage's map at ``img_size``), as the JAX package sizes it from the
+input it first sees.
 """
 
 from __future__ import annotations
@@ -159,28 +160,46 @@ class WindowAttention(nn.Module):
 
 
 class SwinBlock(nn.Module):
-    """Shifted-window attention and MLP sub-layers on a (B, H, W, C) map of
-    side ``resolution``."""
+    """Shifted-window attention and MLP sub-layers on a (B, H, W, C) map.
+
+    Each call derives its window ``min(window_size, H, W)``, its shift (0
+    when the window covers the map's shorter side) and the shift mask from
+    the map it is given, as the JAX block does; the mask is built once per
+    (H, W, device). ``resolution`` only sizes the relative-position bias
+    table: the window of a ``resolution``-square map, as the JAX package
+    sizes it from the first map it sees. A map whose window differs from
+    the table's raises, as flax's parameter shape check does."""
 
     def __init__(self, dim: int, num_heads: int, resolution: int,
                  window_size: int = 7, shift: int = 0, mlp_ratio: float = 4.0,
                  drop_path: float = 0.0, device=None):
         super().__init__()
-        self.resolution = resolution
-        self.ws = min(window_size, resolution)
-        self.shift = shift if self.ws < resolution else 0
+        self.window_size, self.shift = window_size, shift
         self.norm1 = nn.LayerNorm(dim, eps=EPS, device=device)
-        self.attn = WindowAttention(dim, num_heads, self.ws, device=device)
+        self.attn = WindowAttention(dim, num_heads,
+                                    min(window_size, resolution),
+                                    device=device)
         self.drop_path1 = DropPath(drop_path)
         self.norm2 = nn.LayerNorm(dim, eps=EPS, device=device)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), device=device)
         self.drop_path2 = DropPath(drop_path)
-        if self.shift > 0:
-            self.register_buffer("attn_mask", torch.from_numpy(
-                _shift_attn_mask(resolution, resolution, self.ws,
-                                 self.shift)).to(device), persistent=False)
-        else:
-            self.attn_mask = None
+        self._masks: dict[tuple, torch.Tensor] = {}
+
+    def _window(self, h: int, w: int, device) -> tuple:
+        """(window, shift, mask or None) of an (h, w) map."""
+        ws = min(self.window_size, h, w)
+        if ws != self.attn.window_size:
+            raise ValueError(
+                f"SwinBlock: a {h}x{w} map takes window {ws}; the bias table "
+                f"was sized for window {self.attn.window_size}")
+        shift = self.shift if ws < min(h, w) else 0
+        if shift == 0:
+            return ws, 0, None
+        key = (h, w, device)
+        if key not in self._masks:
+            self._masks[key] = torch.from_numpy(
+                _shift_attn_mask(h, w, ws, shift)).to(device)
+        return ws, shift, self._masks[key]
 
     def _needs_grad(self, x: torch.Tensor) -> bool:
         if not torch.is_grad_enabled():
@@ -191,14 +210,10 @@ class SwinBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, deterministic: bool = True):
         b, h, w, c = x.shape
-        if (h, w) != (self.resolution, self.resolution):
-            raise ValueError(f"SwinBlock: a {h}x{w} map where the block was "
-                             f"built for {self.resolution}^2")
-        ws, shift = self.ws, self.shift
+        ws, shift, mask = self._window(h, w, x.device)
         fused = deterministic and not self._needs_grad(x)
         y = torch.roll(x, (-shift, -shift), (1, 2)) if shift > 0 else x
-        wout = self.attn(window_partition(y, ws), self.attn_mask, self.norm1,
-                         fused)
+        wout = self.attn(window_partition(y, ws), mask, self.norm1, fused)
         y = window_reverse(wout, ws, h, w)
         if shift > 0:
             y = torch.roll(y, (shift, shift), (1, 2))

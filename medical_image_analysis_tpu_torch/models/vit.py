@@ -1,7 +1,7 @@
 """The masked autoencoder (MAE) with X-ray region masking, and its ViT blocks.
 
 Counterpart of ``medical_image_analysis_tpu/models/vit.py``
-(``sincos_pos_embed_2d``, ``TransformerBlock``, ``patchify``,
+(``sincos_pos_embed_2d``, ``Attention``, ``TransformerBlock``, ``patchify``,
 ``unpatchify``, ``random_mask_ids``, ``random_masking``,
 ``region_masking``, ``ViT``, ``VIT_CONFIGS``, ``MAE``, ``MAE_CONFIGS``,
 ``build_mae``), with the region masking's ids split out
@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..ops.attention import fused_attention
 from ..ops.gather import perm_gather, subset_gather, take_rows
 from ..ops.vit_block import fused_attn_block, fused_mlp_block
 from .common import (
@@ -58,6 +59,31 @@ def sincos_pos_embed_2d(dim: int, grid: int, cls_token: bool = True) -> np.ndarr
 def _pos(dim: int, grid: int, like: torch.Tensor) -> torch.Tensor:
     return torch.from_numpy(sincos_pos_embed_2d(dim, grid)).to(
         device=like.device, dtype=like.dtype)
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention: a ``qkv`` Linear, :func:`..ops.attention.
+    fused_attention` (the CUDA kernel on a CUDA tensor where the JAX
+    function's dispatch takes its kernel, its plain version on a CPU
+    tensor, under a gradient, or when ``plain``, set by
+    ``models.common.set_fused``), a ``proj`` Linear. The two Linears are
+    the flax Dense layers ``qkv`` and ``proj``, so ``ckpt.from_jax`` loads
+    a JAX ``init`` into them. No module of either package builds it."""
+
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
+                 device=None):
+        super().__init__()
+        self.dim, self.num_heads, self.plain = dim, num_heads, False
+        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias, device=device)
+        self.proj = nn.Linear(dim, dim, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, l, _ = x.shape
+        nh = self.num_heads
+        qkv = self.qkv(x).reshape(b, l, 3, nh, self.dim // nh)
+        out = fused_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
+                              plain=self.plain)
+        return self.proj(out.reshape(b, l, self.dim))
 
 
 class TransformerBlock(nn.Module):

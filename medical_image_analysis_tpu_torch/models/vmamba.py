@@ -16,10 +16,12 @@ Every LayerNorm has flax's eps, 1e-6.
   their plain versions on CPU tensors;
 - ``"plain"``: the same through the plain versions on any device (the
   comparison path on the card);
+- ``"pallas"``: ``cross_scan``, the ``x_dbl`` and ``dt`` einsums, then
+  :func:`..ops.selective_scan_pallas.selective_scan_dirs` (the general
+  selective-scan kernels at any d_state, JAX ``vmamba.py:145-166``) and
+  ``cross_merge``; ``"pallas_plain"`` the same through the scan's plain
+  versions on any device (its comparison path on the card);
 - ``"ref"``: ``cross_scan`` + per-direction ``selective_scan_ref``.
-
-``scan_backend="pallas"`` (the JAX package's general selective-scan
-kernel) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -35,15 +37,12 @@ from ..ops.cross_scan import cross_merge, cross_scan
 from ..ops.mamba_fused import mamba_fused_dirs
 from ..ops.scan_n1 import scan_n1_sources
 from ..ops.selective_scan import selective_scan_ref
+from ..ops.selective_scan_pallas import selective_scan_dirs
 from .common import DropPath, Mlp, layer_norm
 from .mamba import SCAN_BACKENDS, init_ssm_params
 
 
 def _check_backend(backend: str) -> None:
-    if backend == "pallas":
-        raise NotImplementedError(
-            "scan_backend='pallas' (ops/selective_scan_pallas.py) is not "
-            "ported yet (ROADMAP.md, queue 2, item 1)")
     if backend not in SCAN_BACKENDS:
         raise ValueError(f"scan_backend {backend!r} not in {SCAN_BACKENDS}")
 
@@ -104,21 +103,26 @@ class SS2D(nn.Module):
         """(B, H, W, d_inner) -> merged y (B, H*W, d_inner)."""
         b, h, w, d = xi.shape
         backend = self.scan_backend
-        if backend == "ref":
+        if backend in ("ref", "pallas", "pallas_plain"):
             xs = cross_scan(xi)
             x_dbl = torch.einsum("bkld,kcd->bklc", xs, self.x_proj_w)
             rank, n = self.rank, self.n
             dt = torch.einsum("bklr,kdr->bkld", x_dbl[..., :rank],
                               self.dt_proj_w)
-            ys = [
-                selective_scan_ref(
-                    xs[:, i], dt[:, i], a[i], x_dbl[:, i, :, rank : rank + n],
-                    x_dbl[:, i, :, rank + n :], self.D[i], self.dt_bias[i],
-                    delta_softplus=True,
-                )
-                for i in range(4)
-            ]
-            return cross_merge(torch.stack(ys, dim=1), h, w)
+            bmat, cmat = x_dbl[..., rank : rank + n], x_dbl[..., rank + n :]
+            if backend == "ref":
+                y_dirs = torch.stack([
+                    selective_scan_ref(
+                        xs[:, i], dt[:, i], a[i], bmat[:, i], cmat[:, i],
+                        self.D[i], self.dt_bias[i], delta_softplus=True,
+                    )
+                    for i in range(4)
+                ], dim=1)
+            else:
+                y_dirs = selective_scan_dirs(
+                    xs, dt, a, bmat, cmat, self.D, self.dt_bias,
+                    delta_softplus=True, plain=backend == "pallas_plain")
+            return cross_merge(y_dirs, h, w)
         xr = xi.reshape(b, h * w, d)
         xc = xi.transpose(1, 2).reshape(b, h * w, d)
         plain = backend == "plain"

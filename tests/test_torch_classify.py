@@ -15,12 +15,14 @@
     (mixup 0.8, cutmix 1.0) for three steps from the JAX parameters, against
     the JAX ``make_train_step`` on the same batches (loss within 1e-5, grad
     norm within 1e-4), then its validation's ``acc_mean`` and ``auc_mean``
-    against the JAX ``run_eval``'s computation; and ``cli.train`` reaching
-    the ``dp`` and ``vssm`` branches.
+    against the JAX ``run_eval``'s computation; the same for a tiny
+    ``vssm_classify`` through ``scan_backend: pallas``, with the trained
+    parameters; and ``cli.train`` reaching the ``dp`` and ``vssm`` branches.
 """
 
 import filecmp
 import json
+import zlib
 from pathlib import Path
 
 import jax
@@ -178,6 +180,17 @@ def test_learnable_synthetic_data_equals_jax():
 TRAIN_N, BATCH, LR = 24, 8, 1e-3
 
 
+@pytest.fixture
+def fixed_pixels(monkeypatch):
+    """The synthetic pixels seeded by a fixed hash of the sample id (CRC-32)
+    in place of Python's string hash, which changes between processes
+    (ROADMAP.md, section 3): a run sees the same images every time. Both
+    packages read the port's batcher in these tests, so they still see
+    the same images."""
+    monkeypatch.setattr(datasets, "hash",
+                        lambda s: zlib.crc32(s.encode()), raising=False)
+
+
 def _swinchex_sets(save_dir):
     return ["data.dataset=synthetic_learnable", f"data.input_size={SIZE}",
             f"data.batch_size={BATCH}", f"data.synthetic_train_size={TRAIN_N}",
@@ -186,7 +199,7 @@ def _swinchex_sets(save_dir):
             "train.log_every=100", f"train.save_dir={save_dir}"]
 
 
-def test_fit_classify_swinchex_matches_jax(tmp_path):
+def test_fit_classify_swinchex_matches_jax(tmp_path, fixed_pixels):
     cfg = load_config(str(PORT_PKG / "configs/presets/swinchex.yaml"),
                       _swinchex_sets(tmp_path))
     t = cfg.train
@@ -263,6 +276,105 @@ def test_fit_classify_swinchex_matches_jax(tmp_path):
                                    err_msg=f"grad_norm, step {i}")
     assert out["acc_mean"] == pytest.approx(want_eval["acc_mean"], abs=1e-9)
     assert out["auc_mean"] == pytest.approx(want_eval["auc_mean"], abs=1e-6)
+
+
+VSSM_TINY = "{depths: [1, 1, 1, 1], dims: [8, 16, 32, 64], scan_backend: pallas}"
+
+
+def test_fit_classify_vssm_pallas_matches_jax(tmp_path, fixed_pixels):
+    """The slice as a whole: ``fit_classify`` on a tiny ``vssm_classify``
+    (vssm_tiny's d_state 16 at depths (1, 1, 1, 1), 64^2 images, batch 4,
+    EMA on)
+    through ``scan_backend: pallas`` (the general scan's plain versions
+    here) for three steps from the JAX parameters, against the JAX
+    ``make_train_step`` of the same model through its Pallas kernels in
+    interpret mode, on the same batches and mixup draws: loss within 1e-5
+    and grad norm within 1e-4 relative, as the swinchex run; then every
+    trained parameter's change from the start within 1e-3 of that tensor's
+    largest change (Adam divides by the root of the second moment, so
+    where a gradient is near zero a reordered sum moves the step more
+    than the gradient)."""
+    from medical_image_analysis_tpu_torch.ckpt.from_jax import (
+        state_dict_from_jax,
+    )
+
+    size, batch = 64, 4
+    cfg = load_config(str(PORT_PKG / "configs/presets/vssm_classify.yaml"), [
+        "data.dataset=synthetic_learnable", f"data.input_size={size}",
+        f"data.batch_size={batch}", f"data.synthetic_train_size={3 * batch}",
+        "data.num_workers=2", f"model.vision_kwargs={VSSM_TINY}",
+        "train.epochs=1", f"train.lr={LR}", "train.warmup_steps=1",
+        "train.log_every=100", f"train.save_dir={tmp_path}"])
+    t = cfg.train
+    assert (t.mixup, t.cutmix, t.ema_decay) == (0.8, 1.0, 0.9999)
+    jm = jax_cls.VSSMClassifier(14, vssm_kwargs=loop.vision_preset(
+        "vssm", cfg.model.vision_size, cfg.model.vision_kwargs))
+    assert jm.vssm_kwargs["scan_backend"] == "pallas"
+    params = _params(jax.eval_shape(
+        jm.init, jax.random.PRNGKey(0), jnp.zeros((1, size, size, 3))), 6)
+
+    _, _, batcher, _ = loop.build_data(cfg)
+    train_b = batcher("train")
+    try:
+        batches = list(train_b.batches(epoch=0))
+    finally:
+        train_b.close()
+    steps = len(batches)
+    assert steps == 3
+    tx = jax_optim.make_adamw(jax_optim.warmup_cosine(LR, 1, steps),
+                              weight_decay=t.weight_decay,
+                              grad_clip=t.grad_clip, params_for_mask=params)
+
+    def jax_loss(p, b, rng):
+        return jax_cls.weighted_bce_loss(jm.apply(p, b["images"][:, 0]),
+                                         b["labels"])
+
+    state = jax_ts.TrainState.create(params, tx)
+    step = jax_ts.make_train_step(jax_loss, tx, donate=False)
+    want = []
+    for i, batch in enumerate(batches):
+        labels = np.stack([jax_chexbert.extract_labels(r)
+                           for r in batch["reports"]]).astype(np.float32)
+        imgs, labels = jax_data.mixup_cutmix(
+            np.random.default_rng((t.seed, 0, i)), batch["images"], labels,
+            mixup_alpha=t.mixup, cutmix_alpha=t.cutmix)
+        state, m = step(state, {"images": jnp.asarray(imgs),
+                                "labels": jnp.asarray(labels)},
+                        jax.random.PRNGKey(0))
+        want.append((float(m["loss"]), float(m["grad_norm"])))
+
+    seen = {}
+
+    def on_start(model, _):
+        load_jax_params(model, params)
+        seen["model"] = model
+        assert model.backbone.stage0_block0.op.scan_backend == "pallas"
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the plain scan's many tiny ops
+    try:
+        loop.fit_classify(cfg, "cpu", on_start=on_start)
+    finally:
+        torch.set_num_threads(threads)
+    with open(tmp_path / "log.txt") as f:
+        got = [r for r in map(json.loads, f) if "step" in r]
+    assert len(got) == steps
+    for i, (r, (loss, norm)) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(r["loss"], loss, rtol=1e-5,
+                                   err_msg=f"loss, step {i}")
+        np.testing.assert_allclose(r["grad_norm"], norm, rtol=1e-4,
+                                   err_msg=f"grad_norm, step {i}")
+    start, final = state_dict_from_jax(params), state_dict_from_jax(
+        state.params)
+    named = dict(seen["model"].named_parameters())
+    assert set(named) == set(final)
+    for name, p in named.items():
+        got_move = (p.detach() - start[name]).numpy()
+        want_move = (final[name] - start[name]).numpy()
+        if "A_log" not in name:  # with L = 1 at stage 3 A_log stays put
+            assert np.abs(want_move).max() > 0, name
+        err = np.abs(got_move - want_move).max()
+        assert err <= 1e-3 * max(np.abs(want_move).max(), 1e-12), (name, err)
 
 
 @pytest.mark.parametrize("preset,sets", [

@@ -24,11 +24,14 @@ import numpy as np
 import pytest
 import torch
 
-from medical_image_analysis_tpu_torch.models.common import init_params
+from medical_image_analysis_tpu_torch.models import vit
+from medical_image_analysis_tpu_torch.models.common import init_params, set_fused
 from medical_image_analysis_tpu_torch.models.mamba import ARM, set_scan_backend
 from medical_image_analysis_tpu_torch.models.vmamba import SS2D, build_vssm
+from medical_image_analysis_tpu_torch.ops import attention as att
 from medical_image_analysis_tpu_torch.ops import mamba_fused as mf
 from medical_image_analysis_tpu_torch.ops import scan_n1 as sn
+from medical_image_analysis_tpu_torch.ops import selective_scan_pallas as ssp
 
 Y_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-7}
 BWD_RTOL = 1e-4
@@ -708,3 +711,226 @@ def test_swin_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         sb.swin_attn_fwd(x[:100].contiguous(), *w, bias, mask, 6)
     with pytest.raises(TypeError, match="dtype"):
         sb.swin_attn_fwd(x.double(), *w, bias, mask, 6)
+
+
+# --------------------------------------------------------------------------
+# The general selective scan (ops/selective_scan_pallas.py) and the fused
+# short-sequence attention (ops/attention.py). Tolerances as above: fp32
+# outputs 1e-4 of max(1, max |plain|); an output rounded to bf16 on both
+# sides (y, du, ddelta, dB, dC from bf16 sources) one bf16 step; the
+# attention in bf16 two steps (p rounded before the product, the output
+# after it).
+# --------------------------------------------------------------------------
+
+SS_NAMES = ("du", "ddelta", "dA", "dB", "dC", "dD", "ddelta_bias")
+# rows, L, D, N, G, B and C read in place from a wider x_dbl
+SS_CASES = [(8, 37, 24, 1, 4, False), (8, 37, 24, 4, 2, True),
+            (6, 40, 70, 8, 1, False), (8, 197, 96, 16, 4, True)]
+
+
+def _ss_inputs(dev, dtype, rows, l, d, n, g, strided, seed):
+    gen = torch.Generator(dev).manual_seed(seed)
+
+    def t(*shape, scale=1.0):
+        return torch.randn(*shape, device=dev, generator=gen) * scale
+
+    if strided:  # B and C as slices of a (rows, L, R + 2N) x_dbl, R = 3
+        x_dbl = t(rows, l, 3 + 2 * n).to(dtype)
+        bm, cm = x_dbl[..., 3 : 3 + n], x_dbl[..., 3 + n :]
+    else:
+        bm, cm = t(rows, l, n).to(dtype), t(rows, l, n).to(dtype)
+    return (t(rows, l, d).to(dtype), t(rows, l, d, scale=0.5).to(dtype),
+            -torch.exp(t(g, d, n, scale=0.3)), bm, cm, t(g, d),
+            t(g, d, scale=0.2))
+
+
+def _ss_tol(dtype, out_dtype):
+    return 2.0**-7 if out_dtype == torch.bfloat16 else 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rows,l,d,n,g,strided", SS_CASES,
+                         ids=["n1", "n4-strided", "n8-g1", "n16-strided"])
+def test_selective_scan_kernels_match_plain(cuda, dtype, rows, l, d, n, g,
+                                            strided):
+    args = _ss_inputs(cuda, dtype, rows, l, d, n, g, strided, seed=l + n)
+    dy = torch.randn(rows, l, d, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(n)).to(dtype)
+    before = dict(ssp.launches)
+    want_y = ssp.selective_scan_fwd_plain(*args, delta_softplus=True)
+    got_y = ssp.selective_scan_fwd(*args, delta_softplus=True)
+    want = ssp.selective_scan_bwd_plain(*args, dy, delta_softplus=True)
+    got = ssp.selective_scan_bwd(*args, dy, delta_softplus=True)
+    torch.cuda.synchronize()
+    assert ssp.launches == {"selective_scan_fwd": before[
+        "selective_scan_fwd"] + 1, "selective_scan_bwd": before[
+        "selective_scan_bwd"] + 1}
+    assert got_y.dtype == dtype
+    err, scale = _err(got_y, want_y)
+    assert err <= _ss_tol(dtype, dtype) * scale
+    for name, gv, wv in zip(SS_NAMES, got, want):
+        assert gv.shape == wv.shape and gv.dtype == wv.dtype, name
+        err, scale = _err(gv, wv)
+        assert err <= _ss_tol(dtype, gv.dtype) * scale, (name, err, scale)
+
+
+@pytest.mark.cuda
+def test_selective_scan_fn_grads_match_plain(cuda):
+    """``selective_scan_dirs`` with every input requiring grad: the kernels
+    forward and backward against the plain pair, B and C slices of x_dbl,
+    softplus off (so dt = delta + bias is kept positive: a decaying
+    state)."""
+    gen = torch.Generator(cuda).manual_seed(3)
+    b, k, l, d, n = 2, 4, 50, 40, 16
+    x_dbl = torch.randn(b, k, l, 2 + 2 * n, device=cuda, generator=gen)
+    leaves = [torch.randn(b, k, l, d, device=cuda, generator=gen),
+              torch.rand(b, k, l, d, device=cuda, generator=gen) * 0.1,
+              -torch.exp(torch.randn(k, d, n, device=cuda, generator=gen)),
+              x_dbl, torch.randn(k, d, device=cuda, generator=gen),
+              torch.rand(k, d, device=cuda, generator=gen) * 0.1]
+    w = torch.randn(b, k, l, d, device=cuda, generator=gen)
+    grads = {}
+    for plain in (False, True):
+        ts = [t.clone().requires_grad_() for t in leaves]
+        u, delta, a, xd, dv, db = ts
+        y = ssp.selective_scan_dirs(u, delta, a, xd[..., 2 : 2 + n],
+                                    xd[..., 2 + n :], dv, db, plain=plain)
+        grads[plain] = torch.autograd.grad((y * w).sum(), ts)
+    for gk, gp in zip(grads[False], grads[True]):
+        err = (gk - gp).abs().max().item()
+        assert err <= GRAD_RTOL * gp.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d_state", [1, 16])
+def test_ss2d_pallas_matches_pallas_plain(cuda, d_state):
+    """SS2D through ``scan_backend="pallas"``: one launch of each kernel a
+    forward and backward, gradients of every parameter equal to the
+    ``pallas_plain`` route's."""
+    gen = torch.Generator(cuda).manual_seed(d_state)
+    m = SS2D(32, d_state=d_state, scan_backend="pallas", device=cuda)
+    init_params(m, gen)
+    x = torch.randn(2, 6, 7, 32, device=cuda, generator=gen)
+    w = torch.randn(2, 6, 7, 32, device=cuda, generator=gen)
+    ssp.reset_launches()
+    got = _grads(m, lambda: (m(x) * w).sum())
+    torch.cuda.synchronize()
+    assert ssp.launches == {"selective_scan_fwd": 1, "selective_scan_bwd": 1}
+    set_scan_backend(m, "pallas_plain")
+    want = _grads(m, lambda: (m(x) * w).sum())
+    assert ssp.launches == {"selective_scan_fwd": 1, "selective_scan_bwd": 1}
+    _assert_grads_close(got, want)
+
+
+@pytest.mark.cuda
+def test_tiny_arm_pallas_remat_grads_match_plain(cuda):
+    """ARM(remat=True) through ``scan_backend="pallas"``: each layer runs
+    the forward kernel twice (the checkpointed forward and its recompute)
+    and the backward once; no fused-layer launch."""
+    gen = torch.Generator(cuda).manual_seed(4)
+    arm = ARM(patch_size=16, embed_dim=64, depth=3, img_size=64,
+              remat=True, scan_backend="pallas", device=cuda)
+    init_params(arm, gen)
+    x = torch.randn(2, 64, 64, 3, device=cuda, generator=gen)
+    w = torch.randn(2, 17, 64, device=cuda, generator=gen)
+    ssp.reset_launches()
+    mf.reset_launches()
+    got = _grads(arm, lambda: (arm(x) * w).sum())
+    torch.cuda.synchronize()
+    assert ssp.launches == {"selective_scan_fwd": 6, "selective_scan_bwd": 3}
+    assert mf.launches == dict.fromkeys(mf.launches, 0)
+    set_scan_backend(arm, "pallas_plain")
+    want = _grads(arm, lambda: (arm(x) * w).sum())
+    _assert_grads_close(got, want)
+
+
+@pytest.mark.cuda
+def test_selective_scan_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    u, delta, a, bm, cm, dv, db = _ss_inputs(cuda, torch.float32, 8, 10, 24,
+                                             4, 2, False, seed=0)
+    with pytest.raises(TypeError, match="not f32/bf16"):
+        ssp.selective_scan_fwd(u.half(), delta.half(), a, bm.half(),
+                               cm.half(), dv, db)
+    with pytest.raises(ValueError, match="delta must match"):
+        ssp.selective_scan_fwd(u, delta[:, :5], a, bm, cm, dv, db)
+    with pytest.raises(ValueError, match="d_state=3"):
+        ssp.selective_scan_fwd(u, delta, a[..., :3].contiguous(),
+                               bm[..., :3].contiguous(),
+                               cm[..., :3].contiguous(), dv, db)
+    with pytest.raises(ValueError, match="unit stride over N"):
+        ssp.selective_scan_fwd(u, delta, a, bm.transpose(1, 2).contiguous()
+                               .transpose(1, 2), cm, dv, db)
+    with pytest.raises(ValueError, match="rows for 3 groups"):
+        a3 = torch.cat([a, a[:1]]).contiguous()
+        ssp.selective_scan_fwd(u, delta, a3, bm, cm, torch.cat([dv, dv[:1]]),
+                               torch.cat([db, db[:1]]))
+    with pytest.raises(ValueError, match="dy must match"):
+        ssp.selective_scan_bwd(u, delta, a, bm, cm, dv, db, u.bfloat16())
+
+
+ATTN_CASES = [(2, 16, 4, 16), (2, 100, 3, 32), (4, 197, 12, 64),
+              (1, 70, 2, 128)]  # B, L, H, hd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("masked", [False, True], ids=["nomask", "causal"])
+@pytest.mark.parametrize("b,l,h,hd", ATTN_CASES,
+                         ids=["hd16", "hd32", "hd64", "hd128"])
+def test_attention_kernel_matches_plain(cuda, dtype, masked, b, l, h, hd):
+    """q, k, v as slices of one (B, L, 3, H, hd) product, read in place; a
+    causal mask's rows come out finite."""
+    gen = torch.Generator(cuda).manual_seed(l)
+    qkv = torch.randn(b, l, 3, h, hd, device=cuda, generator=gen).to(dtype)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    mask = (torch.full((l, l), float("-inf"), device=cuda).triu(1)
+            if masked else None)
+    before = att.launches["fused_attention"]
+    got = att.attention_fwd(q, k, v, mask)
+    want = att.attention_plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert att.launches["fused_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == (b, l, h, hd)
+    assert bool(torch.isfinite(got).all())
+    err, scale = _err(got, want)
+    tol = 2.0**-6 if dtype == torch.bfloat16 else 1e-4
+    assert err <= tol * scale, (err, scale)
+
+
+@pytest.mark.cuda
+def test_attention_module_launches_only_without_a_gradient(cuda):
+    gen = torch.Generator(cuda).manual_seed(5)
+    m = vit.Attention(128, 4, device=cuda)
+    init_params(m, gen)
+    x = torch.randn(3, 40, 128, device=cuda, generator=gen)
+    att.reset_launches()
+    with torch.no_grad():
+        got = m(x)
+    assert att.launches["fused_attention"] == 1
+    m(x).sum().backward()
+    assert att.launches["fused_attention"] == 1
+    assert m.qkv.weight.grad is not None
+    set_fused(m, False)
+    with torch.no_grad():
+        want = m(x)
+    assert att.launches["fused_attention"] == 1
+    err, scale = _err(got, want)
+    assert err <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_attention_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    q = torch.randn(2, 16, 4, 32, device=cuda)
+    with pytest.raises(TypeError, match="not f32/bf16"):
+        att.attention_fwd(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="head width 24"):
+        q24 = q[..., :24].contiguous()
+        att.attention_fwd(q24, q24, q24)
+    with pytest.raises(ValueError, match="mask must be"):
+        att.attention_fwd(q, q, q, torch.zeros(16, 15, device=cuda))
+    with pytest.raises(ValueError, match="heads and head dims contiguous"):
+        att.attention_fwd(q, q.transpose(2, 3).contiguous().transpose(2, 3),
+                          q)

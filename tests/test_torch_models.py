@@ -16,7 +16,10 @@ import torch
 from medical_image_analysis_tpu.models import common as jax_common
 from medical_image_analysis_tpu.models import llm as jax_llm
 from medical_image_analysis_tpu.models.mamba import ARM as JaxARM
-from medical_image_analysis_tpu_torch.ckpt.from_jax import load_jax_params
+from medical_image_analysis_tpu_torch.ckpt.from_jax import (
+    load_jax_params,
+    state_dict_from_jax,
+)
 from medical_image_analysis_tpu_torch.models import common, llm
 from medical_image_analysis_tpu_torch.models.mamba import ARM
 
@@ -52,22 +55,40 @@ def test_patch_embed_matches_jax():
 TINY_ARM = dict(patch_size=16, embed_dim=32, depth=2, d_state=4)
 
 
-@pytest.mark.parametrize("scan_backend", ["auto", "ref"])
+@pytest.mark.parametrize("scan_backend", ["auto", "ref", "pallas"])
 def test_arm_matches_jax_ref_backend(scan_backend):
     """Tiny ARM (32x32 image, 4 patches + middle cls). JAX picks its
     ``ref`` backend on CPU; the port's ``auto`` takes the plain version
-    of the fused kernels there and ``ref`` the per-direction path."""
+    of the fused kernels there and ``ref`` the per-direction path. The
+    port's ``pallas`` (the general scan's route, its plain versions here)
+    is held against the JAX ``pallas`` path, its kernels in interpret
+    mode, forward and the gradients of every parameter (1e-4 of each
+    tensor's largest gradient)."""
     x = np.random.default_rng(2).standard_normal((2, 32, 32, 3)).astype(
         np.float32)
     jm = JaxARM(**TINY_ARM, scan_backend="ref")
     params = jm.init(jax.random.PRNGKey(3), jnp.asarray(x))
-    want = jm.apply(params, jnp.asarray(x))
+    if scan_backend == "pallas":
+        jm = JaxARM(**TINY_ARM, scan_backend="pallas")
+    want = jax.jit(jm.apply)(params, jnp.asarray(x))
     port = ARM(**TINY_ARM, img_size=32, scan_backend=scan_backend).eval()
     load_jax_params(port, params)
     with torch.no_grad():
         got = port(torch.from_numpy(x))
     assert got.shape == (2, 5, 32)
     _close(got, want, MODEL_ATOL)
+    if scan_backend != "pallas":
+        return
+    w = np.random.default_rng(4).standard_normal(want.shape).astype(
+        np.float32)
+    want_g = state_dict_from_jax(jax.jit(jax.grad(
+        lambda p: jnp.sum(jm.apply(p, jnp.asarray(x)) * w)))(params))
+    (port(torch.from_numpy(x)) * torch.from_numpy(w)).sum().backward()
+    named = dict(port.named_parameters())
+    assert set(named) == set(want_g)
+    for name, p in named.items():
+        err = (p.grad - want_g[name]).abs().max().item()
+        assert err <= 1e-4 * want_g[name].abs().max().item(), (name, err)
 
 
 def _tiny_lm_pair(seed=0):

@@ -1,0 +1,169 @@
+"""The port's general selective scan against the JAX package on CPU.
+
+The same numpy inputs go through the JAX function, its Pallas kernels in
+interpret mode (jitted), and the port's wrappers, which run the kernels'
+plain versions on CPU tensors. Tolerances:
+
+- fp32 forward: both sides compute the same fp32 recurrence; only the
+  order of the sums and libm ulps differ: 1e-5 of max(1, max |y|).
+- bf16 sources: both sides read the same bf16 values, run the recurrence
+  in fp32 and round y to bf16 once, where they may land one bf16 step
+  apart: 2^-7 of max(1, max |y|).
+- gradients: fp32 on both sides from the same inputs, sums in another
+  order: 1e-4 of each tensor's largest gradient.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from medical_image_analysis_tpu.ops import selective_scan_pallas as jss
+from medical_image_analysis_tpu_torch.ops import selective_scan as ss
+from medical_image_analysis_tpu_torch.ops import selective_scan_pallas as ssp
+
+Y_RTOL = {"fp32": 1e-5, "bf16": 2.0**-7}
+GRAD_RTOL = 1e-4
+TORCH = {"fp32": torch.float32, "bf16": torch.bfloat16}
+JNP = {"fp32": jnp.float32, "bf16": jnp.bfloat16}
+NAMES = ("u", "delta", "A", "B", "C", "D", "delta_bias")
+
+
+def _inputs(case, seed, batch=2, seq_len=12, d=8, n=4, k=4):
+    """fp32 numpy inputs of ``case``: "plain" (B/C (batch, L, N)),
+    "grouped" (G=4: (batch, L, 4, N)) or "dirs" (K directions)."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    if case == "dirs":
+        seq, par, bc = (batch, k, seq_len, d), (k, d), (batch, k, seq_len, n)
+        a_shape = (k, d, n)
+    else:
+        seq, par, a_shape = (batch, seq_len, d), (d,), (d, n)
+        bc = (batch, seq_len, n) if case == "plain" else (batch, seq_len, 4, n)
+    return dict(u=t(*seq), delta=t(*seq, scale=0.5),
+                A=-np.exp(t(*a_shape, scale=0.3)), B=t(*bc), C=t(*bc),
+                D=t(*par), delta_bias=t(*par, scale=0.2))
+
+
+def _jax_fn(case):
+    fn = jss.selective_scan_dirs if case == "dirs" else jss.selective_scan_pallas
+    return jax.jit(lambda u, delta, A, B, C, D, db, softplus: fn(
+        u, delta, A, B, C, D, db, softplus, chunk=8, block_d=8,
+        interpret=True), static_argnums=7)
+
+
+def _port_fn(case):
+    return ssp.selective_scan_dirs if case == "dirs" else ssp.selective_scan_pallas
+
+
+def _err(got, want):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    return np.abs(got - want).max(), max(1.0, np.abs(want).max())
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("extras", [True, False], ids=["d-bias-softplus",
+                                                       "bare"])
+@pytest.mark.parametrize("case", ["plain", "grouped", "dirs"])
+def test_forward_matches_jax_kernel(case, extras, dtype):
+    x = _inputs(case, seed=len(case) + extras)
+    jx = {k: jnp.asarray(v) for k, v in x.items()}
+    tx = {k: torch.from_numpy(v) for k, v in x.items()}
+    for name in ("u", "delta", "B", "C"):
+        jx[name] = jx[name].astype(JNP[dtype])
+        tx[name] = tx[name].to(TORCH[dtype])
+    if not extras:
+        for name in ("D", "delta_bias"):
+            jx[name] = tx[name] = None
+    want = _jax_fn(case)(*jx.values(), extras)
+    got = _port_fn(case)(*tx.values(), delta_softplus=extras)
+    assert got.dtype == TORCH[dtype]
+    err, scale = _err(got.float(), want)
+    assert err <= Y_RTOL[dtype] * scale, (err, scale)
+
+
+def test_grads_match_jax_vjp():
+    """All seven gradients of the K-direction scan (batch 2, K 2, L 16,
+    D 8, N 4) against ``jax.vjp`` of the JAX function in interpret mode
+    (its custom VJP, the Pallas ``_bwd_kernel``, chunk 8, block_d 8)."""
+    x = _inputs("dirs", seed=7, seq_len=16, k=2)
+    dy = np.random.default_rng(8).standard_normal(x["u"].shape).astype(
+        np.float32)
+
+    @jax.jit
+    def jax_vjp(*args):
+        _, pull = jax.vjp(lambda *a: jss.selective_scan_dirs(
+            *a, True, chunk=8, block_d=8, interpret=True), *args)
+        return pull(jnp.asarray(dy))
+
+    want = jax_vjp(*(jnp.asarray(v) for v in x.values()))
+    leaves = [torch.tensor(v, requires_grad=True) for v in x.values()]
+    y = ssp.selective_scan_dirs(*leaves, delta_softplus=True)
+    y.backward(torch.from_numpy(dy))
+    for name, leaf, w in zip(NAMES, leaves, want):
+        w = np.asarray(w)
+        err = np.abs(leaf.grad.numpy() - w).max()
+        assert err <= GRAD_RTOL * np.abs(w).max(), (name, err)
+
+
+@pytest.mark.parametrize("softplus", [True, False])
+def test_bwd_plain_matches_autograd_of_fwd_plain(softplus):
+    """The explicit adjoint on the folded layout (6 rows of 3 groups, 21
+    steps: the chunked rebuild crosses a chunk edge) against autograd
+    through ``selective_scan_fwd_plain``."""
+    rng = np.random.default_rng(9)
+    rows, seq_len, d, n, g = 6, 21, 8, 4, 3
+
+    def t(*shape, scale=1.0):
+        return torch.tensor((rng.standard_normal(shape) * scale).astype(
+            np.float32), requires_grad=True)
+
+    leaves = [t(rows, seq_len, d), t(rows, seq_len, d, scale=0.5),
+              (-torch.exp(t(g, d, n, scale=0.3))).detach().requires_grad_(),
+              t(rows, seq_len, n), t(rows, seq_len, n), t(g, d),
+              t(g, d, scale=0.2)]
+    dy = torch.from_numpy(rng.standard_normal((rows, seq_len, d)).astype(
+        np.float32))
+    y = ss.selective_scan_fwd_plain(*leaves, delta_softplus=softplus)
+    want = torch.autograd.grad(y, leaves, dy)
+    old = ss.BWD_CHUNK
+    ss.BWD_CHUNK = 8
+    try:
+        with torch.no_grad():
+            got = ss.selective_scan_bwd_plain(
+                *(v.detach() for v in leaves), dy, delta_softplus=softplus)
+    finally:
+        ss.BWD_CHUNK = old
+    for name, g_, w in zip(NAMES, got, want):
+        assert g_.shape == w.shape and g_.dtype == w.dtype, name
+        err = (g_ - w).abs().max().item()
+        assert err <= GRAD_RTOL * w.abs().max().item(), (name, err)
+
+
+def test_dispatcher_on_cpu():
+    """``auto`` on a CPU tensor is ``selective_scan_ref``; ``pallas`` the
+    kernels' route (their plain versions here)."""
+    x = {k: torch.from_numpy(v) for k, v in _inputs("grouped", 3).items()}
+    ref = ss.selective_scan_ref(*x.values(), delta_softplus=True)
+    auto = ss.selective_scan(*x.values(), delta_softplus=True)
+    torch.testing.assert_close(auto, ref, rtol=0, atol=0)
+    pallas = ss.selective_scan(*x.values(), delta_softplus=True,
+                               backend="pallas")
+    err, scale = _err(pallas, ref)
+    assert err <= Y_RTOL["fp32"] * scale
+    with pytest.raises(ValueError, match="unknown backend"):
+        ss.selective_scan(*x.values(), backend="fused")
+
+
+def test_work_counts():
+    """Operations per (row, step, channel) at d_state 16: 117 a forward;
+    329 a backward, one rebuild of the states (83) and the adjoint (246),
+    not the kernel's second walk; linear in rows, steps and channels."""
+    assert ssp.flops("fwd", 1, 1, 1, 16) == 117
+    assert ssp.flops("bwd", 1, 1, 1, 16) == 329
+    assert ssp.flops("bwd", 512, 3136, 192, 16) == 512 * 3136 * 192 * 329

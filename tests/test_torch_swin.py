@@ -18,6 +18,8 @@ unshifted).
 (c) ``SwinCheX`` logits and ``swinchex_loss`` with soft labels; R2GenCSR
     with ``vision=swin``: ``encode_img`` against JAX.
 (d) The gate: no kernel-path call under a gradient, the plain switch.
+(e) A non-square input through the tower (each block derives its window,
+    shift and mask per call), and the MRG models' default tower.
 """
 
 import jax
@@ -225,6 +227,39 @@ def test_swin_transformer_matches_jax():
     port = swin.SwinTransformer(**TINY, img_size=SIZE)
     _check_module(lambda p, x_: jm.apply(p, x_), params, port, _images(11),
                   TOWER_RTOL, 12)
+
+
+def test_swin_transformer_non_square_matches_jax():
+    """56 x 112 images: stage 0 is a 14 x 28 map (8 windows, shift 3),
+    stage 1 a 7 x 14 map (window 7, unshifted). Each block derives its
+    window, shift and mask from the map it is given, as the JAX block does,
+    and builds each mask once per (H, W, device)."""
+    jm, params = _tiny_tower_params(22)
+    x = np.random.default_rng(23).standard_normal((2, SIZE, 2 * SIZE, 3)
+                                                  ).astype(np.float32)
+    port = swin.SwinTransformer(**TINY, img_size=SIZE)
+    _check_module(lambda p, x_: jm.apply(p, x_), params, port, x,
+                  TOWER_RTOL, 24)
+    masks = [tuple(m.shape) for blk in port.stages[0] for m in
+             blk._masks.values()]
+    assert masks == [(8, L, L)]  # block 1 of stage 0, built once
+    assert not any(blk._masks for blk in port.stages[1])
+
+
+@pytest.mark.parametrize("cls", ["R2GenGPT", "R2GenCSR"])
+def test_mrg_default_tower_is_the_jax_default(cls):
+    """Built with its defaults, each MRG model picks the JAX class's tower
+    (``chosen="swin"``)."""
+    from medical_image_analysis_tpu.models import llm as jax_llm
+    from medical_image_analysis_tpu.models import mrg as jax_mrg
+    from medical_image_analysis_tpu_torch.models import llm, mrg
+
+    kw = dict(vocab_size=48, dim=32, n_layers=1, n_heads=4, n_kv_heads=2,
+              hidden_dim=64)
+    want = getattr(jax_mrg, cls)(llm_cfg=jax_llm.LLMConfig(**kw)).chosen
+    port = getattr(mrg, cls)(llm.LLMConfig(**kw), device="meta")
+    assert port.vision.chosen == want == "swin"
+    assert isinstance(port.vision.swin, swin.SwinTransformer)
 
 
 def test_swinchex_logits_and_loss_match_jax():

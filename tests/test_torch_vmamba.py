@@ -1,8 +1,9 @@
 """The port's VMamba path against the JAX package on CPU, at tiny sizes.
 
 The same numpy inputs go through the JAX function and its port. Where the
-JAX function reaches a Pallas kernel (``scan_n1_sources``), it runs in
-interpret mode; the port runs its plain versions (CPU tensors).
+JAX function reaches a Pallas kernel (``scan_n1_sources``, and the general
+scan of ``scan_backend="pallas"``), it runs in interpret mode; the port
+runs its plain versions (CPU tensors).
 Tolerances, all fp32 on both sides with the same formulas, so only the
 order of sums and libm ulps differ: the scan within 1e-5 of
 max(1, max |y|); gradients within 1e-4 of each tensor's largest gradient;
@@ -242,16 +243,20 @@ def _check_module(jax_module, port_module, x, atol, seed=0, **call):
         _assert_grad_close(name, p.grad, want_g[name])
 
 
-@pytest.mark.parametrize("backend", ["auto", "ref"])
+@pytest.mark.parametrize("backend", ["auto", "ref", "pallas"])
 @pytest.mark.parametrize("d_state,disable_z,conv_bias", [
     (1, True, False),   # vssm1: the scan_n1 path, no gate
     (16, False, True),  # vssm: the fused layer without a conv, gated
 ], ids=["n1-noz", "n16-z"])
 def test_ss2d_matches_jax_ref(backend, d_state, disable_z, conv_bias):
+    """``auto`` and ``ref`` against the JAX ``ref`` path; ``pallas`` (the
+    general scan's route, its plain versions here) against the JAX
+    ``pallas`` path, its kernels in interpret mode."""
     x = np.random.default_rng(2).standard_normal((2, 4, 5, 16)).astype(
         np.float32)
     kw = dict(d_state=d_state, disable_z=disable_z, conv_bias=conv_bias)
-    _check_module(jax_vmamba.SS2D(d_model=16, scan_backend="ref", **kw),
+    jax_backend = "pallas" if backend == "pallas" else "ref"
+    _check_module(jax_vmamba.SS2D(d_model=16, scan_backend=jax_backend, **kw),
                   vmamba.SS2D(16, scan_backend=backend, **kw), x, LAYER_ATOL)
 
 
@@ -277,9 +282,13 @@ def test_vssm_matches_jax_ref(version):
         vmamba.VSSM(**TINY_VSSM, **kw), x, STAGES_ATOL, seed=5, pool=False)
 
 
-def test_pallas_backend_raises_and_configs_match():
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        vmamba.SS2D(16, scan_backend="pallas")
+def test_pallas_backend_and_configs_match():
+    """The ``pallas`` backends build (and an unknown one raises); the
+    configurations equal the JAX package's."""
+    for backend in ("pallas", "pallas_plain"):
+        assert vmamba.SS2D(16, scan_backend=backend).scan_backend == backend
+    with pytest.raises(ValueError, match="not in"):
+        vmamba.SS2D(16, scan_backend="fused")
     assert vmamba.VSSM_CONFIGS == {
         k: {f: tuple(v) if isinstance(v, tuple) else v for f, v in c.items()}
         for k, c in jax_vmamba.VSSM_CONFIGS.items()}
