@@ -77,7 +77,12 @@ raises (exit code 1):
                per head as above; the CPU tests hold them to ``jax.vjp``
                of the TPU kernels) at the same fp32 shapes, every output;
                ms of the kernel, of the plain backward, and of the library
-               composition's forward + backward.
+               composition's forward + backward. ``vit_attn_bwd`` runs on
+               the tensor cores (3xTF32): its rows at the encoder and the
+               decoder both go into the kernels line, and its device time
+               at both is split by kernel (``kernels_vit_bwd_parts``: the
+               GEMMs, the forward core's recompute, the dK/dV and dQ passes,
+               the rest) from ``torch.profiler``.
 12. train_mae -- the ``mae_hd_1280`` preset (MAE ViT-B/16 + 512x8 decoder,
                1280^2 images, region masking: encoder L=1401, decoder
                L=6401, batch 16, fp32) through ``cli.train.main`` on the
@@ -143,11 +148,18 @@ raises (exit code 1):
 22. kernels_attn -- ``fused_attention``'s kernel against its plain version
                at ViT-B's widths (B=64, L=197, 12 heads of 64), fp32 and
                bf16, with and without a causal mask; ``library_ms`` is
-               ``F.scaled_dot_product_attention``; ViT-B at 384^2 (L=577)
+               ``F.scaled_dot_product_attention``; then the kernel's wrapper
+               at every head width (16, 32, 64, 128) and at L = 50 and
+               1,401 beside 197, fp32 and bf16, with and without the mask,
+               checked against the plain version; ViT-B at 384^2 (L=577)
                takes the einsum route and launches nothing.
 23. attn     -- ``models/vit.py:Attention(768, 12)`` on (64, 197, 768):
                the kernel against ``set_fused(model, False)``, then 0
                launches under a gradient.
+
+Bounds: the largest of the bytes at the HBM rate, the matrix products at
+the tensor-core rate of their operand type (fp32 in 3xTF32, 165 TFLOP/s;
+bf16 989) and the other operations at the CUDA cores' 67 TFLOP/s.
 
 Then one JSON line of the kernels, and the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -161,6 +173,7 @@ from __future__ import annotations
 import argparse
 import base64
 import io
+import itertools
 import json
 import subprocess
 import sys
@@ -247,6 +260,9 @@ VIT_CASES = (
 # at the TPU kernel's points, but the kernel rounds exp(s - m) before the
 # softmax's division and the plain version after it, so two bf16 steps.
 VIT_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-6}
+# The kernels line's second vit_attn_bwd row: the mae_hd_1280 decoder
+# (B=16, L=6401, 16 heads of 32), beside the encoder's.
+DECODER_ROW = "vit_attn_bwd_decoder"
 VIT_GRADS = {"attn": ("dx", "dwqkv", "dbqkv", "dwo", "dbo", "dg", "db"),
              "mlp": ("dx", "dw1", "db1", "dw2", "db2", "dg", "db")}
 # Classification on synthetic_learnable data: its val split has 64 samples;
@@ -280,15 +296,25 @@ VSSM_PALLAS = "model.vision_kwargs={scan_backend: pallas}"
 # the einsum route (8 x 577^2 x 4 bytes > 8 MiB).
 ATTN_VIT_B = (64, 197, 12, 64)
 ATTN_EINSUM = (8, 577, 12, 64)
+# Every head width and a ragged L beside 197 through the kernel's wrapper
+# (``attention_fwd``; L = 1,401 is past the JAX dispatch's 8 MiB tile at
+# any batch, so ``fused_attention`` would take the einsum route): (B, L,
+# heads, hd). Checked against the plain version, not timed.
+ATTN_CHECKS = ((64, 50, 12, 64), (4, 1401, 12, 64), (16, 197, 24, 32),
+               (16, 197, 48, 16), (16, 197, 6, 128), (2, 1401, 16, 32),
+               (8, 50, 4, 128))
 # The kernel's fp32 result against the plain version's: reordered sums,
 # 1e-4 of max(1, max |plain|); bf16 as the ViT kernels (VIT_RTOL): p is
 # rounded before the product and the output after it.
 ATTN_RTOL = VIT_RTOL
 # The published H100 SXM peaks (NVIDIA's H100 datasheet) that bound_ms
-# divides by: HBM bytes per second, and operations per second by type
-# (fp32 outside the tensor cores; bf16 inputs on the tensor cores).
+# divides by: HBM bytes per second; matrix products on the tensor cores at
+# the rate of their operand type (fp32 at fp32 accuracy in 3xTF32, a third
+# of the 495 TFLOP/s TF32 rate; bf16 at 989); every other operation at the
+# 67 TFLOP/s fp32 rate of the CUDA cores.
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PRODUCT_OPS_S = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
+OTHER_OPS_S = 67e12
 
 
 def _phase(phase: str, /, **fields) -> None:
@@ -321,16 +347,22 @@ def device_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _bound(tensors, ops: float, dtype=torch.float32) -> tuple[float, str]:
-    """The least time (ms) the card could take for a call: its inputs read
-    once and its outputs written once at the HBM rate, or its operations at
-    the peak rate of their type, whichever is larger; and which it is."""
+def _bound(tensors, work, dtype=torch.float32) -> tuple[float, str, str]:
+    """The least time (ms) the card could take for a call, the largest of
+    three: its inputs read once and its outputs written once at the HBM
+    rate; its matrix products at the tensor-core rate of ``dtype``; its
+    other operations at the CUDA cores' fp32 rate. ``work`` is an
+    operation count with no products (the scans) or a ``(products,
+    other)`` pair (``ops/*.py:work``). Returns the time, "bytes" or
+    "operations" (the ``kernels`` line's ``bound_by``), and which of the
+    three it is ("bytes", "products" or "other")."""
+    products, other = work if isinstance(work, tuple) else (0.0, work)
     nbytes = sum(t.numel() * t.element_size() for t in tensors
                  if t is not None)
-    by_bytes = nbytes / HBM_BYTES_S * 1e3
-    by_ops = ops / PEAK_OPS_S[dtype] * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
-                                                            "operations")
+    ms, on = max((nbytes / HBM_BYTES_S * 1e3, "bytes"),
+                 (products / PRODUCT_OPS_S[dtype] * 1e3, "products"),
+                 (other / OTHER_OPS_S * 1e3, "other"))
+    return ms, "bytes" if on == "bytes" else "operations", on
 
 
 # Operations of the scan kernels per (image, direction, row, channel),
@@ -464,10 +496,10 @@ def phase_kernels(cfg, dev, gen, batches=(1, 6)) -> dict:
                 serving = {
                     "mamba_xdbl": (err_x, t["xdbl"], t["xdbl_plain"],
                                    *_bound([*xargs, got_x], elems * (
-                                       2 * got_x.shape[-1] + 13))),
+                                       2 * got_x.shape[-1] + 13))[:2]),
                     "mamba_scan": (err_y, t["scan"], t["scan_plain"],
                                    *_bound([*sargs, got_y], elems * _mamba_ops(
-                                       mixer.rank, mixer.n))),
+                                       mixer.rank, mixer.n))[:2]),
                 }
     return serving
 
@@ -525,7 +557,7 @@ def phase_kernels_bwd(cfg, dev, gen, batches=(1, 6)) -> tuple:
                 ops = elems * (2 * _mamba_ops(mixer.rank, mixer.n)
                                + 2 * mixer.rank + 10 * mixer.n)
                 training = (max(errs.values()), t["kernel"], t["plain"],
-                            *_bound([*args, *got], ops))
+                            *_bound([*args, *got], ops)[:2])
     return training
 
 
@@ -946,7 +978,7 @@ def phase_kernels_n1(dev, gen) -> tuple:
             worst = max(worst, err)
             if stage == 0 and b == N1_BATCH:
                 ops = 4 * b * hw * hw * d_in * (2 * rank + 13)
-                row = (t["kernel"], t["plain"], *_bound([*args, got], ops))
+                row = (t["kernel"], t["plain"], *_bound([*args, got], ops)[:2])
     return (worst, *row)
 
 
@@ -986,7 +1018,7 @@ def phase_kernels_n1_bwd(dev, gen) -> tuple:
                 ops = 4 * b * hw * hw * d_in * (2 * (2 * rank + 13) + 2 * rank
                                                 + 10)
                 row = (t["kernel"], t["plain"],
-                       *_bound([*args, dy, *got], ops))
+                       *_bound([*args, dy, *got], ops)[:2])
     return (worst, *row)
 
 
@@ -1236,7 +1268,8 @@ def phase_kernels_vit(dev, gen) -> dict:
         for kind in ("attn", "mlp"):
             kernel, plain, library, _, _ = _vit_fns(kind, heads)
             args = (x, *weights[kind])
-            ops = vb.flops(f"{kind}_fwd", b, l, d, heads, 4 * d)
+            work = vb.work(f"{kind}_fwd", b, l, d, heads, 4 * d)
+            ops = sum(work)
             iters = _iters(ops)
             got = kernel(*args)
             _sync(dev)
@@ -1250,25 +1283,54 @@ def phase_kernels_vit(dev, gen) -> dict:
             t = _in_turns(lambda: plain(*args), lambda: kernel(*args),
                           iters, iters)
             lib_ms = device_ms(lambda: library(*args), iters)
-            bound = _bound([*args, got], ops, dtype)
+            bound = _bound([*args, got], work, dtype)
             _phase("kernels_vit", kernel=f"vit_{kind}_fwd", B=b, L=l, d=d,
                    heads=heads, dtype=_dtype_name(dtype), err=f"{err:.3e}",
                    ms=f"{t['kernel']:.4f}", plain_ms=f"{t['plain']:.4f}",
                    library_ms=f"{lib_ms:.4f}", bound_ms=f"{bound[0]:.4f}",
-                   bound_by=bound[1],
+                   bound_by=bound[1], bound_on=bound[2],
                    tflops=f"{ops / t['kernel'] / 1e9:.2f}")
             if (b, l, dtype) == (16, 1401, torch.float32):
                 rows[f"vit_{kind}_fwd"] = (err, t["kernel"], t["plain"],
-                                           *bound, lib_ms)
+                                           *bound[:2], lib_ms)
             del got
     return rows
+
+
+# The launches of one vit_attn_bwd call, by kernel name: the five GEMMs,
+# the recompute through the forward core, the two backward passes, and the
+# LayerNorm statistics, backward and column sums.
+ATTN_BWD_PARTS = (("gemm_tc", "gemm_tc_kernel"),
+                  ("core", "attn_tc_fwd_kernel"),
+                  ("dkv", "attn_dkv_tc_kernel"), ("dq", "attn_dq_tc_kernel"))
+
+
+def _attn_bwd_parts(fn) -> dict:
+    """Device ms of one call of ``fn`` by ``ATTN_BWD_PARTS`` (the rest
+    under "other"), from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    parts = dict.fromkeys([name for name, _ in ATTN_BWD_PARTS] + ["other"],
+                          0.0)
+    for e in prof.key_averages():
+        us = e.self_device_time_total
+        if us <= 0:
+            continue
+        name = next((n for n, k in ATTN_BWD_PARTS if k in e.key), "other")
+        parts[name] += us / 1e3
+    return parts
 
 
 def phase_kernels_vit_bwd(dev, gen) -> dict:
     """Both backward kernels against the plain backwards at the fp32
     cases, every output; ms of the kernel, of the plain backward and of the
     library composition's forward + backward. Returns the JSON rows (the
-    encoder, B=16)."""
+    encoder, B=16, and the decoder's attention as ``DECODER_ROW``)."""
     from medical_image_analysis_tpu_torch.ops import vit_block as vb
 
     rows = {}
@@ -1281,7 +1343,8 @@ def phase_kernels_vit_bwd(dev, gen) -> dict:
         for kind in ("attn", "mlp"):
             _, _, library, kernel, plain_bwd = _vit_fns(kind, heads)
             args = (x, *weights[kind])
-            ops = vb.flops(f"{kind}_bwd", b, l, d, heads, 4 * d)
+            work = vb.work(f"{kind}_bwd", b, l, d, heads, 4 * d)
+            ops = sum(work)
             iters = _iters(ops)
             got = kernel(*args, dy)
             want = plain_bwd(*args, dy)
@@ -1302,17 +1365,26 @@ def phase_kernels_vit_bwd(dev, gen) -> dict:
             lib_leaves = [a.detach().clone().requires_grad_() for a in args]
             lib_ms = device_ms(lambda: torch.autograd.grad(
                 library(*lib_leaves), lib_leaves, dy), iters)
-            bound = _bound([*args, dy, *got], ops)
+            bound = _bound([*args, dy, *got], work)
             _phase("kernels_vit_bwd", kernel=f"vit_{kind}_bwd", B=b, L=l,
                    d=d, heads=heads,
                    errs=json.dumps({k: f"{v:.3e}" for k, v in errs.items()},
                                    separators=(",", ":")),
                    ms=f"{t['kernel']:.4f}", plain_ms=f"{t['plain']:.4f}",
                    library_ms=f"{lib_ms:.4f}", bound_ms=f"{bound[0]:.4f}",
-                   bound_by=bound[1], tflops=f"{ops / t['kernel'] / 1e9:.2f}")
+                   bound_by=bound[1], bound_on=bound[2],
+                   tflops=f"{ops / t['kernel'] / 1e9:.2f}")
+            row = (max(errs.values()), t["kernel"], t["plain"], *bound[:2],
+                   lib_ms)
             if (b, l) == (16, 1401):
-                rows[f"vit_{kind}_bwd"] = (max(errs.values()), t["kernel"],
-                                           t["plain"], *bound, lib_ms)
+                rows[f"vit_{kind}_bwd"] = row
+            if (b, l, kind) == (16, 6401, "attn"):
+                rows[DECODER_ROW] = row
+            if kind == "attn" and b * l * d > 10**7 and dev.type == "cuda":
+                parts = _attn_bwd_parts(lambda: kernel(*args, dy))
+                _phase("kernels_vit_bwd_parts", kernel="vit_attn_bwd", B=b,
+                       L=l, d=d, heads=heads,
+                       **{f"{k}_ms": f"{v:.4f}" for k, v in parts.items()})
             del got, lib_leaves
     return rows
 
@@ -1495,7 +1567,8 @@ def phase_kernels_swin(dev, gen) -> tuple:
     for name, stage, bn, d, heads, nw, dtype in _swin_cases():
         x, w, bias, mask = _swin_inputs(bn, d, heads, nw, dtype, dev, gen)
         args = (x, *w, bias, mask, heads)
-        ops = sb.flops(bn, 49, d, heads)
+        work = sb.work(bn, 49, d, heads)
+        ops = sum(work)
         iters = _iters(ops)
         got = sb.swin_attn_fwd(*args)
         _sync(dev)
@@ -1509,15 +1582,16 @@ def phase_kernels_swin(dev, gen) -> tuple:
         t = _in_turns(lambda: sb.swin_attn_block_plain(*args),
                       lambda: sb.swin_attn_fwd(*args), iters, iters)
         lib_ms = device_ms(lambda: swin_attn_library(*args), iters)
-        bound = _bound([x, *w, bias, mask, got], ops, dtype)
+        bound = _bound([x, *w, bias, mask, got], work, dtype)
         _phase("kernels_swin", tower=name, stage=stage, windows=bn, L=49,
                C=d, heads=heads, nW=nw, dtype=_dtype_name(dtype),
                err=f"{err:.3e}", ms=f"{t['kernel']:.4f}",
                plain_ms=f"{t['plain']:.4f}", library_ms=f"{lib_ms:.4f}",
                bound_ms=f"{bound[0]:.4f}", bound_by=bound[1],
+               bound_on=bound[2],
                tflops=f"{ops / t['kernel'] / 1e9:.2f}")
         if (name, stage, nw, dtype) == ("swin_large", 2, 4, torch.float32):
-            row = (err, t["kernel"], t["plain"], *bound, lib_ms)
+            row = (err, t["kernel"], t["plain"], *bound[:2], lib_ms)
         del got
     return row
 
@@ -1823,7 +1897,7 @@ def phase_kernels_ss(dev, gen, kind: str) -> tuple:
                ms=f"{t['kernel']:.4f}", plain_ms=f"{t['plain']:.4f}",
                bound_ms=f"{bound[0]:.4f}", bound_by=bound[1])
         if (case, dtype) == ("vssm_tiny_s0", torch.float32):
-            row = (max(errs.values()), t["kernel"], t["plain"], *bound)
+            row = (max(errs.values()), t["kernel"], t["plain"], *bound[:2])
         del args, got, extra
         torch.cuda.empty_cache()
     return row
@@ -1914,7 +1988,9 @@ def phase_kernels_attn(dev, gen) -> tuple:
     plain version and ``library_ms`` (``F.scaled_dot_product_attention``
     with the mask as ``attn_mask``), the bound and TFLOP/s. Then ViT-B at
     384^2 (L=577), where the dispatch takes the einsum route: 0 launches.
-    Returns the JSON row (fp32, no mask)."""
+    Then the kernel's wrapper at ``ATTN_CHECKS`` (every head width, L = 50
+    and 1,401), fp32 and bf16, with and without the mask, against the plain
+    version. Returns the JSON row (fp32, no mask)."""
     from medical_image_analysis_tpu_torch.ops import attention as att
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1939,7 +2015,8 @@ def phase_kernels_attn(dev, gen) -> tuple:
             _check(err <= ATTN_RTOL[dtype] * scale,
                    f"fused_attention {dtype} mask={masked}: max abs err "
                    f"{err:.3e} > {ATTN_RTOL[dtype]} x {scale:.3f}")
-            ops = att.flops(b, l, h, hd)
+            work = att.work(b, l, h, hd)
+            ops = sum(work)
             iters = _iters(ops)
             t = _in_turns(lambda: att.attention_plain(q, k, v, mask),
                           lambda: att.fused_attention(q, k, v, mask),
@@ -1947,15 +2024,35 @@ def phase_kernels_attn(dev, gen) -> tuple:
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             am = None if mask is None else mask.to(dtype)
             lib_ms = device_ms(lambda: sdpa(qt, kt, vt, attn_mask=am), iters)
-            bound = _bound([q, k, v, mask, got], ops, dtype)
+            bound = _bound([q, k, v, mask, got], work, dtype)
             _phase("kernels_attn", B=b, L=l, heads=h, hd=hd,
                    dtype=_dtype_name(dtype),
                    mask="causal" if masked else "none", err=f"{err:.3e}",
                    ms=f"{t['kernel']:.4f}", plain_ms=f"{t['plain']:.4f}",
                    library_ms=f"{lib_ms:.4f}", bound_ms=f"{bound[0]:.4f}",
-                   bound_by=bound[1], tflops=f"{ops / t['kernel'] / 1e9:.2f}")
+                   bound_by=bound[1], bound_on=bound[2],
+                   tflops=f"{ops / t['kernel'] / 1e9:.2f}")
             if dtype == torch.float32 and not masked:
-                row = (err, t["kernel"], t["plain"], *bound, lib_ms)
+                row = (err, t["kernel"], t["plain"], *bound[:2], lib_ms)
+    for (b, l, h, hd), dtype, masked in itertools.product(
+            ATTN_CHECKS, (torch.float32, torch.bfloat16), (False, True)):
+        qkv = torch.randn(b, l, 3, h, hd, device=dev, generator=gen)
+        q, k, v = qkv.to(dtype).unbind(2)
+        mask = (torch.full((l, l), float("-inf"), device=dev).triu(1)
+                if masked else None)
+        got = att.attention_fwd(q, k, v, mask)
+        _sync(dev)
+        _check(got.shape == q.shape and got.dtype == dtype
+               and bool(torch.isfinite(got).all()),
+               "attention_fwd output shape, dtype or finiteness")
+        err, scale = _max_err(got, att.attention_plain(q, k, v, mask))
+        _check(err <= ATTN_RTOL[dtype] * scale,
+               f"attention_fwd B={b} L={l} hd={hd} {dtype} mask={masked}: "
+               f"max abs err {err:.3e} > {ATTN_RTOL[dtype]} x {scale:.3f}")
+        _phase("kernels_attn", B=b, L=l, heads=h, hd=hd,
+               dtype=_dtype_name(dtype), mask="causal" if masked else "none",
+               err=f"{err:.3e}", checked=True)
+        del qkv, q, k, v, got
     b, l, h, hd = ATTN_EINSUM
     q, k, v = torch.randn(3, b, l, h, hd, device=dev, generator=gen).unbind(0)
     before = att.launches["fused_attention"]
@@ -2113,14 +2210,19 @@ def main() -> None:
     sources = {k: m.KERNEL_SOURCE for m in _kernel_modules()
                for k in m.launches}
     kernels = []
-    for name in REPLACES:
-        err, ms, plain_ms, bound_ms, bound_by, *lib = measured[name]
+    for name, key in [(n, n) for n in REPLACES] + [("vit_attn_bwd",
+                                                    DECODER_ROW)]:
+        err, ms, plain_ms, bound_ms, bound_by, *lib = measured[key]
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name],
             "replaces": REPLACES[name], "launches": main_runs[name],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": lib[0] if lib else None})
+        if name == "vit_attn_bwd":  # launches: both shapes' (and dp's)
+            kernels[-1]["case"] = ("mae_hd_1280 decoder B=16 L=6401"
+                                   if key == DECODER_ROW else
+                                   "mae_hd_1280 encoder B=16 L=1401")
     _check(all(k["launches"] > 0 for k in kernels),
            f"a kernel of the main paths never launched: {main_runs}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -21,12 +21,20 @@
 //   attn_fwd_kernel  one block per (query tile, head, image) walks the key
 //                    tiles with an online softmax and never stores the
 //                    scores; writes each head's output in the working dtype
-//                    and, for the backward, the per-row logsumexp and
-//                    D = do . o.
-//   attn_dkv_kernel, attn_dq_kernel  the flash-style backward: one pass
-//                    over the query tiles for dK and dV, one over the key
-//                    tiles for dQ, recomputing p from q, k and the
-//                    logsumexp. No atomics.
+//                    (vit_attn_fwd; its logsumexp and D outputs are no
+//                    longer read: the backward recomputes through
+//                    attn_tc.cuh).
+//   ln_apply_kernel  h = LN(x) in fp32, for vit_attn_bwd's two products
+//                    that read it.
+//   gemm_tc_kernel   a product on the tensor cores in 3xTF32 (fp32 only),
+//                    with the epilogues fp32 (or a split-K partial), bias
+//                    and store: the five products of vit_attn_bwd.
+//   attn_tc.cuh's core  the backward's recompute of each head's output, the
+//                    per-row logsumexp and D = do . o on the tensor cores.
+//   attn_dkv_tc_kernel, attn_dq_tc_kernel  the flash-style backward on the
+//                    tensor cores: one pass over the query tiles for dK and
+//                    dV, one over the key tiles for dQ, recomputing p from
+//                    q, k and the logsumexp. No atomics.
 //   colsum_kernel, ln_bwd_kernel  bias and LayerNorm gradients as per-block
 //                    partials in a fixed order, summed by the wrapper.
 //
@@ -36,34 +44,41 @@
 // this kernel rounds exp(s - m) and divides by l at the end: both round p
 // once to the working dtype, at another scale.
 //
-// What bounds them on the H100, and what the design does about it. Every
-// product runs on the CUDA cores in fp32 (67 TFLOP/s at 700 W; TF32 is not
-// used, so that the fp32 checks hold 1e-4), and bf16 operands are widened
-// to fp32 in shared memory, so FLOPs bound every sub-layer at the shapes of
-// mae_hd_1280 (B = 16): the decoder's attention sub-layer (L = 6401, d =
-// 512, 16 heads) is about 1.56 TFLOP forward, 23 ms at peak; its MLP about
-// 0.43 TFLOP, 6.4 ms; the encoder's (L = 1401, d = 768) attention about 0.20
-// TFLOP, 3.0 ms, and MLP 0.21 TFLOP, 3.2 ms. The bytes moved (x, the weights,
-// the q/k/v, head-output and hidden buffers written and read once) take a
-// few ms at 3.35 TB/s. So the design keeps the arithmetic dense: the GEMM
-// holds a 128 x 128 output tile in registers (8 x 8 a thread, two float4
-// loads of A and of B per 64 FMAs), stages the next k-slice from device
-// memory into registers while it multiplies the current one, and folds the
-// LayerNorm, GELU, bias and residual into its staging and its stores so
-// that no elementwise pass over the activations is launched. The attention
-// core holds a 64 x 64 tile of scores (4 x 4 a thread) in registers, with
-// the running max, sum and output. Weight gradients are products whose
-// reduction runs over all B*L rows: with few output tiles the wrapper splits
-// that reduction into fixed chunks whose fp32 partials it sums in order,
-// so the card is filled and two runs give the same bits. The attention
-// backward recomputes q, k, v, the head outputs and p from x, as the TPU
-// kernel does (:307-317), and saves nothing in the forward. Its two passes
-// (dK/dV over the query tiles, dQ over the key tiles) buy freedom from
-// atomics with redundant work: the scores are computed three times (the
-// forward recompute and once in each pass) and dp twice, 9 products of
-// L x L x d where the function needs 6 (s, o, dV, dp, dQ, dK), so 1.5x the
-// minimal L^2 work; the bound counts the 6. wgmma, TMA and tensor cores are
-// later work.
+// What bounds them on the H100, and what the design does about it. The
+// forward kernels and vit_mlp_bwd run every product on the CUDA cores in
+// fp32 (67 TFLOP/s at 700 W), bf16 operands widened to fp32 in shared
+// memory: the GEMM holds a 128 x 128 output tile in registers (8 x 8 a
+// thread, two float4 loads of A and of B per 64 FMAs), stages the next
+// k-slice from device memory into registers while it multiplies the current
+// one, and folds the LayerNorm, GELU, bias and residual into its staging
+// and its stores so that no elementwise pass over the activations is
+// launched. The forward attention core holds a 64 x 64 tile of scores (4 x
+// 4 a thread) in registers, with the running max, sum and output. Weight
+// gradients are products whose reduction runs over all B*L rows: with few
+// output tiles the wrapper splits that reduction into fixed chunks whose
+// fp32 partials it sums in order, so the card is filled and two runs give
+// the same bits.
+//
+// vit_attn_bwd (replacing _attn_block_bwd_kernel, vit_block.py:298) runs
+// on the tensor cores: every product in 3xTF32 on mma.sync (m16n8k8), for
+// the reasons attn_tc.cuh gives (the split happens in registers; scores and
+// dp feed the next products straight from the accumulators). Its bound on
+// the H100, products at 495 / 3 = 165 TFLOP/s: 580 GFLOP at the mae_hd_1280
+// encoder (B = 16, L = 1,401, d = 768), 3.5 ms; 4.62 TFLOP at its decoder
+// (L = 6,401, d = 512, 16 heads of 32), 28.0 ms; the softmax and its
+// backward (7 per score) and the bytes are far below. It recomputes q, k,
+// v, the head outputs and p from x, as the TPU kernel does (:307-317), and
+// saves nothing in the forward. Its five products go through
+// gemm_tc_kernel, whose slices arrive by cp.async (slices staged through
+// registers, with the LayerNorm applied there, held the same products to
+// about 17 TFLOP/s on the H100), after LN(x) is written once in fp32 for
+// the two products that read it. Its two passes (dK/dV over the query tiles,
+// dQ over the key tiles) buy freedom from atomics with redundant work: the
+// scores are computed three times (the forward recompute and once in each
+// pass) and dp twice, 9 products of L x L x d where the function needs 6
+// (s, o, dV, dp, dQ, dK), so 1.5x the minimal L^2 work; the bound counts
+// the 6. The old design ran all 9 on the CUDA cores as scalar FMAs from
+// shared memory, at about 17 TFLOP/s.
 //
 // All launch on the caller's stream, allocate nothing, and return
 // cudaGetLastError() (or the error of raising the shared-memory limit) so
@@ -72,8 +87,12 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
+
+#include "attn_tc.cuh"
 
 namespace {
 
@@ -505,215 +524,489 @@ __global__ void __launch_bounds__(kAttnThreads)
 }
 
 // ---------------------------------------------------------------------------
-// Attention core, backward (fp32): dK and dV over query tiles, dQ over keys.
-// p = exp(s * scale - lse); ds = p * (dp - D) * scale with dp = do . v.
+// The attention sub-layer's backward on the tensor cores (fp32, 3xTF32;
+// mma_tc.cuh, attn_tc.cuh).
 // ---------------------------------------------------------------------------
 
-template <int HD>
-constexpr int attn_dkv_smem_floats() {
-  return 2 * HD * kRowPad + 2 * HD * kColPad + 2 * kTile * kRowPad + 2 * kTile;
+// gemm_tc_kernel: C = A @ B in 3xTF32, for the five products of
+// vit_attn_bwd. A block of 8 warps owns a 128 x 128 output tile, a warp
+// 64 x 32 (4 x 4 m16n8 tiles, 64 fp32 accumulators a thread). Slices of 32
+// along k go from device memory to shared memory by cp.async, three slices
+// in flight, each operand as it lies in device memory: K-contiguous rows
+// padded to 36 floats, or MN-contiguous rows padded to 136, either of which
+// keeps the fragment loads free of bank conflicts, so a transposed operand
+// costs nothing. The split into hi and lo happens at the fragment load.
+// Each 16-deep half slice's products are summed from zero, two m16 tiles at
+// a time, and added to the accumulators in fp32 (mma_tc.cuh). There is no
+// prologue: the LayerNorm the TPU kernel applies while staging is one
+// elementwise pass (ln_apply_kernel) whose output both products that read
+// LN(x) share, 2 x 4 bytes an element against the 2 x 768 or more
+// operations each element feeds. Epilogues: fp32 store or split-K
+// partial, bias, plain store. Every contiguous extent and leading dimension
+// is a multiple of 4 floats (16-byte copies).
+constexpr int kTcBM = 128;
+constexpr int kTcBN = 128;
+constexpr int kTcBK = 32;
+constexpr int kTcStages = 3;
+constexpr int kTcThreads = 256;
+constexpr int kTcKPad = kTcBK + 4;   // K-contiguous tile rows
+constexpr int kTcMnPad = kTcBM + 8;  // MN-contiguous tile rows
+constexpr int kTcTile = kTcBM * kTcKPad > kTcBK * kTcMnPad ? kTcBM * kTcKPad
+                                                           : kTcBK * kTcMnPad;
+constexpr size_t kTcSmem = kTcStages * 2 * kTcTile * sizeof(float);
+static_assert(kTcBM == kTcBN, "one tile shape for A and B");
+
+struct TcGemmArgs {
+  const float* a;
+  int lda;  // A (M, K); stored (K, M) when the kernel's AT
+  const float* b;
+  int ldb;  // B (K, N); stored (N, K) when the kernel's BT
+  int M, N, K, k_chunk;
+  int epi;
+  const float* bias;
+  float* out;
+  int ldc;
+};
+
+// One operand's 128 x 32 slice into shared memory: `kfast` when its rows
+// in device memory run along k (rows r0.., k from k0), else its rows run
+// along m or n (rows k0.., columns r0..). Zeros past `rows` and `kend`.
+template <bool kfast>
+__device__ __forceinline__ void load_tc_slice(float* dst, const float* src,
+                                              int ld, int r0, int rows,
+                                              int k0, int kend) {
+#pragma unroll
+  for (int i = 0; i < kTcBM * kTcBK / 4 / kTcThreads; ++i) {
+    const int idx = threadIdx.x + kTcThreads * i;
+    int r, c;  // tile row, column of the stored layout
+    bool valid;
+    size_t off;
+    if (kfast) {
+      r = idx / (kTcBK / 4);
+      c = (idx % (kTcBK / 4)) * 4;
+      valid = r0 + r < rows && k0 + c < kend;
+      off = static_cast<size_t>(r0 + r) * ld + k0 + c;
+      tc::cp_async16(dst + r * kTcKPad + c, valid ? src + off : src, valid);
+    } else {
+      r = idx / (kTcBM / 4);
+      c = (idx % (kTcBM / 4)) * 4;
+      valid = k0 + r < kend && r0 + c < rows;
+      off = static_cast<size_t>(k0 + r) * ld + r0 + c;
+      tc::cp_async16(dst + r * kTcMnPad + c, valid ? src + off : src, valid);
+    }
+  }
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kAttnThreads)
-    attn_dkv_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ dsum,
-                    float* __restrict__ dqkv, int L, int H, float scale) {
-  constexpr int NJ = HD / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* Kt = smem;                   // [HD][kRowPad], key-row fast
-  float* Vt = Kt + HD * kRowPad;      // [HD][kRowPad]
-  float* Qs = Vt + HD * kRowPad;      // [HD][kColPad], query fast
-  float* dOs = Qs + HD * kColPad;     // [HD][kColPad]
-  float* Ps = dOs + HD * kColPad;     // [kTile queries][kRowPad keys]
-  float* dSs = Ps + kTile * kRowPad;  // [kTile queries][kRowPad keys]
-  float* lse_s = dSs + kTile * kRowPad;
-  float* d_s = lse_s + kTile;
-  const int c0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int d = H * HD, ld = 3 * d;
-  const size_t base = static_cast<size_t>(b) * L * ld + h * HD;
-  const size_t obase = static_cast<size_t>(b) * L * d + h * HD;
-  const size_t rbase = (static_cast<size_t>(b) * H + h) * L;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+// element (row of the output side, k) of a stored slice
+template <bool kfast>
+__device__ __forceinline__ float tc_at(const float* s, int r, int k) {
+  return kfast ? s[r * kTcKPad + k] : s[k * kTcMnPad + r];
+}
 
-  load_t<float, HD>(qkv, base + d, ld, c0, L, Kt, kRowPad);
-  load_t<float, HD>(qkv, base + 2 * d, ld, c0, L, Vt, kRowPad);
-  float dk[4][NJ], dv[4][NJ];
+// AT: A stored (K, M); BT: B stored (N, K). grid (ceil(N / 128),
+// ceil(M / 128), splits), 256 threads, kTcSmem of dynamic shared memory.
+template <bool AT, bool BT>
+__global__ void __launch_bounds__(kTcThreads)
+    gemm_tc_kernel(const TcGemmArgs p) {
+  extern __shared__ __align__(16) float tc_smem[];  // [stage][A, B][kTcTile]
+  const int m0 = blockIdx.y * kTcBM;
+  const int n0 = blockIdx.x * kTcBN;
+  const int kbeg = blockIdx.z * p.k_chunk;
+  const int kend = min(p.K, kbeg + p.k_chunk);
+  const int slices = kbeg < kend ? (kend - kbeg + kTcBK - 1) / kTcBK : 0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+
+  auto load = [&](int slice) {
+    float* st = tc_smem + (slice % kTcStages) * 2 * kTcTile;
+    const int k0 = kbeg + slice * kTcBK;
+    load_tc_slice<!AT>(st, p.a, p.lda, m0, p.M, k0, kend);
+    load_tc_slice<BT>(st + kTcTile, p.b, p.ldb, n0, p.N, k0, kend);
+  };
+#pragma unroll
+  for (int s = 0; s < kTcStages - 1; ++s) {
+    if (s < slices) load(s);
+    tc::cp_async_commit();
+  }
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) tc::zero(acc[i]);
+
+  for (int it = 0; it < slices; ++it) {
+    tc::cp_async_wait<kTcStages - 2>();
+    __syncthreads();  // slice it landed; slice it - 1's stage is free
+    if (it + kTcStages - 1 < slices) load(it + kTcStages - 1);
+    tc::cp_async_commit();
+    const float* As = tc_smem + (it % kTcStages) * 2 * kTcTile;
+    const float* Bs = As + kTcTile;
+#pragma unroll
+    for (int h = 0; h < kTcBK; h += 16) {
+      tc::Split<2> b[2][4];  // 2 k8 steps x 4 n8 tiles
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = wn + 8 * j + g, k = h + 8 * kk + t;
+          b[kk][j].set(0, tc_at<BT>(Bs, c, k));
+          b[kk][j].set(1, tc_at<BT>(Bs, c, k + 4));
+        }
+#pragma unroll
+      for (int i0 = 0; i0 < 4; i0 += 2) {
+        float tile[8][4];
+        tc::zero(tile);
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+          for (int ii = 0; ii < 2; ++ii) {
+            const int r = wm + 16 * (i0 + ii) + g, k = h + 8 * kk + t;
+            tc::Split<4> a;
+            a.set(0, tc_at<!AT>(As, r, k));
+            a.set(1, tc_at<!AT>(As, r + 8, k));
+            a.set(2, tc_at<!AT>(As, r, k + 4));
+            a.set(3, tc_at<!AT>(As, r + 8, k + 4));
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              tc::mma_3xtf32(tile[4 * ii + j], a, b[kk][j]);
+          }
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[i0 + ii][j][e] += tile[4 * ii + j][e];
+      }
+    }
+  }
+
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) dk[i][j] = dv[i][j] = 0.0f;
-
-  for (int q0 = 0; q0 < L; q0 += kTile) {
-    __syncthreads();
-    load_t<float, HD>(qkv, base, ld, q0, L, Qs, kColPad);
-    load_t<float, HD>(dout, obase, d, q0, L, dOs, kColPad);
-    if (threadIdx.x < kTile) {
-      const int q = q0 + threadIdx.x;
-      lse_s[threadIdx.x] = q < L ? lse[rbase + q] : 0.0f;
-      d_s[threadIdx.x] = q < L ? dsum[rbase + q] : 0.0f;
-    }
-    __syncthreads();
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.0f;
-#pragma unroll 4
-    for (int k = 0; k < HD; ++k) {
-      const float4 ka = *reinterpret_cast<const float4*>(&Kt[k * kRowPad + ty * 4]);
-      const float4 va = *reinterpret_cast<const float4*>(&Vt[k * kRowPad + ty * 4]);
-      const float kv[4] = {ka.x, ka.y, ka.z, ka.w};
-      const float vv[4] = {va.x, va.y, va.z, va.w};
+    for (int e2 = 0; e2 < 2; ++e2) {
+      const int m = m0 + wm + 16 * i + g + 8 * e2;
+      if (m >= p.M) continue;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float qv = Qs[k * kColPad + tx + 16 * j];
-        const float gv = dOs[k * kColPad + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          s[i][j] = fmaf(kv[i], qv, s[i][j]);
-          dp[i][j] = fmaf(vv[i], gv, dp[i][j]);
+        const int n = n0 + wn + 8 * j + 2 * t;
+        if (n >= p.N) continue;  // N is a multiple of 4: n + 1 < N too
+        float v0 = acc[i][j][2 * e2], v1 = acc[i][j][2 * e2 + 1];
+        const size_t o = static_cast<size_t>(m) * p.ldc + n;
+        if (p.epi == kEpiF32) {
+          *reinterpret_cast<float2*>(
+              p.out + static_cast<size_t>(blockIdx.z) * p.M * p.ldc + o) =
+              make_float2(v0, v1);
+          continue;
         }
+        if (p.epi == kEpiBias) {
+          v0 += p.bias[n];
+          v1 += p.bias[n + 1];
+        }
+        *reinterpret_cast<float2*>(p.out + o) = make_float2(v0, v1);
       }
     }
+}
+
+// h = LN(x) in fp32 from the row statistics: the GEMMs' A.
+__global__ void ln_apply_kernel(const float* __restrict__ x,
+                                const float* __restrict__ mu,
+                                const float* __restrict__ rstd,
+                                const float* __restrict__ g,
+                                const float* __restrict__ b,
+                                float* __restrict__ h, int rows, int d) {
+  const size_t n = static_cast<size_t>(rows) * d;
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+       i < n; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const size_t r = i / d;
+    const int c = static_cast<int>(i - r * d);
+    h[i] = (x[i] - mu[r]) * rstd[r] * g[c] + b[c];
+  }
+}
+
+// The two backward passes of the attention core, flash-style and without
+// atomics, on 3xTF32 mma.sync (the forward core's reasons, attn_tc.cuh).
+// p = exp2(s * scale * log2 e - lse), lse in log2 units from the core;
+// ds = p (dp - D) scale with dp = do . v. A block is 4 warps and owns 64
+// rows (keys in attn_dkv_tc_kernel, queries in attn_dq_tc_kernel), a warp
+// 16; it walks tiles of the other side (64 rows; 16 at HD = 128, where the
+// three HD-wide accumulators of a thread leave few registers), double-
+// buffered by cp.async. Scores and dp stay in registers and feed the next
+// products as A fragments (attn_tc.cuh's k permutation); accumulators stay
+// in registers, each tile's products summed from zero and then added to
+// them; every shared-memory row is padded to HD + 4 floats.
+// qkv (B*L, 3d) fp32, dout (B*L, d) fp32, lse and dsum (B, H, L); dqkv
+// (B*L, 3d). grid (ceil(L / 64), B * H), 128 threads.
+template <int HD>
+__host__ __device__ constexpr int bwd_tile() {
+  return HD == 128 ? 16 : 64;
+}
+
+template <int HD>
+constexpr size_t attn_dkv_tc_smem() {
+  return (2 * 64 * (HD + 4) + 4 * bwd_tile<HD>() * (HD + 4) +
+          4 * bwd_tile<HD>()) * sizeof(float);
+}
+
+template <int HD>
+constexpr size_t attn_dq_tc_smem() {
+  return (2 * 64 * (HD + 4) + 4 * bwd_tile<HD>() * (HD + 4)) * sizeof(float);
+}
+
+// acc (16 rows x 8) += A_w B^T over HD for two operand pairs at once:
+// A_w rows of a warp (stride SP), B rows 8j .. 8j+7 (stride SP).
+template <int HD, int NT, int SP>
+__device__ __forceinline__ void two_scores(float (&s)[NT / 8][4],
+                                           float (&dp)[NT / 8][4],
+                                           const float* A1, const float* B1,
+                                           const float* A2, const float* B2,
+                                           int g, int t) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int qi = tx + 16 * j;
-      const bool valid = q0 + qi < L;
+  for (int kk = 0; kk < HD / 8; ++kk) {
+    tc::Split<4> a1, a2;
+    const int c = 8 * kk + t;
+    a1.set(0, A1[g * SP + c]);
+    a1.set(1, A1[(g + 8) * SP + c]);
+    a1.set(2, A1[g * SP + c + 4]);
+    a1.set(3, A1[(g + 8) * SP + c + 4]);
+    a2.set(0, A2[g * SP + c]);
+    a2.set(1, A2[(g + 8) * SP + c]);
+    a2.set(2, A2[g * SP + c + 4]);
+    a2.set(3, A2[(g + 8) * SP + c + 4]);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = valid ? expf(s[i][j] * scale - lse_s[qi]) : 0.0f;
-        Ps[qi * kRowPad + ty * 4 + i] = p;
-        dSs[qi * kRowPad + ty * 4 + i] = p * (dp[i][j] - d_s[qi]) * scale;
-      }
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int q = 0; q < kTile; ++q) {
-      const float4 pa = *reinterpret_cast<const float4*>(&Ps[q * kRowPad + ty * 4]);
-      const float4 sa = *reinterpret_cast<const float4*>(&dSs[q * kRowPad + ty * 4]);
-      const float pv[4] = {pa.x, pa.y, pa.z, pa.w};
-      const float sv[4] = {sa.x, sa.y, sa.z, sa.w};
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int n = tx + 16 * j;
-        const float gv = dOs[n * kColPad + q];
-        const float qv = Qs[n * kColPad + q];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          dv[i][j] = fmaf(pv[i], gv, dv[i][j]);
-          dk[i][j] = fmaf(sv[i], qv, dk[i][j]);
-        }
-      }
+    for (int j = 0; j < NT / 8; ++j) {
+      tc::Split<2> b1, b2;
+      b1.set(0, B1[(8 * j + g) * SP + c]);
+      b1.set(1, B1[(8 * j + g) * SP + c + 4]);
+      b2.set(0, B2[(8 * j + g) * SP + c]);
+      b2.set(1, B2[(8 * j + g) * SP + c + 4]);
+      tc::mma_3xtf32(s[j], a1, b1);
+      tc::mma_3xtf32(dp[j], a2, b2);
     }
   }
+}
+
+// acc[n] (16 x 8) += P B over the NT rows of a tile: P the accumulators of
+// a (16 x NT) product (k permuted as in attn_tc.cuh's p_times_v), B (NT,
+// HD) rows of stride SP.
+template <int HD, int NT, int SP>
+__device__ __forceinline__ void acc_times(float (&acc)[HD / 8][4],
+                                          const float (&pm)[NT / 8][4],
+                                          const float* B, int g, int t) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = c0 + ty * 4 + i;
-    if (key >= L) continue;
-    const size_t r = (static_cast<size_t>(b) * L + key) * ld + h * HD;
+  for (int j = 0; j < NT / 8; ++j) {
+    tc::Split<4> a;
+    a.set(0, pm[j][0]);
+    a.set(1, pm[j][2]);
+    a.set(2, pm[j][1]);
+    a.set(3, pm[j][3]);
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      dqkv[r + d + tx + 16 * j] = dk[i][j];
-      dqkv[r + 2 * d + tx + 16 * j] = dv[i][j];
+    for (int n = 0; n < HD / 8; ++n) {
+      tc::Split<2> b;
+      b.set(0, B[(8 * j + 2 * t) * SP + 8 * n + g]);
+      b.set(1, B[(8 * j + 2 * t + 1) * SP + 8 * n + g]);
+      tc::mma_3xtf32(acc[n], a, b);
     }
   }
 }
 
 template <int HD>
-constexpr int attn_dq_smem_floats() {
-  return 2 * HD * kRowPad + 2 * HD * kColPad + kTile * kRowPad;
+__device__ __forceinline__ void store_rows(float* dst,
+                                           const float (&acc)[HD / 8][4],
+                                           int row0, int L, size_t ld, int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= L) continue;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<float2*>(dst + row * ld + 8 * n + 2 * t) =
+          make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
+  }
 }
 
+// dK and dV: a block owns 64 keys and walks the query tiles.
 template <int HD>
-__global__ void __launch_bounds__(kAttnThreads)
-    attn_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
-                   const float* __restrict__ lse, const float* __restrict__ dsum,
-                   float* __restrict__ dqkv, int L, int H, float scale) {
-  constexpr int NJ = HD / 16;
+__global__ void __launch_bounds__(128)
+    attn_dkv_tc_kernel(const float* __restrict__ qkv,
+                       const float* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ dsum,
+                       float* __restrict__ dqkv, int L, int H, float scale) {
+  constexpr int SP = HD + 4;
+  constexpr int NQ = bwd_tile<HD>();
   extern __shared__ __align__(16) float smem[];
-  float* Qt = smem;                  // [HD][kRowPad], query-row fast
-  float* dOt = Qt + HD * kRowPad;    // [HD][kRowPad]
-  float* Ks = dOt + HD * kRowPad;    // [HD][kColPad], key fast
-  float* Vs = Ks + HD * kColPad;     // [HD][kColPad]
-  float* dSs = Vs + HD * kColPad;    // [kTile keys][kRowPad queries]
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  float* Ks = smem;                 // [64][SP]
+  float* Vs = Ks + 64 * SP;         // [64][SP]
+  float* Qs = Vs + 64 * SP;         // [2][NQ][SP]
+  float* dOs = Qs + 2 * NQ * SP;    // [2][NQ][SP]
+  float* lse_s = dOs + 2 * NQ * SP;  // [2][NQ]
+  float* d_s = lse_s + 2 * NQ;       // [2][NQ]
+  const int c0 = blockIdx.x * 64;
+  const int b = blockIdx.y / H, h = blockIdx.y - b * H;
   const int d = H * HD, ld = 3 * d;
-  const size_t base = static_cast<size_t>(b) * L * ld + h * HD;
-  const size_t obase = static_cast<size_t>(b) * L * d + h * HD;
-  const size_t rbase = (static_cast<size_t>(b) * H + h) * L;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const float* qb = qkv + static_cast<size_t>(b) * L * ld + h * HD;
+  const float* ob = dout + static_cast<size_t>(b) * L * d + h * HD;
+  const float* lb = lse + (static_cast<size_t>(b) * H + h) * L;
+  const float* db = dsum + (static_cast<size_t>(b) * H + h) * L;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const float c_log2 = scale * tc::kLog2e;
 
-  load_t<float, HD>(qkv, base, ld, q0, L, Qt, kRowPad);
-  load_t<float, HD>(dout, obase, d, q0, L, dOt, kRowPad);
-  float row_lse[4], row_d[4], dq[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int q = q0 + ty * 4 + i;
-    row_lse[i] = q < L ? lse[rbase + q] : 0.0f;
-    row_d[i] = q < L ? dsum[rbase + q] : 0.0f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) dq[i][j] = 0.0f;
-  }
+  auto load_tile = [&](int st, int q0) {
+    tc::load_rows<float, HD, NQ, SP, 128>(Qs + st * NQ * SP, qb, ld, q0, L);
+    tc::load_rows<float, HD, NQ, SP, 128>(dOs + st * NQ * SP, ob, d, q0, L);
+    for (int i = threadIdx.x; i < NQ; i += 128) {
+      const bool valid = q0 + i < L;
+      lse_s[st * NQ + i] = valid ? lb[q0 + i] : 0.0f;
+      d_s[st * NQ + i] = valid ? db[q0 + i] : 0.0f;
+    }
+  };
+  tc::load_rows<float, HD, 64, SP, 128>(Ks, qb + d, ld, c0, L);
+  tc::load_rows<float, HD, 64, SP, 128>(Vs, qb + 2 * d, ld, c0, L);
+  load_tile(0, 0);
+  tc::cp_async_commit();
 
-  for (int k0 = 0; k0 < L; k0 += kTile) {
-    __syncthreads();
-    load_t<float, HD>(qkv, base + d, ld, k0, L, Ks, kColPad);
-    load_t<float, HD>(qkv, base + 2 * d, ld, k0, L, Vs, kColPad);
-    __syncthreads();
-    float s[4][4], dp[4][4];
+  float dk[HD / 8][4], dv[HD / 8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < HD / 8; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.0f;
-#pragma unroll 4
-    for (int k = 0; k < HD; ++k) {
-      const float4 qa = *reinterpret_cast<const float4*>(&Qt[k * kRowPad + ty * 4]);
-      const float4 ga = *reinterpret_cast<const float4*>(&dOt[k * kRowPad + ty * 4]);
-      const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
-      const float gv[4] = {ga.x, ga.y, ga.z, ga.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float kv = Ks[k * kColPad + tx + 16 * j];
-        const float vv = Vs[k * kColPad + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          s[i][j] = fmaf(qv[i], kv, s[i][j]);
-          dp[i][j] = fmaf(gv[i], vv, dp[i][j]);
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx + 16 * j;
-      const bool valid = k0 + c < L;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = valid ? expf(s[i][j] * scale - row_lse[i]) : 0.0f;
-        dSs[c * kRowPad + ty * 4 + i] = p * (dp[i][j] - row_d[i]) * scale;
-      }
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.0f;
+  const int tiles = (L + NQ - 1) / NQ;
+  for (int it = 0; it < tiles; ++it) {
+    const int st = it & 1;
+    if (it + 1 < tiles) {
+      load_tile(st ^ 1, (it + 1) * NQ);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
     }
     __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
-      const float4 sa = *reinterpret_cast<const float4*>(&dSs[c * kRowPad + ty * 4]);
-      const float sv[4] = {sa.x, sa.y, sa.z, sa.w};
+    const float* Qt = Qs + st * NQ * SP;
+    const float* dOt = dOs + st * NQ * SP;
+    // s^T = K Q^T and dp^T = V dO^T: the warp's 16 keys x NQ queries
+    float s[NQ / 8][4], dp[NQ / 8][4];
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float kv = Ks[(tx + 16 * j) * kColPad + c];
+    for (int j = 0; j < NQ / 8; ++j)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) dq[i][j] = fmaf(sv[i], kv, dq[i][j]);
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
+    two_scores<HD, NQ, SP>(s, dp, Ks + warp * 16 * SP, Qt,
+                           Vs + warp * 16 * SP, dOt, g, t);
+    const int q0 = it * NQ;
+#pragma unroll
+    for (int j = 0; j < NQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = 8 * j + 2 * t + (e & 1);
+        const float pv = q0 + qi < L
+                             ? exp2f(s[j][e] * c_log2 - lse_s[st * NQ + qi])
+                             : 0.0f;
+        s[j][e] = pv;
+        dp[j][e] = pv * (dp[j][e] - d_s[st * NQ + qi]) * scale;
       }
-    }
+    // dV += P^T dO, dK += dS^T Q: each tile's products from zero, then
+    // added in fp32 (mma_tc.cuh: the MMAs truncate inside their sums)
+    float tile[HD / 8][4];
+    tc::zero(tile);
+    acc_times<HD, NQ, SP>(tile, s, dOt, g, t);
+    tc::add_to(dv, tile);
+    tc::zero(tile);
+    acc_times<HD, NQ, SP>(tile, dp, Qt, g, t);
+    tc::add_to(dk, tile);
+    __syncthreads();
   }
+  float* out = dqkv + static_cast<size_t>(b) * L * ld + h * HD;
+  const int row0 = c0 + warp * 16 + g;
+  store_rows<HD>(out + d, dk, row0, L, ld, t);
+  store_rows<HD>(out + 2 * d, dv, row0, L, ld, t);
+}
+
+// dQ: a block owns 64 queries and walks the key tiles.
+template <int HD>
+__global__ void __launch_bounds__(128)
+    attn_dq_tc_kernel(const float* __restrict__ qkv,
+                      const float* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ dsum,
+                      float* __restrict__ dqkv, int L, int H, float scale) {
+  constexpr int SP = HD + 4;
+  constexpr int NK = bwd_tile<HD>();
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;               // [64][SP]
+  float* dOs = Qs + 64 * SP;      // [64][SP]
+  float* Ks = dOs + 64 * SP;      // [2][NK][SP]
+  float* Vs = Ks + 2 * NK * SP;   // [2][NK][SP]
+  const int q0 = blockIdx.x * 64;
+  const int b = blockIdx.y / H, h = blockIdx.y - b * H;
+  const int d = H * HD, ld = 3 * d;
+  const float* qb = qkv + static_cast<size_t>(b) * L * ld + h * HD;
+  const float* ob = dout + static_cast<size_t>(b) * L * d + h * HD;
+  const size_t rb = (static_cast<size_t>(b) * H + h) * L;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const float c_log2 = scale * tc::kLog2e;
+
+  tc::load_rows<float, HD, 64, SP, 128>(Qs, qb, ld, q0, L);
+  tc::load_rows<float, HD, 64, SP, 128>(dOs, ob, d, q0, L);
+  tc::load_rows<float, HD, NK, SP, 128>(Ks, qb + d, ld, 0, L);
+  tc::load_rows<float, HD, NK, SP, 128>(Vs, qb + 2 * d, ld, 0, L);
+  tc::cp_async_commit();
+
+  const int row0 = q0 + warp * 16 + g;
+  float row_lse[2], row_d[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int q = q0 + ty * 4 + i;
-    if (q >= L) continue;
-    const size_t r = (static_cast<size_t>(b) * L + q) * ld + h * HD;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) dqkv[r + tx + 16 * j] = dq[i][j];
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    row_lse[r] = row < L ? lse[rb + row] : 0.0f;
+    row_d[r] = row < L ? dsum[rb + row] : 0.0f;
   }
+  float dq[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.0f;
+  const int tiles = (L + NK - 1) / NK;
+  for (int it = 0; it < tiles; ++it) {
+    const int st = it & 1;
+    if (it + 1 < tiles) {
+      tc::load_rows<float, HD, NK, SP, 128>(Ks + (st ^ 1) * NK * SP, qb + d,
+                                            ld, (it + 1) * NK, L);
+      tc::load_rows<float, HD, NK, SP, 128>(Vs + (st ^ 1) * NK * SP,
+                                            qb + 2 * d, ld, (it + 1) * NK, L);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* Kt = Ks + st * NK * SP;
+    float s[NK / 8][4], dp[NK / 8][4];
+#pragma unroll
+    for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
+    two_scores<HD, NK, SP>(s, dp, Qs + warp * 16 * SP, Kt,
+                           dOs + warp * 16 * SP, Vs + st * NK * SP, g, t);
+    const int k0 = it * NK;
+#pragma unroll
+    for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float pv = k0 + 8 * j + 2 * t + (e & 1) < L
+                             ? exp2f(s[j][e] * c_log2 - row_lse[r])
+                             : 0.0f;
+        dp[j][e] = pv * (dp[j][e] - row_d[r]) * scale;
+      }
+    float tile[HD / 8][4];  // dQ += dS K, the tile's products from zero
+    tc::zero(tile);
+    acc_times<HD, NK, SP>(tile, dp, Kt, g, t);
+    tc::add_to(dq, tile);
+    __syncthreads();
+  }
+  store_rows<HD>(dqkv + static_cast<size_t>(b) * L * ld + h * HD, dq, row0,
+                 L, ld, t);
 }
 
 // ---------------------------------------------------------------------------
@@ -839,23 +1132,35 @@ cudaError_t attn_fwd_dispatch(const void* qkv, void* o, float* lse,
   }
 }
 
+template <bool AT, bool BT>
+cudaError_t launch_gemm_tc(const TcGemmArgs& p, cudaStream_t stream) {
+  const int splits = (p.K + p.k_chunk - 1) / p.k_chunk;
+  const dim3 grid((p.N + kTcBN - 1) / kTcBN, (p.M + kTcBM - 1) / kTcBM,
+                  splits > 0 ? splits : 1);
+  if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem(gemm_tc_kernel<AT, BT>, kTcSmem);
+  if (err != cudaSuccess) return err;
+  gemm_tc_kernel<AT, BT><<<grid, kTcThreads, kTcSmem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 template <int HD>
 cudaError_t launch_attn_bwd(const float* qkv, const float* dout,
                             const float* lse, const float* dsum, float* dqkv,
                             int B, int L, int H, float scale,
                             cudaStream_t stream) {
-  const dim3 grid((L + kTile - 1) / kTile, H, B);
-  const size_t smem_kv = attn_dkv_smem_floats<HD>() * sizeof(float);
-  cudaError_t err = allow_smem(attn_dkv_kernel<HD>, smem_kv);
+  const dim3 grid((L + 63) / 64, B * H);
+  const size_t smem_kv = attn_dkv_tc_smem<HD>();
+  cudaError_t err = allow_smem(attn_dkv_tc_kernel<HD>, smem_kv);
   if (err != cudaSuccess) return err;
-  attn_dkv_kernel<HD><<<grid, kAttnThreads, smem_kv, stream>>>(
+  attn_dkv_tc_kernel<HD><<<grid, 128, smem_kv, stream>>>(
       qkv, dout, lse, dsum, dqkv, L, H, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t smem_q = attn_dq_smem_floats<HD>() * sizeof(float);
-  err = allow_smem(attn_dq_kernel<HD>, smem_q);
+  const size_t smem_q = attn_dq_tc_smem<HD>();
+  err = allow_smem(attn_dq_tc_kernel<HD>, smem_q);
   if (err != cudaSuccess) return err;
-  attn_dq_kernel<HD><<<grid, kAttnThreads, smem_q, stream>>>(
+  attn_dq_tc_kernel<HD><<<grid, 128, smem_q, stream>>>(
       qkv, dout, lse, dsum, dqkv, L, H, scale);
   return cudaGetLastError();
 }
@@ -931,10 +1236,72 @@ int mia_vit_attn_fwd(int is_bf16, const void* qkv, void* o, float* lse,
                                             hd, scale, s);
 }
 
+// The tensor-core GEMM (fp32 only): mia_vit_gemm's arguments, with no
+// prologue and the epilogues fp32, bias and store; k_chunk a multiple of
+// 32; every operand's contiguous extent, N and the leading dimensions
+// multiples of 4, and the pointers 16-byte aligned.
+int mia_vit_gemm_tc(int is_bf16, const void* a, int a_trans, int lda,
+                    const void* b, int b_trans, int ldb, int M, int N, int K,
+                    int k_chunk, int pro, const float* mu, const float* rstd,
+                    const void* gamma, const void* beta, int epi,
+                    const void* bias, const void* resid, const float* aux,
+                    int ld_aux, void* out, int ldc, void* stream) {
+  auto aligned = [](const void* ptr) {
+    return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+  };
+  if (is_bf16 || pro != kProNone || M < 1 || N < 1 || K < 1 ||
+      k_chunk < 1 || k_chunk % kTcBK != 0 || N % 4 || lda % 4 || ldb % 4 ||
+      ldc % 4 || (a_trans ? M : K) % 4 || (b_trans ? K : N) % 4 ||
+      !aligned(a) || !aligned(b) || !aligned(out))
+    return cudaErrorInvalidValue;
+  if ((epi != kEpiF32 && epi != kEpiBias && epi != kEpiStore) ||
+      (epi == kEpiBias && bias == nullptr))
+    return cudaErrorInvalidValue;
+  const TcGemmArgs p{static_cast<const float*>(a), lda,
+                     static_cast<const float*>(b), ldb, M, N, K, k_chunk,
+                     epi, static_cast<const float*>(bias),
+                     static_cast<float*>(out), ldc};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a_trans)
+    return b_trans ? launch_gemm_tc<true, true>(p, s)
+                   : launch_gemm_tc<true, false>(p, s);
+  return b_trans ? launch_gemm_tc<false, true>(p, s)
+                 : launch_gemm_tc<false, false>(p, s);
+}
+
+// h (rows, d) = LN(x) in fp32 from the row statistics.
+int mia_vit_ln_apply(const float* x, const float* mu, const float* rstd,
+                     const float* g, const float* b, float* h, int rows,
+                     int d, void* stream) {
+  if (rows < 1 || d < 1) return cudaErrorInvalidValue;
+  const size_t n = static_cast<size_t>(rows) * d;
+  const int blocks = static_cast<int>(std::min<size_t>((n + 255) / 256, 4096));
+  ln_apply_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, mu, rstd, g, b, h, rows, d);
+  return cudaGetLastError();
+}
+
+// The backward's recompute through attn_tc.cuh's core (fp32): o (B*L, d),
+// and lse (log2 units) and D = do . o, (B, H, L) each, from qkv (B*L, 3d)
+// and do (B*L, d).
+int mia_vit_attn_core_tc(const float* qkv, float* o, float* lse,
+                         const float* dout, float* dsum, int B, int L, int H,
+                         int hd, float scale, void* stream) {
+  if (hd < 1 || lse == nullptr || dout == nullptr || dsum == nullptr)
+    return cudaErrorInvalidValue;
+  const long long d = static_cast<long long>(H) * hd;
+  const long long bs = static_cast<long long>(L) * 3 * d;
+  const tc::AttnArgs p{qkv, qkv + d, qkv + 2 * d, bs,   3 * d, bs,
+                       3 * d, bs,   3 * d,       nullptr, o,   lse,
+                       dout, dsum,  B,           H,       L,   scale};
+  return tc::attn_tc_dispatch<float, true>(hd, p,
+                                           static_cast<cudaStream_t>(stream));
+}
+
 int mia_vit_attn_bwd(const float* qkv, const float* dout, const float* lse,
                      const float* dsum, float* dqkv, int B, int L, int H,
                      int hd, float scale, void* stream) {
-  if (B < 1 || L < 1 || H < 1 || B > 65535 || H > 65535)
+  if (B < 1 || L < 1 || H < 1 || static_cast<long long>(B) * H > 65535)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {

@@ -2,12 +2,13 @@
 JAX package's dispatch.
 
 Counterpart of ``medical_image_analysis_tpu/ops/attention.py``
-(``fused_attention`` and ``_attn_kernel``). ``attention_fwd`` (kernel
-``attention_fwd_kernel`` of ``csrc/attention.cu``, whose header says what
-bounds it on the H100 and how its design answers that) computes, per
-(batch, head), ``softmax(q k^T * scale + mask) v`` with the TPU kernel's
-rounding points: fp32 scores, p normalised in fp32 and rounded to v's
-dtype before the product, fp32 accumulation, the output in q's dtype.
+(``fused_attention`` and ``_attn_kernel``). ``attention_fwd`` (the
+tensor-core core of ``csrc/attn_tc.cuh``, launched by ``csrc/attention.cu``;
+the header says what bounds it on the H100 and how its design answers
+that) computes, per (batch, head), ``softmax(q k^T * scale + mask) v``:
+fp32 scores, the products in 3xTF32 for fp32 operands and in bf16 for bf16
+ones, an online softmax in fp32 with p rounded to v's dtype before the
+product, fp32 accumulation, the output in q's dtype.
 ``attention_plain`` is its plain version. The wrapper launches the kernel
 on a CUDA tensor, or raises (dtype, shape, layout, head width, or a launch
 error), and runs the plain version on a CPU tensor; there is no fallback
@@ -30,7 +31,7 @@ import torch
 
 from .build import load_library
 
-KERNEL_SOURCE = "medical_image_analysis_tpu_torch/csrc/attention.cu"
+KERNEL_SOURCE = "medical_image_analysis_tpu_torch/csrc/attn_tc.cuh"
 launches = {"fused_attention": 0}
 
 HEAD_DIMS = (16, 32, 64, 128)  # the head widths the kernel takes
@@ -109,16 +110,29 @@ def _check(q, k, v, mask):
     return b, l, h, hd
 
 
+def _aligned(t):
+    """``t`` when each of its rows starts on a 16-byte boundary (the
+    kernel's cp.async copies move 16 bytes at a time), else a contiguous
+    copy of it."""
+    e = t.element_size()
+    if t.data_ptr() % 16 == 0 and t.stride(0) * e % 16 == 0 and (
+            t.stride(1) * e % 16 == 0):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def attention_fwd(q, k, v, mask=None, scale=None):
     """``softmax(q k^T * scale + mask) v`` through the kernel: q, k, v
-    (B, L, H, hd) read in place (any batch and token strides); mask (L, L)
-    fp32 or None. Returns a contiguous (B, L, H, hd) in q's dtype."""
+    (B, L, H, hd) read in place (any batch and token strides whose rows
+    start on 16 bytes; others are copied first); mask (L, L) fp32 or None.
+    Returns a contiguous (B, L, H, hd) in q's dtype."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, mask, scale)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention: unsupported device {q.device}")
     b, l, h, hd = _check(q, k, v, mask)
     scale = scale if scale is not None else hd**-0.5
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty(b, l, h, hd, device=q.device, dtype=q.dtype)
     lib, _ = build()
     err = lib.mia_attention_fwd(
@@ -170,9 +184,14 @@ def fused_attention(q, k, v, mask=None, scale=None, group: int = 8,
     return attention_fwd(q, k, v, m, scale)
 
 
-def flops(b: int, l: int, h: int, hd: int) -> float:
-    """Operations of one call: the two products, 2 * L * L * hd each per
-    (batch, head), and the softmax's max, subtraction, exp, sum and
-    division, 5 per score."""
-    return float(b) * h * l * l * (4 * hd + 5)
+def work(b: int, l: int, h: int, hd: int) -> tuple[float, float]:
+    """Operations of one call as ``(products, other)``: the two products,
+    2 * L * L * hd each per (batch, head), and the softmax's max,
+    subtraction, exp, sum and division, 5 per score."""
+    scores = b * h * l * l
+    return 4 * hd * scores, 5 * scores
 
+
+def flops(b: int, l: int, h: int, hd: int) -> float:
+    """All of :func:`work`'s operations, products and the rest."""
+    return float(sum(work(b, l, h, hd)))

@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` file has a plain C interface. It is compiled for
 ``sm_90a`` into ``build/kernels/lib<name>-<hash>.so`` under the repository
 root at its first use in a process, and loaded with :mod:`ctypes`. The
-hash covers the source and the compiler flags, so an edited source is
-rebuilt and an unchanged one is reused. Nothing here runs at import.
+hash covers the source, every header of ``csrc/`` (``*.cuh``, which the
+sources include by a relative path) and the compiler flags, so an edited
+source or header is rebuilt and an unchanged one is reused. Nothing here
+runs at import.
 """
 
 from __future__ import annotations
@@ -44,6 +46,17 @@ def nvcc_path() -> str:
     return found
 
 
+def source_digest(name: str) -> str:
+    """The build key of ``csrc/<name>.cu``: a hash of the source, of every
+    ``csrc/*.cuh`` header (by name and content, in name order) and of the
+    compiler flags."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def load_library(name: str) -> tuple[ctypes.CDLL, str]:
     """Return ``(library, build_log)`` for ``csrc/<name>.cu``.
 
@@ -58,9 +71,7 @@ def load_library(name: str) -> tuple[ctypes.CDLL, str]:
         if name in _loaded:
             return _loaded[name]
         src = CSRC_DIR / f"{name}.cu"
-        digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
+        digest = source_digest(name)
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         out = BUILD_DIR / f"lib{name}-{digest}.so"
         log = "cached"

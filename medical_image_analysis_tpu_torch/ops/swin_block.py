@@ -149,10 +149,16 @@ def swin_attn_fwd(x, wqkv, bqkv, wo, bo, g, b, bias, mask, heads):
     return y
 
 
-def flops(windows: int, l: int, d: int, heads: int) -> float:
+def work(windows: int, l: int, d: int, heads: int) -> tuple[float, float]:
     """Floating-point operations one sub-layer call needs (a multiply-add is
-    two), counted from the shapes: the QKV and output projections, the
-    scores and p.v, and 6 per score for the bias and mask adds and the
-    softmax (max, exp, sum, scale)."""
+    two), counted from the shapes, as ``(products, other)``: the QKV and
+    output projections, the scores and p.v; and 6 per score for the bias
+    and mask adds and the softmax (max, exp, sum, scale)."""
     rows = windows * l
-    return 2 * rows * d * 4 * d + 4 * rows * l * d + 6 * windows * heads * l * l
+    return (2 * rows * d * 4 * d + 4 * rows * l * d,
+            6 * windows * heads * l * l)
+
+
+def flops(windows: int, l: int, d: int, heads: int) -> float:
+    """All of :func:`work`'s operations, products and the rest."""
+    return float(sum(work(windows, l, d, heads)))

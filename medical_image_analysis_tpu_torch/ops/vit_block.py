@@ -19,6 +19,9 @@ TPU kernels and the JAX package's unfused path compute it.
 - ``attn_block_bwd`` / ``mlp_block_bwd`` (``vit_attn_bwd``, ``vit_mlp_bwd``):
   fp32. They recompute the forward from x (no stored probabilities or
   hidden activations) and return dx and fp32 weight gradients.
+  ``attn_block_bwd`` runs every product on the tensor cores in 3xTF32
+  (``gemm_tc_kernel``, ``csrc/attn_tc.cuh``'s core and the two backward
+  passes); the others keep the CUDA-core GEMM and attention core.
 
 The kernels are in ``csrc/vit_block.cu``, whose header says what bounds
 them on the H100 and how their design answers that. Each wrapper runs its
@@ -59,17 +62,22 @@ def build() -> tuple[ctypes.CDLL, str]:
     """Build (or reuse) the kernels' library; returns ``(lib, nvcc log)``."""
     lib, log = load_library("vit_block")
     lib.mia_vit_ln_stats.argtypes = [_P, _I, _P, _P, _I, _I, _F, _P]
-    lib.mia_vit_gemm.argtypes = [
-        _I,  # is_bf16
-        _P, _I, _I,  # a, a_trans, lda
-        _P, _I, _I,  # b, b_trans, ldb
-        _I, _I, _I, _I,  # M, N, K, k_chunk
-        _I, _P, _P, _P, _P,  # prologue, mu, rstd, gamma, beta
-        _I, _P, _P, _P, _I,  # epilogue, bias, resid, aux, ld_aux
-        _P, _I, _P,  # out, ldc, stream
-    ]
+    for gemm in (lib.mia_vit_gemm, lib.mia_vit_gemm_tc):
+        gemm.argtypes = [
+            _I,  # is_bf16
+            _P, _I, _I,  # a, a_trans, lda
+            _P, _I, _I,  # b, b_trans, ldb
+            _I, _I, _I, _I,  # M, N, K, k_chunk
+            _I, _P, _P, _P, _P,  # prologue, mu, rstd, gamma, beta
+            _I, _P, _P, _P, _I,  # epilogue, bias, resid, aux, ld_aux
+            _P, _I, _P,  # out, ldc, stream
+        ]
     lib.mia_vit_attn_fwd.argtypes = [
         _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P,
+    ]
+    lib.mia_vit_ln_apply.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _P]
+    lib.mia_vit_attn_core_tc.argtypes = [
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P,
     ]
     lib.mia_vit_attn_bwd.argtypes = [
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P,
@@ -78,7 +86,9 @@ def build() -> tuple[ctypes.CDLL, str]:
     lib.mia_vit_ln_bwd.argtypes = [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
     ]
-    for fn in (lib.mia_vit_ln_stats, lib.mia_vit_gemm, lib.mia_vit_attn_fwd,
+    for fn in (lib.mia_vit_ln_stats, lib.mia_vit_gemm, lib.mia_vit_gemm_tc,
+               lib.mia_vit_ln_apply, lib.mia_vit_attn_fwd,
+               lib.mia_vit_attn_core_tc,
                lib.mia_vit_attn_bwd, lib.mia_vit_colsum, lib.mia_vit_ln_bwd):
         fn.restype = _I
     return lib, log
@@ -243,6 +253,7 @@ PRO_NONE, PRO_LN, PRO_GELU = 0, 1, 2
  EPI_STORE) = range(6)
 _GEMM_TILE = 128  # rows and columns of a GEMM block's output tile
 _GEMM_BK = 8  # depth of one staged slice
+_GEMM_TC_BK = 32  # the tensor-core GEMM's slice (kTcBK): split-K chunks align
 _TARGET_BLOCKS = 264  # two waves of the H100's 132 SMs: split-K below that
 _COLSUM_ROWS = 512  # rows a block of the column sum adds
 _LN_BWD_ROWS = 64  # rows a block of the LN backward handles
@@ -319,13 +330,14 @@ class _Launcher:
 
     def gemm(self, a, b, m, n, k, *, a_trans=False, b_trans=False,
              pro=PRO_NONE, ln=None, epi=EPI_F32, bias=None, resid=None,
-             aux=None, out=None):
+             aux=None, out=None, tc=False):
         """out (m, n) = prologue(A) @ B with the epilogue. A is (m, k), or
         (k, m) when ``a_trans``; B is (k, n), or (n, k) when ``b_trans``.
         With ``epi=EPI_F32`` and no ``out`` the product is split along k
         into fixed chunks whose fp32 partials are summed here in order, so
         that a product with few output tiles still fills the card and two
-        runs give the same bits."""
+        runs give the same bits. ``tc`` takes the tensor-core GEMM (fp32,
+        3xTF32; no prologue; epilogues fp32, bias and store)."""
         mu, rstd, gamma, beta = ln if ln is not None else (None,) * 4
         tiles = -(-m // _GEMM_TILE) * -(-n // _GEMM_TILE)
         partials = out is None
@@ -335,16 +347,30 @@ class _Launcher:
                 raise ValueError("gemm: only the fp32 epilogue allocates")
             splits = max(1, min(-(-_TARGET_BLOCKS // tiles), k // 1024))
             out = self.f32(splits, m, n)
+        if tc:  # its 16-byte copies need 16-byte aligned operands
+            a, b = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (a, b))
+        bk = _GEMM_TC_BK if tc else _GEMM_BK
         chunk = -(-k // splits)
-        chunk = -(-chunk // _GEMM_BK) * _GEMM_BK
-        _raise_on(self.lib.mia_vit_gemm(
+        chunk = -(-chunk // bk) * bk
+        fn = self.lib.mia_vit_gemm_tc if tc else self.lib.mia_vit_gemm
+        _raise_on(fn(
             self.bf16, a.data_ptr(), int(a_trans), m if a_trans else k,
             b.data_ptr(), int(b_trans), k if b_trans else n,
             m, n, k, chunk,
             pro, _ptr(mu), _ptr(rstd), _ptr(gamma), _ptr(beta),
             epi, _ptr(bias), _ptr(resid), _ptr(aux), n,
-            out.data_ptr(), n, self.stream), "vit_gemm")
+            out.data_ptr(), n, self.stream),
+            "vit_gemm_tc" if tc else "vit_gemm")
         return out.sum(dim=0) if partials else out
+
+    def ln_apply(self, x2, mu, rstd, g, b):
+        """h = LN(x) (rows, d) in fp32 from the row statistics."""
+        rows, d = x2.shape
+        h = self.f32(rows, d)
+        _raise_on(self.lib.mia_vit_ln_apply(
+            x2.data_ptr(), mu.data_ptr(), rstd.data_ptr(), g.data_ptr(),
+            b.data_ptr(), h.data_ptr(), rows, d, self.stream), "vit_ln_apply")
+        return h
 
     def colsum(self, t2):
         """fp32 sums over the rows of a (rows, cols) tensor, per-block
@@ -368,17 +394,27 @@ def _check_attn(name, x, wqkv, bqkv, wo, bo, g, b, heads,
                          f"{HEAD_DIMS}")
 
 
-def _attn_core(run, qkv, bsz, seq, d, heads, do=None):
-    """o (B*L, d) in x's dtype; with ``do`` also the per-row logsumexp and
-    D = do . o (both (B, heads, L) fp32) that the backward reads."""
+def _attn_core(run, qkv, bsz, seq, d, heads):
+    """Each head's output, o (B*L, d) in x's dtype (the forward's SIMT
+    core)."""
     o = run.like(bsz * seq, d)
-    lse = dsum = None
-    if do is not None:
-        lse, dsum = run.f32(bsz, heads, seq), run.f32(bsz, heads, seq)
     _raise_on(run.lib.mia_vit_attn_fwd(
-        run.bf16, qkv.data_ptr(), o.data_ptr(), _ptr(lse), _ptr(do),
-        _ptr(dsum), bsz, seq, heads, d // heads, (d // heads) ** -0.5,
-        run.stream), "vit_attn_fwd core")
+        run.bf16, qkv.data_ptr(), o.data_ptr(), None, None, None, bsz, seq,
+        heads, d // heads, (d // heads) ** -0.5, run.stream),
+        "vit_attn_fwd core")
+    return o
+
+
+def _attn_core_tc(run, qkv, do, bsz, seq, d, heads):
+    """The backward's recompute through the tensor-core core (fp32): o
+    (B*L, d), and the per-row logsumexp (log2 units) and D = do . o, both
+    (B, heads, L)."""
+    o = run.f32(bsz * seq, d)
+    lse, dsum = run.f32(bsz, heads, seq), run.f32(bsz, heads, seq)
+    _raise_on(run.lib.mia_vit_attn_core_tc(
+        qkv.data_ptr(), o.data_ptr(), lse.data_ptr(), do.data_ptr(),
+        dsum.data_ptr(), bsz, seq, heads, d // heads, (d // heads) ** -0.5,
+        run.stream), "vit_attn_bwd core")
     return o, lse, dsum
 
 
@@ -397,7 +433,7 @@ def attn_block_fwd(x, wqkv, bqkv, wo, bo, g, b, heads):
     qkv = run.gemm(x2, wqkv, rows, 3 * d, d, pro=PRO_LN,
                    ln=(mu, rstd, g, b), epi=EPI_BIAS, bias=bqkv,
                    out=run.like(rows, 3 * d))
-    o, _, _ = _attn_core(run, qkv, bsz, seq, d, heads)
+    o = _attn_core(run, qkv, bsz, seq, d, heads)
     y = run.gemm(o, wo, rows, d, d, epi=EPI_BIAS_RESID, bias=bo, resid=x2,
                  out=run.like(bsz, seq, d))
     launches["vit_attn_fwd"] += 1
@@ -428,7 +464,8 @@ def attn_block_bwd(x, wqkv, bqkv, wo, bo, g, b, heads, dy):
     """Adjoint of :func:`attn_block_fwd`, fp32: the outputs of
     :func:`attn_block_bwd_plain`. Recomputes LN, q/k/v and each head's
     output from x; two flash-style passes (over query tiles for dK and dV,
-    over key tiles for dQ) with no atomics."""
+    over key tiles for dQ) with no atomics. Every product runs on the
+    tensor cores in 3xTF32."""
     if _on_cpu(x):
         return attn_block_bwd_plain(x, wqkv, bqkv, wo, bo, g, b, heads, dy)
     _check_attn("attn_block_bwd", x, wqkv, bqkv, wo, bo, g, b, heads,
@@ -439,22 +476,21 @@ def attn_block_bwd(x, wqkv, bqkv, wo, bo, g, b, heads, dy):
     run = _Launcher(x)
     x2, dy2 = x.view(rows, d), dy.view(rows, d)
     mu, rstd = run.ln_stats(x2)
-    ln = (mu, rstd, g, b)
-    qkv = run.gemm(x2, wqkv, rows, 3 * d, d, pro=PRO_LN, ln=ln,
-                   epi=EPI_BIAS, bias=bqkv, out=run.f32(rows, 3 * d))
+    h = run.ln_apply(x2, mu, rstd, g, b)
+    qkv = run.gemm(h, wqkv, rows, 3 * d, d, epi=EPI_BIAS, bias=bqkv,
+                   out=run.f32(rows, 3 * d), tc=True)
     do = run.gemm(dy2, wo, rows, d, d, b_trans=True, epi=EPI_STORE,
-                  out=run.f32(rows, d))
-    o, lse, dsum = _attn_core(run, qkv, bsz, seq, d, heads, do)
+                  out=run.f32(rows, d), tc=True)
+    o, lse, dsum = _attn_core_tc(run, qkv, do, bsz, seq, d, heads)
     dqkv = run.f32(rows, 3 * d)
     _raise_on(run.lib.mia_vit_attn_bwd(
         qkv.data_ptr(), do.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
         dqkv.data_ptr(), bsz, seq, heads, d // heads, (d // heads) ** -0.5,
         run.stream), "vit_attn_bwd core")
-    dwo = run.gemm(o, dy2, d, d, rows, a_trans=True)
-    dwqkv = run.gemm(x2, dqkv, d, 3 * d, rows, a_trans=True, pro=PRO_LN,
-                     ln=ln)
+    dwo = run.gemm(o, dy2, d, d, rows, a_trans=True, tc=True)
+    dwqkv = run.gemm(h, dqkv, d, 3 * d, rows, a_trans=True, tc=True)
     dh = run.gemm(dqkv, wqkv, rows, d, 3 * d, b_trans=True, epi=EPI_STORE,
-                  out=run.f32(rows, d))
+                  out=run.f32(rows, d), tc=True)
     dx, dg, db = _ln_bwd(run, x2, dy2, dh, mu, rstd, g)
     out = (dx.view(x.shape), dwqkv, run.colsum(dqkv), dwo, run.colsum(dy2),
            dg, db)
@@ -572,29 +608,34 @@ def fused_mlp_block(x, w1, b1, w2, b2, ln_g, ln_b, plain: bool = False):
                             ln_g.contiguous(), ln_b.contiguous(), plain)
 
 
-def flops(kind: str, bsz: int, seq: int, d: int, heads: int = 1,
-          hidden: int = 0) -> float:
+def work(kind: str, bsz: int, seq: int, d: int, heads: int = 1,
+         hidden: int = 0) -> tuple[float, float]:
     """Floating-point operations that one sub-layer call needs (a
-    multiply-add is two), counted from the shapes: the products, and 4 per
-    score for the softmax (max, exp, sum, scale). A backward that keeps
+    multiply-add is two), counted from the shapes, as ``(products, other)``:
+    the matrix products, and the rest (4 per score for the softmax: max,
+    exp, sum, scale; the GELU and its derivative). A backward that keeps
     only the inputs must recompute the forward's products once; what the
     kernels compute beyond that is not counted (the attention backward's
     two passes recompute the scores three times and dp twice: 9 products
     of L x L x d where the function needs 6)."""
     rows = bsz * seq
+    scores = bsz * heads * seq * seq
     if kind == "attn_fwd":
-        return (2 * rows * d * 4 * d + 4 * rows * seq * d
-                + 4 * bsz * heads * seq * seq)
+        return 2 * rows * d * 4 * d + 4 * rows * seq * d, 4 * scores
     if kind == "mlp_fwd":
-        return 4 * rows * d * hidden + 10 * rows * hidden
+        return 4 * rows * d * hidden, 10 * rows * hidden
     if kind == "attn_bwd":
         # qkv, do, dWo, dWqkv, dh products; scores and p.v recomputed, then
         # dV, dp, dQ, dK; the softmax recomputed (4 per score) and its
         # backward, ds = p (dp - D) scale (3 per score)
         return (2 * rows * d * (3 * d + d + d + 3 * d + 3 * d)
-                + 2 * bsz * seq * seq * d * 6 + 7 * bsz * heads * seq * seq)
+                + 2 * bsz * seq * seq * d * 6, 7 * scores)
     if kind == "mlp_bwd":
-        return 2 * rows * d * hidden * 5 + 20 * rows * hidden
+        return 2 * rows * d * hidden * 5, 20 * rows * hidden
     raise ValueError(kind)
 
 
+def flops(kind: str, bsz: int, seq: int, d: int, heads: int = 1,
+          hidden: int = 0) -> float:
+    """All of :func:`work`'s operations, products and the rest."""
+    return float(sum(work(kind, bsz, seq, d, heads, hidden)))

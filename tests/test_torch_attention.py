@@ -132,5 +132,9 @@ def test_gate_no_kernel_call_under_a_gradient(monkeypatch):
 
 
 def test_work_counts():
-    """ViT-B at B=64 (L 197, 12 heads of 64): about 7.6 GFLOP."""
+    """ViT-B at B=64 (L 197, 12 heads of 64): about 7.6 GFLOP, of which
+    the two products are 4 hd per score and the softmax 5."""
     assert 7.6e9 < att.flops(64, 197, 12, 64) < 7.8e9
+    scores = 64 * 12 * 197 * 197
+    assert att.work(64, 197, 12, 64) == (4 * 64 * scores, 5 * scores)
+    assert att.flops(64, 197, 12, 64) == scores * (4 * 64 + 5)

@@ -429,6 +429,8 @@ VIT_SHAPES = [  # (B, L, d, heads)
     (2, 50, 768, 12),   # the 224^2 MAE encoder, head width 64
     (1, 197, 512, 16),  # the 224^2 MAE decoder
     (1, 33, 256, 2),    # head width 128
+    (2, 200, 256, 8),   # head width 32, L ragged past three 64-row tiles
+    (1, 150, 512, 4),   # head width 128, L ragged past four 32-row tiles
 ]
 # fp32: reordered sums, 1e-4 of max(1, max |plain|). bf16: both sides round
 # h, q/k/v, p, the head outputs and the sub-layer's output; the kernel
@@ -463,7 +465,8 @@ def _vit_inputs(dev, dtype, b, l, d, seed, hidden=None):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("b,l,d,heads", VIT_SHAPES,
-                         ids=["hd16", "hd32", "enc224", "dec224", "hd128"])
+                         ids=["hd16", "hd32", "enc224", "dec224", "hd128",
+                              "hd32-ragged", "hd128-ragged"])
 def test_vit_fwd_kernels_match_plain(cuda, dtype, b, l, d, heads):
     from medical_image_analysis_tpu_torch.ops import vit_block as vb
 
@@ -485,7 +488,8 @@ def test_vit_fwd_kernels_match_plain(cuda, dtype, b, l, d, heads):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,l,d,heads", VIT_SHAPES,
-                         ids=["hd16", "hd32", "enc224", "dec224", "hd128"])
+                         ids=["hd16", "hd32", "enc224", "dec224", "hd128",
+                              "hd32-ragged", "hd128-ragged"])
 def test_vit_bwd_kernels_match_plain(cuda, b, l, d, heads):
     """Every output of both backward kernels against the plain backward,
     and the plain backward against autograd of the plain forward."""
@@ -871,7 +875,8 @@ def test_selective_scan_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 
 ATTN_CASES = [(2, 16, 4, 16), (2, 100, 3, 32), (4, 197, 12, 64),
-              (1, 70, 2, 128)]  # B, L, H, hd
+              (1, 70, 2, 128), (3, 77, 5, 16), (1, 1401, 2, 32),
+              (2, 50, 12, 64), (1, 333, 2, 128)]  # B, L, H, hd
 
 
 @pytest.mark.cuda
@@ -879,7 +884,8 @@ ATTN_CASES = [(2, 16, 4, 16), (2, 100, 3, 32), (4, 197, 12, 64),
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("masked", [False, True], ids=["nomask", "causal"])
 @pytest.mark.parametrize("b,l,h,hd", ATTN_CASES,
-                         ids=["hd16", "hd32", "hd64", "hd128"])
+                         ids=["hd16", "hd32", "hd64", "hd128", "hd16-ragged",
+                              "hd32-L1401", "hd64-L50", "hd128-ragged"])
 def test_attention_kernel_matches_plain(cuda, dtype, masked, b, l, h, hd):
     """q, k, v as slices of one (B, L, 3, H, hd) product, read in place; a
     causal mask's rows come out finite."""
@@ -895,6 +901,27 @@ def test_attention_kernel_matches_plain(cuda, dtype, masked, b, l, h, hd):
     assert att.launches["fused_attention"] == before + 1
     assert got.dtype == dtype and got.shape == (b, l, h, hd)
     assert bool(torch.isfinite(got).all())
+    err, scale = _err(got, want)
+    tol = 2.0**-6 if dtype == torch.bfloat16 else 1e-4
+    assert err <= tol * scale, (err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_attention_kernel_takes_rows_off_16_bytes(cuda, dtype):
+    """q, k, v slices of a buffer whose token stride is one element past
+    a 16-byte multiple: the wrapper copies them and the kernel agrees with
+    the plain version."""
+    b, l, h, hd = 2, 40, 3, 32
+    gen = torch.Generator(cuda).manual_seed(11)
+    buf = torch.randn(b, l, 3 * h * hd + 1, device=cuda, generator=gen)
+    q, k, v = (buf.to(dtype)[..., i * h * hd + 1:(i + 1) * h * hd + 1]
+               .unflatten(-1, (h, hd)) for i in range(3))
+    assert q.stride(1) * q.element_size() % 16 != 0
+    got = att.attention_fwd(q, k, v)
+    want = att.attention_plain(q, k, v)
+    torch.cuda.synchronize()
     err, scale = _err(got, want)
     tol = 2.0**-6 if dtype == torch.bfloat16 else 1e-4
     assert err <= tol * scale, (err, scale)

@@ -1,0 +1,72 @@
+"""Work counts and build keys of the port's CUDA kernels, on the CPU.
+
+``work`` splits each kernel's operations into its matrix products and the
+rest, which ``chip_smoke.py`` bounds at the tensor-core and the CUDA-core
+rates; ``flops`` is their sum, the total the kernels were always counted
+at. ``ops.build.source_digest`` is the key a built library is cached
+under: it must change when a shared header changes.
+"""
+
+import pytest
+
+from medical_image_analysis_tpu_torch.ops import build
+from medical_image_analysis_tpu_torch.ops import swin_block as sb
+from medical_image_analysis_tpu_torch.ops import vit_block as vb
+
+# (B, L, d, heads): the mae_hd_1280 encoder and decoder, a ragged tiny one
+VIT_WORK_SHAPES = [(16, 1401, 768, 12), (16, 6401, 512, 16), (3, 13, 64, 4)]
+
+
+@pytest.mark.parametrize("b,l,d,heads", VIT_WORK_SHAPES,
+                         ids=["encoder", "decoder", "tiny"])
+@pytest.mark.parametrize("kind", ["attn_fwd", "mlp_fwd", "attn_bwd",
+                                  "mlp_bwd"])
+def test_vit_work_splits_the_total(kind, b, l, d, heads):
+    """Products and the rest, each as counted from the shapes, adding up
+    to the totals the sub-layers were counted at before the split."""
+    rows, hidden, scores = b * l, 4 * d, b * heads * l * l
+    products, other = {
+        "attn_fwd": (2 * rows * d * 4 * d + 4 * rows * l * d, 4 * scores),
+        "mlp_fwd": (4 * rows * d * hidden, 10 * rows * hidden),
+        "attn_bwd": (2 * rows * d * 11 * d + 12 * b * l * l * d, 7 * scores),
+        "mlp_bwd": (10 * rows * d * hidden, 20 * rows * hidden),
+    }[kind]
+    assert vb.work(kind, b, l, d, heads, hidden) == (products, other)
+    assert vb.flops(kind, b, l, d, heads, hidden) == products + other
+
+
+def test_vit_attn_bwd_work_at_the_mae_shapes():
+    """The restated bounds: 580 GFLOP of products at the encoder, 4.62
+    TFLOP at the decoder."""
+    assert vb.work("attn_bwd", 16, 1401, 768, 12)[0] == 580_299_669_504
+    assert vb.work("attn_bwd", 16, 6401, 512, 16)[0] == 4_618_440_507_392
+
+
+@pytest.mark.parametrize("windows,d,heads", [(4096, 192, 6), (64, 1536, 48),
+                                             (3, 32, 2)],
+                         ids=["swin_large-s0", "swin_large-s3", "tiny"])
+def test_swin_work_splits_the_total(windows, d, heads):
+    rows = windows * 49
+    products = 2 * rows * d * 4 * d + 4 * rows * 49 * d
+    other = 6 * windows * heads * 49 * 49
+    assert sb.work(windows, 49, d, heads) == (products, other)
+    assert sb.flops(windows, 49, d, heads) == products + other
+
+
+def test_build_key_follows_the_headers(tmp_path, monkeypatch):
+    """Editing a header that a source includes, or adding one, changes the
+    source's build key; the key does not depend on anything else."""
+    (tmp_path / "a.cu").write_text('#include "shared.cuh"\n')
+    (tmp_path / "shared.cuh").write_text("// v1\n")
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    first = build.source_digest("a")
+    assert build.source_digest("a") == first
+    (tmp_path / "shared.cuh").write_text("// v2\n")
+    second = build.source_digest("a")
+    assert second != first
+    (tmp_path / "other.cuh").write_text("// new\n")
+    assert build.source_digest("a") not in (first, second)
+    (tmp_path / "other.cuh").unlink()
+    assert build.source_digest("a") == second
+    monkeypatch.setattr(build, "NVCC_FLAGS", (*build.NVCC_FLAGS, "-I/x"))
+    assert build.source_digest("a") != second
