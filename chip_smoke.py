@@ -77,12 +77,22 @@ raises (exit code 1):
                per head as above; the CPU tests hold them to ``jax.vjp``
                of the TPU kernels) at the same fp32 shapes, every output;
                ms of the kernel, of the plain backward, and of the library
-               composition's forward + backward. ``vit_attn_bwd`` runs on
-               the tensor cores (3xTF32): its rows at the encoder and the
-               decoder both go into the kernels line, and its device time
-               at both is split by kernel (``kernels_vit_bwd_parts``: the
-               GEMMs, the forward core's recompute, the dK/dV and dQ passes,
-               the rest) from ``torch.profiler``.
+               composition's forward + backward. All four kernels' rows at
+               the encoder and the decoder go into the kernels line (with
+               a ``case`` key). ``vit_attn_bwd``'s device time at both is
+               split by kernel (``kernels_vit_bwd_parts``: the tensor-core
+               GEMM, the forward core's recompute, the dK/dV and dQ passes,
+               the LayerNorm kernels and sums, the rest) from
+               ``torch.profiler``.
+    kernels_vit_parts -- ``vit_attn_fwd`` and ``vit_mlp_bwd`` split the
+               same way at the encoder and the decoder, and ``vit_attn_fwd``
+               at bench.py's bf16 encode, with the tensor-core GEMM's
+               TFLOP/s (its products over its time); the phase fails if
+               either launches the CUDA-core ``gemm_kernel`` or an
+               ``attn_fwd_kernel``: ``vit_attn_fwd``, ``vit_attn_bwd`` and
+               ``vit_mlp_bwd`` run every product on the tensor cores (fp32
+               in 3xTF32, bf16 as it is), ``vit_mlp_fwd`` keeps the
+               CUDA-core GEMM.
 12. train_mae -- the ``mae_hd_1280`` preset (MAE ViT-B/16 + 512x8 decoder,
                1280^2 images, region masking: encoder L=1401, decoder
                L=6401, batch 16, fp32) through ``cli.train.main`` on the
@@ -175,6 +185,7 @@ import base64
 import io
 import itertools
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -260,9 +271,11 @@ VIT_CASES = (
 # at the TPU kernel's points, but the kernel rounds exp(s - m) before the
 # softmax's division and the plain version after it, so two bf16 steps.
 VIT_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-6}
-# The kernels line's second vit_attn_bwd row: the mae_hd_1280 decoder
-# (B=16, L=6401, 16 heads of 32), beside the encoder's.
-DECODER_ROW = "vit_attn_bwd_decoder"
+# The kernels line's rows of the four ViT kernels, (B, L): (suffix of the
+# measured row's key, the row's "case"): the mae_hd_1280 encoder and its
+# decoder (16 heads of 32).
+VIT_ROWS = {(16, 1401): ("", "mae_hd_1280 encoder B=16 L=1401"),
+            (16, 6401): ("_decoder", "mae_hd_1280 decoder B=16 L=6401")}
 VIT_GRADS = {"attn": ("dx", "dwqkv", "dbqkv", "dwo", "dbo", "dg", "db"),
              "mlp": ("dx", "dw1", "db1", "dw2", "db2", "dg", "db")}
 # Classification on synthetic_learnable data: its val split has 64 samples;
@@ -1258,7 +1271,8 @@ def _dtype_name(dtype) -> str:
 
 def phase_kernels_vit(dev, gen) -> dict:
     """Both forward kernels against their plain versions at ``VIT_CASES``;
-    returns the JSON rows (the encoder of mae_hd_1280, B=16, fp32)."""
+    returns the JSON rows (``VIT_ROWS``: mae_hd_1280's encoder and decoder,
+    B=16, fp32)."""
     from medical_image_analysis_tpu_torch.ops import vit_block as vb
 
     rows = {}
@@ -1290,24 +1304,36 @@ def phase_kernels_vit(dev, gen) -> dict:
                    library_ms=f"{lib_ms:.4f}", bound_ms=f"{bound[0]:.4f}",
                    bound_by=bound[1], bound_on=bound[2],
                    tflops=f"{ops / t['kernel'] / 1e9:.2f}")
-            if (b, l, dtype) == (16, 1401, torch.float32):
-                rows[f"vit_{kind}_fwd"] = (err, t["kernel"], t["plain"],
-                                           *bound[:2], lib_ms)
+            if dtype == torch.float32 and (b, l) in VIT_ROWS:
+                rows[f"vit_{kind}_fwd{VIT_ROWS[b, l][0]}"] = (
+                    err, t["kernel"], t["plain"], *bound[:2], lib_ms)
             del got
     return rows
 
 
-# The launches of one vit_attn_bwd call, by kernel name: the five GEMMs,
-# the recompute through the forward core, the two backward passes, and the
-# LayerNorm statistics, backward and column sums.
-ATTN_BWD_PARTS = (("gemm_tc", "gemm_tc_kernel"),
-                  ("core", "attn_tc_fwd_kernel"),
-                  ("dkv", "attn_dkv_tc_kernel"), ("dq", "attn_dq_tc_kernel"))
+# The kernels of a ViT sub-layer call by part, as torch.profiler names them:
+# the tensor-core GEMM, the attention core, the backward's dK/dV and dQ
+# passes, the LayerNorm kernels and column sums; PyTorch's own kernels (the
+# split-K partials' sums, copies) under "other". The CUDA-core GEMM and
+# attention core must not run in the sub-layers that left them.
+VIT_PARTS = (("gemm_tc", ("gemm_tc_kernel",)),
+             ("core", ("attn_tc_fwd_kernel",)),
+             ("dkv", ("attn_dkv_tc_kernel",)), ("dq", ("attn_dq_tc_kernel",)),
+             ("ln_sums", ("ln_stats_kernel", "ln_apply_kernel",
+                          "ln_bwd_kernel", "colsum_kernel")))
+SIMT_KERNELS = ("gemm_kernel", "attn_fwd_kernel")
 
 
-def _attn_bwd_parts(fn) -> dict:
-    """Device ms of one call of ``fn`` by ``ATTN_BWD_PARTS`` (the rest
-    under "other"), from ``torch.profiler``."""
+def _named(key: str, names) -> bool:
+    """Whether a kernel's profiler key holds one of ``names`` as a whole
+    identifier (``gemm_kernel`` is not ``gemm_tc_kernel``)."""
+    return any(re.search(rf"(?<!\w){n}(?!\w)", key) for n in names)
+
+
+def _vit_parts(fn, what: str) -> dict:
+    """Device ms of one call of ``fn`` by ``VIT_PARTS`` (the rest under
+    "other"), from ``torch.profiler``; fails if a kernel of
+    ``SIMT_KERNELS`` ran."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1315,13 +1341,14 @@ def _attn_bwd_parts(fn) -> dict:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    parts = dict.fromkeys([name for name, _ in ATTN_BWD_PARTS] + ["other"],
-                          0.0)
+    parts = dict.fromkeys([name for name, _ in VIT_PARTS] + ["other"], 0.0)
     for e in prof.key_averages():
         us = e.self_device_time_total
         if us <= 0:
             continue
-        name = next((n for n, k in ATTN_BWD_PARTS if k in e.key), "other")
+        _check(not _named(e.key, SIMT_KERNELS),
+               f"{what} launched the CUDA-core kernel {e.key}")
+        name = next((n for n, k in VIT_PARTS if _named(e.key, k)), "other")
         parts[name] += us / 1e3
     return parts
 
@@ -1329,8 +1356,8 @@ def _attn_bwd_parts(fn) -> dict:
 def phase_kernels_vit_bwd(dev, gen) -> dict:
     """Both backward kernels against the plain backwards at the fp32
     cases, every output; ms of the kernel, of the plain backward and of the
-    library composition's forward + backward. Returns the JSON rows (the
-    encoder, B=16, and the decoder's attention as ``DECODER_ROW``)."""
+    library composition's forward + backward. Returns the JSON rows
+    (``VIT_ROWS``)."""
     from medical_image_analysis_tpu_torch.ops import vit_block as vb
 
     rows = {}
@@ -1376,17 +1403,46 @@ def phase_kernels_vit_bwd(dev, gen) -> dict:
                    tflops=f"{ops / t['kernel'] / 1e9:.2f}")
             row = (max(errs.values()), t["kernel"], t["plain"], *bound[:2],
                    lib_ms)
-            if (b, l) == (16, 1401):
-                rows[f"vit_{kind}_bwd"] = row
-            if (b, l, kind) == (16, 6401, "attn"):
-                rows[DECODER_ROW] = row
+            if (b, l) in VIT_ROWS:
+                rows[f"vit_{kind}_bwd{VIT_ROWS[b, l][0]}"] = row
             if kind == "attn" and b * l * d > 10**7 and dev.type == "cuda":
-                parts = _attn_bwd_parts(lambda: kernel(*args, dy))
+                parts = _vit_parts(lambda: kernel(*args, dy), "vit_attn_bwd")
                 _phase("kernels_vit_bwd_parts", kernel="vit_attn_bwd", B=b,
                        L=l, d=d, heads=heads,
                        **{f"{k}_ms": f"{v:.4f}" for k, v in parts.items()})
             del got, lib_leaves
     return rows
+
+
+def phase_kernels_vit_parts(dev, gen) -> None:
+    """``vit_attn_fwd`` and ``vit_mlp_bwd`` split by kernel (``VIT_PARTS``)
+    at the fp32 shapes of ``VIT_ROWS``, and ``vit_attn_fwd`` at the bf16
+    case of ``VIT_CASES``, from ``torch.profiler``: one call each, after
+    one to warm up, with the tensor-core GEMM's rate (its products over its
+    time). Neither may launch a kernel of ``SIMT_KERNELS``."""
+    from medical_image_analysis_tpu_torch.ops import vit_block as vb
+
+    for b, l, d, heads, dtype in VIT_CASES:
+        bf16 = dtype == torch.bfloat16
+        if not bf16 and (b, l) not in VIT_ROWS:
+            continue
+        weights = _vit_weights(d, heads, dtype, dev, gen)
+        x = torch.randn(b, l, d, device=dev, generator=gen).to(dtype)
+        dy = torch.randn(b, l, d, device=dev, generator=gen)
+        rows = b * l
+        calls = [("vit_attn_fwd", 8 * rows * d * d,
+                  lambda: vb.attn_block_fwd(x, *weights["attn"], heads))]
+        if not bf16:  # the backward is fp32 only
+            calls.append(("vit_mlp_bwd", 10 * rows * d * 4 * d,
+                          lambda: vb.mlp_block_bwd(x, *weights["mlp"], dy)))
+        for kernel, gemm_ops, fn in calls:
+            parts = _vit_parts(fn, kernel)
+            _phase("kernels_vit_parts", kernel=kernel, B=b, L=l, d=d,
+                   heads=heads, dtype=_dtype_name(dtype),
+                   total_ms=f"{sum(parts.values()):.4f}",
+                   **{f"{k}_ms": f"{v:.4f}" for k, v in parts.items()},
+                   gemm_tflops=f"{gemm_ops / parts['gemm_tc'] / 1e9:.2f}")
+        del x, dy, weights
 
 
 def phase_train_mae(save_dir: Path, device: str = "cuda",
@@ -2157,6 +2213,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     measured.update(phase_kernels_vit(dev, gen))
     measured.update(phase_kernels_vit_bwd(dev, gen))
+    phase_kernels_vit_parts(dev, gen)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mae_") as tmp:
         mae = phase_train_mae(Path(tmp))
@@ -2210,19 +2267,20 @@ def main() -> None:
     sources = {k: m.KERNEL_SOURCE for m in _kernel_modules()
                for k in m.launches}
     kernels = []
-    for name, key in [(n, n) for n in REPLACES] + [("vit_attn_bwd",
-                                                    DECODER_ROW)]:
-        err, ms, plain_ms, bound_ms, bound_by, *lib = measured[key]
-        kernels.append({
-            "name": name, "route": "cuda", "source": sources[name],
-            "replaces": REPLACES[name], "launches": main_runs[name],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib[0] if lib else None})
-        if name == "vit_attn_bwd":  # launches: both shapes' (and dp's)
-            kernels[-1]["case"] = ("mae_hd_1280 decoder B=16 L=6401"
-                                   if key == DECODER_ROW else
-                                   "mae_hd_1280 encoder B=16 L=1401")
+    vit = ("vit_attn_fwd", "vit_mlp_fwd", "vit_attn_bwd", "vit_mlp_bwd")
+    for name in REPLACES:
+        for suffix, case in (VIT_ROWS.values() if name in vit
+                             else [("", None)]):
+            err, ms, plain_ms, bound_ms, bound_by, *lib = measured[
+                name + suffix]
+            kernels.append({
+                "name": name, "route": "cuda", "source": sources[name],
+                "replaces": REPLACES[name], "launches": main_runs[name],
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": lib[0] if lib else None})
+            if case is not None:  # launches: both shapes' (and dp's)
+                kernels[-1]["case"] = case
     _check(all(k["launches"] > 0 for k in kernels),
            f"a kernel of the main paths never launched: {main_runs}")
     print(json.dumps({"kernels": kernels}), flush=True)

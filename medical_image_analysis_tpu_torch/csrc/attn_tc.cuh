@@ -1,12 +1,14 @@
 // The attention forward core on Hopper's tensor cores (sm_90a), shared by
-// attention.cu (fused_attention) and vit_block.cu (the recompute of o, the
-// logsumexp and D = do . o in the ViT attention backward).
+// attention.cu (fused_attention) and vit_block.cu (the heads of
+// vit_attn_fwd, and the recompute of o, the logsumexp and D = do . o in the
+// ViT attention backward).
 //
 //   attn_tc_fwd_kernel <- _attn_kernel (medical_image_analysis_tpu/ops/
-//                         attention.py:28, pallas_call :92), and the forward
-//                         recompute of _attn_block_bwd_kernel
-//                         (medical_image_analysis_tpu/ops/vit_block.py:298,
-//                         :307-317): softmax(q k^T * scale + mask) v
+//                         attention.py:28, pallas_call :92), the heads of
+//                         _attn_block_kernel (medical_image_analysis_tpu/
+//                         ops/vit_block.py:81) and the forward recompute of
+//                         _attn_block_bwd_kernel (:298, :307-317):
+//                         softmax(q k^T * scale + mask) v
 //
 // Templated on the operand type T (fp32 or bf16), the head width HD (16, 32,
 // 64, 128) and STATS (also write the per-row logsumexp and D = do . o, fp32

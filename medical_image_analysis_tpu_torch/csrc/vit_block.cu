@@ -11,74 +11,65 @@
 // below, put together by the wrappers in ops/vit_block.py:
 //
 //   ln_stats_kernel  per-row mean and 1/sigma of x (fp32, eps 1e-6)
-//   gemm_kernel      C = prologue(A) @ B with an epilogue. Prologues, applied
-//                    while A is staged: LayerNorm from the row statistics
-//                    (h = LN(x) rounded to x's dtype), or tanh-GELU of an
-//                    fp32 pre-activation. Epilogues: fp32 store (or an fp32
-//                    split-K partial), bias, bias + tanh-GELU, bias +
-//                    residual, times GELU'(aux), plain store; rounded to the
-//                    working dtype where the TPU kernel rounds.
-//   attn_fwd_kernel  one block per (query tile, head, image) walks the key
-//                    tiles with an online softmax and never stores the
-//                    scores; writes each head's output in the working dtype
-//                    (vit_attn_fwd; its logsumexp and D outputs are no
-//                    longer read: the backward recomputes through
-//                    attn_tc.cuh).
-//   ln_apply_kernel  h = LN(x) in fp32, for vit_attn_bwd's two products
-//                    that read it.
-//   gemm_tc_kernel   a product on the tensor cores in 3xTF32 (fp32 only),
-//                    with the epilogues fp32 (or a split-K partial), bias
-//                    and store: the five products of vit_attn_bwd.
-//   attn_tc.cuh's core  the backward's recompute of each head's output, the
-//                    per-row logsumexp and D = do . o on the tensor cores.
+//   ln_apply_kernel  h = LN(x) from those statistics, rounded to x's dtype
+//                    as the TPU kernel's _ln(...).astype(x.dtype) (:89):
+//                    one pass whose output every product that reads LN(x)
+//                    shares (vit_attn_fwd, vit_attn_bwd, vit_mlp_bwd).
+//   gemm_tc_kernel   C = A @ B on the tensor cores (mma.sync): fp32
+//                    operands in 3xTF32, bf16 operands as they are, either
+//                    operand stored either way round. Epilogues: fp32 (or
+//                    an fp32 split-K partial), bias, bias + residual, times
+//                    GELU'(aux), store, and bias writing both the fp32
+//                    pre-activation and its GELU; rounded to the working
+//                    dtype where the TPU kernel rounds. Every product of
+//                    vit_attn_fwd, vit_attn_bwd and vit_mlp_bwd.
+//   attn_tc.cuh's core  each head's output from the packed (B*L, 3d) qkv,
+//                    read in place, on the tensor cores: vit_attn_fwd (fp32
+//                    or bf16), and with the per-row logsumexp and D = do . o
+//                    the backward's recompute (fp32).
 //   attn_dkv_tc_kernel, attn_dq_tc_kernel  the flash-style backward on the
 //                    tensor cores: one pass over the query tiles for dK and
 //                    dV, one over the key tiles for dQ, recomputing p from
 //                    q, k and the logsumexp. No atomics.
+//   gemm_kernel      C = prologue(A) @ B on the CUDA cores in fp32, with the
+//                    LayerNorm applied to A while it is staged, and the
+//                    epilogues bias, bias + tanh-GELU and bias + residual:
+//                    vit_mlp_fwd's two products and swin_block.cu's two,
+//                    until they move to gemm_tc_kernel.
 //   colsum_kernel, ln_bwd_kernel  bias and LayerNorm gradients as per-block
 //                    partials in a fixed order, summed by the wrapper.
 //
-// Choice of softmax: online (one pass over the keys, the running max and
-// sum rescaling the output), not two passes. In fp32, the dtype of training,
-// the two agree to rounding. In bf16 the TPU rounds p/l before p.v, and
-// this kernel rounds exp(s - m) and divides by l at the end: both round p
-// once to the working dtype, at another scale.
-//
 // What bounds them on the H100, and what the design does about it. The
-// forward kernels and vit_mlp_bwd run every product on the CUDA cores in
-// fp32 (67 TFLOP/s at 700 W), bf16 operands widened to fp32 in shared
-// memory: the GEMM holds a 128 x 128 output tile in registers (8 x 8 a
-// thread, two float4 loads of A and of B per 64 FMAs), stages the next
-// k-slice from device memory into registers while it multiplies the current
-// one, and folds the LayerNorm, GELU, bias and residual into its staging
-// and its stores so that no elementwise pass over the activations is
-// launched. The forward attention core holds a 64 x 64 tile of scores (4 x
-// 4 a thread) in registers, with the running max, sum and output. Weight
-// gradients are products whose reduction runs over all B*L rows: with few
-// output tiles the wrapper splits that reduction into fixed chunks whose
-// fp32 partials it sums in order, so the card is filled and two runs give
-// the same bits.
+// products bound every sub-layer: at the tensor-core rate of their operand
+// type (fp32 at fp32 accuracy in 3xTF32, 495 / 3 = 165 TFLOP/s; bf16 989),
+// vit_attn_fwd needs 202 GFLOP at the mae_hd_1280 encoder (B = 16, L =
+// 1,401, d = 768), 1.2 ms, and 1.56 TFLOP at its decoder (L = 6,401, d =
+// 512, 16 heads of 32), 9.4 ms, most of it the L x L products of the core;
+// vit_mlp_bwd 529 GFLOP (3.2 ms) and 1.07 TFLOP (6.5 ms); vit_attn_bwd 580
+// GFLOP (3.5 ms) and 4.62 TFLOP (28.0 ms). Their bytes are far below.
 //
-// vit_attn_bwd (replacing _attn_block_bwd_kernel, vit_block.py:298) runs
-// on the tensor cores: every product in 3xTF32 on mma.sync (m16n8k8), for
-// the reasons attn_tc.cuh gives (the split happens in registers; scores and
-// dp feed the next products straight from the accumulators). Its bound on
-// the H100, products at 495 / 3 = 165 TFLOP/s: 580 GFLOP at the mae_hd_1280
-// encoder (B = 16, L = 1,401, d = 768), 3.5 ms; 4.62 TFLOP at its decoder
-// (L = 6,401, d = 512, 16 heads of 32), 28.0 ms; the softmax and its
-// backward (7 per score) and the bytes are far below. It recomputes q, k,
-// v, the head outputs and p from x, as the TPU kernel does (:307-317), and
-// saves nothing in the forward. Its five products go through
-// gemm_tc_kernel, whose slices arrive by cp.async (slices staged through
-// registers, with the LayerNorm applied there, held the same products to
-// about 17 TFLOP/s on the H100), after LN(x) is written once in fp32 for
-// the two products that read it. Its two passes (dK/dV over the query tiles,
-// dQ over the key tiles) buy freedom from atomics with redundant work: the
-// scores are computed three times (the forward recompute and once in each
-// pass) and dp twice, 9 products of L x L x d where the function needs 6
-// (s, o, dV, dp, dQ, dK), so 1.5x the minimal L^2 work; the bound counts
-// the 6. The old design ran all 9 on the CUDA cores as scalar FMAs from
-// shared memory, at about 17 TFLOP/s.
+// mma.sync, not wgmma, for the reasons attn_tc.cuh gives: the 3xTF32 split
+// happens in registers at each fragment load, a transposed operand costs
+// nothing, and the attention's scores and dp feed the next products
+// straight from the accumulators. The tensor cores truncate inside their
+// sums, so every long reduction takes a tile's MMAs from zero and adds them
+// to its accumulators in fp32 (mma_tc.cuh); one sum kept in the
+// accumulators over the 102,416 rows of a weight gradient at the decoder
+// misses the 1e-4 checks. Weight gradients, products whose reduction runs
+// over all B*L rows, have few output tiles: the wrapper splits that
+// reduction into fixed chunks whose fp32 partials it sums in order, so the
+// card is filled and two runs give the same bits.
+//
+// The attention backward recomputes q, k, v, the head outputs and p from x,
+// as the TPU kernel does (:307-317), and saves nothing in the forward. Its
+// two passes (dK/dV over the query tiles, dQ over the key tiles) buy
+// freedom from atomics with redundant work: the scores are computed three
+// times (the forward recompute and once in each pass) and dp twice, 9
+// products of L x L x d where the function needs 6 (s, o, dV, dp, dQ, dK),
+// so 1.5x the minimal L^2 work; the bound counts the 6. The MLP backward
+// recomputes the fp32 pre-activation once; its product's epilogue also
+// writes the GELU of it for dW2, and the dhpre product reads it back for
+// GELU'.
 //
 // All launch on the caller's stream, allocate nothing, and return
 // cudaGetLastError() (or the error of raising the shared-memory limit) so
@@ -138,19 +129,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Sum / max over the 16 lanes of a half warp (the lanes that share a row).
-__device__ __forceinline__ float half_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-__device__ __forceinline__ float half_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -187,18 +165,28 @@ __global__ void ln_stats_kernel(const T* __restrict__ x, float* __restrict__ mu,
 }
 
 // ---------------------------------------------------------------------------
-// GEMM with a prologue on A and an epilogue.
+// GEMM epilogues and prologues (the values ops/vit_block.py passes).
 // ---------------------------------------------------------------------------
 
-enum Pro { kProNone = 0, kProLn = 1, kProGelu = 2 };
+enum Pro { kProNone = 0, kProLn = 1 };  // gemm_kernel only
 enum Epi {
-  kEpiF32 = 0,        // out (fp32) = acc; split z writes its own partial
-  kEpiBias = 1,       // out = round(acc + bias)
-  kEpiBiasGelu = 2,   // out = round(gelu(acc + bias))
-  kEpiBiasResid = 3,  // out = round(resid + round(acc + bias))
-  kEpiDgelu = 4,      // out = round(acc * gelu'(aux))
-  kEpiStore = 5,      // out = round(acc)
+  kEpiF32 = 0,          // out (fp32) = acc; split z writes its own partial
+  kEpiBias = 1,         // out = round(acc + bias)
+  kEpiBiasGelu = 2,     // out = round(gelu(acc + bias)); gemm_kernel only
+  kEpiBiasResid = 3,    // out = round(resid + round(acc + bias))
+  kEpiDgelu = 4,        // out = round(acc * gelu'(aux))
+  kEpiStore = 5,        // out = round(acc)
+  kEpiBiasF32Gelu = 6,  // out (fp32) = acc + bias, out2 = round(gelu(out))
 };
+
+// ---------------------------------------------------------------------------
+// gemm_kernel: C = prologue(A) @ B on the CUDA cores, A (M, K) and B (K, N)
+// row-major. It holds a 128 x 128 output tile in registers (8 x 8 a thread,
+// two float4 loads of A and of B per 64 FMAs), stages the next k-slice from
+// device memory into registers while it multiplies the current one, and
+// applies the LayerNorm to A while staging it. About 20 TFLOP/s on the
+// H100, against 41 to 45 for gemm_tc_kernel in 3xTF32 (PERF.md).
+// ---------------------------------------------------------------------------
 
 constexpr int kBM = 128;
 constexpr int kBN = 128;
@@ -208,10 +196,10 @@ constexpr int kGemmThreads = 256;
 template <typename T>
 struct GemmArgs {
   const T* a;
-  int a_trans, lda;  // A (M, K); stored (K, M) when a_trans
+  int lda;
   const T* b;
-  int b_trans, ldb;  // B (K, N); stored (N, K) when b_trans
-  int M, N, K, k_chunk;
+  int ldb;
+  int M, N, K;
   int pro;
   const float* mu;
   const float* rstd;
@@ -220,50 +208,36 @@ struct GemmArgs {
   int epi;
   const T* bias;
   const T* resid;  // (M, ldc)
-  const float* aux;
-  int ld_aux;
-  void* out;  // float for kEpiF32, T otherwise
+  T* out;
   int ldc;
 };
 
 template <typename T>
-__device__ __forceinline__ float load_a(const GemmArgs<T>& p, int m, int k,
-                                        int kend) {
-  if (m >= p.M || k >= kend) return 0.0f;
-  const size_t idx = p.a_trans ? static_cast<size_t>(k) * p.lda + m
-                               : static_cast<size_t>(m) * p.lda + k;
-  float v = to_float<T>(p.a[idx]);
-  if (p.pro == kProLn) {
-    const int row = p.a_trans ? k : m;
-    const int feat = p.a_trans ? m : k;
-    v = round_to<T>((v - p.mu[row]) * p.rstd[row] *
-                        to_float<T>(p.gamma[feat]) +
-                    to_float<T>(p.beta[feat]));
-  } else if (p.pro == kProGelu) {
-    v = round_to<T>(gelu_tanh(v));
-  }
+__device__ __forceinline__ float load_a(const GemmArgs<T>& p, int m, int k) {
+  if (m >= p.M || k >= p.K) return 0.0f;
+  float v = to_float<T>(p.a[static_cast<size_t>(m) * p.lda + k]);
+  if (p.pro == kProLn)
+    v = round_to<T>((v - p.mu[m]) * p.rstd[m] * to_float<T>(p.gamma[k]) +
+                    to_float<T>(p.beta[k]));
   return v;
 }
 
 template <typename T>
-__device__ __forceinline__ float load_b(const GemmArgs<T>& p, int k, int n,
-                                        int kend) {
-  if (n >= p.N || k >= kend) return 0.0f;
-  const size_t idx = p.b_trans ? static_cast<size_t>(n) * p.ldb + k
-                               : static_cast<size_t>(k) * p.ldb + n;
-  return to_float<T>(p.b[idx]);
+__device__ __forceinline__ float load_b(const GemmArgs<T>& p, int k, int n) {
+  if (n >= p.N || k >= p.K) return 0.0f;
+  return to_float<T>(p.b[static_cast<size_t>(k) * p.ldb + n]);
 }
 
 // Element i (of 4) of a thread's share of a k-slice: (row or column within
 // the tile, k within the slice), chosen so that neighbouring threads read
 // neighbouring addresses of the stored layout.
-__device__ __forceinline__ void slice_pos(int trans_fast_mn, int i, int& mn,
+__device__ __forceinline__ void slice_pos(bool fast_mn, int i, int& mn,
                                           int& k) {
   const int idx = threadIdx.x + kGemmThreads * i;
-  if (trans_fast_mn) {  // consecutive along the tile's rows or columns
+  if (fast_mn) {  // consecutive along the tile's columns (B)
     k = idx / kBM;
     mn = idx % kBM;
-  } else {  // consecutive along k
+  } else {  // consecutive along k (A)
     mn = idx / kBK;
     k = idx % kBK;
   }
@@ -277,8 +251,6 @@ __global__ void __launch_bounds__(kGemmThreads)
   __shared__ __align__(16) float Bs[kBK][kBN + 4];
   const int m0 = blockIdx.y * kBM;
   const int n0 = blockIdx.x * kBN;
-  const int kbeg = blockIdx.z * p.k_chunk;
-  const int kend = min(p.K, kbeg + p.k_chunk);
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
 
@@ -293,30 +265,28 @@ __global__ void __launch_bounds__(kGemmThreads)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       int mn, k;
-      slice_pos(p.a_trans, i, mn, k);
-      ra[i] = load_a(p, m0 + mn, k0 + k, kend);
-      slice_pos(!p.b_trans, i, mn, k);
-      rb[i] = load_b(p, k0 + k, n0 + mn, kend);
+      slice_pos(false, i, mn, k);
+      ra[i] = load_a(p, m0 + mn, k0 + k);
+      slice_pos(true, i, mn, k);
+      rb[i] = load_b(p, k0 + k, n0 + mn);
     }
   };
   auto stage = [&]() {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       int mn, k;
-      slice_pos(p.a_trans, i, mn, k);
+      slice_pos(false, i, mn, k);
       As[k][mn] = ra[i];
-      slice_pos(!p.b_trans, i, mn, k);
+      slice_pos(true, i, mn, k);
       Bs[k][mn] = rb[i];
     }
   };
 
-  if (kbeg < kend) {
-    fetch(kbeg);
-    stage();
-    __syncthreads();
-  }
-  for (int k0 = kbeg; k0 < kend; k0 += kBK) {
-    const bool more = k0 + kBK < kend;
+  fetch(0);
+  stage();
+  __syncthreads();
+  for (int k0 = 0; k0 < p.K; k0 += kBK) {
+    const bool more = k0 + kBK < p.K;
     if (more) fetch(k0 + kBK);  // in flight while this slice multiplies
 #pragma unroll
     for (int kk = 0; kk < kBK; ++kk) {
@@ -353,243 +323,106 @@ __global__ void __launch_bounds__(kGemmThreads)
       const int n = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4));
       if (n >= p.N) continue;
       const size_t o = static_cast<size_t>(m) * p.ldc + n;
-      float v = acc[i][j];
-      if (p.epi == kEpiF32) {
-        static_cast<float*>(p.out)[static_cast<size_t>(blockIdx.z) * p.M *
-                                       p.ldc + o] = v;
-        continue;
-      }
-      switch (p.epi) {
-        case kEpiBias:
-          v = v + to_float<T>(p.bias[n]);
-          break;
-        case kEpiBiasGelu:
-          v = gelu_tanh(v + to_float<T>(p.bias[n]));
-          break;
-        case kEpiBiasResid:
-          v = to_float<T>(p.resid[o]) +
-              round_to<T>(v + to_float<T>(p.bias[n]));
-          break;
-        case kEpiDgelu:
-          v = v * gelu_tanh_grad(p.aux[static_cast<size_t>(m) * p.ld_aux + n]);
-          break;
-        default:
-          break;
-      }
-      static_cast<T*>(p.out)[o] = from_float<T>(v);
+      float v = acc[i][j] + to_float<T>(p.bias[n]);
+      if (p.epi == kEpiBiasGelu)
+        v = gelu_tanh(v);
+      else if (p.epi == kEpiBiasResid)
+        v = to_float<T>(p.resid[o]) + round_to<T>(v);
+      p.out[o] = from_float<T>(v);
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// Attention core, forward: online softmax over 64-key tiles.
+// The tensor-core building blocks (mma_tc.cuh, attn_tc.cuh).
 // ---------------------------------------------------------------------------
 
-constexpr int kTile = 64;           // query rows / keys of a tile
-constexpr int kAttnThreads = 256;   // 16 x 16: a thread owns 4 rows x 4 keys
-constexpr int kRowPad = kTile + 4;  // float4-aligned stride of row-fast arrays
-constexpr int kColPad = kTile + 1;  // conflict-free stride of key-fast arrays
-
-template <int HD>
-constexpr int attn_fwd_smem_floats() {
-  return HD * kRowPad + HD * kColPad + kTile * HD + kTile * kRowPad;
-}
-
-// Loads rows [r0, r0 + 64) of one head's (L, HD) slice of a (B*L, ld)
-// tensor into s as s[k][r] (stride `stride`), zero past row L.
-template <typename T, int HD>
-__device__ __forceinline__ void load_t(const T* __restrict__ src, size_t base,
-                                       int ld, int r0, int L, float* s,
-                                       int stride) {
-  for (int idx = threadIdx.x; idx < kTile * HD; idx += blockDim.x) {
-    const int r = idx / HD, k = idx % HD;
-    s[k * stride + r] =
-        r0 + r < L ? to_float<T>(src[base + static_cast<size_t>(r0 + r) * ld + k])
-                   : 0.0f;
-  }
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kAttnThreads)
-    attn_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ o,
-                    float* __restrict__ lse, const float* __restrict__ dout,
-                    float* __restrict__ dsum, int L, int H, float scale) {
-  constexpr int NJ = HD / 16;  // output columns a thread owns
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;                  // [HD][kRowPad]
-  float* Ks = Qs + HD * kRowPad;     // [HD][kColPad]
-  float* Vs = Ks + HD * kColPad;     // [kTile][HD]
-  float* Ps = Vs + kTile * HD;       // [kTile keys][kRowPad]
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int d = H * HD, ld = 3 * d;
-  const size_t base = static_cast<size_t>(b) * L * ld + h * HD;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-
-  load_t<T, HD>(qkv, base, ld, q0, L, Qs, kRowPad);
-  float m[4], l[4], acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.0f;
-  }
-
-  for (int k0 = 0; k0 < L; k0 += kTile) {
-    __syncthreads();
-    load_t<T, HD>(qkv, base + d, ld, k0, L, Ks, kColPad);
-    for (int idx = threadIdx.x; idx < kTile * HD; idx += blockDim.x) {
-      const int c = idx / HD, n = idx % HD;
-      Vs[idx] = k0 + c < L ? to_float<T>(qkv[base + 2 * d +
-                                             static_cast<size_t>(k0 + c) * ld +
-                                             n])
-                           : 0.0f;
-    }
-    __syncthreads();
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-#pragma unroll 8
-    for (int k = 0; k < HD; ++k) {
-      const float4 qa = *reinterpret_cast<const float4*>(&Qs[k * kRowPad + ty * 4]);
-      const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
-      float kv[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[k * kColPad + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float rmax = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = k0 + tx + 16 * j < L ? s[i][j] * scale : -INFINITY;
-        rmax = fmaxf(rmax, s[i][j]);
-      }
-      const float mnew = fmaxf(m[i], half_max(rmax));
-      const float corr = expf(m[i] - mnew);
-      m[i] = mnew;
-      float psum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float pv = expf(s[i][j] - mnew);
-        psum += pv;
-        Ps[(tx + 16 * j) * kRowPad + ty * 4 + i] = round_to<T>(pv);
-      }
-      l[i] = l[i] * corr + psum;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= corr;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
-      const float4 pa = *reinterpret_cast<const float4*>(&Ps[c * kRowPad + ty * 4]);
-      const float pv[4] = {pa.x, pa.y, pa.z, pa.w};
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float vv = Vs[c * HD + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    const float lsum = half_sum(l[i]);
-    const float inv = 1.0f / lsum;
-    float dot = 0.0f;
-    const size_t orow = (static_cast<size_t>(b) * L + row) * d + h * HD;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const float ov = acc[i][j] * inv;
-      if (row < L) {
-        o[orow + tx + 16 * j] = from_float<T>(ov);
-        if (dout != nullptr) dot += ov * dout[orow + tx + 16 * j];
-      }
-    }
-    if (dout != nullptr) dot = half_sum(dot);
-    if (row < L && tx == 0) {
-      const size_t r = (static_cast<size_t>(b) * H + h) * L + row;
-      if (lse != nullptr) lse[r] = m[i] + logf(lsum);
-      if (dsum != nullptr) dsum[r] = dot;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The attention sub-layer's backward on the tensor cores (fp32, 3xTF32;
-// mma_tc.cuh, attn_tc.cuh).
-// ---------------------------------------------------------------------------
-
-// gemm_tc_kernel: C = A @ B in 3xTF32, for the five products of
-// vit_attn_bwd. A block of 8 warps owns a 128 x 128 output tile, a warp
-// 64 x 32 (4 x 4 m16n8 tiles, 64 fp32 accumulators a thread). Slices of 32
-// along k go from device memory to shared memory by cp.async, three slices
-// in flight, each operand as it lies in device memory: K-contiguous rows
-// padded to 36 floats, or MN-contiguous rows padded to 136, either of which
-// keeps the fragment loads free of bank conflicts, so a transposed operand
-// costs nothing. The split into hi and lo happens at the fragment load.
-// Each 16-deep half slice's products are summed from zero, two m16 tiles at
-// a time, and added to the accumulators in fp32 (mma_tc.cuh). There is no
-// prologue: the LayerNorm the TPU kernel applies while staging is one
-// elementwise pass (ln_apply_kernel) whose output both products that read
-// LN(x) share, 2 x 4 bytes an element against the 2 x 768 or more
-// operations each element feeds. Epilogues: fp32 store or split-K
-// partial, bias, plain store. Every contiguous extent and leading dimension
-// is a multiple of 4 floats (16-byte copies).
+// gemm_tc_kernel: C = A @ B on mma.sync, fp32 operands in 3xTF32 (m16n8k8),
+// bf16 operands as they are (m16n8k16). A block of 8 warps owns a 128 x 128
+// output tile, a warp 64 x 32 (4 x 4 m16n8 tiles, 64 fp32 accumulators a
+// thread). Slices of 32 along k go from device memory to shared memory by
+// cp.async, three slices in flight, each operand as it lies in device
+// memory: K-contiguous rows padded by 16 bytes (36 floats, 40 bf16), or
+// MN-contiguous rows padded to 136 elements; either keeps the fragment
+// loads free of bank conflicts, so a transposed operand costs nothing. fp32
+// fragments are read element by element and split into hi and lo as they
+// are loaded; bf16 fragments are read as pairs along k, or by
+// ldmatrix.trans where the operand's rows run along m or n. The products
+// of each step (16 deep in fp32, the whole 32-deep slice in bf16: two MMAs
+// along k either way) are summed from zero, two m16 tiles at a time, and
+// added to the accumulators in fp32 (mma_tc.cuh). There is no prologue: the
+// LayerNorm the TPU kernel applies while staging is one elementwise pass
+// (ln_apply_kernel) whose output every product that reads LN(x) shares.
+// The GELU that dW2 = gelu(hpre)^T dy reads is written once, as a second
+// output of the hpre product's epilogue (kEpiBiasF32Gelu), and not applied
+// to A at the fragment load, where each of the four warps that share an A
+// slice would evaluate it again for every column tile: at the mae_hd_1280
+// decoder that second fp32 output is 0.84 GB, alive only until dW2 is
+// taken. Every contiguous extent and leading dimension is a multiple of 16
+// bytes (4 floats, 8 bf16), as the 16-byte copies need.
 constexpr int kTcBM = 128;
 constexpr int kTcBN = 128;
 constexpr int kTcBK = 32;
 constexpr int kTcStages = 3;
 constexpr int kTcThreads = 256;
-constexpr int kTcKPad = kTcBK + 4;   // K-contiguous tile rows
 constexpr int kTcMnPad = kTcBM + 8;  // MN-contiguous tile rows
-constexpr int kTcTile = kTcBM * kTcKPad > kTcBK * kTcMnPad ? kTcBM * kTcKPad
-                                                           : kTcBK * kTcMnPad;
-constexpr size_t kTcSmem = kTcStages * 2 * kTcTile * sizeof(float);
 static_assert(kTcBM == kTcBN, "one tile shape for A and B");
 
+template <typename T>
+__host__ __device__ constexpr int tc_kpad() {  // K-contiguous tile rows
+  return kTcBK + 16 / static_cast<int>(sizeof(T));
+}
+template <typename T>
+__host__ __device__ constexpr int tc_tile() {
+  return kTcBM * tc_kpad<T>() > kTcBK * kTcMnPad ? kTcBM * tc_kpad<T>()
+                                                 : kTcBK * kTcMnPad;
+}
+template <typename T>
+constexpr size_t tc_smem() {
+  return kTcStages * 2 * tc_tile<T>() * sizeof(T);
+}
+
+template <typename T>
 struct TcGemmArgs {
-  const float* a;
+  const T* a;
   int lda;  // A (M, K); stored (K, M) when the kernel's AT
-  const float* b;
+  const T* b;
   int ldb;  // B (K, N); stored (N, K) when the kernel's BT
   int M, N, K, k_chunk;
   int epi;
-  const float* bias;
-  float* out;
+  const T* bias;
+  const T* resid;    // (M, ldc)
+  const float* aux;  // (M, ld_aux)
+  int ld_aux;
+  void* out;  // float for kEpiF32 and kEpiBiasF32Gelu, T otherwise
+  T* out2;    // kEpiBiasF32Gelu's GELU, (M, ldc)
   int ldc;
 };
 
 // One operand's 128 x 32 slice into shared memory: `kfast` when its rows
 // in device memory run along k (rows r0.., k from k0), else its rows run
 // along m or n (rows k0.., columns r0..). Zeros past `rows` and `kend`.
-template <bool kfast>
-__device__ __forceinline__ void load_tc_slice(float* dst, const float* src,
-                                              int ld, int r0, int rows,
-                                              int k0, int kend) {
+template <typename T, bool kfast>
+__device__ __forceinline__ void load_tc_slice(T* dst, const T* src, int ld,
+                                              int r0, int rows, int k0,
+                                              int kend) {
+  constexpr int E = 16 / static_cast<int>(sizeof(T));  // elements a copy
 #pragma unroll
-  for (int i = 0; i < kTcBM * kTcBK / 4 / kTcThreads; ++i) {
+  for (int i = 0; i < kTcBM * kTcBK / E / kTcThreads; ++i) {
     const int idx = threadIdx.x + kTcThreads * i;
     int r, c;  // tile row, column of the stored layout
     bool valid;
     size_t off;
     if (kfast) {
-      r = idx / (kTcBK / 4);
-      c = (idx % (kTcBK / 4)) * 4;
+      r = idx / (kTcBK / E);
+      c = (idx % (kTcBK / E)) * E;
       valid = r0 + r < rows && k0 + c < kend;
       off = static_cast<size_t>(r0 + r) * ld + k0 + c;
-      tc::cp_async16(dst + r * kTcKPad + c, valid ? src + off : src, valid);
+      tc::cp_async16(dst + r * tc_kpad<T>() + c, valid ? src + off : src,
+                     valid);
     } else {
-      r = idx / (kTcBM / 4);
-      c = (idx % (kTcBM / 4)) * 4;
+      r = idx / (kTcBM / E);
+      c = (idx % (kTcBM / E)) * E;
       valid = k0 + r < kend && r0 + c < rows;
       off = static_cast<size_t>(k0 + r) * ld + r0 + c;
       tc::cp_async16(dst + r * kTcMnPad + c, valid ? src + off : src, valid);
@@ -597,18 +430,134 @@ __device__ __forceinline__ void load_tc_slice(float* dst, const float* src,
   }
 }
 
-// element (row of the output side, k) of a stored slice
+// element (row of the output side, k) of a stored fp32 slice
 template <bool kfast>
 __device__ __forceinline__ float tc_at(const float* s, int r, int k) {
-  return kfast ? s[r * kTcKPad + k] : s[k * kTcMnPad + r];
+  return kfast ? s[r * tc_kpad<float>() + k] : s[k * kTcMnPad + r];
+}
+
+__device__ __forceinline__ void add_tiles(float (&acc)[4][4][4], int i0,
+                                          const float (&tile)[8][4]) {
+#pragma unroll
+  for (int ii = 0; ii < 2; ++ii)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i0 + ii][j][e] += tile[4 * ii + j][e];
+}
+
+// One 16-deep step of an fp32 slice, from k = h, in 3xTF32. AK: A's rows
+// in shared memory run along k; BK likewise for B.
+template <bool AK, bool BK>
+__device__ __forceinline__ void tc_step(float (&acc)[4][4][4],
+                                        const float* As, const float* Bs,
+                                        int h, int wm, int wn, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  tc::Split<2> b[2][4];  // 2 k8 steps x 4 n8 tiles
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = wn + 8 * j + g, k = h + 8 * kk + t;
+      b[kk][j].set(0, tc_at<BK>(Bs, c, k));
+      b[kk][j].set(1, tc_at<BK>(Bs, c, k + 4));
+    }
+#pragma unroll
+  for (int i0 = 0; i0 < 4; i0 += 2) {
+    float tile[8][4];
+    tc::zero(tile);
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii) {
+        const int r = wm + 16 * (i0 + ii) + g, k = h + 8 * kk + t;
+        tc::Split<4> a;
+        a.set(0, tc_at<AK>(As, r, k));
+        a.set(1, tc_at<AK>(As, r + 8, k));
+        a.set(2, tc_at<AK>(As, r, k + 4));
+        a.set(3, tc_at<AK>(As, r + 8, k + 4));
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          tc::mma_3xtf32(tile[4 * ii + j], a, b[kk][j]);
+      }
+    add_tiles(acc, i0, tile);
+  }
+}
+
+// A whole 32-deep bf16 slice: two k16 steps.
+template <bool AK, bool BK>
+__device__ __forceinline__ void tc_step(float (&acc)[4][4][4],
+                                        const __nv_bfloat16* As,
+                                        const __nv_bfloat16* Bs, int /*h*/,
+                                        int wm, int wn, int lane) {
+  constexpr int KP = tc_kpad<__nv_bfloat16>();
+  const int g = lane >> 2, t = lane & 3;
+  auto u32 = [](const __nv_bfloat16* p) {
+    return *reinterpret_cast<const uint32_t*>(p);
+  };
+  uint32_t b[2][4][2];  // 2 k16 steps x 4 n8 tiles
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    const int k0 = 16 * kk;
+    if constexpr (BK) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const __nv_bfloat16* p = Bs + (wn + 8 * j + g) * KP + k0 + 2 * t;
+        b[kk][j][0] = u32(p);
+        b[kk][j][1] = u32(p + 8);
+      }
+    } else {  // rows along n: two n8 tiles a ldmatrix.trans
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        uint32_t r[4];
+        tc::ldsm_x4_trans(
+            r, Bs + (k0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * kTcMnPad +
+                   wn + 16 * jj + 8 * (lane >> 4));
+        b[kk][2 * jj][0] = r[0];
+        b[kk][2 * jj][1] = r[1];
+        b[kk][2 * jj + 1][0] = r[2];
+        b[kk][2 * jj + 1][1] = r[3];
+      }
+    }
+  }
+#pragma unroll
+  for (int i0 = 0; i0 < 4; i0 += 2) {
+    float tile[8][4];
+    tc::zero(tile);
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii) {
+        const int r0 = wm + 16 * (i0 + ii), k0 = 16 * kk;
+        uint32_t a[4];
+        if constexpr (AK) {
+          const __nv_bfloat16* p = As + (r0 + g) * KP + k0 + 2 * t;
+          a[0] = u32(p);
+          a[1] = u32(p + 8 * KP);
+          a[2] = u32(p + 8);
+          a[3] = u32(p + 8 * KP + 8);
+        } else {  // rows along m: the four 8 x 8 pieces by ldmatrix.trans
+          tc::ldsm_x4_trans(
+              a, As + (k0 + (lane & 7) + 8 * (lane >> 4)) * kTcMnPad + r0 +
+                     8 * ((lane >> 3) & 1));
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) tc::mma_bf16(tile[4 * ii + j], a, b[kk][j]);
+      }
+    add_tiles(acc, i0, tile);
+  }
 }
 
 // AT: A stored (K, M); BT: B stored (N, K). grid (ceil(N / 128),
-// ceil(M / 128), splits), 256 threads, kTcSmem of dynamic shared memory.
-template <bool AT, bool BT>
+// ceil(M / 128), splits), 256 threads, tc_smem<T>() of dynamic shared
+// memory.
+template <typename T, bool AT, bool BT>
 __global__ void __launch_bounds__(kTcThreads)
-    gemm_tc_kernel(const TcGemmArgs p) {
-  extern __shared__ __align__(16) float tc_smem[];  // [stage][A, B][kTcTile]
+    gemm_tc_kernel(const TcGemmArgs<T> p) {
+  constexpr int kTile = tc_tile<T>();
+  constexpr int kStep = sizeof(T) == 4 ? 16 : kTcBK;  // k a tc_step takes
+  extern __shared__ __align__(16) unsigned char tc_raw[];
+  T* sm = reinterpret_cast<T*>(tc_raw);  // [stage][A, B][kTile]
   const int m0 = blockIdx.y * kTcBM;
   const int n0 = blockIdx.x * kTcBN;
   const int kbeg = blockIdx.z * p.k_chunk;
@@ -619,10 +568,10 @@ __global__ void __launch_bounds__(kTcThreads)
   const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
 
   auto load = [&](int slice) {
-    float* st = tc_smem + (slice % kTcStages) * 2 * kTcTile;
+    T* st = sm + (slice % kTcStages) * 2 * kTile;
     const int k0 = kbeg + slice * kTcBK;
-    load_tc_slice<!AT>(st, p.a, p.lda, m0, p.M, k0, kend);
-    load_tc_slice<BT>(st + kTcTile, p.b, p.ldb, n0, p.N, k0, kend);
+    load_tc_slice<T, !AT>(st, p.a, p.lda, m0, p.M, k0, kend);
+    load_tc_slice<T, BT>(st + kTile, p.b, p.ldb, n0, p.N, k0, kend);
   };
 #pragma unroll
   for (int s = 0; s < kTcStages - 1; ++s) {
@@ -639,46 +588,11 @@ __global__ void __launch_bounds__(kTcThreads)
     __syncthreads();  // slice it landed; slice it - 1's stage is free
     if (it + kTcStages - 1 < slices) load(it + kTcStages - 1);
     tc::cp_async_commit();
-    const float* As = tc_smem + (it % kTcStages) * 2 * kTcTile;
-    const float* Bs = As + kTcTile;
+    const T* As = sm + (it % kTcStages) * 2 * kTile;
+    const T* Bs = As + kTile;
 #pragma unroll
-    for (int h = 0; h < kTcBK; h += 16) {
-      tc::Split<2> b[2][4];  // 2 k8 steps x 4 n8 tiles
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = wn + 8 * j + g, k = h + 8 * kk + t;
-          b[kk][j].set(0, tc_at<BT>(Bs, c, k));
-          b[kk][j].set(1, tc_at<BT>(Bs, c, k + 4));
-        }
-#pragma unroll
-      for (int i0 = 0; i0 < 4; i0 += 2) {
-        float tile[8][4];
-        tc::zero(tile);
-#pragma unroll
-        for (int kk = 0; kk < 2; ++kk)
-#pragma unroll
-          for (int ii = 0; ii < 2; ++ii) {
-            const int r = wm + 16 * (i0 + ii) + g, k = h + 8 * kk + t;
-            tc::Split<4> a;
-            a.set(0, tc_at<!AT>(As, r, k));
-            a.set(1, tc_at<!AT>(As, r + 8, k));
-            a.set(2, tc_at<!AT>(As, r, k + 4));
-            a.set(3, tc_at<!AT>(As, r + 8, k + 4));
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              tc::mma_3xtf32(tile[4 * ii + j], a, b[kk][j]);
-          }
-#pragma unroll
-        for (int ii = 0; ii < 2; ++ii)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              acc[i0 + ii][j][e] += tile[4 * ii + j][e];
-      }
-    }
+    for (int h = 0; h < kTcBK; h += kStep)
+      tc_step<!AT, BT>(acc, As, Bs, h, wm, wn, lane);
   }
 
 #pragma unroll
@@ -693,34 +607,52 @@ __global__ void __launch_bounds__(kTcThreads)
         if (n >= p.N) continue;  // N is a multiple of 4: n + 1 < N too
         float v0 = acc[i][j][2 * e2], v1 = acc[i][j][2 * e2 + 1];
         const size_t o = static_cast<size_t>(m) * p.ldc + n;
+        float* out32 = static_cast<float*>(p.out);
         if (p.epi == kEpiF32) {
           *reinterpret_cast<float2*>(
-              p.out + static_cast<size_t>(blockIdx.z) * p.M * p.ldc + o) =
+              out32 + static_cast<size_t>(blockIdx.z) * p.M * p.ldc + o) =
               make_float2(v0, v1);
           continue;
         }
-        if (p.epi == kEpiBias) {
-          v0 += p.bias[n];
-          v1 += p.bias[n + 1];
+        if (p.epi == kEpiBias || p.epi == kEpiBiasResid ||
+            p.epi == kEpiBiasF32Gelu) {
+          v0 += to_float<T>(p.bias[n]);
+          v1 += to_float<T>(p.bias[n + 1]);
         }
-        *reinterpret_cast<float2*>(p.out + o) = make_float2(v0, v1);
+        if (p.epi == kEpiBiasF32Gelu) {
+          *reinterpret_cast<float2*>(out32 + o) = make_float2(v0, v1);
+          tc::store_pair<T>(p.out2 + o, gelu_tanh(v0), gelu_tanh(v1));
+          continue;
+        }
+        if (p.epi == kEpiBiasResid) {
+          v0 = to_float<T>(p.resid[o]) + round_to<T>(v0);
+          v1 = to_float<T>(p.resid[o + 1]) + round_to<T>(v1);
+        } else if (p.epi == kEpiDgelu) {
+          const float* ax = p.aux + static_cast<size_t>(m) * p.ld_aux + n;
+          v0 *= gelu_tanh_grad(ax[0]);
+          v1 *= gelu_tanh_grad(ax[1]);
+        }
+        tc::store_pair<T>(static_cast<T*>(p.out) + o, v0, v1);
       }
     }
 }
 
-// h = LN(x) in fp32 from the row statistics: the GEMMs' A.
-__global__ void ln_apply_kernel(const float* __restrict__ x,
+// h = LN(x) from the row statistics, rounded to T: the GEMMs' A.
+template <typename T>
+__global__ void ln_apply_kernel(const T* __restrict__ x,
                                 const float* __restrict__ mu,
                                 const float* __restrict__ rstd,
-                                const float* __restrict__ g,
-                                const float* __restrict__ b,
-                                float* __restrict__ h, int rows, int d) {
+                                const T* __restrict__ g,
+                                const T* __restrict__ b, T* __restrict__ h,
+                                int rows, int d) {
   const size_t n = static_cast<size_t>(rows) * d;
   for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
        i < n; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
     const size_t r = i / d;
     const int c = static_cast<int>(i - r * d);
-    h[i] = (x[i] - mu[r]) * rstd[r] * g[c] + b[c];
+    h[i] = from_float<T>((to_float<T>(x[i]) - mu[r]) * rstd[r] *
+                             to_float<T>(g[c]) +
+                         to_float<T>(b[c]));
   }
 }
 
@@ -1097,51 +1029,32 @@ __global__ void __launch_bounds__(kLnWarps * 32)
 
 template <typename T>
 cudaError_t launch_gemm(const GemmArgs<T>& p, cudaStream_t stream) {
-  const int splits = (p.K + p.k_chunk - 1) / p.k_chunk;
-  const dim3 grid((p.N + kBN - 1) / kBN, (p.M + kBM - 1) / kBM,
-                  splits > 0 ? splits : 1);
-  if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
+  const dim3 grid((p.N + kBN - 1) / kBN, (p.M + kBM - 1) / kBM);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
   gemm_kernel<T><<<grid, kGemmThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
-cudaError_t launch_attn_fwd(const void* qkv, void* o, float* lse,
-                            const float* dout, float* dsum, int B, int L,
-                            int H, float scale, cudaStream_t stream) {
-  const size_t smem = attn_fwd_smem_floats<HD>() * sizeof(float);
-  const cudaError_t err = allow_smem(attn_fwd_kernel<T, HD>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((L + kTile - 1) / kTile, H, B);
-  attn_fwd_kernel<T, HD><<<grid, kAttnThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(o), lse, dout, dsum, L, H,
-      scale);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t attn_fwd_dispatch(const void* qkv, void* o, float* lse,
-                              const float* dout, float* dsum, int B, int L,
-                              int H, int hd, float scale, cudaStream_t s) {
-  switch (hd) {
-    case 16: return launch_attn_fwd<T, 16>(qkv, o, lse, dout, dsum, B, L, H, scale, s);
-    case 32: return launch_attn_fwd<T, 32>(qkv, o, lse, dout, dsum, B, L, H, scale, s);
-    case 64: return launch_attn_fwd<T, 64>(qkv, o, lse, dout, dsum, B, L, H, scale, s);
-    case 128: return launch_attn_fwd<T, 128>(qkv, o, lse, dout, dsum, B, L, H, scale, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <bool AT, bool BT>
-cudaError_t launch_gemm_tc(const TcGemmArgs& p, cudaStream_t stream) {
+template <typename T, bool AT, bool BT>
+cudaError_t launch_gemm_tc(const TcGemmArgs<T>& p, cudaStream_t stream) {
   const int splits = (p.K + p.k_chunk - 1) / p.k_chunk;
   const dim3 grid((p.N + kTcBN - 1) / kTcBN, (p.M + kTcBM - 1) / kTcBM,
                   splits > 0 ? splits : 1);
   if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
-  const cudaError_t err = allow_smem(gemm_tc_kernel<AT, BT>, kTcSmem);
+  const cudaError_t err = allow_smem(gemm_tc_kernel<T, AT, BT>, tc_smem<T>());
   if (err != cudaSuccess) return err;
-  gemm_tc_kernel<AT, BT><<<grid, kTcThreads, kTcSmem, stream>>>(p);
+  gemm_tc_kernel<T, AT, BT><<<grid, kTcThreads, tc_smem<T>(), stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t gemm_tc_dispatch(const TcGemmArgs<T>& p, int a_trans,
+                             int b_trans, cudaStream_t s) {
+  if (a_trans)
+    return b_trans ? launch_gemm_tc<T, true, true>(p, s)
+                   : launch_gemm_tc<T, true, false>(p, s);
+  return b_trans ? launch_gemm_tc<T, false, true>(p, s)
+                 : launch_gemm_tc<T, false, false>(p, s);
 }
 
 template <int HD>
@@ -1185,117 +1098,133 @@ int mia_vit_ln_stats(const void* x, int is_bf16, float* mu, float* rstd,
   return cudaGetLastError();
 }
 
-int mia_vit_gemm(int is_bf16, const void* a, int a_trans, int lda,
-                 const void* b, int b_trans, int ldb, int M, int N, int K,
-                 int k_chunk, int pro, const float* mu, const float* rstd,
-                 const void* gamma, const void* beta, int epi,
-                 const void* bias, const void* resid, const float* aux,
-                 int ld_aux, void* out, int ldc, void* stream) {
-  if (M < 1 || N < 1 || K < 1 || k_chunk < 1 || k_chunk % kBK != 0)
+// The CUDA-core GEMM: out (M, N) = prologue(A) @ B + bias with A (M, K)
+// and B (K, N) row-major; the prologues none and LayerNorm (mu, rstd,
+// gamma, beta), the epilogues bias, bias + GELU and bias + residual.
+int mia_vit_gemm(int is_bf16, const void* a, int lda, const void* b, int ldb,
+                 int M, int N, int K, int pro, const float* mu,
+                 const float* rstd, const void* gamma, const void* beta,
+                 int epi, const void* bias, const void* resid, void* out,
+                 int ldc, void* stream) {
+  if (M < 1 || N < 1 || K < 1 || bias == nullptr ||
+      (pro != kProNone && pro != kProLn) ||
+      (epi != kEpiBias && epi != kEpiBiasGelu && epi != kEpiBiasResid))
     return cudaErrorInvalidValue;
   if (pro == kProLn && (mu == nullptr || rstd == nullptr || gamma == nullptr ||
                         beta == nullptr))
     return cudaErrorInvalidValue;
-  if ((epi == kEpiBias || epi == kEpiBiasGelu || epi == kEpiBiasResid) &&
-      bias == nullptr)
+  if (epi == kEpiBiasResid && resid == nullptr) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    using T = __nv_bfloat16;
+    const GemmArgs<T> p{static_cast<const T*>(a), lda,
+                        static_cast<const T*>(b), ldb, M, N, K, pro, mu, rstd,
+                        static_cast<const T*>(gamma),
+                        static_cast<const T*>(beta), epi,
+                        static_cast<const T*>(bias),
+                        static_cast<const T*>(resid), static_cast<T*>(out),
+                        ldc};
+    return launch_gemm<T>(p, s);
+  }
+  using T = float;
+  const GemmArgs<T> p{static_cast<const T*>(a), lda,
+                      static_cast<const T*>(b), ldb, M, N, K, pro, mu, rstd,
+                      static_cast<const T*>(gamma),
+                      static_cast<const T*>(beta), epi,
+                      static_cast<const T*>(bias),
+                      static_cast<const T*>(resid), static_cast<T*>(out), ldc};
+  return launch_gemm<T>(p, s);
+}
+
+// The tensor-core GEMM: out (M, N) = A @ B with the epilogue, A (M, K) or
+// stored (K, M) when a_trans, B (K, N) or stored (N, K) when b_trans, in
+// fp32 or bf16. k_chunk is a multiple of 32, and below K only with the fp32
+// epilogue (split z writes partial z). Every operand's contiguous extent,
+// N and the leading dimensions are multiples of 16 bytes (4 fp32, 8 bf16)
+// and a, b, out and out2 are 16-byte aligned; anything else is refused.
+int mia_vit_gemm_tc(int is_bf16, const void* a, int a_trans, int lda,
+                    const void* b, int b_trans, int ldb, int M, int N, int K,
+                    int k_chunk, int epi, const void* bias, const void* resid,
+                    const float* aux, int ld_aux, void* out, void* out2,
+                    int ldc, void* stream) {
+  auto aligned = [](const void* ptr) {
+    return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+  };
+  const int e = is_bf16 ? 8 : 4;  // elements in 16 bytes
+  if (M < 1 || N < 1 || K < 1 || k_chunk < 1 || k_chunk % kTcBK != 0 ||
+      N % e || lda % e || ldb % e || ldc % e || (a_trans ? M : K) % e ||
+      (b_trans ? K : N) % e || !aligned(a) || !aligned(b) || !aligned(out))
     return cudaErrorInvalidValue;
-  if ((epi == kEpiBiasResid && resid == nullptr) ||
-      (epi == kEpiDgelu && aux == nullptr))
+  const bool biased =
+      epi == kEpiBias || epi == kEpiBiasResid || epi == kEpiBiasF32Gelu;
+  if ((!biased && epi != kEpiF32 && epi != kEpiDgelu && epi != kEpiStore) ||
+      (epi != kEpiF32 && k_chunk < K) || (biased && bias == nullptr) ||
+      (epi == kEpiBiasResid && resid == nullptr) ||
+      (epi == kEpiDgelu && aux == nullptr) ||
+      (epi == kEpiBiasF32Gelu && (out2 == nullptr || !aligned(out2))))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     using T = __nv_bfloat16;
-    const GemmArgs<T> p{static_cast<const T*>(a), a_trans, lda,
-                        static_cast<const T*>(b), b_trans, ldb, M, N, K,
-                        k_chunk, pro, mu, rstd, static_cast<const T*>(gamma),
-                        static_cast<const T*>(beta), epi,
-                        static_cast<const T*>(bias),
-                        static_cast<const T*>(resid), aux, ld_aux, out, ldc};
-    return launch_gemm<T>(p, s);
+    const TcGemmArgs<T> p{static_cast<const T*>(a), lda,
+                          static_cast<const T*>(b), ldb, M, N, K, k_chunk,
+                          epi, static_cast<const T*>(bias),
+                          static_cast<const T*>(resid), aux, ld_aux, out,
+                          static_cast<T*>(out2), ldc};
+    return gemm_tc_dispatch(p, a_trans, b_trans, s);
   }
   using T = float;
-  const GemmArgs<T> p{static_cast<const T*>(a), a_trans, lda,
-                      static_cast<const T*>(b), b_trans, ldb, M, N, K,
-                      k_chunk, pro, mu, rstd, static_cast<const T*>(gamma),
-                      static_cast<const T*>(beta), epi,
-                      static_cast<const T*>(bias),
-                      static_cast<const T*>(resid), aux, ld_aux, out, ldc};
-  return launch_gemm<T>(p, s);
+  const TcGemmArgs<T> p{static_cast<const T*>(a), lda,
+                        static_cast<const T*>(b), ldb, M, N, K, k_chunk, epi,
+                        static_cast<const T*>(bias),
+                        static_cast<const T*>(resid), aux, ld_aux, out,
+                        static_cast<T*>(out2), ldc};
+  return gemm_tc_dispatch(p, a_trans, b_trans, s);
 }
 
-int mia_vit_attn_fwd(int is_bf16, const void* qkv, void* o, float* lse,
-                     const float* dout, float* dsum, int B, int L, int H,
-                     int hd, float scale, void* stream) {
-  if (B < 1 || L < 1 || H < 1 || B > 65535 || H > 65535)
-    return cudaErrorInvalidValue;
-  if (is_bf16 && dout != nullptr) return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? attn_fwd_dispatch<__nv_bfloat16>(qkv, o, lse, dout, dsum,
-                                                    B, L, H, hd, scale, s)
-                 : attn_fwd_dispatch<float>(qkv, o, lse, dout, dsum, B, L, H,
-                                            hd, scale, s);
-}
-
-// The tensor-core GEMM (fp32 only): mia_vit_gemm's arguments, with no
-// prologue and the epilogues fp32, bias and store; k_chunk a multiple of
-// 32; every operand's contiguous extent, N and the leading dimensions
-// multiples of 4, and the pointers 16-byte aligned.
-int mia_vit_gemm_tc(int is_bf16, const void* a, int a_trans, int lda,
-                    const void* b, int b_trans, int ldb, int M, int N, int K,
-                    int k_chunk, int pro, const float* mu, const float* rstd,
-                    const void* gamma, const void* beta, int epi,
-                    const void* bias, const void* resid, const float* aux,
-                    int ld_aux, void* out, int ldc, void* stream) {
-  auto aligned = [](const void* ptr) {
-    return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
-  };
-  if (is_bf16 || pro != kProNone || M < 1 || N < 1 || K < 1 ||
-      k_chunk < 1 || k_chunk % kTcBK != 0 || N % 4 || lda % 4 || ldb % 4 ||
-      ldc % 4 || (a_trans ? M : K) % 4 || (b_trans ? K : N) % 4 ||
-      !aligned(a) || !aligned(b) || !aligned(out))
-    return cudaErrorInvalidValue;
-  if ((epi != kEpiF32 && epi != kEpiBias && epi != kEpiStore) ||
-      (epi == kEpiBias && bias == nullptr))
-    return cudaErrorInvalidValue;
-  const TcGemmArgs p{static_cast<const float*>(a), lda,
-                     static_cast<const float*>(b), ldb, M, N, K, k_chunk,
-                     epi, static_cast<const float*>(bias),
-                     static_cast<float*>(out), ldc};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a_trans)
-    return b_trans ? launch_gemm_tc<true, true>(p, s)
-                   : launch_gemm_tc<true, false>(p, s);
-  return b_trans ? launch_gemm_tc<false, true>(p, s)
-                 : launch_gemm_tc<false, false>(p, s);
-}
-
-// h (rows, d) = LN(x) in fp32 from the row statistics.
-int mia_vit_ln_apply(const float* x, const float* mu, const float* rstd,
-                     const float* g, const float* b, float* h, int rows,
-                     int d, void* stream) {
+// h (rows, d) = LN(x) from the row statistics, in x's dtype.
+int mia_vit_ln_apply(const void* x, int is_bf16, const float* mu,
+                     const float* rstd, const void* g, const void* b,
+                     void* h, int rows, int d, void* stream) {
   if (rows < 1 || d < 1) return cudaErrorInvalidValue;
   const size_t n = static_cast<size_t>(rows) * d;
   const int blocks = static_cast<int>(std::min<size_t>((n + 255) / 256, 4096));
-  ln_apply_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, mu, rstd, g, b, h, rows, d);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    using T = __nv_bfloat16;
+    ln_apply_kernel<T><<<blocks, 256, 0, s>>>(
+        static_cast<const T*>(x), mu, rstd, static_cast<const T*>(g),
+        static_cast<const T*>(b), static_cast<T*>(h), rows, d);
+  } else {
+    ln_apply_kernel<float><<<blocks, 256, 0, s>>>(
+        static_cast<const float*>(x), mu, rstd, static_cast<const float*>(g),
+        static_cast<const float*>(b), static_cast<float*>(h), rows, d);
+  }
   return cudaGetLastError();
 }
 
-// The backward's recompute through attn_tc.cuh's core (fp32): o (B*L, d),
-// and lse (log2 units) and D = do . o, (B, H, L) each, from qkv (B*L, 3d)
-// and do (B*L, d).
-int mia_vit_attn_core_tc(const float* qkv, float* o, float* lse,
+// Each head's output o (B*L, d) in qkv's dtype through attn_tc.cuh's core,
+// q, k and v read in place from the packed qkv (B*L, 3d). With lse, also
+// the per-row logsumexp (log2 units) and D = do . o, (B, H, L) each, from
+// do (B*L, d): the backward's recompute, fp32 only.
+int mia_vit_attn_core_tc(int is_bf16, const void* qkv, void* o, float* lse,
                          const float* dout, float* dsum, int B, int L, int H,
                          int hd, float scale, void* stream) {
-  if (hd < 1 || lse == nullptr || dout == nullptr || dsum == nullptr)
+  const bool stats = lse != nullptr;
+  if (hd < 1 || (stats && (is_bf16 || dout == nullptr || dsum == nullptr)) ||
+      (!stats && (dout != nullptr || dsum != nullptr)))
     return cudaErrorInvalidValue;
   const long long d = static_cast<long long>(H) * hd;
   const long long bs = static_cast<long long>(L) * 3 * d;
-  const tc::AttnArgs p{qkv, qkv + d, qkv + 2 * d, bs,   3 * d, bs,
-                       3 * d, bs,   3 * d,       nullptr, o,   lse,
-                       dout, dsum,  B,           H,       L,   scale};
-  return tc::attn_tc_dispatch<float, true>(hd, p,
-                                           static_cast<cudaStream_t>(stream));
+  const size_t es = is_bf16 ? 2 : 4;
+  const char* q = static_cast<const char*>(qkv);
+  const tc::AttnArgs p{q, q + d * es, q + 2 * d * es, bs,   3 * d, bs,
+                       3 * d, bs,     3 * d,          nullptr, o,   lse,
+                       dout, dsum,    B,              H,       L,   scale};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) return tc::attn_tc_dispatch<__nv_bfloat16, false>(hd, p, s);
+  return stats ? tc::attn_tc_dispatch<float, true>(hd, p, s)
+               : tc::attn_tc_dispatch<float, false>(hd, p, s);
 }
 
 int mia_vit_attn_bwd(const float* qkv, const float* dout, const float* lse,

@@ -13,15 +13,19 @@ TPU kernels and the JAX package's unfused path compute it.
 - ``attn_block_fwd`` / ``mlp_block_fwd`` (kernels ``vit_attn_fwd``,
   ``vit_mlp_fwd``): fp32 or bf16. In bf16 they round where the TPU kernel
   rounds: h to x's dtype, q, k and v to it after the fp32 bias, scores from
-  fp32 q and k, p to v's dtype before p.v, each head's output to x's dtype,
-  the out-projection summed in fp32 with its bias and rounded before the
-  residual add; the MLP likewise (h, the GELU output, fc2's output).
+  q and k with fp32 sums, p to v's dtype before p.v, each head's output to
+  x's dtype, the out-projection summed in fp32 with its bias and rounded
+  before the residual add; the MLP likewise (h, the GELU output, fc2's
+  output).
 - ``attn_block_bwd`` / ``mlp_block_bwd`` (``vit_attn_bwd``, ``vit_mlp_bwd``):
   fp32. They recompute the forward from x (no stored probabilities or
   hidden activations) and return dx and fp32 weight gradients.
-  ``attn_block_bwd`` runs every product on the tensor cores in 3xTF32
-  (``gemm_tc_kernel``, ``csrc/attn_tc.cuh``'s core and the two backward
-  passes); the others keep the CUDA-core GEMM and attention core.
+
+``attn_block_fwd``, ``attn_block_bwd`` and ``mlp_block_bwd`` run every
+product on the tensor cores (``gemm_tc_kernel``, ``csrc/attn_tc.cuh``'s
+core, the attention backward's two passes): fp32 in 3xTF32, bf16 as it
+is. ``mlp_block_fwd`` and ``swin_block`` keep the CUDA-core GEMM
+(``gemm_simt``).
 
 The kernels are in ``csrc/vit_block.cu``, whose header says what bounds
 them on the H100 and how their design answers that. Each wrapper runs its
@@ -62,22 +66,25 @@ def build() -> tuple[ctypes.CDLL, str]:
     """Build (or reuse) the kernels' library; returns ``(lib, nvcc log)``."""
     lib, log = load_library("vit_block")
     lib.mia_vit_ln_stats.argtypes = [_P, _I, _P, _P, _I, _I, _F, _P]
-    for gemm in (lib.mia_vit_gemm, lib.mia_vit_gemm_tc):
-        gemm.argtypes = [
-            _I,  # is_bf16
-            _P, _I, _I,  # a, a_trans, lda
-            _P, _I, _I,  # b, b_trans, ldb
-            _I, _I, _I, _I,  # M, N, K, k_chunk
-            _I, _P, _P, _P, _P,  # prologue, mu, rstd, gamma, beta
-            _I, _P, _P, _P, _I,  # epilogue, bias, resid, aux, ld_aux
-            _P, _I, _P,  # out, ldc, stream
-        ]
-    lib.mia_vit_attn_fwd.argtypes = [
-        _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P,
+    lib.mia_vit_gemm.argtypes = [
+        _I,  # is_bf16
+        _P, _I, _P, _I,  # a, lda, b, ldb
+        _I, _I, _I,  # M, N, K
+        _I, _P, _P, _P, _P,  # prologue, mu, rstd, gamma, beta
+        _I, _P, _P,  # epilogue, bias, resid
+        _P, _I, _P,  # out, ldc, stream
     ]
-    lib.mia_vit_ln_apply.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _P]
+    lib.mia_vit_gemm_tc.argtypes = [
+        _I,  # is_bf16
+        _P, _I, _I,  # a, a_trans, lda
+        _P, _I, _I,  # b, b_trans, ldb
+        _I, _I, _I, _I,  # M, N, K, k_chunk
+        _I, _P, _P, _P, _I,  # epilogue, bias, resid, aux, ld_aux
+        _P, _P, _I, _P,  # out, out2, ldc, stream
+    ]
+    lib.mia_vit_ln_apply.argtypes = [_P, _I, _P, _P, _P, _P, _P, _I, _I, _P]
     lib.mia_vit_attn_core_tc.argtypes = [
-        _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P,
+        _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P,
     ]
     lib.mia_vit_attn_bwd.argtypes = [
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P,
@@ -87,8 +94,7 @@ def build() -> tuple[ctypes.CDLL, str]:
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
     ]
     for fn in (lib.mia_vit_ln_stats, lib.mia_vit_gemm, lib.mia_vit_gemm_tc,
-               lib.mia_vit_ln_apply, lib.mia_vit_attn_fwd,
-               lib.mia_vit_attn_core_tc,
+               lib.mia_vit_ln_apply, lib.mia_vit_attn_core_tc,
                lib.mia_vit_attn_bwd, lib.mia_vit_colsum, lib.mia_vit_ln_bwd):
         fn.restype = _I
     return lib, log
@@ -246,13 +252,13 @@ def mlp_block_bwd_plain(x, w1, b1, w2, b2, g, b, dy):
 # Kernel wrappers
 # --------------------------------------------------------------------------
 
-# GEMM prologues (applied to A while it is staged) and epilogues; the
-# values of ``enum Pro`` and ``enum Epi`` in csrc/vit_block.cu.
-PRO_NONE, PRO_LN, PRO_GELU = 0, 1, 2
-(EPI_F32, EPI_BIAS, EPI_BIAS_GELU, EPI_BIAS_RESID, EPI_DGELU,
- EPI_STORE) = range(6)
+# GEMM prologues (the CUDA-core GEMM's, applied to A while it is staged)
+# and epilogues; the values of ``enum Pro`` and ``enum Epi`` in
+# csrc/vit_block.cu.
+PRO_NONE, PRO_LN = 0, 1
+(EPI_F32, EPI_BIAS, EPI_BIAS_GELU, EPI_BIAS_RESID, EPI_DGELU, EPI_STORE,
+ EPI_BIAS_F32_GELU) = range(7)
 _GEMM_TILE = 128  # rows and columns of a GEMM block's output tile
-_GEMM_BK = 8  # depth of one staged slice
 _GEMM_TC_BK = 32  # the tensor-core GEMM's slice (kTcBK): split-K chunks align
 _TARGET_BLOCKS = 264  # two waves of the H100's 132 SMs: split-K below that
 _COLSUM_ROWS = 512  # rows a block of the column sum adds
@@ -329,16 +335,16 @@ class _Launcher:
         return mu, rstd
 
     def gemm(self, a, b, m, n, k, *, a_trans=False, b_trans=False,
-             pro=PRO_NONE, ln=None, epi=EPI_F32, bias=None, resid=None,
-             aux=None, out=None, tc=False):
-        """out (m, n) = prologue(A) @ B with the epilogue. A is (m, k), or
-        (k, m) when ``a_trans``; B is (k, n), or (n, k) when ``b_trans``.
-        With ``epi=EPI_F32`` and no ``out`` the product is split along k
-        into fixed chunks whose fp32 partials are summed here in order, so
-        that a product with few output tiles still fills the card and two
-        runs give the same bits. ``tc`` takes the tensor-core GEMM (fp32,
-        3xTF32; no prologue; epilogues fp32, bias and store)."""
-        mu, rstd, gamma, beta = ln if ln is not None else (None,) * 4
+             epi=EPI_F32, bias=None, resid=None, aux=None, out=None,
+             out2=None):
+        """out (m, n) = A @ B with the epilogue on the tensor cores, in x's
+        dtype (fp32 in 3xTF32, bf16 as it is). A is (m, k), or (k, m) when
+        ``a_trans``; B is (k, n), or (n, k) when ``b_trans``. With
+        ``epi=EPI_F32`` and no ``out`` the product is split along k into
+        fixed chunks whose fp32 partials are summed here in order, so that a
+        product with few output tiles still fills the card and two runs
+        give the same bits. ``EPI_BIAS_F32_GELU`` writes acc + bias to
+        ``out`` (fp32) and its GELU to ``out2``."""
         tiles = -(-m // _GEMM_TILE) * -(-n // _GEMM_TILE)
         partials = out is None
         splits = 1
@@ -347,29 +353,39 @@ class _Launcher:
                 raise ValueError("gemm: only the fp32 epilogue allocates")
             splits = max(1, min(-(-_TARGET_BLOCKS // tiles), k // 1024))
             out = self.f32(splits, m, n)
-        if tc:  # its 16-byte copies need 16-byte aligned operands
-            a, b = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (a, b))
-        bk = _GEMM_TC_BK if tc else _GEMM_BK
+        # its 16-byte copies need 16-byte aligned operands
+        a, b = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (a, b))
         chunk = -(-k // splits)
-        chunk = -(-chunk // bk) * bk
-        fn = self.lib.mia_vit_gemm_tc if tc else self.lib.mia_vit_gemm
-        _raise_on(fn(
+        chunk = -(-chunk // _GEMM_TC_BK) * _GEMM_TC_BK
+        _raise_on(self.lib.mia_vit_gemm_tc(
             self.bf16, a.data_ptr(), int(a_trans), m if a_trans else k,
-            b.data_ptr(), int(b_trans), k if b_trans else n,
-            m, n, k, chunk,
-            pro, _ptr(mu), _ptr(rstd), _ptr(gamma), _ptr(beta),
+            b.data_ptr(), int(b_trans), k if b_trans else n, m, n, k, chunk,
             epi, _ptr(bias), _ptr(resid), _ptr(aux), n,
-            out.data_ptr(), n, self.stream),
-            "vit_gemm_tc" if tc else "vit_gemm")
+            out.data_ptr(), _ptr(out2), n, self.stream), "vit_gemm_tc")
         return out.sum(dim=0) if partials else out
 
+    def gemm_simt(self, a, b, m, n, k, *, epi, bias, out, ln=None,
+                  resid=None):
+        """out (m, n) = prologue(A) @ B + bias on the CUDA cores, A (m, k)
+        and B (k, n) row-major; ``ln = (mu, rstd, gamma, beta)`` applies
+        the LayerNorm to A while it is staged. Epilogues ``EPI_BIAS``,
+        ``EPI_BIAS_GELU`` and ``EPI_BIAS_RESID``."""
+        mu, rstd, gamma, beta = ln if ln is not None else (None,) * 4
+        _raise_on(self.lib.mia_vit_gemm(
+            self.bf16, a.data_ptr(), k, b.data_ptr(), n, m, n, k,
+            PRO_NONE if ln is None else PRO_LN, _ptr(mu), _ptr(rstd),
+            _ptr(gamma), _ptr(beta), epi, _ptr(bias), _ptr(resid),
+            out.data_ptr(), n, self.stream), "vit_gemm")
+        return out
+
     def ln_apply(self, x2, mu, rstd, g, b):
-        """h = LN(x) (rows, d) in fp32 from the row statistics."""
+        """h = LN(x) (rows, d) in x's dtype from the row statistics."""
         rows, d = x2.shape
-        h = self.f32(rows, d)
+        h = self.like(rows, d)
         _raise_on(self.lib.mia_vit_ln_apply(
-            x2.data_ptr(), mu.data_ptr(), rstd.data_ptr(), g.data_ptr(),
-            b.data_ptr(), h.data_ptr(), rows, d, self.stream), "vit_ln_apply")
+            x2.data_ptr(), self.bf16, mu.data_ptr(), rstd.data_ptr(),
+            g.data_ptr(), b.data_ptr(), h.data_ptr(), rows, d, self.stream),
+            "vit_ln_apply")
         return h
 
     def colsum(self, t2):
@@ -394,34 +410,27 @@ def _check_attn(name, x, wqkv, bqkv, wo, bo, g, b, heads,
                          f"{HEAD_DIMS}")
 
 
-def _attn_core(run, qkv, bsz, seq, d, heads):
-    """Each head's output, o (B*L, d) in x's dtype (the forward's SIMT
-    core)."""
+def _attn_core(run, qkv, bsz, seq, d, heads, do=None):
+    """Each head's output o (B*L, d) in x's dtype through the tensor-core
+    core, q, k and v read in place from qkv (B*L, 3d). With ``do`` (the
+    backward's recompute, fp32) also the per-row logsumexp (log2 units)
+    and D = do . o, both (B, heads, L)."""
     o = run.like(bsz * seq, d)
-    _raise_on(run.lib.mia_vit_attn_fwd(
-        run.bf16, qkv.data_ptr(), o.data_ptr(), None, None, None, bsz, seq,
-        heads, d // heads, (d // heads) ** -0.5, run.stream),
-        "vit_attn_fwd core")
-    return o
-
-
-def _attn_core_tc(run, qkv, do, bsz, seq, d, heads):
-    """The backward's recompute through the tensor-core core (fp32): o
-    (B*L, d), and the per-row logsumexp (log2 units) and D = do . o, both
-    (B, heads, L)."""
-    o = run.f32(bsz * seq, d)
-    lse, dsum = run.f32(bsz, heads, seq), run.f32(bsz, heads, seq)
+    lse = dsum = None
+    if do is not None:
+        lse, dsum = run.f32(bsz, heads, seq), run.f32(bsz, heads, seq)
     _raise_on(run.lib.mia_vit_attn_core_tc(
-        qkv.data_ptr(), o.data_ptr(), lse.data_ptr(), do.data_ptr(),
-        dsum.data_ptr(), bsz, seq, heads, d // heads, (d // heads) ** -0.5,
-        run.stream), "vit_attn_bwd core")
-    return o, lse, dsum
+        run.bf16, qkv.data_ptr(), o.data_ptr(), _ptr(lse), _ptr(do),
+        _ptr(dsum), bsz, seq, heads, d // heads, (d // heads) ** -0.5,
+        run.stream), "vit_attn core")
+    return o if do is None else (o, lse, dsum)
 
 
 def attn_block_fwd(x, wqkv, bqkv, wo, bo, g, b, heads):
     """``x + proj(MHA(LN(x)))``: (B, L, d) in x's dtype (fp32 or bf16).
     Weights in x's dtype, (in, out) layout; the head width must be one of
-    ``HEAD_DIMS``."""
+    ``HEAD_DIMS``. LN(x) once, both products on the tensor-core GEMM and
+    the heads through the tensor-core core."""
     if _on_cpu(x):
         return attn_block_plain(x, wqkv, bqkv, wo, bo, g, b, heads)
     _check_attn("attn_block_fwd", x, wqkv, bqkv, wo, bo, g, b, heads)
@@ -430,8 +439,8 @@ def attn_block_fwd(x, wqkv, bqkv, wo, bo, g, b, heads):
     run = _Launcher(x)
     x2 = x.view(rows, d)
     mu, rstd = run.ln_stats(x2)
-    qkv = run.gemm(x2, wqkv, rows, 3 * d, d, pro=PRO_LN,
-                   ln=(mu, rstd, g, b), epi=EPI_BIAS, bias=bqkv,
+    h = run.ln_apply(x2, mu, rstd, g, b)
+    qkv = run.gemm(h, wqkv, rows, 3 * d, d, epi=EPI_BIAS, bias=bqkv,
                    out=run.like(rows, 3 * d))
     o = _attn_core(run, qkv, bsz, seq, d, heads)
     y = run.gemm(o, wo, rows, d, d, epi=EPI_BIAS_RESID, bias=bo, resid=x2,
@@ -452,10 +461,11 @@ def mlp_block_fwd(x, w1, b1, w2, b2, g, b):
     run = _Launcher(x)
     x2 = x.view(rows, d)
     mu, rstd = run.ln_stats(x2)
-    hid = run.gemm(x2, w1, rows, hidden, d, pro=PRO_LN, ln=(mu, rstd, g, b),
-                   epi=EPI_BIAS_GELU, bias=b1, out=run.like(rows, hidden))
-    y = run.gemm(hid, w2, rows, d, hidden, epi=EPI_BIAS_RESID, bias=b2,
-                 resid=x2, out=run.like(*x.shape))
+    hid = run.gemm_simt(x2, w1, rows, hidden, d, ln=(mu, rstd, g, b),
+                        epi=EPI_BIAS_GELU, bias=b1,
+                        out=run.like(rows, hidden))
+    y = run.gemm_simt(hid, w2, rows, d, hidden, epi=EPI_BIAS_RESID, bias=b2,
+                      resid=x2, out=run.like(*x.shape))
     launches["vit_mlp_fwd"] += 1
     return y
 
@@ -478,19 +488,19 @@ def attn_block_bwd(x, wqkv, bqkv, wo, bo, g, b, heads, dy):
     mu, rstd = run.ln_stats(x2)
     h = run.ln_apply(x2, mu, rstd, g, b)
     qkv = run.gemm(h, wqkv, rows, 3 * d, d, epi=EPI_BIAS, bias=bqkv,
-                   out=run.f32(rows, 3 * d), tc=True)
+                   out=run.f32(rows, 3 * d))
     do = run.gemm(dy2, wo, rows, d, d, b_trans=True, epi=EPI_STORE,
-                  out=run.f32(rows, d), tc=True)
-    o, lse, dsum = _attn_core_tc(run, qkv, do, bsz, seq, d, heads)
+                  out=run.f32(rows, d))
+    o, lse, dsum = _attn_core(run, qkv, bsz, seq, d, heads, do)
     dqkv = run.f32(rows, 3 * d)
     _raise_on(run.lib.mia_vit_attn_bwd(
         qkv.data_ptr(), do.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
         dqkv.data_ptr(), bsz, seq, heads, d // heads, (d // heads) ** -0.5,
         run.stream), "vit_attn_bwd core")
-    dwo = run.gemm(o, dy2, d, d, rows, a_trans=True, tc=True)
-    dwqkv = run.gemm(h, dqkv, d, 3 * d, rows, a_trans=True, tc=True)
+    dwo = run.gemm(o, dy2, d, d, rows, a_trans=True)
+    dwqkv = run.gemm(h, dqkv, d, 3 * d, rows, a_trans=True)
     dh = run.gemm(dqkv, wqkv, rows, d, 3 * d, b_trans=True, epi=EPI_STORE,
-                  out=run.f32(rows, d), tc=True)
+                  out=run.f32(rows, d))
     dx, dg, db = _ln_bwd(run, x2, dy2, dh, mu, rstd, g)
     out = (dx.view(x.shape), dwqkv, run.colsum(dqkv), dwo, run.colsum(dy2),
            dg, db)
@@ -501,7 +511,9 @@ def attn_block_bwd(x, wqkv, bqkv, wo, bo, g, b, heads, dy):
 def mlp_block_bwd(x, w1, b1, w2, b2, g, b, dy):
     """Adjoint of :func:`mlp_block_fwd`, fp32: the outputs of
     :func:`mlp_block_bwd_plain`. The fp32 pre-activation is recomputed
-    once; the GELU and its derivative are applied where it is read."""
+    once, its GELU written beside it by the same epilogue for dW2 and its
+    derivative applied where dhpre is formed. Every product runs on the
+    tensor cores in 3xTF32."""
     if _on_cpu(x):
         return mlp_block_bwd_plain(x, w1, b1, w2, b2, g, b, dy)
     d, hidden = x.shape[-1], w1.shape[-1]
@@ -514,14 +526,16 @@ def mlp_block_bwd(x, w1, b1, w2, b2, g, b, dy):
     run = _Launcher(x)
     x2, dy2 = x.view(rows, d), dy.view(rows, d)
     mu, rstd = run.ln_stats(x2)
-    ln = (mu, rstd, g, b)
-    hpre = run.gemm(x2, w1, rows, hidden, d, pro=PRO_LN, ln=ln, epi=EPI_BIAS,
-                    bias=b1, out=run.f32(rows, hidden))
-    dw2 = run.gemm(hpre, dy2, hidden, d, rows, a_trans=True, pro=PRO_GELU)
+    h = run.ln_apply(x2, mu, rstd, g, b)
+    hpre, hid = run.f32(rows, hidden), run.f32(rows, hidden)
+    run.gemm(h, w1, rows, hidden, d, epi=EPI_BIAS_F32_GELU, bias=b1,
+             out=hpre, out2=hid)
+    dw2 = run.gemm(hid, dy2, hidden, d, rows, a_trans=True)
+    del hid  # the caching allocator reuses it in stream order
     dhpre = run.gemm(dy2, w2, rows, hidden, d, b_trans=True, epi=EPI_DGELU,
                      aux=hpre, out=run.f32(rows, hidden))
-    dw1 = run.gemm(x2, dhpre, d, hidden, rows, a_trans=True, pro=PRO_LN,
-                   ln=ln)
+    del hpre
+    dw1 = run.gemm(h, dhpre, d, hidden, rows, a_trans=True)
     dh = run.gemm(dhpre, w1, rows, d, hidden, b_trans=True, epi=EPI_STORE,
                   out=run.f32(rows, d))
     dx, dg, db = _ln_bwd(run, x2, dy2, dh, mu, rstd, g)

@@ -554,6 +554,121 @@ def test_vit_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         vb.attn_block_bwd(x, *attn, 4, dy[:1])
 
 
+# The tensor-core GEMM's epilogues, by ``EPI_*`` name, and its tolerance
+# against an fp64 product of the same operands, by output dtype: fp32 out of
+# 3xTF32 (about 22 bits of each operand) or of exact bf16 products, summed
+# in fp32, 1e-5 of max(1, max |fp64|); bf16 outputs rounded at the kernel's
+# points, where an fp32 sum and an fp64 one may round to neighbouring bf16
+# values once at each of the two rounding points: 2^-6 of the scale.
+GEMM_EPIS = ("F32", "BIAS", "BIAS_RESID", "DGELU", "STORE", "BIAS_F32_GELU")
+GEMM_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-6}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epi", GEMM_EPIS)
+@pytest.mark.parametrize("a_trans,b_trans", [(False, False), (True, False),
+                                             (False, True), (True, True)],
+                         ids=["nn", "tn", "nt", "tt"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_gemm_tc_matches_fp64(cuda, dtype, a_trans, b_trans, epi):
+    """The tensor-core GEMM against an fp64 product of its operands at
+    ragged M, N and K (past whole 128 x 128 tiles and 32-deep slices),
+    either operand stored either way round, every epilogue rounded where
+    the kernel rounds; the fp32 epilogue at K = 2,056 in two split-K
+    chunks."""
+    from medical_image_analysis_tpu_torch.ops import vit_block as vb
+
+    m, n = 200, 136
+    k = 2056 if epi == "F32" else 72
+    rng = np.random.default_rng(k + 7 * a_trans + 3 * b_trans)
+
+    def t(*shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(cuda)
+
+    a = (t(k, m) if a_trans else t(m, k)).to(dtype)
+    b = (t(n, k) if b_trans else t(k, n)).to(dtype)
+    bias, resid, aux = t(n).to(dtype), t(m, n).to(dtype), t(m, n)
+    acc = ((a.double().t() if a_trans else a.double())
+           @ (b.double().t() if b_trans else b.double()))
+    pre = acc + bias.double()
+    run = vb._Launcher(a)
+    code = getattr(vb, f"EPI_{epi}")
+    kw = dict(a_trans=a_trans, b_trans=b_trans, epi=code, bias=bias,
+              resid=resid, aux=aux)
+    scale = None
+    if epi == "F32":
+        pairs = [(run.gemm(a, b, m, n, k, a_trans=a_trans, b_trans=b_trans),
+                  acc)]
+    elif epi == "BIAS_F32_GELU":
+        out, out2 = run.f32(m, n), run.like(m, n)
+        run.gemm(a, b, m, n, k, out=out, out2=out2, **kw)
+        pairs = [(out, pre), (out2, vb.gelu_tanh(pre).to(dtype))]
+    else:
+        out = run.gemm(a, b, m, n, k, out=run.like(m, n), **kw)
+        want = {"BIAS": pre, "STORE": acc,
+                "BIAS_RESID": resid.double() + pre.to(dtype).double(),
+                "DGELU": acc * vb._gelu_tanh_grad(aux.double())}[epi]
+        pairs = [(out, want.to(dtype))]
+        if epi == "BIAS_RESID":  # the inner rounding at its own scale
+            scale = max(1.0, pre.abs().max().item(),
+                        want.abs().max().item())
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        assert got.shape == (m, n)
+        err, s = _err(got.double(), want.double())
+        assert err <= GEMM_RTOL[got.dtype] * (scale or s), (epi, err, s)
+
+
+@pytest.mark.cuda
+def test_gemm_tc_refuses_what_it_does_not_take(cuda):
+    """16-byte copies: a bf16 operand whose contiguous extent is not a
+    multiple of 8 elements is refused (4 fp32 elements are 16 bytes and
+    pass); so are an epilogue it does not have and a split of K under a
+    rounding epilogue."""
+    from medical_image_analysis_tpu_torch.ops import vit_block as vb
+
+    a = torch.randn(64, 44, device=cuda)
+    b = torch.randn(44, 64, device=cuda)
+    run = vb._Launcher(a)
+    run.gemm(a, b, 64, 64, 44, epi=vb.EPI_STORE, out=run.f32(64, 64))
+    ab, bb = a.bfloat16(), b.bfloat16()
+    runb = vb._Launcher(ab)
+    with pytest.raises(RuntimeError, match="vit_gemm_tc"):
+        runb.gemm(ab, bb, 64, 64, 44, epi=vb.EPI_STORE, out=runb.like(64, 64))
+    with pytest.raises(RuntimeError, match="vit_gemm_tc"):
+        run.gemm(a, b, 64, 64, 44, epi=vb.EPI_BIAS_GELU,
+                 bias=torch.zeros(64, device=cuda), out=run.f32(64, 64))
+    lib = run.lib
+    out = run.f32(64, 64)
+    assert lib.mia_vit_gemm_tc(0, a.data_ptr(), 0, 44, b.data_ptr(), 0, 64,
+                               64, 64, 44, 32, vb.EPI_STORE, None, None,
+                               None, 64, out.data_ptr(), None, 64,
+                               run.stream) != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_vit_attn_fwd_bf16_at_every_head_width(cuda, hd):
+    """``vit_attn_fwd`` in bf16 (both products bf16-direct on the tensor
+    cores, the tensor-core core reading q, k, v in place) against the
+    plain version at each head width, over L = 333 (five whole 64-key
+    tiles and a ragged one)."""
+    from medical_image_analysis_tpu_torch.ops import vit_block as vb
+
+    d = 256
+    x, attn, _, _ = _vit_inputs(cuda, torch.bfloat16, 2, 333, d, seed=hd)
+    before = vb.launches["vit_attn_fwd"]
+    want = vb.attn_block_plain(x, *attn, d // hd)
+    got = vb.attn_block_fwd(x, *attn, d // hd)
+    torch.cuda.synchronize()
+    assert vb.launches["vit_attn_fwd"] == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    err, scale = _err(got, want)
+    assert err <= VIT_RTOL[torch.bfloat16] * scale, (err, scale)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mask_type", ["random", "region"])
 def test_tiny_mae_through_kernels_matches_plain(cuda, mask_type):

@@ -1,17 +1,28 @@
-"""Work counts and build keys of the port's CUDA kernels, on the CPU.
+"""Work counts, build keys and source-level contracts of the port's CUDA
+kernels, on the CPU.
 
 ``work`` splits each kernel's operations into its matrix products and the
 rest, which ``chip_smoke.py`` bounds at the tensor-core and the CUDA-core
 rates; ``flops`` is their sum, the total the kernels were always counted
 at. ``ops.build.source_digest`` is the key a built library is cached
-under: it must change when a shared header changes.
+under: it must change when a shared header changes. The GEMM's prologue
+and epilogue codes that ``ops/vit_block.py`` passes must be the values of
+the enums in ``csrc/vit_block.cu``, and the MAE step's profile must name
+the family of every kernel the ViT sub-layers launch.
 """
+
+import importlib.util
+import re
+from pathlib import Path
 
 import pytest
 
 from medical_image_analysis_tpu_torch.ops import build
 from medical_image_analysis_tpu_torch.ops import swin_block as sb
 from medical_image_analysis_tpu_torch.ops import vit_block as vb
+
+ROOT = Path(__file__).resolve().parents[1]
+CSRC = ROOT / "medical_image_analysis_tpu_torch" / "csrc"
 
 # (B, L, d, heads): the mae_hd_1280 encoder and decoder, a ragged tiny one
 VIT_WORK_SHAPES = [(16, 1401, 768, 12), (16, 6401, 512, 16), (3, 13, 64, 4)]
@@ -70,3 +81,52 @@ def test_build_key_follows_the_headers(tmp_path, monkeypatch):
     assert build.source_digest("a") == second
     monkeypatch.setattr(build, "NVCC_FLAGS", (*build.NVCC_FLAGS, "-I/x"))
     assert build.source_digest("a") != second
+
+
+def _enum(src: str, name: str) -> dict:
+    """{PYTHON_NAME: value} of ``enum <name> { kNameCamelCase = v, ... }``."""
+    body = re.search(rf"enum {name} \{{(.*?)\}};", src, re.S).group(1)
+    out = {}
+    for camel, value in re.findall(rf"k{name}(\w+) = (\d+)", body):
+        words = re.findall(r"[A-Z][a-z]*\d*", camel)
+        out[f"{name.upper()}_" + "_".join(w.upper() for w in words)] = int(
+            value)
+    return out
+
+
+@pytest.mark.parametrize("enum", ["Pro", "Epi"])
+def test_gemm_codes_match_the_kernel_enums(enum):
+    """``PRO_*`` and ``EPI_*`` are the values of ``enum Pro`` and ``enum
+    Epi``, name for name, with none missing on either side."""
+    want = _enum((CSRC / "vit_block.cu").read_text(), enum)
+    prefix = f"{enum.upper()}_"
+    got = {k: getattr(vb, k) for k in dir(vb) if k.startswith(prefix)}
+    assert want and got == want
+
+
+def _profile_tool():
+    path = ROOT / "tools" / "profile_mae_step_torch.py"
+    spec = importlib.util.spec_from_file_location("profile_mae_step_torch",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_profile_names_every_vit_kernel():
+    """Every ``__global__`` kernel of the ViT sub-layers' sources falls into
+    a named family of ``tools/profile_mae_step_torch.py``, as the profiler
+    prints it (namespaces, template arguments), so that its "other" bucket
+    holds PyTorch's kernels only."""
+    tool = _profile_tool()
+    names = set()
+    for src in ("vit_block.cu", "attn_tc.cuh"):
+        names |= set(re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)",
+            (CSRC / src).read_text()))
+    assert {"gemm_tc_kernel", "attn_tc_fwd_kernel", "ln_apply_kernel"} <= names
+    for name in sorted(names):
+        key = f"void (anonymous namespace)::{name}<float, 32>(Args)"
+        assert tool.family(key) != tool.OTHER, name
+    assert tool.family("void at::native::vectorized_elementwise_kernel"
+                       "<4, float>") == tool.OTHER

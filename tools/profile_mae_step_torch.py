@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -30,12 +31,28 @@ sys.path.insert(0, str(ROOT))
 
 PRESET = (ROOT / "medical_image_analysis_tpu_torch" / "configs" / "presets"
           / "mae_hd_1280.yaml")
-# kernel families by name; the rest are PyTorch's own kernels
-FAMILIES = (("vit gemm", "gemm_kernel"), ("vit attention fwd", "attn_fwd_kernel"),
-            ("vit attention dK/dV", "attn_dkv_kernel"),
-            ("vit attention dQ", "attn_dq_kernel"),
-            ("vit LN and sums", ("ln_stats_kernel", "ln_bwd_kernel",
-                                 "colsum_kernel")))
+# The port's kernels by family (every __global__ of csrc/vit_block.cu and
+# csrc/attn_tc.cuh, the ViT sub-layers' sources); the rest are PyTorch's own
+# kernels and copies.
+FAMILIES = (
+    ("vit GEMM, tensor cores", ("gemm_tc_kernel",)),
+    ("vit GEMM, CUDA cores", ("gemm_kernel",)),
+    ("vit attention core", ("attn_tc_fwd_kernel",)),
+    ("vit attention dK/dV", ("attn_dkv_tc_kernel",)),
+    ("vit attention dQ", ("attn_dq_tc_kernel",)),
+    ("vit LN and sums", ("ln_stats_kernel", "ln_apply_kernel",
+                         "ln_bwd_kernel", "colsum_kernel")),
+)
+OTHER = "other (PyTorch kernels, copies)"
+
+
+def family(kernel: str) -> str:
+    """The family of a kernel, by its (demangled) name: a name of
+    ``FAMILIES`` as a whole identifier inside it, else ``OTHER``."""
+    for name, keys in FAMILIES:
+        if any(re.search(rf"(?<!\w){k}(?!\w)", kernel) for k in keys):
+            return name
+    return OTHER
 
 
 def main() -> None:
@@ -116,8 +133,7 @@ def main() -> None:
         step(args.warmup + 1)
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t1) * 1e3
-    families = {name: 0.0 for name, _ in FAMILIES}
-    families["other (PyTorch kernels, copies)"] = 0.0
+    families = dict.fromkeys([name for name, _ in FAMILIES] + [OTHER], 0.0)
     launches = 0
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
@@ -126,13 +142,7 @@ def main() -> None:
         if us <= 0:
             continue
         launches += e.count
-        for name, keys in FAMILIES:
-            if any(k in e.key for k in ((keys,) if isinstance(keys, str)
-                                        else keys)):
-                families[name] += us / 1e3
-                break
-        else:
-            families["other (PyTorch kernels, copies)"] += us / 1e3
+        families[family(e.key)] += us / 1e3
     busy = sum(families.values())
     for k, v in times.items():
         print(f"part: {k} ms={v:.3f}")
