@@ -84,15 +84,23 @@ raises (exit code 1):
                GEMM, the forward core's recompute, the dK/dV and dQ passes,
                the LayerNorm kernels and sums, the rest) from
                ``torch.profiler``.
-    kernels_vit_parts -- ``vit_attn_fwd`` and ``vit_mlp_bwd`` split the
-               same way at the encoder and the decoder, and ``vit_attn_fwd``
-               at bench.py's bf16 encode, with the tensor-core GEMM's
-               TFLOP/s (its products over its time); the phase fails if
-               either launches the CUDA-core ``gemm_kernel`` or an
-               ``attn_fwd_kernel``: ``vit_attn_fwd``, ``vit_attn_bwd`` and
-               ``vit_mlp_bwd`` run every product on the tensor cores (fp32
-               in 3xTF32, bf16 as it is), ``vit_mlp_fwd`` keeps the
-               CUDA-core GEMM.
+    kernels_vit_parts -- ``vit_attn_fwd``, ``vit_mlp_fwd`` and
+               ``vit_mlp_bwd`` split the same way at the encoder and the
+               decoder, and both forwards at bench.py's bf16 encode, with
+               the tensor-core GEMM's TFLOP/s (its products over its time);
+               the phase fails if any launches a kernel named
+               ``gemm_kernel`` or ``attn_fwd_kernel`` (the CUDA-core GEMM
+               and attention core, both deleted): all four ViT kernels run
+               every product on the tensor cores (fp32 in 3xTF32, bf16 as
+               it is). Each split must add up to within 20% of the call's
+               time by CUDA events (a profile that lost kernels is taken
+               again, at most three times, and printed as
+               ``profile_lost_kernels``).
+    kernels_swin_parts -- ``swin_attn_fwd`` at swin_large's stage 2
+               (B=64, shifted, fp32; the kernels line's row) split the same
+               way: the tensor-core GEMM with its TFLOP/s, the window core,
+               the LayerNorm kernels, the rest; it fails as
+               ``kernels_vit_parts`` does.
 12. train_mae -- the ``mae_hd_1280`` preset (MAE ViT-B/16 + 512x8 decoder,
                1280^2 images, region masking: encoder L=1401, decoder
                L=6401, batch 16, fp32) through ``cli.train.main`` on the
@@ -1314,14 +1322,21 @@ def phase_kernels_vit(dev, gen) -> dict:
 # The kernels of a ViT sub-layer call by part, as torch.profiler names them:
 # the tensor-core GEMM, the attention core, the backward's dK/dV and dQ
 # passes, the LayerNorm kernels and column sums; PyTorch's own kernels (the
-# split-K partials' sums, copies) under "other". The CUDA-core GEMM and
-# attention core must not run in the sub-layers that left them.
+# split-K partials' sums, copies) under "other". The Swin sub-layer's parts
+# put its window core in the attention core's place. The CUDA-core GEMM
+# and attention core are gone and must not run in any of them.
 VIT_PARTS = (("gemm_tc", ("gemm_tc_kernel",)),
              ("core", ("attn_tc_fwd_kernel",)),
              ("dkv", ("attn_dkv_tc_kernel",)), ("dq", ("attn_dq_tc_kernel",)),
              ("ln_sums", ("ln_stats_kernel", "ln_apply_kernel",
                           "ln_bwd_kernel", "colsum_kernel")))
+SWIN_PARTS = (VIT_PARTS[0], ("swin_core", ("swin_attn_core_kernel",)),
+              ("ln", ("ln_stats_kernel", "ln_apply_kernel")))
 SIMT_KERNELS = ("gemm_kernel", "attn_fwd_kernel")
+# A split's profiles: at most this many, each with a spin kernel of this
+# many cycles (about 25 ms on an H100) before and after the call.
+PROFILE_ATTEMPTS = 3
+PROFILE_SPIN = 50_000_000
 
 
 def _named(key: str, names) -> bool:
@@ -1330,27 +1345,44 @@ def _named(key: str, names) -> bool:
     return any(re.search(rf"(?<!\w){n}(?!\w)", key) for n in names)
 
 
-def _vit_parts(fn, what: str) -> dict:
-    """Device ms of one call of ``fn`` by ``VIT_PARTS`` (the rest under
-    "other"), from ``torch.profiler``; fails if a kernel of
-    ``SIMT_KERNELS`` ran."""
+def _vit_parts(fn, what: str, names=VIT_PARTS) -> dict:
+    """Device ms of one call of ``fn`` by part (``names``: ``VIT_PARTS``,
+    or ``SWIN_PARTS``; the rest under "other"), from ``torch.profiler``;
+    fails if a kernel of ``SIMT_KERNELS`` ran, or if no profile of
+    ``PROFILE_ATTEMPTS`` adds up to within 20% of the call's time by CUDA
+    events.
+
+    The profiler can drop the first kernels it sees (a split of
+    ``vit_attn_fwd`` once lost its 1.6 ms qkv GEMM), so each profile puts
+    a spin kernel (``PROFILE_SPIN`` cycles, left out of the parts) on each
+    side of the call, and a profile that still lost kernels is taken
+    again."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    parts = dict.fromkeys([name for name, _ in VIT_PARTS] + ["other"], 0.0)
-    for e in prof.key_averages():
-        us = e.self_device_time_total
-        if us <= 0:
-            continue
-        _check(not _named(e.key, SIMT_KERNELS),
-               f"{what} launched the CUDA-core kernel {e.key}")
-        name = next((n for n, k in VIT_PARTS if _named(e.key, k)), "other")
-        parts[name] += us / 1e3
-    return parts
+    ms = device_ms(fn, 3)
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(PROFILE_SPIN)
+            fn()
+            torch.cuda._sleep(PROFILE_SPIN)
+            torch.cuda.synchronize()
+        parts = dict.fromkeys([name for name, _ in names] + ["other"], 0.0)
+        for e in prof.key_averages():
+            us = e.self_device_time_total
+            if us <= 0 or _named(e.key, ("spin_kernel",)):
+                continue
+            _check(not _named(e.key, SIMT_KERNELS),
+                   f"{what} launched the CUDA-core kernel {e.key}")
+            name = next((n for n, k in names if _named(e.key, k)), "other")
+            parts[name] += us / 1e3
+        total = sum(parts.values())
+        if abs(total - ms) <= 0.2 * ms:
+            return parts
+        _phase("profile_lost_kernels", call=what, attempt=attempt,
+               parts_ms=f"{total:.4f}", events_ms=f"{ms:.4f}")
+    _check(False, f"{what}'s kernels by part add up to {total:.4f} ms, not "
+           f"the {ms:.4f} ms of its CUDA events, in {PROFILE_ATTEMPTS} "
+           f"profiles")
 
 
 def phase_kernels_vit_bwd(dev, gen) -> dict:
@@ -1415,11 +1447,12 @@ def phase_kernels_vit_bwd(dev, gen) -> dict:
 
 
 def phase_kernels_vit_parts(dev, gen) -> None:
-    """``vit_attn_fwd`` and ``vit_mlp_bwd`` split by kernel (``VIT_PARTS``)
-    at the fp32 shapes of ``VIT_ROWS``, and ``vit_attn_fwd`` at the bf16
-    case of ``VIT_CASES``, from ``torch.profiler``: one call each, after
-    one to warm up, with the tensor-core GEMM's rate (its products over its
-    time). Neither may launch a kernel of ``SIMT_KERNELS``."""
+    """``vit_attn_fwd``, ``vit_mlp_fwd`` and ``vit_mlp_bwd`` split by kernel
+    (``VIT_PARTS``) at the fp32 shapes of ``VIT_ROWS``, and both forwards
+    at the bf16 case of ``VIT_CASES``, from ``torch.profiler``: one call
+    each, after one to warm up, with the tensor-core GEMM's rate (its
+    products over its time). None may launch a kernel of
+    ``SIMT_KERNELS``."""
     from medical_image_analysis_tpu_torch.ops import vit_block as vb
 
     for b, l, d, heads, dtype in VIT_CASES:
@@ -1431,7 +1464,9 @@ def phase_kernels_vit_parts(dev, gen) -> None:
         dy = torch.randn(b, l, d, device=dev, generator=gen)
         rows = b * l
         calls = [("vit_attn_fwd", 8 * rows * d * d,
-                  lambda: vb.attn_block_fwd(x, *weights["attn"], heads))]
+                  lambda: vb.attn_block_fwd(x, *weights["attn"], heads)),
+                 ("vit_mlp_fwd", 4 * rows * d * 4 * d,
+                  lambda: vb.mlp_block_fwd(x, *weights["mlp"]))]
         if not bf16:  # the backward is fp32 only
             calls.append(("vit_mlp_bwd", 10 * rows * d * 4 * d,
                           lambda: vb.mlp_block_bwd(x, *weights["mlp"], dy)))
@@ -1443,6 +1478,28 @@ def phase_kernels_vit_parts(dev, gen) -> None:
                    **{f"{k}_ms": f"{v:.4f}" for k, v in parts.items()},
                    gemm_tflops=f"{gemm_ops / parts['gemm_tc'] / 1e9:.2f}")
         del x, dy, weights
+
+
+def phase_kernels_swin_parts(dev, gen) -> None:
+    """``swin_attn_fwd`` at the kernels line's row (swin_large stage 2,
+    B=64, shifted, fp32) split by kernel (``SWIN_PARTS``), with the
+    tensor-core GEMM's rate. It runs beside ``kernels_vit_parts``, early in
+    the process: after the training phases, the profiler lost the first
+    kernels of this call in every attempt."""
+    from medical_image_analysis_tpu_torch.ops import swin_block as sb
+
+    name, embed, heads, images = SWIN_TOWERS[0]
+    bn, d, nw = images * 4, embed << 2, 4
+    x, w, bias, mask = _swin_inputs(bn, d, heads[2], nw, torch.float32, dev,
+                                    gen)
+    parts = _vit_parts(lambda: sb.swin_attn_fwd(x, *w, bias, mask, heads[2]),
+                       "swin_attn_fwd", SWIN_PARTS)
+    gemm_ops = 8 * bn * 49 * d * d  # q, k, v and the projection
+    _phase("kernels_swin_parts", tower=name, stage=2, windows=bn, C=d,
+           heads=heads[2], nW=nw, dtype="fp32",
+           total_ms=f"{sum(parts.values()):.4f}",
+           **{f"{k}_ms": f"{v:.4f}" for k, v in parts.items()},
+           gemm_tflops=f"{gemm_ops / parts['gemm_tc'] / 1e9:.2f}")
 
 
 def phase_train_mae(save_dir: Path, device: str = "cuda",
@@ -2214,6 +2271,7 @@ def main() -> None:
     measured.update(phase_kernels_vit(dev, gen))
     measured.update(phase_kernels_vit_bwd(dev, gen))
     phase_kernels_vit_parts(dev, gen)
+    phase_kernels_swin_parts(dev, gen)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mae_") as tmp:
         mae = phase_train_mae(Path(tmp))

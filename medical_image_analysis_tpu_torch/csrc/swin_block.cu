@@ -7,11 +7,12 @@
 //   out = x + proj(WindowMHA(LN(x)) with bias[head] + mask[r % nW]) + bo
 //
 // over windows x (B*nW, L = ws*ws, C) in window_partition order. The
-// sub-layer is four launches put together by ops/swin_block.py:
-// csrc/vit_block.cu's LayerNorm statistics (eps 1e-5) and its tiled GEMM
-// with the LayerNorm prologue and the bias epilogue give q, k and v in the
-// working dtype; swin_attn_core_kernel below gives each head's output; the
-// same GEMM with the bias + residual epilogue gives out.
+// sub-layer is five launches put together by ops/swin_block.py:
+// csrc/vit_block.cu's LayerNorm statistics (eps 1e-5) and LN(x) in the
+// working dtype, then its tensor-core GEMM (gemm_tc_kernel) with the bias
+// epilogue gives q, k and v in the working dtype; swin_attn_core_kernel
+// below gives each head's output; the same GEMM with the bias + residual
+// epilogue gives out.
 //
 // swin_attn_core_kernel: one block per (window, head). It stages that
 // head's q, k and v (L x HD each) and the L x L fp32 scores in shared
@@ -25,16 +26,16 @@
 // What bounds the sub-layer on the H100, and what the design does about
 // it. At swin_large's shapes (C = 192 to 1536, 6 to 48 heads of 32, L = 49)
 // about 90% of the operations are the QKV and output projections; the
-// attention core is 2 x 49 x 49 x 32 multiply-adds a row and head. Every
-// product runs on the CUDA cores in fp32 (67 TFLOP/s at 700 W; TF32 is not
-// used, so that the fp32 checks hold 1e-4), so operations bound it: 60 to
-// 67 GFLOP a block at B = 64, about 1 ms at peak, against 77 to 310 MB of
-// traffic, 0.02 to 0.09 ms at 3.35 TB/s. The GEMMs keep a 128 x 128 output
-// tile in registers (csrc/vit_block.cu says how). The core is small and
-// holds everything of one (window, head) on chip, so no score tensor goes
-// to device memory; the windows are many (4,096 x 6 heads at stage 0), so
-// the card is full with one block per (window, head). wgmma, TMA and
-// tensor cores are later work.
+// attention core is 2 x 49 x 49 x 32 multiply-adds a row and head. The
+// projections run on the tensor cores, fp32 in 3xTF32 (fp32-accurate, so
+// the 1e-4 checks hold; 495 / 3 = 165 TFLOP/s at 700 W) and bf16 as it is
+// (989): 59 GFLOP a block at B = 64, 0.36 ms in fp32. The core's 1 to 8
+// GFLOP stay on the CUDA cores in fp32 (67 TFLOP/s), 0.01 to 0.11 ms. So
+// operations bound it, against 77 to 310 MB of traffic, 0.02 to 0.09 ms at
+// 3.35 TB/s. The core is small and holds everything of one (window, head)
+// on chip, so no score tensor goes to device memory; the windows are many
+// (4,096 x 6 heads at stage 0), so the card is full with one block per
+// (window, head). A tensor-core core, wgmma and TMA are later work.
 //
 // Launches on the caller's stream, allocates nothing, and returns
 // cudaGetLastError() (or the error of raising the shared-memory limit) so

@@ -14,15 +14,15 @@
 //   ln_apply_kernel  h = LN(x) from those statistics, rounded to x's dtype
 //                    as the TPU kernel's _ln(...).astype(x.dtype) (:89):
 //                    one pass whose output every product that reads LN(x)
-//                    shares (vit_attn_fwd, vit_attn_bwd, vit_mlp_bwd).
+//                    shares, in all four sub-layers and swin_block.cu's.
 //   gemm_tc_kernel   C = A @ B on the tensor cores (mma.sync): fp32
 //                    operands in 3xTF32, bf16 operands as they are, either
 //                    operand stored either way round. Epilogues: fp32 (or
-//                    an fp32 split-K partial), bias, bias + residual, times
-//                    GELU'(aux), store, and bias writing both the fp32
-//                    pre-activation and its GELU; rounded to the working
-//                    dtype where the TPU kernel rounds. Every product of
-//                    vit_attn_fwd, vit_attn_bwd and vit_mlp_bwd.
+//                    an fp32 split-K partial), bias, bias + tanh-GELU, bias
+//                    + residual, times GELU'(aux), store, and bias writing
+//                    both the fp32 pre-activation and its GELU; rounded to
+//                    the working dtype where the TPU kernel rounds. Every
+//                    product of the four sub-layers, and of swin_block.cu's.
 //   attn_tc.cuh's core  each head's output from the packed (B*L, 3d) qkv,
 //                    read in place, on the tensor cores: vit_attn_fwd (fp32
 //                    or bf16), and with the per-row logsumexp and D = do . o
@@ -31,11 +31,6 @@
 //                    tensor cores: one pass over the query tiles for dK and
 //                    dV, one over the key tiles for dQ, recomputing p from
 //                    q, k and the logsumexp. No atomics.
-//   gemm_kernel      C = prologue(A) @ B on the CUDA cores in fp32, with the
-//                    LayerNorm applied to A while it is staged, and the
-//                    epilogues bias, bias + tanh-GELU and bias + residual:
-//                    vit_mlp_fwd's two products and swin_block.cu's two,
-//                    until they move to gemm_tc_kernel.
 //   colsum_kernel, ln_bwd_kernel  bias and LayerNorm gradients as per-block
 //                    partials in a fixed order, summed by the wrapper.
 //
@@ -45,8 +40,9 @@
 // vit_attn_fwd needs 202 GFLOP at the mae_hd_1280 encoder (B = 16, L =
 // 1,401, d = 768), 1.2 ms, and 1.56 TFLOP at its decoder (L = 6,401, d =
 // 512, 16 heads of 32), 9.4 ms, most of it the L x L products of the core;
-// vit_mlp_bwd 529 GFLOP (3.2 ms) and 1.07 TFLOP (6.5 ms); vit_attn_bwd 580
-// GFLOP (3.5 ms) and 4.62 TFLOP (28.0 ms). Their bytes are far below.
+// vit_mlp_fwd 212 GFLOP (1.3 ms) and 430 GFLOP (2.6 ms); vit_mlp_bwd 529
+// GFLOP (3.2 ms) and 1.07 TFLOP (6.5 ms); vit_attn_bwd 580 GFLOP (3.5 ms)
+// and 4.62 TFLOP (28.0 ms). Their bytes are far below.
 //
 // mma.sync, not wgmma, for the reasons attn_tc.cuh gives: the 3xTF32 split
 // happens in registers at each fragment load, a transposed operand costs
@@ -66,7 +62,9 @@
 // freedom from atomics with redundant work: the scores are computed three
 // times (the forward recompute and once in each pass) and dp twice, 9
 // products of L x L x d where the function needs 6 (s, o, dV, dp, dQ, dK),
-// so 1.5x the minimal L^2 work; the bound counts the 6. The MLP backward
+// so 1.5x the minimal L^2 work; the bound counts the 6. The MLP forward
+// writes LN(x) and the rounded GELU of the hidden layer (kEpiBiasGelu) and
+// nothing in fp32, where the TPU kernel rounds them. The MLP backward
 // recomputes the fp32 pre-activation once; its product's epilogue also
 // writes the GELU of it for dW2, and the dhpre product reads it back for
 // GELU'.
@@ -165,173 +163,18 @@ __global__ void ln_stats_kernel(const T* __restrict__ x, float* __restrict__ mu,
 }
 
 // ---------------------------------------------------------------------------
-// GEMM epilogues and prologues (the values ops/vit_block.py passes).
+// GEMM epilogues (the values ops/vit_block.py passes).
 // ---------------------------------------------------------------------------
 
-enum Pro { kProNone = 0, kProLn = 1 };  // gemm_kernel only
 enum Epi {
   kEpiF32 = 0,          // out (fp32) = acc; split z writes its own partial
   kEpiBias = 1,         // out = round(acc + bias)
-  kEpiBiasGelu = 2,     // out = round(gelu(acc + bias)); gemm_kernel only
+  kEpiBiasGelu = 2,     // out = round(gelu(acc + bias))
   kEpiBiasResid = 3,    // out = round(resid + round(acc + bias))
   kEpiDgelu = 4,        // out = round(acc * gelu'(aux))
   kEpiStore = 5,        // out = round(acc)
   kEpiBiasF32Gelu = 6,  // out (fp32) = acc + bias, out2 = round(gelu(out))
 };
-
-// ---------------------------------------------------------------------------
-// gemm_kernel: C = prologue(A) @ B on the CUDA cores, A (M, K) and B (K, N)
-// row-major. It holds a 128 x 128 output tile in registers (8 x 8 a thread,
-// two float4 loads of A and of B per 64 FMAs), stages the next k-slice from
-// device memory into registers while it multiplies the current one, and
-// applies the LayerNorm to A while staging it. About 20 TFLOP/s on the
-// H100, against 41 to 45 for gemm_tc_kernel in 3xTF32 (PERF.md).
-// ---------------------------------------------------------------------------
-
-constexpr int kBM = 128;
-constexpr int kBN = 128;
-constexpr int kBK = 8;
-constexpr int kGemmThreads = 256;
-
-template <typename T>
-struct GemmArgs {
-  const T* a;
-  int lda;
-  const T* b;
-  int ldb;
-  int M, N, K;
-  int pro;
-  const float* mu;
-  const float* rstd;
-  const T* gamma;
-  const T* beta;
-  int epi;
-  const T* bias;
-  const T* resid;  // (M, ldc)
-  T* out;
-  int ldc;
-};
-
-template <typename T>
-__device__ __forceinline__ float load_a(const GemmArgs<T>& p, int m, int k) {
-  if (m >= p.M || k >= p.K) return 0.0f;
-  float v = to_float<T>(p.a[static_cast<size_t>(m) * p.lda + k]);
-  if (p.pro == kProLn)
-    v = round_to<T>((v - p.mu[m]) * p.rstd[m] * to_float<T>(p.gamma[k]) +
-                    to_float<T>(p.beta[k]));
-  return v;
-}
-
-template <typename T>
-__device__ __forceinline__ float load_b(const GemmArgs<T>& p, int k, int n) {
-  if (n >= p.N || k >= p.K) return 0.0f;
-  return to_float<T>(p.b[static_cast<size_t>(k) * p.ldb + n]);
-}
-
-// Element i (of 4) of a thread's share of a k-slice: (row or column within
-// the tile, k within the slice), chosen so that neighbouring threads read
-// neighbouring addresses of the stored layout.
-__device__ __forceinline__ void slice_pos(bool fast_mn, int i, int& mn,
-                                          int& k) {
-  const int idx = threadIdx.x + kGemmThreads * i;
-  if (fast_mn) {  // consecutive along the tile's columns (B)
-    k = idx / kBM;
-    mn = idx % kBM;
-  } else {  // consecutive along k (A)
-    mn = idx / kBK;
-    k = idx % kBK;
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kGemmThreads)
-    gemm_kernel(const GemmArgs<T> p) {
-  // +4: the stores of a slice hit 32 banks, rows stay float4-aligned
-  __shared__ __align__(16) float As[kBK][kBM + 4];
-  __shared__ __align__(16) float Bs[kBK][kBN + 4];
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-
-  float ra[4], rb[4];
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      int mn, k;
-      slice_pos(false, i, mn, k);
-      ra[i] = load_a(p, m0 + mn, k0 + k);
-      slice_pos(true, i, mn, k);
-      rb[i] = load_b(p, k0 + k, n0 + mn);
-    }
-  };
-  auto stage = [&]() {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      int mn, k;
-      slice_pos(false, i, mn, k);
-      As[k][mn] = ra[i];
-      slice_pos(true, i, mn, k);
-      Bs[k][mn] = rb[i];
-    }
-  };
-
-  fetch(0);
-  stage();
-  __syncthreads();
-  for (int k0 = 0; k0 < p.K; k0 += kBK) {
-    const bool more = k0 + kBK < p.K;
-    if (more) fetch(k0 + kBK);  // in flight while this slice multiplies
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[8], b[8];
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&Bs[kk][64 + tx * 4]);
-      a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
-      a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
-      b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
-      b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-    if (more) {
-      stage();
-      __syncthreads();
-    }
-  }
-
-  // epilogue
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + (i - 4));
-    if (m >= p.M) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4));
-      if (n >= p.N) continue;
-      const size_t o = static_cast<size_t>(m) * p.ldc + n;
-      float v = acc[i][j] + to_float<T>(p.bias[n]);
-      if (p.epi == kEpiBiasGelu)
-        v = gelu_tanh(v);
-      else if (p.epi == kEpiBiasResid)
-        v = to_float<T>(p.resid[o]) + round_to<T>(v);
-      p.out[o] = from_float<T>(v);
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // The tensor-core building blocks (mma_tc.cuh, attn_tc.cuh).
@@ -358,7 +201,8 @@ __global__ void __launch_bounds__(kGemmThreads)
 // to A at the fragment load, where each of the four warps that share an A
 // slice would evaluate it again for every column tile: at the mae_hd_1280
 // decoder that second fp32 output is 0.84 GB, alive only until dW2 is
-// taken. Every contiguous extent and leading dimension is a multiple of 16
+// taken. The forward's hidden layer takes kEpiBiasGelu instead: the GELU
+// of the fp32 sum, rounded once, and no fp32 pre-activation. Every contiguous extent and leading dimension is a multiple of 16
 // bytes (4 floats, 8 bf16), as the 16-byte copies need.
 constexpr int kTcBM = 128;
 constexpr int kTcBN = 128;
@@ -614,17 +458,23 @@ __global__ void __launch_bounds__(kTcThreads)
               make_float2(v0, v1);
           continue;
         }
-        if (p.epi == kEpiBias || p.epi == kEpiBiasResid ||
-            p.epi == kEpiBiasF32Gelu) {
+        if (p.epi == kEpiBias || p.epi == kEpiBiasGelu ||
+            p.epi == kEpiBiasResid || p.epi == kEpiBiasF32Gelu) {
           v0 += to_float<T>(p.bias[n]);
           v1 += to_float<T>(p.bias[n + 1]);
         }
+        T* dst = static_cast<T*>(p.out) + o;
         if (p.epi == kEpiBiasF32Gelu) {
           *reinterpret_cast<float2*>(out32 + o) = make_float2(v0, v1);
-          tc::store_pair<T>(p.out2 + o, gelu_tanh(v0), gelu_tanh(v1));
-          continue;
+          dst = p.out2 + o;
         }
-        if (p.epi == kEpiBiasResid) {
+        // one GELU for both epilogues that take it: a second inlined copy
+        // of tanhf in this unrolled loop slowed the fp32 main loops by 10
+        // to 18% on the H100 at the same register count (PERF.md, PR 11)
+        if (p.epi == kEpiBiasGelu || p.epi == kEpiBiasF32Gelu) {
+          v0 = gelu_tanh(v0);
+          v1 = gelu_tanh(v1);
+        } else if (p.epi == kEpiBiasResid) {
           v0 = to_float<T>(p.resid[o]) + round_to<T>(v0);
           v1 = to_float<T>(p.resid[o + 1]) + round_to<T>(v1);
         } else if (p.epi == kEpiDgelu) {
@@ -632,7 +482,7 @@ __global__ void __launch_bounds__(kTcThreads)
           v0 *= gelu_tanh_grad(ax[0]);
           v1 *= gelu_tanh_grad(ax[1]);
         }
-        tc::store_pair<T>(static_cast<T*>(p.out) + o, v0, v1);
+        tc::store_pair<T>(dst, v0, v1);
       }
     }
 }
@@ -1027,14 +877,6 @@ __global__ void __launch_bounds__(kLnWarps * 32)
 // Launchers
 // ---------------------------------------------------------------------------
 
-template <typename T>
-cudaError_t launch_gemm(const GemmArgs<T>& p, cudaStream_t stream) {
-  const dim3 grid((p.N + kBN - 1) / kBN, (p.M + kBM - 1) / kBM);
-  if (grid.y > 65535) return cudaErrorInvalidValue;
-  gemm_kernel<T><<<grid, kGemmThreads, 0, stream>>>(p);
-  return cudaGetLastError();
-}
-
 template <typename T, bool AT, bool BT>
 cudaError_t launch_gemm_tc(const TcGemmArgs<T>& p, cudaStream_t stream) {
   const int splits = (p.K + p.k_chunk - 1) / p.k_chunk;
@@ -1098,44 +940,6 @@ int mia_vit_ln_stats(const void* x, int is_bf16, float* mu, float* rstd,
   return cudaGetLastError();
 }
 
-// The CUDA-core GEMM: out (M, N) = prologue(A) @ B + bias with A (M, K)
-// and B (K, N) row-major; the prologues none and LayerNorm (mu, rstd,
-// gamma, beta), the epilogues bias, bias + GELU and bias + residual.
-int mia_vit_gemm(int is_bf16, const void* a, int lda, const void* b, int ldb,
-                 int M, int N, int K, int pro, const float* mu,
-                 const float* rstd, const void* gamma, const void* beta,
-                 int epi, const void* bias, const void* resid, void* out,
-                 int ldc, void* stream) {
-  if (M < 1 || N < 1 || K < 1 || bias == nullptr ||
-      (pro != kProNone && pro != kProLn) ||
-      (epi != kEpiBias && epi != kEpiBiasGelu && epi != kEpiBiasResid))
-    return cudaErrorInvalidValue;
-  if (pro == kProLn && (mu == nullptr || rstd == nullptr || gamma == nullptr ||
-                        beta == nullptr))
-    return cudaErrorInvalidValue;
-  if (epi == kEpiBiasResid && resid == nullptr) return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    using T = __nv_bfloat16;
-    const GemmArgs<T> p{static_cast<const T*>(a), lda,
-                        static_cast<const T*>(b), ldb, M, N, K, pro, mu, rstd,
-                        static_cast<const T*>(gamma),
-                        static_cast<const T*>(beta), epi,
-                        static_cast<const T*>(bias),
-                        static_cast<const T*>(resid), static_cast<T*>(out),
-                        ldc};
-    return launch_gemm<T>(p, s);
-  }
-  using T = float;
-  const GemmArgs<T> p{static_cast<const T*>(a), lda,
-                      static_cast<const T*>(b), ldb, M, N, K, pro, mu, rstd,
-                      static_cast<const T*>(gamma),
-                      static_cast<const T*>(beta), epi,
-                      static_cast<const T*>(bias),
-                      static_cast<const T*>(resid), static_cast<T*>(out), ldc};
-  return launch_gemm<T>(p, s);
-}
-
 // The tensor-core GEMM: out (M, N) = A @ B with the epilogue, A (M, K) or
 // stored (K, M) when a_trans, B (K, N) or stored (N, K) when b_trans, in
 // fp32 or bf16. k_chunk is a multiple of 32, and below K only with the fp32
@@ -1155,8 +959,8 @@ int mia_vit_gemm_tc(int is_bf16, const void* a, int a_trans, int lda,
       N % e || lda % e || ldb % e || ldc % e || (a_trans ? M : K) % e ||
       (b_trans ? K : N) % e || !aligned(a) || !aligned(b) || !aligned(out))
     return cudaErrorInvalidValue;
-  const bool biased =
-      epi == kEpiBias || epi == kEpiBiasResid || epi == kEpiBiasF32Gelu;
+  const bool biased = epi == kEpiBias || epi == kEpiBiasGelu ||
+                      epi == kEpiBiasResid || epi == kEpiBiasF32Gelu;
   if ((!biased && epi != kEpiF32 && epi != kEpiDgelu && epi != kEpiStore) ||
       (epi != kEpiF32 && k_chunk < K) || (biased && bias == nullptr) ||
       (epi == kEpiBiasResid && resid == nullptr) ||

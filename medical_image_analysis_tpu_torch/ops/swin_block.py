@@ -21,11 +21,12 @@ fp32 with eps 1e-5 (the ViT block's is 1e-6).
   at once, as ``_swin_attn_unfused`` computes it.
 
 The wrapper runs the kernel on a CUDA tensor and the plain version on a CPU
-tensor; there is no fallback between the two. The sub-layer is four
-launches: the LayerNorm statistics and the CUDA-core GEMM of
-``csrc/vit_block.cu`` (the LN prologue and bias epilogue for q, k and v;
-the bias + residual epilogue for the output) around the window-attention
-core of ``csrc/swin_block.cu``, whose header says what bounds it on the H100.
+tensor; there is no fallback between the two. The sub-layer is five
+launches: ``csrc/vit_block.cu``'s LayerNorm statistics and LN(x) in x's
+dtype, its tensor-core GEMM (``gemm_tc_kernel``: fp32 in 3xTF32, bf16 as
+it is) with the bias epilogue for q, k and v, the window-attention core of
+``csrc/swin_block.cu``, whose header says what bounds the sub-layer on the
+H100, and the GEMM again with the bias + residual epilogue for the output.
 ``launches["swin_attn_fwd"]`` counts wrapper calls that launched them (one
 call is one sub-layer). The output is a new tensor: the TPU call aliases it
 to x, but the Swin block reads x afterwards.
@@ -63,7 +64,7 @@ def reset_launches() -> None:
 
 def build() -> tuple[ctypes.CDLL, str]:
     """Build (or reuse) the core kernel's library, and the ViT block's whose
-    LayerNorm statistics and GEMM the sub-layer launches; returns ``(lib,
+    LayerNorm kernels and GEMM the sub-layer launches; returns ``(lib,
     nvcc log of this source)``. This source is built first, so that a
     caller building every source at once runs both nvcc's together."""
     lib, log = load_library("swin_block")
@@ -135,15 +136,17 @@ def swin_attn_fwd(x, wqkv, bqkv, wo, bo, g, b, bias, mask, heads):
     run = vb._Launcher(x)
     x2 = x.view(rows, d)
     mu, rstd = run.ln_stats(x2, EPS)
-    qkv = run.gemm_simt(x2, wqkv, rows, 3 * d, d, ln=(mu, rstd, g, b),
-                        epi=vb.EPI_BIAS, bias=bqkv, out=run.like(rows, 3 * d))
+    h = run.ln_apply(x2, mu, rstd, g, b)
+    qkv = run.gemm(h, wqkv, rows, 3 * d, d, epi=vb.EPI_BIAS, bias=bqkv,
+                   out=run.like(rows, 3 * d))
+    del h  # the caching allocator reuses it in stream order
     o = run.like(rows, d)
     vb._raise_on(lib.mia_swin_attn_core(
         run.bf16, qkv.data_ptr(), bias.data_ptr(), mask.data_ptr(),
         o.data_ptr(), bn, l, heads, d // heads, mask.shape[0],
         (d // heads) ** -0.5, run.stream), "swin_attn_fwd core")
-    y = run.gemm_simt(o, wo, rows, d, d, epi=vb.EPI_BIAS_RESID, bias=bo,
-                      resid=x2, out=run.like(bn, l, d))
+    y = run.gemm(o, wo, rows, d, d, epi=vb.EPI_BIAS_RESID, bias=bo,
+                 resid=x2, out=run.like(bn, l, d))
     launches["swin_attn_fwd"] += 1
     return y
 

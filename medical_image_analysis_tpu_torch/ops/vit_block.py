@@ -21,11 +21,10 @@ TPU kernels and the JAX package's unfused path compute it.
   fp32. They recompute the forward from x (no stored probabilities or
   hidden activations) and return dx and fp32 weight gradients.
 
-``attn_block_fwd``, ``attn_block_bwd`` and ``mlp_block_bwd`` run every
-product on the tensor cores (``gemm_tc_kernel``, ``csrc/attn_tc.cuh``'s
-core, the attention backward's two passes): fp32 in 3xTF32, bf16 as it
-is. ``mlp_block_fwd`` and ``swin_block`` keep the CUDA-core GEMM
-(``gemm_simt``).
+All four, and ``swin_block``'s sub-layer, run every product on the tensor
+cores (``gemm_tc_kernel``, ``csrc/attn_tc.cuh``'s core, the attention
+backward's two passes): fp32 in 3xTF32, bf16 as it is. Each writes LN(x)
+once in x's dtype (``ln_apply_kernel``) for the products that read it.
 
 The kernels are in ``csrc/vit_block.cu``, whose header says what bounds
 them on the H100 and how their design answers that. Each wrapper runs its
@@ -66,14 +65,6 @@ def build() -> tuple[ctypes.CDLL, str]:
     """Build (or reuse) the kernels' library; returns ``(lib, nvcc log)``."""
     lib, log = load_library("vit_block")
     lib.mia_vit_ln_stats.argtypes = [_P, _I, _P, _P, _I, _I, _F, _P]
-    lib.mia_vit_gemm.argtypes = [
-        _I,  # is_bf16
-        _P, _I, _P, _I,  # a, lda, b, ldb
-        _I, _I, _I,  # M, N, K
-        _I, _P, _P, _P, _P,  # prologue, mu, rstd, gamma, beta
-        _I, _P, _P,  # epilogue, bias, resid
-        _P, _I, _P,  # out, ldc, stream
-    ]
     lib.mia_vit_gemm_tc.argtypes = [
         _I,  # is_bf16
         _P, _I, _I,  # a, a_trans, lda
@@ -93,7 +84,7 @@ def build() -> tuple[ctypes.CDLL, str]:
     lib.mia_vit_ln_bwd.argtypes = [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
     ]
-    for fn in (lib.mia_vit_ln_stats, lib.mia_vit_gemm, lib.mia_vit_gemm_tc,
+    for fn in (lib.mia_vit_ln_stats, lib.mia_vit_gemm_tc,
                lib.mia_vit_ln_apply, lib.mia_vit_attn_core_tc,
                lib.mia_vit_attn_bwd, lib.mia_vit_colsum, lib.mia_vit_ln_bwd):
         fn.restype = _I
@@ -252,10 +243,7 @@ def mlp_block_bwd_plain(x, w1, b1, w2, b2, g, b, dy):
 # Kernel wrappers
 # --------------------------------------------------------------------------
 
-# GEMM prologues (the CUDA-core GEMM's, applied to A while it is staged)
-# and epilogues; the values of ``enum Pro`` and ``enum Epi`` in
-# csrc/vit_block.cu.
-PRO_NONE, PRO_LN = 0, 1
+# GEMM epilogues: the values of ``enum Epi`` in csrc/vit_block.cu.
 (EPI_F32, EPI_BIAS, EPI_BIAS_GELU, EPI_BIAS_RESID, EPI_DGELU, EPI_STORE,
  EPI_BIAS_F32_GELU) = range(7)
 _GEMM_TILE = 128  # rows and columns of a GEMM block's output tile
@@ -343,7 +331,8 @@ class _Launcher:
         ``epi=EPI_F32`` and no ``out`` the product is split along k into
         fixed chunks whose fp32 partials are summed here in order, so that a
         product with few output tiles still fills the card and two runs
-        give the same bits. ``EPI_BIAS_F32_GELU`` writes acc + bias to
+        give the same bits. ``EPI_BIAS_GELU`` writes the GELU of the fp32
+        acc + bias, rounded once; ``EPI_BIAS_F32_GELU`` writes acc + bias to
         ``out`` (fp32) and its GELU to ``out2``."""
         tiles = -(-m // _GEMM_TILE) * -(-n // _GEMM_TILE)
         partials = out is None
@@ -363,20 +352,6 @@ class _Launcher:
             epi, _ptr(bias), _ptr(resid), _ptr(aux), n,
             out.data_ptr(), _ptr(out2), n, self.stream), "vit_gemm_tc")
         return out.sum(dim=0) if partials else out
-
-    def gemm_simt(self, a, b, m, n, k, *, epi, bias, out, ln=None,
-                  resid=None):
-        """out (m, n) = prologue(A) @ B + bias on the CUDA cores, A (m, k)
-        and B (k, n) row-major; ``ln = (mu, rstd, gamma, beta)`` applies
-        the LayerNorm to A while it is staged. Epilogues ``EPI_BIAS``,
-        ``EPI_BIAS_GELU`` and ``EPI_BIAS_RESID``."""
-        mu, rstd, gamma, beta = ln if ln is not None else (None,) * 4
-        _raise_on(self.lib.mia_vit_gemm(
-            self.bf16, a.data_ptr(), k, b.data_ptr(), n, m, n, k,
-            PRO_NONE if ln is None else PRO_LN, _ptr(mu), _ptr(rstd),
-            _ptr(gamma), _ptr(beta), epi, _ptr(bias), _ptr(resid),
-            out.data_ptr(), n, self.stream), "vit_gemm")
-        return out
 
     def ln_apply(self, x2, mu, rstd, g, b):
         """h = LN(x) (rows, d) in x's dtype from the row statistics."""
@@ -450,7 +425,11 @@ def attn_block_fwd(x, wqkv, bqkv, wo, bo, g, b, heads):
 
 
 def mlp_block_fwd(x, w1, b1, w2, b2, g, b):
-    """``x + fc2(gelu_tanh(fc1(LN(x))))``: (B, L, d) in x's dtype."""
+    """``x + fc2(gelu_tanh(fc1(LN(x))))``: (B, L, d) in x's dtype (fp32 or
+    bf16), the TPU kernel's sequence and rounding points: LN(x) once in x's
+    dtype, fc1 with the bias and GELU on its fp32 sum rounded to x's dtype,
+    fc2 with its bias rounded before the residual add. Both products on the
+    tensor-core GEMM."""
     if _on_cpu(x):
         return mlp_block_plain(x, w1, b1, w2, b2, g, b)
     d, hidden = x.shape[-1], w1.shape[-1]
@@ -461,11 +440,12 @@ def mlp_block_fwd(x, w1, b1, w2, b2, g, b):
     run = _Launcher(x)
     x2 = x.view(rows, d)
     mu, rstd = run.ln_stats(x2)
-    hid = run.gemm_simt(x2, w1, rows, hidden, d, ln=(mu, rstd, g, b),
-                        epi=EPI_BIAS_GELU, bias=b1,
-                        out=run.like(rows, hidden))
-    y = run.gemm_simt(hid, w2, rows, d, hidden, epi=EPI_BIAS_RESID, bias=b2,
-                      resid=x2, out=run.like(*x.shape))
+    h = run.ln_apply(x2, mu, rstd, g, b)
+    hid = run.gemm(h, w1, rows, hidden, d, epi=EPI_BIAS_GELU, bias=b1,
+                   out=run.like(rows, hidden))
+    del h  # the caching allocator reuses it in stream order
+    y = run.gemm(hid, w2, rows, d, hidden, epi=EPI_BIAS_RESID, bias=b2,
+                 resid=x2, out=run.like(*x.shape))
     launches["vit_mlp_fwd"] += 1
     return y
 

@@ -20,6 +20,8 @@ bf16 and add the pair in bf16, one bf16 step; its backward's outputs
 1e-4.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -560,7 +562,8 @@ def test_vit_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 # in fp32, 1e-5 of max(1, max |fp64|); bf16 outputs rounded at the kernel's
 # points, where an fp32 sum and an fp64 one may round to neighbouring bf16
 # values once at each of the two rounding points: 2^-6 of the scale.
-GEMM_EPIS = ("F32", "BIAS", "BIAS_RESID", "DGELU", "STORE", "BIAS_F32_GELU")
+GEMM_EPIS = ("F32", "BIAS", "BIAS_GELU", "BIAS_RESID", "DGELU", "STORE",
+             "BIAS_F32_GELU")
 GEMM_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-6}
 
 
@@ -607,7 +610,7 @@ def test_gemm_tc_matches_fp64(cuda, dtype, a_trans, b_trans, epi):
         pairs = [(out, pre), (out2, vb.gelu_tanh(pre).to(dtype))]
     else:
         out = run.gemm(a, b, m, n, k, out=run.like(m, n), **kw)
-        want = {"BIAS": pre, "STORE": acc,
+        want = {"BIAS": pre, "STORE": acc, "BIAS_GELU": vb.gelu_tanh(pre),
                 "BIAS_RESID": resid.double() + pre.to(dtype).double(),
                 "DGELU": acc * vb._gelu_tanh_grad(aux.double())}[epi]
         pairs = [(out, want.to(dtype))]
@@ -625,8 +628,8 @@ def test_gemm_tc_matches_fp64(cuda, dtype, a_trans, b_trans, epi):
 def test_gemm_tc_refuses_what_it_does_not_take(cuda):
     """16-byte copies: a bf16 operand whose contiguous extent is not a
     multiple of 8 elements is refused (4 fp32 elements are 16 bytes and
-    pass); so are an epilogue it does not have and a split of K under a
-    rounding epilogue."""
+    pass); so are an epilogue code outside ``enum Epi`` and a split of K
+    under a rounding epilogue."""
     from medical_image_analysis_tpu_torch.ops import vit_block as vb
 
     a = torch.randn(64, 44, device=cuda)
@@ -638,8 +641,8 @@ def test_gemm_tc_refuses_what_it_does_not_take(cuda):
     with pytest.raises(RuntimeError, match="vit_gemm_tc"):
         runb.gemm(ab, bb, 64, 64, 44, epi=vb.EPI_STORE, out=runb.like(64, 64))
     with pytest.raises(RuntimeError, match="vit_gemm_tc"):
-        run.gemm(a, b, 64, 64, 44, epi=vb.EPI_BIAS_GELU,
-                 bias=torch.zeros(64, device=cuda), out=run.f32(64, 64))
+        run.gemm(a, b, 64, 64, 44, epi=7, bias=torch.zeros(64, device=cuda),
+                 out=run.f32(64, 64))
     lib = run.lib
     out = run.f32(64, 64)
     assert lib.mia_vit_gemm_tc(0, a.data_ptr(), 0, 44, b.data_ptr(), 0, 64,
@@ -667,6 +670,58 @@ def test_vit_attn_fwd_bf16_at_every_head_width(cuda, hd):
     assert got.dtype == torch.bfloat16 and got.shape == x.shape
     err, scale = _err(got, want)
     assert err <= VIT_RTOL[torch.bfloat16] * scale, (err, scale)
+
+
+@pytest.mark.cuda
+def test_vit_mlp_fwd_bf16_at_a_ragged_length(cuda):
+    """``vit_mlp_fwd`` in bf16 (LN(x), then both products bf16-direct on the
+    tensor cores with the bias + GELU and bias + residual epilogues)
+    against the plain version over L = 333: rows past whole 128-row
+    tiles."""
+    from medical_image_analysis_tpu_torch.ops import vit_block as vb
+
+    x, _, mlp, _ = _vit_inputs(cuda, torch.bfloat16, 2, 333, 256, seed=5)
+    before = vb.launches["vit_mlp_fwd"]
+    want = vb.mlp_block_plain(x, *mlp)
+    got = vb.mlp_block_fwd(x, *mlp)
+    torch.cuda.synchronize()
+    assert vb.launches["vit_mlp_fwd"] == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    err, scale = _err(got, want)
+    assert err <= VIT_RTOL[torch.bfloat16] * scale, (err, scale)
+
+
+def _kernel_names(fn):
+    """The names of the CUDA kernels one call of ``fn`` launches, from
+    ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages() if e.self_device_time_total > 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mlp-fp32", "mlp-bf16", "swin-fp32"])
+def test_moved_sublayers_run_on_the_tensor_core_gemm(cuda, case):
+    """``vit_mlp_fwd`` (fp32 and bf16) and ``swin_attn_fwd`` launch the
+    tensor-core ``gemm_tc_kernel`` and no kernel named ``gemm_kernel``."""
+    from medical_image_analysis_tpu_torch.ops import swin_block as sb
+    from medical_image_analysis_tpu_torch.ops import vit_block as vb
+
+    if case == "swin-fp32":
+        x, w, bias, mask = _swin_inputs(cuda, torch.float32, 128, 192, 6, 64,
+                                        2)
+        names = _kernel_names(lambda: sb.swin_attn_fwd(x, *w, bias, mask, 6))
+    else:
+        dtype = torch.float32 if case == "mlp-fp32" else torch.bfloat16
+        x, _, mlp, _ = _vit_inputs(cuda, dtype, 2, 70, 128, seed=2)
+        names = _kernel_names(lambda: vb.mlp_block_fwd(x, *mlp))
+    named = [re.search(r"(?<!\w)(gemm_tc_kernel|gemm_kernel)(?!\w)", n)
+             for n in names]
+    assert any(m and m.group(1) == "gemm_tc_kernel" for m in named), names
+    assert not any(m and m.group(1) == "gemm_kernel" for m in named), names
 
 
 @pytest.mark.cuda

@@ -5,10 +5,10 @@ kernels, on the CPU.
 rest, which ``chip_smoke.py`` bounds at the tensor-core and the CUDA-core
 rates; ``flops`` is their sum, the total the kernels were always counted
 at. ``ops.build.source_digest`` is the key a built library is cached
-under: it must change when a shared header changes. The GEMM's prologue
-and epilogue codes that ``ops/vit_block.py`` passes must be the values of
-the enums in ``csrc/vit_block.cu``, and the MAE step's profile must name
-the family of every kernel the ViT sub-layers launch.
+under: it must change when a shared header changes. The GEMM's epilogue
+codes that ``ops/vit_block.py`` passes must be the values of the enum in
+``csrc/vit_block.cu``, and the MAE and classification step profiles must
+name the family of every kernel the ViT and Swin sub-layers launch.
 """
 
 import importlib.util
@@ -94,39 +94,63 @@ def _enum(src: str, name: str) -> dict:
     return out
 
 
-@pytest.mark.parametrize("enum", ["Pro", "Epi"])
+@pytest.mark.parametrize("enum", ["Epi"])
 def test_gemm_codes_match_the_kernel_enums(enum):
-    """``PRO_*`` and ``EPI_*`` are the values of ``enum Pro`` and ``enum
-    Epi``, name for name, with none missing on either side."""
+    """``EPI_*`` are the values of ``enum Epi``, name for name, with none
+    missing on either side."""
     want = _enum((CSRC / "vit_block.cu").read_text(), enum)
     prefix = f"{enum.upper()}_"
     got = {k: getattr(vb, k) for k in dir(vb) if k.startswith(prefix)}
     assert want and got == want
 
 
-def _profile_tool():
-    path = ROOT / "tools" / "profile_mae_step_torch.py"
-    spec = importlib.util.spec_from_file_location("profile_mae_step_torch",
-                                                  path)
+def _profile_tool(name):
+    path = ROOT / "tools" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
 
 
-def test_profile_names_every_vit_kernel():
-    """Every ``__global__`` kernel of the ViT sub-layers' sources falls into
-    a named family of ``tools/profile_mae_step_torch.py``, as the profiler
-    prints it (namespaces, template arguments), so that its "other" bucket
-    holds PyTorch's kernels only."""
-    tool = _profile_tool()
-    names = set()
-    for src in ("vit_block.cu", "attn_tc.cuh"):
-        names |= set(re.findall(
-            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)",
-            (CSRC / src).read_text()))
-    assert {"gemm_tc_kernel", "attn_tc_fwd_kernel", "ln_apply_kernel"} <= names
+def _kernels(src: str) -> set:
+    """The names of the ``__global__`` functions of a source in csrc/."""
+    return set(re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)",
+        (CSRC / src).read_text()))
+
+
+# The csrc/vit_block.cu kernels that swin_attn_fwd launches.
+SWIN_VIT_KERNELS = {"ln_stats_kernel", "ln_apply_kernel", "gemm_tc_kernel"}
+# tool: (the kernels its profile must name, kernels that must be among
+# them, a PyTorch kernel it must leave in "other"). The MAE step against
+# every kernel of the ViT sub-layers' sources; the classification step
+# against every kernel of the Swin sub-layer's source and the ViT block's
+# that it launches.
+PROFILE_TOOLS = {
+    "profile_mae_step_torch": (
+        lambda: _kernels("vit_block.cu") | _kernels("attn_tc.cuh"),
+        {"gemm_tc_kernel", "attn_tc_fwd_kernel", "ln_apply_kernel"},
+        "void at::native::vectorized_elementwise_kernel<4, float>"),
+    "profile_cls_step_torch": (
+        lambda: (_kernels("swin_block.cu")
+                 | SWIN_VIT_KERNELS & _kernels("vit_block.cu")),
+        {"swin_attn_core_kernel", *SWIN_VIT_KERNELS},
+        "void at::native::multi_tensor_apply_kernel<TensorListMetadata<4>>"),
+}
+
+
+@pytest.mark.parametrize("tool_name", sorted(PROFILE_TOOLS))
+def test_profile_names_every_vit_kernel(tool_name):
+    """Every kernel of the sub-layers a step profile reads falls into a
+    named family of the tool, as the profiler prints it (namespaces,
+    template arguments), so that its "other" bucket holds PyTorch's
+    kernels only; the tensor-core GEMM is never counted as cuBLAS's."""
+    tool = _profile_tool(tool_name)
+    kernels, must, pytorch = PROFILE_TOOLS[tool_name]
+    names = kernels()
+    assert must <= names
     for name in sorted(names):
         key = f"void (anonymous namespace)::{name}<float, 32>(Args)"
         assert tool.family(key) != tool.OTHER, name
-    assert tool.family("void at::native::vectorized_elementwise_kernel"
-                       "<4, float>") == tool.OTHER
+        assert "cuBLAS" not in tool.family(key), name
+    assert tool.family(pytorch) == tool.OTHER

@@ -32,11 +32,15 @@ sys.path.insert(0, str(ROOT))
 
 PRESET = (ROOT / "medical_image_analysis_tpu_torch" / "configs" / "presets"
           / "swinchex.yaml")
-# kernel families by name, the port's own first; the rest are PyTorch's
+# Kernel families by a substring of the name, the first that matches: the
+# port's own first (every __global__ of csrc/swin_block.cu and the
+# csrc/vit_block.cu kernels that swin_attn_fwd launches), then PyTorch's.
+# The Swin GEMM stays ahead of cuBLAS's, whose bare "gemm" would take
+# gemm_tc_kernel too.
 FAMILIES = (
     ("swin window core", ("swin_attn_core_kernel",)),
-    ("swin sub-layer GEMM (vit_block.cu)", ("::gemm_kernel",)),
-    ("swin LN statistics (vit_block.cu)", ("ln_stats_kernel",)),
+    ("swin sub-layer GEMM (vit_block.cu)", ("gemm_tc_kernel",)),
+    ("swin LayerNorm (vit_block.cu)", ("ln_stats_kernel", "ln_apply_kernel")),
     ("cuBLAS GEMM", ("gemm", "Kernel2")),
     ("cuDNN convolution", ("conv", "wgrad", "dgrad")),
     ("softmax", ("softmax",)),
@@ -46,6 +50,15 @@ FAMILIES = (
                                 "cat", "roll", "index")),
 )
 OTHER = "other"
+
+
+def family(kernel: str) -> str:
+    """The family of a kernel, by its (demangled) name: the first of
+    ``FAMILIES`` with a key inside it, else ``OTHER``."""
+    for name, keys in FAMILIES:
+        if any(k in kernel for k in keys):
+            return name
+    return OTHER
 
 
 def _families(prof) -> tuple[dict, int]:
@@ -59,12 +72,7 @@ def _families(prof) -> tuple[dict, int]:
         if us <= 0:
             continue
         launches += e.count
-        for name, keys in FAMILIES:
-            if any(k in e.key for k in keys):
-                out[name] += us / 1e3
-                break
-        else:
-            out[OTHER] += us / 1e3
+        out[family(e.key)] += us / 1e3
     return out, launches
 
 

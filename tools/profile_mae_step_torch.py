@@ -36,7 +36,6 @@ PRESET = (ROOT / "medical_image_analysis_tpu_torch" / "configs" / "presets"
 # kernels and copies.
 FAMILIES = (
     ("vit GEMM, tensor cores", ("gemm_tc_kernel",)),
-    ("vit GEMM, CUDA cores", ("gemm_kernel",)),
     ("vit attention core", ("attn_tc_fwd_kernel",)),
     ("vit attention dK/dV", ("attn_dkv_tc_kernel",)),
     ("vit attention dQ", ("attn_dq_tc_kernel",)),

@@ -9,14 +9,14 @@ Times the checkout this script sits in: ``vit_attn_fwd``, ``vit_mlp_fwd``,
 d=768) and the decoder (B=16, L=6,401, d=512) in fp32, and the two
 forwards at bench.py's bf16 encode (B=64, L=145, d=768): CUDA events over
 5 calls (``chip_smoke.device_ms``), then one call under
-``torch.profiler``, whose GEMM kernels (the tensor-core ``gemm_tc_kernel``
-and the CUDA-core ``gemm_kernel``) give the GEMM time and rate (the
-products over that time). It reads only the ViT wrappers and
-``chip_smoke``'s ``_vit_weights``, ``device_ms`` and ``_dtype_name``,
-which older checkouts of the port have too, so that two versions can be
-compared on one card: unpack the other into a git-ignored directory, copy
-this script into it, and run both copies in one call, in turns: A, B, B,
-A. Random weights and inputs from seed 0; TF32 off. Needs a CUDA card.
+``torch.profiler``, whose GEMM kernel (the tensor-core ``gemm_tc_kernel``)
+gives the GEMM time and rate (the products over that time). It reads only
+the ViT wrappers and ``chip_smoke``'s ``_vit_weights``, ``device_ms`` and
+``_dtype_name``, which older checkouts of the port have too, so that two
+versions can be compared on one card: unpack the other into a git-ignored
+directory and run the script of each checkout in one call, in turns: A,
+B, B, A (each copy counts the GEMM kernels of its own checkout). Random
+weights and inputs from seed 0; TF32 off. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ sys.path.insert(0, str(ROOT))
 SHAPES = ((16, 1401, 768, 12, torch.float32),
           (16, 6401, 512, 16, torch.float32),
           (64, 145, 768, 12, torch.bfloat16))
-GEMMS = re.compile(r"(?<!\w)(gemm_tc_kernel|gemm_kernel)(?!\w)")
+GEMMS = re.compile(r"(?<!\w)gemm_tc_kernel(?!\w)")
 
 
 def gemm_ms(fn) -> float:
