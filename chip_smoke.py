@@ -150,7 +150,9 @@ raises (exit code 1):
                (K=4, L=197, D=768, N=16; B=1 forward, B=6 backward; fp32
                and bf16) and vssm_tiny's four stage shapes at B=128 (fp32,
                stage 0 also bf16): max errors, ms of the kernel and of the
-               plain version, the bound.
+               plain version, the bound; for the backward also its
+               resident blocks an SM and shared memory a block, failing
+               under SS_BWD_MIN_BLOCKS (5).
 20. train_cls_vssm_pallas -- ``vssm_classify`` with ``--set
                model.vision_kwargs={scan_backend: pallas}`` (vssm_tiny at
                full width, 11 SS2D blocks, d_state 16, B=128, EMA,
@@ -311,6 +313,9 @@ SS_ARM = (4, 197, 768, 16)  # K, L, d_inner, N
 SS_ARM_BATCH = {"fwd": 1, "bwd": 6}
 SS_VSSM_STAGES = ((3136, 192), (784, 384), (196, 768), (49, 1536))
 SS_VSSM_BATCH = 128
+# The backward's resident blocks of 64 threads an SM at the least: more
+# warps to hide the latency of its sequential walks.
+SS_BWD_MIN_BLOCKS = 5
 VSSM_PALLAS = "model.vision_kwargs={scan_backend: pallas}"
 # The fused attention at dp_finetune's ViT-B widths (B=64, L=197, 12
 # heads of 64), and ViT-B at 384^2 (L=577), where the JAX dispatch takes
@@ -1966,6 +1971,7 @@ def phase_kernels_ss(dev, gen, kind: str) -> tuple:
     from medical_image_analysis_tpu_torch.ops import selective_scan_pallas as ssp
 
     row = None
+    occupancy = {}
     names = (("y",) if kind == "fwd" else
              ("du", "ddelta", "dA", "dB", "dC", "dD", "ddelta_bias"))
     for case, b, k, l, d, n, dtype in _ss_cases(kind):
@@ -2003,12 +2009,19 @@ def phase_kernels_ss(dev, gen, kind: str) -> tuple:
         t = _in_turns(plain, kernel, 1, 20 if case == "arm_b" else 3)
         bound = _bound([*args, *extra, *got],
                        ssp.flops(kind, b * k, l, d, n))
+        if kind == "bwd":  # resident blocks an SM, shared memory a block
+            blocks, smem = ssp.bwd_occupancy(n, dtype)
+            _check(blocks >= SS_BWD_MIN_BLOCKS,
+                   f"selective_scan_bwd N={n} {dtype}: {blocks} blocks an SM "
+                   f"(at least {SS_BWD_MIN_BLOCKS}), {smem} bytes of shared "
+                   f"memory a block")
+            occupancy = dict(blocks_per_sm=blocks, smem_bytes=smem)
         _phase("kernels_ss" if kind == "fwd" else "kernels_ss_bwd",
                case=case, B=b, K=k, L=l, D=d, N=n, src=_dtype_name(dtype),
                errs=json.dumps({k_: f"{v:.3e}" for k_, v in errs.items()},
                                separators=(",", ":")),
                ms=f"{t['kernel']:.4f}", plain_ms=f"{t['plain']:.4f}",
-               bound_ms=f"{bound[0]:.4f}", bound_by=bound[1])
+               bound_ms=f"{bound[0]:.4f}", bound_by=bound[1], **occupancy)
         if (case, dtype) == ("vssm_tiny_s0", torch.float32):
             row = (max(errs.values()), t["kernel"], t["plain"], *bound[:2])
         del args, got, extra

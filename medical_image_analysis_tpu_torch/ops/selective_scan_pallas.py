@@ -64,6 +64,9 @@ def build() -> tuple[ctypes.CDLL, str]:
         _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _I, _P,
     ]
     lib.mia_selective_scan_bwd.restype = _I
+    lib.mia_selective_scan_bwd_blocks_per_sm.argtypes = [
+        _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+    lib.mia_selective_scan_bwd_blocks_per_sm.restype = _I
     return lib, log
 
 
@@ -161,7 +164,15 @@ def selective_scan_bwd(u, delta, A, B, C, D, delta_bias, dy,
     ``selective_scan_bwd_plain``: du, ddelta in u's dtype; dA (G, Dc, N);
     dB, dC (rows, L, N) in B's dtype; dD, ddelta_bias (G, Dc) fp32. The
     kernel writes per-row sums of the parameter gradients and per-block
-    sums of dB and dC; they are summed here in a fixed order."""
+    sums of dB and dC; they are summed here in a fixed order.
+
+    The kernel's walks over L are bound by latency, so it is built for
+    occupancy (:func:`bwd_occupancy`: 6 blocks of ``_THREADS`` threads an
+    SM at d_state 16): each thread keeps its channel's rows in registers
+    and reads only its own column of the rebuilt states, and the sums over
+    channels are warp shuffles. ``carries`` (rows, ceil(L / ``_CHUNK``),
+    N, Dc) fp32, the states it writes at chunk starts, is freed on
+    return."""
     if _on_cpu(u):
         return selective_scan_bwd_plain(u, delta, A, B, C, D, delta_bias, dy,
                                         delta_softplus)
@@ -194,6 +205,22 @@ def selective_scan_bwd(u, delta, A, B, C, D, delta_bias, dy,
 
     return (du, ddelta, per_group(d_a), d_b.sum(dim=0).to(B.dtype),
             d_c.sum(dim=0).to(C.dtype), per_group(d_d), per_group(ddb))
+
+
+def bwd_occupancy(n: int, dtype: torch.dtype) -> tuple[int, int]:
+    """The backward kernel's resident blocks an SM on the current card, and
+    its shared memory a block in bytes, for d_state ``n`` and source dtype
+    ``dtype`` (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    if n not in STATES or dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"selective_scan: no backward kernel for d_state={n}"
+                         f", {dtype}")
+    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+    lib, _ = build()
+    err = lib.mia_selective_scan_bwd_blocks_per_sm(
+        n, int(dtype == torch.bfloat16), ctypes.byref(blocks),
+        ctypes.byref(smem))
+    _raise_on(err, "selective_scan_bwd occupancy")
+    return blocks.value, smem.value
 
 
 class SelectiveScanFn(torch.autograd.Function):

@@ -951,6 +951,35 @@ def test_selective_scan_kernels_match_plain(cuda, dtype, rows, l, d, n, g,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rows,l,d,n,g,strided", [SS_CASES[0], SS_CASES[3]],
+                         ids=["n1", "n16-strided"])
+def test_selective_scan_bwd_is_deterministic(cuda, dtype, rows, l, d, n, g,
+                                             strided):
+    """Two calls of the backward give the same seven outputs to the bit:
+    the sums over channels and over L run in a fixed order, no atomics."""
+    args = _ss_inputs(cuda, dtype, rows, l, d, n, g, strided, seed=l * n)
+    dy = torch.randn(rows, l, d, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(l)).to(dtype)
+    first = ssp.selective_scan_bwd(*args, dy, delta_softplus=True)
+    second = ssp.selective_scan_bwd(*args, dy, delta_softplus=True)
+    for name, a, b in zip(SS_NAMES, first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_selective_scan_bwd_occupancy(cuda, dtype):
+    """At d_state 16 the backward keeps at least 5 blocks of 64 threads
+    resident on an SM: its shared memory stays within 44 KB a block."""
+    blocks, smem = ssp.bwd_occupancy(16, dtype)
+    assert smem <= 44 * 1024
+    assert blocks >= 5, (blocks, smem)
+
+
+@pytest.mark.cuda
 def test_selective_scan_fn_grads_match_plain(cuda):
     """``selective_scan_dirs`` with every input requiring grad: the kernels
     forward and backward against the plain pair, B and C slices of x_dbl,

@@ -7,8 +7,10 @@ rates; ``flops`` is their sum, the total the kernels were always counted
 at. ``ops.build.source_digest`` is the key a built library is cached
 under: it must change when a shared header changes. The GEMM's epilogue
 codes that ``ops/vit_block.py`` passes must be the values of the enum in
-``csrc/vit_block.cu``, and the MAE and classification step profiles must
-name the family of every kernel the ViT and Swin sub-layers launch.
+``csrc/vit_block.cu``, the general scan's wrapper must size its buffers
+with the kernels' own block width and chunk, the MAE and classification
+step profiles must name the family of every kernel the ViT and Swin
+sub-layers launch, and the scan's timing tool the backward kernel.
 """
 
 import importlib.util
@@ -18,6 +20,7 @@ from pathlib import Path
 import pytest
 
 from medical_image_analysis_tpu_torch.ops import build
+from medical_image_analysis_tpu_torch.ops import selective_scan_pallas as ssp
 from medical_image_analysis_tpu_torch.ops import swin_block as sb
 from medical_image_analysis_tpu_torch.ops import vit_block as vb
 
@@ -104,6 +107,17 @@ def test_gemm_codes_match_the_kernel_enums(enum):
     assert want and got == want
 
 
+@pytest.mark.parametrize("constant,attr", [("kThreads", "_THREADS"),
+                                           ("kChunk", "_CHUNK")])
+def test_selective_scan_sizes_match_the_kernel(constant, attr):
+    """``_THREADS`` (channels a block: ``dB_part``'s and ``dC_part``'s
+    leading extent) and ``_CHUNK`` (rows a carry: ``carries``' second
+    extent) are the values of ``csrc/selective_scan.cu``'s constants."""
+    src = (CSRC / "selective_scan.cu").read_text()
+    want = re.findall(rf"constexpr int {constant} = (\d+);", src)
+    assert len(want) == 1 and int(want[0]) == getattr(ssp, attr)
+
+
 def _profile_tool(name):
     path = ROOT / "tools" / f"{name}.py"
     spec = importlib.util.spec_from_file_location(name, path)
@@ -154,3 +168,11 @@ def test_profile_names_every_vit_kernel(tool_name):
         assert tool.family(key) != tool.OTHER, name
         assert "cuBLAS" not in tool.family(key), name
     assert tool.family(pytorch) == tool.OTHER
+
+
+def test_scan_timing_tool_names_the_backward_kernel():
+    """``tools/time_selective_scan_bwd.py`` reads the backward kernel's
+    share of a step by a name that is a ``__global__`` function of
+    ``csrc/selective_scan.cu``."""
+    tool = _profile_tool("time_selective_scan_bwd")
+    assert tool.KERNEL in _kernels("selective_scan.cu")
