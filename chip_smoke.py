@@ -44,10 +44,14 @@ raises (exit code 1):
                vssm1_base at every batch the main path gives it (B=12
                tower images, 36 context images, 4 images of validation's
                last batch; fp32), stage 2 in bf16 and stage 0 at B=1; max
-               error and device times.
-   kernels_n1_bwd -- its backward kernel against ``scan_n1_bwd_plain`` at
-               the training batch (B=12), stage 2 in bf16 and stage 0 at
-               B=1, every output.
+               error, device times and the bound of every case.
+   kernels_n1_bwd -- its backward (three kernels: piece summaries,
+               carries, gradients; one launch count a call) against
+               ``scan_n1_bwd_plain`` at the four stages at the training
+               batch (B=12), stage 2 in bf16 and stage 0 at B=1, every
+               output; each case's device times and bound, and each
+               kernel's grid blocks, resident blocks an SM and shared
+               memory a block.
 9. train_csr -- the ``r2gencsr_iu`` preset with ``model.vision=vssm``,
                ``vision_size=base`` and the vssm1 ``vision_kwargs``
                (vssm1_base + qwen1_5_0_5b at full width, 3 + 3 context
@@ -996,21 +1000,24 @@ def phase_kernels_n1(dev, gen) -> tuple:
                f"{err:.3e} > {Y_RTOL[dtype]} x {scale:.3f}")
         t = _in_turns(lambda: sn.scan_n1_fwd_plain(*args),
                       lambda: sn.scan_n1_fwd(*args), 2, 20)
+        bound = _bound([*args, got], 4 * b * hw * hw * d_in * (2 * rank + 13))
         _phase("kernels_n1", stage=stage, B=b, L=hw * hw, D=d_in, R=rank,
                src="fp32" if dtype == torch.float32 else "bf16",
                err=f"{err:.3e}", ms=f"{t['kernel']:.4f}",
-               plain_ms=f"{t['plain']:.4f}")
+               plain_ms=f"{t['plain']:.4f}", bound_ms=f"{bound[0]:.4f}",
+               bound_by=bound[1])
         if dtype == torch.float32:
             worst = max(worst, err)
             if stage == 0 and b == N1_BATCH:
-                ops = 4 * b * hw * hw * d_in * (2 * rank + 13)
-                row = (t["kernel"], t["plain"], *_bound([*args, got], ops)[:2])
+                row = (t["kernel"], t["plain"], *bound[:2])
     return (worst, *row)
 
 
 def phase_kernels_n1_bwd(dev, gen) -> tuple:
-    """The backward kernel against its plain version, every output; the
-    JSON row as ``phase_kernels_n1``'s."""
+    """The backward's kernels against their plain version, every output,
+    at every stage; each line also names the three kernels' grid blocks,
+    resident blocks an SM and shared memory a block. The JSON row as
+    ``phase_kernels_n1``'s."""
     from medical_image_analysis_tpu_torch.ops import scan_n1 as sn
 
     worst, row = 0.0, None
@@ -1033,19 +1040,27 @@ def phase_kernels_n1_bwd(dev, gen) -> tuple:
             errs[name] = err
         t = _in_turns(lambda: sn.scan_n1_bwd_plain(*args, dy),
                       lambda: sn.scan_n1_bwd(*args, dy), 1, 10)
+        ops = 4 * b * hw * hw * d_in * (2 * (2 * rank + 13) + 2 * rank + 10)
+        bound = _bound([*args, dy, *got], ops)
+        occupancy = sn.bwd_occupancy(rank, dtype)
         _phase("kernels_n1_bwd", stage=stage, B=b, L=hw * hw, D=d_in, R=rank,
-               src="fp32" if dtype == torch.float32 else "bf16",
-               errs=json.dumps({k: f"{v:.3e}" for k, v in errs.items()},
-                               separators=(",", ":")),
-               ms=f"{t['kernel']:.4f}", plain_ms=f"{t['plain']:.4f}")
+               src=_dtype_name(dtype), errs=_compact(
+                   {k: f"{v:.3e}" for k, v in errs.items()}),
+               ms=f"{t['kernel']:.4f}", plain_ms=f"{t['plain']:.4f}",
+               bound_ms=f"{bound[0]:.4f}", bound_by=bound[1],
+               grid_blocks=_compact(sn.bwd_grid_blocks(b, hw * hw, d_in)),
+               blocks_per_sm=_compact(
+                   {k: v[0] for k, v in occupancy.items()}),
+               smem_bytes=_compact({k: v[1] for k, v in occupancy.items()}))
         if dtype == torch.float32:
             worst = max(worst, max(errs.values()))
             if stage == 0 and b == N1_BATCH:
-                ops = 4 * b * hw * hw * d_in * (2 * (2 * rank + 13) + 2 * rank
-                                                + 10)
-                row = (t["kernel"], t["plain"],
-                       *_bound([*args, dy, *got], ops)[:2])
+                row = (t["kernel"], t["plain"], *bound[:2])
     return (worst, *row)
+
+
+def _compact(d: dict) -> str:
+    return json.dumps(d, separators=(",", ":"))
 
 
 def _kernel_modules():

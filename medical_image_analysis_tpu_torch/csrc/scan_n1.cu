@@ -1,10 +1,13 @@
-// d_state=1 four-direction VMamba scan for Hopper (sm_90a): two kernels.
+// d_state=1 four-direction VMamba scan for Hopper (sm_90a): the forward
+// kernel and the three kernels of the backward.
 //
 // They replace the two Pallas TPU kernels of
 // medical_image_analysis_tpu/ops/scan_n1.py:
 //
-//   scan_n1_fwd_kernel  <- _fwd_kernel (:89, launched at :316)
-//   scan_n1_bwd_kernel  <- _bwd_kernel (:150, launched at :412)
+//   scan_n1_fwd_kernel       <- _fwd_kernel (:89, launched at :316)
+//   scan_n1_bwd_sums_kernel,
+//   scan_n1_bwd_carry_kernel,
+//   scan_n1_bwd_grad_kernel  <- _bwd_kernel (:150, launched at :412)
 //
 // At N=1 the selective scan is a per-channel linear recurrence with scalar
 // B and C per row:
@@ -25,45 +28,64 @@
 //            added in it, as the TPU's aliased accumulation
 //            (scan_n1.py:140-147) gives it.
 //
-// Layout of the work: one thread owns one (source, image, channel) chain
-// and runs BOTH of its directions, the forward one first and then the
-// reversed one, so the two directions of a source sum in the thread with
-// no race and no second launch. The forward direction writes its outputs
-// to y; the reversed direction reads them back and adds its own. A
-// reversed direction starts at source row L-1 with a zero state; dt of a
-// row is computed at that row's own position. Nothing is padded.
+// The forward: one thread owns one (source, image, channel) chain and runs
+// BOTH of its directions, the forward one first and then the reversed one,
+// so the two directions of a source sum in the thread with no race and no
+// second launch. The forward direction writes its outputs to y; the
+// reversed direction reads them back and adds its own. A reversed
+// direction starts at source row L-1 with a zero state; dt of a row is
+// computed at that row's own position. Nothing is padded.
 //
 // What bounds them on the H100, and what the design does about it:
-//  - Both are a chain of L dependent steps per channel (L = 3136 at stage 0
-//    of vssm1_base), so latency, not bytes or FLOPs, bounds them. The block's
-//    64 channels share the rows of x_dbl: a tile of them, and of the source
-//    rows, is staged in shared memory so that the loads of a tile are issued
-//    together and not once per dependent step. dt_proj runs in the kernel,
-//    as the TPU kernel runs it in its body (the fp32 (B, 4, L, D) dt tensor
-//    never exists): W_dt's R columns for the block's channels sit in shared
-//    memory. Every per-row term (dt's dot product, softplus, the decay, the
-//    input term; in the backward also the terms after the adjoint) is
-//    computed for a whole tile at once, with the rows interleaved in
-//    registers (row_terms), so that the dependent chain carries one FMA a
-//    step, as the TPU kernel's does. (A first version that computed them
-//    inside the chain took 2.78 ms instead of 1.78 ms at stage 0 of
-//    vssm1_base, B=12, fp32, on an H100 80GB HBM3 at 700 W.) What remains
-//    per tile is the staging's global-load latency with one or two warps an
-//    SM; a chunked parallel scan over L is the next step.
-//  - The backward walks each chain three times: forward to write the state
-//    before every kChunk rows into a scratch buffer of the wrapper (the
-//    forward kernel saves no carries: the context tower and validation run
-//    it without a gradient, and then they would be waste), then the chunks
-//    back to front, rebuilding each chunk's states in shared memory and
-//    running the adjoint chain over it. dB, dC and dt_r need sums over the
-//    D channels of each row: each block sums its 64 channels in a fixed
-//    order from the staged values (channel_sum) and writes a per-block
-//    partial that the wrapper sums. dA, dD, d dt_bias and dW_dt are written per image and
-//    summed by the wrapper too. No float atomics: the gradients are the
-//    same in every run.
+//  - The forward is a chain of L dependent steps per channel (L = 3136 at
+//    stage 0 of vssm1_base), so latency, not bytes or FLOPs, bounds it. The
+//    block's 64 channels share the rows of x_dbl: a tile of them, and of
+//    the source rows, is staged in shared memory so that the loads of a
+//    tile are issued together and not once per dependent step. dt_proj runs
+//    in the kernels, as the TPU kernel runs it in its body (the fp32
+//    (B, 4, L, D) dt tensor never exists): W_dt's R columns for the block's
+//    channels sit in shared memory. Every per-row term (dt's dot product,
+//    softplus, the decay, the input term; in the backward also the terms
+//    after the adjoint) is computed for a whole tile at once, with the rows
+//    interleaved in registers (row_terms), so that the dependent chain
+//    carries one FMA a step, as the TPU kernel's does. (A first version
+//    that computed them inside the chain took 2.78 ms instead of 1.78 ms at
+//    stage 0 of vssm1_base, B=12, fp32, on an H100 80GB HBM3 at 700 W.)
+//    What remains per tile is the staging's global-load latency with one or
+//    two warps an SM; the backward's chunks are the next step for it.
+//  - The backward ran the same way until it was the port's slowest kernel
+//    against its bound: one thread walked its chain three times over all L
+//    rows, on a grid of (D / 64) x B x 2 blocks of 2 warps (96 blocks at
+//    stage 0, B=12, on 132 SMs): 7.19 ms against a 0.07 ms bound on an H100
+//    80GB HBM3 at 700 W. It is now a chunked scan, parallel over L. At N=1
+//    a run of rows acts on a chain as a pair: the product P of its decays
+//    and its end state H from a zero start (h_out = P h_in + H); on the
+//    adjoint likewise (g_out = P g_in + G). A chunk is kChunk rows, cut
+//    into pieces of kSub rows (what a thread holds in registers). So
+//      1. scan_n1_bwd_sums_kernel writes (P, H, G) for every (direction,
+//         image, piece, channel): a block a (chunk, 64 channels, image,
+//         direction);
+//      2. scan_n1_bwd_carry_kernel walks each chain's pieces, one FMA a
+//         piece, for the state entering each piece and the adjoint
+//         entering it from the rows after (in scan order);
+//      3. scan_n1_bwd_grad_kernel rebuilds each piece's states and
+//         adjoints from those and computes the gradients: a block a (chunk,
+//         64 channels, image, source) takes both directions of its source,
+//         so du of the pair still sums in the thread.
+//    At stage 0, B=12 that is 18,816 + 96 + 9,408 blocks. dB, dC and dt_r
+//    need sums over the D channels of each row: each block sums its 64
+//    channels in a fixed order from the staged values (channel_sum, float4
+//    reads of 16-byte aligned rows) and writes a per-block partial that
+//    the wrapper sums. dA, dD, d dt_bias and dW_dt are written per chunk
+//    and image and summed by the wrapper in a fixed order. No float
+//    atomics: the gradients are the same in every run. Composing pieces
+//    instead of walking rows changes only the rounding; there is no
+//    division by a decay (a P that underflows to 0 forgets the state, as
+//    the walk does).
 //
-// Both launch on the caller's stream, allocate nothing, and return
-// cudaGetLastError() so that the Python wrapper can raise on a refused launch.
+// All launch on the caller's stream, allocate nothing (the wrapper
+// allocates every workspace), and return cudaGetLastError() so that the
+// Python wrapper can raise on a refused launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,11 +94,21 @@
 
 namespace {
 
-constexpr int kThreads = 64;       // channels per block
-constexpr int kTile = 32;          // rows staged per pass
-constexpr int kChunk = 16;         // rows whose states the backward rebuilds
-constexpr int kS = kThreads + 1;   // padded stride of per-channel columns
-static_assert(kTile % kChunk == 0, "tiles hold whole chunks");
+constexpr int kThreads = 64;        // channels per block
+constexpr int kTile = 32;           // rows the forward stages per pass
+constexpr int kChunk = 32;          // source rows a backward block takes
+constexpr int kSub = 16;            // rows the backward holds in registers
+constexpr int kCarryThreads = 128;  // chains per block of the carry kernel
+constexpr int kGradBlocks = 6;      // the gradient kernel's blocks an SM
+constexpr int kPieces = kChunk / kSub;  // pieces of a chunk
+// Row stride of the per-channel rows that the backward sums over channels:
+// 16-byte aligned for float4 reads, and rows 4 banks apart, so that the 8
+// lanes of a quarter warp reading 8 rows hit distinct banks.
+constexpr int kLd = kThreads + 4;
+static_assert(kChunk % kSub == 0, "chunks hold whole pieces");
+static_assert(kThreads % 4 == 0 && kLd % 4 == 0, "float4 rows");
+
+__host__ __device__ constexpr int pad4(int n) { return (n + 3) / 4 * 4; }
 
 template <typename T>
 __device__ __forceinline__ float to_float(T v);
@@ -131,13 +163,19 @@ __device__ __forceinline__ void row_terms(
   }
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
-    const float dt = softplus(v[r]);
+    float dt;
+    if (kGrad) {  // softplus as softplus() computes it, its exp reused
+      const float e = expf(-fabsf(v[r]));
+      dt = fmaxf(v[r], 0.0f) + log1pf(e);
+      dtv[r] = dt;
+      // softplus'(dt_raw); the divisor is in [1, 2], where __fdividef is
+      // within 2 ulp
+      sgv[r] = __fdividef(v[r] >= 0.0f ? 1.0f : e, 1.0f + e);
+    } else {
+      dt = softplus(v[r]);
+    }
     av[r] = expf(dt * a);
     bv[r] = dt * x_col[r * x_stride] * xd_s[r * C + R];
-    if (kGrad) {
-      dtv[r] = dt;
-      sgv[r] = 1.0f / (1.0f + expf(-v[r]));  // softplus'(dt_raw)
-    }
   }
 }
 
@@ -225,212 +263,412 @@ __global__ void __launch_bounds__(kThreads) scan_n1_fwd_kernel(
 }
 
 // sum over the block's channels of a[j] * b[j] (b null: of a[j]), in a fixed
-// order: four interleaved partial sums, then their pairwise sum
+// order: four interleaved partial sums, then their pairwise sum. a and b
+// are 16-byte aligned.
 __device__ __forceinline__ float channel_sum(const float* a, const float* b) {
   float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
   for (int j = 0; j < kThreads; j += 4) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) p[e] += b ? a[j + e] * b[j + e] : a[j + e];
+    const float4 x = *reinterpret_cast<const float4*>(a + j);
+    if (b) {
+      const float4 y = *reinterpret_cast<const float4*>(b + j);
+      p[0] += x.x * y.x;
+      p[1] += x.y * y.y;
+      p[2] += x.z * y.z;
+      p[3] += x.w * y.w;
+    } else {
+      p[0] += x.x;
+      p[1] += x.y;
+      p[2] += x.z;
+      p[3] += x.w;
+    }
   }
   return (p[0] + p[1]) + (p[2] + p[3]);
 }
 
-// grid (ceil(D / kThreads), B, 2 sources), block kThreads, dynamic smem
-// bwd_smem_floats(R) floats.
+// ---- the backward: three kernels ----------------------------------------
 //
+// A chunk is kChunk source rows [c kChunk, c kChunk + nt) of one image; a
+// direction walks them front to back (k < 2) or back to front (k >= 2), in
+// kPieces pieces of kSub rows in that scan order. Piece j of chunk c has
+// the slot c kPieces + j; a piece past the chunk's rows (in the last chunk)
+// is empty and passes states and adjoints through.
+// Workspaces of the wrapper, fp32, (.., 4, B, nchunks * kPieces, D):
+//   sums     (3, ..): per direction, piece and channel, the piece's product
+//            of decays P, its end state H from a zero start, and the
+//            adjoint that leaves its first row (in scan order) from a zero
+//            adjoint coming in, G
+//   carries  (2, ..): the state entering each piece, h_in, and the adjoint
+//            entering its last row from the row after it, g_in
 // Outputs (fp32): du (2, B, L, D), the gradient w.r.t. the sources through
 // the scan and the D skip of both directions (the x_proj path reaches the
 // sources through dxdbl, outside); dxdbl_part (nblk, 4, B, L, R+2) in
-// source order; dA, dD, ddb (B, 4, D) and ddtw (B, 4, D, R), per image.
-// carries is a scratch buffer of (2, B, ceil(L / kChunk), D) floats.
-__host__ __device__ constexpr int bwd_smem_floats(int R) {
-  return 2 * R * kS               // dtw_s, dwdt_s
-         + kTile * (R + 2)        // xd_s
-         + kTile * kS             // x_s
-         + 5 * kChunk * kS;       // per-row values of a chunk
+// source order, a partial per block of kThreads channels; dA, dD, ddb
+// (nchunks, B, 4, D) and ddtw (nchunks, B, 4, R, D), a partial per chunk
+// and image.
+
+// dtw_s (R, ld) <- W_dt of direction k for the block's channels (0 past D)
+__device__ __forceinline__ void stage_dtw(const float* dtw, int k, int D,
+                                          int R, int d0, int ld,
+                                          float* dtw_s) {
+  for (int i = threadIdx.x; i < R * kThreads; i += kThreads) {
+    const int dd = i / R;
+    const int q = i - dd * R;
+    dtw_s[q * ld + dd] =
+        d0 + dd < D ? dtw[(static_cast<size_t>(k) * D + d0 + dd) * R + q]
+                    : 0.0f;
+  }
+}
+
+// Stage the nt rows of a chunk in a direction's scan order, from scan row
+// i0 on: their x_dbl rows (C floats each, row stride xd_ld) into xd_s, and
+// for the block's channels the source's rows into x_s and dy's into dy_s
+// (row stride kThreads, zeros past D).
+template <typename T>
+__device__ __forceinline__ void stage_chunk(
+    const float* xd_g, const T* src, const T* dyp, int i0, int nt, int L,
+    int D, int C, int xd_ld, int d0, bool rev, float* xd_s, float* x_s,
+    float* dy_s) {
+  for (int o = threadIdx.x; o < nt * C; o += kThreads) {
+    const int r = o / C;
+    const int col = o - r * C;
+    xd_s[r * xd_ld + col] =
+        xd_g[static_cast<size_t>(src_row(i0 + r, L, rev)) * C + col];
+  }
+  for (int o = threadIdx.x; o < nt * kThreads; o += kThreads) {
+    const int r = o / kThreads;
+    const int dd = o - r * kThreads;
+    const size_t row = static_cast<size_t>(src_row(i0 + r, L, rev)) * D;
+    const bool in = d0 + dd < D;
+    x_s[o] = in ? to_float(src[row + d0 + dd]) : 0.0f;
+    dy_s[o] = in ? to_float(dyp[row + d0 + dd]) : 0.0f;
+  }
+}
+
+// 1. Piece summaries. grid (nchunks * nblk, B, 4 directions), block
+// kThreads, dynamic smem sums_smem_floats(R) floats. One pass over each
+// piece's rows in scan order: P *= a, h = a h + b, and G += P C dy, the
+// adjoint recurrence p = C dy + g, g = a p unrolled into its sum
+// (G = sum over rows of the decays up to and including the row, times its
+// C dy), so that one forward walk gives all three.
+__host__ __device__ constexpr int sums_smem_floats(int R) {
+  return R * kThreads + kChunk * (R + 2) + 2 * kChunk * kThreads;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) scan_n1_bwd_kernel(
+__global__ void __launch_bounds__(kThreads) scan_n1_bwd_sums_kernel(
+    const T* __restrict__ xr, const T* __restrict__ xc,
+    const float* __restrict__ xdbl, const float* __restrict__ dtw,
+    const float* __restrict__ dt_bias, const float* __restrict__ A,
+    const T* __restrict__ dy, float* __restrict__ sums, int B, int L, int D,
+    int R) {
+  extern __shared__ float smem[];
+  const int C = R + 2;
+  float* dtw_s = smem;                    // (R, kThreads)
+  float* xd_s = dtw_s + R * kThreads;     // (kChunk, C)
+  float* x_s = xd_s + kChunk * C;         // (kChunk, kThreads): u
+  float* dy_s = x_s + kChunk * kThreads;  // (kChunk, kThreads): dy
+
+  const int nblk = (D + kThreads - 1) / kThreads;
+  const int c = blockIdx.x / nblk;
+  const int d0 = (blockIdx.x - c * nblk) * kThreads;
+  const int b = blockIdx.y;
+  const int k = blockIdx.z;
+  const int s = k & 1;
+  const bool rev = k >= 2;
+  const int tid = threadIdx.x;
+  const int d = d0 + tid;
+  const int nchunks = (L + kChunk - 1) / kChunk;
+  const int nt = min(kChunk, L - c * kChunk);
+  const int i0 = rev ? L - c * kChunk - nt : c * kChunk;
+  const size_t img = static_cast<size_t>(b) * L * D;
+
+  stage_dtw(dtw, k, D, R, d0, kThreads, dtw_s);
+  stage_chunk(xdbl + (static_cast<size_t>(k) * B + b) * L * C,
+              (s == 0 ? xr : xc) + img,
+              dy + static_cast<size_t>(s) * B * L * D + img, i0, nt, L, D, C,
+              C, d0, rev, xd_s, x_s, dy_s);
+  __syncthreads();
+  if (d >= D) return;  // no barrier follows
+
+  const float a = A[k * D + d];
+  const float db = dt_bias[k * D + d];
+  const size_t plane = static_cast<size_t>(4) * B * nchunks * kPieces * D;
+  for (int j = 0; j < kPieces; ++j) {
+    const int r0 = j * kSub;
+    float P = 1.0f, h = 0.0f, G = 0.0f;  // an empty piece passes through
+    if (r0 < nt) {
+      float av[kSub], bv[kSub];
+      row_terms<kSub, false>(xd_s + r0 * C, C, R, x_s + r0 * kThreads + tid,
+                             kThreads, dtw_s + tid, kThreads, db, a, av, bv,
+                             av, bv);
+#pragma unroll
+      for (int r = 0; r < kSub; ++r) {
+        if (r0 + r < nt) {
+          P *= av[r];
+          h = av[r] * h + bv[r];
+          G += P * (xd_s[(r0 + r) * C + R + 1] *
+                    dy_s[(r0 + r) * kThreads + tid]);
+        }
+      }
+    }
+    const size_t o =
+        ((static_cast<size_t>(k) * B + b) * nchunks * kPieces + c * kPieces +
+         j) * D + d;
+    sums[o] = P;
+    sums[plane + o] = h;
+    sums[2 * plane + o] = G;
+  }
+}
+
+// 2. Carries. grid ceil(4 B D / kCarryThreads), block kCarryThreads: one
+// thread a (direction, image, channel) chain walks its pieces in scan order
+// for h_in (h = P h + H) and in reverse for g_in (g = P g + G): one FMA a
+// piece, with the loads of kBatch pieces issued ahead of their FMAs.
+constexpr int kBatch = 8;
+
+__global__ void __launch_bounds__(kCarryThreads) scan_n1_bwd_carry_kernel(
+    const float* __restrict__ sums, float* __restrict__ carries, int B,
+    int nchunks, int D) {
+  const int i = blockIdx.x * kCarryThreads + threadIdx.x;
+  if (i >= 4 * B * D) return;
+  const int kb = i / D;  // k * B + b
+  const int d = i - kb * D;
+  const bool rev = kb >= 2 * B;
+  const int n = nchunks * kPieces;
+  const size_t plane = static_cast<size_t>(4) * B * n * D;
+  const size_t base = static_cast<size_t>(kb) * n * D + d;
+  const float* P = sums + base;
+  const float* H = P + plane;
+  const float* G = H + plane;
+  float* h_in = carries + base;
+  float* g_in = h_in + plane;
+  // the slot of the m-th piece in scan order, times D
+  auto slot = [&](int m) {
+    const int c = m / kPieces;
+    return static_cast<size_t>((rev ? nchunks - 1 - c : c) * kPieces +
+                               (m - c * kPieces)) * D;
+  };
+  float h = 0.0f;
+  for (int m0 = 0; m0 < n; m0 += kBatch) {
+    float p[kBatch], x[kBatch];
+#pragma unroll
+    for (int e = 0; e < kBatch; ++e) {
+      if (m0 + e < n) {
+        p[e] = P[slot(m0 + e)];
+        x[e] = H[slot(m0 + e)];
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < kBatch; ++e) {
+      if (m0 + e < n) {
+        h_in[slot(m0 + e)] = h;
+        h = p[e] * h + x[e];
+      }
+    }
+  }
+  float g = 0.0f;
+  for (int m0 = n - 1; m0 >= 0; m0 -= kBatch) {
+    float p[kBatch], x[kBatch];
+#pragma unroll
+    for (int e = 0; e < kBatch; ++e) {
+      if (m0 - e >= 0) {
+        p[e] = P[slot(m0 - e)];
+        x[e] = G[slot(m0 - e)];
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < kBatch; ++e) {
+      if (m0 - e >= 0) {
+        g_in[slot(m0 - e)] = g;
+        g = p[e] * g + x[e];
+      }
+    }
+  }
+}
+
+// 3. Gradients. grid (nchunks * nblk, B, 2 sources), block kThreads,
+// dynamic smem grad_smem_floats(R) floats. Registers are capped for
+// kGradBlocks resident blocks an SM (168 a thread, no spills on sm_90a;
+// uncapped, 206 registers held 4 blocks, and with an IEEE division in the
+// sigmoid stage 0 of vssm1_base, B=12, took 1.14 ms against 0.94 on an
+// H100 80GB HBM3 at 700 W). The block takes both directions
+// of its source over its chunk's rows, the forward one first, so that du
+// of the pair sums in the thread. Each piece starts from its own h_in and
+// g_in: rebuild its states, run the adjoint chain, then the per-row terms
+// (walks 2 and 3 of a sequential backward, on kSub rows).
+__host__ __device__ constexpr int grad_smem_floats(int R) {
+  return R * kLd                  // dtw_s
+         + 3 * kSub * kLd         // ddt_s, pdtu_s, hdy_s
+         + R * kThreads           // dwdt_s
+         + 2 * kChunk * kThreads  // x_s, dy_s
+         + kChunk * pad4(R + 2);  // xd_s
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kGradBlocks) scan_n1_bwd_grad_kernel(
     const T* __restrict__ xr, const T* __restrict__ xc,
     const float* __restrict__ xdbl, const float* __restrict__ dtw,
     const float* __restrict__ dt_bias, const float* __restrict__ A,
     const float* __restrict__ Dv, const T* __restrict__ dy,
-    float* __restrict__ carries, float* __restrict__ du,
+    const float* __restrict__ carries, float* __restrict__ du,
     float* __restrict__ dxdbl_part, float* __restrict__ dA_out,
     float* __restrict__ dD_out, float* __restrict__ ddb_out,
     float* __restrict__ ddtw_out, int B, int L, int D, int R) {
-  extern __shared__ float smem[];
+  extern __shared__ float4 smem4[];  // 16-byte aligned
   const int C = R + 2;
-  float* dtw_s = smem;                  // (R, kS)
-  float* dwdt_s = dtw_s + R * kS;       // (R, kS)
-  float* xd_s = dwdt_s + R * kS;        // (kTile, C)
-  float* x_s = xd_s + kTile * C;        // (kTile, kS): u
-  float* h_s = x_s + kTile * kS;        // (kChunk, kS): state after the row
-  float* dy_s = h_s + kChunk * kS;      // dy
-  float* ddt_s = dy_s + kChunk * kS;    // grad w.r.t. dt_raw
-  float* pdtu_s = ddt_s + kChunk * kS;  // adjoint * dt * u   (dB terms)
-  float* hdy_s = pdtu_s + kChunk * kS;  // h * dy             (dC terms)
+  const int Cp = pad4(C);  // xd_s's row stride
+  float* dtw_s = reinterpret_cast<float*>(smem4);  // (R, kLd)
+  float* ddt_s = dtw_s + R * kLd;      // (kSub, kLd): grad w.r.t. dt_raw
+  float* pdtu_s = ddt_s + kSub * kLd;  // adjoint * dt * u   (dB terms)
+  float* hdy_s = pdtu_s + kSub * kLd;  // h * dy             (dC terms)
+  float* dwdt_s = hdy_s + kSub * kLd;  // (R, kThreads)
+  float* x_s = dwdt_s + R * kThreads;  // (kChunk, kThreads): u
+  float* dy_s = x_s + kChunk * kThreads;  // (kChunk, kThreads): dy
+  float* xd_s = dy_s + kChunk * kThreads;  // (kChunk, Cp)
 
-  const int s = blockIdx.z;
+  const int nblk = (D + kThreads - 1) / kThreads;
+  const int c = blockIdx.x / nblk;
+  const int blk = blockIdx.x - c * nblk;
+  const int d0 = blk * kThreads;
   const int b = blockIdx.y;
-  const int d0 = blockIdx.x * kThreads;
+  const int s = blockIdx.z;
   const int tid = threadIdx.x;
   const int d = d0 + tid;
   // Inactive lanes (d >= D) run the same code on zeros, so that every lane
   // reaches every barrier and their shared-memory entries are 0.
   const bool active = d < D;
+  const int nchunks = (L + kChunk - 1) / kChunk;
+  const int nt = min(kChunk, L - c * kChunk);
   const T* src = (s == 0 ? xr : xc) + static_cast<size_t>(b) * L * D;
   const size_t plane = (static_cast<size_t>(s) * B + b) * L * D;
-  const int nchunks = (L + kChunk - 1) / kChunk;
-  float* car = carries + (static_cast<size_t>(s) * B + b) * nchunks * D;
+  const size_t cplane = static_cast<size_t>(4) * B * nchunks * kPieces * D;
 
   for (int pass = 0; pass < 2; ++pass) {
     const int k = s + 2 * pass;
     const bool rev = pass == 1;
-    __syncthreads();  // the previous pass is done with dtw_s and dwdt_s
-    for (int i = tid; i < R * kThreads; i += kThreads) {
-      const int dd = i / R;
-      const int q = i - dd * R;
-      dtw_s[q * kS + dd] =
-          d0 + dd < D ? dtw[(static_cast<size_t>(k) * D + d0 + dd) * R + q]
-                      : 0.0f;
-      dwdt_s[q * kS + dd] = 0.0f;
-    }
+    const int i0 = rev ? L - c * kChunk - nt : c * kChunk;
+    __syncthreads();  // the previous pass is done with the shared buffers
+    stage_dtw(dtw, k, D, R, d0, kLd, dtw_s);
+    for (int q = 0; q < R; ++q) dwdt_s[q * kThreads + tid] = 0.0f;
+    stage_chunk(xdbl + (static_cast<size_t>(k) * B + b) * L * C, src,
+                dy + plane, i0, nt, L, D, C, Cp, d0, rev, xd_s, x_s, dy_s);
     const float a = active ? A[k * D + d] : 0.0f;
     const float db = active ? dt_bias[k * D + d] : 0.0f;
     const float dskip = active ? Dv[k * D + d] : 0.0f;
-    const float* xd_g = xdbl + (static_cast<size_t>(k) * B + b) * L * C;
+    __syncthreads();
 
-    // ---- walk 1: the state before every chunk --------------------------
-    float h = 0.0f;
-    for (int i0 = 0; i0 < L; i0 += kTile) {
-      const int nt = min(kTile, L - i0);
-      __syncthreads();
-      for (int o = tid; o < nt * C; o += kThreads) {
-        const int r = o / C;
-        xd_s[o] = xd_g[static_cast<size_t>(src_row(i0 + r, L, rev)) * C +
-                       (o - r * C)];
-      }
-      for (int o = tid; o < nt * kThreads; o += kThreads) {
-        const int r = o / kThreads;
-        const int dd = o - r * kThreads;
-        const size_t row = static_cast<size_t>(src_row(i0 + r, L, rev)) * D;
-        x_s[r * kS + dd] = d0 + dd < D ? to_float(src[row + d0 + dd]) : 0.0f;
-      }
-      __syncthreads();
-      float av[kTile], bv[kTile];
-      row_terms<kTile, false>(xd_s, C, R, x_s + tid, kS, dtw_s + tid, kS, db,
-                              a, av, bv, av, bv);
+    float dA = 0.0f, dD = 0.0f, ddb = 0.0f;
+    for (int j = 0; j * kSub < nt; ++j) {
+      const int r0 = j * kSub;
+      const int ns = min(kSub, nt - r0);
+      const size_t co =
+          ((static_cast<size_t>(k) * B + b) * nchunks * kPieces +
+           c * kPieces + j) * D + d;
+      float h = active ? carries[co] : 0.0f;
+      float g = active ? carries[cplane + co] : 0.0f;
+      const float* xd = xd_s + r0 * Cp;
+      const float* xs = x_s + r0 * kThreads + tid;
+      const float* dys = dy_s + r0 * kThreads + tid;
+      float av[kSub], bv[kSub], dtv[kSub], sgv[kSub], pv[kSub], hv[kSub];
+      row_terms<kSub, true>(xd, Cp, R, xs, kThreads, dtw_s + tid, kLd, db,
+                            a, av, bv, dtv, sgv);
+      const float h0 = h;
 #pragma unroll
-      for (int r = 0; r < kTile; ++r) {
-        if (r < nt) {
-          if (r % kChunk == 0 && active)  // kTile is a multiple of kChunk
-            car[static_cast<size_t>((i0 + r) / kChunk) * D + d] = h;
+      for (int r = 0; r < kSub; ++r) {
+        if (r < ns) {
           h = av[r] * h + bv[r];
-        }
-      }
-    }
-
-    // ---- walks 2 and 3: chunks back to front ---------------------------
-    float g = 0.0f, dA = 0.0f, dD = 0.0f, ddb = 0.0f;
-    for (int c = nchunks - 1; c >= 0; --c) {
-      const int i0 = c * kChunk;
-      const int nt = min(kChunk, L - i0);
-      __syncthreads();  // the previous chunk's sums are done
-      for (int o = tid; o < nt * C; o += kThreads) {
-        const int r = o / C;
-        xd_s[o] = xd_g[static_cast<size_t>(src_row(i0 + r, L, rev)) * C +
-                       (o - r * C)];
-      }
-      for (int o = tid; o < nt * kThreads; o += kThreads) {
-        const int r = o / kThreads;
-        const int dd = o - r * kThreads;
-        const size_t row = static_cast<size_t>(src_row(i0 + r, L, rev)) * D;
-        const bool in = d0 + dd < D;
-        x_s[r * kS + dd] = in ? to_float(src[row + d0 + dd]) : 0.0f;
-        dy_s[r * kS + dd] = in ? to_float(dy[plane + row + d0 + dd]) : 0.0f;
-      }
-      __syncthreads();
-
-      // rebuild the chunk's states from its carry
-      const float hc = active ? car[static_cast<size_t>(c) * D + d] : 0.0f;
-      float av[kChunk], bv[kChunk], dtv[kChunk], sgv[kChunk], pv[kChunk];
-      row_terms<kChunk, true>(xd_s, C, R, x_s + tid, kS, dtw_s + tid, kS, db,
-                              a, av, bv, dtv, sgv);
-      h = hc;
-#pragma unroll
-      for (int r = 0; r < kChunk; ++r) {
-        if (r < nt) {
-          h = av[r] * h + bv[r];
-          h_s[r * kS + tid] = h;
+          hv[r] = h;  // the state after row r
         }
       }
       // the adjoint chain, last row first: p[r] = C dy + a[r+1] p[r+1],
-      // with the adjoint g carried in from the chunk after this one
+      // with the adjoint g carried in from the rows after this piece
 #pragma unroll
-      for (int r = kChunk - 1; r >= 0; --r) {
-        if (r < nt) {
-          pv[r] = xd_s[r * C + R + 1] * dy_s[r * kS + tid] + g;
+      for (int r = kSub - 1; r >= 0; --r) {
+        if (r < ns) {
+          pv[r] = xd[r * Cp + R + 1] * dys[r * kThreads] + g;
           g = av[r] * pv[r];
         }
       }
+      __syncthreads();  // the previous piece's sums are done
       // given the adjoint, the rows are independent again
+      float ddtv[kSub];
 #pragma unroll
-      for (int r = kChunk - 1; r >= 0; --r) {
-        if (r < nt) {
+      for (int r = kSub - 1; r >= 0; --r) {
+        if (r < ns) {
           const float p = pv[r];
           const float dt = dtv[r];
-          const float dyv = dy_s[r * kS + tid];
-          const float u = x_s[r * kS + tid];
-          const float hp = r > 0 ? h_s[(r - 1) * kS + tid] : hc;
+          const float dyv = dys[r * kThreads];
+          const float u = xs[r * kThreads];
+          const float hp = r > 0 ? hv[r - 1] : h0;
           const float dloga = p * hp * av[r];
-          const float ddt = (dloga * a + p * u * xd_s[r * C + R]) * sgv[r];
+          const float ddt = (dloga * a + p * u * xd[r * Cp + R]) * sgv[r];
           dA += dloga * dt;
           dD += dyv * u;
           ddb += ddt;
-          ddt_s[r * kS + tid] = ddt;
-          pdtu_s[r * kS + tid] = p * dt * u;
-          hdy_s[r * kS + tid] = h_s[r * kS + tid] * dyv;
+          ddtv[r] = ddt;
+          ddt_s[r * kLd + tid] = ddt;
+          pdtu_s[r * kLd + tid] = p * dt * u;
+          hdy_s[r * kLd + tid] = hv[r] * dyv;
           if (active) {
             const size_t o =
-                plane + static_cast<size_t>(src_row(i0 + r, L, rev)) * D + d;
-            const float v = dt * xd_s[r * C + R] * p + dyv * dskip;
+                plane +
+                static_cast<size_t>(src_row(i0 + r0 + r, L, rev)) * D + d;
+            const float v = dt * xd[r * Cp + R] * p + dyv * dskip;
             du[o] = rev ? du[o] + v : v;  // the forward direction wrote first
           }
         }
       }
+      // dW_dt[d, q] += sum over the piece's rows of ddt * dt_r[q], four q
+      // at a time (xd_s's rows are 16-byte aligned and pad4(C) long)
+      for (int q0 = 0; q0 < R; q0 += 4) {
+        float sum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int r = 0; r < kSub; ++r) {
+          if (r < ns) {
+            const float4 x = *reinterpret_cast<const float4*>(xd + r * Cp + q0);
+            sum[0] += ddtv[r] * x.x;
+            sum[1] += ddtv[r] * x.y;
+            sum[2] += ddtv[r] * x.z;
+            sum[3] += ddtv[r] * x.w;
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (q0 + e < R) dwdt_s[(q0 + e) * kThreads + tid] += sum[e];
+      }
       __syncthreads();
 
-      // sums over this block's channels: the dt_r, dB and dC of each row
-      float* part =
-          dxdbl_part +
-          ((static_cast<size_t>(blockIdx.x) * 4 + k) * B + b) * L * C;
-      for (int o = tid; o < nt * C; o += kThreads) {
-        const int r = o / C;
-        const int col = o - r * C;
-        const float sum =
-            col < R ? channel_sum(ddt_s + r * kS, dtw_s + col * kS)
-                    : channel_sum((col == R ? pdtu_s : hdy_s) + r * kS,
-                                  nullptr);
-        part[static_cast<size_t>(src_row(i0 + r, L, rev)) * C + col] = sum;
-      }
-      // dW_dt[d, q] += sum over the chunk's rows of ddt * dt_r[q]
-      for (int q = 0; q < R; ++q) {
-        float sum = 0.0f;
-        for (int r = 0; r < nt; ++r)
-          sum += ddt_s[r * kS + tid] * xd_s[r * C + q];
-        dwdt_s[q * kS + tid] += sum;
+      // sums over this block's channels: the dt_r of each row (ns x R
+      // outputs), then its dB and dC (ns x 2)
+      float* part = dxdbl_part +
+                    ((static_cast<size_t>(blk) * 4 + k) * B + b) * L * C;
+      for (int o = tid; o < ns * C; o += kThreads) {
+        int r, col;
+        float sum;
+        if (o < ns * R) {
+          r = o / R;
+          col = o - r * R;
+          sum = channel_sum(ddt_s + r * kLd, dtw_s + col * kLd);
+        } else {
+          r = (o - ns * R) >> 1;
+          col = R + ((o - ns * R) & 1);
+          sum = channel_sum((col == R ? pdtu_s : hdy_s) + r * kLd, nullptr);
+        }
+        part[static_cast<size_t>(src_row(i0 + r0 + r, L, rev)) * C + col] =
+            sum;
       }
     }
 
     if (active) {
-      const size_t w = (static_cast<size_t>(b) * 4 + k) * D + d;
+      const size_t w = ((static_cast<size_t>(c) * B + b) * 4 + k) * D + d;
       dA_out[w] = dA;
       dD_out[w] = dD;
       ddb_out[w] = ddb;
-      for (int q = 0; q < R; ++q) ddtw_out[w * R + q] = dwdt_s[q * kS + tid];
+      const size_t wq = ((static_cast<size_t>(c) * B + b) * 4 + k) * R * D;
+      for (int q = 0; q < R; ++q)
+        ddtw_out[wq + static_cast<size_t>(q) * D + d] =
+            dwdt_s[q * kThreads + tid];
     }
   }
 }
@@ -467,6 +705,7 @@ struct BwdArgs {
   const float* A;
   const float* Dv;
   const void* dy;
+  float* sums;
   float* carries;
   float* du;
   float* dxdbl_part;
@@ -476,25 +715,83 @@ struct BwdArgs {
   float* ddtw;
 };
 
+// kernels 1 and 2: the chunk summaries, then the carries
+template <typename T>
+cudaError_t launch_carries(const BwdArgs& p, int B, int L, int D, int R,
+                           cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(sums_smem_floats(R)) * sizeof(float);
+  cudaError_t err = allow_smem(scan_n1_bwd_sums_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  const int nblk = (D + kThreads - 1) / kThreads;
+  const int nchunks = (L + kChunk - 1) / kChunk;
+  scan_n1_bwd_sums_kernel<T><<<dim3(nchunks * nblk, B, 4), kThreads, smem,
+                               stream>>>(
+      static_cast<const T*>(p.xr), static_cast<const T*>(p.xc), p.xdbl, p.dtw,
+      p.dt_bias, p.A, static_cast<const T*>(p.dy), p.sums, B, L, D, R);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int chains = 4 * B * D;
+  scan_n1_bwd_carry_kernel<<<(chains + kCarryThreads - 1) / kCarryThreads,
+                             kCarryThreads, 0, stream>>>(p.sums, p.carries, B,
+                                                         nchunks, D);
+  return cudaGetLastError();
+}
+
+// all three kernels
 template <typename T>
 cudaError_t launch_bwd(const BwdArgs& p, int B, int L, int D, int R,
                        cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(bwd_smem_floats(R)) * sizeof(float);
-  const cudaError_t err = allow_smem(scan_n1_bwd_kernel<T>, smem);
+  const size_t smem = static_cast<size_t>(grad_smem_floats(R)) * sizeof(float);
+  cudaError_t err = allow_smem(scan_n1_bwd_grad_kernel<T>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((D + kThreads - 1) / kThreads, B, 2);
-  scan_n1_bwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+  err = launch_carries<T>(p, B, L, D, R, stream);
+  if (err != cudaSuccess) return err;
+  const int nblk = (D + kThreads - 1) / kThreads;
+  const int nchunks = (L + kChunk - 1) / kChunk;
+  scan_n1_bwd_grad_kernel<T><<<dim3(nchunks * nblk, B, 2), kThreads, smem,
+                               stream>>>(
       static_cast<const T*>(p.xr), static_cast<const T*>(p.xc), p.xdbl, p.dtw,
       p.dt_bias, p.A, p.Dv, static_cast<const T*>(p.dy), p.carries, p.du,
       p.dxdbl_part, p.dA, p.dD, p.ddb, p.ddtw, B, L, D, R);
   return cudaGetLastError();
 }
 
+// Resident blocks an SM of backward kernel `kernel` (0 sums, 1 carry,
+// 2 grad) at its launch's block and dynamic shared memory.
+template <typename T>
+cudaError_t occupancy_bwd(int kernel, int R, int* blocks, int* smem_bytes) {
+  if (kernel == 1) {
+    *smem_bytes = 0;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, scan_n1_bwd_carry_kernel, kCarryThreads, 0);
+  }
+  const int floats = kernel == 0 ? sums_smem_floats(R) : grad_smem_floats(R);
+  *smem_bytes = floats * static_cast<int>(sizeof(float));
+  const cudaError_t err =
+      kernel == 0 ? allow_smem(scan_n1_bwd_sums_kernel<T>, *smem_bytes)
+                  : allow_smem(scan_n1_bwd_grad_kernel<T>, *smem_bytes);
+  if (err != cudaSuccess) return err;
+  return kernel == 0 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                           blocks, scan_n1_bwd_sums_kernel<T>, kThreads,
+                           *smem_bytes)
+                     : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                           blocks, scan_n1_bwd_grad_kernel<T>, kThreads,
+                           *smem_bytes);
+}
+
+// The backward's sizes fit its grids: 4 B D chains in an int, B in grid.y.
+bool bwd_sizes_ok(int B, int L, int D, int R) {
+  const long long nblk = (D + kThreads - 1) / kThreads;
+  const long long nchunks = (L + kChunk - 1) / kChunk;
+  return B >= 1 && L >= 1 && D >= 1 && R >= 1 && B <= 65535 &&
+         4LL * B * D <= 0x7fffffffLL && nchunks * nblk <= 0x7fffffffLL;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Each returns the cudaError_t of the launch (0 on success).
+// Each returns the cudaError_t of its launches (0 on success).
 int mia_scan_n1_fwd(const void* xr, const void* xc, int is_bf16,
                     const float* xdbl, const float* dtw, const float* dt_bias,
                     const float* A, const float* Dv, void* y, int B, int L,
@@ -508,19 +805,44 @@ int mia_scan_n1_fwd(const void* xr, const void* xc, int is_bf16,
                                      L, D, R, s);
 }
 
+// The backward's kernels 1 and 2 alone: sums and carries (the workspaces
+// of mia_scan_n1_bwd), for tests of the carries.
+int mia_scan_n1_bwd_carries(const void* xr, const void* xc, int is_bf16,
+                            const float* xdbl, const float* dtw,
+                            const float* dt_bias, const float* A,
+                            const void* dy, float* sums, float* carries,
+                            int B, int L, int D, int R, void* stream) {
+  if (!bwd_sizes_ok(B, L, D, R)) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const BwdArgs p{xr, xc, xdbl, dtw, dt_bias, A, nullptr, dy, sums, carries,
+                  nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
+  return is_bf16 ? launch_carries<__nv_bfloat16>(p, B, L, D, R, s)
+                 : launch_carries<float>(p, B, L, D, R, s);
+}
+
 int mia_scan_n1_bwd(const void* xr, const void* xc, int is_bf16,
                     const float* xdbl, const float* dtw, const float* dt_bias,
                     const float* A, const float* Dv, const void* dy,
-                    float* carries, float* du, float* dxdbl_part, float* dA,
-                    float* dD, float* ddb, float* ddtw, int B, int L, int D,
-                    int R, void* stream) {
-  if (B < 1 || L < 1 || D < 1 || R < 1 || B > 65535)
-    return cudaErrorInvalidValue;
+                    float* sums, float* carries, float* du, float* dxdbl_part,
+                    float* dA, float* dD, float* ddb, float* ddtw, int B,
+                    int L, int D, int R, void* stream) {
+  if (!bwd_sizes_ok(B, L, D, R)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const BwdArgs p{xr, xc, xdbl, dtw, dt_bias, A, Dv, dy,
-                  carries, du, dxdbl_part, dA, dD, ddb, ddtw};
+  const BwdArgs p{xr, xc, xdbl, dtw, dt_bias, A, Dv, dy, sums, carries,
+                  du, dxdbl_part, dA, dD, ddb, ddtw};
   return is_bf16 ? launch_bwd<__nv_bfloat16>(p, B, L, D, R, s)
                  : launch_bwd<float>(p, B, L, D, R, s);
+}
+
+// Backward kernel `kernel`'s (0 sums, 1 carry, 2 grad) resident blocks an
+// SM on the current device (cudaOccupancyMaxActiveBlocksPerMultiprocessor
+// at its launch's block and dynamic shared memory for rank R) into
+// *blocks, and that shared memory in bytes into *smem_bytes.
+int mia_scan_n1_bwd_blocks_per_sm(int kernel, int R, int is_bf16,
+                                  int* blocks, int* smem_bytes) {
+  if (kernel < 0 || kernel > 2 || R < 1) return cudaErrorInvalidValue;
+  return is_bf16 ? occupancy_bwd<__nv_bfloat16>(kernel, R, blocks, smem_bytes)
+                 : occupancy_bwd<float>(kernel, R, blocks, smem_bytes);
 }
 
 }  // extern "C"

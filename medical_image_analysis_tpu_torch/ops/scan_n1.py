@@ -22,14 +22,20 @@ to front when k >= 2. The two directions of a source sum into one output.
   the sum per source, (2, B, L, D) in the source dtype. As the TPU kernel's
   aliased accumulation does, each direction is rounded to the source dtype
   and the pair is added in that dtype.
-- ``scan_n1_bwd`` (kernel ``scan_n1_bwd_kernel``, replacing ``_bwd_kernel``):
-  du, dx_dbl, dA, dD, d dt_bias, dW_dt; the closure is plain PyTorch.
+- ``scan_n1_bwd`` (kernels ``scan_n1_bwd_sums_kernel``,
+  ``scan_n1_bwd_carry_kernel`` and ``scan_n1_bwd_grad_kernel``, together
+  replacing ``_bwd_kernel``): du, dx_dbl, dA, dD, d dt_bias, dW_dt, as a
+  scan over chunks of ``_CHUNK`` rows that runs in parallel over L; the
+  closure is plain PyTorch. ``scan_n1_bwd_carries`` runs its first two
+  kernels alone, for tests of the state and adjoint entering each piece
+  of ``_PIECE`` rows.
 
 The kernels are in ``csrc/scan_n1.cu``, whose header says what bounds them
 on the H100 and how their design answers that. Each wrapper runs its
 kernel on a CUDA tensor and its plain version (``scan_n1_fwd_plain``,
 ``scan_n1_bwd_plain``) on a CPU tensor; there is no fallback between the
-two. ``launches`` counts kernel launches per wrapper. The TPU's batch
+two. ``launches`` counts calls of a wrapper that launched its kernels
+(the backward's three kernels count once). The TPU's batch
 packing into 8 sublanes, its padding and its layout pins have no
 counterpart here.
 """
@@ -46,8 +52,14 @@ from .selective_scan import softplus
 KERNEL_SOURCE = "medical_image_analysis_tpu_torch/csrc/scan_n1.cu"
 launches = {"scan_n1_fwd": 0, "scan_n1_bwd": 0}
 
-_THREADS = 64  # channels per block of both kernels
-_CHUNK = 16  # rows per chunk of the backward kernel (its carries)
+_THREADS = 64  # channels per block of the scan kernels
+_CHUNK = 32  # source rows a chunk of the backward (a block of kernels 1, 3)
+_PIECE = 16  # rows a piece of a chunk (a slot of the summaries and carries)
+_CARRY_THREADS = 128  # chains per block of the backward's carry kernel
+# The backward's kernels in the order of mia_scan_n1_bwd_blocks_per_sm's
+# index: piece summaries, carries, gradients.
+BWD_KERNELS = ("scan_n1_bwd_sums_kernel", "scan_n1_bwd_carry_kernel",
+               "scan_n1_bwd_grad_kernel")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -65,10 +77,17 @@ def build() -> tuple[ctypes.CDLL, str]:
     ]
     lib.mia_scan_n1_fwd.restype = _I
     lib.mia_scan_n1_bwd.argtypes = [
-        _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _P,
     ]
     lib.mia_scan_n1_bwd.restype = _I
+    lib.mia_scan_n1_bwd_carries.argtypes = [
+        _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+    ]
+    lib.mia_scan_n1_bwd_carries.restype = _I
+    lib.mia_scan_n1_bwd_blocks_per_sm.argtypes = [
+        _I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+    lib.mia_scan_n1_bwd_blocks_per_sm.restype = _I
     return lib, log
 
 
@@ -120,6 +139,22 @@ def scan_n1_fwd_plain(xr, xc, x_dbl, dt_proj_w, dt_bias, A, D):
     return y[:2] + y[2:]
 
 
+def _dys(dy):
+    """dy of each direction, (4, B, L, D) fp32 in scan order."""
+    return _scan_order(torch.stack([dy[0], dy[1], dy[0], dy[1]]).float())
+
+
+def _adjoints(a, dh):
+    """The adjoint chain over dim 2 of (4, B, L, D), last row first:
+    p[t] = dh[t] + a[t+1] p[t+1]."""
+    p = torch.zeros_like(dh[:, :, 0])
+    ps = []
+    for t in range(dh.shape[2] - 1, -1, -1):
+        p = dh[:, :, t] + (a[:, :, t + 1] * p if ps else p)
+        ps.append(p)
+    return torch.stack(ps[::-1], dim=2)
+
+
 def scan_n1_bwd_plain(xr, xc, x_dbl, dt_proj_w, dt_bias, A, D, dy):
     """Plain version of ``scan_n1_bwd``: the adjoint of
     ``scan_n1_fwd_plain`` with the adjoint chain as an explicit reverse
@@ -137,15 +172,8 @@ def scan_n1_bwd_plain(xr, xc, x_dbl, dt_proj_w, dt_bias, A, D, dy):
     a = torch.exp(dt * A[:, None, None, :])
     dtu = dt * u
     hs = _states(a, dtu * bm)
-    dyk = _scan_order(torch.stack([dy[0], dy[1], dy[0], dy[1]]).float())
-    # the adjoint chain, last row first: p[t] = C[t] dy[t] + a[t+1] p[t+1]
-    dh = cm * dyk
-    p = torch.zeros_like(dh[:, :, 0])
-    ps = []
-    for t in range(dh.shape[2] - 1, -1, -1):
-        p = dh[:, :, t] + (a[:, :, t + 1] * p if ps else p)
-        ps.append(p)
-    ps = torch.stack(ps[::-1], dim=2)
+    dyk = _dys(dy)
+    ps = _adjoints(a, cm * dyk)
     hprev = torch.cat([torch.zeros_like(hs[:, :, :1]), hs[:, :, :-1]], dim=2)
     dloga = ps * hprev * a
     ddt = (dloga * A[:, None, None, :] + ps * u * bm) * sg
@@ -159,6 +187,45 @@ def scan_n1_bwd_plain(xr, xc, x_dbl, dt_proj_w, dt_bias, A, D, dy):
             torch.sum(dloga * dt, dim=(1, 2)), torch.sum(dyk * u, dim=(1, 2)),
             torch.sum(ddt, dim=(1, 2)),
             torch.einsum("kbld,kblr->kdr", ddt, xd[..., :rank]))
+
+
+def scan_n1_carries_plain(xr, xc, x_dbl, dt_proj_w, dt_bias, A, D, dy,
+                          chunk=_CHUNK, piece=_PIECE):
+    """Plain version of ``scan_n1_bwd_carries``, from the sequential walks
+    of ``scan_n1_bwd_plain``. Each chunk of ``chunk`` source rows is cut
+    into ``chunk // piece`` pieces of ``piece`` rows in each direction's
+    scan order (piece j of chunk c at slot ``c * (chunk // piece) + j``);
+    for every direction and slot, the state entering the piece's first row
+    and the adjoint entering its last row from the row after it, in scan
+    order (0 at the ends). A piece past the last chunk's rows is empty and
+    passes them through: the state after the chunk, the adjoint entering
+    its last row. Returns fp32 ``(h_in, g_in)``, each (4, B, slots, D).
+    ``D`` is unused: the states and adjoints do not depend on the skip."""
+    del D
+    rank = dt_proj_w.shape[2]
+    u, xd, dt, _ = _dirs(xr, xc, x_dbl, dt_proj_w, dt_bias)
+    a = torch.exp(dt * A[:, None, None, :])
+    hs = _states(a, dt * u * xd[..., rank : rank + 1])
+    ps = _adjoints(a, xd[..., rank + 1 : rank + 2] * _dys(dy))
+    zero = torch.zeros_like(hs[:, :, :1])
+    # in scan order: the state entering row i (i = L: after the last row),
+    # and the adjoint a[i+1] p[i+1] entering row i
+    h_before = torch.cat([zero, hs], dim=2)
+    g_after = torch.cat([(a * ps)[:, :, 1:], zero], dim=2)
+    seq_len = xr.shape[1]
+    per = chunk // piece
+    c = torch.arange(-(-seq_len // chunk), device=xr.device)
+    c = c.repeat_interleave(per)
+    j = torch.arange(per, device=xr.device).repeat(len(c) // per)
+    nt = (seq_len - c * chunk).clamp(max=chunk)
+    h_in, g_in = [], []
+    for dirs, first in ((slice(0, 2), c * chunk),  # scan row of a chunk's
+                        (slice(2, 4), seq_len - c * chunk - nt)):  # start
+        h_in.append(h_before[dirs][:, :, first + torch.minimum(j * piece,
+                                                               nt)])
+        g_in.append(g_after[dirs][:, :, first + torch.minimum(
+            (j + 1) * piece, nt) - 1])
+    return torch.cat(h_in), torch.cat(g_in)
 
 
 # --------------------------------------------------------------------------
@@ -230,44 +297,113 @@ def scan_n1_fwd(xr, xc, x_dbl, dt_proj_w, dt_bias, A, D):
     return y
 
 
-def scan_n1_bwd(xr, xc, x_dbl, dt_proj_w, dt_bias, A, D, dy):
-    """Adjoint of :func:`scan_n1_fwd`; the outputs of
-    :func:`scan_n1_bwd_plain`. dy (2, B, L, D) in the sources' dtype. The
-    kernel writes per-block partials of dxdbl and per-image ones of the
-    weight gradients, summed here."""
-    if _on_cpu(xr):
-        return scan_n1_bwd_plain(xr, xc, x_dbl, dt_proj_w, dt_bias, A, D, dy)
-    b, seq_len, d_in, rank = _check(xr, xc, x_dbl, dt_proj_w, dt_bias, A, D)
+def _check_dy(xr, dy, name):
+    b, seq_len, d_in = xr.shape
     if (dy.dtype != xr.dtype or dy.device != xr.device
             or tuple(dy.shape) != (2, b, seq_len, d_in)
             or not dy.is_contiguous()):
         raise ValueError(
-            f"scan_n1_bwd: dy must be a contiguous {xr.dtype} tensor of shape "
+            f"{name}: dy must be a contiguous {xr.dtype} tensor of shape "
             f"{(2, b, seq_len, d_in)} on {xr.device}; got {dy.dtype} "
             f"{tuple(dy.shape)} on {dy.device}")
+
+
+def _workspaces(xr, b, seq_len, d_in):
+    """The backward's (sums, carries): (3, 4, B, slots, D) and
+    (2, 4, B, slots, D) fp32, a slot a piece of ``_PIECE`` rows of a chunk
+    (``csrc/scan_n1.cu``)."""
+    slots = -(-seq_len // _CHUNK) * (_CHUNK // _PIECE)
+    return tuple(torch.empty(n, 4, b, slots, d_in, device=xr.device,
+                             dtype=torch.float32) for n in (3, 2))
+
+
+def scan_n1_bwd(xr, xc, x_dbl, dt_proj_w, dt_bias, A, D, dy):
+    """Adjoint of :func:`scan_n1_fwd`; the outputs of
+    :func:`scan_n1_bwd_plain`. dy (2, B, L, D) in the sources' dtype. The
+    kernels write per-block partials of dxdbl and per-(chunk, image) ones
+    of the weight gradients, summed here in a fixed order."""
+    if _on_cpu(xr):
+        return scan_n1_bwd_plain(xr, xc, x_dbl, dt_proj_w, dt_bias, A, D, dy)
+    b, seq_len, d_in, rank = _check(xr, xc, x_dbl, dt_proj_w, dt_bias, A, D)
+    _check_dy(xr, dy, "scan_n1_bwd")
     nblk = -(-d_in // _THREADS)
+    nchunks = -(-seq_len // _CHUNK)
 
     def f32(*shape):
         return torch.empty(*shape, device=xr.device, dtype=torch.float32)
 
-    carries = f32(2, b, -(-seq_len // _CHUNK), d_in)
+    sums, carries = _workspaces(xr, b, seq_len, d_in)
     du = f32(2, b, seq_len, d_in)
     part = f32(nblk, 4, b, seq_len, rank + 2)
-    d_a, d_d, ddb = (f32(b, 4, d_in) for _ in range(3))
-    ddtw = f32(b, 4, d_in, rank)
+    d_a, d_d, ddb = (f32(nchunks, b, 4, d_in) for _ in range(3))
+    ddtw = f32(nchunks, b, 4, rank, d_in)
     lib, _ = build()
     err = lib.mia_scan_n1_bwd(
         xr.data_ptr(), xc.data_ptr(), int(xr.dtype == torch.bfloat16),
         x_dbl.data_ptr(), dt_proj_w.data_ptr(), dt_bias.data_ptr(),
-        A.data_ptr(), D.data_ptr(), dy.data_ptr(), carries.data_ptr(),
-        du.data_ptr(), part.data_ptr(), d_a.data_ptr(), d_d.data_ptr(),
-        ddb.data_ptr(), ddtw.data_ptr(), b, seq_len, d_in, rank,
-        torch.cuda.current_stream(xr.device).cuda_stream,
+        A.data_ptr(), D.data_ptr(), dy.data_ptr(), sums.data_ptr(),
+        carries.data_ptr(), du.data_ptr(), part.data_ptr(), d_a.data_ptr(),
+        d_d.data_ptr(), ddb.data_ptr(), ddtw.data_ptr(), b, seq_len, d_in,
+        rank, torch.cuda.current_stream(xr.device).cuda_stream,
     )
     _raise_on(err, "scan_n1_bwd")
     launches["scan_n1_bwd"] += 1
-    return (du, part.sum(dim=0), d_a.sum(dim=0), d_d.sum(dim=0),
-            ddb.sum(dim=0), ddtw.sum(dim=0))
+
+    def per_chunk_and_image(x):
+        return x.reshape(nchunks * b, *x.shape[2:]).sum(dim=0)
+
+    return (du, part.sum(dim=0), per_chunk_and_image(d_a),
+            per_chunk_and_image(d_d), per_chunk_and_image(ddb),
+            per_chunk_and_image(ddtw).transpose(1, 2).contiguous())
+
+
+def scan_n1_bwd_carries(xr, xc, x_dbl, dt_proj_w, dt_bias, A, D, dy):
+    """The backward's summaries and carries kernels alone: ``(h_in,
+    g_in)`` as :func:`scan_n1_carries_plain` gives them, pieces of
+    ``_PIECE`` rows of chunks of ``_CHUNK`` rows. Not counted in
+    ``launches``: no main path calls it."""
+    if _on_cpu(xr):
+        return scan_n1_carries_plain(xr, xc, x_dbl, dt_proj_w, dt_bias, A, D,
+                                     dy)
+    b, seq_len, d_in, rank = _check(xr, xc, x_dbl, dt_proj_w, dt_bias, A, D)
+    _check_dy(xr, dy, "scan_n1_bwd_carries")
+    sums, carries = _workspaces(xr, b, seq_len, d_in)
+    lib, _ = build()
+    err = lib.mia_scan_n1_bwd_carries(
+        xr.data_ptr(), xc.data_ptr(), int(xr.dtype == torch.bfloat16),
+        x_dbl.data_ptr(), dt_proj_w.data_ptr(), dt_bias.data_ptr(),
+        A.data_ptr(), dy.data_ptr(), sums.data_ptr(), carries.data_ptr(), b,
+        seq_len, d_in, rank, torch.cuda.current_stream(xr.device).cuda_stream,
+    )
+    _raise_on(err, "scan_n1_bwd_carries")
+    return carries[0], carries[1]
+
+
+def bwd_grid_blocks(b: int, seq_len: int, d_in: int) -> dict:
+    """Blocks of each backward kernel's grid for (B, L, D)."""
+    chunks = -(-seq_len // _CHUNK) * -(-d_in // _THREADS)
+    return dict(zip(BWD_KERNELS, (chunks * b * 4,
+                                  -(-4 * b * d_in // _CARRY_THREADS),
+                                  chunks * b * 2)))
+
+
+def bwd_occupancy(rank: int, dtype: torch.dtype) -> dict:
+    """Each backward kernel's resident blocks an SM on the current card and
+    its shared memory a block in bytes, ``{name: (blocks, bytes)}``, for
+    dt rank ``rank`` and source dtype ``dtype``
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"scan_n1: source dtype {dtype} is not f32/bf16")
+    lib, _ = build()
+    out = {}
+    for i, name in enumerate(BWD_KERNELS):
+        blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+        err = lib.mia_scan_n1_bwd_blocks_per_sm(
+            i, rank, int(dtype == torch.bfloat16), ctypes.byref(blocks),
+            ctypes.byref(smem))
+        _raise_on(err, f"{name} occupancy")
+        out[name] = (blocks.value, smem.value)
+    return out
 
 
 class ScanN1Fn(torch.autograd.Function):

@@ -269,7 +269,10 @@ N1_SHAPES = [  # (B, L, D, R)
     (3, 1, 16, 2),       # L = 1
     (2, 20, 70, 1),      # rank 1; D not a multiple of the block's 64
     (12, 196, 1024, 32),  # stage 2 of vssm1_base at the training batch
+    (3, 1000, 70, 4),    # many chunks of the backward, L not a multiple
+    (2, 3136, 256, 8),   # stage 0 of vssm1_base at a small batch
 ]
+N1_IDS = ["odd-l", "l1", "r1", "stage2", "chunks", "stage0-b2"]
 
 
 def _n1_inputs(dev, dtype, b, l, d, r, seed):
@@ -295,8 +298,7 @@ def _n1_args(xr, xc, x_dbl, w):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
-@pytest.mark.parametrize("b,l,d,r", N1_SHAPES,
-                         ids=["odd-l", "l1", "r1", "stage2"])
+@pytest.mark.parametrize("b,l,d,r", N1_SHAPES, ids=N1_IDS)
 def test_scan_n1_fwd_matches_plain(cuda, dtype, b, l, d, r):
     args = _n1_args(*_n1_inputs(cuda, dtype, b, l, d, r, seed=l + d))
     before = sn.launches["scan_n1_fwd"]
@@ -312,8 +314,7 @@ def test_scan_n1_fwd_matches_plain(cuda, dtype, b, l, d, r):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
-@pytest.mark.parametrize("b,l,d,r", N1_SHAPES,
-                         ids=["odd-l", "l1", "r1", "stage2"])
+@pytest.mark.parametrize("b,l,d,r", N1_SHAPES, ids=N1_IDS)
 def test_scan_n1_bwd_matches_plain(cuda, dtype, b, l, d, r):
     args = _n1_args(*_n1_inputs(cuda, dtype, b, l, d, r, seed=l + d))
     dy = torch.randn(2, b, l, d, device=cuda,
@@ -330,6 +331,30 @@ def test_scan_n1_bwd_matches_plain(cuda, dtype, b, l, d, r):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,l,d,r", [N1_SHAPES[0], N1_SHAPES[4],
+                                     N1_SHAPES[5]],
+                         ids=["odd-l", "chunks", "stage0-b2"])
+def test_scan_n1_bwd_carries_match_the_plain_walk(cuda, dtype, b, l, d, r):
+    """The backward's piece summaries composed by its carry kernel: the
+    state entering every piece and the adjoint entering it from the rows
+    after, every direction, against the sequential walks of the plain
+    version, within 1e-5 of max(1, max |plain|)."""
+    args = _n1_args(*_n1_inputs(cuda, dtype, b, l, d, r, seed=l + d))
+    dy = torch.randn(2, b, l, d, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(l)).to(dtype)
+    want = sn.scan_n1_carries_plain(*args, dy)
+    got = sn.scan_n1_bwd_carries(*args, dy)
+    torch.cuda.synchronize()
+    for name, g, wv in zip(("h_in", "g_in"), got, want):
+        slots = -(-l // sn._CHUNK) * (sn._CHUNK // sn._PIECE)
+        assert g.shape == wv.shape == (4, b, slots, d), name
+        err, scale = _err(g, wv)
+        assert err <= 1e-5 * scale, (name, err, scale)
+
+
+@pytest.mark.cuda
 def test_scan_n1_bwd_is_deterministic(cuda):
     """Per-block and per-image partials summed in a fixed order, no float
     atomics: two runs give the same bits."""
@@ -340,6 +365,20 @@ def test_scan_n1_bwd_is_deterministic(cuda):
     second = sn.scan_n1_bwd(*args, dy)
     for name, a, b in zip(N1_OUTPUTS, first, second):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_scan_n1_bwd_occupancy(cuda, dtype):
+    """At vssm1_base stage 0's rank (8) the gradients kernel keeps 6 blocks
+    of 64 threads resident on an SM (its registers capped for 6, its shared
+    memory within 36 KB a block), the summaries kernel at least as many."""
+    occupancy = sn.bwd_occupancy(8, dtype)
+    assert set(occupancy) == set(sn.BWD_KERNELS)
+    blocks, smem = occupancy["scan_n1_bwd_grad_kernel"]
+    assert smem <= 36 * 1024 and blocks >= 6, (blocks, smem)
+    assert occupancy["scan_n1_bwd_sums_kernel"][0] >= blocks, occupancy
 
 
 @pytest.mark.cuda

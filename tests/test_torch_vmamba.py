@@ -150,6 +150,76 @@ def test_scan_n1_bwd_plain_matches_autograd_of_fwd_plain():
         _assert_grad_close(name, g, w)
 
 
+def _chunked_carries(a, bx, cdy, chunk, piece):
+    """The backward kernels' algorithm on (4, B, L, D) scan-order numpy
+    arrays of decays, input terms and C dy. Each chunk of ``chunk`` SOURCE
+    rows is cut into pieces of ``piece`` rows in the direction's scan order
+    (slot ``c * (chunk // piece) + j``; a piece past the rows is empty):
+    per piece the product of decays P, the end state H from 0 and the
+    adjoint G leaving its first row (sum over its rows of the decays up to
+    the row times C dy); then the pieces walked in scan order for the state
+    entering each (h = P h + H) and in reverse for the adjoint entering it
+    (g = P g + G). Returns (h_in, g_in), each (4, B, slots, D)."""
+    seq_len = a.shape[2]
+    per = chunk // piece
+    nchunks = -(-seq_len // chunk)
+    h_in = np.zeros((4, a.shape[1], nchunks * per, a.shape[3]))
+    g_in = np.zeros_like(h_in)
+    for k in range(4):
+        order, summaries = [], {}
+        for c in range(nchunks)[::-1 if k >= 2 else 1]:  # scan order
+            nt = min(chunk, seq_len - c * chunk)
+            first = seq_len - c * chunk - nt if k >= 2 else c * chunk
+            for j in range(per):
+                p, h, g = 1.0, 0.0, 0.0
+                for i in range(first + j * piece,
+                               first + min((j + 1) * piece, nt)):
+                    p = p * a[k, :, i]
+                    h = a[k, :, i] * h + bx[k, :, i]
+                    g = g + p * cdy[k, :, i]
+                order.append(c * per + j)
+                summaries[c * per + j] = (p, h, g)
+        h = g = 0.0
+        for slot in order:
+            h_in[k, :, slot] = h
+            h = summaries[slot][0] * h + summaries[slot][1]
+        for slot in order[::-1]:
+            g_in[k, :, slot] = g
+            g = summaries[slot][0] * g + summaries[slot][2]
+    return h_in, g_in
+
+
+@pytest.mark.parametrize("b,l,d,r,chunk,piece", [(3, 70, 8, 2, 32, 16),
+                                                 (2, 33, 5, 3, 8, 4)])
+def test_scan_n1_chunked_carries_match_the_walk(b, l, d, r, chunk, piece):
+    """The piece summaries composed as the backward kernels compose them
+    give the state and adjoint entering every piece of the sequential
+    walks (``scan_n1_carries_plain``, ``scan_n1_bwd_carries`` on the CPU),
+    empty pieces of the last chunk included, within 1e-5 of
+    max(1, max |walk|)."""
+    xr, xc, p, _ = _scan_inputs(b, l, d, r, seed=l + r)
+    dy = np.random.default_rng(l).standard_normal((2, b, l, d))
+    t = {k: torch.from_numpy(v) for k, v in p.items()}
+    args = (torch.from_numpy(xr), torch.from_numpy(xc),
+            scan_n1._x_dbl(torch.from_numpy(xr), torch.from_numpy(xc),
+                           t["x_proj_w"]),
+            t["dt_proj_w"], t["dt_bias"], t["A"][..., 0], t["D"],
+            torch.from_numpy(dy.astype(np.float32)))
+    u, xd, dt, _ = scan_n1._dirs(*args[:5])
+    a = torch.exp(dt * args[5][:, None, None, :])
+    want = scan_n1.scan_n1_carries_plain(*args, chunk=chunk, piece=piece)
+    got = _chunked_carries(a.double().numpy(),
+                           (dt * u * xd[..., r : r + 1]).double().numpy(),
+                           (xd[..., r + 1 : r + 2]
+                            * scan_n1._dys(args[7])).double().numpy(),
+                           chunk, piece)
+    for name, g, w in zip(("h_in", "g_in"), got, want):
+        _assert_close(g, w, SCAN_RTOL, name)
+    if (chunk, piece) == (scan_n1._CHUNK, scan_n1._PIECE):
+        for g, w in zip(scan_n1.scan_n1_bwd_carries(*args), want):
+            assert torch.equal(g, w)
+
+
 def test_scan_n1_bf16_sources_bounded_by_fp32_oracle():
     """bf16 sources: ``x_proj_w`` is rounded to bf16 and x_dbl summed in
     fp32 (``scan_n1.py:729-737``), each direction is scanned in fp32 and

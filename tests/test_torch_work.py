@@ -7,10 +7,11 @@ rates; ``flops`` is their sum, the total the kernels were always counted
 at. ``ops.build.source_digest`` is the key a built library is cached
 under: it must change when a shared header changes. The GEMM's epilogue
 codes that ``ops/vit_block.py`` passes must be the values of the enum in
-``csrc/vit_block.cu``, the general scan's wrapper must size its buffers
-with the kernels' own block width and chunk, the MAE and classification
-step profiles must name the family of every kernel the ViT and Swin
-sub-layers launch, and the scan's timing tool the backward kernel.
+``csrc/vit_block.cu``, the general scan's and the d_state=1 scan's
+wrappers must size their buffers and grids with the kernels' own block
+widths and chunks, the MAE and classification step profiles must name the
+family of every kernel the ViT and Swin sub-layers launch, and the scans'
+timing tools their kernels.
 """
 
 import importlib.util
@@ -19,7 +20,10 @@ from pathlib import Path
 
 import pytest
 
+import torch
+
 from medical_image_analysis_tpu_torch.ops import build
+from medical_image_analysis_tpu_torch.ops import scan_n1 as sn
 from medical_image_analysis_tpu_torch.ops import selective_scan_pallas as ssp
 from medical_image_analysis_tpu_torch.ops import swin_block as sb
 from medical_image_analysis_tpu_torch.ops import vit_block as vb
@@ -118,6 +122,40 @@ def test_selective_scan_sizes_match_the_kernel(constant, attr):
     assert len(want) == 1 and int(want[0]) == getattr(ssp, attr)
 
 
+@pytest.mark.parametrize("constant,attr", [("kThreads", "_THREADS"),
+                                           ("kChunk", "_CHUNK"),
+                                           ("kSub", "_PIECE"),
+                                           ("kCarryThreads", "_CARRY_THREADS")])
+def test_scan_n1_sizes_match_the_kernel(constant, attr):
+    """``_THREADS`` (channels a block: ``dxdbl_part``'s leading extent),
+    ``_CHUNK`` (source rows a chunk of the backward: the weight-gradient
+    partials' chunk extent), ``_PIECE`` (rows a slot of the workspaces) and
+    ``_CARRY_THREADS`` (chains a block of the carry kernel, for
+    ``bwd_grid_blocks``) are the values of ``csrc/scan_n1.cu``'s
+    constants."""
+    src = (CSRC / "scan_n1.cu").read_text()
+    want = re.findall(rf"constexpr int {constant} = (\d+);", src)
+    assert len(want) == 1 and int(want[0]) == getattr(sn, attr)
+
+
+@pytest.mark.parametrize("b,l,d", [(12, 3136, 256), (3, 1000, 70)])
+def test_scan_n1_workspaces_are_chunked_as_the_kernel(b, l, d):
+    """The backward's sums (P, H, G) and carries (h_in, g_in) have one
+    entry a (direction, image, piece of a chunk, channel), as
+    ``csrc/scan_n1.cu``'s layout comment gives them; the grid counts follow
+    the same chunks."""
+    sums, carries = sn._workspaces(torch.empty(0), b, l, d)
+    chunks = -(-l // sn._CHUNK)
+    slots = chunks * (sn._CHUNK // sn._PIECE)
+    assert sums.shape == (3, 4, b, slots, d)
+    assert carries.shape == (2, 4, b, slots, d)
+    blocks = sn.bwd_grid_blocks(b, l, d)
+    assert list(blocks) == list(sn.BWD_KERNELS)
+    nblk = -(-d // sn._THREADS)
+    assert blocks["scan_n1_bwd_grad_kernel"] == chunks * nblk * b * 2
+    assert blocks["scan_n1_bwd_sums_kernel"] == chunks * nblk * b * 4
+
+
 def _profile_tool(name):
     path = ROOT / "tools" / f"{name}.py"
     spec = importlib.util.spec_from_file_location(name, path)
@@ -176,3 +214,17 @@ def test_scan_timing_tool_names_the_backward_kernel():
     ``csrc/selective_scan.cu``."""
     tool = _profile_tool("time_selective_scan_bwd")
     assert tool.KERNEL in _kernels("selective_scan.cu")
+
+
+def test_scan_n1_timing_tool_names_the_kernels():
+    """``tools/time_scan_n1_bwd.py`` splits a call by kernel name prefixes
+    that cover every ``__global__`` function of ``csrc/scan_n1.cu``, and
+    the wrapper's ``BWD_KERNELS`` are the backward's kernels there."""
+    tool = _profile_tool("time_scan_n1_bwd")
+    kernels = _kernels("scan_n1.cu")
+    assert set(sn.BWD_KERNELS) == {k for k in kernels
+                                   if k.startswith("scan_n1_bwd")}
+    for name in kernels:
+        assert any(name.startswith(p) for p in tool.KERNELS), name
+    for prefix in tool.KERNELS:
+        assert any(k.startswith(prefix) for k in kernels), prefix
