@@ -17,9 +17,14 @@ raises (exit code 1):
                the ``r2gengpt_mimic`` preset (K=4, L=197, D=768, N=16,
                R=48), batch 1 and 6, fp32 and bf16 sources; the device time
                of each beside its plain version's.
-   kernels_bwd -- the backward kernel (``scan_bwd``) against
-               ``scan_bwd_plain`` at the same shapes: the max error of each
-               output and the device times.
+   kernels_bwd -- the backward (``scan_bwd``: three kernels, chunk
+               summaries, carries, gradients; one launch count a call)
+               against ``scan_bwd_plain`` at the same shapes: the max error
+               of each output, the device times, and each kernel's grid
+               blocks, resident blocks an SM and shared memory a block;
+               then at vssm_tiny's four stage shapes (K=4, no conv, N=16;
+               ``vssm_classify``'s SS2D blocks), held against the plain
+               version at B=8 and timed alone at B=128.
 4. serve    -- the preset at full width (ARM-B 768x12 + qwen1_5_1_8b with
                Qwen1.5's vocabulary of 151,936; random weights from a seed)
                behind ``cli.demo.make_server``: synthetic 224x224 PNGs are
@@ -196,6 +201,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import gc
 import io
 import itertools
 import json
@@ -320,6 +326,10 @@ SS_VSSM_BATCH = 128
 # The backward's resident blocks of 64 threads an SM at the least: more
 # warps to hide the latency of its sequential walks.
 SS_BWD_MIN_BLOCKS = 5
+# The fused backward's check at vssm_tiny's stages against scan_bwd_plain,
+# whose per-row state lists hold B*4*L*D*16 floats: B=8 fits them (1.2 GB at
+# stage 0). The kernels' indexing depends on B only through the grid.
+MAMBA_VSSM_CHECK_BATCH = 8
 VSSM_PALLAS = "model.vision_kwargs={scan_backend: pallas}"
 # The fused attention at dp_finetune's ViT-B widths (B=64, L=197, 12
 # heads of 64), and ViT-B at 384^2 (L=577), where the JAX dispatch takes
@@ -348,6 +358,16 @@ OTHER_OPS_S = 67e12
 
 
 def _phase(phase: str, /, **fields) -> None:
+    """Print a phase's line. On the card it ends with the device memory
+    still allocated (``alloc_gib``) and what a garbage collection leaves of
+    it (``alloc_gc_gib``): tensors held by reference cycles of an earlier
+    phase count toward a later phase's peak until collected, so each line
+    collects them."""
+    if torch.cuda.is_available():
+        held = torch.cuda.memory_allocated()
+        gc.collect()
+        fields = dict(fields, alloc_gib=f"{held / 2**30:.3f}",
+                      alloc_gc_gib=f"{torch.cuda.memory_allocated() / 2**30:.3f}")
     print(f"{phase}: " + " ".join(f"{k}={v}" for k, v in fields.items()),
           flush=True)
 
@@ -557,15 +577,7 @@ def phase_kernels_bwd(cfg, dev, gen, batches=(1, 6)) -> tuple:
             want = mf.scan_bwd_plain(*args)
             got = mf.scan_bwd(*args)
             _sync(dev)
-            errs = {}
-            for name, g, wv in zip(BWD_OUTPUTS, got, want):
-                _check(g.shape == wv.shape and g.dtype == torch.float32,
-                       f"mamba_scan_bwd {name}: shape or dtype")
-                err, scale = _max_err(g, wv)
-                _check(err <= BWD_RTOL * scale,
-                       f"mamba_scan_bwd B={b} {dtype} {name}: max abs err "
-                       f"{err:.3e} > {BWD_RTOL} x {scale:.3f}")
-                errs[name] = err
+            errs = _bwd_errs(got, want, f"B={b} {dtype}")
             t = {}
             for name, fn, iters in (  # in turns: plain, kernel, kernel, plain
                 ("plain", lambda: mf.scan_bwd_plain(*args), 2),
@@ -581,14 +593,100 @@ def phase_kernels_bwd(cfg, dev, gen, batches=(1, 6)) -> tuple:
                 errs=json.dumps({k: f"{v:.3e}" for k, v in errs.items()},
                                 separators=(",", ":")),
                 bwd_ms=f"{t['kernel']:.4f}", bwd_plain_ms=f"{t['plain']:.4f}",
+                **_mamba_bwd_blocks(b, mixer.k, seq_len, mixer.d_inner,
+                                    mixer.n, mixer.rank, dtype),
             )
             if b == 6 and dtype == torch.float32:
-                elems = b * mixer.k * seq_len * mixer.d_inner
-                ops = elems * (2 * _mamba_ops(mixer.rank, mixer.n)
-                               + 2 * mixer.rank + 10 * mixer.n)
                 training = (max(errs.values()), t["kernel"], t["plain"],
-                            *_bound([*args, *got], ops)[:2])
+                            *_bound([*args, *got], _mamba_bwd_ops(
+                                b, mixer.k, seq_len, mixer.d_inner,
+                                mixer.n, mixer.rank))[:2])
+    for stage, (seq_len, d_in) in enumerate(SS_VSSM_STAGES):
+        args, rank = vssm_bwd_case(dev, gen, stage, MAMBA_VSSM_CHECK_BATCH)
+        want = mf.scan_bwd_plain(*args)
+        got = mf.scan_bwd(*args)
+        _sync(dev)
+        errs = _bwd_errs(got, want, f"vssm_tiny stage {stage} "
+                         f"B={MAMBA_VSSM_CHECK_BATCH}")
+        del args, want, got
+        args, rank = vssm_bwd_case(dev, gen, stage, SS_VSSM_BATCH)
+        ms = device_ms(lambda: mf.scan_bwd(*args), 5)
+        bound = _bound([*args[:10], *mf.scan_bwd(*args)], _mamba_bwd_ops(
+            SS_VSSM_BATCH, 4, seq_len, d_in, 16, rank))
+        _phase("kernels_bwd_vssm", stage=stage, B=SS_VSSM_BATCH, K=4,
+               L=seq_len, D=d_in, N=16, R=rank, src="fp32",
+               check_B=MAMBA_VSSM_CHECK_BATCH, errs=_compact(
+                   {k: f"{v:.3e}" for k, v in errs.items()}),
+               ms=f"{ms:.4f}", bound_ms=f"{bound[0]:.4f}",
+               bound_by=bound[1], **_mamba_bwd_blocks(
+                   SS_VSSM_BATCH, 4, seq_len, d_in, 16, rank,
+                   torch.float32))
+        del args
+        torch.cuda.empty_cache()
     return training
+
+
+def _bwd_errs(got, want, what: str) -> dict:
+    """Each fused-backward output's max abs error against the plain
+    version's, held to BWD_RTOL."""
+    errs = {}
+    for name, g, wv in zip(BWD_OUTPUTS, got, want):
+        _check(g.shape == wv.shape and g.dtype == torch.float32,
+               f"mamba_scan_bwd {name}: shape or dtype")
+        err, scale = _max_err(g, wv)
+        _check(err <= BWD_RTOL * scale,
+               f"mamba_scan_bwd {what} {name}: max abs err {err:.3e} > "
+               f"{BWD_RTOL} x {scale:.3f}")
+        errs[name] = err
+    return errs
+
+
+def _mamba_bwd_ops(b, k, seq_len, d_in, n, rank):
+    """The fused backward's operations: it recomputes the forward and runs
+    the adjoint (``_mamba_ops``' comment)."""
+    return b * k * seq_len * d_in * (2 * _mamba_ops(rank, n) + 2 * rank
+                                     + 10 * n)
+
+
+def _mamba_bwd_blocks(b, k_dirs, seq_len, d_in, n, rank, dtype) -> dict:
+    """The fused backward's kernels: grid blocks, resident blocks an SM and
+    shared memory a block, for a phase line."""
+    from medical_image_analysis_tpu_torch.ops import mamba_fused as mf
+
+    occupancy = mf.bwd_occupancy(n, rank, dtype)
+    return dict(
+        grid_blocks=_compact(mf.bwd_grid_blocks(b, k_dirs, seq_len, d_in, n)),
+        blocks_per_sm=_compact({k: v[0] for k, v in occupancy.items()}),
+        smem_bytes=_compact({k: v[1] for k, v in occupancy.items()}))
+
+
+def vssm_bwd_case(dev, gen, stage: int, batch: int):
+    """``scan_bwd``'s fp32 arguments at a vssm_tiny stage (``SS_VSSM_STAGES``)
+    as ``vssm_classify`` gives them: an initialised SS2D's fused-layer
+    weights (d_state 16, no conv; its directions in the fused layer's
+    order), sources silu(N(0, 1)) as SS2D feeds the scan, x_dbl as
+    ``xdbl_plain`` gives it and a N(0, 1) cotangent. Returns (args, R)."""
+    from medical_image_analysis_tpu_torch.models.common import init_params
+    from medical_image_analysis_tpu_torch.models.vmamba import SS2D
+    from medical_image_analysis_tpu_torch.ops import mamba_fused as mf
+
+    seq_len, d_in = SS_VSSM_STAGES[stage]
+    m = SS2D(d_in // 2, d_state=16, device=dev)
+    init_params(m, gen)
+    hw = int(round(seq_len**0.5))
+    x = torch.nn.functional.silu(
+        torch.randn(batch, hw, hw, d_in, device=dev, generator=gen))
+    xr = x.reshape(batch, seq_len, d_in)
+    xc = x.transpose(1, 2).reshape(batch, seq_len, d_in).contiguous()
+    perm = [0, 2, 1, 3]  # SS2D's directions in the fused layer's order
+    with torch.no_grad():
+        w = [t.detach()[perm].float().contiguous() for t in (
+            m.x_proj_w, m.dt_proj_w, m.dt_bias, -torch.exp(m.A_log), m.D)]
+        conv_w = torch.zeros(4, 4, d_in, device=dev)
+        conv_b = torch.zeros(4, d_in, device=dev)
+        x_dbl = mf.xdbl_plain(xr, xc, conv_w, conv_b, w[0], False)
+    dy = torch.randn(batch, 4, seq_len, d_in, device=dev, generator=gen)
+    return (xr, xc, x_dbl, conv_w, conv_b, *w[1:], dy, True, False), m.rank
 
 
 def _png(rng, size: int) -> bytes:

@@ -1,4 +1,5 @@
-// Fused multi-direction Mamba layer for Hopper (sm_90a): three kernels.
+// Fused multi-direction Mamba layer for Hopper (sm_90a): the two forward
+// kernels and the three kernels of the backward.
 //
 // They replace the three Pallas TPU kernels of
 // medical_image_analysis_tpu/ops/mamba_fused.py:
@@ -6,8 +7,10 @@
 //   mamba_xdbl_kernel      <- _xdbl_kernel      (x_dbl = silu(conv(x_dir)) @ Wx^T)
 //   mamba_scan_kernel      <- _fused_fwd_kernel (conv + SiLU again, dt_proj,
 //                                                softplus, S6 scan, D skip)
-//   mamba_scan_bwd_kernel  <- _fused_bwd_kernel (the scan's adjoint; see the
-//                                                comment above the kernel)
+//   mamba_scan_bwd_sums_kernel,
+//   mamba_scan_bwd_carry_kernel,
+//   mamba_scan_bwd_grad_kernel <- _fused_bwd_kernel (:197, launched at :479;
+//                                 the scan's adjoint, see "the backward")
 //
 // Layouts (all contiguous):
 //   xr, xc   (B, L, D) row-major / column-major scan sources, fp32 or bf16;
@@ -41,15 +44,18 @@
 //    becomes this loop inside the thread. Chunk-start carries for the
 //    backward are not written here: serving needs none, and the backward
 //    recomputes them.
-//  - scan backward: the same dependent chain, walked twice (forward for the
-//    chunk carries, then back to front), so latency bounds it too. Each
-//    chunk's 8 rows of states and adjoints sit in shared memory, not in
-//    registers, so that the sums over D of dB, dC and dt_r can be taken per
-//    block from them; per-thread sums (dA, dD, d dt_bias) stay in registers
-//    and dW_dt's R columns in shared memory.
+//  - scan backward: the same dependent chain. It ran as one thread a
+//    channel walking all of L twice, with the state before every 8-row
+//    chunk written to a buffer over all of L (2.47 GB at vssm_tiny stage 0,
+//    B=128) and 124.5 KB of shared memory a block at ARM-B, 1 block (2
+//    warps) an SM: 2.71 ms against a 0.04 ms bound on an H100 80GB HBM3 at
+//    700 W. It is now a chunked scan that runs in parallel over L, in three
+//    kernels, with its sums over channels in warp shuffles: see "the
+//    backward" below.
 //
-// Both launch on the caller's stream, allocate nothing, and return
-// cudaGetLastError() so that the Python wrapper can raise on a refused launch.
+// All launch on the caller's stream, allocate nothing (the wrapper
+// allocates every workspace), and return cudaGetLastError() so that the
+// Python wrapper can raise on a refused launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -274,321 +280,718 @@ __global__ void __launch_bounds__(kScanThreads) mamba_scan_kernel(
   }
 }
 
-// Backward of the fused layer: the adjoint of mamba_scan_kernel, minus the
-// parts the wrapper closes in PyTorch (the x_proj and conv transposes).
+// ---- the backward: three kernels ----------------------------------------
 //
-// grid (ceil(D / kBwdThreads), B*K), block kBwdThreads, dynamic smem
-// bwd_smem_floats(R, C, N) floats. One thread owns one (b, k, d) channel.
+// The adjoint of mamba_scan_kernel, minus the parts the wrapper closes in
+// PyTorch (the x_proj and conv transposes). For channel d and state n the
+// recurrence is diagonal,
+//   h_t[n] = exp(dt_t A[d,n]) h_{t-1}[n] + dt_t u_t B_t[n],
+// so a run of rows acts on a state as h_out = P h_in + H, with
+// P = exp(A[d,n] S) and S the run's sum of dt, and on the adjoint (walked
+// back to front: p_t = C_t[n] dy_t + g_t, g_{t-1} = exp(dt_t A) p_t) as
+// g_out = P g_in + G, where G sums over the run's rows the decays up to and
+// including the row times C dy. A chunk is kBwdChunk scan rows of one
+// (b, k); the last one of a direction is ragged. Chunks are cut in scan
+// order, so a reversed direction needs nothing of its own but the index
+// arithmetic of its source rows (its conv halo is the source rows after a
+// chunk's first row).
 //
-// Pass 1 walks the sequence forward, as mamba_scan_kernel does, and writes
-// the state before every kBwdChunk-row chunk into `carries` (a scratch
-// buffer of the wrapper; the thread that writes a carry is the one that
-// reads it back). Pass 2 walks the chunks back to front: it rebuilds the
-// chunk's states from its carry into shared memory, then runs the adjoint
-// chain over the chunk's rows in reverse, with the adjoint state g carried
-// from the chunk after it. Per row and channel it writes du (grad w.r.t.
-// u = silu(conv)), u and silu'(pre); it accumulates dA, dD, d dt_bias and
-// dW_dt over the rows in the thread. The sums over D that dB, dC and dt_r
-// need are taken per block at the end of each chunk from the staged states,
-// adjoints and dt grads, in a fixed order, and written as per-block
-// partials (B*K, nblocks, L, C) that the wrapper sums: no atomics, so the
-// gradients are deterministic.
+//   1. mamba_scan_bwd_sums_kernel writes (S, H[N], G[N]) of every (b*k,
+//      chunk, channel): a block a chunk, kBwdChannels channels and one b*k.
+//      It recomputes the conv (with its halo of taps-1 rows), dt_proj,
+//      softplus and u, as the forward does.
+//   2. mamba_scan_bwd_carry_kernel gives a thread to each (b*k, n, d)
+//      chain: it walks the chunks in scan order for the state entering each
+//      (h = P h + H) and in reverse for the adjoint entering its last row
+//      from the rows after it (g = P g + G), and writes them over H and G.
+//      P is exp(A S): it is never stored N-fold, and an underflow to 0
+//      forgets the state as the walk does. Nothing divides by a decay.
+//   3. mamba_scan_bwd_grad_kernel is the old kernel's second pass on one
+//      chunk a block (the grid as kernel 1's): from the chunk's carried
+//      state it walks the chunk forward once for the state entering every
+//      sub-chunk of kBwdSub rows (shared memory), then takes the sub-chunks
+//      back to front, rebuilding each one's states in registers and running
+//      the adjoint over its rows from the carried adjoint.
 //
+// Layout of the lanes: N states per channel are 48 registers with their
+// adjoints and A at N=16 before the kBwdSub rows of states, which did not
+// fit one thread at 4 blocks an SM. So kLanes = 2 lanes hold a channel,
+// N/2 states each (a block: 64 threads, 32 channels); the rows' sums over n
+// (dt's adjoint and B.p) are one shuffle. The per-row terms that do not
+// depend on n (conv, SiLU, dt_proj, softplus and its derivative) are taken
+// once per (row, channel) by all 64 threads together for a sub-chunk and
+// staged in shared memory, so no lane repeats them and the dependent walks
+// carry only the state updates. dB and dC need sums over the block's
+// channels: the lanes of a warp that hold the same states sum their terms
+// with a transposing reduction of warp shuffles (lane_sums, after
+// selective_scan.cu's warp_sums), and the block adds its warps' sums in a
+// fixed order; dt_r's column sums ddt * W_dt over the channels from shared
+// memory. dxdbl is written as per-block partials and dA, dD, d dt_bias and
+// dW_dt as per-(b*k, chunk) partials, summed by the wrapper in a fixed
+// order: no float atomics, so two calls give the same bits.
+//
+// What bounds it on the H100: latency, not bytes or operations. Every
+// kBwdSub rows a block stages rows from device memory behind three barriers
+// and then walks them as dependent steps, at 2 warps a block. A first
+// version (expf, 255 registers, 4 blocks an SM) took 39.5 ms at vssm_tiny
+// stage 0, B=128 (the old walk 62.8; the call's bound 2.1 ms) and 0.89 ms
+// at ARM-B, B=6 (2.70), on an H100 80GB HBM3 at 700 W. Variants with one
+// part taken out priced the grad kernel at stage 0: the forward walk for
+// the sub-chunk states 20%, the block sums of dt_r and dW_dt 10% (30% at
+// ARM-B), expf 9%, registers for 4 blocks instead of 6 13%. So the walks
+// take their decays as exp2_approx(dt A log2 e), the grad kernel is capped
+// for 6 blocks (168 registers; 16 bytes of spill at N=16), dt_r sums a
+// column a thread over float4 rows of ddt_s and dW_dt four columns a
+// thread over float4 rows of x_dbl, and no conv halo is staged without a
+// conv: 30.0 and 0.66 ms. The forward walk stays; hiding its staging
+// latency (or the staging of every sub-chunk) is the next step.
+//
+// Workspace (fp32, of the wrapper): sums (B*K, nchunks, 1 + 2N, D): S, then
+// H (the state entering the chunk once kernel 2 ran), then G (the adjoint
+// entering its last row from after it once kernel 2 ran).
 // Outputs (fp32): du, u, dsilu (B*K, L, D) in scan order; dxdbl_part
-// (B*K, ceil(D/kBwdThreads), L, C) in scan order, columns [dt_r | B | C];
-// dA (B*K, D, N); dD, ddb (B*K, D); ddtw (B*K, D, R). dy (B, K, L, D) in
-// the source dtype and source order.
-constexpr int kBwdThreads = 64;
-constexpr int kBwdChunk = 8;   // rows whose states are rebuilt at once
-constexpr int kBwdS = kBwdThreads + 1;  // padded stride of per-thread columns
-static_assert(kScanTile % kBwdChunk == 0, "pass 1 tiles hold whole chunks");
+// (B*K, ceil(D / kBwdChannels), L, C) in scan order, columns
+// [dt_r | B | C]; dA (B*K, nchunks, D, N); dD, ddb (B*K, nchunks, D);
+// ddtw (B*K, nchunks, D, R). dy (B, K, L, D) in the source dtype and
+// source order.
+constexpr int kBwdThreads = 64;  // threads a block of kernels 1 and 3
+constexpr int kLanes = 2;        // lanes of a channel, N / kLanes states each
+constexpr int kBwdChannels = kBwdThreads / kLanes;  // channels a block
+constexpr int kBwdChunk = 64;    // scan rows a chunk
+constexpr int kBwdSub = 8;       // rows a lane holds the states of
+constexpr int kCarryThreads = 128;  // chains a block of kernel 2
+constexpr int kBwdBlocks = 6;    // kernel 3's resident blocks an SM
+constexpr int kBwdSubs = kBwdChunk / kBwdSub;  // sub-chunks of a chunk
+constexpr int kRowStep = kBwdThreads / kBwdChannels;  // row stride of a
+constexpr int kRowTerms = kBwdSub / kRowStep;  // (row, channel) thread
+constexpr int kWLd = kBwdChannels + 1;  // dtw_s's stride: lanes read columns
+constexpr int kDLd = kBwdChannels + 4;  // ddt_s's: float4 rows 4 banks apart
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kCarryBatch = 8;   // chunks whose loads kernel 2 issues ahead
+static_assert(kBwdChunk % kBwdSub == 0, "chunks hold whole sub-chunks");
+static_assert(kBwdSub % kRowStep == 0, "the row terms split evenly");
+static_assert(kBwdChannels == 32, "a row of a staged term is one warp");
 
-__host__ __device__ constexpr int bwd_smem_floats(int R, int C, int N) {
-  return R * kBwdS                               // dtw_s
-         + kScanTile * C                         // xd_s
-         + kScanTile * kBwdThreads               // x_s (pass 1) / halo rows
-         + 2 * kBwdChunk * N * kBwdS             // h_s, p_s
-         + 7 * kBwdChunk * kBwdS                 // per-row scalars
-         + R * kBwdS;                            // dwdt_s
+__host__ __device__ constexpr int log2i(int x) {
+  return x <= 1 ? 0 : 1 + log2i(x / 2);
 }
 
+__host__ __device__ constexpr int pad4(int n) { return (n + 3) / 4 * 4; }
+
+// 2^x by the special-function unit (relative error under 2^-22; results
+// below 2^-126 flush to 0, which forgets a state as an underflow does).
+// The walks take their decays as exp2(dt A log2 e): one multiply and this,
+// where expf is about eight instructions.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Shared memory of kernel 1 (grad false) and kernel 3, in floats, the
+// first two 16-byte aligned for float4 rows:
+//   xd_s (kBwdSub, pad4(C)) a sub-chunk's x_dbl rows
+//   ddt_s (kBwdSub, kDLd)   its rows' gradients w.r.t. dt_raw
+//   dtw_s (R, kWLd)         W_dt of the block's channels
+//   x_s (kBwdSub + 3, 32)   its source rows and the conv halo before them
+//   u_s, dt_s, dtu_s, sg_s, dy_s (kBwdSub, 32)
+// and kernel 3's
+//   dwdt_s (R, 32)          dW_dt of the chunk so far
+//   sum_s (2 warps, kBwdSub, 2N)   each warp's sums of dB and dC
+//   ck_s (kBwdSubs, N / kLanes, kBwdThreads)   the state entering each
+//                           sub-chunk, a column per thread
+__host__ __device__ constexpr int bwd_smem_floats(int R, int C, int N,
+                                                  bool grad) {
+  return kBwdSub * pad4(C) + kBwdSub * kDLd + R * kWLd +
+         (kBwdSub + kMaxTaps - 1) * kBwdChannels + 5 * kBwdSub * kBwdChannels +
+         (grad ? R * kBwdChannels + kBwdThreads / 32 * kBwdSub * 2 * N +
+                     kBwdSubs * (N / kLanes) * kBwdThreads
+               : 0);
+}
+
+struct BwdSmem {
+  float *dtw, *xd, *x, *u, *dt, *dtu, *sg, *dy, *ddt, *dwdt, *sum, *ck;
+};
+
+__device__ __forceinline__ BwdSmem bwd_smem(float* smem, int R, int C,
+                                            int N) {
+  BwdSmem s;
+  s.xd = smem;
+  s.ddt = s.xd + kBwdSub * pad4(C);
+  s.dtw = s.ddt + kBwdSub * kDLd;
+  s.x = s.dtw + R * kWLd;
+  s.u = s.x + (kBwdSub + kMaxTaps - 1) * kBwdChannels;
+  s.dt = s.u + kBwdSub * kBwdChannels;
+  s.dtu = s.dt + kBwdSub * kBwdChannels;
+  s.sg = s.dtu + kBwdSub * kBwdChannels;
+  s.dy = s.sg + kBwdSub * kBwdChannels;
+  s.dwdt = s.dy + kBwdSub * kBwdChannels;
+  s.sum = s.dwdt + R * kBwdChannels;
+  s.ck = s.sum + kBwdThreads / 32 * kBwdSub * 2 * N;
+  return s;
+}
+
+// Where a block of kernels 1 and 3 is: its chunk, channels and (b, k).
+struct BwdBlock {
+  int c, blk, d0, bk, k, nchunks, t0, nt;
+  bool rev;
+};
+
+__device__ __forceinline__ BwdBlock bwd_block(int K, int L, int D) {
+  BwdBlock p;
+  const int nblk = (D + kBwdChannels - 1) / kBwdChannels;
+  p.c = blockIdx.x / nblk;
+  p.blk = blockIdx.x - p.c * nblk;
+  p.d0 = p.blk * kBwdChannels;
+  p.bk = blockIdx.y;
+  p.k = p.bk % K;
+  p.rev = (p.k & 1) != 0;
+  p.nchunks = (L + kBwdChunk - 1) / kBwdChunk;
+  p.t0 = p.c * kBwdChunk;
+  p.nt = min(kBwdChunk, L - p.t0);
+  return p;
+}
+
+// W_dt of direction k for the block's channels into dtw_s (0 past D).
+__device__ __forceinline__ void stage_dtw(const float* dtw, int k, int D,
+                                          int R, int d0, float* dtw_s) {
+  for (int i = threadIdx.x; i < R * kBwdChannels; i += kBwdThreads) {
+    const int dd = i / R;
+    const int q = i - dd * R;
+    dtw_s[q * kWLd + dd] =
+        d0 + dd < D ? dtw[(static_cast<size_t>(k) * D + d0 + dd) * R + q]
+                    : 0.0f;
+  }
+}
+
+// Scan rows [t0, t0 + ns) of the block's direction: their x_dbl rows into
+// xd_s (row stride pad4(C)), and for the block's channels the source's scan
+// rows t0 - halo .. t0 + ns - 1 into x_s (0 before scan row 0 and past D;
+// halo = kMaxTaps - 1 with a conv, else 0). Scan row t is source row
+// L-1-t of a reversed direction.
+template <typename T>
+__device__ __forceinline__ void stage_rows(const float* xdbl, const T* src,
+                                           const BwdBlock& p, int t0, int ns,
+                                           int L, int D, int C, int halo,
+                                           const BwdSmem& s) {
+  const float* xd_g = xdbl + (static_cast<size_t>(p.bk) * L + t0) * C;
+  const int Cp = pad4(C);
+  for (int i = threadIdx.x; i < ns * C; i += kBwdThreads) {
+    const int r = i / C;
+    s.xd[r * Cp + i - r * C] = xd_g[i];
+  }
+  for (int i = threadIdx.x; i < (ns + halo) * kBwdChannels;
+       i += kBwdThreads) {
+    const int r = i / kBwdChannels;
+    const int dd = i - r * kBwdChannels;
+    const int t = t0 + r - halo;
+    const int row = p.rev ? L - 1 - t : t;
+    s.x[i] = (t >= 0 && p.d0 + dd < D)
+                 ? to_float(src[static_cast<size_t>(row) * D + p.d0 + dd])
+                 : 0.0f;
+  }
+}
+
+// The per-row terms of a staged sub-chunk that do not depend on n, for the
+// calling thread's channel (tid % 32) and rows tid / 32 + kRowStep i: dt
+// and dt u into dt_s and dtu_s; with kDy dy into dy_s; with kGrad also u
+// and softplus'(dt_raw) into u_s and sg_s, and u and silu'(pre) to u_g and
+// ds_g (the sub-chunk's first row of this b*k's u and dsilu). The rows' dot
+// products over R are interleaved (q outer) so that they are independent.
+struct RowConsts {
+  float wp[kMaxTaps];  // taps right-aligned: wp[kMaxTaps-1] multiplies x[t]
+  float cb, db;
+  int ch, d;
+  bool in;
+};
+
+template <typename T, bool kDy, bool kGrad>
+__device__ __forceinline__ void row_terms(const BwdSmem& s, const T* dy_bk,
+                                          const BwdBlock& p, const RowConsts& rc,
+                                          int t0, int ns, int L, int D, int C,
+                                          int R, int use_conv,
+                                          int delta_softplus, float* u_g,
+                                          float* ds_g) {
+  const int r0 = threadIdx.x / kBwdChannels;
+  const int Cp = pad4(C);
+  float v[kRowTerms];
+#pragma unroll
+  for (int e = 0; e < kRowTerms; ++e) v[e] = rc.db;
+  for (int q = 0; q < R; ++q) {
+    const float w = s.dtw[q * kWLd + rc.ch];
+#pragma unroll
+    for (int e = 0; e < kRowTerms; ++e)
+      v[e] += s.xd[(r0 + kRowStep * e) * Cp + q] * w;  // stale past ns: unused
+  }
+#pragma unroll
+  for (int e = 0; e < kRowTerms; ++e) {
+    const int r = r0 + kRowStep * e;
+    if (r >= ns) break;
+    float u, dsilu = 1.0f;
+    if (use_conv) {
+      float pre = rc.cb;
+#pragma unroll
+      for (int j = 0; j < kMaxTaps; ++j)
+        pre += rc.wp[j] * s.x[(r + j) * kBwdChannels + rc.ch];
+      const float sig = 1.0f / (1.0f + expf(-pre));
+      u = pre * sig;
+      dsilu = sig * (1.0f + pre * (1.0f - sig));
+    } else {
+      u = s.x[r * kBwdChannels + rc.ch];  // no halo staged
+    }
+    float dt = v[e], sg = 1.0f;
+    if (delta_softplus) {  // softplus as softplus() computes it, its exp reused
+      const float ex = expf(-fabsf(v[e]));
+      dt = fmaxf(v[e], 0.0f) + log1pf(ex);
+      sg = (v[e] >= 0.0f ? 1.0f : ex) / (1.0f + ex);
+    }
+    const int o = r * kBwdChannels + rc.ch;
+    s.dt[o] = dt;
+    s.dtu[o] = dt * u;
+    if (kDy) {
+      const int t = t0 + r;
+      const int row = p.rev ? L - 1 - t : t;
+      s.dy[o] = rc.in ? to_float(dy_bk[static_cast<size_t>(row) * D + rc.d])
+                      : 0.0f;
+    }
+    if (kGrad) {
+      s.u[o] = u;
+      s.sg[o] = sg;
+      if (rc.in) {
+        u_g[static_cast<size_t>(r) * D + rc.d] = u;
+        ds_g[static_cast<size_t>(r) * D + rc.d] = dsilu;
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ RowConsts row_consts(const float* conv_w,
+                                                const float* conv_b,
+                                                const float* dt_bias,
+                                                const BwdBlock& p, int D,
+                                                int taps) {
+  RowConsts rc;
+  rc.ch = threadIdx.x % kBwdChannels;
+  rc.d = p.d0 + rc.ch;
+  rc.in = rc.d < D;
+#pragma unroll
+  for (int j = 0; j < kMaxTaps; ++j) {
+    const int tap = j - (kMaxTaps - taps);
+    rc.wp[j] = rc.in && tap >= 0
+                   ? conv_w[(static_cast<size_t>(p.k) * taps + tap) * D + rc.d]
+                   : 0.0f;
+  }
+  rc.cb = rc.in ? conv_b[p.k * D + rc.d] : 0.0f;
+  rc.db = rc.in ? dt_bias[p.k * D + rc.d] : 0.0f;
+  return rc;
+}
+
+// 1. Chunk summaries. grid (nchunks * ceil(D / kBwdChannels), B*K), block
+// kBwdThreads, dynamic smem bwd_smem_floats(R, C, N, false) floats. One
+// forward pass over the chunk's rows: S += dt, h = a h + b from a zero
+// state, and G += P C dy with P the decays so far, the adjoint's recurrence
+// unrolled into its sum, so that one forward walk gives all three.
 template <typename T, int N>
-__global__ void __launch_bounds__(kBwdThreads) mamba_scan_bwd_kernel(
+__global__ void __launch_bounds__(kBwdThreads) mamba_scan_bwd_sums_kernel(
+    const T* __restrict__ xr, const T* __restrict__ xc,
+    const float* __restrict__ xdbl, const float* __restrict__ conv_w,
+    const float* __restrict__ conv_b, const float* __restrict__ dtw,
+    const float* __restrict__ dt_bias, const float* __restrict__ A,
+    const T* __restrict__ dy, float* __restrict__ sums, int K, int L, int D,
+    int R, int taps, int use_conv, int delta_softplus) {
+  constexpr int NL = N / kLanes;
+  extern __shared__ float4 smem4[];  // 16-byte aligned
+  const int C = R + 2 * N;
+  const int Cp = pad4(C);
+  const int halo = use_conv ? kMaxTaps - 1 : 0;
+  const BwdSmem s = bwd_smem(reinterpret_cast<float*>(smem4), R, C, N);
+  const BwdBlock p = bwd_block(K, L, D);
+  const T* src = source_of(xr, xc, p.k, p.bk / K, L, D);
+  const T* dy_bk = dy + static_cast<size_t>(p.bk) * L * D;
+  const RowConsts rc = row_consts(conv_w, conv_b, dt_bias, p, D, taps);
+  const int ch = threadIdx.x / kLanes;
+  const int n0 = (threadIdx.x % kLanes) * NL;  // this lane's first state
+  const int d = p.d0 + ch;
+  const bool in = d < D;
+  float a2[NL], P[NL], H[NL], G[NL];  // a2: A log2(e)
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    a2[i] = in ? A[(static_cast<size_t>(p.k) * D + d) * N + n0 + i] * kLog2e
+               : 0.0f;
+    P[i] = 1.0f;
+    H[i] = 0.0f;
+    G[i] = 0.0f;
+  }
+  float S = 0.0f;
+  stage_dtw(dtw, p.k, D, R, p.d0, s.dtw);
+  for (int r0 = 0; r0 < p.nt; r0 += kBwdSub) {
+    const int ns = min(kBwdSub, p.nt - r0);
+    __syncthreads();  // dtw_s written / the previous sub-chunk consumed
+    stage_rows(xdbl, src, p, p.t0 + r0, ns, L, D, C, halo, s);
+    __syncthreads();
+    row_terms<T, true, false>(s, dy_bk, p, rc, p.t0 + r0, ns, L, D, C, R,
+                              use_conv, delta_softplus, nullptr, nullptr);
+    __syncthreads();
+    for (int r = 0; r < ns; ++r) {
+      const int o = r * kBwdChannels + ch;
+      const float dt = s.dt[o], bx = s.dtu[o], dyv = s.dy[o];
+      const float* row = s.xd + r * Cp;
+      S += dt;
+#pragma unroll
+      for (int i = 0; i < NL; ++i) {
+        const float an = exp2_approx(dt * a2[i]);
+        P[i] *= an;
+        H[i] = an * H[i] + bx * row[R + n0 + i];
+        G[i] += P[i] * (row[R + N + n0 + i] * dyv);
+      }
+    }
+  }
+  if (in) {
+    float* out = sums + (static_cast<size_t>(p.bk) * p.nchunks + p.c) *
+                            (1 + 2 * N) * D + d;
+    if (n0 == 0) out[0] = S;
+#pragma unroll
+    for (int i = 0; i < NL; ++i) {
+      out[static_cast<size_t>(1 + n0 + i) * D] = H[i];
+      out[static_cast<size_t>(1 + N + n0 + i) * D] = G[i];
+    }
+  }
+}
+
+// 2. Carries. grid ceil(B*K*N*D / kCarryThreads), block kCarryThreads: one
+// thread a (b*k, n, d) chain walks its chunks in scan order for the state
+// entering each (h = exp(A S) h + H) and in reverse for the adjoint entering
+// each chunk's last row (g = exp(A S) g + G), one FMA a chunk, with the
+// loads of kCarryBatch chunks issued ahead of their FMAs. It writes h over
+// H and g over G, each after reading it.
+__global__ void __launch_bounds__(kCarryThreads) mamba_scan_bwd_carry_kernel(
+    const float* __restrict__ A, float* __restrict__ sums, int K, int nchunks,
+    int N, int D, int chains) {
+  const int i = blockIdx.x * kCarryThreads + threadIdx.x;
+  if (i >= chains) return;
+  const int bk = i / (N * D);
+  const int n = (i - bk * N * D) / D;
+  const int d = i - (bk * N + n) * D;
+  const float a = A[(static_cast<size_t>(bk % K) * D + d) * N + n];
+  const size_t stride = static_cast<size_t>(1 + 2 * N) * D;  // a chunk
+  float* base = sums + static_cast<size_t>(bk) * nchunks * stride + d;
+  float* hs = base + static_cast<size_t>(1 + n) * D;
+  float* gs = base + static_cast<size_t>(1 + N + n) * D;
+  float h = 0.0f;
+  for (int c0 = 0; c0 < nchunks; c0 += kCarryBatch) {
+    float sv[kCarryBatch], xv[kCarryBatch];
+#pragma unroll
+    for (int e = 0; e < kCarryBatch; ++e) {
+      if (c0 + e < nchunks) {
+        sv[e] = base[(c0 + e) * stride];
+        xv[e] = hs[(c0 + e) * stride];
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < kCarryBatch; ++e) {
+      if (c0 + e < nchunks) {
+        hs[(c0 + e) * stride] = h;
+        h = expf(a * sv[e]) * h + xv[e];
+      }
+    }
+  }
+  float g = 0.0f;
+  for (int c0 = nchunks - 1; c0 >= 0; c0 -= kCarryBatch) {
+    float sv[kCarryBatch], xv[kCarryBatch];
+#pragma unroll
+    for (int e = 0; e < kCarryBatch; ++e) {
+      if (c0 - e >= 0) {
+        sv[e] = base[(c0 - e) * stride];
+        xv[e] = gs[(c0 - e) * stride];
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < kCarryBatch; ++e) {
+      if (c0 - e >= 0) {
+        gs[(c0 - e) * stride] = g;
+        g = expf(a * sv[e]) * g + xv[e];
+      }
+    }
+  }
+}
+
+// One step of a transposing reduction over a warp, of the first 2 * Half
+// of a lane's values: the lane keeps one half, sends the other to the lane
+// `off` away and adds what comes back. Each step is its own instantiation,
+// so that every index into v is a constant and v stays in registers.
+template <int M, int Half>
+__device__ __forceinline__ void transpose_steps(float (&v)[M], int lane) {
+  if constexpr (Half > 0) {
+    constexpr int off = 32 * Half / M;
+    const bool up = lane & off;
+#pragma unroll
+    for (int j = 0; j < Half; ++j) {
+      const float send = up ? v[j] : v[j + Half];
+      const float keep = up ? v[j + Half] : v[j];
+      v[j] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+    }
+    transpose_steps<M, Half / 2>(v, lane);
+  }
+}
+
+// The sums over the 32 / kLanes lanes of a warp that hold the same states
+// (lane % kLanes) of each of M values v[0..M-1] (M a power of two, at most
+// 32 / kLanes): log2 M transposing steps from lane bit 4 down, then
+// butterflies down to bit log2 kLanes. Returns, in lane l, the sum of value
+// l >> (5 - log2 M) over the lanes with l's lane % kLanes. The order of the
+// additions is fixed.
+template <int M>
+__device__ __forceinline__ float lane_sums(float (&v)[M], int lane) {
+  static_assert(M <= 32 / kLanes, "one value a lane at the least");
+  transpose_steps<M, M / 2>(v, lane);
+  float sum = v[0];
+#pragma unroll
+  for (int off = 16 >> log2i(M); off >= kLanes; off /= 2)
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  return sum;
+}
+
+// 3. Gradients. grid and block as kernel 1's, dynamic smem
+// bwd_smem_floats(R, C, N, true) floats; registers capped for kBwdBlocks
+// resident blocks an SM. A lane holds N/kLanes states of one channel.
+template <typename T, int N>
+__global__ void __launch_bounds__(kBwdThreads, kBwdBlocks)
+mamba_scan_bwd_grad_kernel(
     const T* __restrict__ xr, const T* __restrict__ xc,
     const float* __restrict__ xdbl, const float* __restrict__ conv_w,
     const float* __restrict__ conv_b, const float* __restrict__ dtw,
     const float* __restrict__ dt_bias, const float* __restrict__ A,
     const float* __restrict__ Dv, const T* __restrict__ dy,
-    float* __restrict__ carries, float* __restrict__ du,
+    const float* __restrict__ sums, float* __restrict__ du,
     float* __restrict__ u_out, float* __restrict__ ds_out,
     float* __restrict__ dxdbl_part, float* __restrict__ dA_out,
     float* __restrict__ dD_out, float* __restrict__ ddb_out,
     float* __restrict__ ddtw_out, int K, int L, int D, int R, int taps,
     int use_conv, int delta_softplus) {
-  extern __shared__ float smem[];
+  constexpr int NL = N / kLanes;
+  constexpr int M = 2 * NL;  // a lane's dB and dC terms of a row
+  extern __shared__ float4 smem4[];  // 16-byte aligned
   const int C = R + 2 * N;
-  float* dtw_s = smem;                          // (R, kBwdS)
-  float* xd_s = dtw_s + R * kBwdS;              // (kScanTile, C)
-  float* x_s = xd_s + kScanTile * C;            // (kScanTile, kBwdThreads)
-  float* h_s = x_s + kScanTile * kBwdThreads;   // (kBwdChunk*N, kBwdS)
-  float* p_s = h_s + kBwdChunk * N * kBwdS;     // (kBwdChunk*N, kBwdS)
-  float* dy_s = p_s + kBwdChunk * N * kBwdS;    // 7 x (kBwdChunk, kBwdS)
-  float* u_s = dy_s + kBwdChunk * kBwdS;
-  float* dt_s = u_s + kBwdChunk * kBwdS;
-  float* sg_s = dt_s + kBwdChunk * kBwdS;       // softplus'(dt_raw)
-  float* ds_s = sg_s + kBwdChunk * kBwdS;       // silu'(pre)
-  float* ddt_s = ds_s + kBwdChunk * kBwdS;      // grad w.r.t. dt_raw
-  float* dtu_s = ddt_s + kBwdChunk * kBwdS;     // dt * u
-  float* dwdt_s = dtu_s + kBwdChunk * kBwdS;    // (R, kBwdS)
-
-  const int bk = blockIdx.y;
-  const int b = bk / K;
-  const int k = bk - b * K;
-  const bool rev = (k & 1) != 0;
-  const int nblk = gridDim.x;
-  const int d0 = blockIdx.x * kBwdThreads;
+  const int Cp = pad4(C);
+  const int halo = use_conv ? kMaxTaps - 1 : 0;
+  const BwdSmem s = bwd_smem(reinterpret_cast<float*>(smem4), R, C, N);
+  const BwdBlock p = bwd_block(K, L, D);
+  const int nblk = (D + kBwdChannels - 1) / kBwdChannels;
+  const T* src = source_of(xr, xc, p.k, p.bk / K, L, D);
+  const T* dy_bk = dy + static_cast<size_t>(p.bk) * L * D;
+  const RowConsts rc = row_consts(conv_w, conv_b, dt_bias, p, D, taps);
   const int tid = threadIdx.x;
-  const int d = d0 + tid;
-  // Inactive lanes (d >= D) run the same code on zeros, so that every
-  // lane reaches every barrier and their shared-memory entries are 0.
-  const bool active = d < D;
-  const T* src = source_of(xr, xc, k, b, L, D);
-  const int nchunks = (L + kBwdChunk - 1) / kBwdChunk;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int ch = tid / kLanes;
+  const int n0 = (tid % kLanes) * NL;  // this lane's first state
+  const int d = p.d0 + ch;
+  // Lanes of channels past D run the same code on zeros, so that every lane
+  // reaches every barrier and shuffle and adds 0 to the sums.
+  const bool in = d < D;
+  const int nsub = (p.nt + kBwdSub - 1) / kBwdSub;
+  const size_t slot = (static_cast<size_t>(p.bk) * p.nchunks + p.c);
 
-  for (int i = tid; i < R * kBwdThreads; i += kBwdThreads) {
-    const int dd = i / R;
-    const int r = i - dd * R;
-    dtw_s[r * kBwdS + dd] =
-        d0 + dd < D ? dtw[(static_cast<size_t>(k) * D + d0 + dd) * R + r]
-                    : 0.0f;
-    dwdt_s[r * kBwdS + dd] = 0.0f;
+  // a2 = A log2(e): the decays are exp2(dt a2), and dt_raw's adjoint sums
+  // dloga a2, times ln 2 once a row
+  float a2[NL], h[NL], g[NL], dA[NL];
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    const int n = n0 + i;
+    a2[i] = in ? A[(static_cast<size_t>(p.k) * D + d) * N + n] * kLog2e
+               : 0.0f;
+    h[i] = in ? sums[(slot * (1 + 2 * N) + 1 + n) * D + d] : 0.0f;
+    g[i] = in ? sums[(slot * (1 + 2 * N) + 1 + N + n) * D + d] : 0.0f;
+    dA[i] = 0.0f;
   }
+  const float dskip = in ? Dv[p.k * D + d] : 0.0f;
+  stage_dtw(dtw, p.k, D, R, p.d0, s.dtw);
+  for (int i = tid; i < R * kBwdChannels; i += kBwdThreads) s.dwdt[i] = 0.0f;
 
-  float a[N], h[N];
-  float wp[kMaxTaps], win[kMaxTaps - 1];
-  float cb = 0.0f, db = 0.0f, dskip = 0.0f;
+  // the chunk forward from its carried state: the state entering every
+  // sub-chunk into ck_s
+  for (int j = 0; j < nsub; ++j) {
 #pragma unroll
-  for (int n = 0; n < N; ++n) {
-    a[n] = active ? A[(static_cast<size_t>(k) * D + d) * N + n] : 0.0f;
-    h[n] = 0.0f;
-  }
-#pragma unroll
-  for (int j = 0; j < kMaxTaps; ++j) {
-    const int src_tap = j - (kMaxTaps - taps);
-    wp[j] = active && src_tap >= 0
-                ? conv_w[(static_cast<size_t>(k) * taps + src_tap) * D + d]
-                : 0.0f;
-  }
-#pragma unroll
-  for (int j = 0; j < kMaxTaps - 1; ++j) win[j] = 0.0f;
-  if (active) {
-    cb = conv_b[k * D + d];
-    db = dt_bias[k * D + d];
-    dskip = Dv[k * D + d];
-  }
-  float* car = carries + static_cast<size_t>(bk) * nchunks * N * D;
-
-  // ---- pass 1: states at chunk starts --------------------------------
-  for (int t0 = 0; t0 < L; t0 += kScanTile) {
-    const int nt = min(kScanTile, L - t0);
+    for (int i = 0; i < NL; ++i) s.ck[(j * NL + i) * kBwdThreads + tid] = h[i];
+    if (j == nsub - 1) break;  // uniform: no barrier is skipped by a part
+    __syncthreads();  // dtw_s written / the previous sub-chunk consumed
+    stage_rows(xdbl, src, p, p.t0 + j * kBwdSub, kBwdSub, L, D, C, halo, s);
     __syncthreads();
-    const float* xd_g = xdbl + (static_cast<size_t>(bk) * L + t0) * C;
-    for (int i = tid; i < nt * C; i += kBwdThreads) xd_s[i] = xd_g[i];
-    for (int i = tid; i < nt * kBwdThreads; i += kBwdThreads) {
-      const int r = i / kBwdThreads;
-      const int dd = i - r * kBwdThreads;
-      const int t = t0 + r;
-      const int s = rev ? L - 1 - t : t;
-      x_s[i] = d0 + dd < D
-                   ? to_float(src[static_cast<size_t>(s) * D + d0 + dd])
-                   : 0.0f;
-    }
+    row_terms<T, false, false>(s, dy_bk, p, rc, p.t0 + j * kBwdSub, kBwdSub,
+                               L, D, C, R, use_conv, delta_softplus, nullptr,
+                               nullptr);
     __syncthreads();
-    for (int r = 0; r < nt; ++r) {
-      const int t = t0 + r;
-      if (t % kBwdChunk == 0 && active) {
-        const int c = t / kBwdChunk;
 #pragma unroll
-        for (int n = 0; n < N; ++n)
-          car[(static_cast<size_t>(c) * N + n) * D + d] = h[n];
-      }
-      const float xv = x_s[r * kBwdThreads + tid];
-      float u = xv;
-      if (use_conv) {
-        float acc = 0.0f;
+    for (int r = 0; r < kBwdSub; ++r) {
+      const float dt = s.dt[r * kBwdChannels + ch];
+      const float bx = s.dtu[r * kBwdChannels + ch];
 #pragma unroll
-        for (int j = 0; j < kMaxTaps - 1; ++j) acc += wp[j] * win[j];
-        acc += wp[kMaxTaps - 1] * xv;
-#pragma unroll
-        for (int j = 0; j < kMaxTaps - 2; ++j) win[j] = win[j + 1];
-        win[kMaxTaps - 2] = xv;
-        u = silu(acc + cb);
-      }
-      const float* row = xd_s + r * C;
-      float dt = 0.0f;
-      for (int q = 0; q < R; ++q) dt += row[q] * dtw_s[q * kBwdS + tid];
-      dt += db;
-      if (delta_softplus) dt = softplus(dt);
-      const float dtu = dt * u;
-#pragma unroll
-      for (int n = 0; n < N; ++n)
-        h[n] = expf(dt * a[n]) * h[n] + dtu * row[R + n];
+      for (int i = 0; i < NL; ++i)
+        h[i] = exp2_approx(dt * a2[i]) * h[i] + bx * s.xd[r * Cp + R + n0 + i];
     }
   }
 
-  // ---- pass 2: chunks back to front ----------------------------------
-  float g[N], dA[N], hc[N];
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-    g[n] = 0.0f;
-    dA[n] = 0.0f;
-  }
+  // the sub-chunks back to front
   float dD = 0.0f, ddb = 0.0f;
-  for (int c = nchunks - 1; c >= 0; --c) {
-    const int t0 = c * kBwdChunk;
-    const int nt = min(kBwdChunk, L - t0);
-    __syncthreads();  // the previous chunk's reductions are done
-    const float* xd_g = xdbl + (static_cast<size_t>(bk) * L + t0) * C;
-    for (int i = tid; i < nt * C; i += kBwdThreads) xd_s[i] = xd_g[i];
-    // source rows t0-(kMaxTaps-1) .. t0+nt-1 in scan order, 0 before row 0
-    for (int i = tid; i < (nt + kMaxTaps - 1) * kBwdThreads;
-         i += kBwdThreads) {
-      const int r = i / kBwdThreads;
-      const int dd = i - r * kBwdThreads;
-      const int t = t0 + r - (kMaxTaps - 1);
-      const int s = rev ? L - 1 - t : t;
-      x_s[i] = (t >= 0 && d0 + dd < D)
-                   ? to_float(src[static_cast<size_t>(s) * D + d0 + dd])
-                   : 0.0f;
+  for (int j = nsub - 1; j >= 0; --j) {
+    const int r0 = j * kBwdSub;
+    const int ns = min(kBwdSub, p.nt - r0);
+    const int t0 = p.t0 + r0;
+    __syncthreads();  // the previous sub-chunk's sums are done
+    stage_rows(xdbl, src, p, t0, ns, L, D, C, halo, s);
+    __syncthreads();
+    const size_t g0 = (static_cast<size_t>(p.bk) * L + t0) * D;
+    row_terms<T, true, true>(s, dy_bk, p, rc, t0, ns, L, D, C, R, use_conv,
+                             delta_softplus, u_out + g0, ds_out + g0);
+    __syncthreads();
+
+    // rebuild the sub-chunk's states: hv[r] is the state after row r
+    float hv[kBwdSub][NL];
+    const float* ck = s.ck + j * NL * kBwdThreads + tid;
+#pragma unroll
+    for (int r = 0; r < kBwdSub; ++r) {
+      if (r < ns) {
+        const float dt = s.dt[r * kBwdChannels + ch];
+        const float bx = s.dtu[r * kBwdChannels + ch];
+#pragma unroll
+        for (int i = 0; i < NL; ++i) {
+          const float prev = r > 0 ? hv[r - 1][i] : ck[i * kBwdThreads];
+          hv[r][i] = exp2_approx(dt * a2[i]) * prev +
+                     bx * s.xd[r * Cp + R + n0 + i];
+        }
+      }
     }
-    for (int i = tid; i < nt * kBwdThreads; i += kBwdThreads) {
-      const int r = i / kBwdThreads;
-      const int dd = i - r * kBwdThreads;
-      const int t = t0 + r;
-      const int s = rev ? L - 1 - t : t;
-      dy_s[r * kBwdS + dd] =
-          d0 + dd < D ? to_float(dy[(static_cast<size_t>(bk) * L + s) * D +
-                                    d0 + dd])
-                      : 0.0f;
+    // the adjoint over the sub-chunk's rows, last row first
+#pragma unroll
+    for (int r = kBwdSub - 1; r >= 0; --r) {
+      if (r < ns) {  // uniform over the block
+        const int o = r * kBwdChannels + ch;
+        const float dt = s.dt[o], dtu = s.dtu[o], dyv = s.dy[o], uv = s.u[o];
+        const float* row = s.xd + r * Cp;
+        float terms[M];  // p dt u for dB, h dy for dC
+        float gb = 0.0f, ddt_a = 0.0f;
+#pragma unroll
+        for (int i = 0; i < NL; ++i) {
+          const float pv = row[R + N + n0 + i] * dyv + g[i];
+          const float hp = r > 0 ? hv[r - 1][i] : ck[i * kBwdThreads];
+          const float an = exp2_approx(dt * a2[i]);
+          const float dloga = pv * hp * an;  // the gradient w.r.t. dt A
+          dA[i] += dloga * dt;
+          ddt_a += dloga * a2[i];
+          gb += pv * row[R + n0 + i];
+          g[i] = an * pv;
+          terms[i] = pv * dtu;
+          terms[NL + i] = hv[r][i] * dyv;
+        }
+#pragma unroll
+        for (int off = 1; off < kLanes; off *= 2) {  // the channel's states
+          gb += __shfl_xor_sync(0xffffffffu, gb, off);
+          ddt_a += __shfl_xor_sync(0xffffffffu, ddt_a, off);
+        }
+        const float ddt = (ddt_a * kLn2 + gb * uv) * s.sg[o];
+        dD += dyv * uv;
+        ddb += ddt;
+        if (n0 == 0) {
+          s.ddt[r * kDLd + ch] = ddt;
+          if (in)
+            du[(static_cast<size_t>(p.bk) * L + t0 + r) * D + d] =
+                dt * gb + dyv * dskip;
+        }
+        const float sum = lane_sums<M>(terms, lane);
+        // lane l holds value vi of the states of lane l % kLanes
+        constexpr int shift = 5 - log2i(M);
+        if (((lane >> log2i(kLanes)) & ((1 << (shift - log2i(kLanes))) - 1)) ==
+            0) {
+          const int vi = lane >> shift;
+          const int first = (lane % kLanes) * NL;
+          const int col = vi < NL ? first + vi : N + first + vi - NL;
+          s.sum[(warp * kBwdSub + r) * 2 * N + col] = sum;
+        }
+      }
     }
     __syncthreads();
 
-    // rebuild the chunk's states from its carry
+    // sums over the block's channels of the sub-chunk's rows: dt_r's
+    // column q = ddt . W_dt[:, q], a column a thread for all the rows (the
+    // rows of ddt_s read as float4, channels in order); then dB and dC (the
+    // warps' sums in order)
+    float* part = dxdbl_part +
+                  ((static_cast<size_t>(p.bk) * nblk + p.blk) * L + t0) * C;
+    for (int q = tid; q < R; q += kBwdThreads) {
+      float acc[kBwdSub];
 #pragma unroll
-    for (int n = 0; n < N; ++n) {
-      hc[n] = active ? car[(static_cast<size_t>(c) * N + n) * D + d] : 0.0f;
-      h[n] = hc[n];
-    }
-    for (int r = 0; r < nt; ++r) {
-      const int t = t0 + r;
-      float u, dsilu;
-      if (use_conv) {
-        float pre = cb;
+      for (int r = 0; r < kBwdSub; ++r) acc[r] = 0.0f;
+#pragma unroll 2
+      for (int c4 = 0; c4 < kBwdChannels; c4 += 4) {
+        const float* w = s.dtw + q * kWLd + c4;
+        const float w0 = w[0], w1 = w[1], w2 = w[2], w3 = w[3];
 #pragma unroll
-        for (int j = 0; j < kMaxTaps; ++j)
-          pre += wp[j] * x_s[(r + j) * kBwdThreads + tid];
-        const float sig = 1.0f / (1.0f + expf(-pre));
-        u = pre * sig;
-        dsilu = sig * (1.0f + pre * (1.0f - sig));
-      } else {
-        u = x_s[(r + kMaxTaps - 1) * kBwdThreads + tid];
-        dsilu = 1.0f;
+        for (int r = 0; r < kBwdSub; ++r) {
+          const float4 v = *reinterpret_cast<const float4*>(s.ddt + r * kDLd + c4);
+          acc[r] += v.x * w0;
+          acc[r] += v.y * w1;
+          acc[r] += v.z * w2;
+          acc[r] += v.w * w3;
+        }
       }
-      const float* row = xd_s + r * C;
-      float dt_raw = db;
-      for (int q = 0; q < R; ++q) dt_raw += row[q] * dtw_s[q * kBwdS + tid];
-      float dt = dt_raw, sg = 1.0f;
-      if (delta_softplus) {
-        dt = softplus(dt_raw);
-        sg = 1.0f / (1.0f + expf(-dt_raw));
-      }
-      const float dtu = dt * u;
 #pragma unroll
-      for (int n = 0; n < N; ++n) {
-        h[n] = expf(dt * a[n]) * h[n] + dtu * row[R + n];
-        h_s[(r * N + n) * kBwdS + tid] = h[n];
-      }
-      u_s[r * kBwdS + tid] = u;
-      dt_s[r * kBwdS + tid] = dt;
-      sg_s[r * kBwdS + tid] = sg;
-      ds_s[r * kBwdS + tid] = dsilu;
-      dtu_s[r * kBwdS + tid] = dtu;
-      if (active) {
-        const size_t o = (static_cast<size_t>(bk) * L + t) * D + d;
-        u_out[o] = u;
-        ds_out[o] = dsilu;
-      }
+      for (int r = 0; r < kBwdSub; ++r)
+        if (r < ns) part[static_cast<size_t>(r) * C + q] = acc[r];
     }
-
-    // adjoint chain over the chunk's rows, last row first
-    for (int r = nt - 1; r >= 0; --r) {
-      const int t = t0 + r;
-      const float* row = xd_s + r * C;
-      const float dyv = dy_s[r * kBwdS + tid];
-      const float u = u_s[r * kBwdS + tid];
-      const float dt = dt_s[r * kBwdS + tid];
-      float gb = 0.0f, ddt_a = 0.0f;
+    for (int o = tid; o < ns * 2 * N; o += kBwdThreads) {
+      const int r = o / (2 * N);
+      const int x = o - r * 2 * N;
+      float acc = s.sum[r * 2 * N + x];
 #pragma unroll
-      for (int n = 0; n < N; ++n) {
-        const float p = row[R + N + n] * dyv + g[n];
-        p_s[(r * N + n) * kBwdS + tid] = p;
-        const float hp = r > 0 ? h_s[((r - 1) * N + n) * kBwdS + tid] : hc[n];
-        const float an = expf(dt * a[n]);
-        const float dloga = p * hp * an;
-        dA[n] += dloga * dt;
-        ddt_a += dloga * a[n];
-        gb += p * row[R + n];
-        g[n] = an * p;
-      }
-      const float ddt = (ddt_a + gb * u) * sg_s[r * kBwdS + tid];
-      ddt_s[r * kBwdS + tid] = ddt;
-      dD += dyv * u;
-      ddb += ddt;
-      if (active)
-        du[(static_cast<size_t>(bk) * L + t) * D + d] = dt * gb + dyv * dskip;
+      for (int w = 1; w < kBwdThreads / 32; ++w)
+        acc += s.sum[(w * kBwdSub + r) * 2 * N + x];
+      part[static_cast<size_t>(r) * C + R + x] = acc;
     }
-    __syncthreads();
-
-    // sums over this block's channels: dt_r, dB and dC rows of the chunk
-    float* part =
-        dxdbl_part + ((static_cast<size_t>(bk) * nblk + blockIdx.x) * L + t0) *
-                         C;
-    for (int o = tid; o < nt * C; o += kBwdThreads) {
-      const int r = o / C;
-      const int col = o - r * C;
-      float acc = 0.0f;
-      if (col < R) {
-        for (int j = 0; j < kBwdThreads; ++j)
-          acc += ddt_s[r * kBwdS + j] * dtw_s[col * kBwdS + j];
-      } else if (col < R + N) {
-        const int n = col - R;
-        for (int j = 0; j < kBwdThreads; ++j)
-          acc += p_s[(r * N + n) * kBwdS + j] * dtu_s[r * kBwdS + j];
-      } else {
-        const int n = col - R - N;
-        for (int j = 0; j < kBwdThreads; ++j)
-          acc += h_s[(r * N + n) * kBwdS + j] * dy_s[r * kBwdS + j];
+    // dW_dt[d, q] += sum over the sub-chunk's rows of ddt * dt_r[q]: a
+    // channel's ddt in registers, four columns at a time from float4 rows
+    // of xd_s
+    {
+      const int cc = tid % kBwdChannels;
+      float dv[kBwdSub];
+#pragma unroll
+      for (int r = 0; r < kBwdSub; ++r)
+        dv[r] = r < ns ? s.ddt[r * kDLd + cc] : 0.0f;
+      for (int q0 = tid / kBwdChannels * 4; q0 < R;
+           q0 += kBwdThreads / kBwdChannels * 4) {
+        float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int r = 0; r < kBwdSub; ++r) {
+          if (r < ns) {  // rows past ns hold stale x_dbl
+            const float4 x = *reinterpret_cast<const float4*>(s.xd + r * Cp + q0);
+            acc[0] += dv[r] * x.x;
+            acc[1] += dv[r] * x.y;
+            acc[2] += dv[r] * x.z;
+            acc[3] += dv[r] * x.w;
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (q0 + e < R) s.dwdt[(q0 + e) * kBwdChannels + cc] += acc[e];
       }
-      part[o] = acc;
-    }
-    // dW_dt[d, q] += sum over the chunk's rows of ddt * dt_r[q]
-    for (int q = 0; q < R; ++q) {
-      float acc = 0.0f;
-      for (int r = 0; r < nt; ++r)
-        acc += ddt_s[r * kBwdS + tid] * xd_s[r * C + q];
-      dwdt_s[q * kBwdS + tid] += acc;
     }
   }
 
-  if (active) {
+  if (in) {
 #pragma unroll
-    for (int n = 0; n < N; ++n)
-      dA_out[(static_cast<size_t>(bk) * D + d) * N + n] = dA[n];
-    dD_out[static_cast<size_t>(bk) * D + d] = dD;
-    ddb_out[static_cast<size_t>(bk) * D + d] = ddb;
-    for (int q = 0; q < R; ++q)
-      ddtw_out[(static_cast<size_t>(bk) * D + d) * R + q] =
-          dwdt_s[q * kBwdS + tid];
+    for (int i = 0; i < NL; ++i)
+      dA_out[(slot * D + d) * N + n0 + i] = dA[i];
+    if (n0 == 0) {
+      dD_out[slot * D + d] = dD;
+      ddb_out[slot * D + d] = ddb;
+    }
+  }
+  __syncthreads();  // dwdt_s's last sums
+  for (int o = tid; o < R * kBwdChannels; o += kBwdThreads) {
+    const int q = o / kBwdChannels;
+    const int cc = o - q * kBwdChannels;
+    if (p.d0 + cc < D)
+      ddtw_out[(slot * D + p.d0 + cc) * R + q] = s.dwdt[o];
   }
 }
 
@@ -653,6 +1056,14 @@ cudaError_t dispatch_scan(int N, const void* xr, const void* xc,
 #undef MIA_SCAN_CASE
 }
 
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
 struct BwdArgs {
   const void* xr;
   const void* xc;
@@ -664,7 +1075,7 @@ struct BwdArgs {
   const float* A;
   const float* Dv;
   const void* dy;
-  float* carries;
+  float* sums;
   float* du;
   float* u;
   float* ds;
@@ -675,41 +1086,108 @@ struct BwdArgs {
   float* ddtw;
 };
 
+struct BwdShape {
+  int B, K, L, D, R, taps, use_conv, delta_softplus;
+};
+
+__host__ __device__ constexpr int ceil_div(int a, int b) {
+  return (a + b - 1) / b;
+}
+
+// kernels 1 and 2: the chunk summaries, then the carries
 template <typename T, int N>
-cudaError_t launch_scan_bwd(const BwdArgs& p, int B, int K, int L, int D,
-                            int R, int taps, int use_conv, int delta_softplus,
-                            cudaStream_t stream) {
+cudaError_t launch_carries(const BwdArgs& p, const BwdShape& z,
+                           cudaStream_t stream) {
   const size_t smem =
-      static_cast<size_t>(bwd_smem_floats(R, R + 2 * N, N)) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        mamba_scan_bwd_kernel<T, N>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid((D + kBwdThreads - 1) / kBwdThreads, B * K);
-  mamba_scan_bwd_kernel<T, N><<<grid, kBwdThreads, smem, stream>>>(
+      static_cast<size_t>(bwd_smem_floats(z.R, z.R + 2 * N, N, false)) *
+      sizeof(float);
+  cudaError_t err = allow_smem(mamba_scan_bwd_sums_kernel<T, N>, smem);
+  if (err != cudaSuccess) return err;
+  const int nchunks = ceil_div(z.L, kBwdChunk);
+  const dim3 grid(nchunks * ceil_div(z.D, kBwdChannels), z.B * z.K);
+  mamba_scan_bwd_sums_kernel<T, N><<<grid, kBwdThreads, smem, stream>>>(
       static_cast<const T*>(p.xr), static_cast<const T*>(p.xc), p.xdbl,
-      p.conv_w, p.conv_b, p.dtw, p.dt_bias, p.A, p.Dv,
-      static_cast<const T*>(p.dy), p.carries, p.du, p.u, p.ds, p.dxdbl_part,
-      p.dA, p.dD, p.ddb, p.ddtw, K, L, D, R, taps, use_conv, delta_softplus);
+      p.conv_w, p.conv_b, p.dtw, p.dt_bias, p.A, static_cast<const T*>(p.dy),
+      p.sums, z.K, z.L, z.D, z.R, z.taps, z.use_conv, z.delta_softplus);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int chains = z.B * z.K * N * z.D;
+  mamba_scan_bwd_carry_kernel<<<ceil_div(chains, kCarryThreads),
+                                kCarryThreads, 0, stream>>>(
+      p.A, p.sums, z.K, nchunks, N, z.D, chains);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_scan_bwd(int N, const BwdArgs& p, int B, int K, int L,
-                              int D, int R, int taps, int use_conv,
-                              int delta_softplus, cudaStream_t stream) {
-  switch (N) {
-    case 4:
-      return launch_scan_bwd<T, 4>(p, B, K, L, D, R, taps, use_conv,
-                                   delta_softplus, stream);
-    case 16:
-      return launch_scan_bwd<T, 16>(p, B, K, L, D, R, taps, use_conv,
-                                    delta_softplus, stream);
-    default:
-      return cudaErrorInvalidValue;
+// all three kernels
+template <typename T, int N>
+cudaError_t launch_scan_bwd(const BwdArgs& p, const BwdShape& z,
+                            cudaStream_t stream) {
+  const size_t smem =
+      static_cast<size_t>(bwd_smem_floats(z.R, z.R + 2 * N, N, true)) *
+      sizeof(float);
+  cudaError_t err = allow_smem(mamba_scan_bwd_grad_kernel<T, N>, smem);
+  if (err != cudaSuccess) return err;
+  err = launch_carries<T, N>(p, z, stream);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(ceil_div(z.L, kBwdChunk) * ceil_div(z.D, kBwdChannels),
+                  z.B * z.K);
+  mamba_scan_bwd_grad_kernel<T, N><<<grid, kBwdThreads, smem, stream>>>(
+      static_cast<const T*>(p.xr), static_cast<const T*>(p.xc), p.xdbl,
+      p.conv_w, p.conv_b, p.dtw, p.dt_bias, p.A, p.Dv,
+      static_cast<const T*>(p.dy), p.sums, p.du, p.u, p.ds, p.dxdbl_part,
+      p.dA, p.dD, p.ddb, p.ddtw, z.K, z.L, z.D, z.R, z.taps, z.use_conv,
+      z.delta_softplus);
+  return cudaGetLastError();
+}
+
+// Resident blocks an SM of backward kernel `kernel` (0 sums, 1 carry,
+// 2 grad) at its launch's block and dynamic shared memory.
+template <typename T, int N>
+cudaError_t occupancy_bwd(int kernel, int R, int* blocks, int* smem_bytes) {
+  if (kernel == 1) {
+    *smem_bytes = 0;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, mamba_scan_bwd_carry_kernel, kCarryThreads, 0);
   }
+  *smem_bytes = bwd_smem_floats(R, R + 2 * N, N, kernel == 2) *
+                static_cast<int>(sizeof(float));
+  const cudaError_t err =
+      kernel == 0 ? allow_smem(mamba_scan_bwd_sums_kernel<T, N>, *smem_bytes)
+                  : allow_smem(mamba_scan_bwd_grad_kernel<T, N>, *smem_bytes);
+  if (err != cudaSuccess) return err;
+  return kernel == 0 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                           blocks, mamba_scan_bwd_sums_kernel<T, N>,
+                           kBwdThreads, *smem_bytes)
+                     : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                           blocks, mamba_scan_bwd_grad_kernel<T, N>,
+                           kBwdThreads, *smem_bytes);
+}
+
+// Runs fn<T, N>(args...) for the source type and d_state of a call.
+#define MIA_BWD_DISPATCH(fn, ...)                                      \
+  switch (N * 2 + (is_bf16 ? 1 : 0)) {                                 \
+    case 8:                                                            \
+      return fn<float, 4>(__VA_ARGS__);                                \
+    case 9:                                                            \
+      return fn<__nv_bfloat16, 4>(__VA_ARGS__);                        \
+    case 32:                                                           \
+      return fn<float, 16>(__VA_ARGS__);                               \
+    case 33:                                                           \
+      return fn<__nv_bfloat16, 16>(__VA_ARGS__);                       \
+    default:                                                           \
+      return cudaErrorInvalidValue;                                    \
+  }
+
+// The backward's sizes fit its grids and int indices: B*K in grid.y, the
+// B*K*N*D chains of kernel 2 and the grid's x extent in an int.
+bool bwd_sizes_ok(const BwdShape& z, int N) {
+  const long long chunks = ceil_div(z.L, kBwdChunk);
+  const long long nblk = ceil_div(z.D, kBwdChannels);
+  return z.B >= 1 && z.K >= 1 && z.L >= 1 && z.D >= 1 && z.R >= 1 &&
+         z.taps >= 1 && z.taps <= kMaxTaps &&
+         static_cast<long long>(z.B) * z.K <= 65535 &&
+         static_cast<long long>(z.B) * z.K * N * z.D <= 0x7fffffffLL &&
+         chunks * nblk <= 0x7fffffffLL;
 }
 
 }  // namespace
@@ -753,20 +1231,49 @@ int mia_mamba_scan_bwd(const void* xr, const void* xc, int is_bf16,
                        const float* xdbl, const float* conv_w,
                        const float* conv_b, const float* dtw,
                        const float* dt_bias, const float* A, const float* Dv,
-                       const void* dy, float* carries, float* du, float* u,
+                       const void* dy, float* sums, float* du, float* u,
                        float* ds, float* dxdbl_part, float* dA, float* dD,
                        float* ddb, float* ddtw, int B, int K, int L, int D,
                        int N, int R, int taps, int use_conv,
                        int delta_softplus, void* stream) {
-  if (taps < 1 || taps > kMaxTaps || L < 1) return cudaErrorInvalidValue;
+  const BwdShape z{B, K, L, D, R, taps, use_conv, delta_softplus};
+  if (!bwd_sizes_ok(z, N)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const BwdArgs p{xr, xc, xdbl, conv_w, conv_b, dtw, dt_bias, A, Dv, dy,
-                  carries, du, u, ds, dxdbl_part, dA, dD, ddb, ddtw};
-  return is_bf16 ? dispatch_scan_bwd<__nv_bfloat16>(N, p, B, K, L, D, R, taps,
-                                                    use_conv, delta_softplus,
-                                                    s)
-                 : dispatch_scan_bwd<float>(N, p, B, K, L, D, R, taps,
-                                            use_conv, delta_softplus, s);
+                  sums, du, u, ds, dxdbl_part, dA, dD, ddb, ddtw};
+  MIA_BWD_DISPATCH(launch_scan_bwd, p, z, s)
 }
+
+// The backward's kernels 1 and 2 alone: the summaries, then the carries
+// written over them (the workspace of mia_mamba_scan_bwd), for tests of
+// the carries.
+int mia_mamba_scan_bwd_carries(const void* xr, const void* xc, int is_bf16,
+                               const float* xdbl, const float* conv_w,
+                               const float* conv_b, const float* dtw,
+                               const float* dt_bias, const float* A,
+                               const void* dy, float* sums, int B, int K,
+                               int L, int D, int N, int R, int taps,
+                               int use_conv, int delta_softplus,
+                               void* stream) {
+  const BwdShape z{B, K, L, D, R, taps, use_conv, delta_softplus};
+  if (!bwd_sizes_ok(z, N)) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const BwdArgs p{xr, xc, xdbl, conv_w, conv_b, dtw, dt_bias, A, nullptr,
+                  dy, sums, nullptr, nullptr, nullptr, nullptr, nullptr,
+                  nullptr, nullptr, nullptr};
+  MIA_BWD_DISPATCH(launch_carries, p, z, s)
+}
+
+// Backward kernel `kernel`'s (0 sums, 1 carry, 2 grad) resident blocks an
+// SM on the current device (cudaOccupancyMaxActiveBlocksPerMultiprocessor
+// at its launch's block and dynamic shared memory for d_state N and rank
+// R) into *blocks, and that shared memory in bytes into *smem_bytes.
+int mia_mamba_scan_bwd_blocks_per_sm(int kernel, int N, int R, int is_bf16,
+                                     int* blocks, int* smem_bytes) {
+  if (kernel < 0 || kernel > 2 || R < 1) return cudaErrorInvalidValue;
+  MIA_BWD_DISPATCH(occupancy_bwd, kernel, R, blocks, smem_bytes)
+}
+
+#undef MIA_BWD_DISPATCH
 
 }  // extern "C"

@@ -13,9 +13,14 @@ launches:
   replacing the Pallas ``_fused_fwd_kernel``).
 
 The backward (:class:`MambaFusedFn`) runs ``scan_bwd``, the scan's
-adjoint (kernel ``mamba_scan_bwd_kernel``, replacing the Pallas
-``_fused_bwd_kernel``), and closes the x_proj and conv transposes in
-plain PyTorch (:func:`_close_bwd`), as the JAX package leaves them to XLA.
+adjoint (kernels ``mamba_scan_bwd_sums_kernel``,
+``mamba_scan_bwd_carry_kernel`` and ``mamba_scan_bwd_grad_kernel``,
+together replacing the Pallas ``_fused_bwd_kernel``) as a scan over chunks
+of ``_BWD_CHUNK`` scan rows that runs in parallel over L, and closes the
+x_proj and conv transposes in plain PyTorch (:func:`_close_bwd`), as the
+JAX package leaves them to XLA. ``scan_bwd_carries`` runs its first two
+kernels alone, for tests of the state and adjoint entering every chunk
+(:func:`mamba_carries_plain` on the CPU).
 
 The kernels are in ``csrc/mamba_fused.cu``, whose header says what bounds
 each on the H100 and how its design answers that. Directions are
@@ -24,8 +29,8 @@ scans it back to front when k is odd.
 
 Each wrapper runs its kernel on a CUDA tensor and its plain version
 (``xdbl_plain``, ``scan_plain``, ``scan_bwd_plain``) on a CPU tensor;
-there is no fallback between the two. ``launches`` counts kernel
-launches per wrapper.
+there is no fallback between the two. ``launches`` counts calls of a
+wrapper that launched its kernels (the backward's three count once).
 """
 
 from __future__ import annotations
@@ -45,8 +50,15 @@ _SCAN_STATES = (4, 16)  # d_state values the scan kernel is built for
 _MAX_TAPS = 4
 _XDBL_MAX_ROWS = 8
 _XDBL_SMEM_FLOATS = 12288  # 48 KiB of staged conv output per block
-_BWD_THREADS = 64  # channels per block of the backward kernel
-_BWD_CHUNK = 8  # rows per chunk of the backward kernel (its carries)
+_BWD_THREADS = 64  # threads a block of the backward's sums and grad kernels
+_BWD_LANES = 2  # lanes of a channel there, d_state / _BWD_LANES states each
+_BWD_CHANNELS = _BWD_THREADS // _BWD_LANES  # channels a block (dxdbl part)
+_BWD_CHUNK = 64  # scan rows a chunk of the backward (a slot of its workspace)
+_CARRY_THREADS = 128  # chains a block of the backward's carry kernel
+# The backward's kernels in the order of mia_mamba_scan_bwd_blocks_per_sm's
+# index: chunk summaries, carries, gradients.
+BWD_KERNELS = ("mamba_scan_bwd_sums_kernel", "mamba_scan_bwd_carry_kernel",
+               "mamba_scan_bwd_grad_kernel")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -73,6 +85,14 @@ def build() -> tuple[ctypes.CDLL, str]:
         _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ]
     lib.mia_mamba_scan_bwd.restype = _I
+    lib.mia_mamba_scan_bwd_carries.argtypes = [
+        _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+    ]
+    lib.mia_mamba_scan_bwd_carries.restype = _I
+    lib.mia_mamba_scan_bwd_blocks_per_sm.argtypes = [
+        _I, _I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+    lib.mia_mamba_scan_bwd_blocks_per_sm.restype = _I
     return lib, log
 
 
@@ -145,18 +165,11 @@ def _flip_reversed(t):
                       for k in range(t.shape[1])], dim=1)
 
 
-def scan_bwd_plain(xr, xc, xdbl, conv_w, conv_b, dt_proj_w, dt_bias, A, D,
-                   dy, delta_softplus=True, use_conv=True):
-    """Plain version of ``scan_bwd``: the adjoint of ``scan_plain`` as an
-    explicit reverse loop over L (the body of ``_fused_bwd_kernel``).
-
-    Returns fp32 ``(du, u, dsilu, dxdbl, dA, dD, ddt_bias, ddt_proj_w)``:
-    du, u, dsilu (B*K, L, D) and dxdbl (B*K, L, R+2N) in scan order; dA
-    (B*K, D, N); dD, ddt_bias (B*K, D); ddt_proj_w (B*K, D, R). du is the
-    gradient w.r.t. u = silu(conv(x)) through the scan and the D skip only;
-    the x_proj path reaches u through dxdbl.
-    """
-    k_dirs, d_in, n = A.shape
+def _bwd_rows(xr, xc, xdbl, conv_w, conv_b, dt_proj_w, dt_bias, A, dy,
+              delta_softplus, use_conv):
+    """The backward's per-row terms in scan order, fp32, each (B, K, L,
+    ...): u, silu'(pre), dt, softplus'(dt_raw), x_dbl, B, C and dy."""
+    k_dirs, _, n = A.shape
     rank = dt_proj_w.shape[2]
     x = _scan_order(xr, xc, k_dirs)
     b, _, seq_len, _ = x.shape
@@ -180,23 +193,47 @@ def scan_bwd_plain(xr, xc, xdbl, conv_w, conv_b, dt_proj_w, dt_bias, A, D,
         dt, sg = dt_raw, torch.ones_like(dt_raw)
     bmat = x_dbl[..., rank : rank + n]
     cmat = x_dbl[..., rank + n : rank + 2 * n]
-    dy = _flip_reversed(dy.float())  # scan order
-    dtu = dt * u
+    return u, dsilu, dt, sg, x_dbl, bmat, cmat, _flip_reversed(dy.float())
 
-    h = u.new_zeros(b, k_dirs, d_in, n)
-    hs = []  # hs[t]: the state after row t
-    for t in range(seq_len):
+
+def _walk_states(A, dt, dtu, bmat):
+    """The forward walk: hs[t] is the state after scan row t, (B, K, D, N)."""
+    h = dt.new_zeros(*dt.shape[:2], dt.shape[3], A.shape[2])
+    hs = []
+    for t in range(dt.shape[2]):
         a = torch.exp(dt[:, :, t, :, None] * A[None])
         h = a * h + dtu[:, :, t, :, None] * bmat[:, :, t, None, :]
         hs.append(h)
+    return hs
 
-    g = torch.zeros_like(h)
-    d_a = torch.zeros_like(h)
+
+def scan_bwd_plain(xr, xc, xdbl, conv_w, conv_b, dt_proj_w, dt_bias, A, D,
+                   dy, delta_softplus=True, use_conv=True):
+    """Plain version of ``scan_bwd``: the adjoint of ``scan_plain`` as an
+    explicit reverse loop over L (the body of ``_fused_bwd_kernel``).
+
+    Returns fp32 ``(du, u, dsilu, dxdbl, dA, dD, ddt_bias, ddt_proj_w)``:
+    du, u, dsilu (B*K, L, D) and dxdbl (B*K, L, R+2N) in scan order; dA
+    (B*K, D, N); dD, ddt_bias (B*K, D); ddt_proj_w (B*K, D, R). du is the
+    gradient w.r.t. u = silu(conv(x)) through the scan and the D skip only;
+    the x_proj path reaches u through dxdbl.
+    """
+    k_dirs = A.shape[0]
+    rank = dt_proj_w.shape[2]
+    u, dsilu, dt, sg, x_dbl, bmat, cmat, dy = _bwd_rows(
+        xr, xc, xdbl, conv_w, conv_b, dt_proj_w, dt_bias, A, dy,
+        delta_softplus, use_conv)
+    b, _, seq_len, _ = u.shape
+    dtu = dt * u
+    hs = _walk_states(A, dt, dtu, bmat)  # hs[t]: the state after row t
+
+    g = torch.zeros_like(hs[0])
+    d_a = torch.zeros_like(g)
     du, ddt, dbm, dcm = [], [], [], []
     for t in range(seq_len - 1, -1, -1):
         dyt = dy[:, :, t]
         p = cmat[:, :, t, None, :] * dyt[..., None] + g
-        h_prev = hs[t - 1] if t > 0 else torch.zeros_like(h)
+        h_prev = hs[t - 1] if t > 0 else torch.zeros_like(g)
         a = torch.exp(dt[:, :, t, :, None] * A[None])
         dloga = p * h_prev * a
         d_a = d_a + dloga * dt[:, :, t, :, None]
@@ -223,6 +260,42 @@ def scan_bwd_plain(xr, xc, xdbl, conv_w, conv_b, dt_proj_w, dt_bias, A, D,
     return (rows(seq(du)), rows(u), rows(dsilu), rows(dxdbl), rows(d_a),
             rows(torch.sum(dy * u, dim=2)), rows(torch.sum(ddt, dim=2)),
             rows(ddtw))
+
+
+def mamba_carries_plain(xr, xc, xdbl, conv_w, conv_b, dt_proj_w, dt_bias, A,
+                        D, dy, delta_softplus=True, use_conv=True,
+                        chunk=_BWD_CHUNK):
+    """Plain version of ``scan_bwd_carries``, from the sequential walks of
+    ``scan_bwd_plain``. Each direction's scan rows are cut into chunks of
+    ``chunk`` rows (the last one ragged); for every chunk, the state
+    entering its first row, and the adjoint entering its last row from the
+    rows after it (the adjoint that leaves the next chunk's first row; 0
+    for the last chunk). Returns fp32 ``(h_in, g_in)``, each (B*K,
+    nchunks, N, D). ``D`` is unused: the states and adjoints do not depend
+    on the skip."""
+    del D
+    k_dirs, d_in, n = A.shape
+    u, _, dt, _, _, bmat, cmat, dy = _bwd_rows(
+        xr, xc, xdbl, conv_w, conv_b, dt_proj_w, dt_bias, A, dy,
+        delta_softplus, use_conv)
+    b, _, seq_len, _ = u.shape
+    hs = _walk_states(A, dt, dt * u, bmat)
+    g = torch.zeros_like(hs[0])
+    g_enter = [g] * seq_len  # the adjoint entering row t from row t + 1
+    for t in range(seq_len - 1, -1, -1):
+        g_enter[t] = g
+        p = cmat[:, :, t, None, :] * dy[:, :, t, :, None] + g
+        g = torch.exp(dt[:, :, t, :, None] * A[None]) * p
+    starts = range(0, seq_len, chunk)
+    h_in = torch.stack([hs[t0 - 1] if t0 else torch.zeros_like(g)
+                        for t0 in starts], dim=2)
+    g_in = torch.stack([g_enter[min(t0 + chunk, seq_len) - 1]
+                        for t0 in starts], dim=2)
+
+    def slots(x):  # (B, K, nchunks, D, N) -> (B*K, nchunks, N, D)
+        return x.transpose(3, 4).reshape(b * k_dirs, len(starts), n, d_in)
+
+    return slots(h_in), slots(g_in)
 
 
 # --------------------------------------------------------------------------
@@ -346,28 +419,20 @@ def scan_fwd(xr, xc, xdbl, conv_w, conv_b, dt_proj_w, dt_bias, A, D,
     return y
 
 
-def scan_bwd(xr, xc, xdbl, conv_w, conv_b, dt_proj_w, dt_bias, A, D, dy,
-             delta_softplus=True, use_conv=True):
-    """Adjoint of :func:`scan_fwd`; the outputs of :func:`scan_bwd_plain`.
-
-    dy (B, K, L, D) in source order and the sources' dtype. The kernel
-    writes per-block partials of dxdbl, summed here over the blocks.
-    """
-    if _on_cpu(xr):
-        return scan_bwd_plain(xr, xc, xdbl, conv_w, conv_b, dt_proj_w,
-                              dt_bias, A, D, dy, delta_softplus, use_conv)
+def _check_bwd(xr, xc, xdbl, conv_w, conv_b, dt_proj_w, dt_bias, A, D, dy,
+               name):
+    """Raise on what the backward's kernels do not take; returns (B, K, L,
+    D, N, R, taps)."""
     k_dirs, d_in, n = A.shape
     rank = dt_proj_w.shape[2]
     taps = conv_w.shape[1]
     _check_sources(xr, xc, k_dirs, d_in)
     b, seq_len, _ = xr.shape
     if n not in _SCAN_STATES or not 1 <= taps <= _MAX_TAPS:
-        raise ValueError(f"mamba_scan_bwd: d_state={n}, taps={taps} "
-                         f"unsupported (d_state in {_SCAN_STATES}, taps <= "
-                         f"{_MAX_TAPS})")
-    c = rank + 2 * n
+        raise ValueError(f"{name}: d_state={n}, taps={taps} unsupported "
+                         f"(d_state in {_SCAN_STATES}, taps <= {_MAX_TAPS})")
     _check_f32(
-        xr.device, xdbl=(xdbl, (b * k_dirs, seq_len, c)),
+        xr.device, xdbl=(xdbl, (b * k_dirs, seq_len, rank + 2 * n)),
         conv_w=(conv_w, (k_dirs, taps, d_in)), conv_b=(conv_b, (k_dirs, d_in)),
         dt_proj_w=(dt_proj_w, (k_dirs, d_in, rank)),
         dt_bias=(dt_bias, (k_dirs, d_in)), A=(A, (k_dirs, d_in, n)),
@@ -377,35 +442,131 @@ def scan_bwd(xr, xc, xdbl, conv_w, conv_b, dt_proj_w, dt_bias, A, D, dy,
             or tuple(dy.shape) != (b, k_dirs, seq_len, d_in)
             or not dy.is_contiguous()):
         raise ValueError(
-            f"mamba_scan_bwd: dy must be a contiguous {xr.dtype} tensor of "
-            f"shape {(b, k_dirs, seq_len, d_in)} on {xr.device}; got "
+            f"{name}: dy must be a contiguous {xr.dtype} tensor of shape "
+            f"{(b, k_dirs, seq_len, d_in)} on {xr.device}; got "
             f"{dy.dtype} {tuple(dy.shape)} on {dy.device}")
-    bk = b * k_dirs
-    nblk = -(-d_in // _BWD_THREADS)
+    return b, k_dirs, seq_len, d_in, n, rank, taps
+
+
+def _bwd_workspaces(device, bk, seq_len, d_in, n, rank):
+    """The backward's fp32 workspaces, a slot a chunk of ``_BWD_CHUNK``
+    scan rows (``csrc/mamba_fused.cu``): ``sums`` (B*K, nchunks, 1 + 2N,
+    D), S then H then G (the carries once kernel 2 ran), and the weight
+    gradients' per-(b*k, chunk) partials dA (B*K, nchunks, D, N), dD and
+    d dt_bias (B*K, nchunks, D) and dW_dt (B*K, nchunks, D, R)."""
     nchunks = -(-seq_len // _BWD_CHUNK)
+
+    def f32(*shape):
+        return torch.empty(*shape, device=device, dtype=torch.float32)
+
+    return dict(sums=f32(bk, nchunks, 1 + 2 * n, d_in),
+                dA=f32(bk, nchunks, d_in, n), dD=f32(bk, nchunks, d_in),
+                ddb=f32(bk, nchunks, d_in), ddtw=f32(bk, nchunks, d_in, rank))
+
+
+def _bwd_pointers(xr, xc, xdbl, conv_w, conv_b, dt_proj_w, dt_bias, A):
+    return (xr.data_ptr(), None if xc is None else xc.data_ptr(),
+            int(xr.dtype == torch.bfloat16), xdbl.data_ptr(),
+            conv_w.data_ptr(), conv_b.data_ptr(), dt_proj_w.data_ptr(),
+            dt_bias.data_ptr(), A.data_ptr())
+
+
+def scan_bwd(xr, xc, xdbl, conv_w, conv_b, dt_proj_w, dt_bias, A, D, dy,
+             delta_softplus=True, use_conv=True):
+    """Adjoint of :func:`scan_fwd`; the outputs of :func:`scan_bwd_plain`.
+
+    dy (B, K, L, D) in source order and the sources' dtype. The kernels
+    write per-block partials of dxdbl and per-(b*k, chunk) ones of the
+    weight gradients, summed here in a fixed order.
+    """
+    if _on_cpu(xr):
+        return scan_bwd_plain(xr, xc, xdbl, conv_w, conv_b, dt_proj_w,
+                              dt_bias, A, D, dy, delta_softplus, use_conv)
+    b, k_dirs, seq_len, d_in, n, rank, taps = _check_bwd(
+        xr, xc, xdbl, conv_w, conv_b, dt_proj_w, dt_bias, A, D, dy,
+        "mamba_scan_bwd")
+    bk = b * k_dirs
+    nblk = -(-d_in // _BWD_CHANNELS)
+    w = _bwd_workspaces(xr.device, bk, seq_len, d_in, n, rank)
 
     def f32(*shape):
         return torch.empty(*shape, device=xr.device, dtype=torch.float32)
 
-    carries = f32(bk, nchunks, n, d_in)
     du, u, ds = (f32(bk, seq_len, d_in) for _ in range(3))
-    part = f32(bk, nblk, seq_len, c)
-    d_a, d_d, ddb, ddtw = (f32(bk, d_in, n), f32(bk, d_in), f32(bk, d_in),
-                           f32(bk, d_in, rank))
+    part = f32(bk, nblk, seq_len, rank + 2 * n)
     lib, _ = build()
     err = lib.mia_mamba_scan_bwd(
-        xr.data_ptr(), None if xc is None else xc.data_ptr(),
-        int(xr.dtype == torch.bfloat16), xdbl.data_ptr(), conv_w.data_ptr(),
-        conv_b.data_ptr(), dt_proj_w.data_ptr(), dt_bias.data_ptr(),
-        A.data_ptr(), D.data_ptr(), dy.data_ptr(), carries.data_ptr(),
-        du.data_ptr(), u.data_ptr(), ds.data_ptr(), part.data_ptr(),
-        d_a.data_ptr(), d_d.data_ptr(), ddb.data_ptr(), ddtw.data_ptr(),
+        *_bwd_pointers(xr, xc, xdbl, conv_w, conv_b, dt_proj_w, dt_bias, A),
+        D.data_ptr(), dy.data_ptr(), w["sums"].data_ptr(), du.data_ptr(),
+        u.data_ptr(), ds.data_ptr(), part.data_ptr(), w["dA"].data_ptr(),
+        w["dD"].data_ptr(), w["ddb"].data_ptr(), w["ddtw"].data_ptr(),
         b, k_dirs, seq_len, d_in, n, rank, taps, int(use_conv),
         int(delta_softplus), torch.cuda.current_stream(xr.device).cuda_stream,
     )
     _raise_on(err, "mamba_scan_bwd")
     launches["mamba_scan_bwd"] += 1
-    return du, u, ds, part.sum(dim=1), d_a, d_d, ddb, ddtw
+    # each workspace is freed before the next sum is allocated, so that the
+    # call holds no more than while its kernels ran
+    del w["sums"]
+    dxdbl = part.sum(dim=1)
+    del part
+    return (du, u, ds, dxdbl,
+            *(w.pop(name).sum(dim=1) for name in ("dA", "dD", "ddb", "ddtw")))
+
+
+def scan_bwd_carries(xr, xc, xdbl, conv_w, conv_b, dt_proj_w, dt_bias, A, D,
+                     dy, delta_softplus=True, use_conv=True):
+    """The backward's summaries and carries kernels alone: ``(h_in,
+    g_in)`` as :func:`mamba_carries_plain` gives them, chunks of
+    ``_BWD_CHUNK`` scan rows. Not counted in ``launches``: no main path
+    calls it."""
+    if _on_cpu(xr):
+        return mamba_carries_plain(xr, xc, xdbl, conv_w, conv_b, dt_proj_w,
+                                   dt_bias, A, D, dy, delta_softplus,
+                                   use_conv)
+    b, k_dirs, seq_len, d_in, n, rank, taps = _check_bwd(
+        xr, xc, xdbl, conv_w, conv_b, dt_proj_w, dt_bias, A, D, dy,
+        "mamba_scan_bwd_carries")
+    sums = _bwd_workspaces(xr.device, b * k_dirs, seq_len, d_in, n,
+                           rank)["sums"]
+    lib, _ = build()
+    err = lib.mia_mamba_scan_bwd_carries(
+        *_bwd_pointers(xr, xc, xdbl, conv_w, conv_b, dt_proj_w, dt_bias, A),
+        dy.data_ptr(), sums.data_ptr(), b, k_dirs, seq_len, d_in, n, rank,
+        taps, int(use_conv), int(delta_softplus),
+        torch.cuda.current_stream(xr.device).cuda_stream,
+    )
+    _raise_on(err, "mamba_scan_bwd_carries")
+    return sums[:, :, 1 : 1 + n], sums[:, :, 1 + n :]
+
+
+def bwd_grid_blocks(b: int, k_dirs: int, seq_len: int, d_in: int,
+                    n: int) -> dict:
+    """Blocks of each backward kernel's grid for (B, K, L, D, N)."""
+    blocks = -(-seq_len // _BWD_CHUNK) * -(-d_in // _BWD_CHANNELS) * b * k_dirs
+    return dict(zip(BWD_KERNELS, (
+        blocks, -(-b * k_dirs * n * d_in // _CARRY_THREADS), blocks)))
+
+
+def bwd_occupancy(n: int, rank: int, dtype: torch.dtype) -> dict:
+    """Each backward kernel's resident blocks an SM on the current card and
+    its shared memory a block in bytes, ``{name: (blocks, bytes)}``, for
+    d_state ``n``, dt rank ``rank`` and source dtype ``dtype``
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"mamba_fused: source dtype {dtype} is not f32/bf16")
+    if n not in _SCAN_STATES:
+        raise ValueError(f"mamba_fused: d_state={n} not in {_SCAN_STATES}")
+    lib, _ = build()
+    out = {}
+    for i, name in enumerate(BWD_KERNELS):
+        blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+        err = lib.mia_mamba_scan_bwd_blocks_per_sm(
+            i, n, rank, int(dtype == torch.bfloat16), ctypes.byref(blocks),
+            ctypes.byref(smem))
+        _raise_on(err, f"{name} occupancy")
+        out[name] = (blocks.value, smem.value)
+    return out
 
 
 def _close_bwd(xr, xc, conv_w, x_proj_w, use_conv, du, u, dsilu, dxdbl,

@@ -116,7 +116,9 @@ def test_kernels_match_plain(cuda, dtype, k_dirs, b, l, d, n, r, use_conv):
     (4, 2, 10, 8, 4, 4, True),
     (4, 2, 10, 8, 4, 4, False),
     (4, 2, 197, 768, 16, 48, True),  # an ARM-B layer
-], ids=["k1", "k2", "k4", "k4-noconv", "arm-b"])
+    (4, 2, 3136, 192, 16, 6, False),  # vssm_tiny stage 0 at a small batch
+    (2, 3, 197, 70, 16, 8, True),  # a ragged last chunk; D not a multiple
+], ids=["k1", "k2", "k4", "k4-noconv", "arm-b", "vssm-tiny-s0", "ragged"])
 def test_scan_bwd_matches_plain(cuda, dtype, k_dirs, b, l, d, n, r,
                                 use_conv):
     xr, xc, w = _inputs(cuda, dtype, k_dirs, b, l, d, n, r, seed=k_dirs + l)
@@ -236,6 +238,69 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         mf.xdbl_fwd(xr, None, w["conv_w"], w["conv_b"], w["x_proj_w"])
     with pytest.raises(ValueError, match="fp32 tensor"):
         mf.xdbl_fwd(xr, xc, w["conv_w"].cpu(), w["conv_b"], w["x_proj_w"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("k_dirs,b,l,d,n,r,use_conv", [
+    (4, 2, 197, 96, 16, 48, True),   # chunks of an ARM-B layer
+    (4, 1, 3136, 64, 16, 6, False),  # vssm_tiny stage 0's 49 chunks
+    (2, 3, 70, 40, 4, 3, True),      # N=4, a ragged last chunk
+], ids=["arm-b", "vssm-tiny-s0", "n4"])
+def test_scan_bwd_carries_match_the_plain_walk(cuda, dtype, k_dirs, b, l, d,
+                                               n, r, use_conv):
+    """The backward's chunk summaries composed by its carry kernel: the
+    state entering every chunk and the adjoint entering its last row from
+    the rows after it, every direction, against the sequential walks of
+    the plain version, within 1e-5 of max(1, max |plain|)."""
+    xr, xc, w = _inputs(cuda, dtype, k_dirs, b, l, d, n, r, seed=l + d)
+    x_dbl = mf.xdbl_plain(xr, xc, w["conv_w"], w["conv_b"], w["x_proj_w"],
+                          use_conv)
+    dy = torch.randn(b, k_dirs, l, d, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(l))
+    args = (xr, xc, x_dbl, w["conv_w"], w["conv_b"], w["dt_proj_w"],
+            w["dt_bias"], w["A"], w["D"], dy.to(dtype), True, use_conv)
+    want = mf.mamba_carries_plain(*args)
+    got = mf.scan_bwd_carries(*args)
+    torch.cuda.synchronize()
+    for name, g, wv in zip(("h_in", "g_in"), got, want):
+        assert g.shape == wv.shape == (b * k_dirs, -(-l // mf._BWD_CHUNK),
+                                       n, d), name
+        err, scale = _err(g, wv)
+        assert err <= 1e-5 * scale, (name, err, scale)
+
+
+@pytest.mark.cuda
+def test_scan_bwd_is_deterministic(cuda):
+    """Per-block and per-(b*k, chunk) partials summed in a fixed order, no
+    float atomics: two calls give the same bits."""
+    xr, xc, w = _inputs(cuda, torch.float32, 4, 3, 300, 100, 16, 8, seed=5)
+    x_dbl = mf.xdbl_plain(xr, xc, w["conv_w"], w["conv_b"], w["x_proj_w"])
+    dy = torch.randn(3, 4, 300, 100, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(6))
+    args = (xr, xc, x_dbl, w["conv_w"], w["conv_b"], w["dt_proj_w"],
+            w["dt_bias"], w["A"], w["D"], dy)
+    first = mf.scan_bwd(*args)
+    second = mf.scan_bwd(*args)
+    for name, a, b in zip(BWD_OUTPUTS, first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rank", [6, 48], ids=["vssm-tiny-s0", "arm-b"])
+def test_scan_bwd_occupancy(cuda, dtype, rank):
+    """At N=16 and vssm_tiny stage 0's rank (6) and ARM-B's (48) the
+    gradients kernel keeps at least 4 blocks of 64 threads resident on an
+    SM, its shared memory within 45 KB a block; the summaries kernel at
+    least as many."""
+    occupancy = mf.bwd_occupancy(16, rank, dtype)
+    assert set(occupancy) == set(mf.BWD_KERNELS)
+    blocks, smem = occupancy["mamba_scan_bwd_grad_kernel"]
+    assert smem <= 45 * 1024 and blocks >= 4, (blocks, smem)
+    assert occupancy["mamba_scan_bwd_sums_kernel"][0] >= blocks, occupancy
 
 
 @pytest.mark.cuda

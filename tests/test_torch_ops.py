@@ -134,6 +134,77 @@ def test_wrappers_on_cpu_equal_plain_versions():
                        mamba_fused.scan_plain(*args))
 
 
+def _chunked_carries(dt, bx, cdy, A, chunk):
+    """The backward kernels' algorithm on scan-order numpy arrays: dt (B,
+    K, L, D), the input terms dt u B and C dy (B, K, L, D, N), A (K, D,
+    N). Per chunk of ``chunk`` scan rows (the last one ragged): S, the sum
+    of dt; H, the end state from a zero state; G, the sum over its rows of
+    the decays up to and including the row times C dy. Then the chunks
+    composed with the decays exp(A S) per state, in scan order for the
+    state entering each (h = P h + H) and in reverse for the adjoint
+    entering its last row (g = P g + G). Returns (h_in, g_in), each (B*K,
+    nchunks, N, D)."""
+    b, k, seq_len, d, n = bx.shape
+    summaries = []
+    for t0 in range(0, seq_len, chunk):
+        s_dt = np.zeros((b, k, d))
+        p = np.ones((b, k, d, n))
+        h = np.zeros((b, k, d, n))
+        g = np.zeros((b, k, d, n))
+        for t in range(t0, min(t0 + chunk, seq_len)):
+            a = np.exp(dt[:, :, t, :, None] * A[None])
+            s_dt = s_dt + dt[:, :, t]
+            p = p * a
+            h = a * h + bx[:, :, t]
+            g = g + p * cdy[:, :, t]
+        summaries.append((np.exp(A[None] * s_dt[..., None]), h, g))
+    h_in, g_in = [], []
+    h = g = np.zeros((b, k, d, n))
+    for decay, end, _ in summaries:
+        h_in.append(h)
+        h = decay * h + end
+    for decay, _, adj in summaries[::-1]:
+        g_in.append(g)
+        g = decay * g + adj
+    return tuple(np.stack(x, axis=2).transpose(0, 1, 2, 4, 3).reshape(
+        b * k, len(summaries), n, d) for x in (h_in, g_in[::-1]))
+
+
+@pytest.mark.parametrize("n", [4, 16])
+@pytest.mark.parametrize("use_conv", [True, False], ids=["conv", "noconv"])
+@pytest.mark.parametrize("l,chunk", [(70, 32), (33, 8)])
+def test_mamba_chunked_carries_match_the_walk(l, chunk, use_conv, n):
+    """The chunk summaries composed as the backward's kernels compose them
+    (decays exp(A S) per state) give the state entering every chunk and
+    the adjoint entering its last row of the sequential walks
+    (``mamba_carries_plain``), at K=4 with its reversed directions and a
+    ragged last chunk, within 1e-5 of max(1, max |walk|); on the CPU
+    ``scan_bwd_carries`` is that walk."""
+    xr, xc, p = _fused_inputs(4, b=2, l=l, d=8, n=n, r=4, seed=l + n)
+    t = {k: _torch(v) for k, v in p.items()}
+    xr_t, xc_t = _torch(xr), _torch(xc)
+    x_dbl = mamba_fused.xdbl_plain(xr_t, xc_t, t["conv_w"], t["conv_b"],
+                                   t["x_proj_w"], use_conv)
+    dy = torch.from_numpy(_rand(np.random.default_rng(l), 2, 4, l, 8))
+    args = (xr_t, xc_t, x_dbl, t["conv_w"], t["conv_b"], t["dt_proj_w"],
+            t["dt_bias"], t["A"], t["D"], dy, True, use_conv)
+    want = mamba_fused.mamba_carries_plain(*args, chunk=chunk)
+    u, _, dt, _, _, bmat, cmat, dys = mamba_fused._bwd_rows(
+        *args[:8], dy, True, use_conv)
+    got = _chunked_carries(
+        dt.double().numpy(),
+        ((dt * u)[..., None] * bmat[:, :, :, None, :]).double().numpy(),
+        (cmat[:, :, :, None, :] * dys[..., None]).double().numpy(),
+        t["A"].double().numpy(), chunk)
+    for name, g, w in zip(("h_in", "g_in"), got, want):
+        assert g.shape == tuple(w.shape) == (8, -(-l // chunk), n, 8), name
+        scale = max(1.0, w.abs().max().item())
+        assert np.abs(g - w.double().numpy()).max() <= 1e-5 * scale, name
+    for g, w in zip(mamba_fused.scan_bwd_carries(*args),
+                    mamba_fused.mamba_carries_plain(*args)):
+        assert torch.equal(g, w)
+
+
 def test_wrappers_refuse_other_devices():
     """No silent path: a tensor that is neither CPU nor CUDA raises."""
     xr = torch.empty(1, 4, 8, device="meta")

@@ -11,7 +11,9 @@ codes that ``ops/vit_block.py`` passes must be the values of the enum in
 wrappers must size their buffers and grids with the kernels' own block
 widths and chunks, the MAE and classification step profiles must name the
 family of every kernel the ViT and Swin sub-layers launch, and the scans'
-timing tools their kernels.
+timing tools their kernels. The fused Mamba layer's backward likewise: its
+wrapper's block, lane and chunk sizes are the kernel's, and its workspace
+at vssm_tiny stage 0 stays under the 2.47 GB of carries it replaced.
 """
 
 import importlib.util
@@ -23,6 +25,7 @@ import pytest
 import torch
 
 from medical_image_analysis_tpu_torch.ops import build
+from medical_image_analysis_tpu_torch.ops import mamba_fused as mf
 from medical_image_analysis_tpu_torch.ops import scan_n1 as sn
 from medical_image_analysis_tpu_torch.ops import selective_scan_pallas as ssp
 from medical_image_analysis_tpu_torch.ops import swin_block as sb
@@ -156,6 +159,55 @@ def test_scan_n1_workspaces_are_chunked_as_the_kernel(b, l, d):
     assert blocks["scan_n1_bwd_sums_kernel"] == chunks * nblk * b * 4
 
 
+@pytest.mark.parametrize("constant,attr", [("kBwdThreads", "_BWD_THREADS"),
+                                           ("kLanes", "_BWD_LANES"),
+                                           ("kBwdChunk", "_BWD_CHUNK"),
+                                           ("kCarryThreads", "_CARRY_THREADS")])
+def test_mamba_bwd_sizes_match_the_kernel(constant, attr):
+    """``_BWD_THREADS`` and ``_BWD_LANES`` (a block's threads and the lanes
+    of a channel: ``dxdbl_part``'s channel-block extent), ``_BWD_CHUNK``
+    (scan rows a slot of the workspaces) and ``_CARRY_THREADS`` (chains a
+    block of the carry kernel, for ``bwd_grid_blocks``) are the values of
+    ``csrc/mamba_fused.cu``'s constants."""
+    src = (CSRC / "mamba_fused.cu").read_text()
+    want = re.findall(rf"constexpr int {constant} = (\d+);", src)
+    assert len(want) == 1 and int(want[0]) == getattr(mf, attr)
+
+
+# (B, K, L, D, N, R): ARM-B at the training micro-batch, vssm_tiny stage 0
+# at vssm_classify's batch, a ragged small one
+MAMBA_BWD_SHAPES = [(6, 4, 197, 768, 16, 48), (128, 4, 3136, 192, 16, 6),
+                    (3, 2, 70, 40, 4, 3)]
+
+
+@pytest.mark.parametrize("b,k,l,d,n,r", MAMBA_BWD_SHAPES,
+                         ids=["arm-b", "vssm-tiny-s0", "ragged"])
+def test_mamba_bwd_workspaces_are_chunked_as_the_kernel(b, k, l, d, n, r):
+    """The backward's summaries (S, H, G; the carries once its second
+    kernel ran) and weight-gradient partials have one slot a (b*k, chunk
+    of ``_BWD_CHUNK`` scan rows), as ``csrc/mamba_fused.cu``'s layout
+    comment gives them; the grids follow the same chunks; and the whole
+    workspace at vssm_tiny stage 0, B=128, is under the 2.47 GB of
+    per-8-row carries it replaced."""
+    w = mf._bwd_workspaces(torch.device("meta"), b * k, l, d, n, r)
+    chunks = -(-l // mf._BWD_CHUNK)
+    assert w["sums"].shape == (b * k, chunks, 1 + 2 * n, d)
+    assert w["dA"].shape == (b * k, chunks, d, n)
+    assert w["dD"].shape == w["ddb"].shape == (b * k, chunks, d)
+    assert w["ddtw"].shape == (b * k, chunks, d, r)
+    blocks = mf.bwd_grid_blocks(b, k, l, d, n)
+    assert list(blocks) == list(mf.BWD_KERNELS)
+    nblk = -(-d // (mf._BWD_THREADS // mf._BWD_LANES))
+    assert blocks["mamba_scan_bwd_sums_kernel"] == chunks * nblk * b * k
+    assert blocks["mamba_scan_bwd_grad_kernel"] == chunks * nblk * b * k
+    assert blocks["mamba_scan_bwd_carry_kernel"] == -(
+        -b * k * n * d // mf._CARRY_THREADS)
+    if (l, d) == (3136, 192):
+        nbytes = sum(t.numel() * 4 for t in w.values())
+        old_carries = b * k * -(-l // 8) * n * d * 4
+        assert old_carries == 2_466_250_752 and nbytes < 1.2e9
+
+
 def _profile_tool(name):
     path = ROOT / "tools" / f"{name}.py"
     spec = importlib.util.spec_from_file_location(name, path)
@@ -214,6 +266,21 @@ def test_scan_timing_tool_names_the_backward_kernel():
     ``csrc/selective_scan.cu``."""
     tool = _profile_tool("time_selective_scan_bwd")
     assert tool.KERNEL in _kernels("selective_scan.cu")
+
+
+def test_mamba_timing_tool_names_the_kernels():
+    """``tools/time_mamba_scan_bwd.py`` splits a call by kernel name
+    prefixes that cover every backward ``__global__`` function of
+    ``csrc/mamba_fused.cu``, and the wrapper's ``BWD_KERNELS`` are those
+    kernels."""
+    tool = _profile_tool("time_mamba_scan_bwd")
+    kernels = {k for k in _kernels("mamba_fused.cu")
+               if k.startswith("mamba_scan_bwd")}
+    assert set(mf.BWD_KERNELS) == kernels
+    for name in kernels:
+        assert any(name.startswith(p) for p in tool.KERNELS), name
+    for prefix in tool.KERNELS:
+        assert any(k.startswith(prefix) for k in kernels), prefix
 
 
 def test_scan_n1_timing_tool_names_the_kernels():
