@@ -12,11 +12,18 @@ raises (exit code 1):
                ``csrc/swin_block.cu``, ``csrc/selective_scan.cu`` and
                ``csrc/attention.cu`` with nvcc for sm_90a into
                ``build/kernels/``, one nvcc per source, all at once.
-3. kernels  -- both fused-Mamba forward kernels against their plain
-               PyTorch versions on the card, at the ARM-B layer shapes of
-               the ``r2gengpt_mimic`` preset (K=4, L=197, D=768, N=16,
-               R=48), batch 1 and 6, fp32 and bf16 sources; the device time
-               of each beside its plain version's.
+3. kernels  -- both fused-Mamba forward wrappers (``xdbl_fwd``, and
+               ``scan_fwd``: a chunked scan, three kernels, one launch count
+               a call) against their plain PyTorch versions on the card, at
+               the ARM-B layer shapes of the ``r2gengpt_mimic`` preset (K=4,
+               L=197, D=768, N=16, R=48), batch 1 and 6, fp32 and bf16
+               sources; the device time of each beside its plain version's,
+               and the chunk ``scan_fwd`` took.
+   kernels_fwd_vssm -- ``scan_fwd`` at vssm_tiny's four stage shapes
+               (K=4, no conv, N=16; ``vssm_classify``'s SS2D blocks),
+               held against ``scan_plain`` at B=8 and timed alone at B=128
+               beside its bound, with its chunk and each kernel's grid
+               blocks and resident blocks an SM.
    kernels_bwd -- the backward (``scan_bwd``: three kernels, chunk
                summaries, carries, gradients; one launch count a call)
                against ``scan_bwd_plain`` at the same shapes: the max error
@@ -421,8 +428,8 @@ def _bound(tensors, work, dtype=torch.float32) -> tuple[float, str, str]:
 # N-state update and readout 7N, the D skip 2; the backward recomputes the
 # forward and runs the adjoint (2R + 10N). The d_state=1 scan: dt_proj 2R,
 # softplus, decay, update, readout and skip 13; its backward as above.
-def _mamba_ops(rank, n):
-    return 13 + 2 * rank + 4 + 7 * n + 2
+def _mamba_ops(rank, n, use_conv=True):
+    return (13 if use_conv else 0) + 2 * rank + 4 + 7 * n + 2
 
 
 def _max_err(got, want):
@@ -540,6 +547,8 @@ def phase_kernels(cfg, dev, gen, batches=(1, 6)) -> dict:
                 xdbl_plain_ms=f"{t['xdbl_plain']:.4f}",
                 scan_ms=f"{t['scan']:.4f}",
                 scan_plain_ms=f"{t['scan_plain']:.4f}",
+                **_mamba_fwd_blocks(b, mixer.k, seq_len, mixer.d_inner,
+                                    mixer.n, mixer.rank, dtype),
             )
             if b == 1 and dtype == torch.float32:
                 elems = b * mixer.k * seq_len * mixer.d_inner
@@ -552,6 +561,71 @@ def phase_kernels(cfg, dev, gen, batches=(1, 6)) -> dict:
                                        mixer.rank, mixer.n))[:2]),
                 }
     return serving
+
+
+def _mamba_fwd_blocks(b, k_dirs, seq_len, d_in, n, rank, dtype) -> dict:
+    """The fused forward's chunk for (B, K, L, D) on this card, and its
+    kernels' grid blocks, resident blocks an SM and shared memory a block,
+    for a phase line."""
+    from medical_image_analysis_tpu_torch.ops import mamba_fused as mf
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chunk = mf.fwd_chunk(b, k_dirs, seq_len, d_in, sms)
+    occupancy = mf.fwd_occupancy(n, rank, dtype)
+    return dict(
+        chunk=chunk,
+        grid_blocks=_compact(mf.fwd_grid_blocks(b, k_dirs, seq_len, d_in, n,
+                                                chunk)),
+        blocks_per_sm=_compact({k: v[0] for k, v in occupancy.items()}),
+        smem_bytes=_compact({k: v[1] for k, v in occupancy.items()}))
+
+
+def phase_kernels_fwd_vssm(dev, gen) -> None:
+    """``scan_fwd`` at vssm_tiny's four stage shapes (``vssm_bwd_case``'s
+    arguments without dy: K=4, no conv, N=16, softplus), against
+    ``scan_plain`` at B=MAMBA_VSSM_CHECK_BATCH within Y_RTOL (its per-row
+    loop holds B=8 easily; the kernels' indexing depends on B only through
+    the grid), then timed alone at ``vssm_classify``'s B=128 beside its
+    bound: the median of three timings of 10 calls, all three printed
+    (sorted) beside it."""
+    from medical_image_analysis_tpu_torch.ops import mamba_fused as mf
+
+    for stage, (seq_len, d_in) in enumerate(SS_VSSM_STAGES):
+        args, rank = vssm_bwd_case(dev, gen, stage, MAMBA_VSSM_CHECK_BATCH)
+        fargs = (*args[:9], True, False)
+        del args
+        want = mf.scan_plain(*fargs)
+        got = mf.scan_fwd(*fargs)
+        _sync(dev)
+        _check(got.shape == want.shape and got.dtype == want.dtype
+               and bool(torch.isfinite(got).all()),
+               f"mamba_scan vssm_tiny stage {stage}: shape, dtype or "
+               f"finiteness")
+        err, scale = _max_err(got, want)
+        _check(err <= Y_RTOL[torch.float32] * scale,
+               f"mamba_scan vssm_tiny stage {stage} B="
+               f"{MAMBA_VSSM_CHECK_BATCH}: max abs err {err:.3e} > "
+               f"{Y_RTOL[torch.float32]} x {scale:.3f}")
+        del fargs, want, got
+        args, rank = vssm_bwd_case(dev, gen, stage, SS_VSSM_BATCH)
+        fargs = (*args[:9], True, False)
+        del args
+        runs = sorted(device_ms(lambda: mf.scan_fwd(*fargs), 10)
+                      for _ in range(3))
+        ms = runs[1]
+        bound = _bound([*fargs[:9], mf.scan_fwd(*fargs)],
+                       SS_VSSM_BATCH * 4 * seq_len * d_in
+                       * _mamba_ops(rank, 16, use_conv=False))
+        _phase("kernels_fwd_vssm", stage=stage, B=SS_VSSM_BATCH, K=4,
+               L=seq_len, D=d_in, N=16, R=rank, src="fp32",
+               check_B=MAMBA_VSSM_CHECK_BATCH, err=f"{err:.3e}",
+               ms=f"{ms:.4f}", ms_runs="/".join(f"{t:.4f}" for t in runs),
+               bound_ms=f"{bound[0]:.4f}", bound_by=bound[1],
+               **_mamba_fwd_blocks(
+                   SS_VSSM_BATCH, 4, seq_len, d_in, 16, rank,
+                   torch.float32))
+        del fargs
+        torch.cuda.empty_cache()
 
 
 def phase_kernels_bwd(cfg, dev, gen, batches=(1, 6)) -> tuple:
@@ -2366,6 +2440,7 @@ def main() -> None:
     cfg = load_config(str(PRESET))
     phase_build()
     measured = phase_kernels(cfg, dev, gen)
+    phase_kernels_fwd_vssm(dev, gen)
     measured["mamba_scan_bwd"] = phase_kernels_bwd(cfg, dev, gen)
     measured["scan_n1_fwd"] = phase_kernels_n1(dev, gen)
     measured["scan_n1_bwd"] = phase_kernels_n1_bwd(dev, gen)

@@ -1,12 +1,16 @@
-// Fused multi-direction Mamba layer for Hopper (sm_90a): the two forward
-// kernels and the three kernels of the backward.
+// Fused multi-direction Mamba layer for Hopper (sm_90a): the forward's
+// x_dbl kernel and its three scan kernels, and the three kernels of the
+// backward.
 //
 // They replace the three Pallas TPU kernels of
 // medical_image_analysis_tpu/ops/mamba_fused.py:
 //
 //   mamba_xdbl_kernel      <- _xdbl_kernel      (x_dbl = silu(conv(x_dir)) @ Wx^T)
-//   mamba_scan_kernel      <- _fused_fwd_kernel (conv + SiLU again, dt_proj,
-//                                                softplus, S6 scan, D skip)
+//   mamba_scan_sums_kernel,
+//   mamba_scan_carry_kernel,
+//   mamba_scan_kernel      <- _fused_fwd_kernel (:145, launched at :389; conv
+//                                 + SiLU again, dt_proj, softplus, S6 scan,
+//                                 D skip; see "the forward")
 //   mamba_scan_bwd_sums_kernel,
 //   mamba_scan_bwd_carry_kernel,
 //   mamba_scan_bwd_grad_kernel <- _fused_bwd_kernel (:197, launched at :479;
@@ -35,15 +39,16 @@
 //    each warp reduces over D for a set of the C outputs, reusing each weight
 //    it loads for all ROWS rows. No tensor cores yet (the TPU kernel used the
 //    MXU); a wgmma tile is later work.
-//  - scan: a chain of L dependent steps per (b, k, d) channel, so latency, not
-//    bytes or FLOPs, bounds it. One thread owns one channel and keeps its conv
-//    window, its N fp32 states and A in registers; the block stages a tile of
-//    x_dbl rows (shared by all its channels) and of source rows in shared
-//    memory so that the loads of a tile are issued together, not once per
-//    dependent step. The TPU's sequential L-chunk grid with VMEM carries
-//    becomes this loop inside the thread. Chunk-start carries for the
-//    backward are not written here: serving needs none, and the backward
-//    recomputes them.
+//  - scan: a chain of L dependent steps per (b, k, d) channel, so latency,
+//    not bytes or FLOPs, bounds it where the grid is small, and the
+//    instructions of each element where it is large. It ran as one thread a
+//    channel walking all of L, (D/64) x B*K blocks of 2 warps: 48 blocks at
+//    ARM-B, B=1, 0.314 ms against a 0.002 ms bound, and at vssm_tiny (B=128,
+//    a grid of 1,536 to 12,288 blocks) 16 expf, a 16-term dependent readout
+//    and the dt_proj dot on one thread's path for each element, staged
+//    behind two barriers every 32 rows (5.36 ms at stage 0), on an H100
+//    80GB HBM3 at 700 W. It is now a chunked scan built from the backward's
+//    pieces: see "the forward" below.
 //  - scan backward: the same dependent chain. It ran as one thread a
 //    channel walking all of L twice, with the state before every 8-row
 //    chunk written to a buffer over all of L (2.47 GB at vssm_tiny stage 0,
@@ -61,14 +66,13 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <type_traits>
 
 namespace {
 
 constexpr int kMaxTaps = 4;
 constexpr int kXdblThreads = 256;
 constexpr int kXdblMaxRows = 8;
-constexpr int kScanThreads = 64;  // channels per block
-constexpr int kScanTile = 32;     // rows staged per pass
 
 template <typename T>
 __device__ __forceinline__ float to_float(T v);
@@ -171,116 +175,32 @@ __global__ void __launch_bounds__(kXdblThreads) mamba_xdbl_kernel(
   }
 }
 
-// grid (ceil(D / kScanThreads), B*K), block kScanThreads, dynamic smem
-// (R*kScanThreads + kScanTile*C + kScanTile*kScanThreads) floats
-template <typename T, int N>
-__global__ void __launch_bounds__(kScanThreads) mamba_scan_kernel(
-    const T* __restrict__ xr, const T* __restrict__ xc,
-    const float* __restrict__ xdbl, const float* __restrict__ conv_w,
-    const float* __restrict__ conv_b, const float* __restrict__ dtw,
-    const float* __restrict__ dt_bias, const float* __restrict__ A,
-    const float* __restrict__ Dv, T* __restrict__ y, int K, int L, int D,
-    int R, int taps, int use_conv, int delta_softplus) {
-  extern __shared__ float smem[];
-  const int C = R + 2 * N;
-  float* dtw_s = smem;                         // (R, kScanThreads)
-  float* xd_s = dtw_s + R * kScanThreads;      // (kScanTile, C)
-  float* x_s = xd_s + kScanTile * C;           // (kScanTile, kScanThreads)
-
-  const int bk = blockIdx.y;
-  const int b = bk / K;
-  const int k = bk - b * K;
-  const bool rev = (k & 1) != 0;
-  const int d0 = blockIdx.x * kScanThreads;
-  const int tid = threadIdx.x;
-  const int d = d0 + tid;
-  const bool active = d < D;
-  const T* src = source_of(xr, xc, k, b, L, D);
-
-  for (int i = tid; i < R * kScanThreads; i += kScanThreads) {
-    const int dd = i / R;
-    const int r = i - dd * R;
-    dtw_s[r * kScanThreads + dd] =
-        d0 + dd < D ? dtw[(static_cast<size_t>(k) * D + d0 + dd) * R + r]
-                    : 0.0f;
-  }
-
-  // Taps are right-aligned in wp so that wp[kMaxTaps-1] multiplies x[t];
-  // leading zero taps add exact zeros.
-  float a[N], h[N];
-  float wp[kMaxTaps], win[kMaxTaps - 1];
-  float cb = 0.0f, db = 0.0f, dskip = 0.0f;
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-    a[n] = active ? A[(static_cast<size_t>(k) * D + d) * N + n] : 0.0f;
-    h[n] = 0.0f;
-  }
-#pragma unroll
-  for (int j = 0; j < kMaxTaps; ++j) {
-    const int src_tap = j - (kMaxTaps - taps);
-    wp[j] = active && src_tap >= 0
-                ? conv_w[(static_cast<size_t>(k) * taps + src_tap) * D + d]
-                : 0.0f;
-  }
-#pragma unroll
-  for (int j = 0; j < kMaxTaps - 1; ++j) win[j] = 0.0f;
-  if (active) {
-    cb = conv_b[k * D + d];
-    db = dt_bias[k * D + d];
-    dskip = Dv[k * D + d];
-  }
-
-  for (int t0 = 0; t0 < L; t0 += kScanTile) {
-    const int nt = min(kScanTile, L - t0);
-    __syncthreads();  // dtw_s written / previous tile consumed
-    const float* xd_g = xdbl + (static_cast<size_t>(bk) * L + t0) * C;
-    for (int i = tid; i < nt * C; i += kScanThreads) xd_s[i] = xd_g[i];
-    for (int i = tid; i < nt * kScanThreads; i += kScanThreads) {
-      const int r = i / kScanThreads;
-      const int dd = i - r * kScanThreads;
-      const int t = t0 + r;
-      const int s = rev ? L - 1 - t : t;
-      x_s[i] = d0 + dd < D
-                   ? to_float(src[static_cast<size_t>(s) * D + d0 + dd])
-                   : 0.0f;
-    }
-    __syncthreads();
-    if (!active) continue;
-
-    for (int r = 0; r < nt; ++r) {
-      const float xv = x_s[r * kScanThreads + tid];
-      float u = xv;
-      if (use_conv) {
-        float acc = 0.0f;
-#pragma unroll
-        for (int j = 0; j < kMaxTaps - 1; ++j) acc += wp[j] * win[j];
-        acc += wp[kMaxTaps - 1] * xv;
-#pragma unroll
-        for (int j = 0; j < kMaxTaps - 2; ++j) win[j] = win[j + 1];
-        win[kMaxTaps - 2] = xv;
-        u = silu(acc + cb);
-      }
-      const float* row = xd_s + r * C;
-      float dt = 0.0f;
-      for (int q = 0; q < R; ++q) dt += row[q] * dtw_s[q * kScanThreads + tid];
-      dt += db;
-      if (delta_softplus) dt = softplus(dt);
-      const float dtu = dt * u;
-      float out = 0.0f;
-#pragma unroll
-      for (int n = 0; n < N; ++n) {
-        h[n] = expf(dt * a[n]) * h[n] + dtu * row[R + n];
-        out += row[R + N + n] * h[n];
-      }
-      out += u * dskip;
-      const int t = t0 + r;
-      const int s = rev ? L - 1 - t : t;
-      y[(static_cast<size_t>(bk) * L + s) * D + d] = from_float<T>(out);
-    }
-  }
-}
-
-// ---- the backward: three kernels ----------------------------------------
+// ---- the forward and the backward: chunked scans --------------------------
+//
+// The forward (mamba_scan_sums_kernel, mamba_scan_carry_kernel,
+// mamba_scan_kernel; the wrapper's fwd_chunk picks the chunk): where B*K blocks
+// of 32 channels give every SM a block (vssm_tiny, and ARM-B from 2 images on),
+// a chunk is all of L, and mamba_scan_kernel runs alone from a zero state: what
+// it saves there is instructions and staging latency, not a chain: two lanes a
+// channel (N/2 states each), the terms that do not depend on n taken once per
+// (row, channel) by the whole block, the decays by exp2_approx, B and C read as
+// vectors, the readout in two accumulators and one shuffle, and the rows staged
+// kFwdSub at a time, the next ones in flight (cp.async) while a sub-chunk is
+// walked. Otherwise (an ARM-B layer serving one image) L is cut into chunks of
+// kFwdCut rows (16: the fastest of 8, 16, 32 and 64 there): the summaries (S, H
+// of each chunk from a zero state: the backward's kernel 1 without dy and G),
+// the carries (its kernel 2's walk in scan order alone), then mamba_scan_kernel
+// walks every chunk from its carried state. Workspace (fp32, of the wrapper):
+// sums (B*K, nchunks, 1 + N, D), S then H (the state entering the chunk once
+// the carries ran). On an H100 80GB HBM3 at 700 W: 0.048 ms at ARM-B, B=1
+// (0.313 before), 0.105 at B=6 (0.326), 3.76 ms at vssm_tiny stage 0, B=128
+// (5.35). Variants priced the single pass's parts: latency and instruction
+// throughput bound it, not the MUFU pipe (the decays' exps 7% at stage 0); 16
+// rows a stage beat 8 and 32, and the row terms' exps by exp2_approx, vector
+// reads of B and C and two barriers a stage in place of three gave the rest;
+// the double buffer itself about 4%.
+//
+// The backward: three kernels.
 //
 // The adjoint of mamba_scan_kernel, minus the parts the wrapper closes in
 // PyTorch (the x_proj and conv transposes). For channel d and state n the
@@ -354,6 +274,8 @@ __global__ void __launch_bounds__(kScanThreads) mamba_scan_kernel(
 // [dt_r | B | C]; dA (B*K, nchunks, D, N); dD, ddb (B*K, nchunks, D);
 // ddtw (B*K, nchunks, D, R). dy (B, K, L, D) in the source dtype and
 // source order.
+// kBwdThreads, kLanes and kBwdChannels lay out the forward's summaries and
+// scan kernels too.
 constexpr int kBwdThreads = 64;  // threads a block of kernels 1 and 3
 constexpr int kLanes = 2;        // lanes of a channel, N / kLanes states each
 constexpr int kBwdChannels = kBwdThreads / kLanes;  // channels a block
@@ -361,16 +283,21 @@ constexpr int kBwdChunk = 64;    // scan rows a chunk
 constexpr int kBwdSub = 8;       // rows a lane holds the states of
 constexpr int kCarryThreads = 128;  // chains a block of kernel 2
 constexpr int kBwdBlocks = 6;    // kernel 3's resident blocks an SM
+constexpr int kFwdBlocks = 8;    // the forward scan's resident blocks an SM
+constexpr int kFwdSub = 16;      // rows the forward scan stages at once
+constexpr int kFwdCut = 16;      // scan rows a chunk of the forward when cut
+// the forward summaries' resident blocks an SM: one wave of ARM-B's 1,248
+// at B=1 on 132 SMs (uncapped, ptxas gave them 80 registers and a spill)
+constexpr int kFwdSumsBlocks = 10;
 constexpr int kBwdSubs = kBwdChunk / kBwdSub;  // sub-chunks of a chunk
-constexpr int kRowStep = kBwdThreads / kBwdChannels;  // row stride of a
-constexpr int kRowTerms = kBwdSub / kRowStep;  // (row, channel) thread
+// rows apart the rows of a thread's (row, channel) terms
+constexpr int kRowStep = kBwdThreads / kBwdChannels;
 constexpr int kWLd = kBwdChannels + 1;  // dtw_s's stride: lanes read columns
 constexpr int kDLd = kBwdChannels + 4;  // ddt_s's: float4 rows 4 banks apart
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kCarryBatch = 8;   // chunks whose loads kernel 2 issues ahead
 static_assert(kBwdChunk % kBwdSub == 0, "chunks hold whole sub-chunks");
-static_assert(kBwdSub % kRowStep == 0, "the row terms split evenly");
 static_assert(kBwdChannels == 32, "a row of a staged term is one warp");
 
 __host__ __device__ constexpr int log2i(int x) {
@@ -410,13 +337,13 @@ __host__ __device__ constexpr int bwd_smem_floats(int R, int C, int N,
                : 0);
 }
 
-struct BwdSmem {
+struct ScanSmem {
   float *dtw, *xd, *x, *u, *dt, *dtu, *sg, *dy, *ddt, *dwdt, *sum, *ck;
 };
 
-__device__ __forceinline__ BwdSmem bwd_smem(float* smem, int R, int C,
-                                            int N) {
-  BwdSmem s;
+__device__ __forceinline__ ScanSmem bwd_smem(float* smem, int R, int C,
+                                             int N) {
+  ScanSmem s;
   s.xd = smem;
   s.ddt = s.xd + kBwdSub * pad4(C);
   s.dtw = s.ddt + kBwdSub * kDLd;
@@ -433,13 +360,14 @@ __device__ __forceinline__ BwdSmem bwd_smem(float* smem, int R, int C,
 }
 
 // Where a block of kernels 1 and 3 is: its chunk, channels and (b, k).
-struct BwdBlock {
+struct ScanBlock {
   int c, blk, d0, bk, k, nchunks, t0, nt;
   bool rev;
 };
 
-__device__ __forceinline__ BwdBlock bwd_block(int K, int L, int D) {
-  BwdBlock p;
+__device__ __forceinline__ ScanBlock scan_block(int K, int L, int D,
+                                                int chunk) {
+  ScanBlock p;
   const int nblk = (D + kBwdChannels - 1) / kBwdChannels;
   p.c = blockIdx.x / nblk;
   p.blk = blockIdx.x - p.c * nblk;
@@ -447,9 +375,9 @@ __device__ __forceinline__ BwdBlock bwd_block(int K, int L, int D) {
   p.bk = blockIdx.y;
   p.k = p.bk % K;
   p.rev = (p.k & 1) != 0;
-  p.nchunks = (L + kBwdChunk - 1) / kBwdChunk;
-  p.t0 = p.c * kBwdChunk;
-  p.nt = min(kBwdChunk, L - p.t0);
+  p.nchunks = (L + chunk - 1) / chunk;
+  p.t0 = p.c * chunk;
+  p.nt = min(chunk, L - p.t0);
   return p;
 }
 
@@ -472,9 +400,9 @@ __device__ __forceinline__ void stage_dtw(const float* dtw, int k, int D,
 // L-1-t of a reversed direction.
 template <typename T>
 __device__ __forceinline__ void stage_rows(const float* xdbl, const T* src,
-                                           const BwdBlock& p, int t0, int ns,
+                                           const ScanBlock& p, int t0, int ns,
                                            int L, int D, int C, int halo,
-                                           const BwdSmem& s) {
+                                           const ScanSmem& s) {
   const float* xd_g = xdbl + (static_cast<size_t>(p.bk) * L + t0) * C;
   const int Cp = pad4(C);
   for (int i = threadIdx.x; i < ns * C; i += kBwdThreads) {
@@ -497,8 +425,14 @@ __device__ __forceinline__ void stage_rows(const float* xdbl, const T* src,
 // calling thread's channel (tid % 32) and rows tid / 32 + kRowStep i: dt
 // and dt u into dt_s and dtu_s; with kDy dy into dy_s; with kGrad also u
 // and softplus'(dt_raw) into u_s and sg_s, and u and silu'(pre) to u_g and
-// ds_g (the sub-chunk's first row of this b*k's u and dsilu). The rows' dot
-// products over R are interleaved (q outer) so that they are independent.
+// ds_g (the sub-chunk's first row of this b*k's u and dsilu); with kU u
+// into u_s alone (the forward's D skip). A sub-chunk holds kSub rows. With
+// kFast the SiLU's and the softplus's exps are exp2_approx (relative
+// error near 2^-22, where expf is about eight instructions) and the
+// sigmoid's division __fdividef; the softplus's log stays log1pf, which
+// keeps the small exps of large negative inputs (lg2(1 + ex) would round
+// them away, and with them dt). The rows' dot products over R are
+// interleaved (q outer) so that they are independent.
 struct RowConsts {
   float wp[kMaxTaps];  // taps right-aligned: wp[kMaxTaps-1] multiplies x[t]
   float cb, db;
@@ -506,26 +440,29 @@ struct RowConsts {
   bool in;
 };
 
-template <typename T, bool kDy, bool kGrad>
-__device__ __forceinline__ void row_terms(const BwdSmem& s, const T* dy_bk,
-                                          const BwdBlock& p, const RowConsts& rc,
-                                          int t0, int ns, int L, int D, int C,
-                                          int R, int use_conv,
-                                          int delta_softplus, float* u_g,
-                                          float* ds_g) {
+template <typename T, bool kDy, bool kGrad, bool kU = false,
+          int kSub = kBwdSub, bool kFast = false>
+__device__ __forceinline__ void row_terms(const ScanSmem& s, const T* dy_bk,
+                                          const ScanBlock& p,
+                                          const RowConsts& rc, int t0, int ns,
+                                          int L, int D, int C, int R,
+                                          int use_conv, int delta_softplus,
+                                          float* u_g, float* ds_g) {
+  constexpr int kTerms = kSub / kRowStep;  // rows a thread
+  static_assert(kSub % kRowStep == 0, "the row terms split evenly");
   const int r0 = threadIdx.x / kBwdChannels;
   const int Cp = pad4(C);
-  float v[kRowTerms];
+  float v[kTerms];
 #pragma unroll
-  for (int e = 0; e < kRowTerms; ++e) v[e] = rc.db;
+  for (int e = 0; e < kTerms; ++e) v[e] = rc.db;
   for (int q = 0; q < R; ++q) {
     const float w = s.dtw[q * kWLd + rc.ch];
 #pragma unroll
-    for (int e = 0; e < kRowTerms; ++e)
+    for (int e = 0; e < kTerms; ++e)
       v[e] += s.xd[(r0 + kRowStep * e) * Cp + q] * w;  // stale past ns: unused
   }
 #pragma unroll
-  for (int e = 0; e < kRowTerms; ++e) {
+  for (int e = 0; e < kTerms; ++e) {
     const int r = r0 + kRowStep * e;
     if (r >= ns) break;
     float u, dsilu = 1.0f;
@@ -534,7 +471,9 @@ __device__ __forceinline__ void row_terms(const BwdSmem& s, const T* dy_bk,
 #pragma unroll
       for (int j = 0; j < kMaxTaps; ++j)
         pre += rc.wp[j] * s.x[(r + j) * kBwdChannels + rc.ch];
-      const float sig = 1.0f / (1.0f + expf(-pre));
+      const float sig =
+          kFast ? __fdividef(1.0f, 1.0f + exp2_approx(-pre * kLog2e))
+                : 1.0f / (1.0f + expf(-pre));
       u = pre * sig;
       dsilu = sig * (1.0f + pre * (1.0f - sig));
     } else {
@@ -542,7 +481,8 @@ __device__ __forceinline__ void row_terms(const BwdSmem& s, const T* dy_bk,
     }
     float dt = v[e], sg = 1.0f;
     if (delta_softplus) {  // softplus as softplus() computes it, its exp reused
-      const float ex = expf(-fabsf(v[e]));
+      const float ex =
+          kFast ? exp2_approx(-fabsf(v[e]) * kLog2e) : expf(-fabsf(v[e]));
       dt = fmaxf(v[e], 0.0f) + log1pf(ex);
       sg = (v[e] >= 0.0f ? 1.0f : ex) / (1.0f + ex);
     }
@@ -555,8 +495,8 @@ __device__ __forceinline__ void row_terms(const BwdSmem& s, const T* dy_bk,
       s.dy[o] = rc.in ? to_float(dy_bk[static_cast<size_t>(row) * D + rc.d])
                       : 0.0f;
     }
+    if (kGrad || kU) s.u[o] = u;
     if (kGrad) {
-      s.u[o] = u;
       s.sg[o] = sg;
       if (rc.in) {
         u_g[static_cast<size_t>(r) * D + rc.d] = u;
@@ -569,7 +509,7 @@ __device__ __forceinline__ void row_terms(const BwdSmem& s, const T* dy_bk,
 __device__ __forceinline__ RowConsts row_consts(const float* conv_w,
                                                 const float* conv_b,
                                                 const float* dt_bias,
-                                                const BwdBlock& p, int D,
+                                                const ScanBlock& p, int D,
                                                 int taps) {
   RowConsts rc;
   rc.ch = threadIdx.x % kBwdChannels;
@@ -589,26 +529,26 @@ __device__ __forceinline__ RowConsts row_consts(const float* conv_w,
 
 // 1. Chunk summaries. grid (nchunks * ceil(D / kBwdChannels), B*K), block
 // kBwdThreads, dynamic smem bwd_smem_floats(R, C, N, false) floats. One
-// forward pass over the chunk's rows: S += dt, h = a h + b from a zero
-// state, and G += P C dy with P the decays so far, the adjoint's recurrence
-// unrolled into its sum, so that one forward walk gives all three.
-template <typename T, int N>
-__global__ void __launch_bounds__(kBwdThreads) mamba_scan_bwd_sums_kernel(
-    const T* __restrict__ xr, const T* __restrict__ xc,
-    const float* __restrict__ xdbl, const float* __restrict__ conv_w,
-    const float* __restrict__ conv_b, const float* __restrict__ dtw,
-    const float* __restrict__ dt_bias, const float* __restrict__ A,
-    const T* __restrict__ dy, float* __restrict__ sums, int K, int L, int D,
-    int R, int taps, int use_conv, int delta_softplus) {
+// forward pass over a chunk of kChunk rows: S += dt, h = a h + b from a zero
+// state, and with kAdj G += P C dy with P the decays so far, the adjoint's
+// recurrence unrolled into its sum, so that one forward walk gives all
+// three. A (b*k, chunk) slot of `sums` holds 1 + 2N floats a channel with
+// kAdj (the backward: S, H, G) and 1 + N without (the forward: S, H).
+template <typename T, int N, int kChunk, bool kAdj>
+__device__ __forceinline__ void chunk_sums(
+    float* smem, const T* xr, const T* xc, const float* xdbl,
+    const float* conv_w, const float* conv_b, const float* dtw,
+    const float* dt_bias, const float* A, const T* dy, float* sums, int K,
+    int L, int D, int R, int taps, int use_conv, int delta_softplus) {
   constexpr int NL = N / kLanes;
-  extern __shared__ float4 smem4[];  // 16-byte aligned
+  constexpr int kSlot = kAdj ? 1 + 2 * N : 1 + N;
   const int C = R + 2 * N;
   const int Cp = pad4(C);
   const int halo = use_conv ? kMaxTaps - 1 : 0;
-  const BwdSmem s = bwd_smem(reinterpret_cast<float*>(smem4), R, C, N);
-  const BwdBlock p = bwd_block(K, L, D);
+  const ScanSmem s = bwd_smem(smem, R, C, N);
+  const ScanBlock p = scan_block(K, L, D, kChunk);
   const T* src = source_of(xr, xc, p.k, p.bk / K, L, D);
-  const T* dy_bk = dy + static_cast<size_t>(p.bk) * L * D;
+  const T* dy_bk = kAdj ? dy + static_cast<size_t>(p.bk) * L * D : nullptr;
   const RowConsts rc = row_consts(conv_w, conv_b, dt_bias, p, D, taps);
   const int ch = threadIdx.x / kLanes;
   const int n0 = (threadIdx.x % kLanes) * NL;  // this lane's first state
@@ -630,54 +570,90 @@ __global__ void __launch_bounds__(kBwdThreads) mamba_scan_bwd_sums_kernel(
     __syncthreads();  // dtw_s written / the previous sub-chunk consumed
     stage_rows(xdbl, src, p, p.t0 + r0, ns, L, D, C, halo, s);
     __syncthreads();
-    row_terms<T, true, false>(s, dy_bk, p, rc, p.t0 + r0, ns, L, D, C, R,
+    row_terms<T, kAdj, false>(s, dy_bk, p, rc, p.t0 + r0, ns, L, D, C, R,
                               use_conv, delta_softplus, nullptr, nullptr);
     __syncthreads();
     for (int r = 0; r < ns; ++r) {
       const int o = r * kBwdChannels + ch;
-      const float dt = s.dt[o], bx = s.dtu[o], dyv = s.dy[o];
+      const float dt = s.dt[o], bx = s.dtu[o];
+      float dyv = 0.0f;
+      if constexpr (kAdj) dyv = s.dy[o];
       const float* row = s.xd + r * Cp;
       S += dt;
 #pragma unroll
       for (int i = 0; i < NL; ++i) {
         const float an = exp2_approx(dt * a2[i]);
-        P[i] *= an;
+        if constexpr (kAdj) P[i] *= an;
         H[i] = an * H[i] + bx * row[R + n0 + i];
-        G[i] += P[i] * (row[R + N + n0 + i] * dyv);
+        if constexpr (kAdj) G[i] += P[i] * (row[R + N + n0 + i] * dyv);
       }
     }
   }
   if (in) {
-    float* out = sums + (static_cast<size_t>(p.bk) * p.nchunks + p.c) *
-                            (1 + 2 * N) * D + d;
+    float* out =
+        sums + (static_cast<size_t>(p.bk) * p.nchunks + p.c) * kSlot * D + d;
     if (n0 == 0) out[0] = S;
 #pragma unroll
     for (int i = 0; i < NL; ++i) {
       out[static_cast<size_t>(1 + n0 + i) * D] = H[i];
-      out[static_cast<size_t>(1 + N + n0 + i) * D] = G[i];
+      if constexpr (kAdj) out[static_cast<size_t>(1 + N + n0 + i) * D] = G[i];
     }
   }
 }
 
+template <typename T, int N>
+__global__ void __launch_bounds__(kBwdThreads) mamba_scan_bwd_sums_kernel(
+    const T* __restrict__ xr, const T* __restrict__ xc,
+    const float* __restrict__ xdbl, const float* __restrict__ conv_w,
+    const float* __restrict__ conv_b, const float* __restrict__ dtw,
+    const float* __restrict__ dt_bias, const float* __restrict__ A,
+    const T* __restrict__ dy, float* __restrict__ sums, int K, int L, int D,
+    int R, int taps, int use_conv, int delta_softplus) {
+  extern __shared__ float4 smem4[];  // 16-byte aligned
+  chunk_sums<T, N, kBwdChunk, true>(reinterpret_cast<float*>(smem4), xr, xc,
+                                    xdbl, conv_w, conv_b, dtw, dt_bias, A, dy,
+                                    sums, K, L, D, R, taps, use_conv,
+                                    delta_softplus);
+}
+
+// The forward's summaries (S, H) of chunks of kFwdCut rows.
+template <typename T, int N>
+__global__ void __launch_bounds__(kBwdThreads, kFwdSumsBlocks)
+    mamba_scan_sums_kernel(
+    const T* __restrict__ xr, const T* __restrict__ xc,
+    const float* __restrict__ xdbl, const float* __restrict__ conv_w,
+    const float* __restrict__ conv_b, const float* __restrict__ dtw,
+    const float* __restrict__ dt_bias, const float* __restrict__ A,
+    float* __restrict__ sums, int K, int L, int D, int R, int taps,
+    int use_conv, int delta_softplus) {
+  extern __shared__ float4 smem4[];  // 16-byte aligned
+  chunk_sums<T, N, kFwdCut, false>(reinterpret_cast<float*>(smem4), xr, xc,
+                                   xdbl, conv_w, conv_b, dtw, dt_bias, A,
+                                   nullptr, sums, K, L, D, R, taps, use_conv,
+                                   delta_softplus);
+}
+
 // 2. Carries. grid ceil(B*K*N*D / kCarryThreads), block kCarryThreads: one
 // thread a (b*k, n, d) chain walks its chunks in scan order for the state
-// entering each (h = exp(A S) h + H) and in reverse for the adjoint entering
-// each chunk's last row (g = exp(A S) g + G), one FMA a chunk, with the
-// loads of kCarryBatch chunks issued ahead of their FMAs. It writes h over
-// H and g over G, each after reading it.
-__global__ void __launch_bounds__(kCarryThreads) mamba_scan_bwd_carry_kernel(
-    const float* __restrict__ A, float* __restrict__ sums, int K, int nchunks,
-    int N, int D, int chains) {
+// entering each (h = exp(A S) h + H) and, with kAdj, in reverse for the
+// adjoint entering each chunk's last row (g = exp(A S) g + G), one FMA a
+// chunk, with the loads of kCarryBatch chunks started ahead of their FMAs.
+// It writes h over H and g over G, each after reading it. Slots as
+// chunk_sums' for the same kAdj.
+template <bool kAdj>
+__device__ __forceinline__ void chunk_carries(const float* A, float* sums,
+                                              int K, int nchunks, int N,
+                                              int D, int chains) {
   const int i = blockIdx.x * kCarryThreads + threadIdx.x;
   if (i >= chains) return;
   const int bk = i / (N * D);
   const int n = (i - bk * N * D) / D;
   const int d = i - (bk * N + n) * D;
   const float a = A[(static_cast<size_t>(bk % K) * D + d) * N + n];
-  const size_t stride = static_cast<size_t>(1 + 2 * N) * D;  // a chunk
+  const size_t stride =
+      static_cast<size_t>(kAdj ? 1 + 2 * N : 1 + N) * D;  // a chunk
   float* base = sums + static_cast<size_t>(bk) * nchunks * stride + d;
   float* hs = base + static_cast<size_t>(1 + n) * D;
-  float* gs = base + static_cast<size_t>(1 + N + n) * D;
   float h = 0.0f;
   for (int c0 = 0; c0 < nchunks; c0 += kCarryBatch) {
     float sv[kCarryBatch], xv[kCarryBatch];
@@ -696,21 +672,215 @@ __global__ void __launch_bounds__(kCarryThreads) mamba_scan_bwd_carry_kernel(
       }
     }
   }
-  float g = 0.0f;
-  for (int c0 = nchunks - 1; c0 >= 0; c0 -= kCarryBatch) {
-    float sv[kCarryBatch], xv[kCarryBatch];
+  if constexpr (kAdj) {
+    float* gs = base + static_cast<size_t>(1 + N + n) * D;
+    float g = 0.0f;
+    for (int c0 = nchunks - 1; c0 >= 0; c0 -= kCarryBatch) {
+      float sv[kCarryBatch], xv[kCarryBatch];
 #pragma unroll
-    for (int e = 0; e < kCarryBatch; ++e) {
-      if (c0 - e >= 0) {
-        sv[e] = base[(c0 - e) * stride];
-        xv[e] = gs[(c0 - e) * stride];
+      for (int e = 0; e < kCarryBatch; ++e) {
+        if (c0 - e >= 0) {
+          sv[e] = base[(c0 - e) * stride];
+          xv[e] = gs[(c0 - e) * stride];
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < kCarryBatch; ++e) {
+        if (c0 - e >= 0) {
+          gs[(c0 - e) * stride] = g;
+          g = expf(a * sv[e]) * g + xv[e];
+        }
       }
     }
+  }
+}
+
+__global__ void __launch_bounds__(kCarryThreads) mamba_scan_bwd_carry_kernel(
+    const float* __restrict__ A, float* __restrict__ sums, int K, int nchunks,
+    int N, int D, int chains) {
+  chunk_carries<true>(A, sums, K, nchunks, N, D, chains);
+}
+
+// The forward's carries: the state entering each chunk, written over H.
+__global__ void __launch_bounds__(kCarryThreads) mamba_scan_carry_kernel(
+    const float* __restrict__ A, float* __restrict__ sums, int K, int nchunks,
+    int N, int D, int chains) {
+  chunk_carries<false>(A, sums, K, nchunks, N, D, chains);
+}
+
+// 4-byte cp.async into shared memory; with `valid` false it writes 0.
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem,
+                                          bool valid) {
+  const unsigned dst =
+      static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Element e (a constant once unrolled) of a vector read, kept in registers.
+__device__ __forceinline__ float element(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ float element(const float2& v, int e) {
+  return e == 0 ? v.x : v.y;
+}
+
+// Shared memory of the forward scan, in floats: dtw_s (R, kWLd), padded
+// to 16 bytes; two buffers of a sub-chunk's x_dbl rows (kFwdSub, pad4(C)),
+// each shifted by pad4(R) - R so that B and C start 16-byte aligned; two of
+// its source rows with the conv halo (kFwdSub + 3, 32); u_s, dt_s, dtu_s
+// (kFwdSub, 32).
+__host__ __device__ constexpr int fwd_smem_floats(int R, int C) {
+  return pad4(R * kWLd) + 2 * kFwdSub * pad4(C) +
+         2 * (kFwdSub + kMaxTaps - 1) * kBwdChannels +
+         3 * kFwdSub * kBwdChannels;
+}
+
+// Scan rows [t0, t0 + ns) of the block's direction into buffer (xd, x), as
+// stage_rows lays them out, by cp.async for fp32 sources (in flight until
+// cp_async_wait_all) and by loads and stores for bf16 ones.
+template <typename T>
+__device__ __forceinline__ void stage_rows_async(const float* xdbl,
+                                                 const T* src,
+                                                 const ScanBlock& p, int t0,
+                                                 int ns, int L, int D, int C,
+                                                 int halo, float* xd,
+                                                 float* x) {
+  const float* xd_g = xdbl + (static_cast<size_t>(p.bk) * L + t0) * C;
+  const int Cp = pad4(C);
+  int r = threadIdx.x / C, c = threadIdx.x - r * C;  // of element i
+  for (int i = threadIdx.x; i < ns * C; i += kBwdThreads) {
+    cp_async4(xd + r * Cp + c, xd_g + i, true);
+    for (c += kBwdThreads; c >= C; c -= C) ++r;
+  }
+  for (int i = threadIdx.x; i < (ns + halo) * kBwdChannels;
+       i += kBwdThreads) {
+    const int r = i / kBwdChannels;
+    const int dd = i - r * kBwdChannels;
+    const int t = t0 + r - halo;
+    const bool valid = t >= 0 && p.d0 + dd < D;
+    const T* g = src + static_cast<size_t>(p.rev ? L - 1 - t : t) * D +
+                 p.d0 + dd;
+    if constexpr (sizeof(T) == sizeof(float))
+      cp_async4(x + i, valid ? reinterpret_cast<const float*>(g)
+                             : reinterpret_cast<const float*>(src),
+                valid);
+    else
+      x[i] = valid ? to_float(*g) : 0.0f;
+  }
+  cp_async_commit();
+}
+
+// 3 (forward). The scan. grid (nchunks * ceil(D / kBwdChannels), B*K) for
+// chunks of `chunk` scan rows (chunk >= L: one chunk, the whole direction),
+// block kBwdThreads, dynamic smem fwd_smem_floats(R, C) floats; registers
+// capped for kFwdBlocks resident blocks an SM. A lane holds N/kLanes
+// states of one channel from the chunk's carried state (`sums` after the
+// carry kernel; zero with no `sums`, the single pass). The block takes
+// the chunk kFwdSub rows at a time: while it works on one sub-chunk, the
+// next one's x_dbl and source rows are in flight into the other buffer
+// (stage_rows_async); the terms that do not depend on n are taken once
+// per (row, channel) (row_terms); the walk is then h = exp2(dt A log2 e) h
+// + dt u B, with B and C read as vectors, and the readout C.h over a
+// lane's states in two accumulators, the other lane's half added by one
+// shuffle, then + D u, written in source order in the source dtype.
+template <typename T, int N>
+__global__ void __launch_bounds__(kBwdThreads, kFwdBlocks) mamba_scan_kernel(
+    const T* __restrict__ xr, const T* __restrict__ xc,
+    const float* __restrict__ xdbl, const float* __restrict__ conv_w,
+    const float* __restrict__ conv_b, const float* __restrict__ dtw,
+    const float* __restrict__ dt_bias, const float* __restrict__ A,
+    const float* __restrict__ Dv, const float* __restrict__ sums,
+    T* __restrict__ y, int K, int L, int D, int R, int taps, int use_conv,
+    int delta_softplus, int chunk) {
+  constexpr int NL = N / kLanes;
+  constexpr int kVec = NL % 4 == 0 ? 4 : 2;  // floats a vector read of B, C
+  using Vec = typename std::conditional<kVec == 4, float4, float2>::type;
+  static_assert(NL % kVec == 0 && kVec % 2 == 0, "whole vectors");
+  extern __shared__ float4 smem4[];  // 16-byte aligned
+  const int C = R + 2 * N;
+  const int Cp = pad4(C);
+  const int halo = use_conv ? kMaxTaps - 1 : 0;
+  float* const dtw_s = reinterpret_cast<float*>(smem4);
+  float* const xd_buf = dtw_s + pad4(R * kWLd) + pad4(R) - R;  // 2 buffers
+  float* const x_buf = xd_buf - (pad4(R) - R) + 2 * kFwdSub * Cp;
+  ScanSmem s;
+  s.dtw = dtw_s;
+  s.u = x_buf + 2 * (kFwdSub + kMaxTaps - 1) * kBwdChannels;
+  s.dt = s.u + kFwdSub * kBwdChannels;
+  s.dtu = s.dt + kFwdSub * kBwdChannels;
+  const ScanBlock p = scan_block(K, L, D, chunk);
+  const T* src = source_of(xr, xc, p.k, p.bk / K, L, D);
+  const RowConsts rc = row_consts(conv_w, conv_b, dt_bias, p, D, taps);
+  const int ch = threadIdx.x / kLanes;
+  const int n0 = (threadIdx.x % kLanes) * NL;  // this lane's first state
+  const int d = p.d0 + ch;
+  // Lanes of channels past D run the same code on zeros, so that every lane
+  // reaches every barrier and shuffle.
+  const bool in = d < D;
+  const size_t slot = static_cast<size_t>(p.bk) * p.nchunks + p.c;
+  float a2[NL], h[NL];  // a2: A log2(e)
 #pragma unroll
-    for (int e = 0; e < kCarryBatch; ++e) {
-      if (c0 - e >= 0) {
-        gs[(c0 - e) * stride] = g;
-        g = expf(a * sv[e]) * g + xv[e];
+  for (int i = 0; i < NL; ++i) {
+    a2[i] = in ? A[(static_cast<size_t>(p.k) * D + d) * N + n0 + i] * kLog2e
+               : 0.0f;
+    h[i] = in && sums != nullptr
+               ? sums[(slot * (1 + N) + 1 + n0 + i) * D + d]
+               : 0.0f;
+  }
+  const float dskip = in ? Dv[p.k * D + d] : 0.0f;
+  T* y_bk = y + static_cast<size_t>(p.bk) * L * D;
+  stage_dtw(dtw, p.k, D, R, p.d0, dtw_s);
+  const int nsub = (p.nt + kFwdSub - 1) / kFwdSub;
+  stage_rows_async(xdbl, src, p, p.t0, min(kFwdSub, p.nt), L, D, C, halo,
+                   xd_buf, x_buf);
+  for (int j = 0; j < nsub; ++j) {
+    const int t0 = p.t0 + j * kFwdSub;
+    const int ns = min(kFwdSub, p.nt - j * kFwdSub);
+    const int buf = j & 1;
+    cp_async_wait_all();
+    __syncthreads();  // sub-chunk j staged; the previous walk is done
+    if (j + 1 < nsub)
+      stage_rows_async(xdbl, src, p, t0 + kFwdSub,
+                       min(kFwdSub, p.nt - (j + 1) * kFwdSub), L, D, C, halo,
+                       xd_buf + (buf ^ 1) * kFwdSub * Cp,
+                       x_buf + (buf ^ 1) * (kFwdSub + kMaxTaps - 1) *
+                                   kBwdChannels);
+    s.xd = xd_buf + buf * kFwdSub * Cp;
+    s.x = x_buf + buf * (kFwdSub + kMaxTaps - 1) * kBwdChannels;
+    row_terms<T, false, false, true, kFwdSub, true>(
+        s, nullptr, p, rc, t0, ns, L, D, C, R, use_conv, delta_softplus,
+        nullptr, nullptr);
+    __syncthreads();
+    for (int r = 0; r < ns; ++r) {  // ns is uniform over the block
+      const int o = r * kBwdChannels + ch;
+      const float dt = s.dt[o], bx = s.dtu[o];
+      const float* row = s.xd + r * Cp + R + n0;  // B; C N floats on
+      float acc[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int v = 0; v < NL; v += kVec) {
+        const Vec bv = *reinterpret_cast<const Vec*>(row + v);
+        const Vec cv = *reinterpret_cast<const Vec*>(row + N + v);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) {
+          const int i = v + e;
+          h[i] = exp2_approx(dt * a2[i]) * h[i] + bx * element(bv, e);
+          acc[e & 1] += element(cv, e) * h[i];
+        }
+      }
+      float out = acc[0] + acc[1];
+      out += __shfl_xor_sync(0xffffffffu, out, 1);  // the channel's lanes
+      if (n0 == 0 && in) {
+        const int t = t0 + r;
+        const int srow = p.rev ? L - 1 - t : t;
+        y_bk[static_cast<size_t>(srow) * D + d] =
+            from_float<T>(out + s.u[o] * dskip);
       }
     }
   }
@@ -775,8 +945,8 @@ mamba_scan_bwd_grad_kernel(
   const int C = R + 2 * N;
   const int Cp = pad4(C);
   const int halo = use_conv ? kMaxTaps - 1 : 0;
-  const BwdSmem s = bwd_smem(reinterpret_cast<float*>(smem4), R, C, N);
-  const BwdBlock p = bwd_block(K, L, D);
+  const ScanSmem s = bwd_smem(reinterpret_cast<float*>(smem4), R, C, N);
+  const ScanBlock p = scan_block(K, L, D, kBwdChunk);
   const int nblk = (D + kBwdChannels - 1) / kBwdChannels;
   const T* src = source_of(xr, xc, p.k, p.bk / K, L, D);
   const T* dy_bk = dy + static_cast<size_t>(p.bk) * L * D;
@@ -1008,54 +1178,6 @@ cudaError_t launch_xdbl(const void* xr, const void* xc, const float* conv_w,
   return cudaGetLastError();
 }
 
-template <typename T, int N>
-cudaError_t launch_scan(const void* xr, const void* xc, const float* xdbl,
-                        const float* conv_w, const float* conv_b,
-                        const float* dtw, const float* dt_bias, const float* A,
-                        const float* Dv, void* y, int B, int K, int L, int D,
-                        int R, int taps, int use_conv, int delta_softplus,
-                        cudaStream_t stream) {
-  const int C = R + 2 * N;
-  const size_t smem =
-      static_cast<size_t>(R * kScanThreads + kScanTile * C +
-                          kScanTile * kScanThreads) *
-      sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        mamba_scan_kernel<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid((D + kScanThreads - 1) / kScanThreads, B * K);
-  mamba_scan_kernel<T, N><<<grid, kScanThreads, smem, stream>>>(
-      static_cast<const T*>(xr), static_cast<const T*>(xc), xdbl, conv_w,
-      conv_b, dtw, dt_bias, A, Dv, static_cast<T*>(y), K, L, D, R, taps,
-      use_conv, delta_softplus);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_scan(int N, const void* xr, const void* xc,
-                          const float* xdbl, const float* conv_w,
-                          const float* conv_b, const float* dtw,
-                          const float* dt_bias, const float* A,
-                          const float* Dv, void* y, int B, int K, int L,
-                          int D, int R, int taps, int use_conv,
-                          int delta_softplus, cudaStream_t stream) {
-#define MIA_SCAN_CASE(NN)                                                    \
-  case NN:                                                                   \
-    return launch_scan<T, NN>(xr, xc, xdbl, conv_w, conv_b, dtw, dt_bias, A, \
-                              Dv, y, B, K, L, D, R, taps, use_conv,          \
-                              delta_softplus, stream);
-  switch (N) {
-    MIA_SCAN_CASE(4)   // the tests' small layers
-    MIA_SCAN_CASE(16)  // every ARM and VSSM d16 layer
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef MIA_SCAN_CASE
-}
-
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -1086,7 +1208,23 @@ struct BwdArgs {
   float* ddtw;
 };
 
-struct BwdShape {
+// The forward's arguments: the backward's inputs without dy, the
+// workspace of the summaries and carries (nullptr for one chunk), and y.
+struct FwdArgs {
+  const void* xr;
+  const void* xc;
+  const float* xdbl;
+  const float* conv_w;
+  const float* conv_b;
+  const float* dtw;
+  const float* dt_bias;
+  const float* A;
+  const float* Dv;
+  float* sums;
+  void* y;
+};
+
+struct ScanShape {
   int B, K, L, D, R, taps, use_conv, delta_softplus;
 };
 
@@ -1096,7 +1234,7 @@ __host__ __device__ constexpr int ceil_div(int a, int b) {
 
 // kernels 1 and 2: the chunk summaries, then the carries
 template <typename T, int N>
-cudaError_t launch_carries(const BwdArgs& p, const BwdShape& z,
+cudaError_t launch_carries(const BwdArgs& p, const ScanShape& z,
                            cudaStream_t stream) {
   const size_t smem =
       static_cast<size_t>(bwd_smem_floats(z.R, z.R + 2 * N, N, false)) *
@@ -1120,7 +1258,7 @@ cudaError_t launch_carries(const BwdArgs& p, const BwdShape& z,
 
 // all three kernels
 template <typename T, int N>
-cudaError_t launch_scan_bwd(const BwdArgs& p, const BwdShape& z,
+cudaError_t launch_scan_bwd(const BwdArgs& p, const ScanShape& z,
                             cudaStream_t stream) {
   const size_t smem =
       static_cast<size_t>(bwd_smem_floats(z.R, z.R + 2 * N, N, true)) *
@@ -1163,8 +1301,75 @@ cudaError_t occupancy_bwd(int kernel, int R, int* blocks, int* smem_bytes) {
                            kBwdThreads, *smem_bytes);
 }
 
+// The forward: cut, the summaries of chunks of kFwdCut rows, the carries
+// over them, then the scan from each chunk's carried state; else the scan
+// alone over all of L (one chunk), from zero.
+template <typename T, int N>
+cudaError_t launch_scan(const FwdArgs& p, const ScanShape& z, bool cut,
+                        cudaStream_t stream) {
+  const size_t scan_smem =
+      static_cast<size_t>(fwd_smem_floats(z.R, z.R + 2 * N)) * sizeof(float);
+  cudaError_t err = allow_smem(mamba_scan_kernel<T, N>, scan_smem);
+  if (err != cudaSuccess) return err;
+  const int chunk = cut ? kFwdCut : z.L;
+  const int nchunks = ceil_div(z.L, chunk);
+  const dim3 grid(nchunks * ceil_div(z.D, kBwdChannels), z.B * z.K);
+  if (cut) {
+    if (p.sums == nullptr) return cudaErrorInvalidValue;
+    const size_t smem =
+        static_cast<size_t>(bwd_smem_floats(z.R, z.R + 2 * N, N, false)) *
+        sizeof(float);
+    err = allow_smem(mamba_scan_sums_kernel<T, N>, smem);
+    if (err != cudaSuccess) return err;
+    mamba_scan_sums_kernel<T, N><<<grid, kBwdThreads, smem, stream>>>(
+        static_cast<const T*>(p.xr), static_cast<const T*>(p.xc), p.xdbl,
+        p.conv_w, p.conv_b, p.dtw, p.dt_bias, p.A, p.sums, z.K, z.L, z.D,
+        z.R, z.taps, z.use_conv, z.delta_softplus);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const int chains = z.B * z.K * N * z.D;
+    mamba_scan_carry_kernel<<<ceil_div(chains, kCarryThreads), kCarryThreads,
+                              0, stream>>>(p.A, p.sums, z.K, nchunks, N, z.D,
+                                           chains);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  mamba_scan_kernel<T, N><<<grid, kBwdThreads, scan_smem, stream>>>(
+      static_cast<const T*>(p.xr), static_cast<const T*>(p.xc), p.xdbl,
+      p.conv_w, p.conv_b, p.dtw, p.dt_bias, p.A, p.Dv,
+      cut ? p.sums : nullptr, static_cast<T*>(p.y), z.K, z.L, z.D, z.R,
+      z.taps, z.use_conv, z.delta_softplus, chunk);
+  return cudaGetLastError();
+}
+
+// Resident blocks an SM of forward kernel `kernel` (0 sums, 1 carry, 2
+// scan) at its launch's block and dynamic shared memory.
+template <typename T, int N>
+cudaError_t occupancy_fwd(int kernel, int R, int* blocks, int* smem_bytes) {
+  if (kernel == 1) {
+    *smem_bytes = 0;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, mamba_scan_carry_kernel, kCarryThreads, 0);
+  }
+  if (kernel == 2) {
+    *smem_bytes =
+        fwd_smem_floats(R, R + 2 * N) * static_cast<int>(sizeof(float));
+    const cudaError_t err = allow_smem(mamba_scan_kernel<T, N>, *smem_bytes);
+    if (err != cudaSuccess) return err;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, mamba_scan_kernel<T, N>, kBwdThreads, *smem_bytes);
+  }
+  *smem_bytes = bwd_smem_floats(R, R + 2 * N, N, false) *
+                static_cast<int>(sizeof(float));
+  const cudaError_t err =
+      allow_smem(mamba_scan_sums_kernel<T, N>, *smem_bytes);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, mamba_scan_sums_kernel<T, N>, kBwdThreads, *smem_bytes);
+}
+
 // Runs fn<T, N>(args...) for the source type and d_state of a call.
-#define MIA_BWD_DISPATCH(fn, ...)                                      \
+#define MIA_DISPATCH(fn, ...)                                          \
   switch (N * 2 + (is_bf16 ? 1 : 0)) {                                 \
     case 8:                                                            \
       return fn<float, 4>(__VA_ARGS__);                                \
@@ -1178,12 +1383,14 @@ cudaError_t occupancy_bwd(int kernel, int R, int* blocks, int* smem_bytes) {
       return cudaErrorInvalidValue;                                    \
   }
 
-// The backward's sizes fit its grids and int indices: B*K in grid.y, the
-// B*K*N*D chains of kernel 2 and the grid's x extent in an int.
-bool bwd_sizes_ok(const BwdShape& z, int N) {
-  const long long chunks = ceil_div(z.L, kBwdChunk);
+// A call's sizes fit its grids and int indices: B*K in grid.y, the B*K*N*D
+// chains of the carry kernel and the grid's x extent in an int, for chunks
+// of `chunk` scan rows.
+bool sizes_ok(const ScanShape& z, int N, int chunk) {
+  const long long chunks = ceil_div(z.L, chunk);
   const long long nblk = ceil_div(z.D, kBwdChannels);
-  return z.B >= 1 && z.K >= 1 && z.L >= 1 && z.D >= 1 && z.R >= 1 &&
+  return chunk >= 1 && z.B >= 1 && z.K >= 1 && z.L >= 1 && z.D >= 1 &&
+         z.R >= 1 &&
          z.taps >= 1 && z.taps <= kMaxTaps &&
          static_cast<long long>(z.B) * z.K <= 65535 &&
          static_cast<long long>(z.B) * z.K * N * z.D <= 0x7fffffffLL &&
@@ -1209,22 +1416,32 @@ int mia_mamba_xdbl(const void* xr, const void* xc, int is_bf16,
                                       L, D, C, taps, use_conv, rows, s);
 }
 
+// The forward scan into y (B, K, L, D). cut 0 runs one kernel over all
+// of L from a zero state and takes no workspace; cut 1 runs chunks of
+// kFwdCut scan rows, and sums is the (B*K, nchunks, 1 + N, D) fp32
+// workspace of their summaries and carries.
 int mia_mamba_scan(const void* xr, const void* xc, int is_bf16,
                    const float* xdbl, const float* conv_w,
                    const float* conv_b, const float* dtw,
                    const float* dt_bias, const float* A, const float* Dv,
-                   void* y, int B, int K, int L, int D, int N, int R, int taps,
-                   int use_conv, int delta_softplus, void* stream) {
-  if (taps < 1 || taps > kMaxTaps) return cudaErrorInvalidValue;
+                   float* sums, void* y, int B, int K, int L, int D, int N,
+                   int R, int taps, int use_conv, int delta_softplus,
+                   int cut, void* stream) {
+  const ScanShape z{B, K, L, D, R, taps, use_conv, delta_softplus};
+  if (!sizes_ok(z, N, cut ? kFwdCut : L)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16
-             ? dispatch_scan<__nv_bfloat16>(N, xr, xc, xdbl, conv_w, conv_b,
-                                            dtw, dt_bias, A, Dv, y, B, K, L,
-                                            D, R, taps, use_conv,
-                                            delta_softplus, s)
-             : dispatch_scan<float>(N, xr, xc, xdbl, conv_w, conv_b, dtw,
-                                    dt_bias, A, Dv, y, B, K, L, D, R, taps,
-                                    use_conv, delta_softplus, s);
+  const FwdArgs p{xr, xc, xdbl, conv_w, conv_b, dtw, dt_bias, A, Dv, sums,
+                  y};
+  MIA_DISPATCH(launch_scan, p, z, cut != 0, s)
+}
+
+// Forward kernel `kernel`'s (0 sums, 1 carry, 2 scan) resident blocks an
+// SM on the current device into *blocks, and its dynamic shared memory in
+// bytes into *smem_bytes, for d_state N and rank R.
+int mia_mamba_scan_blocks_per_sm(int kernel, int N, int R, int is_bf16,
+                                 int* blocks, int* smem_bytes) {
+  if (kernel < 0 || kernel > 2 || R < 1) return cudaErrorInvalidValue;
+  MIA_DISPATCH(occupancy_fwd, kernel, R, blocks, smem_bytes)
 }
 
 int mia_mamba_scan_bwd(const void* xr, const void* xc, int is_bf16,
@@ -1236,12 +1453,12 @@ int mia_mamba_scan_bwd(const void* xr, const void* xc, int is_bf16,
                        float* ddb, float* ddtw, int B, int K, int L, int D,
                        int N, int R, int taps, int use_conv,
                        int delta_softplus, void* stream) {
-  const BwdShape z{B, K, L, D, R, taps, use_conv, delta_softplus};
-  if (!bwd_sizes_ok(z, N)) return cudaErrorInvalidValue;
+  const ScanShape z{B, K, L, D, R, taps, use_conv, delta_softplus};
+  if (!sizes_ok(z, N, kBwdChunk)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const BwdArgs p{xr, xc, xdbl, conv_w, conv_b, dtw, dt_bias, A, Dv, dy,
                   sums, du, u, ds, dxdbl_part, dA, dD, ddb, ddtw};
-  MIA_BWD_DISPATCH(launch_scan_bwd, p, z, s)
+  MIA_DISPATCH(launch_scan_bwd, p, z, s)
 }
 
 // The backward's kernels 1 and 2 alone: the summaries, then the carries
@@ -1255,13 +1472,13 @@ int mia_mamba_scan_bwd_carries(const void* xr, const void* xc, int is_bf16,
                                int L, int D, int N, int R, int taps,
                                int use_conv, int delta_softplus,
                                void* stream) {
-  const BwdShape z{B, K, L, D, R, taps, use_conv, delta_softplus};
-  if (!bwd_sizes_ok(z, N)) return cudaErrorInvalidValue;
+  const ScanShape z{B, K, L, D, R, taps, use_conv, delta_softplus};
+  if (!sizes_ok(z, N, kBwdChunk)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const BwdArgs p{xr, xc, xdbl, conv_w, conv_b, dtw, dt_bias, A, nullptr,
                   dy, sums, nullptr, nullptr, nullptr, nullptr, nullptr,
                   nullptr, nullptr, nullptr};
-  MIA_BWD_DISPATCH(launch_carries, p, z, s)
+  MIA_DISPATCH(launch_carries, p, z, s)
 }
 
 // Backward kernel `kernel`'s (0 sums, 1 carry, 2 grad) resident blocks an
@@ -1271,9 +1488,9 @@ int mia_mamba_scan_bwd_carries(const void* xr, const void* xc, int is_bf16,
 int mia_mamba_scan_bwd_blocks_per_sm(int kernel, int N, int R, int is_bf16,
                                      int* blocks, int* smem_bytes) {
   if (kernel < 0 || kernel > 2 || R < 1) return cudaErrorInvalidValue;
-  MIA_BWD_DISPATCH(occupancy_bwd, kernel, R, blocks, smem_bytes)
+  MIA_DISPATCH(occupancy_bwd, kernel, R, blocks, smem_bytes)
 }
 
-#undef MIA_BWD_DISPATCH
+#undef MIA_DISPATCH
 
 }  // extern "C"

@@ -9,8 +9,16 @@ launches:
   ``_xdbl_kernel``).
 - ``scan_fwd``: conv + SiLU again, ``dt = softplus(x_dbl[:, :R] @ W_dt +
   bias)``, the S6 scan with fp32 state and ``y = C.h + D.u`` written in
-  SOURCE order in the source dtype (kernel ``mamba_scan_kernel``,
-  replacing the Pallas ``_fused_fwd_kernel``).
+  SOURCE order in the source dtype (replacing the Pallas
+  ``_fused_fwd_kernel``). A scan over chunks of :func:`fwd_chunk` scan
+  rows: where ``B*K*ceil(D/32)`` blocks give every SM a block (vssm_tiny,
+  ARM-B from 2 images on) the chunk is all of L and ``mamba_scan_kernel``
+  runs alone from a zero state; else (an ARM-B layer serving one image)
+  the scan runs in parallel over L: ``mamba_scan_sums_kernel`` and
+  ``mamba_scan_carry_kernel``, the bodies of the backward's first two
+  kernels without the adjoint, give the state entering each chunk, and
+  ``mamba_scan_kernel`` walks every chunk from it (one launch count a
+  call).
 
 The backward (:class:`MambaFusedFn`) runs ``scan_bwd``, the scan's
 adjoint (kernels ``mamba_scan_bwd_sums_kernel``,
@@ -55,6 +63,17 @@ _BWD_LANES = 2  # lanes of a channel there, d_state / _BWD_LANES states each
 _BWD_CHANNELS = _BWD_THREADS // _BWD_LANES  # channels a block (dxdbl part)
 _BWD_CHUNK = 64  # scan rows a chunk of the backward (a slot of its workspace)
 _CARRY_THREADS = 128  # chains a block of the backward's carry kernel
+# Scan rows a chunk of the forward when fwd_chunk cuts L (kFwdCut: the
+# fastest of 8, 16, 32 and 64 at ARM-B, B=1, on an H100; PERF.md), the
+# scan kernel's resident blocks an SM by its __launch_bounds__, and the
+# SMs of an H100 (the default card of fwd_chunk's choice).
+_FWD_CUT = 16
+_FWD_BLOCKS = 8
+_H100_SMS = 132
+# The forward's kernels in the order of mia_mamba_scan_blocks_per_sm's
+# index: chunk summaries, carries, scan.
+FWD_KERNELS = ("mamba_scan_sums_kernel", "mamba_scan_carry_kernel",
+               "mamba_scan_kernel")
 # The backward's kernels in the order of mia_mamba_scan_bwd_blocks_per_sm's
 # index: chunk summaries, carries, gradients.
 BWD_KERNELS = ("mamba_scan_bwd_sums_kernel", "mamba_scan_bwd_carry_kernel",
@@ -76,10 +95,13 @@ def build() -> tuple[ctypes.CDLL, str]:
     ]
     lib.mia_mamba_xdbl.restype = _I
     lib.mia_mamba_scan.argtypes = [
-        _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+        _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ]
     lib.mia_mamba_scan.restype = _I
+    lib.mia_mamba_scan_blocks_per_sm.argtypes = [
+        _I, _I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+    lib.mia_mamba_scan_blocks_per_sm.restype = _I
     lib.mia_mamba_scan_bwd.argtypes = [
         _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
@@ -378,13 +400,40 @@ def xdbl_fwd(xr, xc, conv_w, conv_b, x_proj_w, use_conv=True):
     return out
 
 
+def fwd_chunk(b: int, k_dirs: int, seq_len: int, d_in: int,
+              sms: int = _H100_SMS) -> int:
+    """Scan rows a chunk of ``scan_fwd`` for (B, K, L, D) on a card of
+    ``sms`` SMs. Where the ``B*K*ceil(D/32)`` blocks of one chunk a
+    direction give every SM a block, L: one kernel, no workspace. The cut
+    path walks every row twice (summaries, then the scan), so it wins only
+    where one pass leaves SMs idle: at ARM-B from B=2 on one pass was the
+    faster, at B=1 (96 blocks) chunks of ``_FWD_CUT`` rows."""
+    blocks = b * k_dirs * -(-d_in // _BWD_CHANNELS)
+    if blocks >= sms or seq_len <= _FWD_CUT:
+        return seq_len
+    return _FWD_CUT
+
+
+def _fwd_workspace(device, bk, seq_len, d_in, n, chunk):
+    """The forward's fp32 workspace for chunks of ``chunk`` scan rows, a
+    slot a (b*k, chunk) (``csrc/mamba_fused.cu``): ``sums`` (B*K, nchunks,
+    1 + N, D), S then H (the state entering the chunk once the carry kernel
+    ran); None for one chunk."""
+    nchunks = -(-seq_len // chunk)
+    if nchunks == 1:
+        return None
+    return torch.empty(bk, nchunks, 1 + n, d_in, device=device,
+                       dtype=torch.float32)
+
+
 def scan_fwd(xr, xc, xdbl, conv_w, conv_b, dt_proj_w, dt_bias, A, D,
              delta_softplus=True, use_conv=True):
     """Conv + dt_proj + selective scan + D skip: (B, K, L, D) in source order.
 
     xdbl (B*K, L, R+2N) from :func:`xdbl_fwd`; conv_w (K, taps, D),
     conv_b (K, D), dt_proj_w (K, D, R), dt_bias (K, D), A (K, D, N) and
-    D (K, D) are fp32. The output has the sources' dtype.
+    D (K, D) are fp32. The output has the sources' dtype. The scan runs in
+    chunks of :func:`fwd_chunk`'s choice for the card.
     """
     if _on_cpu(xr):
         return scan_plain(xr, xc, xdbl, conv_w, conv_b, dt_proj_w, dt_bias,
@@ -404,19 +453,56 @@ def scan_fwd(xr, xc, xdbl, conv_w, conv_b, dt_proj_w, dt_bias, A, D,
         dt_bias=(dt_bias, (k_dirs, d_in)), A=(A, (k_dirs, d_in, n)),
         D=(D, (k_dirs, d_in)),
     )
+    sms = torch.cuda.get_device_properties(xr.device).multi_processor_count
+    chunk = fwd_chunk(b, k_dirs, seq_len, d_in, sms)
+    sums = _fwd_workspace(xr.device, b * k_dirs, seq_len, d_in, n, chunk)
     y = torch.empty(b, k_dirs, seq_len, d_in, device=xr.device, dtype=xr.dtype)
     lib, _ = build()
     err = lib.mia_mamba_scan(
         xr.data_ptr(), None if xc is None else xc.data_ptr(),
         int(xr.dtype == torch.bfloat16), xdbl.data_ptr(), conv_w.data_ptr(),
         conv_b.data_ptr(), dt_proj_w.data_ptr(), dt_bias.data_ptr(),
-        A.data_ptr(), D.data_ptr(), y.data_ptr(), b, k_dirs, seq_len, d_in,
-        n, rank, taps, int(use_conv), int(delta_softplus),
+        A.data_ptr(), D.data_ptr(), None if sums is None else sums.data_ptr(),
+        y.data_ptr(), b, k_dirs, seq_len, d_in, n, rank, taps, int(use_conv),
+        int(delta_softplus), int(chunk < seq_len),
         torch.cuda.current_stream(xr.device).cuda_stream,
     )
     _raise_on(err, "mamba_scan")
     launches["mamba_scan"] += 1
     return y
+
+
+def fwd_grid_blocks(b: int, k_dirs: int, seq_len: int, d_in: int, n: int,
+                    chunk: int) -> dict:
+    """Blocks of each forward kernel's grid for (B, K, L, D, N) in chunks
+    of ``chunk`` scan rows (0 for a kernel that one chunk does not run)."""
+    nchunks = -(-seq_len // min(chunk, seq_len))
+    blocks = nchunks * -(-d_in // _BWD_CHANNELS) * b * k_dirs
+    cut = nchunks > 1
+    return dict(zip(FWD_KERNELS, (
+        blocks if cut else 0,
+        -(-b * k_dirs * n * d_in // _CARRY_THREADS) if cut else 0, blocks)))
+
+
+def fwd_occupancy(n: int, rank: int, dtype: torch.dtype) -> dict:
+    """Each forward kernel's resident blocks an SM on the current card and
+    its shared memory a block in bytes, ``{name: (blocks, bytes)}``, for
+    d_state ``n``, dt rank ``rank`` and source dtype ``dtype``
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"mamba_fused: source dtype {dtype} is not f32/bf16")
+    if n not in _SCAN_STATES:
+        raise ValueError(f"mamba_fused: d_state={n} not in {_SCAN_STATES}")
+    lib, _ = build()
+    out = {}
+    for i, name in enumerate(FWD_KERNELS):
+        blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+        err = lib.mia_mamba_scan_blocks_per_sm(
+            i, n, rank, int(dtype == torch.bfloat16), ctypes.byref(blocks),
+            ctypes.byref(smem))
+        _raise_on(err, f"{name} occupancy")
+        out[name] = (blocks.value, smem.value)
+    return out
 
 
 def _check_bwd(xr, xc, xdbl, conv_w, conv_b, dt_proj_w, dt_bias, A, D, dy,

@@ -85,7 +85,20 @@ def _err(got, want):
     (4, 2, 10, 8, 4, 4, True),
     (4, 2, 10, 8, 4, 4, False),
     (4, 2, 197, 768, 16, 48, True),  # an ARM-B layer
-], ids=["k1", "k2", "k4", "k4-noconv", "arm-b"])
+    (4, 2, 3136, 192, 16, 6, False),  # vssm_tiny stage 0 at a small batch
+    (2, 3, 197, 70, 16, 8, True),  # a ragged last chunk; D not a multiple
+    # vssm_tiny stage 3's shape on each side of fwd_chunk's threshold: the
+    # single pass from B=1 on, chunks with 2 directions at B=1
+    # (tests/test_torch_work.py)
+    (4, 1, 49, 1536, 16, 48, False),
+    (2, 1, 49, 1536, 16, 48, False),
+    # fwd_chunk cuts these into chunks: ARM-B serving one image, a ragged
+    # one at B=1, and N=4 with a ragged last chunk
+    (4, 1, 197, 768, 16, 48, True),
+    (2, 1, 197, 70, 16, 8, True),
+    (2, 3, 70, 40, 4, 3, True),
+], ids=["k1", "k2", "k4", "k4-noconv", "arm-b", "vssm-tiny-s0", "ragged",
+        "s3-single", "s3-chunks", "arm-b-b1", "ragged-b1", "n4-chunks"])
 def test_kernels_match_plain(cuda, dtype, k_dirs, b, l, d, n, r, use_conv):
     xr, xc, w = _inputs(cuda, dtype, k_dirs, b, l, d, n, r, seed=k_dirs + l)
     xargs = (xr, xc, w["conv_w"], w["conv_b"], w["x_proj_w"], use_conv)
@@ -223,6 +236,37 @@ def test_tiny_arm_through_kernels_matches_plain(cuda):
                            "mamba_scan_bwd": 0}
     err, scale = _err(got, want)
     assert err <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [3, 12], ids=["chunks", "single"])
+def test_scan_fwd_is_deterministic(cuda, b):
+    """No float atomics: two calls give the same bits, in chunks (with the
+    summaries and carries: 48 blocks a chunk) and in one pass (192)."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert (mf.fwd_chunk(b, 4, 300, 100, sms) < 300) == (b == 3)
+    xr, xc, w = _inputs(cuda, torch.float32, 4, b, 300, 100, 16, 8, seed=7)
+    x_dbl = mf.xdbl_plain(xr, xc, w["conv_w"], w["conv_b"], w["x_proj_w"])
+    args = (xr, xc, x_dbl, w["conv_w"], w["conv_b"], w["dt_proj_w"],
+            w["dt_bias"], w["A"], w["D"], True, True)
+    assert torch.equal(mf.scan_fwd(*args), mf.scan_fwd(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rank", [6, 48], ids=["vssm-tiny-s0", "arm-b"])
+def test_scan_fwd_occupancy(cuda, dtype, rank):
+    """At N=16 and vssm_tiny stage 0's rank (6) and ARM-B's (48) the scan
+    kernel keeps at least ``_FWD_BLOCKS`` blocks of 64 threads resident on
+    an SM (its register cap), the summaries kernel at least as many, and
+    the scan takes at most 28 KB of shared memory a block (two buffers of
+    16 rows)."""
+    occupancy = mf.fwd_occupancy(16, rank, dtype)
+    assert set(occupancy) == set(mf.FWD_KERNELS)
+    blocks, smem = occupancy["mamba_scan_kernel"]
+    assert blocks >= mf._FWD_BLOCKS and smem <= 28 * 1024, (blocks, smem)
+    assert occupancy["mamba_scan_sums_kernel"][0] >= mf._FWD_BLOCKS, occupancy
 
 
 @pytest.mark.cuda

@@ -205,6 +205,90 @@ def test_mamba_chunked_carries_match_the_walk(l, chunk, use_conv, n):
         assert torch.equal(g, w)
 
 
+def _chunked_forward(dt, dtu, bmat, cmat, u, dskip, A, chunk):
+    """The forward kernels' algorithm on scan-order numpy arrays: dt, dt u
+    and u (B, K, L, D), B and C (B, K, L, N), D (K, D), A (K, D, N). Per
+    chunk of ``chunk`` scan rows (the last one ragged): S, the sum of dt,
+    and H, the end state from a zero state. Then the chunks composed in
+    scan order with the decays exp(A S) per state for the state entering
+    each (h = exp(A S) h + H), and every chunk walked again from it for y =
+    C.h + D u. Returns y (B, K, L, D) in scan order."""
+    b, k, seq_len, d = dt.shape
+    starts = range(0, seq_len, chunk)
+
+    def walk(h, t0):
+        ys = []
+        for t in range(t0, min(t0 + chunk, seq_len)):
+            h = (np.exp(dt[:, :, t, :, None] * A[None]) * h
+                 + dtu[:, :, t, :, None] * bmat[:, :, t, None, :])
+            ys.append(np.sum(cmat[:, :, t, None, :] * h, axis=-1))
+        return h, ys
+
+    h = np.zeros((b, k, d, A.shape[-1]))
+    entering = []
+    for t0 in starts:
+        entering.append(h)
+        s_dt = dt[:, :, t0 : t0 + chunk].sum(axis=2)
+        end, _ = walk(np.zeros_like(h), t0)
+        h = np.exp(A[None] * s_dt[..., None]) * h + end
+    ys = [y for t0, h0 in zip(starts, entering) for y in walk(h0, t0)[1]]
+    return np.stack(ys, axis=2) + u * dskip[None, :, None, :]
+
+
+def _chunked_forward_y(xr_t, xc_t, x_dbl, t, use_conv, chunk):
+    """``_chunked_forward`` on the port's per-row terms, in source order."""
+    k_dirs, d_in = t["A"].shape[:2]
+    b, seq_len = xr_t.shape[:2]
+    dy = torch.zeros(b, k_dirs, seq_len, d_in)
+    u, _, dt, _, _, bmat, cmat, _ = mamba_fused._bwd_rows(
+        xr_t, xc_t, x_dbl, t["conv_w"], t["conv_b"], t["dt_proj_w"],
+        t["dt_bias"], t["A"], dy, True, use_conv)
+    y = _chunked_forward(*(a.double().numpy() for a in (
+        dt, dt * u, bmat, cmat, u, t["D"], t["A"])), chunk)
+    return mamba_fused._flip_reversed(torch.from_numpy(y)).numpy()
+
+
+@pytest.mark.parametrize("n", [4, 16])
+@pytest.mark.parametrize("use_conv", [True, False], ids=["conv", "noconv"])
+@pytest.mark.parametrize("l,chunk", [(70, 8), (70, 32), (70, 70), (33, 8),
+                                     (33, 32), (33, 33)])
+def test_mamba_chunked_forward_matches_the_walk(l, chunk, use_conv, n):
+    """The chunked forward (summaries from a zero state, carries by exp(A
+    S), y walked from each chunk's entering state) gives ``scan_plain``'s
+    y, at K=4 with its reversed directions and a ragged last chunk, within
+    1e-5 of max(1, max |y|); a chunk of L is the single pass from zero."""
+    xr, xc, p = _fused_inputs(4, b=2, l=l, d=8, n=n, r=4, seed=l + n + chunk)
+    t = {k: _torch(v) for k, v in p.items()}
+    xr_t, xc_t = _torch(xr), _torch(xc)
+    x_dbl = mamba_fused.xdbl_plain(xr_t, xc_t, t["conv_w"], t["conv_b"],
+                                   t["x_proj_w"], use_conv)
+    want = mamba_fused.scan_plain(
+        xr_t, xc_t, x_dbl, t["conv_w"], t["conv_b"], t["dt_proj_w"],
+        t["dt_bias"], t["A"], t["D"], True, use_conv).double().numpy()
+    got = _chunked_forward_y(xr_t, xc_t, x_dbl, t, use_conv, chunk)
+    assert got.shape == want.shape == (2, 4, l, 8)
+    assert np.abs(got - want).max() <= 1e-5 * max(1.0, np.abs(want).max())
+
+
+def test_mamba_chunked_forward_matches_jax():
+    """The same model against the JAX package's ``mamba_fused_dirs``
+    forward (Pallas in interpret mode, its 4-row chunks), chunks of 8 over
+    a ragged L with the conv, within 1e-5 of max(1, max |y|)."""
+    xr, xc, p = _fused_inputs(4, b=2, l=21, d=8, n=4, r=4, seed=11)
+    want = np.asarray(jax_mamba_fused_dirs(
+        jnp.asarray(xr), jnp.asarray(xc),
+        **{k: jnp.asarray(v) for k, v in p.items()},
+        chunk=4, block_d=8, interpret=True, use_conv=True,
+    ))
+    t = {k: _torch(v) for k, v in p.items()}
+    xr_t, xc_t = _torch(xr), _torch(xc)
+    x_dbl = mamba_fused.xdbl_plain(xr_t, xc_t, t["conv_w"], t["conv_b"],
+                                   t["x_proj_w"])
+    got = _chunked_forward_y(xr_t, xc_t, x_dbl, t, True, 8)
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= 1e-5 * max(1.0, np.abs(want).max())
+
+
 def test_wrappers_refuse_other_devices():
     """No silent path: a tensor that is neither CPU nor CUDA raises."""
     xr = torch.empty(1, 4, 8, device="meta")

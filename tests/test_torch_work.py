@@ -13,7 +13,9 @@ widths and chunks, the MAE and classification step profiles must name the
 family of every kernel the ViT and Swin sub-layers launch, and the scans'
 timing tools their kernels. The fused Mamba layer's backward likewise: its
 wrapper's block, lane and chunk sizes are the kernel's, and its workspace
-at vssm_tiny stage 0 stays under the 2.47 GB of carries it replaced.
+at vssm_tiny stage 0 stays under the 2.47 GB of carries it replaced; its
+forward's chunk choice cuts L only where the grid would not fill the card,
+into chunks its summaries kernel is built for.
 """
 
 import importlib.util
@@ -208,6 +210,71 @@ def test_mamba_bwd_workspaces_are_chunked_as_the_kernel(b, k, l, d, n, r):
         assert old_carries == 2_466_250_752 and nbytes < 1.2e9
 
 
+# (B, K, L, D): vssm_tiny's four stages at vssm_classify's B=128
+VSSM_TINY_FWD = [(128, 4, 3136, 192), (128, 4, 784, 384), (128, 4, 196, 768),
+                 (128, 4, 49, 1536)]
+# ARM-B at serving (B=1), at the training micro-batch (B=6) and at
+# validation's 12 and 4 images; stage 3's shape on each side of the
+# threshold (the card tests' cases: 4 directions, and 2 at B=1); small
+# ones
+ARM_B_FWD = [(1, 4, 197, 768), (6, 4, 197, 768), (12, 4, 197, 768),
+             (4, 4, 197, 768)]
+OTHER_FWD = [(1, 4, 49, 1536), (1, 2, 49, 1536), (2, 4, 10, 8),
+             (3, 2, 197, 70), (2, 4, 3136, 192), (1, 1, 5, 8),
+             (2, 4, 197, 768)]
+
+
+@pytest.mark.parametrize("b,k,l,d", VSSM_TINY_FWD + ARM_B_FWD + OTHER_FWD)
+def test_mamba_fwd_chunk_is_l_or_a_built_chunk(b, k, l, d):
+    """The forward's chunk is L (one kernel from zero, no workspace) or
+    ``_FWD_CUT`` rows, a multiple of the 8-row sub-chunk under L that the
+    summaries kernel is built for; L exactly where one chunk a direction gives each of the
+    H100's 132 SMs a block: at vssm_tiny's stages at B=128, at ARM-B from
+    2 images on (training's 6, validation's 4 and 12) and at stage 3's
+    shape from B=1; cut at ARM-B's serving batch of 1 and at stage 3's
+    shape with 2 directions. The grid counts follow the chunk."""
+    chunk = mf.fwd_chunk(b, k, l, d)
+    blocks = b * k * -(-d // (mf._BWD_THREADS // mf._BWD_LANES))
+    assert chunk == l or (chunk % 8 == 0 and chunk < l
+                          and chunk == mf._FWD_CUT)
+    assert (chunk == l) == (blocks >= 132 or l <= 16)
+    if (b, k, l, d) in VSSM_TINY_FWD or (b, k, l) in (
+            (1, 4, 49), (2, 4, 197), (6, 4, 197), (4, 4, 197), (12, 4, 197)):
+        assert chunk == l
+    if (b, k, l) in ((1, 4, 197), (1, 2, 49)):
+        assert chunk < l
+    grid = mf.fwd_grid_blocks(b, k, l, d, 16, chunk)
+    assert list(grid) == list(mf.FWD_KERNELS)
+    assert grid["mamba_scan_kernel"] == -(-l // chunk) * blocks
+    cut = chunk < l
+    assert grid["mamba_scan_sums_kernel"] == (grid["mamba_scan_kernel"]
+                                              if cut else 0)
+    assert grid["mamba_scan_carry_kernel"] == (
+        -(-b * k * 16 * d // mf._CARRY_THREADS) if cut else 0)
+
+
+def test_mamba_fwd_sizes_match_the_kernel():
+    """``_FWD_BLOCKS`` is the scan kernel's ``kFwdBlocks`` (its
+    ``__launch_bounds__``), ``_FWD_CUT`` is ``kFwdCut``, the chunk length
+    the summaries kernel is built for, and the workspace holds 1 + N
+    floats a (b*k, chunk, channel), as ``csrc/mamba_fused.cu``'s layout
+    comment gives it: about 16 MB at ARM-B, B=6, in chunks of 16; none for
+    one chunk."""
+    src = (CSRC / "mamba_fused.cu").read_text()
+    assert re.findall(r"constexpr int kFwdBlocks = (\d+);", src) == [
+        str(mf._FWD_BLOCKS)]
+    assert re.findall(r"constexpr int kFwdCut = (\d+);", src) == [
+        str(mf._FWD_CUT)]
+    body = re.search(r"\bmamba_scan_sums_kernel\((.*?)\n}\n", src,
+                     re.S).group(1)
+    assert re.findall(r"chunk_sums<T, N, (\w+), false>", body) == ["kFwdCut"]
+    meta = torch.device("meta")
+    sums = mf._fwd_workspace(meta, 6 * 4, 197, 768, 16, 16)
+    assert sums.shape == (24, 13, 17, 768)
+    assert 16e6 < sums.numel() * 4 < 16.5e6
+    assert mf._fwd_workspace(meta, 128 * 4, 3136, 192, 16, 3136) is None
+
+
 def _profile_tool(name):
     path = ROOT / "tools" / f"{name}.py"
     spec = importlib.util.spec_from_file_location(name, path)
@@ -281,6 +348,26 @@ def test_mamba_timing_tool_names_the_kernels():
         assert any(name.startswith(p) for p in tool.KERNELS), name
     for prefix in tool.KERNELS:
         assert any(k.startswith(prefix) for k in kernels), prefix
+
+
+def test_mamba_fwd_timing_tool_names_the_kernels():
+    """``tools/time_mamba_scan_fwd.py`` splits a forward call by kernel
+    name prefixes that cover every forward ``__global__`` function of
+    ``csrc/mamba_fused.cu`` (those of the scan that are not the
+    backward's or x_dbl's) and no backward one, and the wrapper's
+    ``FWD_KERNELS`` are those kernels."""
+    tool = _profile_tool("time_mamba_scan_fwd")
+    kernels = {k for k in _kernels("mamba_fused.cu")
+               if k.startswith("mamba_scan") and not k.startswith(
+                   "mamba_scan_bwd")}
+    assert set(mf.FWD_KERNELS) == kernels
+    for name in kernels:
+        assert any(name.startswith(p) for p in tool.KERNELS), name
+    for prefix in tool.KERNELS:
+        assert any(k.startswith(prefix) for k in kernels), prefix
+        assert not prefix.startswith("mamba_scan_bwd"), prefix
+    for name in kernels | set(mf.BWD_KERNELS):  # a tower's split
+        assert any(name.startswith(p) for p in tool.TOWER_KERNELS), name
 
 
 def test_scan_n1_timing_tool_names_the_kernels():

@@ -51,7 +51,8 @@ sys.path.insert(0, str(ROOT))
 KERNELS = ("mamba_scan_bwd",)
 # The fused layer's kernels in a tower's profile: the backward's, then the
 # forward's (``mamba_scan`` would also match the backward's names).
-TOWER_KERNELS = ("mamba_scan_bwd", "mamba_scan_kernel", "mamba_xdbl")
+TOWER_KERNELS = ("mamba_scan_bwd", "mamba_scan_kernel", "mamba_scan_sums",
+                 "mamba_scan_carry", "mamba_xdbl")
 SPIN = 50_000_000  # cycles of the spin kernel around a profiled call
 
 
@@ -175,12 +176,14 @@ def main() -> None:
         f"layers={len(model.vision.arm.layers)}", cs.device_ms)
 
 
-def _tower(what: str, step, shape: str, device_ms) -> None:
-    """A tower's fwd+bwd: CUDA-event ms, the profiled device time by the
-    fused layer's kernels, and the peak memory."""
+def _tower(what: str, step, shape: str, device_ms,
+           prefixes=TOWER_KERNELS) -> None:
+    """A tower's call: CUDA-event ms, the profiled device time by the
+    fused layer's kernels (names starting with one of ``prefixes``), and
+    the peak memory."""
     torch.cuda.reset_peak_memory_stats()
     ms = device_ms(step, 3)
-    parts = kernel_ms(step, 1, TOWER_KERNELS)
+    parts = kernel_ms(step, 1, prefixes)
     print(f"{what} {shape} ms={ms:.2f} profiled={_fmt(parts)} "
           f"peak_gib={torch.cuda.max_memory_allocated() / 2**30:.3f}",
           flush=True)
