@@ -51,12 +51,16 @@ raises (exit code 1):
                projector's gradients through the kernels against those
                through the plain versions, from one cotangent at the
                projector's output, within a relative bound.
-8. kernels_n1 -- the d_state=1 scan's forward kernel (``scan_n1_fwd``)
-               against ``scan_n1_fwd_plain`` at the four stage shapes of
-               vssm1_base at every batch the main path gives it (B=12
-               tower images, 36 context images, 4 images of validation's
-               last batch; fp32), stage 2 in bf16 and stage 0 at B=1; max
-               error, device times and the bound of every case.
+8. kernels_n1 -- the d_state=1 scan's forward (``scan_n1_fwd``: one pass
+               of its scan kernel, or piece summaries, carries and the
+               scan in chunks, as ``fwd_chunk`` picks; one launch count a
+               call) against ``scan_n1_fwd_plain`` at the four stage
+               shapes of vssm1_base at every batch the main path gives it
+               (B=12 tower images, 36 context images, 4 images of
+               validation's last batch; fp32), stage 2 in bf16 and stage 0
+               at B=1; max error, device times and the bound of every
+               case, the chunk, and each kernel's grid blocks, resident
+               blocks an SM and shared memory a block.
    kernels_n1_bwd -- its backward (three kernels: piece summaries,
                carries, gradients; one launch count a call) against
                ``scan_n1_bwd_plain`` at the four stages at the training
@@ -1151,16 +1155,21 @@ def _in_turns(plain_fn, kernel_fn, plain_iters, kernel_iters):
 
 
 def phase_kernels_n1(dev, gen) -> tuple:
-    """The forward kernel against its plain version at every batch the
-    main path gives it; returns the JSON row (max abs error over the fp32
-    cases, and stage 0's times at the training batch, the longest chain of
-    the main path)."""
+    """The forward against its plain version at every batch the main path
+    gives it; each line also names the chunk ``fwd_chunk`` picks (L: one
+    pass) and each forward kernel's grid blocks, resident blocks an SM and
+    shared memory a block. Returns the JSON row (max abs error over the
+    fp32 cases, and stage 0's times at the training batch, the longest
+    chain of the main path)."""
     from medical_image_analysis_tpu_torch.ops import scan_n1 as sn
 
     worst, row = 0.0, None
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for stage, b, dtype in _n1_cases(N1_FWD_BATCHES):
         hw, dim = N1_STAGES[stage]
         args, d_in, rank = _n1_case(dev, gen, hw, dim, b, dtype)
+        chunk = sn.fwd_chunk(b, hw * hw, d_in, sms)
+        occupancy = sn.fwd_occupancy(rank, dtype, chunk < hw * hw)
         want = sn.scan_n1_fwd_plain(*args)
         got = sn.scan_n1_fwd(*args)
         _sync(dev)
@@ -1177,7 +1186,13 @@ def phase_kernels_n1(dev, gen) -> tuple:
                src="fp32" if dtype == torch.float32 else "bf16",
                err=f"{err:.3e}", ms=f"{t['kernel']:.4f}",
                plain_ms=f"{t['plain']:.4f}", bound_ms=f"{bound[0]:.4f}",
-               bound_by=bound[1])
+               bound_by=bound[1], chunk=chunk,
+               regime="one_pass" if chunk >= hw * hw else "chunks",
+               grid_blocks=_compact(sn.fwd_grid_blocks(b, hw * hw, d_in,
+                                                       chunk)),
+               blocks_per_sm=_compact(
+                   {k: v[0] for k, v in occupancy.items()}),
+               smem_bytes=_compact({k: v[1] for k, v in occupancy.items()}))
         if dtype == torch.float32:
             worst = max(worst, err)
             if stage == 0 and b == N1_BATCH:

@@ -17,11 +17,17 @@ to front when k >= 2. The two directions of a source sum into one output.
   Function, as the JAX package leaves it to XLA, so its pullback (dWx and
   the x_proj path of du) comes from autograd. ``Wx`` is rounded to the
   source dtype and the product is summed in fp32.
-- ``scan_n1_fwd`` (kernel ``scan_n1_fwd_kernel``, replacing the Pallas
-  ``_fwd_kernel``): in-kernel dt_proj, the scan of all four directions and
-  the sum per source, (2, B, L, D) in the source dtype. As the TPU kernel's
-  aliased accumulation does, each direction is rounded to the source dtype
-  and the pair is added in that dtype.
+- ``scan_n1_fwd`` (kernels ``scan_n1_fwd_sums_kernel``,
+  ``scan_n1_fwd_carry_kernel`` and ``scan_n1_fwd_kernel``, together
+  replacing the Pallas ``_fwd_kernel``): in-kernel dt_proj, the scan of all
+  four directions and the sum per source, (2, B, L, D) in the source
+  dtype. As the TPU kernel's aliased accumulation does, each direction is
+  rounded to the source dtype and the pair is added in that dtype. It runs
+  as a scan over chunks of ``_CHUNK`` rows in parallel over L (the
+  summaries of every piece of ``_PIECE`` rows, their carries as the
+  backward's carry kernel walks them without the adjoint, then the scan
+  from each piece's carried state), or as one pass of the scan kernel over
+  L, whichever :func:`fwd_chunk` picks from the grid.
 - ``scan_n1_bwd`` (kernels ``scan_n1_bwd_sums_kernel``,
   ``scan_n1_bwd_carry_kernel`` and ``scan_n1_bwd_grad_kernel``, together
   replacing ``_bwd_kernel``): du, dx_dbl, dA, dD, d dt_bias, dW_dt, as a
@@ -35,8 +41,8 @@ on the H100 and how their design answers that. Each wrapper runs its
 kernel on a CUDA tensor and its plain version (``scan_n1_fwd_plain``,
 ``scan_n1_bwd_plain``) on a CPU tensor; there is no fallback between the
 two. ``launches`` counts calls of a wrapper that launched its kernels
-(the backward's three kernels count once). The TPU's batch
-packing into 8 sublanes, its padding and its layout pins have no
+(the forward's and the backward's three kernels count once). The TPU's
+batch packing into 8 sublanes, its padding and its layout pins have no
 counterpart here.
 """
 
@@ -53,11 +59,19 @@ KERNEL_SOURCE = "medical_image_analysis_tpu_torch/csrc/scan_n1.cu"
 launches = {"scan_n1_fwd": 0, "scan_n1_bwd": 0}
 
 _THREADS = 64  # channels per block of the scan kernels
-_CHUNK = 32  # source rows a chunk of the backward (a block of kernels 1, 3)
+_CHUNK = 32  # source rows a chunk of the backward and of the cut forward
 _PIECE = 16  # rows a piece of a chunk (a slot of the summaries and carries)
-_CARRY_THREADS = 128  # chains per block of the backward's carry kernel
-# The backward's kernels in the order of mia_scan_n1_bwd_blocks_per_sm's
-# index: piece summaries, carries, gradients.
+_CARRY_THREADS = 128  # chains per block of the carry kernels
+_FWD_BLOCKS = 6  # the forward kernels' resident blocks an SM (their cap)
+# One pass at most this many rows (8 chunks: a walk of 16 tiles a block),
+# whatever the grid (the sweep in PERF.md).
+_ONE_PASS_ROWS = 256
+_H100_SMS = 132
+# The kernels of each direction in the order of the index of
+# mia_scan_n1_{fwd,bwd}_blocks_per_sm: piece summaries, carries, then the
+# scan or the gradients.
+FWD_KERNELS = ("scan_n1_fwd_sums_kernel", "scan_n1_fwd_carry_kernel",
+               "scan_n1_fwd_kernel")
 BWD_KERNELS = ("scan_n1_bwd_sums_kernel", "scan_n1_bwd_carry_kernel",
                "scan_n1_bwd_grad_kernel")
 _P = ctypes.c_void_p
@@ -73,7 +87,7 @@ def build() -> tuple[ctypes.CDLL, str]:
     """Build (or reuse) the kernels' library; returns ``(lib, nvcc log)``."""
     lib, log = load_library("scan_n1")
     lib.mia_scan_n1_fwd.argtypes = [
-        _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+        _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
     ]
     lib.mia_scan_n1_fwd.restype = _I
     lib.mia_scan_n1_bwd.argtypes = [
@@ -85,6 +99,9 @@ def build() -> tuple[ctypes.CDLL, str]:
         _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
     ]
     lib.mia_scan_n1_bwd_carries.restype = _I
+    lib.mia_scan_n1_fwd_blocks_per_sm.argtypes = [
+        _I, _I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+    lib.mia_scan_n1_fwd_blocks_per_sm.restype = _I
     lib.mia_scan_n1_bwd_blocks_per_sm.argtypes = [
         _I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
     lib.mia_scan_n1_bwd_blocks_per_sm.restype = _I
@@ -274,27 +291,70 @@ def _raise_on(err, name):
         raise RuntimeError(f"{name}: kernel launch failed with cudaError {err}")
 
 
+def fwd_chunk(b: int, seq_len: int, d_in: int, sms: int = _H100_SMS) -> int:
+    """Source rows a chunk of ``scan_n1_fwd`` for (B, L, D) on a card of
+    ``sms`` SMs: L (one pass of the scan kernel, no workspace) where L is
+    at most ``_ONE_PASS_ROWS`` or the one-pass grid of ``2 B ceil(D/64)``
+    blocks gives every SM a block, else ``_CHUNK`` (summaries, carries,
+    then the scan a chunk a block). The cut regime stages every row twice
+    and computes its terms twice, so it wins only where one pass leaves
+    SMs idle through a long walk: vssm1_base's stage 0 at up to 12 images,
+    stage 1 at 4."""
+    blocks = 2 * b * -(-d_in // _THREADS)
+    if seq_len <= _ONE_PASS_ROWS or blocks >= sms:
+        return seq_len
+    return _CHUNK
+
+
+def _workspaces(xr, b, seq_len, d_in, planes=(3, 2)):
+    """The chunked scan's (sums, carries): fp32 (planes[0], 4, B, slots, D)
+    and (planes[1], 4, B, slots, D), a slot a piece of ``_PIECE`` rows of a
+    chunk (``csrc/scan_n1.cu``): (P, H, G) and (h_in, g_in) for the
+    backward, (P, H) and h_in for the forward."""
+    slots = -(-seq_len // _CHUNK) * (_CHUNK // _PIECE)
+    return tuple(torch.empty(n, 4, b, slots, d_in, device=xr.device,
+                             dtype=torch.float32) for n in planes)
+
+
 def scan_n1_fwd(xr, xc, x_dbl, dt_proj_w, dt_bias, A, D):
     """dt_proj + the four-direction N=1 scan + D skip, summed per source.
 
     xr, xc (B, L, D) sources (fp32 or bf16); x_dbl (4, B, L, R+2) fp32 in
     source order; dt_proj_w (4, D, R), dt_bias, A, D (4, D) fp32. Returns
-    (2, B, L, D) in the sources' dtype: [row source, column source].
+    (2, B, L, D) in the sources' dtype: [row source, column source]. The
+    scan runs in chunks of :func:`fwd_chunk`'s choice for the card.
     """
     if _on_cpu(xr):
         return scan_n1_fwd_plain(xr, xc, x_dbl, dt_proj_w, dt_bias, A, D)
     b, seq_len, d_in, rank = _check(xr, xc, x_dbl, dt_proj_w, dt_bias, A, D)
+    sms = torch.cuda.get_device_properties(xr.device).multi_processor_count
+    cut = fwd_chunk(b, seq_len, d_in, sms) < seq_len
+    sums, carries = (_workspaces(xr, b, seq_len, d_in, (2, 1)) if cut
+                     else (None, None))
     y = torch.empty(2, b, seq_len, d_in, device=xr.device, dtype=xr.dtype)
     lib, _ = build()
     err = lib.mia_scan_n1_fwd(
         xr.data_ptr(), xc.data_ptr(), int(xr.dtype == torch.bfloat16),
         x_dbl.data_ptr(), dt_proj_w.data_ptr(), dt_bias.data_ptr(),
-        A.data_ptr(), D.data_ptr(), y.data_ptr(), b, seq_len, d_in, rank,
-        torch.cuda.current_stream(xr.device).cuda_stream,
+        A.data_ptr(), D.data_ptr(), None if sums is None else sums.data_ptr(),
+        None if carries is None else carries.data_ptr(), y.data_ptr(), b,
+        seq_len, d_in, rank, torch.cuda.current_stream(xr.device).cuda_stream,
     )
     _raise_on(err, "scan_n1_fwd")
     launches["scan_n1_fwd"] += 1
     return y
+
+
+def fwd_grid_blocks(b: int, seq_len: int, d_in: int, chunk: int) -> dict:
+    """Blocks of each forward kernel's grid for (B, L, D) in chunks of
+    ``chunk`` rows (0 for a kernel that one pass does not run)."""
+    nblk = -(-d_in // _THREADS)
+    if chunk >= seq_len:
+        return dict(zip(FWD_KERNELS, (0, 0, nblk * b * 2)))
+    chunks = -(-seq_len // _CHUNK) * nblk
+    return dict(zip(FWD_KERNELS, (chunks * b * 2,
+                                  -(-4 * b * d_in // _CARRY_THREADS),
+                                  chunks * b * 2)))
 
 
 def _check_dy(xr, dy, name):
@@ -306,15 +366,6 @@ def _check_dy(xr, dy, name):
             f"{name}: dy must be a contiguous {xr.dtype} tensor of shape "
             f"{(2, b, seq_len, d_in)} on {xr.device}; got {dy.dtype} "
             f"{tuple(dy.shape)} on {dy.device}")
-
-
-def _workspaces(xr, b, seq_len, d_in):
-    """The backward's (sums, carries): (3, 4, B, slots, D) and
-    (2, 4, B, slots, D) fp32, a slot a piece of ``_PIECE`` rows of a chunk
-    (``csrc/scan_n1.cu``)."""
-    slots = -(-seq_len // _CHUNK) * (_CHUNK // _PIECE)
-    return tuple(torch.empty(n, 4, b, slots, d_in, device=xr.device,
-                             dtype=torch.float32) for n in (3, 2))
 
 
 def scan_n1_bwd(xr, xc, x_dbl, dt_proj_w, dt_bias, A, D, dy):
@@ -387,23 +438,35 @@ def bwd_grid_blocks(b: int, seq_len: int, d_in: int) -> dict:
                                   chunks * b * 2)))
 
 
-def bwd_occupancy(rank: int, dtype: torch.dtype) -> dict:
-    """Each backward kernel's resident blocks an SM on the current card and
-    its shared memory a block in bytes, ``{name: (blocks, bytes)}``, for
-    dt rank ``rank`` and source dtype ``dtype``
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+def _occupancy(query, kernels, rank, dtype, *flags) -> dict:
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"scan_n1: source dtype {dtype} is not f32/bf16")
-    lib, _ = build()
+    fn = getattr(build()[0], query)
     out = {}
-    for i, name in enumerate(BWD_KERNELS):
+    for i, name in enumerate(kernels):
         blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
-        err = lib.mia_scan_n1_bwd_blocks_per_sm(
-            i, rank, int(dtype == torch.bfloat16), ctypes.byref(blocks),
-            ctypes.byref(smem))
+        err = fn(i, rank, int(dtype == torch.bfloat16), *flags,
+                 ctypes.byref(blocks), ctypes.byref(smem))
         _raise_on(err, f"{name} occupancy")
         out[name] = (blocks.value, smem.value)
     return out
+
+
+def fwd_occupancy(rank: int, dtype: torch.dtype, cut: bool = True) -> dict:
+    """Each forward kernel's resident blocks an SM on the current card and
+    its shared memory a block in bytes, ``{name: (blocks, bytes)}``, for
+    dt rank ``rank``, source dtype ``dtype`` and the regime (``cut``: in
+    chunks, where the scan kernel keeps its forward direction's outputs in
+    shared memory; else one pass)
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    return _occupancy("mia_scan_n1_fwd_blocks_per_sm", FWD_KERNELS, rank,
+                      dtype, int(cut))
+
+
+def bwd_occupancy(rank: int, dtype: torch.dtype) -> dict:
+    """The same as :func:`fwd_occupancy` for the backward's kernels."""
+    return _occupancy("mia_scan_n1_bwd_blocks_per_sm", BWD_KERNELS, rank,
+                      dtype)
 
 
 class ScanN1Fn(torch.autograd.Function):

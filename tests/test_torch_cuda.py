@@ -382,6 +382,12 @@ N1_SHAPES = [  # (B, L, D, R)
     (2, 3136, 256, 8),   # stage 0 of vssm1_base at a small batch
 ]
 N1_IDS = ["odd-l", "l1", "r1", "stage2", "chunks", "stage0-b2"]
+# The forward also at the context tower's 36 images, stages 0 and 3 (grids
+# that fill the card), and at an odd D (bf16 rows staged without channel
+# pairs).
+N1_FWD_SHAPES = N1_SHAPES + [(36, 3136, 256, 8), (36, 49, 2048, 64),
+                             (2, 40, 33, 2)]
+N1_FWD_IDS = N1_IDS + ["stage0-b36", "stage3-b36", "odd-d"]
 
 
 def _n1_inputs(dev, dtype, b, l, d, r, seed):
@@ -404,12 +410,34 @@ def _n1_args(xr, xc, x_dbl, w):
     return (xr, xc, x_dbl, w["dt_proj_w"], w["dt_bias"], w["A"], w["D"])
 
 
+def _n1_regime(monkeypatch, regime):
+    """``scan_n1_fwd`` in ``regime``: as ``fwd_chunk`` picks it ("rule"),
+    or forced to chunks of ``_CHUNK`` rows ("chunks") or to one pass over L
+    ("one-pass")."""
+    if regime == "chunks":
+        monkeypatch.setattr(sn, "fwd_chunk",
+                            lambda b, l, d, sms=0: min(sn._CHUNK, l))
+    elif regime == "one-pass":
+        monkeypatch.setattr(sn, "fwd_chunk", lambda b, l, d, sms=0: l)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("regime", ["rule", "chunks", "one-pass"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
-@pytest.mark.parametrize("b,l,d,r", N1_SHAPES, ids=N1_IDS)
-def test_scan_n1_fwd_matches_plain(cuda, dtype, b, l, d, r):
+@pytest.mark.parametrize("b,l,d,r", N1_FWD_SHAPES, ids=N1_FWD_IDS)
+def test_scan_n1_fwd_matches_plain(cuda, monkeypatch, dtype, b, l, d, r,
+                                   regime):
+    """Both regimes, and the one the rule picks, at every shape; the rule
+    cuts stage 0 at 2 images into chunks and takes stage 3 at 36 in one
+    pass."""
     args = _n1_args(*_n1_inputs(cuda, dtype, b, l, d, r, seed=l + d))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    if (b, l) == (2, 3136):
+        assert sn.fwd_chunk(b, l, d, sms) == sn._CHUNK
+    if (b, l) == (36, 49):
+        assert sn.fwd_chunk(b, l, d, sms) == l
+    _n1_regime(monkeypatch, regime)
     before = sn.launches["scan_n1_fwd"]
     want = sn.scan_n1_fwd_plain(*args)
     got = sn.scan_n1_fwd(*args)
@@ -418,6 +446,36 @@ def test_scan_n1_fwd_matches_plain(cuda, dtype, b, l, d, r):
     assert got.dtype == dtype and got.shape == (2, b, l, d)
     err, scale = _err(got, want)
     assert err <= Y_RTOL[dtype] * scale, (err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime", ["chunks", "one-pass"])
+def test_scan_n1_fwd_is_deterministic(cuda, monkeypatch, regime):
+    """No float atomics, nothing that depends on the blocks' order: two
+    calls give the same bits."""
+    args = _n1_args(*_n1_inputs(cuda, torch.float32, 6, 100, 200, 8, 3))
+    _n1_regime(monkeypatch, regime)
+    assert torch.equal(sn.scan_n1_fwd(*args), sn.scan_n1_fwd(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_scan_n1_fwd_occupancy(cuda, dtype):
+    """At vssm1_base stage 0's rank (8), in chunks, the scan kernel keeps
+    its cap of ``_FWD_BLOCKS`` blocks of 64 threads resident on an SM
+    (shared memory within 32 KB a block), the summaries kernel as many;
+    in one pass the scan kernel's shared memory is 8 KB less (no outputs
+    of the forward direction kept)."""
+    occupancy = sn.fwd_occupancy(8, dtype)
+    assert set(occupancy) == set(sn.FWD_KERNELS)
+    blocks, smem = occupancy["scan_n1_fwd_kernel"]
+    assert smem <= 32 * 1024 and blocks >= sn._FWD_BLOCKS, (blocks, smem)
+    assert occupancy["scan_n1_fwd_sums_kernel"][0] >= blocks, occupancy
+    one_pass = sn.fwd_occupancy(8, dtype, cut=False)["scan_n1_fwd_kernel"]
+    elt = torch.tensor([], dtype=dtype).element_size()
+    assert one_pass[1] == smem - 32 * 64 * elt, (one_pass, smem)
+    assert one_pass[0] >= blocks, (one_pass, blocks)
 
 
 @pytest.mark.cuda

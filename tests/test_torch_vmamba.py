@@ -220,6 +220,74 @@ def test_scan_n1_chunked_carries_match_the_walk(b, l, d, r, chunk, piece):
             assert torch.equal(g, w)
 
 
+def _chunked_fwd_dirs(args, chunk, piece):
+    """The forward kernels' cut regime on the CPU, in float64: the piece
+    summaries (P, H) of chunks of ``chunk`` source rows cut into pieces of
+    ``piece`` rows, composed into each piece's entering state as the
+    backward's carries are (``_chunked_carries``), then every piece
+    rescanned from that state for its outputs C h + D u. Returns every
+    direction's y, (4, B, L, D) in source order."""
+    rank = args[3].shape[2]
+    u, xd, dt, _ = scan_n1._dirs(*args[:5])
+    a = torch.exp(dt * args[5][:, None, None, :]).double().numpy()
+    bx = (dt * u * xd[..., rank : rank + 1]).double().numpy()
+    cm = xd[..., rank + 1].double().numpy()
+    skip = args[6].double().numpy()[:, None, None, :] * u.double().numpy()
+    h_in, _ = _chunked_carries(a, bx, np.zeros_like(a), chunk, piece)
+    seq_len, per = a.shape[2], chunk // piece
+    y = np.zeros_like(a)
+    for k in range(4):
+        for c in range(-(-seq_len // chunk)):
+            nt = min(chunk, seq_len - c * chunk)
+            first = seq_len - c * chunk - nt if k >= 2 else c * chunk
+            for j in range(per):
+                h = h_in[k, :, c * per + j]
+                for i in range(first + j * piece,
+                               first + min((j + 1) * piece, nt)):
+                    h = a[k, :, i] * h + bx[k, :, i]
+                    y[k, :, i] = cm[k, :, i, None] * h + skip[k, :, i]
+    return scan_n1._scan_order(torch.from_numpy(y))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,l,d,r", [
+    (2, 70, 70, 3),   # a ragged last chunk (6 rows); D not a multiple of 64
+    (1, 33, 130, 4),  # a last chunk of one row
+    (3, 12, 8, 2),    # L < 16: one piece, part empty
+    (2, 1, 5, 1),     # L = 1
+])
+def test_scan_n1_chunked_forward_matches_the_walk(b, l, d, r, dtype):
+    """The forward's cut regime (``csrc/scan_n1.cu``: piece summaries of
+    32-row chunks cut into 16-row pieces, their carries, then each piece
+    rescanned from its carried state) gives every direction's y of the
+    sequential walk (``scan_n1_fwd_plain``'s) within 1e-5 of
+    max(1, max |y|), and, each direction rounded to the sources' dtype and
+    the pair added in it, ``scan_n1_fwd_plain``'s output: within 1e-5 in
+    fp32; for bf16 sources the same bits wherever both directions round
+    alike (a direction rounds otherwise only within 1e-5 of a bf16
+    rounding boundary)."""
+    xr, xc, p, _ = _scan_inputs(b, l, d, r, seed=l + d)
+    t = {k: torch.from_numpy(v) for k, v in p.items()}
+    xr, xc = torch.from_numpy(xr).to(dtype), torch.from_numpy(xc).to(dtype)
+    args = (xr, xc, scan_n1._x_dbl(xr, xc, t["x_proj_w"]), t["dt_proj_w"],
+            t["dt_bias"], t["A"][..., 0], t["D"])
+    dirs = _chunked_fwd_dirs(args, scan_n1._CHUNK, scan_n1._PIECE)
+    walk = scan_n1._dir_outputs(*args)
+    _assert_close(dirs, walk, SCAN_RTOL, "directions")
+    rounded = dirs.float().to(dtype)
+    got = rounded[:2] + rounded[2:]
+    want = scan_n1.scan_n1_fwd_plain(*args)
+    assert got.dtype == want.dtype == dtype
+    if dtype == torch.float32:
+        _assert_close(got, want, SCAN_RTOL, "pair")
+    else:
+        alike = (rounded == walk.to(dtype)).reshape(2, 2, *got.shape[1:])
+        alike = alike.all(dim=0)
+        assert torch.equal(got[alike], want[alike])
+        assert alike.float().mean() > 0.99
+
+
 def test_scan_n1_bf16_sources_bounded_by_fp32_oracle():
     """bf16 sources: ``x_proj_w`` is rounded to bf16 and x_dbl summed in
     fp32 (``scan_n1.py:729-737``), each direction is scanned in fp32 and

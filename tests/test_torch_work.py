@@ -130,14 +130,16 @@ def test_selective_scan_sizes_match_the_kernel(constant, attr):
 @pytest.mark.parametrize("constant,attr", [("kThreads", "_THREADS"),
                                            ("kChunk", "_CHUNK"),
                                            ("kSub", "_PIECE"),
-                                           ("kCarryThreads", "_CARRY_THREADS")])
+                                           ("kCarryThreads", "_CARRY_THREADS"),
+                                           ("kFwdBlocks", "_FWD_BLOCKS")])
 def test_scan_n1_sizes_match_the_kernel(constant, attr):
     """``_THREADS`` (channels a block: ``dxdbl_part``'s leading extent),
-    ``_CHUNK`` (source rows a chunk of the backward: the weight-gradient
-    partials' chunk extent), ``_PIECE`` (rows a slot of the workspaces) and
-    ``_CARRY_THREADS`` (chains a block of the carry kernel, for
-    ``bwd_grid_blocks``) are the values of ``csrc/scan_n1.cu``'s
-    constants."""
+    ``_CHUNK`` (source rows a chunk of the backward and of the forward's
+    cut regime: the weight-gradient partials' chunk extent), ``_PIECE``
+    (rows a slot of the workspaces), ``_CARRY_THREADS`` (chains a block of
+    the carry kernels, for the grid counts) and ``_FWD_BLOCKS`` (the
+    forward scan's cap of resident blocks an SM) are the values of
+    ``csrc/scan_n1.cu``'s constants."""
     src = (CSRC / "scan_n1.cu").read_text()
     want = re.findall(rf"constexpr int {constant} = (\d+);", src)
     assert len(want) == 1 and int(want[0]) == getattr(sn, attr)
@@ -159,6 +161,48 @@ def test_scan_n1_workspaces_are_chunked_as_the_kernel(b, l, d):
     nblk = -(-d // sn._THREADS)
     assert blocks["scan_n1_bwd_grad_kernel"] == chunks * nblk * b * 2
     assert blocks["scan_n1_bwd_sums_kernel"] == chunks * nblk * b * 4
+    # the forward's cut regime: (P, H) and h_in in the same slots
+    sums, carries = sn._workspaces(torch.empty(0), b, l, d, (2, 1))
+    assert sums.shape == (2, 4, b, slots, d)
+    assert carries.shape == (1, 4, b, slots, d)
+    assert sn.fwd_grid_blocks(b, l, d, sn._CHUNK) == dict(zip(
+        sn.FWD_KERNELS, (blocks["scan_n1_bwd_grad_kernel"],
+                         blocks["scan_n1_bwd_carry_kernel"],
+                         blocks["scan_n1_bwd_grad_kernel"])))
+
+
+# (B, L, D) of the forward's main-path calls: vssm1_base's stages at the
+# training step's 12 images, the context tower's 36, validation's 4, and one
+# image; and shapes of the card tests.
+N1_FWD = ([(b, hw * hw, 2 * dim) for b in (12, 36, 4, 1)
+           for hw, dim in ((56, 128), (28, 256), (14, 512), (7, 1024))]
+          + [(5, 33, 24), (3, 1, 16), (2, 20, 70), (3, 1000, 70)])
+
+
+@pytest.mark.parametrize("b,l,d", N1_FWD)
+def test_scan_n1_fwd_chunk_is_l_or_the_built_chunk(b, l, d):
+    """The forward's chunk is L (one pass of the scan kernel, no workspace)
+    or ``_CHUNK`` rows, the chunk the summaries kernel is built for; L
+    exactly where L is at most ``_ONE_PASS_ROWS`` or the one-pass grid
+    gives each of the H100's 132 SMs a block: stages 2 and 3 at every
+    batch, stages 0 and 1 at the context tower's 36 images and stage 1 at
+    12; cut at stage 0 at up to 12 images and at stage 1 at 4. The grid
+    counts follow the chunk."""
+    chunk = sn.fwd_chunk(b, l, d)
+    blocks = 2 * b * -(-d // sn._THREADS)
+    assert chunk in (l, sn._CHUNK)
+    assert (chunk == l) == (l <= sn._ONE_PASS_ROWS or blocks >= 132)
+    if (l == 3136 and b <= 12) or (b, l) == (4, 784):
+        assert chunk == sn._CHUNK
+    if l <= 196 or b == 36 or (b, l) == (12, 784):
+        assert chunk == l
+    grid = sn.fwd_grid_blocks(b, l, d, chunk)
+    assert list(grid) == list(sn.FWD_KERNELS)
+    if chunk == l:
+        assert grid == dict(zip(sn.FWD_KERNELS, (0, 0, blocks)))
+    else:
+        assert grid["scan_n1_fwd_kernel"] == -(-l // chunk) * blocks
+        assert grid["scan_n1_fwd_sums_kernel"] == -(-l // chunk) * blocks
 
 
 @pytest.mark.parametrize("constant,attr", [("kBwdThreads", "_BWD_THREADS"),
@@ -372,12 +416,19 @@ def test_mamba_fwd_timing_tool_names_the_kernels():
 
 def test_scan_n1_timing_tool_names_the_kernels():
     """``tools/time_scan_n1_bwd.py`` splits a call by kernel name prefixes
-    that cover every ``__global__`` function of ``csrc/scan_n1.cu``, and
-    the wrapper's ``BWD_KERNELS`` are the backward's kernels there."""
+    that cover every ``__global__`` function of ``csrc/scan_n1.cu``,
+    ``tools/time_scan_n1_fwd.py`` by one that covers the forward's, and the
+    wrapper's ``BWD_KERNELS`` and ``FWD_KERNELS`` are the backward's and
+    the forward's kernels there."""
     tool = _profile_tool("time_scan_n1_bwd")
     kernels = _kernels("scan_n1.cu")
     assert set(sn.BWD_KERNELS) == {k for k in kernels
                                    if k.startswith("scan_n1_bwd")}
+    assert set(sn.FWD_KERNELS) == {k for k in kernels
+                                   if k.startswith("scan_n1_fwd")}
+    fwd_tool = _profile_tool("time_scan_n1_fwd")
+    assert {k for k in kernels if k.startswith(fwd_tool.KERNELS)} == set(
+        sn.FWD_KERNELS)
     for name in kernels:
         assert any(name.startswith(p) for p in tool.KERNELS), name
     for prefix in tool.KERNELS:
