@@ -23,7 +23,10 @@ raises (exit code 1):
                (K=4, no conv, N=16; ``vssm_classify``'s SS2D blocks),
                held against ``scan_plain`` at B=8 and timed alone at B=128
                beside its bound, with its chunk and each kernel's grid
-               blocks and resident blocks an SM.
+               blocks and resident blocks an SM; before it
+               (``kernels_xdbl_vssm``) ``xdbl_fwd`` held against
+               ``xdbl_plain`` at B=8 and B=128 and timed at B=128, with its
+               tile, grid blocks and resident blocks an SM.
    kernels_bwd -- the backward (``scan_bwd``: three kernels, chunk
                summaries, carries, gradients; one launch count a call)
                against ``scan_bwd_plain`` at the same shapes: the max error
@@ -553,13 +556,17 @@ def phase_kernels(cfg, dev, gen, batches=(1, 6)) -> dict:
                 scan_plain_ms=f"{t['scan_plain']:.4f}",
                 **_mamba_fwd_blocks(b, mixer.k, seq_len, mixer.d_inner,
                                     mixer.n, mixer.rank, dtype),
+                **_xdbl_blocks(b, mixer.k, seq_len, mixer.d_inner,
+                               got_x.shape[-1], dtype, True,
+                               w["conv_w"].shape[1]),
             )
             if b == 1 and dtype == torch.float32:
                 elems = b * mixer.k * seq_len * mixer.d_inner
                 serving = {
                     "mamba_xdbl": (err_x, t["xdbl"], t["xdbl_plain"],
-                                   *_bound([*xargs, got_x], elems * (
-                                       2 * got_x.shape[-1] + 13))[:2]),
+                                   *_bound([*xargs, got_x],
+                                           _xdbl_work(elems, got_x.shape[-1],
+                                                      True))[:2]),
                     "mamba_scan": (err_y, t["scan"], t["scan_plain"],
                                    *_bound([*sargs, got_y], elems * _mamba_ops(
                                        mixer.rank, mixer.n))[:2]),
@@ -584,17 +591,77 @@ def _mamba_fwd_blocks(b, k_dirs, seq_len, d_in, n, rank, dtype) -> dict:
         smem_bytes=_compact({k: v[1] for k, v in occupancy.items()}))
 
 
+def _xdbl_work(elems: int, c: int, use_conv: bool) -> tuple:
+    """x_dbl's (products, other) for ``_bound`` over ``elems`` = B K L D
+    source elements: the 2 C products an element on the tensor cores, the
+    conv and SiLU's 13 operations an element on the CUDA cores."""
+    return 2.0 * elems * c, 13.0 * elems if use_conv else 0.0
+
+
+def _xdbl_blocks(b, k_dirs, seq_len, d_in, c, dtype, use_conv,
+                 taps) -> dict:
+    """x_dbl's tile on this card (rows x directions a block x ranges of D),
+    its grid's blocks, resident blocks an SM and shared memory a block, for
+    a phase line."""
+    from medical_image_analysis_tpu_torch.ops import mamba_fused as mf
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tile = mf.xdbl_tile(b, k_dirs, seq_len, d_in, c, sms)
+    blocks, smem = mf.xdbl_occupancy(*tile[:2], dtype, use_conv, taps, c)
+    return dict(xdbl_tile="x".join(map(str, tile)),
+                xdbl_grid_blocks=mf.xdbl_grid_blocks(b, k_dirs, seq_len, c,
+                                                     *tile),
+                xdbl_blocks_per_sm=blocks, xdbl_smem_bytes=smem)
+
+
 def phase_kernels_fwd_vssm(dev, gen) -> None:
-    """``scan_fwd`` at vssm_tiny's four stage shapes (``vssm_bwd_case``'s
-    arguments without dy: K=4, no conv, N=16, softplus), against
-    ``scan_plain`` at B=MAMBA_VSSM_CHECK_BATCH within Y_RTOL (its per-row
-    loop holds B=8 easily; the kernels' indexing depends on B only through
-    the grid), then timed alone at ``vssm_classify``'s B=128 beside its
-    bound: the median of three timings of 10 calls, all three printed
-    (sorted) beside it."""
+    """``xdbl_fwd`` and ``scan_fwd`` at vssm_tiny's four stage shapes
+    (``vssm_xdbl_case``'s and ``vssm_bwd_case``'s arguments: K=4, no conv,
+    N=16, softplus). ``xdbl_fwd`` is held against ``xdbl_plain`` within
+    XDBL_RTOL at B=MAMBA_VSSM_CHECK_BATCH and at ``vssm_classify``'s
+    B=SS_VSSM_BATCH, whose output is the one timed (``xdbl_tile`` picks
+    its tile from B, so the small batch may run another one);
+    ``scan_fwd`` against ``scan_plain`` within Y_RTOL at
+    B=MAMBA_VSSM_CHECK_BATCH (its per-row plain loop holds B=8 easily; the
+    scan's indexing depends on B only through the grid). Each is then
+    timed alone at B=SS_VSSM_BATCH beside its bound: the median of three
+    timings of 10 calls, all three printed (sorted) beside it."""
     from medical_image_analysis_tpu_torch.ops import mamba_fused as mf
 
     for stage, (seq_len, d_in) in enumerate(SS_VSSM_STAGES):
+        errs = {}
+        for batch in (MAMBA_VSSM_CHECK_BATCH, SS_VSSM_BATCH):
+            xargs, w, _ = vssm_xdbl_case(dev, gen, stage, batch)
+            xargs = (*xargs[:4], w[0], xargs[4])
+            del w
+            got = mf.xdbl_fwd(*xargs)
+            want = mf.xdbl_plain(*xargs)
+            _sync(dev)
+            _check(got.shape == want.shape
+                   and bool(torch.isfinite(got).all()),
+                   f"mamba_xdbl vssm_tiny stage {stage} B={batch}: shape "
+                   f"or finiteness")
+            err, scale = _max_err(got, want)
+            _check(err <= XDBL_RTOL * scale,
+                   f"mamba_xdbl vssm_tiny stage {stage} B={batch}: max "
+                   f"abs err {err:.3e} > {XDBL_RTOL} x {scale:.3f}")
+            errs[batch] = err
+            del want
+        runs = sorted(device_ms(lambda: mf.xdbl_fwd(*xargs), 10)
+                      for _ in range(3))
+        c = got.shape[-1]
+        bound = _bound([*xargs[:5], got], _xdbl_work(
+            SS_VSSM_BATCH * 4 * seq_len * d_in, c, False))
+        _phase("kernels_xdbl_vssm", stage=stage, B=SS_VSSM_BATCH, K=4,
+               L=seq_len, D=d_in, C=c, src="fp32",
+               check_B=f"{MAMBA_VSSM_CHECK_BATCH},{SS_VSSM_BATCH}",
+               err="/".join(f"{e:.3e}" for e in errs.values()),
+               ms=f"{runs[1]:.4f}",
+               ms_runs="/".join(f"{t:.4f}" for t in runs),
+               bound_ms=f"{bound[0]:.4f}", bound_by=bound[2],
+               **_xdbl_blocks(SS_VSSM_BATCH, 4, seq_len, d_in, c,
+                              torch.float32, False, xargs[2].shape[1]))
+        del xargs, got
         args, rank = vssm_bwd_case(dev, gen, stage, MAMBA_VSSM_CHECK_BATCH)
         fargs = (*args[:9], True, False)
         del args
@@ -738,15 +805,15 @@ def _mamba_bwd_blocks(b, k_dirs, seq_len, d_in, n, rank, dtype) -> dict:
         smem_bytes=_compact({k: v[1] for k, v in occupancy.items()}))
 
 
-def vssm_bwd_case(dev, gen, stage: int, batch: int):
-    """``scan_bwd``'s fp32 arguments at a vssm_tiny stage (``SS_VSSM_STAGES``)
+def vssm_xdbl_case(dev, gen, stage: int, batch: int):
+    """``xdbl_fwd``'s fp32 arguments at a vssm_tiny stage (``SS_VSSM_STAGES``)
     as ``vssm_classify`` gives them: an initialised SS2D's fused-layer
     weights (d_state 16, no conv; its directions in the fused layer's
-    order), sources silu(N(0, 1)) as SS2D feeds the scan, x_dbl as
-    ``xdbl_plain`` gives it and a N(0, 1) cotangent. Returns (args, R)."""
+    order) and sources silu(N(0, 1)) as SS2D feeds the scan. Returns
+    (xr, xc, conv_w, conv_b, use_conv), the SS2D's (x_proj_w, dt_proj_w,
+    dt_bias, A, D) and its R."""
     from medical_image_analysis_tpu_torch.models.common import init_params
     from medical_image_analysis_tpu_torch.models.vmamba import SS2D
-    from medical_image_analysis_tpu_torch.ops import mamba_fused as mf
 
     seq_len, d_in = SS_VSSM_STAGES[stage]
     m = SS2D(d_in // 2, d_state=16, device=dev)
@@ -760,11 +827,24 @@ def vssm_bwd_case(dev, gen, stage: int, batch: int):
     with torch.no_grad():
         w = [t.detach()[perm].float().contiguous() for t in (
             m.x_proj_w, m.dt_proj_w, m.dt_bias, -torch.exp(m.A_log), m.D)]
-        conv_w = torch.zeros(4, 4, d_in, device=dev)
-        conv_b = torch.zeros(4, d_in, device=dev)
+    conv_w = torch.zeros(4, 4, d_in, device=dev)
+    conv_b = torch.zeros(4, d_in, device=dev)
+    return (xr, xc, conv_w, conv_b, False), w, m.rank
+
+
+def vssm_bwd_case(dev, gen, stage: int, batch: int):
+    """``scan_bwd``'s fp32 arguments at a vssm_tiny stage
+    (``vssm_xdbl_case``'s layer and sources), x_dbl as ``xdbl_plain``
+    gives it and a N(0, 1) cotangent. Returns (args, R)."""
+    from medical_image_analysis_tpu_torch.ops import mamba_fused as mf
+
+    (xr, xc, conv_w, conv_b, _), w, rank = vssm_xdbl_case(dev, gen, stage,
+                                                          batch)
+    seq_len, d_in = SS_VSSM_STAGES[stage]
+    with torch.no_grad():
         x_dbl = mf.xdbl_plain(xr, xc, conv_w, conv_b, w[0], False)
     dy = torch.randn(batch, 4, seq_len, d_in, device=dev, generator=gen)
-    return (xr, xc, x_dbl, conv_w, conv_b, *w[1:], dy, True, False), m.rank
+    return (xr, xc, x_dbl, conv_w, conv_b, *w[1:], dy, True, False), rank
 
 
 def _png(rng, size: int) -> bytes:

@@ -1,11 +1,13 @@
-// Fused multi-direction Mamba layer for Hopper (sm_90a): the forward's
-// x_dbl kernel and its three scan kernels, and the three kernels of the
+// Fused multi-direction Mamba layer for Hopper (sm_90a): the forward's two
+// x_dbl kernels and its three scan kernels, and the three kernels of the
 // backward.
 //
 // They replace the three Pallas TPU kernels of
 // medical_image_analysis_tpu/ops/mamba_fused.py:
 //
-//   mamba_xdbl_kernel      <- _xdbl_kernel      (x_dbl = silu(conv(x_dir)) @ Wx^T)
+//   mamba_xdbl_kernel,
+//   mamba_xdbl_sum_kernel  <- _xdbl_kernel (:111, launched at :333; x_dbl =
+//                                 silu(conv(x_dir) + b) @ Wx^T, see "x_dbl")
 //   mamba_scan_sums_kernel,
 //   mamba_scan_carry_kernel,
 //   mamba_scan_kernel      <- _fused_fwd_kernel (:145, launched at :389; conv
@@ -33,12 +35,19 @@
 // L-1 with a zero conv carry and a zero state.
 //
 // What bounds them on the H100, and what the design does about it:
-//  - xdbl: (B*K*L) x C x D fp32 FMAs, about 60 MFLOP per ARM-B layer at B=1,
-//    reading 4*C*D weights per block from L2. One block owns ROWS scan rows of
-//    one (b, k): it stages silu(conv(x)) for those rows in shared memory, then
-//    each warp reduces over D for a set of the C outputs, reusing each weight
-//    it loads for all ROWS rows. No tensor cores yet (the TPU kernel used the
-//    MXU); a wgmma tile is later work.
+//  - xdbl: a (B*K*L) x C x D fp32 product (C 38 to 80 on the main paths;
+//    any C runs), at vssm_tiny stage 0, B=128, 23.4 GFLOP for 0.86 GB of
+//    sources read and x_dbl written: on the tensor cores in 3xTF32 (165
+//    TFLOP/s) the bytes bound it (0.26 ms at 3.35 TB/s), the products all
+//    but (0.14 ms). It ran on the CUDA cores, a block 8 rows of one
+//    direction and a warp a column of C reduced over D by shuffles, every
+//    block reading its direction's whole Wx from L2 (5.13 ms there, 0.118
+//    ms at ARM-B, B=6, on an H100 80GB HBM3 at 700 W). It is now mma.sync
+//    m16n8k8 in 3xTF32 over tiles of 64 or 128 source rows, both
+//    directions of a source a block (D split over blocks where the grid is
+//    small), the conv and SiLU computed as the operand is staged: see
+//    "x_dbl" below. At these C the warps' fragment loads and splits and
+//    the 3xTF32 MMAs, not the bytes, hold it.
 //  - scan: a chain of L dependent steps per (b, k, d) channel, so latency,
 //    not bytes or FLOPs, bounds it where the grid is small, and the
 //    instructions of each element where it is large. It ran as one thread a
@@ -66,13 +75,14 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 #include <type_traits>
+
+#include "mma_tc.cuh"
 
 namespace {
 
 constexpr int kMaxTaps = 4;
-constexpr int kXdblThreads = 256;
-constexpr int kXdblMaxRows = 8;
 
 template <typename T>
 __device__ __forceinline__ float to_float(T v);
@@ -108,69 +118,398 @@ __device__ __forceinline__ const T* source_of(const T* xr, const T* xc, int k,
   return src + static_cast<size_t>(b) * L * D;
 }
 
-// grid (ceil(L / rows), B*K), block kXdblThreads, dynamic smem rows*D floats
-template <typename T>
-__global__ void __launch_bounds__(kXdblThreads) mamba_xdbl_kernel(
-    const T* __restrict__ xr, const T* __restrict__ xc,
-    const float* __restrict__ conv_w, const float* __restrict__ conv_b,
-    const float* __restrict__ wx, float* __restrict__ xdbl, int K, int L,
-    int D, int C, int taps, int use_conv, int rows) {
-  extern __shared__ float u_s[];  // (rows, D)
-  const int bk = blockIdx.y;
-  const int b = bk / K;
-  const int k = bk - b * K;
-  const bool rev = (k & 1) != 0;
-  const int t0 = blockIdx.x * rows;
-  const T* src = source_of(xr, xc, k, b, L, D);
-  const float* w = conv_w + static_cast<size_t>(k) * taps * D;
+// ---- x_dbl: the x_proj product on the tensor cores --------------------------
+//
+// x_dbl[b*K + k, t, :] = Wx[k] @ u_k[b, t] for scan row t of direction k,
+// u_k = silu(conv_k(x) + b_k) of the scan-order source (or the source itself
+// without a conv), fp32: a (B*K*L) x C x D product, C = R + 2N. A block of
+// mamba_xdbl_kernel owns a tile of xdbl_rows(MW) = 64 MW rows of one image's
+// source, `dirs` of the directions that read it (both, k = 2s and 2s + 1,
+// the forward and the reversed scan of source s, or one), 8 NT columns of C
+// (16 NT with one direction; more columns take more blocks along z) and
+// one of `splits` ranges of D (more than one where the grid would leave SMs
+// idle: their partial sums go to a workspace that mamba_xdbl_sum_kernel adds
+// up in a fixed order). It walks its D in slices of 32:
+//  - the source rows of the slice with a halo of taps - 1 rows on each side
+//    (the forward direction's conv reads the rows before a row, the reversed
+//    one's the rows after), each direction's Wx rows and its conv's taps and
+//    bias go to shared memory by cp.async, kXdblStages - 1 slices in flight
+//    while a slice is computed (plain loads where a row of D is not a
+//    multiple of 16 bytes);
+//  - u is computed from the staged rows into a padded fp32 tile (the conv,
+//    bias and SiLU; a bf16 source converted), except for an fp32 source
+//    without a conv, whose staged rows are the operand;
+//  - each warp owns 16 MW rows of one direction and NT n8 tiles (all the
+//    block's, or with one direction a block half of them); it loads its A
+//    and B fragments by ldmatrix (a tf32 fragment is a b16 one's pair) and
+//    splits them into 3xTF32 hi and lo in registers. The MMAs
+//    (mma_3xtf32) of up to 7 tiles run as independent chains, each slice's
+//    summed from zero and added to the accumulators in fp32 (mma_tc.cuh:
+//    the tensor cores truncate inside their sums).
+// The epilogue stages the tile in shared memory and writes each direction's
+// rows as one run of x_dbl: a reversed direction's tile row i is scan row
+// L - 1 - (s0 + i), index arithmetic only.
+constexpr int kXdblThreads = 256;  // 8 warps: 4 row groups x 2
+constexpr int kXdblSlice = 32;     // D a slice
+constexpr int kXdblPad = kXdblSlice + 4;  // fp32 tile rows, floats
+constexpr int kXdblStages = 3;     // slices staged at once
+constexpr int kXdblBlocks = 2;     // resident blocks an SM (register cap)
+// n8 tiles a warp (NT) the kernel is built for at 64 rows (C of 40, 48, 56,
+// 80 with both directions a block); 128 rows take 5. The caller picks NT
+// for its C (the wrapper's xdbl_nt); past NT's columns, more blocks along z.
+constexpr int kXdblTiles[] = {5, 6, 7, 10};
 
-  for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
-    const int r = i / D;
-    const int d = i - r * D;
-    const int t = t0 + r;
-    float u = 0.0f;
-    if (t < L) {
-      if (use_conv) {
-        float acc = 0.0f;
-        for (int j = 0; j < taps; ++j) {
-          const int tt = t - (taps - 1) + j;  // scan row feeding tap j
-          if (tt >= 0) {
-            const int s = rev ? L - 1 - tt : tt;
-            acc += w[j * D + d] * to_float(src[static_cast<size_t>(s) * D + d]);
-          }
+__host__ __device__ constexpr int xdbl_rows(int mw) { return 64 * mw; }
+
+// Columns of C a block takes: NT n8 tiles, twice with one direction.
+__host__ __device__ inline int xdbl_block_cols(int nt, int dirs) {
+  return 8 * nt * (dirs == 1 ? 2 : 1);
+}
+
+// Floats of a staged source row: fp32 kXdblPad, bf16 40 elements (16-byte
+// aligned rows either way).
+__host__ __device__ constexpr int xdbl_xrow(bool bf16) {
+  return bf16 ? (kXdblSlice + 8) / 2 : kXdblPad;
+}
+
+// Shared memory of a block, in floats from the start: kXdblStages stages of
+// (the source rows; each direction's Wx rows; with a conv each direction's
+// taps and bias, kMaxTaps + 1 rows), then u (a tile a direction with a
+// conv, one for a bf16 source without); the epilogue's tile reuses the
+// start.
+struct XdblSmem {
+  int x, w, cw, stage, u, total;
+};
+
+__host__ __device__ inline XdblSmem xdbl_smem(int rows, int halo, int dirs,
+                                              int cols, bool bf16,
+                                              bool conv) {
+  XdblSmem s;
+  s.x = 0;
+  s.w = (rows + 2 * halo) * xdbl_xrow(bf16);
+  s.cw = s.w + dirs * cols * kXdblPad;
+  s.stage = s.cw + (conv ? dirs * (kMaxTaps + 1) * kXdblSlice : 0);
+  s.u = kXdblStages * s.stage;
+  const int tiles = conv ? dirs : (bf16 ? 1 : 0);
+  s.total = s.u + tiles * rows * kXdblPad;
+  if (s.total < dirs * rows * cols) s.total = dirs * rows * cols;
+  return s;
+}
+
+template <typename T>
+struct XdblArgs {
+  const T* xr;
+  const T* xc;  // null when K < 4
+  const float* conv_w;
+  const float* conv_b;
+  const float* wx;
+  float* out;  // x_dbl, or with splits > 1 the (splits, B*K, L, C) partials
+  int B, K, L, D, C, taps, use_conv, dirs, splits, vec;
+};
+
+// SiLU by the fast intrinsics (about 1e-6 relative), well inside x_dbl's
+// 1e-4 checks: 7% of x_dbl's time at ARM-B, B=6, on an H100 (PERF.md).
+__device__ __forceinline__ float silu_fast(float x) {
+  return __fdividef(x, 1.0f + __expf(-x));
+}
+
+// The 3xTF32 split of an fp32 x (its bits) by integer ops: hi = x with its
+// low 13 mantissa bits cleared, lo = x - hi (exact) rounded to tf32, to
+// nearest with ties away as cvt.rna does; x - hi - lo is within 2^-21 |x|,
+// as with mma_tc.cuh's split, whose two cvt.rna an element took a quarter
+// of the kernel's time at vssm_tiny stages 0 and 1 on an H100 (PERF.md).
+__device__ __forceinline__ void split_fast(uint32_t x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = x & 0xffffe000u;
+  lo = (__float_as_uint(__uint_as_float(x) - __uint_as_float(hi)) +
+        0x1000u) &
+       0xffffe000u;
+}
+
+// u = silu(conv + bias) of rows i0 .. i0 + R - 1 of one direction and one
+// column (x, cw and u point at it): the R + TAPS - 1 staged rows they read
+// are loaded once. Staged row i + j feeds the forward scan's tap j, row
+// i + 2 (TAPS - 1) - j the reversed one's.
+template <int TAPS, int R, typename T>
+__device__ __forceinline__ void conv_silu_rows(const T* x, int xrow,
+                                               const float* cw, float* u,
+                                               int i0, bool rev) {
+  constexpr int H = TAPS - 1;
+  float w[TAPS];
+#pragma unroll
+  for (int j = 0; j < TAPS; ++j) w[j] = cw[j * kXdblSlice];
+  const float bias = cw[kMaxTaps * kXdblSlice];
+  const T* xb = x + (i0 + (rev ? H : 0)) * xrow;
+  float xv[R + H];
+#pragma unroll
+  for (int r = 0; r < R + H; ++r) xv[r] = to_float(xb[r * xrow]);
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    float acc = bias;
+#pragma unroll
+    for (int j = 0; j < TAPS; ++j)
+      acc += w[j] * (rev ? xv[i + H - j] : xv[i + j]);
+    u[(i0 + i) * kXdblPad] = silu_fast(acc);
+  }
+}
+
+// x_dbl = the sum of the splits' partials, in split order: n floats each.
+__global__ void mamba_xdbl_sum_kernel(const float* __restrict__ part,
+                                      float* __restrict__ xdbl, int n,
+                                      int splits) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    float v = part[i];
+    for (int z = 1; z < splits; ++z) v += part[static_cast<size_t>(z) * n + i];
+    xdbl[i] = v;
+  }
+}
+
+// grid (ceil(L / rows), B * K / dirs, ceil(C / xdbl_block_cols(NT, dirs)) *
+// splits), block kXdblThreads, xdbl_smem(...).total floats of dynamic
+// shared memory.
+template <typename T, int MW, int NT>
+__global__ void __launch_bounds__(kXdblThreads, kXdblBlocks)
+    mamba_xdbl_kernel(const XdblArgs<T> p) {
+  constexpr int M = xdbl_rows(MW);
+  constexpr bool kBf16 = sizeof(T) == 2;
+  constexpr int E = 16 / static_cast<int>(sizeof(T));  // elements a copy
+  constexpr int G = NT <= 7 ? NT : 5;  // tiles whose MMA chains interleave
+  static_assert(NT % G == 0, "whole groups of tiles");
+  extern __shared__ __align__(16) float xs[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int groups = p.K / p.dirs;
+  const int b = blockIdx.y / groups;
+  const int k0 = (blockIdx.y - b * groups) * p.dirs;  // the first direction
+  const int s0 = blockIdx.x * M;                        // the first source row
+  const int cb = xdbl_block_cols(NT, p.dirs);          // padded columns
+  const int ncb = (p.C + cb - 1) / cb;
+  const int zs = blockIdx.z / ncb;                      // this D range
+  const int c0 = (blockIdx.z - zs * ncb) * cb;          // the first column
+  const int cols = min(cb, p.C - c0);
+  const bool conv = p.use_conv != 0;
+  const int H = conv ? p.taps - 1 : 0;
+  const int xrow = xdbl_xrow(kBf16) * (kBf16 ? 2 : 1);  // in T elements
+  const XdblSmem sm = xdbl_smem(M, H, p.dirs, cb, kBf16, conv);
+  const T* src = (p.xc != nullptr && k0 >= 2 ? p.xc : p.xr) +
+                 static_cast<size_t>(b) * p.L * p.D;
+  const int slices = (p.D + kXdblSlice - 1) / kXdblSlice;
+  const int per = (slices + p.splits - 1) / p.splits;
+  const int sl0 = zs * per;
+  const int nsl = max(0, min(slices, sl0 + per) - sl0);
+
+  // tap j of direction k's conv, or its bias for j == taps: a row of D
+  auto conv_row = [&](int k, int j) {
+    return j < p.taps ? p.conv_w + (static_cast<size_t>(k) * p.taps + j) * p.D
+                      : p.conv_b + static_cast<size_t>(k) * p.D;
+  };
+  // row c0 + r of Wx of direction slot ds
+  auto w_row = [&](int ds, int r) {
+    return p.wx + (static_cast<size_t>(k0 + ds) * p.C + c0 + r) * p.D;
+  };
+  // slice sl of the source rows s0 - H .. s0 + M + H - 1, of Wx's rows
+  // c0 .. c0 + cb - 1 of each direction and of its conv into stage st,
+  // zeros outside
+  auto load = [&](int sl, int st) {
+    const int d0 = sl * kXdblSlice;
+    T* xd = reinterpret_cast<T*>(xs + st * sm.stage + sm.x);
+    float* wd = xs + st * sm.stage + sm.w;
+    float* cwd = xs + st * sm.stage + sm.cw;
+    const int rows = M + 2 * H;
+    if (p.vec) {
+      constexpr int CH = kXdblSlice / E;
+      for (int i = threadIdx.x; i < rows * CH; i += kXdblThreads) {
+        const int r = i / CH, c = (i - r * CH) * E;
+        const int s = s0 - H + r;
+        const bool ok = s >= 0 && s < p.L && d0 + c < p.D;
+        tc::cp_async16(xd + r * xrow + c,
+                       ok ? src + static_cast<size_t>(s) * p.D + d0 + c : src,
+                       ok);
+      }
+      for (int ds = 0; ds < p.dirs; ++ds)
+        for (int i = threadIdx.x; i < cb * 8; i += kXdblThreads) {
+          const int r = i >> 3, c = (i & 7) * 4;
+          const bool ok = c0 + r < p.C && d0 + c < p.D;
+          tc::cp_async16(wd + (ds * cb + r) * kXdblPad + c,
+                         ok ? w_row(ds, r) + d0 + c : p.wx, ok);
         }
-        u = silu(acc + conv_b[k * D + d]);
-      } else {
-        const int s = rev ? L - 1 - t : t;
-        u = to_float(src[static_cast<size_t>(s) * D + d]);
+      if (conv)
+        for (int i = threadIdx.x; i < p.dirs * (p.taps + 1) * 8;
+             i += kXdblThreads) {
+          const int r = i >> 3, c = (i & 7) * 4;
+          const int ds = r / (p.taps + 1), j = r - ds * (p.taps + 1);
+          const int slot = ds * (kMaxTaps + 1) + (j < p.taps ? j : kMaxTaps);
+          const bool ok = d0 + c < p.D;
+          tc::cp_async16(cwd + slot * kXdblSlice + c,
+                         ok ? conv_row(k0 + ds, j) + d0 + c : p.conv_b, ok);
+        }
+      return;
+    }
+    for (int i = threadIdx.x; i < rows * kXdblSlice; i += kXdblThreads) {
+      const int r = i >> 5, c = i & 31;
+      const int s = s0 - H + r;
+      const bool ok = s >= 0 && s < p.L && d0 + c < p.D;
+      xd[r * xrow + c] = ok ? src[static_cast<size_t>(s) * p.D + d0 + c]
+                            : from_float<T>(0.0f);
+    }
+    for (int ds = 0; ds < p.dirs; ++ds)
+      for (int i = threadIdx.x; i < cb * kXdblSlice; i += kXdblThreads) {
+        const int r = i >> 5, c = i & 31;
+        wd[(ds * cb + r) * kXdblPad + c] =
+            c0 + r < p.C && d0 + c < p.D ? w_row(ds, r)[d0 + c] : 0.0f;
+      }
+    if (conv)
+      for (int i = threadIdx.x; i < p.dirs * (p.taps + 1) * kXdblSlice;
+           i += kXdblThreads) {
+        const int r = i >> 5, c = i & 31;
+        const int ds = r / (p.taps + 1), j = r - ds * (p.taps + 1);
+        const int slot = ds * (kMaxTaps + 1) + (j < p.taps ? j : kMaxTaps);
+        cwd[slot * kXdblSlice + c] =
+            d0 + c < p.D ? conv_row(k0 + ds, j)[d0 + c] : 0.0f;
+      }
+  };
+
+  // u from stage st: the conv, bias and SiLU of each direction, or a bf16
+  // source in fp32; a lane a column, a warp M / 8 rows
+  auto prepare = [&](int st) {
+    const T* xr = reinterpret_cast<const T*>(xs + st * sm.stage + sm.x);
+    float* u = xs + sm.u;
+    constexpr int rows = M / 8;
+    const int i0 = warp * rows;
+    if (!conv) {
+      for (int i = i0; i < i0 + rows; ++i)
+        u[i * kXdblPad + lane] = to_float(xr[i * xrow + lane]);
+      return;
+    }
+    for (int ds = 0; ds < p.dirs; ++ds) {
+      const bool rev = ((k0 + ds) & 1) != 0;
+      const float* cw = xs + st * sm.stage + sm.cw +
+                        ds * (kMaxTaps + 1) * kXdblSlice + lane;
+      float* uk = u + ds * M * kXdblPad + lane;
+      switch (p.taps) {
+        case 1:
+          conv_silu_rows<1, rows>(xr + lane, xrow, cw, uk, i0, rev);
+          break;
+        case 2:
+          conv_silu_rows<2, rows>(xr + lane, xrow, cw, uk, i0, rev);
+          break;
+        case 3:
+          conv_silu_rows<3, rows>(xr + lane, xrow, cw, uk, i0, rev);
+          break;
+        default:
+          conv_silu_rows<4, rows>(xr + lane, xrow, cw, uk, i0, rev);
       }
     }
-    u_s[i] = u;
-  }
-  __syncthreads();
+  };
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
-  const float* wk = wx + static_cast<size_t>(k) * C * D;
-  for (int c = warp; c < C; c += nwarps) {
-    float acc[kXdblMaxRows];
+  // this warp: direction slot ds, rows rg * 16 MW .., n8 tiles nb .. nb+NT-1
+  const int rg = warp & 3;
+  const int ds = p.dirs == 2 ? warp >> 2 : 0;
+  const int nb = p.dirs == 2 ? 0 : (warp >> 2) * NT;
+  const bool utile = conv || kBf16;
+  float acc[MW][NT][4];
 #pragma unroll
-    for (int r = 0; r < kXdblMaxRows; ++r) acc[r] = 0.0f;
-    for (int d = lane; d < D; d += 32) {
-      const float wv = wk[static_cast<size_t>(c) * D + d];
+  for (int mt = 0; mt < MW; ++mt) tc::zero(acc[mt]);
+
 #pragma unroll
-      for (int r = 0; r < kXdblMaxRows; ++r)
-        if (r < rows) acc[r] += u_s[r * D + d] * wv;
+  for (int i = 0; i < kXdblStages - 1; ++i) {
+    if (i < nsl) load(sl0 + i, i);
+    tc::cp_async_commit();
+  }
+  for (int it = 0; it < nsl; ++it) {
+    const int st = it % kXdblStages;
+    tc::cp_async_wait<kXdblStages - 2>();
+    __syncthreads();  // slice it landed; slice it - 1's operands are free
+    if (it + kXdblStages - 1 < nsl)
+      load(sl0 + it + kXdblStages - 1, (it + kXdblStages - 1) % kXdblStages);
+    tc::cp_async_commit();
+    if (utile) {
+      prepare(st);
+      __syncthreads();
     }
+    const float* A = utile ? xs + sm.u + (conv ? ds * M * kXdblPad : 0)
+                           : xs + st * sm.stage + sm.x;
+    // A: rows 0-7, 8-15 of an m16 tile at k 0-3, then at k 4-7;
+    // B: rows n8 .. n8 + 7 of Wx at k 0-3, 4-7, 8-11, 12-15 (b0, b1 of two
+    // k8 steps)
+    const float* Ar = A + (16 * MW * rg + (lane & 7) + 8 * ((lane >> 3) & 1)) *
+                              kXdblPad +
+                      4 * (lane >> 4);
+    const float* Br = xs + st * sm.stage + sm.w +
+                      ((ds * cb + 8 * nb + (lane & 7)) * kXdblPad) +
+                      4 * (lane >> 3);
 #pragma unroll
-    for (int r = 0; r < kXdblMaxRows; ++r) {
-      float v = acc[r];
+    for (int mt = 0; mt < MW; ++mt)
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        v += __shfl_xor_sync(0xffffffffu, v, off);
-      if (lane == 0 && r < rows && t0 + r < L)
-        xdbl[(static_cast<size_t>(bk) * L + t0 + r) * C + c] = v;
+      for (int g0 = 0; g0 < NT; g0 += G) {
+        float t[G][4];
+        tc::zero(t);
+#pragma unroll
+        for (int kp = 0; kp < 2; ++kp) {  // k8 steps 2 kp, 2 kp + 1
+          tc::Split<4> a[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            uint32_t f[4];
+            tc::ldsm_x4(f, Ar + 16 * mt * kXdblPad + 16 * kp + 8 * h);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              split_fast(f[e], a[h].hi[e], a[h].lo[e]);
+          }
+#pragma unroll
+          for (int j = 0; j < G; ++j) {
+            uint32_t f[4];
+            tc::ldsm_x4(f, Br + 8 * (g0 + j) * kXdblPad + 16 * kp);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              tc::Split<2> bf;
+              split_fast(f[2 * h], bf.hi[0], bf.lo[0]);
+              split_fast(f[2 * h + 1], bf.hi[1], bf.lo[1]);
+              tc::mma_3xtf32(t[j], a[h], bf);
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < G; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][g0 + j][e] += t[j][e];
+      }
+  }
+
+  __syncthreads();  // every warp's last MMAs read their operands
+  float* out = xs;  // (dirs, M, cols)
+  const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < MW; ++mt)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = 16 * MW * rg + 16 * mt + g + 8 * (e >> 1);
+        const int col = 8 * (nb + j) + 2 * tq + (e & 1);
+        if (col < cols) out[(ds * M + row) * cols + col] = acc[mt][j][e];
+      }
+  __syncthreads();
+  const int nrows = min(M, p.L - s0);
+  const int step_q = kXdblThreads / cols;
+  const int step_c = kXdblThreads - step_q * cols;
+  float* dst0 = p.out + static_cast<size_t>(zs) * p.B * p.K * p.L * p.C;
+  for (int dd = 0; dd < p.dirs; ++dd) {
+    const int k = k0 + dd;
+    const bool rev = (k & 1) != 0;
+    // scan rows first .. first + nrows - 1 of direction k
+    const int first = rev ? p.L - s0 - nrows : s0;
+    float* dst = dst0 + (static_cast<size_t>(b * p.K + k) * p.L + first) *
+                            p.C + c0;
+    int q = threadIdx.x / cols, c = threadIdx.x - q * cols;
+    for (int e = threadIdx.x; e < nrows * cols; e += kXdblThreads) {
+      const int i = rev ? nrows - 1 - q : q;
+      dst[static_cast<size_t>(q) * p.C + c] = out[(dd * M + i) * cols + c];
+      q += step_q;
+      c += step_c;
+      if (c >= cols) {
+        c -= cols;
+        ++q;
+      }
     }
   }
 }
@@ -1165,19 +1504,6 @@ mamba_scan_bwd_grad_kernel(
   }
 }
 
-template <typename T>
-cudaError_t launch_xdbl(const void* xr, const void* xc, const float* conv_w,
-                        const float* conv_b, const float* wx, float* xdbl,
-                        int B, int K, int L, int D, int C, int taps,
-                        int use_conv, int rows, cudaStream_t stream) {
-  const dim3 grid((L + rows - 1) / rows, B * K);
-  const size_t smem = static_cast<size_t>(rows) * D * sizeof(float);
-  mamba_xdbl_kernel<T><<<grid, kXdblThreads, smem, stream>>>(
-      static_cast<const T*>(xr), static_cast<const T*>(xc), conv_w, conv_b,
-      wx, xdbl, K, L, D, C, taps, use_conv, rows);
-  return cudaGetLastError();
-}
-
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -1368,6 +1694,103 @@ cudaError_t occupancy_fwd(int kernel, int R, int* blocks, int* smem_bytes) {
       blocks, mamba_scan_sums_kernel<T, N>, kBwdThreads, *smem_bytes);
 }
 
+// x_dbl: the shared memory of a launch, the launch (the product, then the
+// sum of its splits' partials), its resident blocks an SM, and the
+// dispatch over (MW, NT).
+template <typename T, int MW, int NT>
+size_t xdbl_smem_bytes(int dirs, int use_conv, int taps) {
+  return static_cast<size_t>(
+             xdbl_smem(xdbl_rows(MW), use_conv ? taps - 1 : 0, dirs,
+                       xdbl_block_cols(NT, dirs), sizeof(T) == 2,
+                       use_conv != 0)
+                 .total) *
+         sizeof(float);
+}
+
+template <typename T, int MW, int NT>
+cudaError_t launch_xdbl(const XdblArgs<T>& p, float* xdbl,
+                        cudaStream_t stream) {
+  const size_t smem = xdbl_smem_bytes<T, MW, NT>(p.dirs, p.use_conv, p.taps);
+  cudaError_t err = allow_smem(mamba_xdbl_kernel<T, MW, NT>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(ceil_div(p.L, xdbl_rows(MW)), p.B * p.K / p.dirs,
+                  ceil_div(p.C, xdbl_block_cols(NT, p.dirs)) * p.splits);
+  mamba_xdbl_kernel<T, MW, NT><<<grid, kXdblThreads, smem, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || p.splits == 1) return err;
+  const int n = p.B * p.K * p.L * p.C;
+  const int blocks = ceil_div(n, kXdblThreads);
+  mamba_xdbl_sum_kernel<<<blocks < 4096 ? blocks : 4096, kXdblThreads, 0,
+                          stream>>>(p.out, xdbl, n, p.splits);
+  return cudaGetLastError();
+}
+
+template <typename T, int MW, int NT>
+cudaError_t occupancy_xdbl(int dirs, int use_conv, int taps, int* blocks,
+                           int* smem_bytes) {
+  const size_t smem = xdbl_smem_bytes<T, MW, NT>(dirs, use_conv, taps);
+  *smem_bytes = static_cast<int>(smem);
+  const cudaError_t err = allow_smem(mamba_xdbl_kernel<T, MW, NT>, smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, mamba_xdbl_kernel<T, MW, NT>, kXdblThreads, smem);
+}
+
+// Runs fn<T, MW, NT>(args...) for the tile rows and n8 tiles a warp of a
+// call (xdbl_ok has checked that the kernel is built for them).
+#define MIA_XDBL_DISPATCH(fn, ...)                     \
+  if (rows == xdbl_rows(2)) return fn<T, 2, 5>(__VA_ARGS__); \
+  switch (nt) {                                        \
+    case 5:                                            \
+      return fn<T, 1, 5>(__VA_ARGS__);                 \
+    case 6:                                            \
+      return fn<T, 1, 6>(__VA_ARGS__);                 \
+    case 7:                                            \
+      return fn<T, 1, 7>(__VA_ARGS__);                 \
+    default:                                           \
+      return fn<T, 1, 10>(__VA_ARGS__);                \
+  }
+
+template <typename T>
+cudaError_t launch_xdbl_tile(const XdblArgs<T>& p, float* xdbl, int rows,
+                             int nt, cudaStream_t stream) {
+  MIA_XDBL_DISPATCH(launch_xdbl, p, xdbl, stream)
+}
+
+template <typename T>
+cudaError_t occupancy_xdbl_tile(int rows, int nt, int dirs, int use_conv,
+                                int taps, int* blocks, int* smem_bytes) {
+  MIA_XDBL_DISPATCH(occupancy_xdbl, dirs, use_conv, taps, blocks, smem_bytes)
+}
+
+// The n8 tiles a warp the kernel is built for at rows a tile.
+bool xdbl_built(int rows, int nt) {
+  if (rows == xdbl_rows(2)) return nt == kXdblTiles[0];
+  if (rows != xdbl_rows(1)) return false;
+  for (int t : kXdblTiles)
+    if (nt == t) return true;
+  return false;
+}
+
+// What the x_dbl kernel takes: 64 or 128 rows a tile with the n8 tiles a
+// warp it is built for there, one direction a block or both of a source,
+// K = 1, 2 or 4, taps <= kMaxTaps, 1 to 64 ranges of D, and grids and
+// x_dbl within their limits.
+bool xdbl_ok(int B, int K, int L, int D, int C, int taps, int rows, int nt,
+             int dirs, int splits) {
+  return B >= 1 && L >= 1 && D >= 1 && C >= 1 && taps >= 1 &&
+         taps <= kMaxTaps && xdbl_built(rows, nt) &&
+         (K == 1 || K == 2 || K == 4) && (dirs == 1 || dirs == 2) &&
+         K % dirs == 0 && splits >= 1 && splits <= 64 &&
+         static_cast<long long>(B) * K / dirs <= 65535 &&
+         static_cast<long long>(B) * K * L * C <= 0x7fffffffLL &&
+         static_cast<long long>(ceil_div(C, 8)) * splits <= 65535;
+}
+
+bool aligned16(const void* ptr) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+}
+
 // Runs fn<T, N>(args...) for the source type and d_state of a call.
 #define MIA_DISPATCH(fn, ...)                                          \
   switch (N * 2 + (is_bf16 ? 1 : 0)) {                                 \
@@ -1401,19 +1824,53 @@ bool sizes_ok(const ScanShape& z, int N, int chunk) {
 
 extern "C" {
 
-// Returns the cudaError_t of the launch (0 on success).
+// x_dbl (B*K, L, C) in scan order; rows (64 or 128) source rows a tile,
+// nt n8 tiles of C a warp (a block takes 8 nt columns, 16 nt with one
+// direction), dirs (1, or 2: both directions of a source) directions a
+// block, and splits ranges of D a tile, whose partial sums go to part
+// ((splits, B*K, L, C) fp32; null for one). Returns the cudaError_t of the
+// launches (0 on success).
 int mia_mamba_xdbl(const void* xr, const void* xc, int is_bf16,
                    const float* conv_w, const float* conv_b, const float* wx,
-                   float* xdbl, int B, int K, int L, int D, int C, int taps,
-                   int use_conv, int rows, void* stream) {
-  if (taps < 1 || taps > kMaxTaps || rows < 1 || rows > kXdblMaxRows)
+                   float* part, float* xdbl, int B, int K, int L, int D,
+                   int C, int taps, int use_conv, int rows, int nt, int dirs,
+                   int splits, void* stream) {
+  if (!xdbl_ok(B, K, L, D, C, taps, rows, nt, dirs, splits) ||
+      (K == 4) != (xc != nullptr) || (splits > 1) != (part != nullptr))
     return cudaErrorInvalidValue;
+  // 16-byte copies where every row of D starts on 16 bytes
+  const int vec = D % (is_bf16 ? 8 : 4) == 0 && aligned16(xr) &&
+                  (xc == nullptr || aligned16(xc)) && aligned16(conv_w) &&
+                  aligned16(conv_b) && aligned16(wx);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_xdbl<__nv_bfloat16>(xr, xc, conv_w, conv_b, wx,
-                                              xdbl, B, K, L, D, C, taps,
-                                              use_conv, rows, s)
-                 : launch_xdbl<float>(xr, xc, conv_w, conv_b, wx, xdbl, B, K,
-                                      L, D, C, taps, use_conv, rows, s);
+  float* out = splits > 1 ? part : xdbl;
+  if (is_bf16) {
+    const XdblArgs<__nv_bfloat16> p{
+        static_cast<const __nv_bfloat16*>(xr),
+        static_cast<const __nv_bfloat16*>(xc), conv_w, conv_b, wx, out, B, K,
+        L, D, C, taps, use_conv, dirs, splits, vec};
+    return launch_xdbl_tile(p, xdbl, rows, nt, s);
+  }
+  const XdblArgs<float> p{static_cast<const float*>(xr),
+                          static_cast<const float*>(xc), conv_w, conv_b, wx,
+                          out, B, K, L, D, C, taps, use_conv, dirs, splits,
+                          vec};
+  return launch_xdbl_tile(p, xdbl, rows, nt, s);
+}
+
+// The x_dbl kernel's resident blocks an SM on the current device at rows,
+// nt, dirs, the source type and the conv (cudaOccupancyMaxActiveBlocksPer-
+// Multiprocessor at its launch's shared memory) into *blocks, and that
+// shared memory in bytes into *smem_bytes.
+int mia_mamba_xdbl_blocks_per_sm(int rows, int nt, int dirs, int is_bf16,
+                                 int use_conv, int taps, int* blocks,
+                                 int* smem_bytes) {
+  if (!xdbl_ok(1, 2, 1, 1, 1, taps, rows, nt, dirs, 1))
+    return cudaErrorInvalidValue;
+  return is_bf16 ? occupancy_xdbl_tile<__nv_bfloat16>(
+                       rows, nt, dirs, use_conv, taps, blocks, smem_bytes)
+                 : occupancy_xdbl_tile<float>(rows, nt, dirs, use_conv, taps,
+                                              blocks, smem_bytes);
 }
 
 // The forward scan into y (B, K, L, D). cut 0 runs one kernel over all
@@ -1492,5 +1949,6 @@ int mia_mamba_scan_bwd_blocks_per_sm(int kernel, int N, int R, int is_bf16,
 }
 
 #undef MIA_DISPATCH
+#undef MIA_XDBL_DISPATCH
 
 }  // extern "C"

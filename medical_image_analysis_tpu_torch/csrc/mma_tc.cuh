@@ -1,6 +1,7 @@
-// Tensor-core building blocks shared by attention.cu and vit_block.cu
-// (sm_90a): warp-level mma.sync products, the 3xTF32 split of an fp32
-// operand, and cp.async copies into shared memory.
+// Tensor-core building blocks shared by attention.cu, vit_block.cu and
+// mamba_fused.cu (sm_90a): warp-level mma.sync products, the 3xTF32 split
+// of an fp32 operand, ldmatrix loads, and cp.async copies into shared
+// memory.
 //
 // Precision policy. An fp32 product runs in 3xTF32: each fp32 operand x is
 // split in registers into hi = tf32(x) (cvt.rna) and lo = tf32(x - hi), and
@@ -118,6 +119,19 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&b)[4],
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
       "[%4];\n"
       : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+      : "r"(a));
+}
+
+// Four 8 x 4 fp32 (tf32) matrices from shared memory, each 8 rows of 16
+// bytes, by ldmatrix of b16 pairs: lane l passes the address of row l % 8
+// of matrix l / 8 and gets element (l / 4, l % 4) of matrix i in r[i],
+// which is a tf32 A fragment's a0..a3 (rows along m, k contiguous) or two
+// B fragments' b0, b1 (rows along n, k contiguous).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(a));
 }
 

@@ -6,7 +6,13 @@ launches:
 
 - ``xdbl_fwd``: per direction, ``x_dbl = silu(conv(x_dir) + b) @ Wx^T``
   in fp32 (kernel ``mamba_xdbl_kernel``, replacing the Pallas
-  ``_xdbl_kernel``).
+  ``_xdbl_kernel``): a product on the tensor cores in 3xTF32 over tiles
+  of :func:`xdbl_tile`'s rows of one image's source, both directions that
+  read the source a block (or one, where the grid would leave SMs idle),
+  with the conv + SiLU computed as the operand is staged. Where even one
+  direction a block leaves SMs idle (ARM-B up to 12 images) D is split
+  over blocks, and ``mamba_xdbl_sum_kernel`` adds their partials in a
+  fixed order (one launch count a call).
 - ``scan_fwd``: conv + SiLU again, ``dt = softplus(x_dbl[:, :R] @ W_dt +
   bias)``, the S6 scan with fp32 state and ``y = C.h + D.u`` written in
   SOURCE order in the source dtype (replacing the Pallas
@@ -56,8 +62,14 @@ launches = {"mamba_xdbl": 0, "mamba_scan": 0, "mamba_scan_bwd": 0}
 
 _SCAN_STATES = (4, 16)  # d_state values the scan kernel is built for
 _MAX_TAPS = 4
-_XDBL_MAX_ROWS = 8
-_XDBL_SMEM_FLOATS = 12288  # 48 KiB of staged conv output per block
+# x_dbl's tiles: source rows a tile (xdbl_rows: 64 MW for MW = 1, 2), the
+# n8 tiles of C a warp takes that the kernel is built for at 64 rows
+# (kXdblTiles; 128 rows take the first), the kernel's resident blocks an
+# SM by its __launch_bounds__ (kXdblBlocks), and its slices of D.
+_XDBL_ROWS = (64, 128)
+_XDBL_TILES = (5, 6, 7, 10)
+_XDBL_BLOCKS = 2
+_XDBL_SLICE = 32  # D a slice of the kernel's walk (kXdblSlice)
 _BWD_THREADS = 64  # threads a block of the backward's sums and grad kernels
 _BWD_LANES = 2  # lanes of a channel there, d_state / _BWD_LANES states each
 _BWD_CHANNELS = _BWD_THREADS // _BWD_LANES  # channels a block (dxdbl part)
@@ -91,9 +103,13 @@ def build() -> tuple[ctypes.CDLL, str]:
     """Build (or reuse) the kernels' library; returns ``(lib, nvcc log)``."""
     lib, log = load_library("mamba_fused")
     lib.mia_mamba_xdbl.argtypes = [
-        _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+        _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+        _I, _I, _P,
     ]
     lib.mia_mamba_xdbl.restype = _I
+    lib.mia_mamba_xdbl_blocks_per_sm.argtypes = [
+        _I, _I, _I, _I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+    lib.mia_mamba_xdbl_blocks_per_sm.restype = _I
     lib.mia_mamba_scan.argtypes = [
         _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
@@ -371,6 +387,7 @@ def xdbl_fwd(xr, xc, conv_w, conv_b, x_proj_w, use_conv=True):
     """``x_dbl`` for every direction: (B*K, L, R+2N) fp32, scan order.
 
     conv_w (K, taps, D), conv_b (K, D) and x_proj_w (K, R+2N, D) are fp32.
+    The kernel's tile is :func:`xdbl_tile`'s choice for the card.
     """
     if _on_cpu(xr):
         return xdbl_plain(xr, xc, conv_w, conv_b, x_proj_w, use_conv)
@@ -378,26 +395,124 @@ def xdbl_fwd(xr, xc, conv_w, conv_b, x_proj_w, use_conv=True):
     _check_sources(xr, xc, k_dirs, d_in)
     b, seq_len, _ = xr.shape
     taps = conv_w.shape[1]
-    if not 1 <= taps <= _MAX_TAPS or d_in > _XDBL_SMEM_FLOATS:
-        raise ValueError(f"mamba_xdbl: taps={taps}, D={d_in} unsupported")
+    if not 1 <= taps <= _MAX_TAPS:
+        raise ValueError(f"mamba_xdbl: taps={taps} unsupported "
+                         f"(taps <= {_MAX_TAPS})")
     _check_f32(
         xr.device, conv_w=(conv_w, (k_dirs, taps, d_in)),
         conv_b=(conv_b, (k_dirs, d_in)), x_proj_w=(x_proj_w, (k_dirs, c, d_in)),
     )
     out = torch.empty(b * k_dirs, seq_len, c, device=xr.device,
                       dtype=torch.float32)
-    rows = max(1, min(_XDBL_MAX_ROWS, _XDBL_SMEM_FLOATS // d_in))
+    sms = torch.cuda.get_device_properties(xr.device).multi_processor_count
+    rows, dirs, splits = xdbl_tile(b, k_dirs, seq_len, d_in, c, sms)
+    # the partial sums of the ranges of D, added up by the second kernel
+    part = None if splits == 1 else torch.empty(
+        splits, *out.shape, device=xr.device, dtype=torch.float32)
     lib, _ = build()
     err = lib.mia_mamba_xdbl(
         xr.data_ptr(), None if xc is None else xc.data_ptr(),
         int(xr.dtype == torch.bfloat16), conv_w.data_ptr(), conv_b.data_ptr(),
-        x_proj_w.data_ptr(), out.data_ptr(), b, k_dirs, seq_len, d_in, c,
-        taps, int(use_conv), rows,
+        x_proj_w.data_ptr(), None if part is None else part.data_ptr(),
+        out.data_ptr(), b, k_dirs, seq_len, d_in, c, taps, int(use_conv),
+        rows, xdbl_nt(rows, dirs, c), dirs, splits,
         torch.cuda.current_stream(xr.device).cuda_stream,
     )
     _raise_on(err, "mamba_xdbl")
     launches["mamba_xdbl"] += 1
     return out
+
+
+def xdbl_nt(rows: int, dirs: int, c: int) -> int:
+    """n8 tiles of C a warp of ``mamba_xdbl_kernel`` takes, the kernel's
+    instantiation for a call: the fewest of those it is built for
+    (``kXdblTiles``; at 128 rows only the first) that hold a warp's share
+    of C, else the most (more columns take more blocks along z). With one
+    direction a block, its two halves of warps split C."""
+    if rows == _XDBL_ROWS[1]:
+        return _XDBL_TILES[0]
+    halves = 2 if dirs == 1 else 1
+    tiles = -(-c // 8)
+    need = -(-tiles // halves)
+    return next((t for t in _XDBL_TILES if need <= t), _XDBL_TILES[-1])
+
+
+def xdbl_block_cols(rows: int, dirs: int, c: int) -> int:
+    """Columns of C a block of ``mamba_xdbl_kernel`` takes (zeros past C):
+    ``xdbl_nt``'s n8 tiles, twice with one direction a block."""
+    return 8 * xdbl_nt(rows, dirs, c) * (2 if dirs == 1 else 1)
+
+
+def xdbl_grid_blocks(b: int, k_dirs: int, seq_len: int, c: int, rows: int,
+                     dirs: int, splits: int = 1) -> int:
+    """Blocks of ``mamba_xdbl_kernel``'s grid for (B, K, L, C) in tiles of
+    ``rows`` source rows, ``dirs`` directions a block and ``splits`` ranges
+    of D: a tile of one image's source, ``dirs`` of its directions,
+    ``xdbl_block_cols`` columns of C and one range of D."""
+    cols = xdbl_block_cols(rows, dirs, c)
+    return (-(-seq_len // rows) * b * (k_dirs // dirs) * -(-c // cols)
+            * splits)
+
+
+def xdbl_tile(b: int, k_dirs: int, seq_len: int, d_in: int, c: int,
+              sms: int = _H100_SMS) -> tuple[int, int, int]:
+    """``(rows, dirs, splits)`` of ``xdbl_fwd``'s kernel for (B, K, L, D, C)
+    on a card of ``sms`` SMs: source rows a tile, directions a block and
+    ranges of D a tile, in that order of decision.
+
+    - Directions: both of a source a block (where K > 1), which stages its
+      rows once for two products, unless that grid of 64-row tiles leaves
+      SMs idle (ARM-B, vssm_tiny stage 3 at its validation's 64 images).
+    - Ranges of D: while the grid holds fewer blocks than three quarters
+      of the card's ``_XDBL_BLOCKS`` an SM, doubled, each keeping 3 of its
+      32-wide slices or more; their partials are summed by a second kernel.
+    - Rows: 128 where a 128-row block holds all of C (40 columns with two
+      directions, 80 with one), takes fewer tiles of L than 64 rows do, and
+      its grid, with its ranges of D, reaches three quarters of
+      ``_XDBL_BLOCKS`` an SM (vssm_tiny stage 0; ARM-B from 4 images);
+      else 64 (ARM-B at one image, where 128 rows leave the card short).
+
+    On an H100 the pick was the fastest of the tiles swept (64 and 128 rows,
+    one and two directions, 1, 2, 4 and 8 ranges) at every main-path shape
+    but vssm_tiny stage 3 at 64 images, where 64x2x2 was 2% faster."""
+    full = 3 * _XDBL_BLOCKS * sms  # four times the grid that fills the card
+    dirs = 1 if k_dirs == 1 else 2
+    if dirs == 2 and xdbl_grid_blocks(b, k_dirs, seq_len, c, 64, 2) < sms:
+        dirs = 1
+    slices = -(-d_in // _XDBL_SLICE)
+
+    def split(rows):
+        splits = 1
+        while (4 * xdbl_grid_blocks(b, k_dirs, seq_len, c, rows, dirs, splits)
+               < full and 2 * splits <= slices // 3):
+            splits *= 2
+        return splits
+
+    rows = 64
+    if (xdbl_block_cols(128, dirs, c) >= c
+            and -(-seq_len // 128) < -(-seq_len // 64)
+            and 4 * xdbl_grid_blocks(b, k_dirs, seq_len, c, 128, dirs,
+                                     split(128)) >= full):
+        rows = 128
+    return rows, dirs, split(rows)
+
+
+def xdbl_occupancy(rows: int, dirs: int, dtype: torch.dtype, use_conv: bool,
+                   taps: int, c: int) -> tuple[int, int]:
+    """``mamba_xdbl_kernel``'s resident blocks an SM on the current card and
+    its shared memory a block in bytes, at ``rows`` and ``dirs``
+    (:func:`xdbl_tile`), source dtype ``dtype``, a conv of ``taps`` taps
+    or none, and C = ``c``
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"mamba_fused: source dtype {dtype} is not f32/bf16")
+    lib, _ = build()
+    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.mia_mamba_xdbl_blocks_per_sm(
+        rows, xdbl_nt(rows, dirs, c), dirs, int(dtype == torch.bfloat16),
+        int(use_conv), taps, ctypes.byref(blocks), ctypes.byref(smem))
+    _raise_on(err, "mamba_xdbl_kernel occupancy")
+    return blocks.value, smem.value
 
 
 def fwd_chunk(b: int, k_dirs: int, seq_len: int, d_in: int,

@@ -282,6 +282,91 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         mf.xdbl_fwd(xr, None, w["conv_w"], w["conv_b"], w["x_proj_w"])
     with pytest.raises(ValueError, match="fp32 tensor"):
         mf.xdbl_fwd(xr, xc, w["conv_w"].cpu(), w["conv_b"], w["x_proj_w"])
+    with pytest.raises(ValueError, match="taps=5"):
+        mf.xdbl_fwd(xr, xc, torch.zeros(4, 5, 8, device=cuda), w["conv_b"],
+                    w["x_proj_w"])
+
+
+# (K, B, L, D, C, conv): ARM-B serving one image, vssm_tiny stage 3's and
+# stage 2's widths (10 and 7 n8 tiles a warp with both directions a block),
+# D and C ragged (D = 70 takes the kernel's plain loads, not 16-byte
+# copies), C past a block's columns at 128 rows and at any tile (more
+# blocks along z), 7 n8 tiles a warp with one direction a block (C = 100),
+# one and two directions, a tile shorter than L's last.
+XDBL_SHAPES = [(4, 1, 197, 768, 80, True), (4, 2, 49, 1536, 80, False),
+               (4, 2, 196, 768, 56, False),
+               (2, 3, 70, 70, 11, True), (2, 2, 130, 40, 44, False),
+               (1, 2, 10, 8, 12, True), (4, 1, 300, 64, 38, False),
+               (4, 1, 30, 64, 190, True), (2, 2, 70, 64, 100, True)]
+XDBL_IDS = ["arm-b-b1", "s3-like", "s2-like", "ragged", "two-col-blocks",
+            "k1", "s0-like", "wide-c", "one-dir-7-tiles"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [(64, 2, 1), (64, 1, 1), (128, 2, 1),
+                                  (128, 1, 1), (64, 1, 3), (128, 2, 2)],
+                         ids=lambda t: "x".join(map(str, t)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("k_dirs,b,l,d,c,use_conv", XDBL_SHAPES,
+                         ids=XDBL_IDS)
+def test_xdbl_matches_plain_at_every_tile(cuda, monkeypatch, tile, dtype,
+                                          k_dirs, b, l, d, c, use_conv):
+    """The tensor-core x_dbl at every (rows, directions a block) that
+    ``xdbl_tile`` can pick, forced, and with D in 2 or 3 ranges (their
+    partials summed by the second kernel; ranges past D's last slice
+    empty), against ``xdbl_plain`` within 1e-4 of max(1, max |plain|)
+    (3xTF32 keeps about 21 bits of each operand; the sums over D run in
+    another order)."""
+    rows, dirs, _ = tile
+    if dirs > k_dirs:
+        pytest.skip("one direction: one direction a block only")
+    monkeypatch.setattr(mf, "xdbl_tile", lambda *a, **kw: tile)
+    n = min(16, (c - 1) // 2)  # C = R + 2N with R >= 1
+    xr, xc, w = _inputs(cuda, dtype, k_dirs, b, l, d, n, c - 2 * n,
+                        seed=l + c)
+    xargs = (xr, xc, w["conv_w"], w["conv_b"], w["x_proj_w"], use_conv)
+    got = mf.xdbl_fwd(*xargs)
+    want = mf.xdbl_plain(*xargs)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (b * k_dirs, l, c)
+    err, scale = _err(got, want)
+    assert err <= 1e-4 * scale, (err, scale)
+
+
+@pytest.mark.cuda
+def test_xdbl_is_deterministic(cuda):
+    """No atomics: two calls give the same bits (vssm_tiny stage 0's
+    widths, 128-row tiles of both directions; ARM-B at one image, its
+    ranges of D summed in a fixed order)."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert mf.xdbl_tile(8, 4, 3136, 192, 38, sms) == (128, 2, 1)
+    xr, xc, w = _inputs(cuda, torch.float32, 4, 8, 3136, 192, 16, 6, seed=9)
+    xargs = (xr, xc, w["conv_w"], w["conv_b"], w["x_proj_w"], False)
+    assert torch.equal(mf.xdbl_fwd(*xargs), mf.xdbl_fwd(*xargs))
+    assert mf.xdbl_tile(1, 4, 197, 768, 80, sms)[2] > 1
+    xr, xc, w = _inputs(cuda, torch.float32, 4, 1, 197, 768, 16, 48, seed=8)
+    xargs = (xr, xc, w["conv_w"], w["conv_b"], w["x_proj_w"], True)
+    assert torch.equal(mf.xdbl_fwd(*xargs), mf.xdbl_fwd(*xargs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,dirs,dtype,use_conv,c", [
+    (128, 2, torch.float32, False, 38),  # vssm_tiny stage 0
+    (64, 2, torch.float32, False, 44),   # stage 1
+    (64, 2, torch.float32, False, 80),   # stage 3
+    (64, 1, torch.float32, True, 80),    # ARM-B at one image
+    (64, 1, torch.bfloat16, True, 80),
+    (128, 1, torch.float32, True, 80),   # ARM-B from 4 images
+    (128, 1, torch.bfloat16, True, 80),
+], ids=["s0", "s1", "s3", "arm-b", "arm-b-bf16", "arm-b-128",
+        "arm-b-128-bf16"])
+def test_xdbl_occupancy(cuda, rows, dirs, dtype, use_conv, c):
+    """At the tiles ``xdbl_tile`` picks on the main paths the kernel keeps
+    at least its ``_XDBL_BLOCKS`` blocks an SM (its register cap), within
+    112 KB of shared memory a block."""
+    blocks, smem = mf.xdbl_occupancy(rows, dirs, dtype, use_conv, 4, c)
+    assert blocks >= mf._XDBL_BLOCKS and smem <= 112 * 1024, (blocks, smem)
 
 
 @pytest.mark.cuda

@@ -22,6 +22,7 @@ import importlib.util
 import re
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 import torch
@@ -317,6 +318,183 @@ def test_mamba_fwd_sizes_match_the_kernel():
     assert sums.shape == (24, 13, 17, 768)
     assert 16e6 < sums.numel() * 4 < 16.5e6
     assert mf._fwd_workspace(meta, 128 * 4, 3136, 192, 16, 3136) is None
+
+
+
+# (B, K, L, C) of x_dbl: vssm_tiny's stages at B=128 and at validation's 64,
+# ARM-B at serving, training and validation, and ragged ones (L short of a
+# tile, C past a block's columns at 128 rows, one and two directions)
+XDBL_VSSM = [(b, 4, l, c) for b in (128, 64) for l, c in
+             ((3136, 38), (784, 44), (196, 56), (49, 80))]
+XDBL_ARM = [(b, 4, 197, 80) for b in (1, 6, 12, 4)]
+XDBL_OTHER = [(2, 4, 130, 11), (3, 2, 70, 44), (1, 1, 10, 12),
+              (5, 4, 300, 38), (40, 4, 3136, 38), (1, 2, 65, 90)]
+
+
+def _xdbl_cover(b, k, l, c, rows, dirs):
+    """How often the kernel's grid writes each (image, direction, scan row,
+    column), from its index arithmetic (``csrc/mamba_fused.cu``'s
+    ``mamba_xdbl_kernel`` and its epilogue), for one range of D."""
+    cols = mf.xdbl_block_cols(rows, dirs, c)
+    groups = k // dirs
+    hits = np.zeros((b, k, l, c), dtype=np.int32)
+    for by in range(b * groups):
+        img, k0 = by // groups, (by % groups) * dirs
+        for bx in range(-(-l // rows)):
+            s0 = bx * rows
+            nrows = min(rows, l - s0)
+            for bz in range(-(-c // cols)):
+                c0 = bz * cols
+                for kk in range(k0, k0 + dirs):
+                    first = l - s0 - nrows if kk % 2 else s0
+                    hits[img, kk, first:first + nrows,
+                         c0:c0 + min(cols, c - c0)] += 1
+    return hits
+
+
+def _xdbl_slices(d, splits):
+    """How often the kernel's ranges of D walk each 32-wide slice."""
+    slices = -(-d // mf._XDBL_SLICE)
+    per = -(-slices // splits)
+    hits = np.zeros(slices, dtype=np.int32)
+    for z in range(splits):
+        hits[z * per:min(slices, (z + 1) * per)] += 1
+    return hits
+
+
+@pytest.mark.parametrize("b,k,l,c", XDBL_VSSM + XDBL_ARM + XDBL_OTHER)
+def test_xdbl_tile_is_built_and_its_grid_covers_every_row(b, k, l, c):
+    """``xdbl_tile`` picks rows and directions a block that the kernel is
+    built for (64 or 128 rows, both directions of a source or one, one
+    where K = 1): one direction a block where two would leave SMs idle
+    (ARM-B, stage 3 at 64 images); ranges of D, doubled, only while the
+    grid fills less than three quarters of two blocks an SM (ARM-B); 128
+    rows only where a 128-row block holds all of C, takes fewer tiles of L
+    than 64 rows and fills the card with its ranges (vssm_tiny stage 0,
+    ARM-B from 4 images: the tiles an H100 ran fastest). Its grid, as
+    ``xdbl_grid_blocks`` counts it, writes every (image, direction, scan
+    row, column) of x_dbl once for each range, the reversed directions'
+    rows included, and the ranges walk every slice of D once."""
+    d = {3136: 192, 784: 384, 196: 768, 49: 1536, 197: 768}.get(l, 64)
+    rows, dirs, splits = mf.xdbl_tile(b, k, l, d, c)
+    assert rows in mf._XDBL_ROWS and dirs in (1, 2) and k % dirs == 0
+    assert dirs == 1 or k > 1
+    full = 3 * mf._XDBL_BLOCKS * 132
+    if rows == 128:
+        assert mf.xdbl_block_cols(128, dirs, c) >= c and l > 64
+    if (b, k, l, c) in XDBL_VSSM:
+        assert (rows, dirs, splits) == (
+            (128, 2, 1) if l == 3136 else
+            (64, 1, 1) if (b, l) == (64, 49) else (64, 2, 1))
+    if (b, k, l, c) in XDBL_ARM:
+        assert (rows, dirs, splits) == {1: (64, 1, 8), 4: (128, 1, 8),
+                                        6: (128, 1, 8), 12: (128, 1, 4)}[b]
+    cols = mf.xdbl_block_cols(rows, dirs, c)
+    assert cols % 8 == 0 and (cols >= c or cols == 8 * 10 * (3 - dirs))
+    grid = mf.xdbl_grid_blocks(b, k, l, c, rows, dirs, splits)
+    assert grid == (-(-l // rows) * b * (k // dirs) * -(-c // cols)
+                    * splits)
+    slices = -(-d // mf._XDBL_SLICE)
+    assert splits == 1 or 4 * (grid // 2) < full
+    assert 4 * grid >= full or 2 * splits > slices // 3
+    assert (_xdbl_slices(d, splits) == 1).all()
+    if b * k * l * c <= 20_000_000:  # the coverage walk at a CPU's pace
+        assert (_xdbl_cover(b, k, l, c, rows, dirs) == 1).all()
+
+
+@pytest.mark.parametrize("rows,dirs", [(64, 2), (64, 1), (128, 2),
+                                       (128, 1)])
+def test_xdbl_forced_tiles_cover_every_row(rows, dirs):
+    """Every tile the kernel takes covers x_dbl once at a ragged shape
+    (what the card tests force at each of them), and any number of ranges
+    walks each slice of D once (empty ranges past the last slice)."""
+    assert (_xdbl_cover(3, 4, 130, 44, rows, dirs) == 1).all()
+    for d, splits in ((8, 3), (70, 2), (768, 5), (1536, 8)):
+        assert (_xdbl_slices(d, splits) == 1).all()
+
+
+def test_xdbl_sizes_match_the_kernel():
+    """``_XDBL_ROWS`` are the kernel's tile heights (``xdbl_rows`` of
+    MW = 1, 2), ``_XDBL_SLICE`` its slice of D (``kXdblSlice``),
+    ``_XDBL_TILES`` the n8 tiles a warp it is built for (``kXdblTiles``,
+    and the instantiations ``MIA_XDBL_DISPATCH`` takes),
+    ``_XDBL_BLOCKS`` the resident blocks its ``__launch_bounds__`` asks for
+    (``kXdblBlocks``); the kernel takes its products from ``mma_tc.cuh``'s
+    3xTF32 MMA, and the CUDA-core kernel's row cap is gone. The n8 tiles a
+    warp are chosen in one place, ``xdbl_nt``: the library takes them as an
+    argument, and its block's columns are ``xdbl_block_cols``' formula."""
+    src = (CSRC / "mamba_fused.cu").read_text()
+    rows = re.search(
+        r"constexpr int xdbl_rows\(int mw\) \{ return (\d+) \* mw; \}",
+        src).group(1)
+    assert tuple(int(rows) * mw for mw in (1, 2)) == mf._XDBL_ROWS
+    tiles = re.search(r"constexpr int kXdblTiles\[\] = \{([\d, ]+)\};",
+                      src).group(1)
+    assert tuple(int(t) for t in tiles.split(",")) == mf._XDBL_TILES
+    dispatch = re.search(r"#define MIA_XDBL_DISPATCH(.*?)\n\n", src,
+                         re.S).group(1)
+    assert re.findall(r"fn<T, 1, (\d+)>", dispatch) == [
+        str(t) for t in mf._XDBL_TILES]
+    assert re.findall(r"fn<T, 2, (\d+)>", dispatch) == [
+        str(mf._XDBL_TILES[0])]
+    assert re.findall(r"constexpr int kXdblBlocks = (\d+);", src) == [
+        str(mf._XDBL_BLOCKS)]
+    assert re.findall(r"constexpr int kXdblSlice = (\d+);", src) == [
+        str(mf._XDBL_SLICE)]
+    body = re.search(r"__launch_bounds__\(kXdblThreads, kXdblBlocks\)\s+"
+                     r"mamba_xdbl_kernel\((.*?)\n}\n", src, re.S).group(1)
+    assert "tc::mma_3xtf32" in body and "kXdblMaxRows" not in src
+    assert not hasattr(mf, "_XDBL_MAX_ROWS")
+    assert not re.search(r"\bint xdbl_nt\(", src) and re.search(
+        r"int mia_mamba_xdbl\(.*?int rows, int nt, int dirs,", src, re.S)
+    assert re.search(r"int mia_mamba_xdbl_blocks_per_sm\(int rows, int nt, "
+                     r"int dirs,", src)
+    assert "return 8 * nt * (dirs == 1 ? 2 : 1);" in src
+
+
+@pytest.mark.parametrize("dirs", [1, 2])
+@pytest.mark.parametrize("rows", [64, 128])
+def test_xdbl_nt_is_a_built_instantiation(rows, dirs):
+    """At every C from 1 to 200, ``xdbl_nt`` gives n8 tiles the kernel is
+    built for at that height (``xdbl_built``: any of ``kXdblTiles`` at 64
+    rows, the first at 128), the fewest that hold C where one does, and
+    its block's columns are ``xdbl_block_cols``'."""
+    for c in range(1, 201):
+        nt = mf.xdbl_nt(rows, dirs, c)
+        cols = 8 * nt * (3 - dirs)
+        assert nt in (mf._XDBL_TILES[:1] if rows == 128 else mf._XDBL_TILES)
+        assert mf.xdbl_block_cols(rows, dirs, c) == cols
+        if rows == 64 and c <= 8 * mf._XDBL_TILES[-1] * (3 - dirs):
+            assert cols >= c and all(
+                8 * t * (3 - dirs) < c for t in mf._XDBL_TILES if t < nt)
+
+
+@pytest.mark.parametrize("rows,dirs,c,cols", [
+    (128, 2, 38, 40), (128, 1, 38, 80), (128, 2, 44, 40), (64, 2, 38, 40),
+    (64, 2, 44, 48), (64, 2, 56, 56), (64, 2, 80, 80), (64, 1, 80, 80),
+    (64, 1, 11, 80), (64, 2, 96, 80), (64, 1, 190, 160)])
+def test_xdbl_block_cols_are_built_tiles(rows, dirs, c, cols):
+    """A block's columns: the fewest n8 tiles a warp of those the kernel is
+    built for that hold its share of C (5, 6, 7 or 10; 5 at 128 rows),
+    twice with one direction a block; past that, more blocks along z."""
+    assert mf.xdbl_block_cols(rows, dirs, c) == cols
+
+
+def test_xdbl_timing_tool_names_the_kernel():
+    """``tools/time_xdbl.py`` splits a tower's profile by name prefixes
+    that cover the x_dbl kernel and the forward scan's kernels, and
+    reckons launches for every main-path shape it times."""
+    tool = _profile_tool("time_xdbl")
+    kernels = {k for k in _kernels("mamba_fused.cu")
+               if not k.startswith("mamba_scan_bwd")}
+    assert "mamba_xdbl_kernel" in kernels
+    for name in kernels:
+        assert any(name.startswith(p) for p in tool.TOWER_KERNELS), name
+    assert set(tool.LAUNCHES) == (
+        {("arm-b", b) for b in (1, 6, 12, 4)}
+        | {(f"vssm_tiny_s{s}", b) for s in range(4) for b in (128, 64)})
+    # the 333 launches of chip_smoke.py's kernels line (PERF.md 6)
+    assert sum(tool.LAUNCHES.values()) == 333
 
 
 def _profile_tool(name):
