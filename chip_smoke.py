@@ -170,12 +170,13 @@ raises (exit code 1):
 19. kernels_ss, kernels_ss_bwd -- the general selective scan's forward and
                backward kernels (``ops/selective_scan_pallas.py``) against
                their plain versions, every output, at ARM-B's layer shapes
-               (K=4, L=197, D=768, N=16; B=1 forward, B=6 backward; fp32
-               and bf16) and vssm_tiny's four stage shapes at B=128 (fp32,
-               stage 0 also bf16): max errors, ms of the kernel and of the
-               plain version, the bound; for the backward also its
-               resident blocks an SM and shared memory a block, failing
-               under SS_BWD_MIN_BLOCKS (5).
+               (K=4, L=197, D=768, N=16; B=1 and 6 forward, B=6 backward;
+               fp32 and bf16) and vssm_tiny's four stage shapes at B=128
+               (fp32, stage 0 also bf16): max errors, ms of the kernel and
+               of the plain version, the bound; the kernel's resident
+               blocks an SM and shared memory a block, for the forward
+               also its grid and waves, for the backward failing under
+               SS_BWD_MIN_BLOCKS (5).
 20. train_cls_vssm_pallas -- ``vssm_classify`` with ``--set
                model.vision_kwargs={scan_backend: pallas}`` (vssm_tiny at
                full width, 11 SS2D blocks, d_state 16, B=128, EMA,
@@ -330,11 +331,11 @@ SWIN_RTOL = VIT_RTOL
 # The general selective scan on this slice's paths (scan_backend=pallas):
 # ARM-B's layers (K=4 directions, L = 196 patches + cls, d_inner 768,
 # d_state 16) at the serving batch (forward) and the training micro-batch
-# of 3 samples x 2 views (backward), and vssm_tiny's four stages at 224^2
-# (L = 56^2 .. 7^2, d_inner 192 .. 1536, d_state 16) at vssm_classify's
-# batch of 128.
+# of 3 samples x 2 views (forward and backward), and vssm_tiny's four
+# stages at 224^2 (L = 56^2 .. 7^2, d_inner 192 .. 1536, d_state 16) at
+# vssm_classify's batch of 128.
 SS_ARM = (4, 197, 768, 16)  # K, L, d_inner, N
-SS_ARM_BATCH = {"fwd": 1, "bwd": 6}
+SS_ARM_BATCH = {"fwd": (1, 6), "bwd": (6,)}
 SS_VSSM_STAGES = ((3136, 192), (784, 384), (196, 768), (49, 1536))
 SS_VSSM_BATCH = 128
 # The backward's resident blocks of 64 threads an SM at the least: more
@@ -2230,10 +2231,11 @@ def _ss_case(dev, gen, batch: int, k: int, l: int, d: int, n: int, dtype):
 
 
 def _ss_cases(kind: str):
-    """(case, batch, K, L, D, N, dtype): ARM-B at the phase's batch in fp32
-    and bf16, vssm_tiny's four stages at B=128 in fp32, stage 0 in bf16."""
+    """(case, batch, K, L, D, N, dtype): ARM-B at the phase's batches in
+    fp32 and bf16, vssm_tiny's four stages at B=128 in fp32, stage 0 in
+    bf16."""
     k, l, d, n = SS_ARM
-    cases = [("arm_b", SS_ARM_BATCH[kind], k, l, d, n, dtype)
+    cases = [("arm_b", b, k, l, d, n, dtype) for b in SS_ARM_BATCH[kind]
              for dtype in (torch.float32, torch.bfloat16)]
     cases += [(f"vssm_tiny_s{i}", SS_VSSM_BATCH, 4, l, d, 16, torch.float32)
               for i, (l, d) in enumerate(SS_VSSM_STAGES)]
@@ -2246,10 +2248,13 @@ def phase_kernels_ss(dev, gen, kind: str) -> tuple:
     backward kernel (``"bwd"``, ``kernels_ss_bwd``) against its plain
     version at ``_ss_cases``, every output: fp32 outputs within BWD_RTOL
     (1e-4) of max(1, max |plain|), outputs rounded to bf16 on both sides
-    within one bf16 step (Y_RTOL). The plain versions hold B=128, so every
-    case compares and times at the batch it prints. Returns the JSON row:
-    vssm_tiny's stage 0 at B=128, fp32, the longest chain of the main
-    path (no library call computes the scan: ``library_ms`` null)."""
+    within one bf16 step (Y_RTOL). Each line also gives the kernel's
+    resident blocks an SM and shared memory a block on this card; the
+    forward's also its grid and the waves it makes. The plain versions
+    hold B=128, so every case compares and times at the batch it prints.
+    Returns the JSON row: vssm_tiny's stage 0 at B=128, fp32, the longest
+    chain of the main path (no library call computes the scan:
+    ``library_ms`` null)."""
     from medical_image_analysis_tpu_torch.ops import selective_scan_pallas as ssp
 
     row = None
@@ -2298,13 +2303,20 @@ def phase_kernels_ss(dev, gen, kind: str) -> tuple:
                    f"(at least {SS_BWD_MIN_BLOCKS}), {smem} bytes of shared "
                    f"memory a block")
             occupancy = dict(blocks_per_sm=blocks, smem_bytes=smem)
+        elif dev.type == "cuda":
+            blocks, smem = ssp.fwd_occupancy(n, dtype)
+            grid = ssp.fwd_grid_blocks(b * k, d)
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            occupancy = dict(blocks_per_sm=blocks, smem_bytes=smem,
+                             grid_blocks=grid,
+                             waves=f"{grid / (blocks * sms):.2f}")
         _phase("kernels_ss" if kind == "fwd" else "kernels_ss_bwd",
                case=case, B=b, K=k, L=l, D=d, N=n, src=_dtype_name(dtype),
                errs=json.dumps({k_: f"{v:.3e}" for k_, v in errs.items()},
                                separators=(",", ":")),
                ms=f"{t['kernel']:.4f}", plain_ms=f"{t['plain']:.4f}",
                bound_ms=f"{bound[0]:.4f}", bound_by=bound[1], **occupancy)
-        if (case, dtype) == ("vssm_tiny_s0", torch.float32):
+        if (case, b, dtype) == ("vssm_tiny_s0", SS_VSSM_BATCH, torch.float32):
             row = (max(errs.values()), t["kernel"], t["plain"], *bound[:2])
         del args, got, extra
         torch.cuda.empty_cache()

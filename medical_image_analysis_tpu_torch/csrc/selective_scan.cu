@@ -3,9 +3,10 @@
 // They replace the two Pallas TPU kernels of
 // medical_image_analysis_tpu/ops/selective_scan_pallas.py:
 //
-//   selective_scan_fwd_kernel  <- _fwd_kernel (:108; the S6 scan over given
-//                                 delta, B and C, delta bias, optional
-//                                 softplus, D skip)
+//   selective_scan_fwd_kernel  <- _fwd_kernel (:108, launched at :305; the
+//                                 S6 scan over given delta, B and C, delta
+//                                 bias, optional softplus, D skip; see "the
+//                                 forward")
 //   selective_scan_bwd_kernel  <- _bwd_kernel (:164; du, ddelta, dA, dB, dC,
 //                                 dD, d delta_bias)
 //
@@ -29,16 +30,26 @@
 // the gradients of _bwd_kernel (:208-222).
 //
 // What bounds them on the H100, and what the design does about it: a chain
-// of L dependent steps per (row, channel), each 16 exps and about 50 FMAs at
-// N = 16: latency and issue rate, not bytes (vssm_tiny stage 0 at B=128 moves
-// about 3.9 GB a forward in fp32, 1.2 ms at 3.35 TB/s) and not FLOPs.
-//  - One thread owns one (row, channel) and loops over L itself, with its N
-//    fp32 states and A in registers. That loop takes the place of the TPU's
-//    sequential L-chunk grid and its VMEM carry (@pl.when(l == 0)).
-//  - A block holds kThreads channels of one row. It stages a tile of B and C
-//    rows, which all its channels share, and its channels' u and delta in
-//    shared memory, so that the loads of a tile are issued together and not
-//    once per dependent step.
+// of L dependent steps per (row, channel), each N exps and about 4N other
+// operations.
+//  - The forward: at vssm_tiny stage 0, B=128 (512 rows, L 3,136, D 192,
+//    N 16) fp32 it moves about 3.9 GB (1.17 ms at 3.35 TB/s), and its 4.9 G
+//    exps go through the special-function units, 16 lanes an SM a clock:
+//    about 1.3 ms at 1.755 GHz, a floor above the byte bound that
+//    chip_smoke's bound does not count. It ran as one thread a (row,
+//    channel) over all of L with 16 accurate expf a step, B and C read as
+//    2N scalar loads, a 16-add dependent readout and each 32-row tile
+//    loaded synchronously between two barriers: 4.80 ms at that shape and
+//    0.091 ms at ARM-B's one image (48 blocks on 132 SMs), on an H100
+//    80GB HBM3 at 700 W. It is now a leaner walk in one pass (2.25 ms
+//    there, 0.055 ms at one image): see "the forward" below.
+//  - The backward: one thread owns one (row, channel) and loops over L
+//    itself, with its N fp32 states and A in registers. That loop takes the
+//    place of the TPU's sequential L-chunk grid and its VMEM carry
+//    (@pl.when(l == 0)). A block holds kThreads channels of one row. It
+//    stages a tile of B and C rows, which all its channels share, and its
+//    channels' u and delta in shared memory, so that the loads of a tile
+//    are issued together and not once per dependent step.
 //  - The backward walks the sequence forward once and writes the state
 //    before every kChunk-row chunk into a scratch buffer of the wrapper
 //    (rows x ceil(L / 8) x N x D fp32: 2.47 GB at vssm_tiny stage 0, B=128,
@@ -59,7 +70,7 @@
 //    reduction of warp shuffles sums each row's 2N terms over a warp, the
 //    block adds its warps' sums in a fixed order and writes per-block
 //    partials that the wrapper sums. No atomics: the gradients are
-//    deterministic.
+//    deterministic, and so is the forward.
 // The TPU-only parts have no counterpart: the padding to the chunk and the
 // 128-lane block (_pad_to, _pick_chunk, _pick_block_d), the reversed index
 // maps and vmem_limit_bytes.
@@ -71,7 +82,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
@@ -135,60 +148,319 @@ __device__ __forceinline__ void stage_cols(const T* x, size_t row0, int t0,
   }
 }
 
-// grid (ceil(D / kThreads), rows), block kThreads, static smem
-template <typename T, int N>
-__global__ void __launch_bounds__(kThreads) selective_scan_fwd_kernel(
-    const T* __restrict__ u, const T* __restrict__ delta,
-    const float* __restrict__ A, const T* __restrict__ Bm,
-    const T* __restrict__ Cm, const float* __restrict__ Dv,
-    const float* __restrict__ dbias, T* __restrict__ y, int L, int D, int G,
-    Strides st, int delta_softplus) {
-  __shared__ float u_s[kTile * kThreads];
-  __shared__ float dt_s[kTile * kThreads];
-  __shared__ float b_s[kTile * N];
-  __shared__ float c_s[kTile * N];
+// ---- the forward ------------------------------------------------------------
+//
+// selective_scan_fwd_kernel: one pass over L, a block kThreads channels of
+// one row, from a zero state.
+//
+// The walk: a thread owns one channel and its N fp32 states, A[n] log2(e)
+// in registers. A step is dt = softplus(delta + bias) and dt u once, then
+// for every n a decay ex2.approx(dt A[n] log2 e) (the special-function
+// unit's exp2, relative error under 2^-22, where expf is about eight
+// instructions), h = decay h + dt u B[n] and the readout C[n] h summed in
+// four partial sums (no chain of N dependent adds), then + D u, written in
+// the source dtype. The
+// softplus takes its exp the same way and keeps log1pf (lg2(1 + e) would
+// round the small exps of large negative inputs away). B and C of a row,
+// which the block's channels share, are read from shared memory as float4
+// broadcasts. The rows come kSub at a time through kStages buffers, the
+// next kStages - 1 tiles in flight while one is walked, one barrier a
+// tile: u and delta by 16-byte cp.async (plain loads where a row of D is
+// not a multiple of 16 bytes); B and C of fp32 sources by 4-byte cp.async,
+// each thread one column of B or C (a slice of x_dbl starts at any 4-byte
+// offset, as B at 24 bytes into a 152-byte row at vssm_tiny stage 0), of
+// bf16 sources by plain loads into registers, converted and stored after
+// the walk. Registers are capped for kFwdBlocks blocks an SM (80, no
+// spill), so that vssm_tiny stage 0 at B=128 (1,536 blocks) runs in one
+// wave on 132 SMs.
+//
+// What bounds it (on an H100 80GB HBM3 at 700 W, vssm_tiny stage 0, B=128,
+// fp32): 2.25 ms against 4.80 before and a 1.17 ms byte bound. Variants
+// with one part taken out (time only), priced on a version whose staging
+// cost more (2.51 ms): without the staging past the first tiles 1.85,
+// without the softplus 2.12, without the decays' exps 2.27, without the y
+// stores 2.37. So the instructions issued (about 150 a step, 17 of them on
+// the special-function unit) and the staging share the time; the exps'
+// floor (about 1.3 ms) and the bytes sit under it. Tiles of 8 rows, and B
+// and C staged through registers, spilled up to 100 bytes at the cap.
 
-  const int r = blockIdx.y;
-  const int g = r % G;
+constexpr int kSub = 4;             // rows the forward stages at once
+constexpr int kStages = 4;          // tiles in flight or walked: buffers
+constexpr int kFwdBlocks = 12;      // the forward's resident blocks an SM
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x by the special-function unit; results below 2^-126 flush to 0, which
+// forgets a state as an underflow does.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// softplus() with its exp by exp2_approx.
+__device__ __forceinline__ float softplus_fast(float x) {
+  return fmaxf(x, 0.0f) + log1pf(exp2_approx(-fabsf(x) * kLog2e));
+}
+
+// 16-byte cp.async into shared memory; with `valid` false it writes 0.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(valid ? 16 : 0));
+}
+// 4-byte cp.async into shared memory.
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// Waits until at most `kPending` of this thread's latest groups are in
+// flight.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+__device__ __forceinline__ float element(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// A forward block's shared memory: kStages buffers of a tile's B and C
+// rows (kSub, 2N) fp32, then kStages of its u and delta rows of the
+// block's channels (2, kSub, kThreads) in the source type. 10,240 bytes at
+// N = 16 in fp32.
+template <typename T, int N>
+__host__ __device__ constexpr int fwd_smem_bytes() {
+  return kStages * kSub * 2 * N * static_cast<int>(sizeof(float)) +
+         kStages * 2 * kSub * kThreads * static_cast<int>(sizeof(T));
+}
+
+// What the forward kernel takes.
+struct FwdArgs {
+  const void* u;
+  const void* delta;
+  const float* A;
+  const void* B;
+  const void* C;
+  const float* Dv;
+  const float* dbias;
+  void* y;
+  Strides st;
+  int L, D, G, delta_softplus;
+  int vec;  // u and delta rows staged by 16-byte cp.async
+};
+
+// Element tid + kThreads j of a tile's (kSub, 2N) B and C rows is this
+// thread's to stage, for j < bc_share<N>(): as 2N divides kThreads, a
+// thread keeps one column c = tid % 2N of B (c < N) or C, in rows
+// tid / 2N + j * bc_rows<N>() of each tile.
+template <int N>
+__host__ __device__ constexpr int bc_share() {
+  return (kSub * 2 * N + kThreads - 1) / kThreads;
+}
+template <int N>
+__host__ __device__ constexpr int bc_rows() {
+  return kThreads / (2 * N);
+}
+// This thread's share of rows [t0, t0 + ns) of B and C, from col, its
+// column of the row's B or C at step 0, whose step stride is ts: fp32
+// sources straight into the tile's fp32 rows in bc by 4-byte cp.async (any
+// offset of a slice of x_dbl is 4-byte aligned); bf16 sources into v, by
+// plain loads, for store_bc to convert and store after the walk of the
+// current tile (0 past the tile).
+template <typename T, int N>
+__device__ __forceinline__ void stage_bc_tile(const T* col, int ts, int t0,
+                                              int ns, float* bc,
+                                              float (&v)[bc_share<N>()]) {
+  static_assert(kThreads % (2 * N) == 0, "a thread keeps one column");
+  const unsigned tid = threadIdx.x;
+  const int r0 = static_cast<int>(tid / (2 * N));
+  const T* g = col + (t0 + r0) * ts;
+#pragma unroll
+  for (int j = 0; j < bc_share<N>(); ++j) {
+    const int r = r0 + j * bc_rows<N>();
+    const bool in = r < kSub && r < ns;
+    if constexpr (sizeof(T) == sizeof(float)) {
+      if (in)
+        cp_async4(bc + tid + j * kThreads,
+                  reinterpret_cast<const float*>(g + j * bc_rows<N>() * ts));
+    } else {
+      v[j] = in ? to_float(g[j * bc_rows<N>() * ts]) : 0.0f;
+    }
+  }
+}
+
+template <typename T, int N>
+__device__ __forceinline__ void store_bc(const float (&v)[bc_share<N>()],
+                                         float* bc) {
+  if constexpr (sizeof(T) != sizeof(float)) {
+#pragma unroll
+    for (int j = 0; j < bc_share<N>(); ++j) {
+      const int e = threadIdx.x + j * kThreads;
+      if (e < kSub * 2 * N) bc[e] = v[j];
+    }
+  }
+}
+
+// Start the loads of rows [t0, t0 + ns) of u and delta, the block's
+// channels [d0, d0 + kThreads) (ub, db: the row's u and delta at channel
+// d0), into ud (2, kSub, kThreads): by 16-byte cp.async with `vec` (a row
+// of D a multiple of 16 bytes, both tensors 16-byte aligned: a granule is
+// all in D or all past it, and past it zero-filled), else by plain loads,
+// each thread its own channel (0 past D), and commit the group. Rows past
+// ns are left as they are: the walk stops before them.
+template <typename T>
+__device__ __forceinline__ void stage_ud(const T* ub, const T* db, int t0,
+                                         int ns, int dleft, int D, bool vec,
+                                         T* ud) {
+  constexpr int kPer = 16 / sizeof(T);         // elements a granule
+  constexpr int kRowG = kThreads / kPer;       // granules a row
+  constexpr int kAll = 2 * kSub * kRowG;       // granules a tile
+  static_assert(kAll % kThreads == 0, "granules split evenly");
+  if (vec) {
+#pragma unroll
+    for (int j = 0; j < kAll / kThreads; ++j) {
+      const unsigned i = threadIdx.x + j * kThreads;
+      const int arr = static_cast<int>(i / (kSub * kRowG));
+      const unsigned rem = i % (kSub * kRowG);
+      const int r = static_cast<int>(rem / kRowG);
+      const int e = static_cast<int>(rem % kRowG) * kPer;
+      if (r < ns) {
+        const T* src = arr ? db : ub;
+        const bool valid = e < dleft;
+        cp_async16(ud + (arr * kSub + r) * kThreads + e,
+                   valid ? src + (t0 + r) * D + e : src, valid);
+      }
+    }
+  } else {
+    const int dd = threadIdx.x;
+#pragma unroll
+    for (int arr = 0; arr < 2; ++arr) {
+      const T* src = arr ? db : ub;
+      for (int r = 0; r < ns; ++r)
+        ud[(arr * kSub + r) * kThreads + dd] =
+            dd < dleft ? src[(t0 + r) * D + dd] : from_float<T>(0.0f);
+    }
+  }
+  cp_async_commit();
+}
+
+// grid (ceil(D / kThreads), rows), block kThreads, static smem
+// fwd_smem_bytes<T, N>(): channels [d0, d0 + kThreads) of row blockIdx.y
+// over all of L (see "the forward" above).
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads, kFwdBlocks)
+    selective_scan_fwd_kernel(FwdArgs p) {
+  __shared__ float4 smem4[fwd_smem_bytes<T, N>() / 16];
+  float* const bc_s = reinterpret_cast<float*>(smem4);  // kStages buffers
+  T* const ud_s = reinterpret_cast<T*>(bc_s + kStages * kSub * 2 * N);
+  const int L = p.L, D = p.D;
   const int d0 = blockIdx.x * kThreads;
+  const int r = blockIdx.y;
+  const int g = r % p.G;
   const int tid = threadIdx.x;
   const int d = d0 + tid;
+  // Threads of channels past D run the same code on zeros, so that every
+  // thread reaches every barrier.
   const bool active = d < D;
-  const size_t row0 = static_cast<size_t>(r) * L * D;
-  const T* bp = Bm + r * st.b_rs;
-  const T* cp = Cm + r * st.c_rs;
+  // The row's u, delta and y at channel d0, offset by t * D + channel; its
+  // B and C rows.
+  const size_t row0 = static_cast<size_t>(r) * L * D + d0;
+  const T* ub = static_cast<const T*>(p.u) + row0;
+  const T* db = static_cast<const T*>(p.delta) + row0;
+  T* yb = static_cast<T*>(p.y) + row0 + tid;
+  // this thread's column of B or C (bc_share), at step 0, and its stride
+  const int bcc = static_cast<int>(threadIdx.x % (2 * N));
+  const bool is_c = bcc >= N;
+  const T* col = is_c ? static_cast<const T*>(p.C) + r * p.st.c_rs + bcc - N
+                      : static_cast<const T*>(p.B) + r * p.st.b_rs + bcc;
+  const int ts = static_cast<int>(is_c ? p.st.c_ts : p.st.b_ts);
 
-  float a[N], h[N];
+  float a2[N], h[N];  // a2: A log2(e)
 #pragma unroll
   for (int n = 0; n < N; ++n) {
-    a[n] = active ? A[(static_cast<size_t>(g) * D + d) * N + n] : 0.0f;
+    a2[n] = active ? p.A[(static_cast<size_t>(g) * D + d) * N + n] * kLog2e
+                   : 0.0f;
     h[n] = 0.0f;
   }
-  const float bias = active ? dbias[g * D + d] : 0.0f;
-  const float dskip = active ? Dv[g * D + d] : 0.0f;
+  const float bias = active ? p.dbias[g * D + d] : 0.0f;
+  const float dskip = active ? p.Dv[g * D + d] : 0.0f;
 
-  for (int t0 = 0; t0 < L; t0 += kTile) {
-    const int nt = min(kTile, L - t0);
-    __syncthreads();  // the previous tile is consumed
-    stage_bc<T, N>(bp, cp, st, t0, nt, b_s, c_s);
-    stage_cols(u, row0, t0, nt, d0, D, u_s, kThreads);
-    stage_cols(delta, row0, t0, nt, d0, D, dt_s, kThreads);
-    __syncthreads();
-    if (!active) continue;
-    for (int rr = 0; rr < nt; ++rr) {
-      const float uv = u_s[rr * kThreads + tid];
-      float dt = dt_s[rr * kThreads + tid] + bias;
-      if (delta_softplus) dt = softplus(dt);
-      const float dtu = dt * uv;
-      float out = 0.0f;
-#pragma unroll
-      for (int n = 0; n < N; ++n) {
-        h[n] = expf(dt * a[n]) * h[n] + dtu * b_s[rr * N + n];
-        out += c_s[rr * N + n] * h[n];
-      }
-      out += uv * dskip;
-      y[row0 + static_cast<size_t>(t0 + rr) * D + d] = from_float<T>(out);
+  float bcv[bc_share<N>()];  // bf16 sources: a tile's B and C
+  const int nsub = (L + kSub - 1) / kSub;
+  // Tile i goes to buffer i % kStages; tiles 0 .. kStages - 2 are in
+  // flight before the walk starts, and tile j + kStages - 1 is started as
+  // tile j is walked. Every step commits one group (empty past the last
+  // tile), so that waiting for all but the latest kStages - 2 groups
+  // waits for tile j.
+  const auto stage = [&](int i) {
+    if (i < nsub) {
+      const int b = static_cast<int>(static_cast<unsigned>(i) % kStages);
+      const int ns = min(kSub, L - i * kSub);
+      stage_bc_tile<T, N>(col, ts, i * kSub, ns, bc_s + b * kSub * 2 * N,
+                          bcv);
+      stage_ud(ub, db, i * kSub, ns, D - d0, D, p.vec != 0,
+               ud_s + b * 2 * kSub * kThreads);
+    } else {
+      cp_async_commit();
     }
+  };
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    stage(i);
+    if (i < nsub) store_bc<T, N>(bcv, bc_s + i * kSub * 2 * N);
+  }
+  for (int j = 0; j < nsub; ++j) {
+    const int buf = static_cast<int>(static_cast<unsigned>(j) % kStages);
+    const int t0 = j * kSub;
+    const int ns = min(kSub, L - j * kSub);
+    const int ahead = j + kStages - 1;
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile j staged; the walk of tile j - 1 is done
+    stage(ahead);
+    const T* us = ud_s + buf * 2 * kSub * kThreads;
+    const T* ds = us + kSub * kThreads;
+    const float* bc = bc_s + buf * kSub * 2 * N;
+    T* yt = yb + t0 * D;
+#pragma unroll
+    for (int rr = 0; rr < kSub; ++rr) {
+      if (rr >= ns) break;
+      const float dr = to_float(ds[rr * kThreads + tid]) + bias;
+      const float dt = p.delta_softplus ? softplus_fast(dr) : dr;
+      const float uv = to_float(us[rr * kThreads + tid]);
+      const float dtu = dt * uv;
+      const float* row = bc + rr * 2 * N;  // B, then C
+      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if constexpr (N % 4 == 0) {
+#pragma unroll
+        for (int v = 0; v < N; v += 4) {
+          const float4 bv = *reinterpret_cast<const float4*>(row + v);
+          const float4 cv = *reinterpret_cast<const float4*>(row + N + v);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            h[v + e] = exp2_approx(dt * a2[v + e]) * h[v + e] +
+                       dtu * element(bv, e);
+            acc[e] += element(cv, e) * h[v + e];
+          }
+        }
+      } else {
+#pragma unroll
+        for (int n = 0; n < N; ++n) {
+          h[n] = exp2_approx(dt * a2[n]) * h[n] + dtu * row[n];
+          acc[n & 3] += row[N + n] * h[n];
+        }
+      }
+      if (active)
+        yt[rr * D] =
+            from_float<T>((acc[0] + acc[1]) + (acc[2] + acc[3]) + uv * dskip);
+    }
+    if (ahead < nsub)
+      store_bc<T, N>(bcv, bc_s + (static_cast<unsigned>(ahead) % kStages) *
+                                     kSub * 2 * N);
   }
 }
 
@@ -472,14 +744,54 @@ struct Args {
   int rows, L, D, G, delta_softplus;
 };
 
+// Asks for the largest shared-memory carveout for `kernel`, so that its
+// cap of blocks an SM can be resident; once a device (`done` holds a bit a
+// device that has it, as the setting belongs to the device's context).
+cudaError_t max_carveout(const void* kernel, std::atomic<unsigned>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return err;
+}
+
+template <typename T, int N>
+cudaError_t configure_fwd() {
+  static std::atomic<unsigned> done{0};
+  return max_carveout(
+      reinterpret_cast<const void*>(selective_scan_fwd_kernel<T, N>), done);
+}
+
 template <typename T, int N>
 cudaError_t launch_fwd(const Args& p, void* y, cudaStream_t stream) {
+  const cudaError_t err = configure_fwd<T, N>();
+  if (err != cudaSuccess) return err;
+  const auto aligned = [](const void* q) {
+    return reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  };
+  const FwdArgs a{p.u, p.delta, p.A, p.B, p.C, p.Dv, p.dbias, y, p.st, p.L,
+                  p.D, p.G, p.delta_softplus,
+                  p.D % static_cast<int>(16 / sizeof(T)) == 0 &&
+                      aligned(p.u) && aligned(p.delta)};
   const dim3 grid((p.D + kThreads - 1) / kThreads, p.rows);
-  selective_scan_fwd_kernel<T, N><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(p.u), static_cast<const T*>(p.delta), p.A,
-      static_cast<const T*>(p.B), static_cast<const T*>(p.C), p.Dv, p.dbias,
-      static_cast<T*>(y), p.L, p.D, p.G, p.st, p.delta_softplus);
+  selective_scan_fwd_kernel<T, N><<<grid, kThreads, 0, stream>>>(a);
   return cudaGetLastError();
+}
+
+// The forward's resident blocks an SM on the current device, at its
+// launch's block and shared memory.
+template <typename T, int N>
+cudaError_t occupancy_fwd(int* blocks, int* smem_bytes) {
+  const cudaError_t err = configure_fwd<T, N>();
+  if (err != cudaSuccess) return err;
+  *smem_bytes = fwd_smem_bytes<T, N>();
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, selective_scan_fwd_kernel<T, N>, kThreads, 0);
 }
 
 struct BwdOut {
@@ -494,13 +806,11 @@ struct BwdOut {
   float* ddb;
 };
 
-// Asks for the largest shared-memory carveout, so that kBwdBlocks blocks of
-// the backward can be resident on an SM.
 template <typename T, int N>
 cudaError_t configure_bwd() {
-  return cudaFuncSetAttribute(selective_scan_bwd_kernel<T, N>,
-                              cudaFuncAttributePreferredSharedMemoryCarveout,
-                              cudaSharedmemCarveoutMaxShared);
+  static std::atomic<unsigned> done{0};
+  return max_carveout(
+      reinterpret_cast<const void*>(selective_scan_bwd_kernel<T, N>), done);
 }
 
 template <typename T, int N>
@@ -560,6 +870,19 @@ cudaError_t dispatch_bwd(int N, const Args& p, const BwdOut& o,
 }
 
 template <typename T>
+cudaError_t dispatch_fwd_occupancy(int N, int* blocks, int* smem_bytes) {
+#define MIA_SS_CASE(NN) \
+  case NN:              \
+    return occupancy_fwd<T, NN>(blocks, smem_bytes);
+  switch (N) {
+    MIA_SS_STATES(MIA_SS_CASE)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef MIA_SS_CASE
+}
+
+template <typename T>
 cudaError_t dispatch_occupancy(int N, int* blocks, int* smem_bytes) {
 #define MIA_SS_CASE(NN) \
   case NN:              \
@@ -583,7 +906,12 @@ int mia_selective_scan_fwd(const void* u, const void* delta, const float* A,
                            int L, int D, int N, int G, long long b_rs,
                            long long b_ts, long long c_rs, long long c_ts,
                            int delta_softplus, void* stream) {
-  if (rows < 1 || L < 1 || D < 1 || G < 1 || rows % G != 0)
+  // int offsets within a row of u, delta, y, B and C
+  const long long most = 2147483647LL;
+  if (rows < 1 || L < 1 || D < 1 || G < 1 || rows % G != 0 ||
+      rows > 65535 || static_cast<long long>(L) * D > most ||
+      static_cast<long long>(L) * b_ts > most ||
+      static_cast<long long>(L) * c_ts > most || b_ts < 0 || c_ts < 0)
     return cudaErrorInvalidValue;
   const Args p{u, delta, A, B, C, Dv, dbias, Strides{b_rs, b_ts, c_rs, c_ts},
                rows, L, D, G, delta_softplus};
@@ -618,6 +946,16 @@ int mia_selective_scan_bwd_blocks_per_sm(int N, int is_bf16, int* blocks,
                                          int* smem_bytes) {
   return is_bf16 ? dispatch_occupancy<__nv_bfloat16>(N, blocks, smem_bytes)
                  : dispatch_occupancy<float>(N, blocks, smem_bytes);
+}
+
+// The forward kernel's resident blocks an SM on the current device (at
+// its launch's 64 threads and static shared memory) into *blocks, and that
+// shared memory in bytes into *smem_bytes.
+int mia_selective_scan_fwd_blocks_per_sm(int N, int is_bf16, int* blocks,
+                                         int* smem_bytes) {
+  return is_bf16 ? dispatch_fwd_occupancy<__nv_bfloat16>(N, blocks,
+                                                         smem_bytes)
+                 : dispatch_fwd_occupancy<float>(N, blocks, smem_bytes);
 }
 
 }  // extern "C"

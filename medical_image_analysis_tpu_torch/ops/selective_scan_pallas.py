@@ -39,8 +39,9 @@ KERNEL_SOURCE = "medical_image_analysis_tpu_torch/csrc/selective_scan.cu"
 launches = {"selective_scan_fwd": 0, "selective_scan_bwd": 0}
 
 STATES = (1, 4, 8, 16)  # the d_state values the kernels are built for
-_THREADS = 64  # channels per block of both kernels
+_THREADS = 64  # channels per block of the forward's scans and the backward
 _CHUNK = 8  # rows per chunk of the backward kernel (its carries)
+_FWD_BLOCKS = 12  # the forward's resident blocks an SM (its cap)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
@@ -67,6 +68,9 @@ def build() -> tuple[ctypes.CDLL, str]:
     lib.mia_selective_scan_bwd_blocks_per_sm.argtypes = [
         _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
     lib.mia_selective_scan_bwd_blocks_per_sm.restype = _I
+    lib.mia_selective_scan_fwd_blocks_per_sm.argtypes = [
+        _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+    lib.mia_selective_scan_fwd_blocks_per_sm.restype = _I
     return lib, log
 
 
@@ -133,12 +137,24 @@ def _raise_on(err, name):
         raise RuntimeError(f"{name}: kernel launch failed with cudaError {err}")
 
 
+def fwd_grid_blocks(rows: int, d_in: int) -> int:
+    """Blocks of the forward kernel's grid: ``_THREADS`` channels of one
+    row a block."""
+    return rows * -(-d_in // _THREADS)
+
+
 def selective_scan_fwd(u, delta, A, B, C, D, delta_bias, delta_softplus=False):
     """The S6 scan on the folded layout: y (rows, L, Dc) in u's dtype.
 
     u, delta (rows, L, Dc) contiguous; B, C (rows, L, N) in u's dtype with
     unit stride over N (a slice of x_dbl is read in place); A (G, Dc, N),
     D and delta_bias (G, Dc) fp32, contiguous.
+
+    One pass over L, a thread a (row, channel) with its N states: the
+    decays by the special-function unit's exp2, the rows staged 4 at a
+    time through 4 buffers, ``_FWD_BLOCKS`` blocks an SM
+    (:func:`fwd_occupancy`; ``csrc/selective_scan.cu``, "the forward").
+    No workspace and no atomics: two calls give the same bits.
     """
     if _on_cpu(u):
         return selective_scan_fwd_plain(u, delta, A, B, C, D, delta_bias,
@@ -220,6 +236,22 @@ def bwd_occupancy(n: int, dtype: torch.dtype) -> tuple[int, int]:
         n, int(dtype == torch.bfloat16), ctypes.byref(blocks),
         ctypes.byref(smem))
     _raise_on(err, "selective_scan_bwd occupancy")
+    return blocks.value, smem.value
+
+
+def fwd_occupancy(n: int, dtype: torch.dtype) -> tuple[int, int]:
+    """The forward kernel's resident blocks an SM on the current card, and
+    its shared memory a block in bytes, for d_state ``n`` and source dtype
+    ``dtype`` (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    if n not in STATES or dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"selective_scan: no forward kernel for d_state={n}"
+                         f", {dtype}")
+    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+    lib, _ = build()
+    err = lib.mia_selective_scan_fwd_blocks_per_sm(
+        n, int(dtype == torch.bfloat16), ctypes.byref(blocks),
+        ctypes.byref(smem))
+    _raise_on(err, "selective_scan_fwd occupancy")
     return blocks.value, smem.value
 
 

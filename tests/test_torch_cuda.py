@@ -1270,6 +1270,88 @@ def test_selective_scan_bwd_occupancy(cuda, dtype):
     assert blocks >= 5, (blocks, smem)
 
 
+# SS_CASES and the edges of the forward's 4-row tiles: L = 1, L under a
+# tile with D = 70 (staged by plain loads), a ragged second tile past two
+# channel blocks.
+SS_FWD_CASES = SS_CASES + [(4, 1, 64, 16, 2, True), (4, 3, 70, 4, 1, False),
+                           (4, 6, 130, 16, 2, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rows,l,d,n,g,strided", SS_FWD_CASES,
+                         ids=["n1", "n4-strided", "n8-g1", "n16-strided",
+                              "l1", "l3-d70", "l6-d130"])
+def test_selective_scan_fwd_matches_plain(cuda, dtype, rows, l, d, n, g,
+                                          strided):
+    """The forward at d_state 1, 4, 8 and 16 and at its tiles' edges, one
+    launch counted a call."""
+    args = _ss_inputs(cuda, dtype, rows, l, d, n, g, strided, seed=l + d + n)
+    before = ssp.launches["selective_scan_fwd"]
+    want = ssp.selective_scan_fwd_plain(*args, delta_softplus=True)
+    got = ssp.selective_scan_fwd(*args, delta_softplus=True)
+    torch.cuda.synchronize()
+    assert ssp.launches["selective_scan_fwd"] == before + 1
+    assert got.dtype == dtype and got.shape == want.shape
+    err, scale = _err(got, want)
+    assert err <= _ss_tol(dtype, dtype) * scale, (err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_selective_scan_fwd_reads_b_and_c_at_misaligned_offsets(cuda, dtype):
+    """B and C read in place from a (rows, L, R + 2N) x_dbl with R = 6, as
+    at vssm_tiny stage 0: B starts 24 bytes into a 152-byte fp32 row (12
+    into 76 in bf16), no 16-byte alignment; softplus on and off."""
+    rows, l, d, n, r = 6, 197, 192, 16, 6
+    gen = torch.Generator(cuda).manual_seed(6)
+    x_dbl = torch.randn(rows, l, r + 2 * n, device=cuda, generator=gen)
+    x_dbl = x_dbl.to(dtype)
+    bm, cm = x_dbl[..., r : r + n], x_dbl[..., r + n :]
+    assert bm.data_ptr() % 16 and cm.data_ptr() % 16
+    u = torch.nn.functional.silu(
+        torch.randn(rows, l, d, device=cuda, generator=gen)).to(dtype)
+    delta = (torch.randn(rows, l, d, device=cuda, generator=gen)
+             * 0.5).to(dtype)
+    a = -torch.exp(torch.randn(2, d, n, device=cuda, generator=gen) * 0.3)
+    dv = torch.randn(2, d, device=cuda, generator=gen)
+    db = torch.randn(2, d, device=cuda, generator=gen) * 0.2
+    for softplus in (True, False):
+        # without softplus dt = |delta| + |bias| keeps the states decaying
+        args = ((u, delta, a, bm, cm, dv, db) if softplus else
+                (u, delta.abs(), a, bm, cm, dv, db.abs()))
+        want = ssp.selective_scan_fwd_plain(*args, delta_softplus=softplus)
+        got = ssp.selective_scan_fwd(*args, delta_softplus=softplus)
+        err, scale = _err(got, want)
+        assert err <= _ss_tol(dtype, dtype) * scale, (softplus, err, scale)
+
+
+@pytest.mark.cuda
+def test_selective_scan_fwd_is_deterministic(cuda):
+    """No atomics: two calls give the same bits."""
+    args = _ss_inputs(cuda, torch.float32, *SS_CASES[3], seed=5)
+    assert torch.equal(ssp.selective_scan_fwd(*args, delta_softplus=True),
+                       ssp.selective_scan_fwd(*args, delta_softplus=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_selective_scan_fwd_occupancy(cuda, dtype):
+    """At d_state 16 the forward keeps its cap of ``_FWD_BLOCKS`` blocks of
+    64 threads resident on an SM, with its shared memory of four staged
+    tiles (4 rows of B and C in fp32, of u and delta in the source type);
+    vssm_tiny stage 0 at B=128 (1,536 blocks) is then one wave."""
+    blocks, smem = ssp.fwd_occupancy(16, dtype)
+    elt = torch.tensor([], dtype=dtype).element_size()
+    assert smem == 4 * (4 * 32 * 4 + 2 * 4 * 64 * elt), smem
+    assert blocks >= ssp._FWD_BLOCKS, blocks
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert ssp.fwd_grid_blocks(512, 192) == 3 * 512 <= sms * blocks
+
+
 @pytest.mark.cuda
 def test_selective_scan_fn_grads_match_plain(cuda):
     """``selective_scan_dirs`` with every input requiring grad: the kernels

@@ -167,3 +167,82 @@ def test_work_counts():
     assert ssp.flops("fwd", 1, 1, 1, 16) == 117
     assert ssp.flops("bwd", 1, 1, 1, 16) == 329
     assert ssp.flops("bwd", 512, 3136, 192, 16) == 512 * 3136 * 192 * 329
+
+
+# --------------------------------------------------------------------------
+# The forward at the edges of the kernel's tiles (csrc/selective_scan.cu,
+# "the forward": 4 rows staged at once, 64 channels a block)
+# --------------------------------------------------------------------------
+
+
+def _walk64(u, delta, A, B, C, D, delta_bias, softplus):
+    """The S6 recurrence in float64 numpy on the folded layout (u, delta
+    (rows, L, Dc); B, C (rows, L, N); A (G, Dc, N); D, delta_bias (G, Dc);
+    row r takes group r % G), one step at a time from a zero state.
+    Returns y (rows, L, Dc)."""
+    u, delta, A, B, C, D, delta_bias = (np.asarray(x, np.float64) for x in (
+        u, delta, A, B, C, D, delta_bias))
+    grp = np.arange(u.shape[0]) % A.shape[0]
+    a = A[grp]
+    dt = delta + delta_bias[grp][:, None, :]
+    if softplus:
+        dt = np.logaddexp(dt, 0.0)
+    h = np.zeros(a.shape)
+    ys = []
+    for t in range(u.shape[1]):
+        h = (np.exp(dt[:, t, :, None] * a) * h
+             + (dt[:, t] * u[:, t])[..., None] * B[:, t, None, :])
+        ys.append(np.sum(C[:, t, None, :] * h, axis=-1))
+    return np.stack(ys, axis=1) + u * D[grp][:, None, :]
+
+
+# (rows, L, Dc, N, G): a ragged last tile; a last tile of one row; L
+# shorter than a tile; L = 1; Dc not a multiple of 64 (the kernel's channel
+# block) nor of 4 (its 16-byte staging) with G > 1; d_state 1 and 16.
+EDGE_CASES = [(2, 21, 8, 4, 1), (2, 17, 8, 4, 1), (2, 3, 8, 4, 1),
+              (2, 1, 8, 4, 1), (6, 19, 70, 4, 3), (4, 21, 8, 1, 2),
+              (4, 21, 8, 16, 2)]
+EDGE_IDS = ["ragged", "one-row-last", "short", "l1", "d70-g3", "n1", "n16"]
+
+
+@pytest.mark.parametrize("rows,l,d,n,g", EDGE_CASES, ids=EDGE_IDS)
+def test_forward_at_the_tile_edges_matches_jax(rows, l, d, n, g):
+    """The port's ``selective_scan_fwd`` on the folded layout (its plain
+    version on the CPU) and the JAX ``_fwd_kernel`` (``selective_scan_dirs``
+    with K = G, in interpret mode, jitted) against a float64 walk, within
+    1e-5 of max(1, max |y|)."""
+    rng = np.random.default_rng(rows * l + d + n)
+
+    def t(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    x = dict(u=t(rows, l, d), delta=t(rows, l, d, scale=0.5),
+             A=-np.exp(t(g, d, n, scale=0.3)), B=t(rows, l, n),
+             C=t(rows, l, n), D=t(g, d), delta_bias=t(g, d, scale=0.2))
+    want = _walk64(*x.values(), True)
+    port = ssp.selective_scan_fwd(
+        *(torch.from_numpy(v) for v in x.values()), delta_softplus=True)
+    batch = rows // g
+
+    def dirs(v):  # (rows, ...) -> (batch, G, ...)
+        return jnp.asarray(v.reshape(batch, g, *v.shape[1:]))
+
+    jfn = jax.jit(lambda *a: jss.selective_scan_dirs(
+        *a, True, chunk=8, block_d=8, interpret=True))
+    jax_y = np.asarray(jfn(dirs(x["u"]), dirs(x["delta"]),
+                           jnp.asarray(x["A"]), dirs(x["B"]), dirs(x["C"]),
+                           jnp.asarray(x["D"]),
+                           jnp.asarray(x["delta_bias"]))).reshape(rows, l, d)
+    assert port.shape == jax_y.shape == want.shape == (rows, l, d)
+    for got in (port.double().numpy(), jax_y):
+        err, scale = _err(got, want)
+        assert err <= 1e-5 * scale, (err, scale)
+
+
+def test_fwd_grid_blocks():
+    """A block of the forward kernel holds 64 channels of one row: ARM-B's
+    layers at 6 images (24 rows, D 768) make 288 blocks, vssm_tiny's stage
+    0 at B=128 (512 rows, D 192) 1,536, D = 70 two blocks a row."""
+    assert ssp.fwd_grid_blocks(24, 768) == 288
+    assert ssp.fwd_grid_blocks(512, 192) == 1536
+    assert ssp.fwd_grid_blocks(6, 70) == 12

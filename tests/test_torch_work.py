@@ -118,11 +118,14 @@ def test_gemm_codes_match_the_kernel_enums(enum):
 
 
 @pytest.mark.parametrize("constant,attr", [("kThreads", "_THREADS"),
-                                           ("kChunk", "_CHUNK")])
+                                           ("kChunk", "_CHUNK"),
+                                           ("kFwdBlocks", "_FWD_BLOCKS")])
 def test_selective_scan_sizes_match_the_kernel(constant, attr):
     """``_THREADS`` (channels a block: ``dB_part``'s and ``dC_part``'s
-    leading extent) and ``_CHUNK`` (rows a carry: ``carries``' second
-    extent) are the values of ``csrc/selective_scan.cu``'s constants."""
+    leading extent, and the forward's grid), ``_CHUNK`` (rows a carry:
+    ``carries``' second extent) and ``_FWD_BLOCKS`` (the forward's cap of
+    blocks an SM) are the values of ``csrc/selective_scan.cu``'s
+    constants."""
     src = (CSRC / "selective_scan.cu").read_text()
     want = re.findall(rf"constexpr int {constant} = (\d+);", src)
     assert len(want) == 1 and int(want[0]) == getattr(ssp, attr)
@@ -555,6 +558,17 @@ def test_scan_timing_tool_names_the_backward_kernel():
     ``csrc/selective_scan.cu``."""
     tool = _profile_tool("time_selective_scan_bwd")
     assert tool.KERNEL in _kernels("selective_scan.cu")
+
+
+def test_scan_fwd_timing_tool_names_the_kernels():
+    """``tools/time_selective_scan_fwd.py`` splits a call by a name prefix
+    that covers the forward's ``__global__`` function of
+    ``csrc/selective_scan.cu`` and not the backward's."""
+    tool = _profile_tool("time_selective_scan_fwd")
+    kernels = _kernels("selective_scan.cu")
+    assert {k for k in kernels if k.startswith(tool.KERNELS)} == {
+        "selective_scan_fwd_kernel"}
+    assert "selective_scan_bwd_kernel" in kernels
 
 
 def test_mamba_timing_tool_names_the_kernels():
