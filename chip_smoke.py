@@ -54,6 +54,33 @@ raises (exit code 1):
                projector's gradients through the kernels against those
                through the plain versions, from one cotangent at the
                projector's output, within a relative bound.
+7b. MambaXray-VL's pipeline, stage 1 -> stage 2 -> the SFT of 6:
+   kernels_ar -- the fused layer's three kernels (``xdbl_fwd``,
+               ``scan_fwd``, ``scan_bwd``) against their plain versions at
+               AR pretraining's shape (K=1, B=12, L=128: 8 clusters of 16
+               tokens at 192^2) and CLIP alignment's (K=4, B=32, L=197),
+               D=768, N=16, R=48, fp32: max errors within XDBL_RTOL,
+               Y_RTOL and BWD_RTOL; ms, plain ms and bound of each, x_dbl's
+               tile, and each kernel's grid blocks and blocks an SM.
+   train_ar -- the ``ar_pretrain`` preset (``VisionMambaAR`` at its class
+               defaults, ARM-B's widths with one scan direction, 4 cross-
+               attention decoder blocks of 512, B=12, 192^2, fp32) through
+               ``cli.train.main`` on the synthetic data for 2 epochs (4
+               steps): finite losses, every parameter moved, each fused
+               kernel launched 12 layers x 4 steps times (no remat, no
+               validation); step and set-up seconds, peak memory.
+   train_ar_grads -- one batch of 12 images: the loss and every gradient
+               through the kernels against ``scan_backend="plain"``.
+   train_clip -- the ``clip_align`` preset (ARM-B + the scratch text tower
+               of depth 2, B=32, max_len 128) with ``model.vision_init`` set
+               to ``train_ar``'s train state: the grafted ``visual_encoder``
+               checked bit for bit against the AR encoder (mixers tiled to
+               four directions) before the first step, then 3 steps, each
+               fused kernel launched 12 x 3 times.
+   stage_chain -- ``r2gengpt_mimic`` at full width with
+               ``model.vision_init`` set to ``train_clip``'s state, at 12
+               studies a step: the graft checked the same way, then 2
+               steps, launches reckoned as ``train``'s (no validation).
 8. kernels_n1 -- the d_state=1 scan's forward (``scan_n1_fwd``: one pass
                of its scan kernel, or piece summaries, carries and the
                scan in chunks, as ``fwd_chunk`` picks; one launch count a
@@ -974,14 +1001,17 @@ def _fingerprint(t: torch.Tensor) -> tuple:
 
 
 def _train_through_cli(argv: list[str], save_dir: Path, device: str,
-                       epochs: int = 1, validated: bool = True) -> dict:
+                       epochs: int = 1, validated: bool = True,
+                       check_start=None) -> dict:
     """``cli.train.main(argv)`` for ``epochs``, with the kernels' counts at
     0 just before and read just after. Checks what every training run must
     show: the steps of the epochs, each finite; finite scores; every
     trainable tensor moved and no frozen one; when ``validated``, one
     validation and, for report generation, the delta written. Returns the
     model, the state, the run's config and counts, and the fields that the
-    phases print (set-up seconds: from the call to the first step)."""
+    phases print (set-up seconds: from the call to the first step).
+    ``check_start(model, state)``, when given, runs before the first step
+    and its result joins the printed fields."""
     from medical_image_analysis_tpu_torch.cli import train as cli_train
 
     seen = {}
@@ -993,6 +1023,7 @@ def _train_through_cli(argv: list[str], save_dir: Path, device: str,
         seen["frozen"] = {n: _fingerprint(p) for n, p in state.frozen.items()}
         _sync(torch.device(device))
         seen["setup_s"] = time.perf_counter() - t0
+        seen["start"] = check_start(model, state) if check_start else {}
 
     cuda = torch.device(device).type == "cuda"
     if cuda:
@@ -1053,6 +1084,7 @@ def _train_through_cli(argv: list[str], save_dir: Path, device: str,
         peak_mem_gib=f"{peak / 2**30:.3f}",
         launches=json.dumps(launches, separators=(",", ":")),
     )
+    fields.update(seen["start"])
     if validated:
         fields.update(val_s=f"{vals[0]['val_s']:.3f}")
         fields.update({k: f"{scores[k]:.4f}" for k in (
@@ -2538,6 +2570,327 @@ def phase_attn(dev, gen) -> dict:
     return launches
 
 
+# MambaXray-VL's pretraining stages. The fused layer's shapes there: AR
+# pretraining's one scan direction over 8 clusters of 16 tokens (192^2
+# images, patch 16: a 12 x 12 grid, 3 x 3 clusters, the last one left out)
+# at ar_pretrain's batch of 12, and CLIP alignment's ARM-B (4 directions,
+# 196 patches + cls) at clip_align's contrastive batch of 32; D=768, N=16,
+# R=48 in both. (name, K, B, L).
+AR_PRESET = PRESET.parent / "ar_pretrain.yaml"
+CLIP_PRESET = PRESET.parent / "clip_align.yaml"
+PRETRAIN_SHAPES = (("ar_pretrain", 1, 12, 128), ("clip_align", 4, 32, 197))
+AR_EPOCHS = 2  # 2 steps an epoch of the synthetic train split at batch 12
+CLIP_EPOCHS = 3  # 1 step an epoch at batch 32
+# r2gengpt_mimic grafted from the CLIP stage at 12 studies a step (its two
+# micro-batches of 6 studies x 2 views), so that the 32 synthetic samples
+# give 2 steps
+CHAIN_BATCH = 12
+
+
+def _pretrain_layer(dev, gen, k_dirs: int, b: int, seq_len: int):
+    """An initialised one- or four-direction ARM-B mixer (D=768, N=16,
+    R=48, expand 1) and N(0, 1) sources and cotangent of its shape:
+    (xdbl args, scan args, backward args, the mixer)."""
+    from medical_image_analysis_tpu_torch.models.common import init_params
+    from medical_image_analysis_tpu_torch.models.mamba import MambaMixer
+    from medical_image_analysis_tpu_torch.ops import mamba_fused as mf
+
+    mixer = MambaMixer(768, d_state=16, expand=1,
+                       bimamba_type="none" if k_dirs == 1 else "v3",
+                       device=dev)
+    init_params(mixer, gen)
+    w = _layer_weights(mixer)
+    x = torch.randn(b, seq_len, mixer.d_inner, device=dev, generator=gen)
+    xc = (mixer._col_major(x, (seq_len - 1) // 2).contiguous()
+          if k_dirs == 4 else None)
+    dy = torch.randn(b, k_dirs, seq_len, mixer.d_inner, device=dev,
+                     generator=gen)
+    xargs = (x, xc, w["conv_w"], w["conv_b"], w["x_proj_w"])
+    with torch.no_grad():
+        x_dbl = mf.xdbl_plain(*xargs)
+    sargs = (x, xc, x_dbl, w["conv_w"], w["conv_b"], w["dt_proj_w"],
+             w["dt_bias"], w["A"], w["D"])
+    return xargs, sargs, (*sargs, dy), mixer
+
+
+def phase_kernels_ar(dev, gen) -> None:
+    """The fused layer's three kernels against their plain versions at the
+    AR pretraining shape (K=1) and the CLIP shape (K=4, B=32), fp32 as
+    both train: max errors within XDBL_RTOL, Y_RTOL and BWD_RTOL; the
+    device ms of each beside its plain version's (in turns) and its bound;
+    x_dbl's tile, and each kernel's grid blocks and resident blocks an
+    SM."""
+    from medical_image_analysis_tpu_torch.ops import mamba_fused as mf
+
+    for name, k_dirs, b, seq_len in PRETRAIN_SHAPES:
+        xargs, sargs, bargs, mixer = _pretrain_layer(dev, gen, k_dirs, b,
+                                                     seq_len)
+        n, rank, d_in = mixer.n, mixer.rank, mixer.d_inner
+        got_x, want_x = mf.xdbl_fwd(*xargs), sargs[2]
+        got_y, want_y = mf.scan_fwd(*sargs), mf.scan_plain(*sargs)
+        got_b, want_b = mf.scan_bwd(*bargs), mf.scan_bwd_plain(*bargs)
+        _sync(dev)
+        err_x, scale_x = _max_err(got_x, want_x)
+        err_y, scale_y = _max_err(got_y, want_y)
+        _check(err_x <= XDBL_RTOL * scale_x,
+               f"mamba_xdbl {name}: max abs err {err_x:.3e} > {XDBL_RTOL} "
+               f"x {scale_x:.3f}")
+        _check(err_y <= Y_RTOL[torch.float32] * scale_y,
+               f"mamba_scan {name}: max abs err {err_y:.3e} > "
+               f"{Y_RTOL[torch.float32]} x {scale_y:.3f}")
+        errs = _bwd_errs(got_b, want_b, name)
+        del want_y, want_b
+        t = {
+            "xdbl": _in_turns(lambda: mf.xdbl_plain(*xargs),
+                              lambda: mf.xdbl_fwd(*xargs), 5, 50),
+            "scan": _in_turns(lambda: mf.scan_plain(*sargs),
+                              lambda: mf.scan_fwd(*sargs), 1, 20),
+            "bwd": _in_turns(lambda: mf.scan_bwd_plain(*bargs),
+                             lambda: mf.scan_bwd(*bargs), 1, 10)}
+        elems = b * k_dirs * seq_len * d_in
+        c = got_x.shape[-1]
+        bounds = {
+            "xdbl": _bound([*xargs, got_x], _xdbl_work(elems, c, True)),
+            "scan": _bound([*sargs, got_y], elems * _mamba_ops(rank, n)),
+            "bwd": _bound([*bargs, *got_b], _mamba_bwd_ops(
+                b, k_dirs, seq_len, d_in, n, rank))}
+        fields = {}
+        for kernel in ("xdbl", "scan", "bwd"):
+            fields.update({
+                f"{kernel}_ms": f"{t[kernel]['kernel']:.4f}",
+                f"{kernel}_plain_ms": f"{t[kernel]['plain']:.4f}",
+                f"{kernel}_bound_ms": f"{bounds[kernel][0]:.4f}",
+                f"{kernel}_bound_by": bounds[kernel][1]})
+        bwd_blocks = _mamba_bwd_blocks(b, k_dirs, seq_len, d_in, n, rank,
+                                       torch.float32)
+        _phase("kernels_ar", shape=name, B=b, K=k_dirs, L=seq_len, D=d_in,
+               N=n, R=rank, src="fp32", xdbl_err=f"{err_x:.3e}",
+               scan_err=f"{err_y:.3e}", bwd_errs=_compact(
+                   {k: f"{v:.3e}" for k, v in errs.items()}), **fields,
+               **_xdbl_blocks(b, k_dirs, seq_len, d_in, c, torch.float32,
+                              True, xargs[2].shape[1]),
+               **_mamba_fwd_blocks(b, k_dirs, seq_len, d_in, n, rank,
+                                   torch.float32),
+               bwd_grid_blocks=bwd_blocks["grid_blocks"],
+               bwd_blocks_per_sm=bwd_blocks["blocks_per_sm"])
+        del xargs, sargs, bargs, got_x, got_y, got_b
+        torch.cuda.empty_cache()
+
+
+def _pretrain_through_cli(preset: Path, epochs: int, save_dir: Path,
+                          device: str, sets=(), check_start=None) -> dict:
+    """A pretraining preset on the synthetic data for ``epochs`` through the
+    CLI, its train state written once at the end; returns
+    ``_train_through_cli``'s result with the state's path and the ``--set``
+    items."""
+    sets = ("data.dataset=synthetic", f"train.epochs={epochs}",
+            f"train.save_state_every_epochs={epochs}", "train.log_every=1",
+            f"train.save_dir={save_dir}", *sets)
+    argv = ["--config", str(preset)]
+    for item in sets:
+        argv += ["--set", item]
+    run = _train_through_cli(argv, save_dir, device, epochs=epochs,
+                             validated=False, check_start=check_start)
+    artifact = save_dir / f"state_epoch{epochs - 1:05d}.pt"
+    _check(artifact.exists(), f"{preset.name}: no train state written")
+    return {**run, "artifact": artifact, "sets": sets}
+
+
+def _fused_reckoning(run: dict, phase: str, layers: int, forwards: int,
+                     backwards: int, how: str) -> None:
+    _check_launches(run, {"mamba_xdbl": layers * forwards,
+                          "mamba_scan": layers * forwards,
+                          "mamba_scan_bwd": layers * backwards}, phase, how)
+
+
+def phase_train_ar(save_dir: Path, device: str = "cuda",
+                   overrides=()) -> dict:
+    """The ar_pretrain preset (``VisionMambaAR`` at its class defaults:
+    ARM-B's widths, one scan direction, 192^2 images, B=12, fp32) through
+    the CLI for ``AR_EPOCHS`` epochs; every loss finite, every parameter
+    moved, each fused kernel launched once a layer a step (no remat, no
+    validation). Returns the run."""
+    run = _pretrain_through_cli(AR_PRESET, AR_EPOCHS, save_dir, device,
+                                overrides)
+    model, n_steps = run["model"], run["n_steps"]
+    depth = len(model.layers)
+    _check(all(layer.mixer.k == 1 for layer in model.layers),
+           "the AR encoder's mixers are not one-direction")
+    _fused_reckoning(run, "train_ar", depth, n_steps, n_steps,
+                     f"{depth} layers x {n_steps} steps, one forward and "
+                     f"one backward each")
+    _phase("train_ar", preset=AR_PRESET.name,
+           params=sum(p.numel() for p in model.parameters()),
+           images=run["cfg"]["data"]["input_size"],
+           tokens=_ar_tokens(run["cfg"]),
+           **run["fields"])
+    return run
+
+
+def _ar_tokens(cfg: dict) -> int:
+    """The AR encoder's sequence: every 4x4 cluster of patches but the
+    last."""
+    grid = cfg["data"]["input_size"] // (cfg["model"]["vision_kwargs"] or {}
+                                         ).get("patch_size", 16)
+    return ((grid // 4) ** 2 - 1) * 16
+
+
+def phase_train_ar_grads(model, sets) -> None:
+    """One batch of the preset's data (12 images) at full width: the loss
+    and every parameter's gradient through the kernels against
+    ``scan_backend="plain"``, within TOWER_RTOL of each tensor's largest.
+    The decoder's key biases have a gradient of 0 in exact arithmetic (a
+    softmax is unchanged by a shift along its keys): their rounding noise
+    is held to TOWER_RTOL of the largest gradient of any tensor
+    instead."""
+    from medical_image_analysis_tpu_torch.ckpt.from_jax import (
+        flax_named_parameters,
+    )
+    from medical_image_analysis_tpu_torch.configs.config import load_config
+    from medical_image_analysis_tpu_torch.models.mamba import set_scan_backend
+    from medical_image_analysis_tpu_torch.ops import mamba_fused as mf
+    from medical_image_analysis_tpu_torch.train.loop import build_data
+
+    cfg = load_config(str(AR_PRESET), [*sets, "data.num_workers=1"])
+    _, _, batcher, _ = build_data(cfg)
+    train_b = batcher("train")
+    try:
+        host = next(train_b.batches(shuffle=False))
+    finally:
+        train_b.close()
+    dev = next(model.parameters()).device
+    imgs = torch.from_numpy(host["images"][:, 0]).to(dev)
+    named = flax_named_parameters(model)
+    names, tensors = list(named), list(named.values())
+    depth = len(model.layers)
+    losses, grads, secs = {}, {}, {}
+    for backend in ("auto", "plain"):
+        set_scan_backend(model, backend)
+        mf.reset_launches()
+        t0 = time.perf_counter()
+        loss = model(imgs)
+        grads[backend] = torch.autograd.grad(loss, tensors)
+        _sync(dev)
+        secs[backend] = time.perf_counter() - t0
+        losses[backend] = loss.item()
+        if backend == "auto" and dev.type == "cuda":
+            _check(mf.launches == dict.fromkeys(mf.launches, depth),
+                   f"train_ar_grads launches {mf.launches}")
+    set_scan_backend(model, "auto")
+    keys = [i for i, n in enumerate(names) if n.endswith("/k/bias")]
+    rest = [i for i in range(len(names)) if i not in keys]
+    loss_rel = abs(losses["auto"] - losses["plain"]) / abs(losses["plain"])
+    rel, at = _worst_rel([names[i] for i in rest],
+                         [grads["auto"][i] for i in rest],
+                         [grads["plain"][i] for i in rest])
+    largest = max(g.abs().max().item() for g in grads["plain"])
+    key_noise = max(grads[b][i].abs().max().item() for b in grads
+                    for i in keys) / largest
+    _check(loss_rel <= TOWER_RTOL,
+           f"loss: rel err {loss_rel:.3e} > {TOWER_RTOL}")
+    _check(rel <= TOWER_RTOL,
+           f"grad of {at}: max rel err {rel:.3e} > {TOWER_RTOL}")
+    _check(key_noise <= TOWER_RTOL,
+           f"key biases' gradients {key_noise:.3e} of the largest")
+    _phase("train_ar_grads", tensors=len(names), batch=imgs.shape[0],
+           loss=f"{losses['auto']:.6f}", loss_rel_err=f"{loss_rel:.3e}",
+           max_rel_err=f"{rel:.3e}", at=at, bound=TOWER_RTOL,
+           key_bias_grad_rel=f"{key_noise:.3e}",
+           kernel_s=f"{secs['auto']:.3f}", plain_s=f"{secs['plain']:.3f}")
+
+
+def _flat_state(path: Path) -> dict:
+    state = torch.load(path, map_location="cpu", weights_only=True)["state"]
+    return {**state["frozen"], **state["params"]}
+
+
+def _grafted_check(prefix: str, source: dict, tile: int):
+    """``check_start`` of a grafted run: every tensor of ``source`` (an
+    earlier stage's tower by flax path; a mixer's direction-leading
+    tensors tiled to ``tile`` directions) sits at ``prefix``/name in the
+    model, bit for bit. Computed here from the artifact, not through
+    ``ckpt/bridge.py``."""
+    from medical_image_analysis_tpu_torch.ckpt.from_jax import (
+        flax_named_parameters,
+    )
+
+    leading = ("A_log", "D", "conv_b", "conv_w", "dt_bias", "dt_proj_w",
+               "x_proj_w")
+
+    def check(model, state):
+        named = flax_named_parameters(model)
+        for name, want in source.items():
+            if tile > 1 and "/mixer/" in name and name.endswith(leading):
+                want = want.repeat(tile, *([1] * (want.dim() - 1)))
+            got = named[f"{prefix}/{name}"].detach()
+            _check(torch.equal(got.cpu(), want.to(got.dtype)),
+                   f"{prefix}/{name} is not the grafted tensor")
+        return {"grafted": len(source)}
+
+    return check
+
+
+def phase_train_clip(ar_artifact: Path, save_dir: Path, device: str = "cuda",
+                     overrides=()) -> dict:
+    """The clip_align preset (ARM-B at 224^2 beside the scratch text tower,
+    B=32 studies, max_len 128, fp32) with ``model.vision_init`` set to the
+    AR stage's train state, through the CLI for ``CLIP_EPOCHS`` epochs (1
+    step each: the batch is the 32 training samples). Before the first
+    step every AR encoder tensor (patch embed, each layer's norm and mixer)
+    must sit in ``visual_encoder``, the mixers tiled to four directions;
+    then every parameter moves and each fused kernel launches once a layer
+    a step. Returns the run."""
+    ar = _flat_state(ar_artifact)
+    encoder = {n: t for n, t in ar.items()
+               if n.startswith(("patch_embed/", "layers_"))}
+    run = _pretrain_through_cli(
+        CLIP_PRESET, CLIP_EPOCHS, save_dir, device,
+        (f"model.vision_init={ar_artifact}", *overrides),
+        _grafted_check("visual_encoder", encoder, 4))
+    model, n_steps = run["model"], run["n_steps"]
+    depth = len(model.visual_encoder.layers)
+    _fused_reckoning(run, "train_clip", depth, n_steps, n_steps,
+                     f"{depth} ARM layers x {n_steps} steps, one forward "
+                     f"and one backward each (no remat)")
+    _phase("train_clip", preset=CLIP_PRESET.name,
+           params=sum(p.numel() for p in model.parameters()),
+           text_tokens=run["cfg"]["data"]["max_len"], **run["fields"])
+    return run
+
+
+def phase_stage_chain(vocab: int, clip_artifact: Path, save_dir: Path,
+                      device: str = "cuda", overrides=()) -> dict:
+    """Stage 3: the r2gengpt_mimic preset at full width (ARM-B + the
+    1.8B-parameter LLM, LoRA r16, accumulation 2, remat) with
+    ``model.vision_init`` set to the CLIP stage's train state, at
+    CHAIN_BATCH studies a step for 2 steps, no validation. Before the
+    first step every ``visual_encoder`` tensor of the CLIP state must sit
+    in ``vision/arm``; launches are reckoned as ``train``'s."""
+    clip = _flat_state(clip_artifact)
+    tower = {n.split("/", 1)[1]: t for n, t in clip.items()
+             if n.startswith("visual_encoder/")}
+    sets = ("data.dataset=synthetic", f"data.batch_size={CHAIN_BATCH}",
+            f"model.llm_kwargs.vocab_size={vocab}",
+            f"model.vision_init={clip_artifact}", "train.epochs=1",
+            "train.val_every_epochs=2", "train.save_state_every_epochs=2",
+            "train.log_every=1", f"train.save_dir={save_dir}", *overrides)
+    argv = ["--config", str(PRESET)]
+    for item in sets:
+        argv += ["--set", item]
+    run = _train_through_cli(
+        argv, save_dir, device, validated=False,
+        check_start=_grafted_check("vision/arm", tower, 1))
+    model, n_steps = run["model"], run["n_steps"]
+    accum = run["cfg"]["train"]["accum_steps"]
+    depth = len(model.vision.arm.layers)
+    _fused_reckoning(run, "stage_chain", depth, n_steps * accum * 2,
+                     n_steps * accum,
+                     f"{depth} layers x {n_steps} steps x {accum} "
+                     f"micro-batches x 2 forwards (remat) and 1 backward")
+    _phase("stage_chain", preset=PRESET.name, accum=accum, **run["fields"])
+    return run
+
+
 def main() -> None:
     phase_device()
     dev = torch.device("cuda")
@@ -2570,6 +2923,26 @@ def main() -> None:
     train_launches = run["launches"]
     del run
     torch.cuda.empty_cache()
+    # MambaXray-VL: AR pretraining -> CLIP alignment -> the SFT above
+    phase_kernels_ar(dev, gen)
+    pretrain_launches = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ar_") as ar_dir, \
+            tempfile.TemporaryDirectory(prefix="chip_smoke_clip_") as clip_dir:
+        ar = phase_train_ar(Path(ar_dir))
+        phase_train_ar_grads(ar["model"], ar["sets"])
+        pretrain_launches.append(ar["launches"])
+        ar_artifact = ar["artifact"]
+        del ar
+        torch.cuda.empty_cache()
+        clip = phase_train_clip(ar_artifact, Path(clip_dir))
+        pretrain_launches.append(clip["launches"])
+        clip_artifact = clip["artifact"]
+        del clip
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_chain_") as tmp:
+            pretrain_launches.append(phase_stage_chain(
+                VOCAB, clip_artifact, Path(tmp))["launches"])
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_csr_") as tmp:
         csr = phase_train_csr(VOCAB, Path(tmp))
     phase_train_csr_grads(csr["model"], csr["state"], csr["overrides"])
@@ -2584,7 +2957,8 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mae_") as tmp:
         mae = phase_train_mae(Path(tmp))
     phase_train_mae_grads(mae["model"], mae["overrides"])
-    runs = [launches, train_launches, csr_launches, mae["launches"]]
+    runs = [launches, train_launches, *pretrain_launches, csr_launches,
+            mae["launches"]]
     del mae
     torch.cuda.empty_cache()
 
@@ -2625,7 +2999,7 @@ def main() -> None:
     measured["fused_attention"] = phase_kernels_attn(dev, gen)
     runs.append(phase_attn(dev, gen))
 
-    # launches: the main paths' runs (serving, the eight trainings, the
+    # launches: the main paths' runs (serving, the eleven trainings, the
     # ARM tower on scan_backend=pallas, the Attention module), each read
     # just after it was driven with the counts at 0
     main_runs = {name: sum(run.get(name, 0) for run in runs)

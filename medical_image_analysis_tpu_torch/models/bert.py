@@ -1,0 +1,182 @@
+"""Post-LN BERT encoder, with optional query tokens and cross-attention.
+
+Counterpart of ``medical_image_analysis_tpu/models/bert.py``'s
+``BertConfig``, ``BertAttention``, ``BertFFN``, ``BertLayer`` and
+``BertModel``: an HF ``bert-base``-style tower, the Bio_ClinicalBERT text
+tower of CLIP alignment (``task_kwargs.text_tower: bert``). Parameter
+names are the flax modules' (``word_embeddings``, ``position_embeddings``,
+``token_type_embeddings``, ``embeddings_norm``, ``layer_<i>`` with
+``attention``, ``crossattention``, ``ffn``, ``ffn_query``).
+LayerNorms at ``cfg.eps``, the erf GELU, padded keys at an additive -1e9.
+
+Flax creates a parameter when a call first reaches it; here the modules
+are built from the config: ``crossattention`` in every
+``cross_attention_freq``-th layer, ``ffn_query`` beside ``ffn`` when
+``query_ffn``, the embeddings when ``use_embeddings``. A JAX ``init``
+that reached all of them (text ids, query tokens and encoder states
+together) loads strictly. The tanh pooler (the JAX ``pool='cls'``),
+which no recipe calls, and ``Blip2QFormer`` are not ported (ROADMAP.md,
+queue 1, item 15).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+@dataclasses.dataclass(frozen=True)
+class BertConfig:
+    vocab_size: int = 30522
+    dim: int = 768
+    n_layers: int = 12
+    n_heads: int = 12
+    intermediate: int = 3072
+    max_position: int = 512
+    type_vocab: int = 2
+    eps: float = 1e-12
+    # Q-Former extras (0 / False = plain BERT)
+    cross_attention_freq: int = 0
+    query_ffn: bool = False  # BLIP-2 intermediate_query/output_query
+    use_embeddings: bool = True  # word/pos/type embeddings present
+
+
+def _mask_bias(mask: torch.Tensor) -> torch.Tensor:
+    return torch.where(mask[:, None, None, :] > 0, 0.0, -1e9)
+
+
+class BertAttention(nn.Module):
+    """query/key/value, out and out_norm (post-LN)."""
+
+    def __init__(self, dim: int, n_heads: int, eps: float, device=None):
+        super().__init__()
+        self.dim, self.n_heads = dim, n_heads
+        self.query = nn.Linear(dim, dim, device=device)
+        self.key = nn.Linear(dim, dim, device=device)
+        self.value = nn.Linear(dim, dim, device=device)
+        self.out = nn.Linear(dim, dim, device=device)
+        self.out_norm = nn.LayerNorm(dim, eps=eps, device=device)
+
+    def forward(self, x, kv, bias):
+        nh, hd = self.n_heads, self.dim // self.n_heads
+        b, lq, _ = x.shape
+        q = self.query(x).reshape(b, lq, nh, hd)
+        k = self.key(kv).reshape(b, -1, nh, hd)
+        v = self.value(kv).reshape(b, -1, nh, hd)
+        a = torch.einsum("bqhd,bkhd->bhqk", q, k) * hd**-0.5
+        if bias is not None:
+            a = a + bias
+        a = torch.softmax(a, dim=-1)
+        o = torch.einsum("bhqk,bkhd->bqhd", a, v).reshape(b, lq, self.dim)
+        return self.out_norm(self.out(o) + x)
+
+
+class BertFFN(nn.Module):
+    def __init__(self, dim: int, intermediate: int, eps: float, device=None):
+        super().__init__()
+        self.dense_in = nn.Linear(dim, intermediate, device=device)
+        self.dense_out = nn.Linear(intermediate, dim, device=device)
+        self.norm = nn.LayerNorm(dim, eps=eps, device=device)
+
+    def forward(self, x):
+        h = F.gelu(self.dense_in(x))  # erf form (approximate=False)
+        return self.norm(self.dense_out(h) + x)
+
+
+class BertLayer(nn.Module):
+    def __init__(self, cfg: BertConfig, has_cross: bool, device=None):
+        super().__init__()
+        c = self.cfg = cfg
+        self.attention = BertAttention(c.dim, c.n_heads, c.eps, device)
+        self.crossattention = (
+            BertAttention(c.dim, c.n_heads, c.eps, device) if has_cross
+            else None)
+        self.ffn = BertFFN(c.dim, c.intermediate, c.eps, device)
+        self.ffn_query = (BertFFN(c.dim, c.intermediate, c.eps, device)
+                          if c.query_ffn else None)
+
+    def forward(self, x, self_bias, enc=None, enc_bias=None,
+                query_length: int = 0):
+        x = self.attention(x, x, self_bias)
+        if self.crossattention is not None and enc is not None:
+            if query_length and query_length < x.shape[1]:
+                # only the query positions cross-attend
+                qpart = self.crossattention(x[:, :query_length], enc,
+                                            enc_bias)
+                x = torch.cat([qpart, x[:, query_length:]], dim=1)
+            else:
+                x = self.crossattention(x, enc, enc_bias)
+        if self.ffn_query is not None:
+            ql = query_length if query_length else x.shape[1]
+            qout = self.ffn_query(x[:, :ql])
+            if ql < x.shape[1]:
+                return torch.cat([qout, self.ffn(x[:, ql:])], dim=1)
+            return qout
+        return self.ffn(x)
+
+
+class BertModel(nn.Module):
+    """Post-LN BERT; optionally with query tokens and cross-attention.
+    ``forward`` returns the last hidden state (B, L', D)."""
+
+    def __init__(self, cfg: BertConfig, device=None):
+        super().__init__()
+        c = self.cfg = cfg
+        if c.use_embeddings:
+            self.word_embeddings = nn.Embedding(c.vocab_size, c.dim,
+                                                device=device)
+            self.position_embeddings = nn.Parameter(
+                torch.empty(c.max_position, c.dim, device=device))
+            self.token_type_embeddings = nn.Embedding(c.type_vocab, c.dim,
+                                                      device=device)
+        self.embeddings_norm = nn.LayerNorm(c.dim, eps=c.eps, device=device)
+        for i in range(c.n_layers):
+            has_cross = (c.cross_attention_freq > 0
+                         and i % c.cross_attention_freq == 0)
+            self.add_module(f"layer_{i}", BertLayer(c, has_cross, device))
+
+    @torch.no_grad()
+    def init_own_params(self, gen: torch.Generator):
+        if self.cfg.use_embeddings:
+            tmp = torch.empty(self.position_embeddings.shape,
+                              device=self.position_embeddings.device)
+            self.position_embeddings.copy_(tmp.normal_(0.0, 0.02,
+                                                       generator=gen))
+
+    def forward(self, input_ids=None, attention_mask=None,
+                token_type_ids=None, query_embeds=None,
+                encoder_hidden_states=None, encoder_attention_mask=None):
+        c = self.cfg
+        parts = []
+        if query_embeds is not None:
+            parts.append(query_embeds)
+        ql = 0 if query_embeds is None else query_embeds.shape[1]
+        if input_ids is not None:
+            ids = input_ids.long()
+            we = self.word_embeddings(ids)
+            we = we + self.position_embeddings[None, : ids.shape[1]]
+            if token_type_ids is None:
+                token_type_ids = torch.zeros_like(ids)
+            we = we + self.token_type_embeddings(token_type_ids.long())
+            parts.append(we)
+        x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+        x = self.embeddings_norm(x)
+
+        b, total = x.shape[:2]
+        if attention_mask is None:
+            attention_mask = torch.ones(b, total - ql, dtype=torch.int32,
+                                        device=x.device)
+        full_mask = torch.cat([torch.ones(b, ql, dtype=attention_mask.dtype,
+                                          device=x.device), attention_mask],
+                              dim=1) if ql else attention_mask
+        self_bias = _mask_bias(full_mask)
+        enc_bias = (_mask_bias(encoder_attention_mask)
+                    if encoder_attention_mask is not None else None)
+        for i in range(c.n_layers):
+            x = getattr(self, f"layer_{i}")(
+                x, self_bias, encoder_hidden_states, enc_bias,
+                query_length=ql)
+        return x

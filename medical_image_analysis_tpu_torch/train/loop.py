@@ -1,19 +1,23 @@
 """The training recipes on one device: ``fit_mrg`` for R2GenGPT and
 R2GenCSR, on the ARM, VSSM, Swin or ViT tower, ``fit_mae`` for MAE
-pretraining, and ``fit_classify`` for SwinCheX, the VSSM classifier and the
-DP ViT classifier.
+pretraining, ``fit_ar`` and ``fit_clip`` for MambaXray-VL's stages 1 and 2
+(AR pretraining, CLIP alignment), and ``fit_classify`` for SwinCheX, the
+VSSM classifier and the DP ViT classifier.
 
 Counterpart of ``medical_image_analysis_tpu/train/loop.py`` (``vision_preset``,
 ``build_mrg_model``, ``build_data``, ``trainable_mask``, the r2gengpt and
 r2gencsr branches of ``make_task_adapter``, ``fit_mrg``, ``evaluate_mrg``,
-``fit_mae``, ``fit_classify``, ``fit``):
+``fit_mae``, ``fit_ar``, ``fit_clip``, ``fit_classify``, ``fit``):
 build the data and the model from a seed, freeze the LLM and/or the tower,
 put LoRA on the LLM's q/v projections, train with accumulation and remat,
 validate by beam search with NLG and clinical-efficacy scores, and save
 trainable-only deltas, the best one, and full train states for resume.
-MAE pretraining trains every parameter of the masked autoencoder and saves
+The pretraining recipes (MAE, AR, CLIP) train every parameter and save
 full train states; so does classification, with labels extracted from the
 reports, mixup/cutmix, EMA, and a validation of AUC and accuracy.
+``model.vision_init`` grafts a tower from an earlier stage's artifact
+(``ckpt/bridge.py``) into ``fit_clip``, ``fit_mrg`` and ``fit_classify``
+(``vit``, ``vssm``).
 
 The other tasks, towers and options raise ``NotImplementedError`` naming
 their ROADMAP.md item. Beyond the JAX recipe, each step's loss, grad norm,
@@ -34,6 +38,7 @@ import numpy as np
 import torch
 from torch.nn.utils import parametrize
 
+from ..ckpt.bridge import apply_vision_init
 from ..ckpt.checkpoint import (
     auto_resume_helper,
     delta_filename,
@@ -76,8 +81,10 @@ from ..models.classifiers import (
 from ..models.common import init_params
 from ..models.llm import LLM_CONFIGS
 from ..models.mamba import ARM_CONFIGS
+from ..models.mambaxray_vl import MambaXrayVLCLIP
 from ..models.mrg import R2GenCSR, R2GenGPT
 from ..models.swin import SWIN_CONFIGS, SwinCheX, SwinTransformer
+from ..models.vision_mamba_ar import VisionMambaAR
 from ..models.vit import MAE, VIT_CONFIGS
 from ..models.vmamba import VSSM_CONFIGS
 from ..peft.lora import apply_lora, init_lora, llama_qv_rules, vision_qv_rules
@@ -92,8 +99,6 @@ _NOT_PORTED = {
     "r2gen_kg": "slice 5, item 16",
     "mac_rrg": "slice 5, item 16",
     "r2gen": "slice 5, item 16",
-    "clip": "slice 5, item 16",
-    "ar": "slice 5, item 16",
     "mamba_lm_sft": "slice 5, item 16",
 }
 
@@ -131,10 +136,10 @@ def build_mrg_model(cfg: RunConfig, vocab_size: int,
     ``<unk>``).
     """
     m = cfg.model
-    if m.llm_weights_dir or m.vision_init:
+    if m.llm_weights_dir:
         raise NotImplementedError(
-            "loading checkpoints (model.llm_weights_dir, model.vision_init) "
-            "is not ported yet (ROADMAP.md, queue 1, item 9)"
+            "loading LLM checkpoints (model.llm_weights_dir) is not ported "
+            "yet (ROADMAP.md, queue 1, item 9)"
         )
     if m.task not in ("r2gengpt", "r2gencsr"):
         raise NotImplementedError(
@@ -334,6 +339,10 @@ def fit_mrg(cfg: RunConfig, device="cuda", on_start=None) -> dict:
     ann, tok, batcher, _ = build_data(cfg)
     model = build_mrg_model(cfg, tok.vocab_size, device=device).eval()
     init_params(model, torch.Generator(device).manual_seed(t.seed))
+    if cfg.model.vision_init:
+        # the stage-1/2 pretrain -> SFT tower graft (ckpt/bridge.py)
+        apply_vision_init(flax_named_parameters(model), cfg.model.vision_init,
+                          cfg.model.vision, ("vision", cfg.model.vision))
     gcfg = dataclasses.replace(cfg.generate, eos_id=tok.EOS)
     print("[fit_mrg] data ready, params initialized", flush=True)
 
@@ -532,20 +541,38 @@ def mae_loss_fn(model: MAE, m):
 def fit_mae(cfg: RunConfig, device="cuda", on_start=None) -> dict:
     """MAE pretraining (random or region masking): returns the mean loss of
     the run's steps. ``on_start`` as in :func:`fit_mrg`."""
-    t, m = cfg.train, cfg.model
+    t = cfg.train
     device = torch.device(device)
-    os.makedirs(t.save_dir, exist_ok=True)
-    logger = JsonlLogger(t.save_dir)
     ann, _, batcher, _ = build_data(cfg)
     model = build_mae_model(cfg, device)
     init_params(model, torch.Generator(device).manual_seed(t.seed))
+
+    def mae_batch(batch, step):
+        imgs = torch.from_numpy(batch["images"][:, 0]).to(device)
+        return {"images": imgs,
+                "mask_noise": mae_mask_noise(t.seed, step, imgs.shape[0],
+                                             model.num_patches(imgs), device)}
+
+    lr = t.lr if t.blr <= 0 else scaled_lr(t.blr, cfg.data.batch_size)
+    return _fit_pretrain(cfg, "mae", model, mae_loss_fn(model, cfg.model),
+                         mae_batch, ann, batcher, lr, on_start)
+
+
+def _fit_pretrain(cfg: RunConfig, tag: str, model, loss_fn, to_device,
+                  ann, batcher, lr: float, on_start) -> dict:
+    """The pretraining recipes' common part (MAE, AR, CLIP), from a built and
+    initialised model: every parameter trains (AdamW, warmup cosine from
+    ``lr``), each step of ``loss_fn(to_device(batch, step))`` logged, a
+    full train state every ``train.save_state_every_epochs``, no
+    validation. Returns the mean loss of the run's steps."""
+    t = cfg.train
+    os.makedirs(t.save_dir, exist_ok=True)
+    logger = JsonlLogger(t.save_dir)
     params = flax_named_parameters(model)
     n_params = sum(p.numel() for p in params.values())
-    print(f"[fit_mae] data ready, {n_params} params initialized", flush=True)
-
-    bs = cfg.data.batch_size
-    steps_per_epoch = max(len(ann["train"]) // bs, 1)
-    lr = t.lr if t.blr <= 0 else scaled_lr(t.blr, bs)
+    print(f"[fit_{tag}] data ready, {n_params} params initialized",
+          flush=True)
+    steps_per_epoch = max(len(ann["train"]) // cfg.data.batch_size, 1)
     tx = make_adamw(params, warmup_cosine(lr, t.warmup_steps,
                                           steps_per_epoch * t.epochs),
                     weight_decay=t.weight_decay, grad_clip=t.grad_clip)
@@ -554,19 +581,16 @@ def fit_mae(cfg: RunConfig, device="cuda", on_start=None) -> dict:
     if on_start is not None:
         on_start(model, state)
 
-    step = make_train_step(mae_loss_fn(model, m), t.accum_steps, t.ema_decay)
+    step = make_train_step(loss_fn, t.accum_steps, t.ema_decay)
     train_b = batcher("train")
     ml = MetricLogger()
     try:
         for epoch in range(start_epoch, t.epochs):
             it = prefetch(train_b.batches(epoch=epoch))
             t_prev = time.perf_counter()
-            for batch in ml.log_every(it, t.log_every, f"mae epoch {epoch}",
+            for batch in ml.log_every(it, t.log_every, f"{tag} epoch {epoch}",
                                       total=steps_per_epoch):
-                imgs = torch.from_numpy(batch["images"][:, 0]).to(device)
-                noise = mae_mask_noise(t.seed, state.step, imgs.shape[0],
-                                       model.num_patches(imgs), device)
-                metrics = step(state, {"images": imgs, "mask_noise": noise})
+                metrics = step(state, to_device(batch, state.step))
                 loss = float(metrics["loss"])  # waits for the step's loss
                 now = time.perf_counter()
                 logger.write({"epoch": epoch, "step": state.step,
@@ -587,6 +611,69 @@ def fit_mae(cfg: RunConfig, device="cuda", on_start=None) -> dict:
     return {"loss": ml.meters["loss"].global_avg}
 
 
+def fit_ar(cfg: RunConfig, device="cuda", on_start=None) -> dict:
+    """MambaXray-VL stage 1, autoregressive pretraining of
+    ``VisionMambaAR(**model.vision_kwargs)`` (as in the JAX recipe,
+    ``model.vision_size`` is not read: the class defaults are ARM-B's
+    widths): every parameter trains, at ``train.blr`` scaled by the batch
+    when it is set. Returns the mean loss of the run's steps. ``on_start``
+    as in :func:`fit_mrg`."""
+    t = cfg.train
+    device = torch.device(device)
+    ann, _, batcher, _ = build_data(cfg)
+    model = VisionMambaAR(**(cfg.model.vision_kwargs or {}), device=device)
+    init_params(model, torch.Generator(device).manual_seed(t.seed))
+    lr = t.lr if t.blr <= 0 else scaled_lr(t.blr, cfg.data.batch_size)
+    return _fit_pretrain(
+        cfg, "ar", model, lambda b: model(b["images"][:, 0]),
+        lambda b, _: _device_batch({"images": b["images"]}, device), ann,
+        batcher, lr, on_start)
+
+
+def build_clip_model(cfg: RunConfig, vocab_size: int,
+                     device=None) -> MambaXrayVLCLIP:
+    """``MambaXrayVLCLIP`` as the JAX ``fit_clip`` builds it: the ARM of
+    ``model.vision_size`` (the tower is always the ARM), and unless
+    ``task_kwargs.text_kwargs`` says otherwise, a scratch text tower of
+    depth 2 and ``data.max_len`` positions or, with ``text_tower: bert``,
+    a BERT of the tokenizer's vocabulary. Parameters are left
+    uninitialised."""
+    m = cfg.model
+    tkw = dict(m.task_kwargs or {})
+    if tkw.get("text_tower") == "bert":
+        text_kwargs = tkw.pop("text_kwargs", {"vocab_size": vocab_size})
+    else:
+        text_kwargs = tkw.pop("text_kwargs", dict(
+            vocab_size=vocab_size, depth=2, max_len=cfg.data.max_len))
+    arm_kwargs = {"img_size": cfg.data.input_size,
+                  **vision_preset("arm", m.vision_size, m.vision_kwargs)}
+    return MambaXrayVLCLIP(arm_kwargs=arm_kwargs, text_kwargs=text_kwargs,
+                           device=device, **tkw)
+
+
+def fit_clip(cfg: RunConfig, device="cuda", on_start=None) -> dict:
+    """MambaXray-VL stage 2, CLIP alignment of the ARM (mean-pooled) and a
+    text tower (EOS-pooled) on the reports' ``target_ids``: every parameter
+    trains at ``train.lr``; ``model.vision_init`` grafts the ARM from a
+    stage-1 artifact first. Returns the mean loss of the run's steps.
+    ``on_start`` as in :func:`fit_mrg`."""
+    t = cfg.train
+    device = torch.device(device)
+    ann, tok, batcher, _ = build_data(cfg)
+    model = build_clip_model(cfg, tok.vocab_size, device)
+    init_params(model, torch.Generator(device).manual_seed(t.seed))
+    if cfg.model.vision_init:
+        # the AR stage-1 -> CLIP stage-2 graft
+        apply_vision_init(flax_named_parameters(model), cfg.model.vision_init,
+                          "arm", ("visual_encoder",))
+    keys = ("images", "target_ids", "target_mask")
+    return _fit_pretrain(
+        cfg, "clip", model,
+        lambda b: model(b["images"][:, 0], b["target_ids"], b["target_mask"]),
+        lambda b, _: _device_batch({k: b[k] for k in keys}, device), ann,
+        batcher, t.lr, on_start)
+
+
 def build_classifier(cfg: RunConfig, device=None):
     """``(model, loss head, head kind)`` of a classification recipe, as the
     JAX ``fit_classify`` builds them: ``dp`` a ViT ``DPClassifier`` with
@@ -594,10 +681,6 @@ def build_classifier(cfg: RunConfig, device=None):
     with the same loss, else ``SwinCheX`` with its per-head 2-way CE; 14
     labels. Parameters are left uninitialised."""
     m = cfg.model
-    if m.vision_init:
-        raise NotImplementedError(
-            "model.vision_init (the MAE encoder graft) is not ported yet "
-            "(ROADMAP.md, queue 1, item 9)")
     size = cfg.data.input_size
     if m.task == "dp":
         vk = {"img_size": size,
@@ -657,6 +740,12 @@ def fit_classify(cfg: RunConfig, device="cuda", on_start=None) -> dict:
     model, loss_head, head_kind = build_classifier(cfg, device)
     init_params(model, torch.Generator(device).manual_seed(t.seed))
     params = flax_named_parameters(model)
+    m = cfg.model
+    if m.vision_init and m.vision in ("vit", "vssm"):
+        # the MAE pretrain -> DP encoder graft, or a VSSM tower's
+        # (ckpt/bridge.py); as in the JAX recipe, other towers take none
+        apply_vision_init(params, m.vision_init, m.vision,
+                          ("encoder",) if m.vision == "vit" else ("backbone",))
     print(f"[fit_classify] data ready, "
           f"{sum(p.numel() for p in params.values())} params initialized",
           flush=True)
@@ -742,11 +831,13 @@ def fit_classify(cfg: RunConfig, device="cuda", on_start=None) -> dict:
 
 def fit(cfg: RunConfig, device="cuda", on_start=None) -> dict:
     """The JAX package's dispatch by ``model.task``: ``mae`` to
-    :func:`fit_mae`; ``swinchex`` and ``dp`` to :func:`fit_classify`;
+    :func:`fit_mae`; ``ar`` to :func:`fit_ar`; ``clip`` to
+    :func:`fit_clip`; ``swinchex`` and ``dp`` to :func:`fit_classify`;
     r2gengpt and r2gencsr to :func:`fit_mrg`, which raises for the tasks
     not ported yet."""
-    if cfg.model.task == "mae":
-        return fit_mae(cfg, device, on_start)
+    recipes = {"mae": fit_mae, "ar": fit_ar, "clip": fit_clip}
+    if cfg.model.task in recipes:
+        return recipes[cfg.model.task](cfg, device, on_start)
     if cfg.model.task in ("swinchex", "dp"):
         return fit_classify(cfg, device, on_start)
     return fit_mrg(cfg, device, on_start)

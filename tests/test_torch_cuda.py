@@ -97,8 +97,11 @@ def _err(got, want):
     (4, 1, 197, 768, 16, 48, True),
     (2, 1, 197, 70, 16, 8, True),
     (2, 3, 70, 40, 4, 3, True),
+    # AR pretraining's one direction at full width (8 clusters of 16)
+    (1, 2, 128, 768, 16, 48, True),
 ], ids=["k1", "k2", "k4", "k4-noconv", "arm-b", "vssm-tiny-s0", "ragged",
-        "s3-single", "s3-chunks", "arm-b-b1", "ragged-b1", "n4-chunks"])
+        "s3-single", "s3-chunks", "arm-b-b1", "ragged-b1", "n4-chunks",
+        "k1-full"])
 def test_kernels_match_plain(cuda, dtype, k_dirs, b, l, d, n, r, use_conv):
     xr, xc, w = _inputs(cuda, dtype, k_dirs, b, l, d, n, r, seed=k_dirs + l)
     xargs = (xr, xc, w["conv_w"], w["conv_b"], w["x_proj_w"], use_conv)
@@ -131,7 +134,9 @@ def test_kernels_match_plain(cuda, dtype, k_dirs, b, l, d, n, r, use_conv):
     (4, 2, 197, 768, 16, 48, True),  # an ARM-B layer
     (4, 2, 3136, 192, 16, 6, False),  # vssm_tiny stage 0 at a small batch
     (2, 3, 197, 70, 16, 8, True),  # a ragged last chunk; D not a multiple
-], ids=["k1", "k2", "k4", "k4-noconv", "arm-b", "vssm-tiny-s0", "ragged"])
+    (1, 2, 128, 768, 16, 48, True),  # AR pretraining's one direction
+], ids=["k1", "k2", "k4", "k4-noconv", "arm-b", "vssm-tiny-s0", "ragged",
+        "k1-full"])
 def test_scan_bwd_matches_plain(cuda, dtype, k_dirs, b, l, d, n, r,
                                 use_conv):
     xr, xc, w = _inputs(cuda, dtype, k_dirs, b, l, d, n, r, seed=k_dirs + l)
@@ -239,6 +244,30 @@ def test_tiny_arm_through_kernels_matches_plain(cuda):
 
 
 @pytest.mark.cuda
+def test_fit_ar_launches_the_fused_kernels(cuda, tmp_path):
+    """``fit_ar`` on the card (a tiny ``VisionMambaAR``, one scan direction,
+    no remat, no validation) launches each of the fused layer's three
+    kernels once a layer a step, and its losses are finite."""
+    from medical_image_analysis_tpu_torch.configs.config import make_config
+    from medical_image_analysis_tpu_torch.train import loop
+
+    cfg = make_config({
+        "data": {"dataset": "synthetic", "batch_size": 8, "input_size": 32,
+                 "num_views": 1, "num_workers": 2},
+        "model": {"task": "ar", "vision_kwargs": dict(
+            patch_size=4, embed_dim=64, depth=3, d_state=16,
+            dec_embed_dim=32, dec_heads=2)},
+        "train": {"epochs": 1, "lr": 1e-3, "warmup_steps": 1,
+                  "log_every": 100, "save_dir": str(tmp_path)},
+    })
+    mf.reset_launches()
+    out = loop.fit(cfg, "cuda")
+    steps = 32 // 8  # the synthetic train split
+    assert mf.launches == dict.fromkeys(mf.launches, 3 * steps)
+    assert np.isfinite(out["loss"])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b", [3, 12], ids=["chunks", "single"])
 def test_scan_fwd_is_deterministic(cuda, b):
     """No float atomics: two calls give the same bits, in chunks (with the
@@ -292,14 +321,16 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 # D and C ragged (D = 70 takes the kernel's plain loads, not 16-byte
 # copies), C past a block's columns at 128 rows and at any tile (more
 # blocks along z), 7 n8 tiles a warp with one direction a block (C = 100),
-# one and two directions, a tile shorter than L's last.
+# one and two directions, a tile shorter than L's last, and AR
+# pretraining's one direction at full width.
 XDBL_SHAPES = [(4, 1, 197, 768, 80, True), (4, 2, 49, 1536, 80, False),
                (4, 2, 196, 768, 56, False),
                (2, 3, 70, 70, 11, True), (2, 2, 130, 40, 44, False),
                (1, 2, 10, 8, 12, True), (4, 1, 300, 64, 38, False),
-               (4, 1, 30, 64, 190, True), (2, 2, 70, 64, 100, True)]
+               (4, 1, 30, 64, 190, True), (2, 2, 70, 64, 100, True),
+               (1, 2, 128, 768, 80, True)]
 XDBL_IDS = ["arm-b-b1", "s3-like", "s2-like", "ragged", "two-col-blocks",
-            "k1", "s0-like", "wide-c", "one-dir-7-tiles"]
+            "k1", "s0-like", "wide-c", "one-dir-7-tiles", "k1-full"]
 
 
 @pytest.mark.cuda
