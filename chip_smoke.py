@@ -227,6 +227,32 @@ raises (exit code 1):
 23. attn     -- ``models/vit.py:Attention(768, 12)`` on (64, 197, 768):
                the kernel against ``set_fused(model, False)``, then 0
                launches under a gradient.
+24. kernels_am -- the fused layer's three kernels against their plain
+               versions at AM-MRG's ARM-L shapes (K=4, L=197, D=1024,
+               N=16, dt rank 64, so C=96): the training step's 12 images
+               and one image, fp32, as ``kernels_ar`` prints them (its
+               12-image rows join the kernels line with a ``case`` key).
+25. train_am_mrg -- the ``am_mrg_mimic`` preset at full width (ARM-L,
+               ``qformer_proj`` to 1408, the 12-layer Q-Former of 14
+               queries, two Hopfield memories, the frozen 1.8B LLM with
+               LoRA r16, remat, 6 studies x 2 views) through
+               ``cli.train.main``: the memory banks built on the card
+               (GradCAM over a small SwinCheX, 14 labels x 2 blocks = 28
+               Swin launches), 5 steps and one validation (beam 3, 40
+               tokens: ``MRG_GEN``); the checks of ``train``, the banks'
+               shapes and build seconds, launches reckoned.
+26. train_am_mrg_grads -- one batch at full width: every trainable
+               tensor before the LLM through the kernels against
+               ``scan_backend="plain"``, from one cotangent at
+               ``encode_img``'s output.
+27. train_r2genkg -- the ``r2genkg_mimic`` preset at full width (Swin-B,
+               the 2-layer Q-Former, the disease-bank lookup, 5 R-GCNs,
+               the fusion, the cross blocks, the frozen 1.8B LLM with LoRA
+               r16) likewise: the graph built on the card, 5 steps (no
+               Swin launch: the tower trains) and one validation (24
+               launches a batch).
+   ``kernels_swin`` (14) also holds the bank chain's SwinCheX stages:
+               heads of 8 and of 16 over windows of 16 tokens.
 
 Bounds: the largest of the bytes at the HBM rate, the matrix products at
 the tensor-core rate of their operand type (fp32 in 3xTF32, 165 TFLOP/s;
@@ -1923,12 +1949,20 @@ def phase_train_mae_grads(model, overrides) -> None:
            kernel_s=f"{secs[True]:.3f}", plain_s=f"{secs[False]:.3f}")
 
 
+# AM-MRG's bank chain: the small SwinCheX (embed 16, heads (2, 2), window
+# 4, one unshifted block a stage) over its 8 images at 224^2: stage 0 with
+# heads of 8 (196 windows of 16 tokens an image), stage 1 with heads of 16.
+BANK_SWIN_CASES = (("bank_swinchex", 0, 8 * 196, 16, 2, 1, torch.float32, 4),
+                   ("bank_swinchex", 1, 8 * 49, 32, 2, 1, torch.float32, 4))
+
+
 def _swin_cases():
-    """(tower, stage, windows, C, heads, nW, dtype): every stage of
+    """(tower, stage, windows, C, heads, nW, dtype, window): every stage of
     ``SWIN_TOWERS`` in fp32 (swin_large's shifted and unshifted where the
     stage has both, swin_base's shifted where it has one), and swin_large's
-    stage 0, shifted, in bf16. At stage 3 the window covers the 7 x 7 map,
-    so its blocks are unshifted."""
+    stage 0, shifted, in bf16, all with 7 x 7 windows; then the bank
+    chain's (``BANK_SWIN_CASES``). At stage 3 the window covers the 7 x 7
+    map, so its blocks are unshifted."""
     cases = []
     for name, embed, heads, images in SWIN_TOWERS:
         for stage, h in enumerate(heads):
@@ -1937,24 +1971,25 @@ def _swin_cases():
             if per_image == 1 or name == "swin_large":
                 shifts.append(1)  # the mask of an unshifted block: zeros
             cases += [(name, stage, images * per_image, embed << stage, h, nw,
-                       torch.float32) for nw in shifts]
+                       torch.float32, 7) for nw in shifts]
     name, embed, heads, images = SWIN_TOWERS[0]
     return cases + [(name, 0, images * 64, embed, heads[0], 64,
-                     torch.bfloat16)]
+                     torch.bfloat16, 7), *BANK_SWIN_CASES]
 
 
-def _swin_inputs(windows, d, heads, nw, dtype, dev, gen):
-    """Windows (windows, 49, d) in ``dtype``, an initialised
+def _swin_inputs(windows, d, heads, nw, dtype, dev, gen, ws=7):
+    """Windows (windows, ws^2, d) in ``dtype``, an initialised
     ``WindowAttention``'s weights with its biases, norm affine and bias
-    table moved off their initial values, the (heads, 49, 49) bias and the
-    (nW, 49, 49) shift mask (zeros (1, 49, 49) unshifted)."""
+    table moved off their initial values, the (heads, L, L) bias and the
+    (nW, L, L) shift mask of a map of sqrt(nW) windows a side (zeros (1, L,
+    L) unshifted)."""
     from medical_image_analysis_tpu_torch.models.common import init_params
     from medical_image_analysis_tpu_torch.models.swin import (
         WindowAttention,
         _shift_attn_mask,
     )
 
-    attn = WindowAttention(d, heads, 7, device=dev)
+    attn = WindowAttention(d, heads, ws, device=dev)
     init_params(attn, gen)
     with torch.no_grad():
         attn.relative_position_bias_table.normal_(0.0, 0.5, generator=gen)
@@ -1966,10 +2001,10 @@ def _swin_inputs(windows, d, heads, nw, dtype, dev, gen):
             attn.qkv.weight.t(), attn.qkv.bias, attn.proj.weight.t(),
             attn.proj.bias, g, b))
         bias = attn.rel_bias().contiguous()
-    side = 7 * int(round(nw**0.5))
-    mask = (torch.from_numpy(_shift_attn_mask(side, side, 7, 3)).to(dev)
-            if nw > 1 else torch.zeros(1, 49, 49, device=dev))
-    x = torch.randn(windows, 49, d, device=dev, generator=gen).to(dtype)
+    side = ws * int(round(nw**0.5))
+    mask = (torch.from_numpy(_shift_attn_mask(side, side, ws, ws // 2)).to(
+        dev) if nw > 1 else torch.zeros(1, ws * ws, ws * ws, device=dev))
+    x = torch.randn(windows, ws * ws, d, device=dev, generator=gen).to(dtype)
     return x, w, bias, mask
 
 
@@ -1997,10 +2032,10 @@ def phase_kernels_swin(dev, gen) -> tuple:
     from medical_image_analysis_tpu_torch.ops import swin_block as sb
 
     row = None
-    for name, stage, bn, d, heads, nw, dtype in _swin_cases():
-        x, w, bias, mask = _swin_inputs(bn, d, heads, nw, dtype, dev, gen)
+    for name, stage, bn, d, heads, nw, dtype, ws in _swin_cases():
+        x, w, bias, mask = _swin_inputs(bn, d, heads, nw, dtype, dev, gen, ws)
         args = (x, *w, bias, mask, heads)
-        work = sb.work(bn, 49, d, heads)
+        work = sb.work(bn, ws * ws, d, heads)
         ops = sum(work)
         iters = _iters(ops)
         got = sb.swin_attn_fwd(*args)
@@ -2016,8 +2051,9 @@ def phase_kernels_swin(dev, gen) -> tuple:
                       lambda: sb.swin_attn_fwd(*args), iters, iters)
         lib_ms = device_ms(lambda: swin_attn_library(*args), iters)
         bound = _bound([x, *w, bias, mask, got], work, dtype)
-        _phase("kernels_swin", tower=name, stage=stage, windows=bn, L=49,
-               C=d, heads=heads, nW=nw, dtype=_dtype_name(dtype),
+        _phase("kernels_swin", tower=name, stage=stage, windows=bn,
+               L=ws * ws, C=d, heads=heads, head_width=d // heads, nW=nw,
+               dtype=_dtype_name(dtype),
                err=f"{err:.3e}", ms=f"{t['kernel']:.4f}",
                plain_ms=f"{t['plain']:.4f}", library_ms=f"{lib_ms:.4f}",
                bound_ms=f"{bound[0]:.4f}", bound_by=bound[1],
@@ -2587,15 +2623,17 @@ CLIP_EPOCHS = 3  # 1 step an epoch at batch 32
 CHAIN_BATCH = 12
 
 
-def _pretrain_layer(dev, gen, k_dirs: int, b: int, seq_len: int):
-    """An initialised one- or four-direction ARM-B mixer (D=768, N=16,
-    R=48, expand 1) and N(0, 1) sources and cotangent of its shape:
-    (xdbl args, scan args, backward args, the mixer)."""
+def _pretrain_layer(dev, gen, k_dirs: int, b: int, seq_len: int,
+                    dim: int = 768):
+    """An initialised one- or four-direction ARM mixer (ARM-B's D=768, N=16,
+    R=48, expand 1, or ARM-L's D=1024, R=64) and N(0, 1) sources and
+    cotangent of its shape: (xdbl args, scan args, backward args, the
+    mixer)."""
     from medical_image_analysis_tpu_torch.models.common import init_params
     from medical_image_analysis_tpu_torch.models.mamba import MambaMixer
     from medical_image_analysis_tpu_torch.ops import mamba_fused as mf
 
-    mixer = MambaMixer(768, d_state=16, expand=1,
+    mixer = MambaMixer(dim, d_state=16, expand=1,
                        bimamba_type="none" if k_dirs == 1 else "v3",
                        device=dev)
     init_params(mixer, gen)
@@ -2616,15 +2654,32 @@ def _pretrain_layer(dev, gen, k_dirs: int, b: int, seq_len: int):
 def phase_kernels_ar(dev, gen) -> None:
     """The fused layer's three kernels against their plain versions at the
     AR pretraining shape (K=1) and the CLIP shape (K=4, B=32), fp32 as
-    both train: max errors within XDBL_RTOL, Y_RTOL and BWD_RTOL; the
-    device ms of each beside its plain version's (in turns) and its bound;
-    x_dbl's tile, and each kernel's grid blocks and resident blocks an
-    SM."""
+    both train (``_fused_cases``)."""
+    _fused_cases(dev, gen, "kernels_ar", PRETRAIN_SHAPES)
+
+
+def phase_kernels_am(dev, gen) -> dict:
+    """The fused layer's three kernels at AM-MRG's ARM-L shapes (K=4,
+    L=197, D=1024, N=16, R=64, so C=96): the training step's 12 images,
+    timed, and one image (``fwd_chunk`` cuts L there); returns the 12-image
+    rows for the kernels line."""
+    rows = _fused_cases(dev, gen, "kernels_am", AM_SHAPES, ARM_L_DIM)
+    return {f"{k}_arm_l": v for k, v in rows[AM_SHAPES[0][0]].items()}
+
+
+def _fused_cases(dev, gen, phase: str, shapes, dim: int = 768) -> dict:
+    """The fused layer's three kernels against their plain versions at
+    each ``(name, K, B, L)`` of ``shapes`` (an ARM mixer of width ``dim``,
+    fp32): max errors within XDBL_RTOL, Y_RTOL and BWD_RTOL; the device ms
+    of each beside its plain version's (in turns) and its bound; x_dbl's
+    tile, and each kernel's grid blocks and resident blocks an SM. Returns
+    ``{name: {kernel: (err, ms, plain_ms, bound_ms, bound_by)}}``."""
     from medical_image_analysis_tpu_torch.ops import mamba_fused as mf
 
-    for name, k_dirs, b, seq_len in PRETRAIN_SHAPES:
+    rows = {}
+    for name, k_dirs, b, seq_len in shapes:
         xargs, sargs, bargs, mixer = _pretrain_layer(dev, gen, k_dirs, b,
-                                                     seq_len)
+                                                     seq_len, dim)
         n, rank, d_in = mixer.n, mixer.rank, mixer.d_inner
         got_x, want_x = mf.xdbl_fwd(*xargs), sargs[2]
         got_y, want_y = mf.scan_fwd(*sargs), mf.scan_plain(*sargs)
@@ -2663,7 +2718,13 @@ def phase_kernels_ar(dev, gen) -> None:
                 f"{kernel}_bound_by": bounds[kernel][1]})
         bwd_blocks = _mamba_bwd_blocks(b, k_dirs, seq_len, d_in, n, rank,
                                        torch.float32)
-        _phase("kernels_ar", shape=name, B=b, K=k_dirs, L=seq_len, D=d_in,
+        rows[name] = {
+            f"mamba_{kernel}": (err, t[key]["kernel"], t[key]["plain"],
+                                *bounds[key][:2])
+            for kernel, key, err in (("xdbl", "xdbl", err_x),
+                                     ("scan", "scan", err_y),
+                                     ("scan_bwd", "bwd", max(errs.values())))}
+        _phase(phase, shape=name, B=b, K=k_dirs, L=seq_len, D=d_in,
                N=n, R=rank, src="fp32", xdbl_err=f"{err_x:.3e}",
                scan_err=f"{err_y:.3e}", bwd_errs=_compact(
                    {k: f"{v:.3e}" for k, v in errs.items()}), **fields,
@@ -2672,9 +2733,11 @@ def phase_kernels_ar(dev, gen) -> None:
                **_mamba_fwd_blocks(b, k_dirs, seq_len, d_in, n, rank,
                                    torch.float32),
                bwd_grid_blocks=bwd_blocks["grid_blocks"],
-               bwd_blocks_per_sm=bwd_blocks["blocks_per_sm"])
+               bwd_blocks_per_sm=bwd_blocks["blocks_per_sm"],
+               bwd_smem_bytes=bwd_blocks["smem_bytes"])
         del xargs, sargs, bargs, got_x, got_y, got_b
         torch.cuda.empty_cache()
+    return rows
 
 
 def _pretrain_through_cli(preset: Path, epochs: int, save_dir: Path,
@@ -2891,6 +2954,182 @@ def phase_stage_chain(vocab: int, clip_artifact: Path, save_dir: Path,
     return run
 
 
+# AM-MRG and R2GenKG at their presets' full widths. ARM-L's fused layer:
+# (name, K, B, L) at D=1024 (R=64, C=96): the training step's 6 studies x
+# 2 views, and one image.
+AM_PRESET = PRESET.parent / "am_mrg_mimic.yaml"
+KG_PRESET = PRESET.parent / "r2genkg_mimic.yaml"
+ARM_L_DIM = 1024
+AM_SHAPES = (("am_mrg", 4, 12, 197), ("am_mrg_b1", 4, 1, 197))
+ARM_L_CASE = "am_mrg ARM-L B=12 L=197"
+# Validation's generated length in the two phases (the presets ask for 80
+# to 120 tokens of beam 3; the LLM and its beam are those of ``train``)
+MRG_GEN = ("generate.max_new_tokens=40", "generate.min_new_tokens=20")
+# The key biases, and the Hopfield memories' stored-pattern norm biases:
+# gradients of 0 in exact arithmetic (no update step reads the keys)
+ZERO_GRAD = re.compile(r"(/|^)(key|k|k_proj|norm_stored)/bias$")
+
+
+def _side_record(save_dir: Path) -> dict:
+    """The side inputs' shapes and build seconds that ``fit_mrg`` logs."""
+    with open(save_dir / "log.txt") as f:
+        return next(r for r in map(json.loads, f) if "side_inputs" in r)
+
+
+def _mrg_through_cli(preset: Path, vocab: int, save_dir: Path, device: str,
+                     overrides=()) -> dict:
+    sets = ("data.dataset=synthetic", f"model.llm_kwargs.vocab_size={vocab}",
+            "train.epochs=1", "train.save_state_every_epochs=2",
+            "train.log_every=1", f"train.save_dir={save_dir}", *MRG_GEN,
+            *overrides)
+    argv = ["--config", str(preset)]
+    for item in sets:
+        argv += ["--set", item]
+    run = _train_through_cli(argv, save_dir, device)
+    return {**run, "sets": sets, "side": _side_record(save_dir)}
+
+
+def phase_train_am_mrg(vocab: int, save_dir: Path, device: str = "cuda",
+                       overrides=()) -> dict:
+    """The am_mrg_mimic preset at full width (ARM-L, qformer_proj to 1408,
+    the 12-layer Q-Former of 14 queries, two Hopfield memories of 6 heads,
+    the 1.8B-parameter LLM frozen with LoRA r16, remat, 6 studies x 2
+    views) through the CLI: 5 steps and one validation, the memory banks
+    built on the card first (GradCAM over the small SwinCheX for each of
+    the 14 labels). Launches: each ARM-L layer's forward kernels twice a
+    step (remat) and its backward once, once a validation batch; the
+    Swin kernel once a SwinCheX block a GradCAM."""
+    from medical_image_analysis_tpu_torch.data.side_inputs import (
+        CAM_CLASSES,
+        CAM_SWIN,
+    )
+
+    run = _mrg_through_cli(AM_PRESET, vocab, save_dir, device, overrides)
+    model, n_steps, val_b = run["model"], run["n_steps"], run["val_batches"]
+    accum = run["cfg"]["train"]["accum_steps"]
+    depth = len(model.vision.layers)
+    cam = CAM_CLASSES * sum(CAM_SWIN["depths"])
+    fwd = n_steps * depth * accum * 2 + val_b * depth
+    _check_launches(
+        run, {"mamba_xdbl": fwd, "mamba_scan": fwd,
+              "mamba_scan_bwd": n_steps * depth * accum,
+              "swin_attn_fwd": cam},
+        "train_am_mrg",
+        f"{n_steps} steps x {depth} layers x {accum} micro-batches x 2 "
+        f"forwards (remat) and 1 backward, + {val_b} val batches x {depth}; "
+        f"the bank chain's {CAM_CLASSES} GradCAMs x "
+        f"{sum(CAM_SWIN['depths'])} SwinCheX blocks")
+    _phase("train_am_mrg", preset=AM_PRESET.name,
+           arm=f"{model.vision.norm_f.normalized_shape[0]}x{depth}",
+           rank=model.vision.layers[0].mixer.rank,
+           llm=f"{model.llm_cfg.dim}x{model.llm_cfg.n_layers}",
+           params=sum(p.numel() for p in model.parameters()),
+           banks=_compact(run["side"]["side_inputs"]),
+           side_s=f"{run['side']['side_s']:.2f}", **run["fields"])
+    return run
+
+
+def phase_train_am_mrg_grads(model, state, sets) -> None:
+    """One batch of AM-MRG's data at full width (6 studies x 2 views): the
+    gradients of every trainable tensor before the LLM (ARM-L, the
+    Q-Former and its projection, both memories, the four projections)
+    through the kernels against ``scan_backend="plain"``, from one
+    cotangent at ``encode_img``'s output (as ``train_grads``), within
+    TOWER_RTOL of each tensor's largest; the tensors of 0 gradient in exact
+    arithmetic (``ZERO_GRAD``) within TOWER_RTOL of the largest gradient.
+    The banks are built again from the run's seed."""
+    from medical_image_analysis_tpu_torch.configs.config import load_config
+    from medical_image_analysis_tpu_torch.models.mamba import set_scan_backend
+    from medical_image_analysis_tpu_torch.ops import mamba_fused as mf
+    from medical_image_analysis_tpu_torch.train.loop import (
+        _device_batch,
+        build_data,
+        make_task_adapter,
+    )
+
+    dev = next(model.parameters()).device
+    cfg = load_config(str(AM_PRESET), [*sets, "data.num_workers=1"])
+    ann, tok, batcher, loader = build_data(cfg)
+    banks = make_task_adapter(cfg, ann, tok, loader, dev).side
+    train_b = batcher("train")
+    try:
+        host = next(train_b.batches(shuffle=False))
+    finally:
+        train_b.close()
+    b = _device_batch(host, dev)
+    names = [n for n in state.params
+             if n.startswith("base/") and not n.startswith("base/llm/")]
+    tensors = [state.params[n] for n in names]
+
+    def encode():
+        return model.encode_img(b["images"], banks["visual_bank"],
+                                banks["report_bank"])
+
+    def loss_of(img):
+        prompt = model._wrap(img, b["before_ids"], b["after_ids"])
+        return model._loss(prompt, b["target_ids"], b["target_mask"])
+
+    set_scan_backend(model, "plain")
+    img = encode().detach().requires_grad_()
+    (cotangent,) = torch.autograd.grad(loss_of(img), img)
+    grads, secs = {}, {}
+    for backend in ("auto", "plain"):
+        set_scan_backend(model, backend)
+        mf.reset_launches()
+        t0 = time.perf_counter()
+        grads[backend] = torch.autograd.grad(encode(), tensors, cotangent)
+        _sync(dev)
+        secs[backend] = time.perf_counter() - t0
+        if backend == "auto" and dev.type == "cuda":
+            depth = len(model.vision.layers)
+            _check(mf.launches == {"mamba_xdbl": 2 * depth,
+                                   "mamba_scan": 2 * depth,
+                                   "mamba_scan_bwd": depth},
+                   f"train_am_mrg_grads launches {mf.launches}")
+    set_scan_backend(model, "auto")
+    zero = [i for i, n in enumerate(names) if ZERO_GRAD.search(n)]
+    rest = [i for i in range(len(names)) if i not in zero]
+    rel, at = _worst_rel([names[i] for i in rest],
+                         [grads["auto"][i] for i in rest],
+                         [grads["plain"][i] for i in rest])
+    largest = max(g.abs().max().item() for g in grads["plain"])
+    noise = max(grads[k][i].abs().max().item() for k in grads
+                for i in zero) / largest
+    _check(rel <= TOWER_RTOL,
+           f"grad of {at}: max rel err {rel:.3e} > {TOWER_RTOL}")
+    _check(noise <= TOWER_RTOL,
+           f"zero-gradient tensors: {noise:.3e} of the largest gradient")
+    _phase("train_am_mrg_grads", tensors=len(names), zero_grad=len(zero),
+           images=b["images"].shape[0] * b["images"].shape[1],
+           max_rel_err=f"{rel:.3e}", at=at, bound=TOWER_RTOL,
+           zero_grad_rel=f"{noise:.3e}", kernel_s=f"{secs['auto']:.3f}",
+           plain_s=f"{secs['plain']:.3f}")
+
+
+def phase_train_r2genkg(vocab: int, save_dir: Path, device: str = "cuda",
+                        overrides=()) -> dict:
+    """The r2genkg_mimic preset at full width (Swin-B, the 2-layer Q-Former
+    of 14 queries, the lookup into the disease bank, 5 R-GCNs, the fusion,
+    the cross blocks, the 1.8B-parameter LLM frozen with LoRA r16, 6
+    studies x 2 views) through the CLI: 5 steps and one validation, the
+    graph tensors built on the card first. The Swin kernel launches once a
+    block a validation batch and never in a training step (the tower
+    trains, so its blocks take the unfused route)."""
+    run = _mrg_through_cli(KG_PRESET, vocab, save_dir, device, overrides)
+    model, val_b = run["model"], run["val_batches"]
+    blocks = sum(model.vision.swin.depths)
+    _check_launches(run, {"swin_attn_fwd": blocks * val_b}, "train_r2genkg",
+                    f"{blocks} Swin blocks x {val_b} val batches, none in "
+                    f"the {run['n_steps']} steps (a gradient)")
+    _phase("train_r2genkg", preset=KG_PRESET.name,
+           swin=f"{model.vision.out_dim}x{blocks}",
+           llm=f"{model.llm_cfg.dim}x{model.llm_cfg.n_layers}",
+           params=sum(p.numel() for p in model.parameters()),
+           graph=_compact(run["side"]["side_inputs"]),
+           side_s=f"{run['side']['side_s']:.2f}", **run["fields"])
+    return run
+
+
 def main() -> None:
     phase_device()
     dev = torch.device("cuda")
@@ -2999,7 +3238,19 @@ def main() -> None:
     measured["fused_attention"] = phase_kernels_attn(dev, gen)
     runs.append(phase_attn(dev, gen))
 
-    # launches: the main paths' runs (serving, the eleven trainings, the
+    # AM-MRG and R2GenKG
+    torch.cuda.empty_cache()
+    measured.update(phase_kernels_am(dev, gen))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_am_") as tmp:
+        am = phase_train_am_mrg(VOCAB, Path(tmp))
+    phase_train_am_mrg_grads(am["model"], am["state"], am["sets"])
+    runs.append(am["launches"])
+    del am
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_kg_") as tmp:
+        runs.append(phase_train_r2genkg(VOCAB, Path(tmp))["launches"])
+
+    # launches: the main paths' runs (serving, the thirteen trainings, the
     # ARM tower on scan_backend=pallas, the Attention module), each read
     # just after it was driven with the counts at 0
     main_runs = {name: sum(run.get(name, 0) for run in runs)
@@ -3008,9 +3259,11 @@ def main() -> None:
                for k in m.launches}
     kernels = []
     vit = ("vit_attn_fwd", "vit_mlp_fwd", "vit_attn_bwd", "vit_mlp_bwd")
+    cases = {**{name: list(VIT_ROWS.values()) for name in vit},
+             **{name: [("", None), ("_arm_l", ARM_L_CASE)] for name in (
+                 "mamba_xdbl", "mamba_scan", "mamba_scan_bwd")}}
     for name in REPLACES:
-        for suffix, case in (VIT_ROWS.values() if name in vit
-                             else [("", None)]):
+        for suffix, case in cases.get(name, [("", None)]):
             err, ms, plain_ms, bound_ms, bound_by, *lib = measured[
                 name + suffix]
             kernels.append({
@@ -3019,7 +3272,7 @@ def main() -> None:
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": lib[0] if lib else None})
-            if case is not None:  # launches: both shapes' (and dp's)
+            if case is not None:  # launches: every shape's
                 kernels[-1]["case"] = case
     _check(all(k["launches"] > 0 for k in kernels),
            f"a kernel of the main paths never launched: {main_runs}")

@@ -7,10 +7,16 @@ name, with these conversions:
 - Dense ``kernel (in, out)`` -> Linear ``weight (out, in)``;
 - Conv ``kernel`` HWIO -> Conv2d ``weight`` OIHW (the SS2D depthwise
   conv: (3, 3, 1, D) -> (D, 1, 3, 3));
+- flax ``DenseGeneral`` kernels of ``nn.SelfAttention`` (R2GenKG's
+  fusion) -> Linear ``weight``: ``query``/``key``/``value`` (D, H, hd)
+  with biases (H, hd) flattened over the heads, ``out`` (H, hd, D);
 - norm ``scale`` and Embed ``embedding`` -> ``weight``;
 - ``A_log``, ``D``, ``dt_bias``, ``conv_w``, ``conv_b``, ``x_proj_w``,
-  ``dt_proj_w``, ``cls_token``, ``pos_embed``, ``pos_marker`` and
-  ``neg_marker`` keep their layout.
+  ``dt_proj_w``, ``cls_token``, ``pos_embed``, ``pos_marker``,
+  ``neg_marker``, and the heads' raw parameters (``query_tokens``,
+  ``lookup_weights``, ``pooling_queries``, the R-GCN's ``w1_rel``,
+  ``w1_self``, ``w2_rel``, ``w2_self``, the fusion's ``scale_embed``)
+  keep their layout.
 
 The MAE needs no rule of its own: its blocks are modules named as the
 flax ones (``block<i>``, ``dec_block<i>``) whose parameters are raw
@@ -32,7 +38,8 @@ load each of them strictly from a JAX ``init``. A mixer's parameters
 
 One function serves ``ARM``, ``VSSM`` (and its ``SS2D`` and ``VSSBlock``),
 ``SwinTransformer``, ``SwinCheX``, ``VSSMClassifier``, ``DPClassifier``,
-``ViT``, ``TransformerLM``, ``R2GenGPT``, ``R2GenCSR`` and ``MAE``: pass the
+``ViT``, ``TransformerLM``, ``R2GenGPT``, ``R2GenCSR``, ``AMMRG``,
+``R2GenKG`` and ``MAE``: pass the
 ``params`` subtree whose root matches the port module's root.
 :func:`flax_named_parameters` names the port's parameters the other way
 round, and :func:`lora_from_jax` carries a JAX LoRA tree.
@@ -48,6 +55,9 @@ import torch.nn as nn
 
 from ..models.common import RMSNorm
 from ..peft.lora import flax_path
+
+
+_QKV = ("query", "key", "value")  # DenseGeneral kernels (D, H, hd)
 
 
 def _key(path: list[str]) -> str:
@@ -72,9 +82,15 @@ def state_dict_from_jax(params) -> dict[str, torch.Tensor]:
                 arr = arr.T
             elif arr.ndim == 4:
                 arr = arr.transpose(3, 2, 0, 1)
+            elif arr.ndim == 3 and path[-2] in _QKV:
+                arr = arr.reshape(arr.shape[0], -1).T
+            elif arr.ndim == 3 and path[-2] == "out":
+                arr = arr.reshape(-1, arr.shape[-1]).T
             else:
                 raise ValueError(f"unexpected kernel rank at {path}")
             leaf = "weight"
+        elif leaf == "bias" and arr.ndim == 2 and path[-2] in _QKV:
+            arr = arr.reshape(-1)
         elif leaf in ("scale", "embedding"):
             leaf = "weight"
         out[_key(path[:-1] + [leaf])] = torch.from_numpy(

@@ -37,6 +37,12 @@
 // (4,096 x 6 heads at stage 0), so the card is full with one block per
 // (window, head). A tensor-core core, wgmma and TMA are later work.
 //
+// Head widths 8, 16, 32 and 64 are compiled instances of the core (8 is
+// the first stage of the small SwinCheX whose GradCAM builds AM-MRG's
+// visual memory: embed 16, 2 heads). The core runs on the CUDA cores with
+// a loop over the head width, so the narrow width takes fp32 and bf16
+// alike; the projections' GEMM masks the K tail (C = 16 there).
+//
 // Launches on the caller's stream, allocates nothing, and returns
 // cudaGetLastError() (or the error of raising the shared-memory limit) so
 // that the Python wrapper raises on a refused launch.
@@ -179,6 +185,7 @@ cudaError_t core_dispatch(const void* qkv, const float* bias,
                           const float* mask, void* o, int windows, int L,
                           int H, int hd, int nw, float scale, cudaStream_t s) {
   switch (hd) {
+    case 8: return launch_core<T, 8>(qkv, bias, mask, o, windows, L, H, nw, scale, s);
     case 16: return launch_core<T, 16>(qkv, bias, mask, o, windows, L, H, nw, scale, s);
     case 32: return launch_core<T, 32>(qkv, bias, mask, o, windows, L, H, nw, scale, s);
     case 64: return launch_core<T, 64>(qkv, bias, mask, o, windows, L, H, nw, scale, s);

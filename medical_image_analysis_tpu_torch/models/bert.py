@@ -6,17 +6,20 @@ Counterpart of ``medical_image_analysis_tpu/models/bert.py``'s
 tower of CLIP alignment (``task_kwargs.text_tower: bert``). Parameter
 names are the flax modules' (``word_embeddings``, ``position_embeddings``,
 ``token_type_embeddings``, ``embeddings_norm``, ``layer_<i>`` with
-``attention``, ``crossattention``, ``ffn``, ``ffn_query``).
-LayerNorms at ``cfg.eps``, the erf GELU, padded keys at an additive -1e9.
+``attention``, ``crossattention``, ``ffn``, ``ffn_query``), and
+``Blip2QFormer`` (``query_tokens`` beside its ``bert``): the BLIP-2
+Q-Former of AM-MRG and R2GenKG, query-only. LayerNorms at ``cfg.eps``, the erf GELU,
+padded keys at an additive -1e9.
 
-Flax creates a parameter when a call first reaches it; here the modules
-are built from the config: ``crossattention`` in every
-``cross_attention_freq``-th layer, ``ffn_query`` beside ``ffn`` when
-``query_ffn``, the embeddings when ``use_embeddings``. A JAX ``init``
-that reached all of them (text ids, query tokens and encoder states
-together) loads strictly. The tanh pooler (the JAX ``pool='cls'``),
-which no recipe calls, and ``Blip2QFormer`` are not ported (ROADMAP.md,
-queue 1, item 15).
+Flax creates a parameter when a call first reaches it, and its ``Dense``
+takes the width of whatever it is given; here the modules are built from
+the config and the encoder's width (``enc_dim``, the cross-attention's
+key/value input): ``crossattention`` in every ``cross_attention_freq``-th
+layer, ``ffn_query`` when ``query_ffn``, the embeddings when
+``use_embeddings``, and ``ffn`` unless only query tokens reach it
+(``query_ffn`` without embeddings). A JAX ``init`` that reached all of
+them loads strictly. The tanh pooler (the JAX ``pool='cls'``), which no
+recipe calls, is not ported (ROADMAP.md, queue 1, item 15).
 """
 
 from __future__ import annotations
@@ -49,14 +52,16 @@ def _mask_bias(mask: torch.Tensor) -> torch.Tensor:
 
 
 class BertAttention(nn.Module):
-    """query/key/value, out and out_norm (post-LN)."""
+    """query/key/value, out and out_norm (post-LN); ``kv_dim`` is the width
+    of the key/value input (``dim`` for self-attention)."""
 
-    def __init__(self, dim: int, n_heads: int, eps: float, device=None):
+    def __init__(self, dim: int, n_heads: int, eps: float, device=None,
+                 kv_dim: int | None = None):
         super().__init__()
         self.dim, self.n_heads = dim, n_heads
         self.query = nn.Linear(dim, dim, device=device)
-        self.key = nn.Linear(dim, dim, device=device)
-        self.value = nn.Linear(dim, dim, device=device)
+        self.key = nn.Linear(kv_dim or dim, dim, device=device)
+        self.value = nn.Linear(kv_dim or dim, dim, device=device)
         self.out = nn.Linear(dim, dim, device=device)
         self.out_norm = nn.LayerNorm(dim, eps=eps, device=device)
 
@@ -87,14 +92,17 @@ class BertFFN(nn.Module):
 
 
 class BertLayer(nn.Module):
-    def __init__(self, cfg: BertConfig, has_cross: bool, device=None):
+    def __init__(self, cfg: BertConfig, has_cross: bool, device=None,
+                 enc_dim: int | None = None):
         super().__init__()
         c = self.cfg = cfg
         self.attention = BertAttention(c.dim, c.n_heads, c.eps, device)
         self.crossattention = (
-            BertAttention(c.dim, c.n_heads, c.eps, device) if has_cross
-            else None)
-        self.ffn = BertFFN(c.dim, c.intermediate, c.eps, device)
+            BertAttention(c.dim, c.n_heads, c.eps, device, enc_dim)
+            if has_cross else None)
+        # with query_ffn, the text FFN serves only text positions
+        self.ffn = (BertFFN(c.dim, c.intermediate, c.eps, device)
+                    if c.use_embeddings or not c.query_ffn else None)
         self.ffn_query = (BertFFN(c.dim, c.intermediate, c.eps, device)
                           if c.query_ffn else None)
 
@@ -120,9 +128,11 @@ class BertLayer(nn.Module):
 
 class BertModel(nn.Module):
     """Post-LN BERT; optionally with query tokens and cross-attention.
-    ``forward`` returns the last hidden state (B, L', D)."""
+    ``forward`` returns the last hidden state (B, L', D). ``enc_dim`` is the
+    width of ``encoder_hidden_states`` (``cfg.dim`` when None)."""
 
-    def __init__(self, cfg: BertConfig, device=None):
+    def __init__(self, cfg: BertConfig, device=None,
+                 enc_dim: int | None = None):
         super().__init__()
         c = self.cfg = cfg
         if c.use_embeddings:
@@ -136,7 +146,8 @@ class BertModel(nn.Module):
         for i in range(c.n_layers):
             has_cross = (c.cross_attention_freq > 0
                          and i % c.cross_attention_freq == 0)
-            self.add_module(f"layer_{i}", BertLayer(c, has_cross, device))
+            self.add_module(f"layer_{i}",
+                            BertLayer(c, has_cross, device, enc_dim))
 
     @torch.no_grad()
     def init_own_params(self, gen: torch.Generator):
@@ -180,3 +191,43 @@ class BertModel(nn.Module):
                 x, self_bias, encoder_hidden_states, enc_bias,
                 query_length=ql)
         return x
+
+
+class Blip2QFormer(nn.Module):
+    """BLIP-2 Q-Former in query-only mode: learnable ``query_tokens`` (1, Q,
+    dim) over a BERT encoder (``bert``) with the query FFN and
+    cross-attention into the image features every ``cross_attention_freq``
+    layers, under an all-ones encoder mask. ``enc_dim`` is the image
+    features' width. The JAX module's text path (``input_ids``), which no
+    recipe calls, is not ported: the encoder has no embeddings and no text
+    FFN, as the JAX ``init`` of a query-only call has none.
+
+    ``forward(image_embeds (B, L, enc_dim))`` -> (B, num_queries, dim).
+    """
+
+    def __init__(self, num_queries: int = 32, dim: int = 768,
+                 n_layers: int = 12, n_heads: int = 12,
+                 intermediate: int = 3072, cross_attention_freq: int = 2,
+                 enc_dim: int | None = None, device=None):
+        super().__init__()
+        cfg = BertConfig(dim=dim, n_layers=n_layers, n_heads=n_heads,
+                         intermediate=intermediate,
+                         cross_attention_freq=cross_attention_freq,
+                         query_ffn=True, use_embeddings=False)
+        self.query_tokens = nn.Parameter(
+            torch.empty(1, num_queries, dim, device=device))
+        self.bert = BertModel(cfg, device, enc_dim)
+
+    @torch.no_grad()
+    def init_own_params(self, gen: torch.Generator):
+        tmp = torch.empty(self.query_tokens.shape,
+                          device=self.query_tokens.device)
+        self.query_tokens.copy_(tmp.normal_(0.0, 0.02, generator=gen))
+
+    def forward(self, image_embeds: torch.Tensor) -> torch.Tensor:
+        b = image_embeds.shape[0]
+        q = self.query_tokens.expand(b, -1, -1).to(image_embeds.dtype)
+        enc_mask = torch.ones(image_embeds.shape[:2], dtype=torch.int32,
+                              device=image_embeds.device)
+        return self.bert(query_embeds=q, encoder_hidden_states=image_embeds,
+                         encoder_attention_mask=enc_mask)

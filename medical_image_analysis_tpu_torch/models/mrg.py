@@ -1,9 +1,9 @@
 """Medical report generation: R2GenGPT and R2GenCSR in PyTorch.
 
 Counterpart of ``medical_image_analysis_tpu/models/mrg.py``:
-``encoder -> LayerNorm + Linear projector -> [prompt, visual, text] ->
-LLM``, a teacher-forced cross-entropy forward, and HF-style generation
-with the shared-prompt split beam cache.
+``encoder -> projector (LayerNorm + Linear, or a Q-Former) -> [prompt,
+visual, text] -> LLM``, a teacher-forced cross-entropy forward, and
+HF-style generation with the shared-prompt split beam cache.
 
 Batch convention (as in the JAX package):
   images       (B, V, H, W, 3)    V views, channels-last
@@ -31,6 +31,7 @@ from .llm import (
     split_beam_cache,
 )
 from .mamba import ARM
+from .qformer import EncoderProjectorQFormer
 from .swin import SwinTransformer
 from .vit import ViT
 from .vmamba import VSSM
@@ -215,8 +216,10 @@ class MRGMixin:
 
 
 class R2GenGPT(nn.Module, MRGMixin):
-    """The canonical MRG skeleton: vision tower, LayerNorm + Linear
-    projector, decoder LM."""
+    """The canonical MRG skeleton: vision tower, projector, decoder LM. The
+    ``linear`` projector is LayerNorm + Linear (``proj_norm``, ``proj``);
+    ``qformer`` is a 2-layer, 64-query Q-Former into the LLM's width
+    (``proj_q``, ``models/qformer.py``)."""
 
     def __init__(
         self,
@@ -229,20 +232,22 @@ class R2GenGPT(nn.Module, MRGMixin):
         device=None,
     ):
         super().__init__()
-        if projector != "linear":
-            raise NotImplementedError(
-                f"projector {projector!r} is not ported yet (ROADMAP.md, "
-                "queue 1, slice 5: qformer)"
-            )
+        if projector not in ("linear", "qformer"):
+            raise ValueError(f"unknown projector {projector!r}")
         self.llm_cfg = llm_cfg
+        self.projector = projector
         self.use_feature_mean = use_feature_mean
         self.global_only = global_only
         self.vision = VisionEncoder(
             chosen, **{f"{chosen}_kwargs": vision_kwargs}, device=device)
         self.llm = TransformerLM(llm_cfg, device=device)
         vis_dim = self.vision.out_dim
-        self.proj_norm = layer_norm(vis_dim, device=device)
-        self.proj = nn.Linear(vis_dim, llm_cfg.dim, device=device)
+        if projector == "linear":
+            self.proj_norm = layer_norm(vis_dim, device=device)
+            self.proj = nn.Linear(vis_dim, llm_cfg.dim, device=device)
+        else:
+            self.proj_q = EncoderProjectorQFormer(
+                out_dim=llm_cfg.dim, enc_dim=vis_dim, device=device)
 
     def encode_img(self, images, deterministic: bool = True):
         tokens = _encode_views(
@@ -251,7 +256,9 @@ class R2GenGPT(nn.Module, MRGMixin):
         )
         if self.global_only:
             tokens = tokens.mean(dim=1, keepdim=True)
-        return self.proj(self.proj_norm(tokens))
+        if self.projector == "linear":
+            return self.proj(self.proj_norm(tokens))
+        return self.proj_q(tokens)
 
     def forward(self, images, before_ids, after_ids, target_ids, target_mask,
                 deterministic: bool = True):

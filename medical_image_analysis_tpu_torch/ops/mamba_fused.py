@@ -462,7 +462,10 @@ def xdbl_tile(b: int, k_dirs: int, seq_len: int, d_in: int, c: int,
 
     - Directions: both of a source a block (where K > 1), which stages its
       rows once for two products, unless that grid of 64-row tiles leaves
-      SMs idle (ARM-B, vssm_tiny stage 3 at its validation's 64 images).
+      SMs idle (ARM-B, vssm_tiny stage 3 at its validation's 64 images),
+      or such a block cannot hold all of C (ARM-L's C=96: two blocks of
+      columns would stage the rows twice all the same, and compute 160
+      columns for 96).
     - Ranges of D: while the grid holds fewer blocks than three quarters
       of the card's ``_XDBL_BLOCKS`` an SM, doubled, each keeping 3 of its
       32-wide slices or more; their partials are summed by a second kernel.
@@ -474,10 +477,13 @@ def xdbl_tile(b: int, k_dirs: int, seq_len: int, d_in: int, c: int,
 
     On an H100 the pick was the fastest of the tiles swept (64 and 128 rows,
     one and two directions, 1, 2, 4 and 8 ranges) at every main-path shape
-    but vssm_tiny stage 3 at 64 images, where 64x2x2 was 2% faster."""
+    but vssm_tiny stage 3 at 64 images, where 64x2x2 was 2% faster; at
+    ARM-L's 12 images 64x1x2 took 0.099 ms where 64x2x2 took 0.187
+    (``tools/time_xdbl.py --sweep``)."""
     full = 3 * _XDBL_BLOCKS * sms  # four times the grid that fills the card
     dirs = 1 if k_dirs == 1 else 2
-    if dirs == 2 and xdbl_grid_blocks(b, k_dirs, seq_len, c, 64, 2) < sms:
+    if dirs == 2 and (xdbl_grid_blocks(b, k_dirs, seq_len, c, 64, 2) < sms
+                      or xdbl_block_cols(64, 2, c) < c):
         dirs = 1
     slices = -(-d_in // _XDBL_SLICE)
 

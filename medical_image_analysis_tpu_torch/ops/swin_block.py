@@ -51,7 +51,7 @@ KERNEL_SOURCE = "medical_image_analysis_tpu_torch/csrc/swin_block.cu"
 launches = {"swin_attn_fwd": 0}
 
 EPS = 1e-5
-HEAD_DIMS = (16, 32, 64)  # the head widths the core kernel takes
+HEAD_DIMS = (8, 16, 32, 64)  # the head widths the core kernel takes
 MAX_L = 64  # the window tokens it takes (kMaxL): windows up to 8 x 8
 _P = ctypes.c_void_p
 _I = ctypes.c_int

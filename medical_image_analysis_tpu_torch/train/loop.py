@@ -1,23 +1,29 @@
-"""The training recipes on one device: ``fit_mrg`` for R2GenGPT and
-R2GenCSR, on the ARM, VSSM, Swin or ViT tower, ``fit_mae`` for MAE
+"""The training recipes on one device: ``fit_mrg`` for R2GenGPT,
+R2GenCSR, AM-MRG and R2GenKG (R2GenGPT and R2GenCSR on the ARM, VSSM, Swin
+or ViT tower; AM-MRG on the ARM; R2GenKG on any of them), ``fit_mae`` for MAE
 pretraining, ``fit_ar`` and ``fit_clip`` for MambaXray-VL's stages 1 and 2
 (AR pretraining, CLIP alignment), and ``fit_classify`` for SwinCheX, the
 VSSM classifier and the DP ViT classifier.
 
 Counterpart of ``medical_image_analysis_tpu/train/loop.py`` (``vision_preset``,
-``build_mrg_model``, ``build_data``, ``trainable_mask``, the r2gengpt and
-r2gencsr branches of ``make_task_adapter``, ``fit_mrg``, ``evaluate_mrg``,
+``build_mrg_model``, ``build_data``, ``trainable_mask``, the r2gengpt,
+r2gencsr, am_mrg and r2gen_kg branches of ``make_task_adapter``,
+``fit_mrg``, ``evaluate_mrg``,
 ``fit_mae``, ``fit_ar``, ``fit_clip``, ``fit_classify``, ``fit``):
 build the data and the model from a seed, freeze the LLM and/or the tower,
 put LoRA on the LLM's q/v projections, train with accumulation and remat,
 validate by beam search with NLG and clinical-efficacy scores, and save
 trainable-only deltas, the best one, and full train states for resume.
+AM-MRG's memory banks and R2GenKG's graph tensors are built before the
+model (``data/side_inputs.py``), on the run's device, and closed over by
+the task adapter as device tensors.
 The pretraining recipes (MAE, AR, CLIP) train every parameter and save
 full train states; so does classification, with labels extracted from the
 reports, mixup/cutmix, EMA, and a validation of AUC and accuracy.
 ``model.vision_init`` grafts a tower from an earlier stage's artifact
-(``ckpt/bridge.py``) into ``fit_clip``, ``fit_mrg`` and ``fit_classify``
-(``vit``, ``vssm``).
+(``ckpt/bridge.py``) into ``fit_clip``, ``fit_mrg`` (AM-MRG's bare ARM
+at ``vision``, the other tasks' tower at ``vision/<family>``) and
+``fit_classify`` (``vit``, ``vssm``).
 
 The other tasks, towers and options raise ``NotImplementedError`` naming
 their ROADMAP.md item. Beyond the JAX recipe, each step's loss, grad norm,
@@ -50,6 +56,7 @@ from ..ckpt.checkpoint import (
 )
 from ..ckpt.from_jax import flax_named_parameters
 from ..configs.config import RunConfig
+from ..data import side_inputs as side
 from ..data.datasets import (
     MRGBatcher,
     disk_image_loader,
@@ -72,6 +79,7 @@ from ..evalx.classification import (
     per_label_accuracy,
 )
 from ..evalx.nlg import compute_nlg_scores
+from ..models.am_mrg import AMMRG
 from ..models.classifiers import (
     DPClassifier,
     VSSMClassifier,
@@ -83,6 +91,7 @@ from ..models.llm import LLM_CONFIGS
 from ..models.mamba import ARM_CONFIGS
 from ..models.mambaxray_vl import MambaXrayVLCLIP
 from ..models.mrg import R2GenCSR, R2GenGPT
+from ..models.r2gen_kg import R2GenKG
 from ..models.swin import SWIN_CONFIGS, SwinCheX, SwinTransformer
 from ..models.vision_mamba_ar import VisionMambaAR
 from ..models.vit import MAE, VIT_CONFIGS
@@ -95,8 +104,6 @@ from .train_state import TrainState, make_train_step
 # ROADMAP.md, queue 1: where each task the JAX package trains is ported.
 _NOT_PORTED = {
     "emrrg": "slice 5, item 16",
-    "am_mrg": "slice 5, item 16",
-    "r2gen_kg": "slice 5, item 16",
     "mac_rrg": "slice 5, item 16",
     "r2gen": "slice 5, item 16",
     "mamba_lm_sft": "slice 5, item 16",
@@ -121,10 +128,10 @@ def vision_preset(family: str, size: str, extra: dict | None = None) -> dict:
     return base
 
 
-def build_mrg_model(cfg: RunConfig, vocab_size: int,
-                    device=None) -> R2GenGPT | R2GenCSR:
-    """R2GenGPT or R2GenCSR with an ARM, VSSM, Swin or ViT tower and a
-    ``cfg.model.llm`` decoder.
+def build_mrg_model(cfg: RunConfig, vocab_size: int, device=None,
+                    side_dims: dict | None = None):
+    """R2GenGPT or R2GenCSR with an ARM, VSSM, Swin or ViT tower, AM-MRG
+    with an ARM, or R2GenKG, and a ``cfg.model.llm`` decoder.
 
     Parameters are allocated on ``device`` and left uninitialised by
     this function: call ``models.common.init_params`` with a seeded
@@ -133,7 +140,10 @@ def build_mrg_model(cfg: RunConfig, vocab_size: int,
     as in the JAX package).
     ``model.llm_kwargs["vocab_size"]`` may size the LM's vocabulary above
     the tokenizer's ``vocab_size`` (ids past the tokenizer decode as
-    ``<unk>``).
+    ``<unk>``). ``side_dims`` are the side inputs' widths that the heads
+    read (``TaskAdapter.side_dims``: AM-MRG's banks, R2GenKG's node
+    features and disease bank); without them the heads take their own
+    widths.
     """
     m = cfg.model
     if m.llm_weights_dir:
@@ -141,11 +151,7 @@ def build_mrg_model(cfg: RunConfig, vocab_size: int,
             "loading LLM checkpoints (model.llm_weights_dir) is not ported "
             "yet (ROADMAP.md, queue 1, item 9)"
         )
-    if m.task not in ("r2gengpt", "r2gencsr"):
-        raise NotImplementedError(
-            f"task {m.task!r} is not ported yet (ROADMAP.md, queue 1, "
-            f"{_NOT_PORTED.get(m.task, 'slice 5')})"
-        )
+    _check_ported(m.task)
     llm_kw = {"vocab_size": vocab_size, **(m.llm_kwargs or {})}
     llm_cfg = dataclasses.replace(LLM_CONFIGS[m.llm], **llm_kw)
     if llm_cfg.vocab_size < vocab_size:
@@ -158,9 +164,19 @@ def build_mrg_model(cfg: RunConfig, vocab_size: int,
         llm_cfg = dataclasses.replace(llm_cfg, remat=True)
         if m.vision == "arm":
             vk.setdefault("remat", True)
-    cls = R2GenCSR if m.task == "r2gencsr" else R2GenGPT
+    tkw = {**(m.task_kwargs or {}), **(side_dims or {})}
+    if m.task == "am_mrg":
+        return AMMRG(llm_cfg=llm_cfg, arm_kwargs=vk, device=device, **tkw)
+    cls = {"r2gencsr": R2GenCSR, "r2gen_kg": R2GenKG}.get(m.task, R2GenGPT)
     return cls(llm_cfg=llm_cfg, chosen=m.vision, vision_kwargs=vk,
-               device=device, **(m.task_kwargs or {}))
+               device=device, **tkw)
+
+
+def _check_ported(task: str) -> None:
+    if task in _NOT_PORTED:
+        raise NotImplementedError(
+            f"task {task!r} is not ported yet (ROADMAP.md, queue 1, "
+            f"{_NOT_PORTED[task]})")
 
 
 def build_data(cfg: RunConfig):
@@ -228,35 +244,95 @@ def trainable_mask(names, freeze_llm: bool,
 
 @dataclasses.dataclass
 class TaskAdapter:
-    """Batch -> positional arguments of the model's loss and generate, and
-    the context exemplars per study that the batchers draw."""
+    """Batch -> positional arguments of the model's loss and generate, the
+    context exemplars per study that the batchers draw, and the task's
+    side inputs: device tensors closed over by the two functions
+    (``side``, by name) and the widths the model's heads read of them
+    (``side_dims``, keyword arguments of the model)."""
 
     loss_args: Any
     gen_args: Any
     n_context: int = 0
+    side: dict = dataclasses.field(default_factory=dict)
+    side_dims: dict = dataclasses.field(default_factory=dict)
 
 
-def make_task_adapter(cfg: RunConfig) -> TaskAdapter:
+def make_task_adapter(cfg: RunConfig, ann, tok, loader,
+                      device) -> TaskAdapter:
+    """The task's batch mapping, and its side inputs built on ``device``:
+    AM-MRG's memory banks (``side_inputs.build_am_banks``) and R2GenKG's
+    graph tensors (``side_inputs.synthesize_graph_artifacts``, or
+    ``load_graph_npz`` where ``model.side_inputs.graph`` names a file),
+    from ``build_data``'s annotations, tokenizer and image loader."""
     task = cfg.model.task
-    if task not in ("r2gengpt", "r2gencsr"):
-        raise NotImplementedError(
-            f"task {task!r} is not ported yet (ROADMAP.md, queue 1, "
-            f"{_NOT_PORTED.get(task, 'slice 5')})"
-        )
+    _check_ported(task)
+    si = dict(cfg.model.side_inputs or {})
+    seed = cfg.train.seed
 
     def base(b):
         return (b["before_ids"], b["after_ids"])
 
+    def tgt(b):
+        return (b["target_ids"], b["target_mask"])
+
+    def on_device(x):
+        return torch.as_tensor(x).to(device)
+
     if task == "r2gencsr":
         return TaskAdapter(
             loss_args=lambda b: (b["images"], b["context_images"], *base(b),
-                                 b["target_ids"], b["target_mask"]),
+                                 *tgt(b)),
             gen_args=lambda b: (b["images"], b["context_images"], *base(b)),
             n_context=cfg.data.n_context,
         )
+    if task == "am_mrg":
+        embed = side.make_text_embedder(tok, dim=si.get("dim", 64), seed=seed,
+                                        device=device)
+        vb, rb = side.build_am_banks(
+            ann["train"], loader, embed,
+            bank_dim=si.get("bank_dim", si.get("dim", 64)),
+            visual_bank_path=si.get("visual_bank", ""),
+            report_bank_path=si.get("report_bank", ""),
+            swin_kwargs=si.get("swin_kwargs"), seed=seed, device=device,
+        )
+        vb, rb = on_device(vb), on_device(rb)
+        return TaskAdapter(
+            loss_args=lambda b: (b["images"], vb, rb, *base(b), *tgt(b)),
+            gen_args=lambda b: (b["images"], vb, rb, *base(b)),
+            side={"visual_bank": vb, "report_bank": rb},
+            side_dims={"visual_bank_dim": vb.shape[1],
+                       "report_bank_dim": rb.shape[1]},
+        )
+    if task == "r2gen_kg":
+        n_scales = (cfg.model.task_kwargs or {}).get("num_scales", 5)
+        if si.get("graph"):
+            g = side.load_graph_npz(si["graph"], num_scales=n_scales)
+        else:
+            embed = side.make_text_embedder(tok, dim=si.get("dim", 64),
+                                            seed=seed, device=device)
+            g = side.synthesize_graph_artifacts(
+                [s.report for s in ann["train"]], embed,
+                num_scales=n_scales, base_nodes=si.get("base_nodes", 8),
+                edges_per_scale=si.get("edges_per_scale", 64),
+                disease_bank_size=si.get("disease_bank_size", 64),
+                seed=seed,
+            )
+        nf = [on_device(x) for x in g["node_feats"]]
+        ei = [on_device(x) for x in g["edge_indices"]]
+        et = [on_device(x) for x in g["edge_types"]]
+        bank = on_device(g["disease_bank"])
+        return TaskAdapter(
+            loss_args=lambda b: (b["images"], nf, ei, et, bank, *base(b),
+                                 *tgt(b)),
+            gen_args=lambda b: (b["images"], nf, ei, et, bank, *base(b)),
+            side={**{f"{k}_{i}": t for k, ts in (
+                ("node_feats", nf), ("edge_index", ei), ("edge_type", et))
+                for i, t in enumerate(ts)}, "disease_bank": bank},
+            side_dims={"node_dim": nf[0].shape[1],
+                       "bank_dim": bank.shape[1]},
+        )
     return TaskAdapter(
-        loss_args=lambda b: (b["images"], *base(b), b["target_ids"],
-                             b["target_mask"]),
+        loss_args=lambda b: (b["images"], *base(b), *tgt(b)),
         gen_args=lambda b: (b["images"], *base(b)),
     )
 
@@ -314,8 +390,10 @@ def evaluate_mrg(batcher: MRGBatcher, tok, gen_fn, device,
 
 
 def fit_mrg(cfg: RunConfig, device="cuda", on_start=None) -> dict:
-    """SFT of R2GenGPT or R2GenCSR: returns the last validation's scores (and
-    ``val_score``), or the scores of an eval-only run.
+    """SFT of R2GenGPT, R2GenCSR, AM-MRG or R2GenKG: returns the last
+    validation's scores (and ``val_score``), or the scores of an eval-only
+    run. Where the task has side inputs, ``log.txt`` gets their shapes and
+    the seconds that building them took (``side_s``).
 
     ``on_start(model, state)``, when given, is called once the model and
     the train state are built, before the first step, so that a caller
@@ -332,17 +410,28 @@ def fit_mrg(cfg: RunConfig, device="cuda", on_start=None) -> dict:
             "train.mesh_model > 1: tensor parallelism is not ported yet "
             "(ROADMAP.md, queue 1, slice 6, item 18)"
         )
-    ad = make_task_adapter(cfg)
+    _check_ported(cfg.model.task)
     device = torch.device(device)
     os.makedirs(t.save_dir, exist_ok=True)
     logger = JsonlLogger(t.save_dir)
-    ann, tok, batcher, _ = build_data(cfg)
-    model = build_mrg_model(cfg, tok.vocab_size, device=device).eval()
+    ann, tok, batcher, loader = build_data(cfg)
+    t0 = time.perf_counter()
+    ad = make_task_adapter(cfg, ann, tok, loader, device)
+    if ad.side:
+        logger.write({"side_inputs": {k: list(v.shape)
+                                      for k, v in ad.side.items()},
+                      "side_s": time.perf_counter() - t0})
+    model = build_mrg_model(cfg, tok.vocab_size, device=device,
+                            side_dims=ad.side_dims).eval()
     init_params(model, torch.Generator(device).manual_seed(t.seed))
     if cfg.model.vision_init:
-        # the stage-1/2 pretrain -> SFT tower graft (ckpt/bridge.py)
+        # the stage-1/2 pretrain -> SFT tower graft (ckpt/bridge.py):
+        # AM-MRG holds a bare ARM at "vision", the others a VisionEncoder
+        bare = cfg.model.task == "am_mrg"
         apply_vision_init(flax_named_parameters(model), cfg.model.vision_init,
-                          cfg.model.vision, ("vision", cfg.model.vision))
+                          "arm" if bare else cfg.model.vision,
+                          ("vision",) if bare else ("vision",
+                                                    cfg.model.vision))
     gcfg = dataclasses.replace(cfg.generate, eos_id=tok.EOS)
     print("[fit_mrg] data ready, params initialized", flush=True)
 
@@ -833,8 +922,9 @@ def fit(cfg: RunConfig, device="cuda", on_start=None) -> dict:
     """The JAX package's dispatch by ``model.task``: ``mae`` to
     :func:`fit_mae`; ``ar`` to :func:`fit_ar`; ``clip`` to
     :func:`fit_clip`; ``swinchex`` and ``dp`` to :func:`fit_classify`;
-    r2gengpt and r2gencsr to :func:`fit_mrg`, which raises for the tasks
-    not ported yet."""
+    r2gengpt, r2gencsr, am_mrg and r2gen_kg to :func:`fit_mrg`, which
+    raises for the tasks not ported yet (``emrrg``, ``mac_rrg``, ``r2gen``,
+    ``mamba_lm_sft``)."""
     recipes = {"mae": fit_mae, "ar": fit_ar, "clip": fit_clip}
     if cfg.model.task in recipes:
         return recipes[cfg.model.task](cfg, device, on_start)

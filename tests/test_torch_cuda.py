@@ -390,8 +390,9 @@ def test_xdbl_is_deterministic(cuda):
     (64, 1, torch.bfloat16, True, 80),
     (128, 1, torch.float32, True, 80),   # ARM-B from 4 images
     (128, 1, torch.bfloat16, True, 80),
+    (64, 1, torch.float32, True, 96),    # ARM-L (AM-MRG)
 ], ids=["s0", "s1", "s3", "arm-b", "arm-b-bf16", "arm-b-128",
-        "arm-b-128-bf16"])
+        "arm-b-128-bf16", "arm-l"])
 def test_xdbl_occupancy(cuda, rows, dirs, dtype, use_conv, c):
     """At the tiles ``xdbl_tile`` picks on the main paths the kernel keeps
     at least its ``_XDBL_BLOCKS`` blocks an SM (its register cap), within
@@ -1207,6 +1208,144 @@ def test_swin_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         sb.swin_attn_fwd(x[:100].contiguous(), *w, bias, mask, 6)
     with pytest.raises(TypeError, match="dtype"):
         sb.swin_attn_fwd(x.double(), *w, bias, mask, 6)
+
+
+# AM-MRG's bank chain: the small SwinCheX (embed 16, heads (2, 2), window 4)
+# whose stage 0 has heads of 8, over 224^2 images (196 windows of 16 tokens
+# an image at stage 0, 49 at stage 1).
+BANK_SWIN = dict(embed_dim=16, depths=(1, 1), num_heads=(2, 2),
+                 window_size=4, drop_path_rate=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("nw", [196, 1], ids=["shifted", "unshifted"])
+def test_swin_attn_kernel_at_head_width_8_matches_plain(cuda, dtype, nw):
+    """Two images of the bank chain's stage 0 (392 windows of 16 tokens,
+    C = 16, 2 heads of 8), with the shift mask of a 56^2 map or none."""
+    from medical_image_analysis_tpu_torch.models.swin import _shift_attn_mask
+    from medical_image_analysis_tpu_torch.ops import swin_block as sb
+
+    gen = torch.Generator(cuda).manual_seed(nw)
+
+    def t(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(*shape, device=cuda, generator=gen) * scale
+                + shift)
+
+    d, heads = 16, 2
+    x = t(392, 16, d).to(dtype)
+    w = [a.to(dtype) for a in (t(d, 3 * d, scale=d**-0.5), t(3 * d, scale=0.1),
+                               t(d, d, scale=d**-0.5), t(d, scale=0.1),
+                               t(d, scale=0.1, shift=1.0), t(d, scale=0.1))]
+    bias = t(heads, 16, 16, scale=0.5)
+    mask = (torch.from_numpy(_shift_attn_mask(56, 56, 4, 2)).to(cuda)
+            if nw > 1 else torch.zeros(1, 16, 16, device=cuda))
+    sb.reset_launches()
+    got = sb.swin_attn_fwd(x, *w, bias, mask, heads)
+    torch.cuda.synchronize()
+    assert sb.launches["swin_attn_fwd"] == 1
+    want = sb.swin_attn_block_plain(x, *w, bias, mask, heads)
+    assert got.shape == x.shape and got.dtype == dtype
+    err = (got.float() - want.float()).abs().max().item()
+    scale = max(1.0, want.float().abs().max().item())
+    assert err <= SWIN_RTOL[dtype] * scale, (err, scale)
+
+
+@pytest.mark.cuda
+def test_bank_chain_grad_cam_through_kernel_matches_plain(cuda):
+    """``swin_grad_cam`` over the bank chain's SwinCheX at 224^2: its
+    tokens (no gradient) through the kernel, one call a block, against
+    ``set_fused(model, False)``; the cam within 1e-4 likewise."""
+    from medical_image_analysis_tpu_torch.models.swin import (
+        SwinCheX,
+        SwinTransformer,
+    )
+    from medical_image_analysis_tpu_torch.ops import swin_block as sb
+    from medical_image_analysis_tpu_torch.utils.cam import swin_grad_cam
+
+    gen = torch.Generator(cuda).manual_seed(3)
+    model = SwinCheX(SwinTransformer(**BANK_SWIN, img_size=224, device=cuda),
+                     14, device=cuda)
+    init_params(model, gen)
+    x = torch.randn(4, 224, 224, 3, device=cuda, generator=gen)
+    sb.reset_launches()
+    got = swin_grad_cam(model, x, 5)
+    torch.cuda.synchronize()
+    assert sb.launches["swin_attn_fwd"] == 2
+    set_fused(model, False)
+    want = swin_grad_cam(model, x, 5)
+    set_fused(model, True)
+    assert sb.launches["swin_attn_fwd"] == 2
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        err, scale = _err(g, w)
+        assert err <= 1e-4 * scale, (err, scale)
+
+
+@pytest.mark.cuda
+def test_rgcn_conv_is_deterministic(cuda):
+    """R2GenKG's largest scale (40 nodes and the dummy row, 768 wide, 64
+    edges of which 20 pads): two forwards and two backwards give the same
+    bits (one-hot products, no atomics)."""
+    from medical_image_analysis_tpu_torch.models.rgcn import rgcn_conv
+
+    gen = torch.Generator(cuda).manual_seed(4)
+    h = torch.randn(41, 768, device=cuda, generator=gen)
+    h[40] = 0.0
+    ei = torch.full((2, 64), 40, dtype=torch.int32, device=cuda)
+    ei[:, :44] = torch.randint(0, 40, (2, 44), device=cuda, generator=gen,
+                               dtype=torch.int32)
+    et = torch.zeros(64, dtype=torch.int32, device=cuda)
+    et[:44] = torch.randint(0, 3, (44,), device=cuda, generator=gen,
+                            dtype=torch.int32)
+    w_rel = (torch.randn(3, 768, 768, device=cuda, generator=gen)
+             / 48).requires_grad_()
+    w_self = (torch.randn(768, 768, device=cuda, generator=gen)
+              / 28).requires_grad_()
+    x = h.requires_grad_()
+    cot = torch.randn(41, 768, device=cuda, generator=gen)
+    runs = []
+    for _ in range(2):
+        y = rgcn_conv(torch.relu(rgcn_conv(x, ei, et, w_rel, w_self)), ei, et,
+                      w_rel, w_self)
+        runs.append((y, *torch.autograd.grad(y, (x, w_rel, w_self), cot)))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+# ARM-L's fused layer in AM-MRG: K=4, D=1024, N=16, dt rank 64 (C = 96),
+# at a short L with the x_dbl tile that xdbl_tile picks at L=197 for the
+# serving image (B=1) and the training step's 12 images.
+ARM_L = dict(k_dirs=4, d=1024, n=16, r=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b", [1, 12], ids=["b1", "b12"])
+def test_arm_large_kernels_match_plain(cuda, monkeypatch, dtype, b):
+    k, d, n, r = ARM_L.values()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    tile = mf.xdbl_tile(b, k, 197, d, r + 2 * n, sms)
+    monkeypatch.setattr(mf, "xdbl_tile", lambda *a, **kw: tile)
+    l = 37
+    xr, xc, w = _inputs(cuda, dtype, k, b, l, d, n, r, seed=b)
+    xargs = (xr, xc, w["conv_w"], w["conv_b"], w["x_proj_w"], True)
+    got_x, want_x = mf.xdbl_fwd(*xargs), mf.xdbl_plain(*xargs)
+    err, scale = _err(got_x, want_x)
+    assert got_x.shape == (b * k, l, r + 2 * n) and err <= 1e-4 * scale
+    sargs = (xr, xc, want_x, w["conv_w"], w["conv_b"], w["dt_proj_w"],
+             w["dt_bias"], w["A"], w["D"], True, True)
+    err, scale = _err(mf.scan_fwd(*sargs), mf.scan_plain(*sargs))
+    assert err <= Y_RTOL[dtype] * scale, (err, scale)
+    dy = torch.randn(b, k, l, d, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(b))
+    bargs = (*sargs[:9], dy.to(dtype), True, True)
+    for name, g, wv in zip(BWD_OUTPUTS, mf.scan_bwd(*bargs),
+                           mf.scan_bwd_plain(*bargs)):
+        err, scale = _err(g, wv)
+        assert err <= BWD_RTOL * scale, (name, err, scale)
 
 
 # --------------------------------------------------------------------------

@@ -495,9 +495,11 @@ def test_xdbl_timing_tool_names_the_kernel():
         assert any(name.startswith(p) for p in tool.TOWER_KERNELS), name
     assert set(tool.LAUNCHES) == (
         {("arm-b", b) for b in (1, 6, 12, 4)}
-        | {(f"vssm_tiny_s{s}", b) for s in range(4) for b in (128, 64)})
-    # the 333 launches of chip_smoke.py's kernels line (PERF.md 6)
-    assert sum(tool.LAUNCHES.values()) == 333
+        | {(f"vssm_tiny_s{s}", b) for s in range(4) for b in (128, 64)}
+        | {("arm-l", b) for b in (12, 4)})
+    # chip_smoke.py's launches of r2gengpt_mimic and vssm_classify (333)
+    # and of am_mrg_mimic's ARM-L (288) (PERF.md 6)
+    assert sum(tool.LAUNCHES.values()) == 333 + 288
 
 
 def _profile_tool(name):

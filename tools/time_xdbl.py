@@ -11,7 +11,10 @@ Times the checkout this script sits in:
   training micro-batch (B=6), fp32 and bf16 sources, and at validation's
   12 and 4 images, fp32; and at vssm_tiny's four stages (K=4, no conv; L,
   D, C = 3,136, 192, 38 / 784, 384, 44 / 196, 768, 56 / 49, 1,536, 80)
-  at ``vssm_classify``'s B=128 and its validation's 64, fp32. Random
+  at ``vssm_classify``'s B=128 and its validation's 64, fp32; and at
+  AM-MRG's ARM-L layer (K=4, L=197, D=1,024, C=96: dt rank 64, a conv of
+  4 taps) at its training step's 12 images, validation's 4 and one
+  image, fp32. Random
   inputs from seed 0 (sources N(0, 1), silu(N(0, 1)) for vssm_tiny as
   SS2D feeds them; weights N(0, 1/D)). For each: the CUDA-event ms of
   ``chip_smoke.device_ms`` (the median of ``RUNS`` timings of 20 calls,
@@ -68,6 +71,8 @@ RUNS = 3  # CUDA-event timings of a case, one after the other
 # ARM-B's layer: directions, L (196 patches + cls), d_inner, C = R + 2N,
 # conv taps.
 ARM_B = (4, 197, 768, 80, 4)
+# ARM-L's layer (AM-MRG): C = 64 + 2 x 16.
+ARM_L = (4, 197, 1024, 96, 4)
 # vssm_tiny's C = R + 2N by stage (R = ceil(d_model / 16), N = 16).
 VSSM_C = (38, 44, 56, 80)
 # The main paths' launches of each shape, as ROADMAP 2b reckons them: a
@@ -80,6 +85,9 @@ LAUNCHES = {("arm-b", 1): 36, ("arm-b", 6): 240, ("arm-b", 12): 12,
             ("arm-b", 4): 12}
 LAUNCHES.update({(f"vssm_tiny_s{s}", b): n * (2 if b == 128 else 1)
                  for s, n in enumerate((2, 2, 5, 2)) for b in (128, 64)})
+# am_mrg_mimic: 5 steps of 12 images (24 layers, remat: 240) and a
+# validation of 12 and 4 images (24 each).
+LAUNCHES.update({("arm-l", 12): 264, ("arm-l", 4): 24})
 # (rows, directions a block, ranges of D) that --sweep forces; the ranges
 # only where one range leaves SMs idle
 TILES = ((64, 2, 1), (64, 1, 1), (128, 2, 1), (128, 1, 1))
@@ -104,6 +112,12 @@ def _cases(dev, gen, batches_vssm):
         x = randn(b, seq_len, d_in).to(dtype)
         xc = randn(b, seq_len, d_in).to(dtype)  # the column-major source
         cases.append(("arm-b", b, dtype, (x, xc, *arm_w, True)))
+    k_dirs, seq_len, d_in, c, taps = ARM_L
+    arm_w = (randn(k_dirs, taps, d_in) * 0.5, randn(k_dirs, d_in) * 0.5,
+             randn(k_dirs, c, d_in) * d_in ** -0.5)
+    for b in (12, 4, 1):
+        x, xc = randn(b, seq_len, d_in), randn(b, seq_len, d_in)
+        cases.append(("arm-l", b, torch.float32, (x, xc, *arm_w, True)))
     import chip_smoke as cs
 
     for b in batches_vssm:
