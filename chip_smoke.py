@@ -253,6 +253,34 @@ raises (exit code 1):
                launches a batch).
    ``kernels_swin`` (14) also holds the bank chain's SwinCheX stages:
                heads of 8 and of 16 over windows of 16 tokens.
+28. kernels_emrrg -- the fused layer's three kernels against their plain
+               versions at EMRRG's training shape (ARM-B: K=4, L=197, D=768,
+               N=16, R=48; 12 images, fp32), as ``kernels_ar`` prints them
+               (its rows join the kernels line with a ``case`` key).
+29. train_emrrg -- the ``emrrg_iu`` preset at full width (ARM-B, the
+               hybrid gated cross-attention decoder on ``qwen1_5_0_5b``:
+               frozen but for its six hybrid layers, whose tensors train as
+               fp32 masters; no LoRA, no remat; 6 studies x 2 views, the
+               LLM at Qwen1.5's vocabulary) through ``cli.train.main``: 5
+               steps and one validation at the preset's beam 3, 60 to 100
+               tokens; the checks of ``train``, the masters' and the frozen
+               kernels' dtypes, launches reckoned.
+30. train_emrrg_grads -- one batch: every trainable tensor's gradient
+               (the tower, ``proj``, ``fast_proj``, the hybrid layers)
+               through the kernels against ``scan_backend="plain"``, the
+               LLM computing in fp32 for the check.
+31. kernels_r2gen -- the four ViT kernels against their plain versions at
+               R2Gen's training shape (ViT-B/16: B=32, L=197, 12 heads,
+               fp32), every output, with the bound and the library
+               compositions' times (rows in the kernels line).
+32. train_r2gen -- the ``r2gen_iu`` preset at full width (ViT-B/16 at
+               224^2 and R2Gen of d_model 512, 3 layers, 8 heads, 3 memory
+               slots, 16 studies x 2 views) through ``cli.train.main``: 2
+               steps and one validation at beam 3, 60 tokens (each step
+               re-decodes the prefix); launches reckoned. Then
+               ``train_r2gen_grads``: one batch's tokens, loss and ViT
+               gradients (one cotangent at the tokens) through the ViT
+               kernels against ``set_fused(model, False)``.
 
 Bounds: the largest of the bytes at the HBM rate, the matrix products at
 the tensor-core rate of their operand type (fp32 in 3xTF32, 165 TFLOP/s;
@@ -269,6 +297,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import dataclasses
 import gc
 import io
 import itertools
@@ -280,6 +309,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -1087,9 +1117,11 @@ def _train_through_cli(argv: list[str], save_dir: Path, device: str,
     if validated:
         _check(len(vals) == 1, "validation missing")
     if validated and not classify:
+        # fit_r2gen, as the JAX recipe, keeps no best copy
         deltas = sorted(save_dir.glob("checkpoint_epoch0_*.pt"))
         _check(len(deltas) == 1
-               and (save_dir / "checkpoint_best.pt").exists(),
+               and (cfg["model"]["task"] == "r2gen"
+                    or (save_dir / "checkpoint_best.pt").exists()),
                "delta checkpoint not written")
     moved = sum(not torch.equal(p, seen["trainable"][n])
                 for n, p in state.params.items())
@@ -1623,14 +1655,15 @@ def _dtype_name(dtype) -> str:
     return "fp32" if dtype == torch.float32 else "bf16"
 
 
-def phase_kernels_vit(dev, gen) -> dict:
-    """Both forward kernels against their plain versions at ``VIT_CASES``;
-    returns the JSON rows (``VIT_ROWS``: mae_hd_1280's encoder and decoder,
-    B=16, fp32)."""
+def phase_kernels_vit(dev, gen, cases=VIT_CASES, row_keys=VIT_ROWS,
+                      phase: str = "kernels_vit") -> dict:
+    """Both forward kernels against their plain versions at ``cases``;
+    returns the JSON rows of ``row_keys`` (by default ``VIT_ROWS``:
+    mae_hd_1280's encoder and decoder, B=16, fp32)."""
     from medical_image_analysis_tpu_torch.ops import vit_block as vb
 
     rows = {}
-    for b, l, d, heads, dtype in VIT_CASES:
+    for b, l, d, heads, dtype in cases:
         weights = _vit_weights(d, heads, dtype, dev, gen)
         x = torch.randn(b, l, d, device=dev, generator=gen).to(dtype)
         for kind in ("attn", "mlp"):
@@ -1652,14 +1685,14 @@ def phase_kernels_vit(dev, gen) -> dict:
                           iters, iters)
             lib_ms = device_ms(lambda: library(*args), iters)
             bound = _bound([*args, got], work, dtype)
-            _phase("kernels_vit", kernel=f"vit_{kind}_fwd", B=b, L=l, d=d,
+            _phase(phase, kernel=f"vit_{kind}_fwd", B=b, L=l, d=d,
                    heads=heads, dtype=_dtype_name(dtype), err=f"{err:.3e}",
                    ms=f"{t['kernel']:.4f}", plain_ms=f"{t['plain']:.4f}",
                    library_ms=f"{lib_ms:.4f}", bound_ms=f"{bound[0]:.4f}",
                    bound_by=bound[1], bound_on=bound[2],
                    tflops=f"{ops / t['kernel'] / 1e9:.2f}")
-            if dtype == torch.float32 and (b, l) in VIT_ROWS:
-                rows[f"vit_{kind}_fwd{VIT_ROWS[b, l][0]}"] = (
+            if dtype == torch.float32 and (b, l) in row_keys:
+                rows[f"vit_{kind}_fwd{row_keys[b, l][0]}"] = (
                     err, t["kernel"], t["plain"], *bound[:2], lib_ms)
             del got
     return rows
@@ -1731,15 +1764,16 @@ def _vit_parts(fn, what: str, names=VIT_PARTS) -> dict:
            f"profiles")
 
 
-def phase_kernels_vit_bwd(dev, gen) -> dict:
+def phase_kernels_vit_bwd(dev, gen, cases=VIT_CASES, row_keys=VIT_ROWS,
+                          phase: str = "kernels_vit_bwd") -> dict:
     """Both backward kernels against the plain backwards at the fp32
-    cases, every output; ms of the kernel, of the plain backward and of the
-    library composition's forward + backward. Returns the JSON rows
-    (``VIT_ROWS``)."""
+    ``cases``, every output; ms of the kernel, of the plain backward and of
+    the library composition's forward + backward. Returns the JSON rows of
+    ``row_keys``."""
     from medical_image_analysis_tpu_torch.ops import vit_block as vb
 
     rows = {}
-    for b, l, d, heads, dtype in VIT_CASES:
+    for b, l, d, heads, dtype in cases:
         if dtype != torch.float32:
             continue
         weights = _vit_weights(d, heads, dtype, dev, gen)
@@ -1771,7 +1805,7 @@ def phase_kernels_vit_bwd(dev, gen) -> dict:
             lib_ms = device_ms(lambda: torch.autograd.grad(
                 library(*lib_leaves), lib_leaves, dy), iters)
             bound = _bound([*args, dy, *got], work)
-            _phase("kernels_vit_bwd", kernel=f"vit_{kind}_bwd", B=b, L=l,
+            _phase(phase, kernel=f"vit_{kind}_bwd", B=b, L=l,
                    d=d, heads=heads,
                    errs=json.dumps({k: f"{v:.3e}" for k, v in errs.items()},
                                    separators=(",", ":")),
@@ -1781,8 +1815,8 @@ def phase_kernels_vit_bwd(dev, gen) -> dict:
                    tflops=f"{ops / t['kernel'] / 1e9:.2f}")
             row = (max(errs.values()), t["kernel"], t["plain"], *bound[:2],
                    lib_ms)
-            if (b, l) in VIT_ROWS:
-                rows[f"vit_{kind}_bwd{VIT_ROWS[b, l][0]}"] = row
+            if (b, l) in row_keys:
+                rows[f"vit_{kind}_bwd{row_keys[b, l][0]}"] = row
             if kind == "attn" and b * l * d > 10**7 and dev.type == "cuda":
                 parts = _vit_parts(lambda: kernel(*args, dy), "vit_attn_bwd")
                 _phase("kernels_vit_bwd_parts", kernel="vit_attn_bwd", B=b,
@@ -2965,23 +2999,31 @@ ARM_L_CASE = "am_mrg ARM-L B=12 L=197"
 # Validation's generated length in the two phases (the presets ask for 80
 # to 120 tokens of beam 3; the LLM and its beam are those of ``train``)
 MRG_GEN = ("generate.max_new_tokens=40", "generate.min_new_tokens=20")
-# The key biases, and the Hopfield memories' stored-pattern norm biases:
-# gradients of 0 in exact arithmetic (no update step reads the keys)
-ZERO_GRAD = re.compile(r"(/|^)(key|k|k_proj|norm_stored)/bias$")
+# The key biases (R2Gen's memory's ``attn_k`` too), and the Hopfield
+# memories' stored-pattern norm biases: gradients of 0 in exact arithmetic
+# (no update step reads the keys)
+ZERO_GRAD = re.compile(r"(/|^)(key|k|k_proj|attn_k|norm_stored)/bias$")
 
 
-def _side_record(save_dir: Path) -> dict:
-    """The side inputs' shapes and build seconds that ``fit_mrg`` logs."""
+def _side_record(save_dir: Path) -> dict | None:
+    """The side inputs' shapes and build seconds that ``fit_mrg`` logs, if
+    the task has side inputs."""
     with open(save_dir / "log.txt") as f:
-        return next(r for r in map(json.loads, f) if "side_inputs" in r)
+        return next((r for r in map(json.loads, f) if "side_inputs" in r),
+                    None)
 
 
 def _mrg_through_cli(preset: Path, vocab: int, save_dir: Path, device: str,
-                     overrides=()) -> dict:
-    sets = ("data.dataset=synthetic", f"model.llm_kwargs.vocab_size={vocab}",
-            "train.epochs=1", "train.save_state_every_epochs=2",
-            "train.log_every=1", f"train.save_dir={save_dir}", *MRG_GEN,
-            *overrides)
+                     overrides=(), gen=MRG_GEN) -> dict:
+    """A report-generation preset on the synthetic data for one epoch and
+    one validation through the CLI, at the LLM vocabulary ``vocab`` (None:
+    the preset has no LLM) and the generation settings ``gen`` (the
+    preset's own where empty); returns ``_train_through_cli``'s result with
+    the ``--set`` items and the side-input record."""
+    llm = () if vocab is None else (f"model.llm_kwargs.vocab_size={vocab}",)
+    sets = ("data.dataset=synthetic", *llm, "train.epochs=1",
+            "train.save_state_every_epochs=2", "train.log_every=1",
+            f"train.save_dir={save_dir}", *gen, *overrides)
     argv = ["--config", str(preset)]
     for item in sets:
         argv += ["--set", item]
@@ -3073,37 +3115,24 @@ def phase_train_am_mrg_grads(model, state, sets) -> None:
     img = encode().detach().requires_grad_()
     (cotangent,) = torch.autograd.grad(loss_of(img), img)
     grads, secs = {}, {}
-    for backend in ("auto", "plain"):
+    for path, backend in (("kernel", "auto"), ("plain", "plain")):
         set_scan_backend(model, backend)
         mf.reset_launches()
         t0 = time.perf_counter()
-        grads[backend] = torch.autograd.grad(encode(), tensors, cotangent)
+        grads[path] = torch.autograd.grad(encode(), tensors, cotangent)
         _sync(dev)
-        secs[backend] = time.perf_counter() - t0
-        if backend == "auto" and dev.type == "cuda":
+        secs[path] = time.perf_counter() - t0
+        if path == "kernel" and dev.type == "cuda":
             depth = len(model.vision.layers)
             _check(mf.launches == {"mamba_xdbl": 2 * depth,
                                    "mamba_scan": 2 * depth,
                                    "mamba_scan_bwd": depth},
                    f"train_am_mrg_grads launches {mf.launches}")
     set_scan_backend(model, "auto")
-    zero = [i for i, n in enumerate(names) if ZERO_GRAD.search(n)]
-    rest = [i for i in range(len(names)) if i not in zero]
-    rel, at = _worst_rel([names[i] for i in rest],
-                         [grads["auto"][i] for i in rest],
-                         [grads["plain"][i] for i in rest])
-    largest = max(g.abs().max().item() for g in grads["plain"])
-    noise = max(grads[k][i].abs().max().item() for k in grads
-                for i in zero) / largest
-    _check(rel <= TOWER_RTOL,
-           f"grad of {at}: max rel err {rel:.3e} > {TOWER_RTOL}")
-    _check(noise <= TOWER_RTOL,
-           f"zero-gradient tensors: {noise:.3e} of the largest gradient")
-    _phase("train_am_mrg_grads", tensors=len(names), zero_grad=len(zero),
+    _phase("train_am_mrg_grads",
+           **_grads_vs_plain(names, grads, "train_am_mrg_grads"),
            images=b["images"].shape[0] * b["images"].shape[1],
-           max_rel_err=f"{rel:.3e}", at=at, bound=TOWER_RTOL,
-           zero_grad_rel=f"{noise:.3e}", kernel_s=f"{secs['auto']:.3f}",
-           plain_s=f"{secs['plain']:.3f}")
+           kernel_s=f"{secs['kernel']:.3f}", plain_s=f"{secs['plain']:.3f}")
 
 
 def phase_train_r2genkg(vocab: int, save_dir: Path, device: str = "cuda",
@@ -3128,6 +3157,278 @@ def phase_train_r2genkg(vocab: int, save_dir: Path, device: str = "cuda",
            graph=_compact(run["side"]["side_inputs"]),
            side_s=f"{run['side']['side_s']:.2f}", **run["fields"])
     return run
+
+
+EMRRG_PRESET = PRESET.parent / "emrrg_iu.yaml"
+R2GEN_PRESET = PRESET.parent / "r2gen_iu.yaml"
+# EMRRG trains ARM-B at 6 studies x 2 views a step, without remat: the fused
+# layer's (name, K, B, L) there
+EMRRG_SHAPES = (("emrrg", 4, 12, 197),)
+EMRRG_CASE = "emrrg_iu ARM-B B=12 L=197"
+# R2Gen trains ViT-B/16 at 16 studies x 2 views of 224^2 (196 patches + cls)
+R2GEN_VIT_CASES = ((32, 197, 768, 12, torch.float32),)
+R2GEN_ROWS = {(32, 197): ("_r2gen", "r2gen_iu ViT-B/16 B=32 L=197")}
+
+
+def phase_kernels_emrrg(dev, gen) -> dict:
+    """The fused layer's three kernels at EMRRG's training shape (ARM-B,
+    K=4, L=197, D=768, N=16, R=48, 12 images, fp32) against their plain
+    versions, timed in turns (``_fused_cases``); returns the rows for the
+    kernels line."""
+    rows = _fused_cases(dev, gen, "kernels_emrrg", EMRRG_SHAPES)
+    return {f"{k}_emrrg": v for k, v in rows[EMRRG_SHAPES[0][0]].items()}
+
+
+def phase_kernels_r2gen(dev, gen) -> dict:
+    """The four ViT kernels against their plain versions at R2Gen's
+    training shape (ViT-B/16: B=32, L=197, d=768, 12 heads, fp32), every
+    output, with the bound and the ``attn_library``/``mlp_library``
+    compositions' times; returns the rows for the kernels line."""
+    rows = phase_kernels_vit(dev, gen, R2GEN_VIT_CASES, R2GEN_ROWS,
+                             "kernels_r2gen")
+    rows.update(phase_kernels_vit_bwd(dev, gen, R2GEN_VIT_CASES, R2GEN_ROWS,
+                                      "kernels_r2gen_bwd"))
+    return rows
+
+
+def phase_train_emrrg(vocab: int, save_dir: Path, device: str = "cuda",
+                      overrides=()) -> dict:
+    """The emrrg_iu preset at full width (ARM-B; qwen1_5_0_5b frozen but for
+    its hybrid layers 0, 4, ..., 20; no LoRA, no remat; 6 studies x 2
+    views) through the CLI: 5 steps and one validation at the preset's
+    beam 3 and 100 new tokens (at least 60). The trainable LLM tensors are
+    fp32 masters, the frozen ones in the LLM's dtype. Launches: each ARM-B
+    layer's two forward kernels once a step and once a validation batch,
+    its backward once a step."""
+    run = _mrg_through_cli(EMRRG_PRESET, vocab, save_dir, device, overrides,
+                           gen=())
+    model, state = run["model"], run["state"]
+    n_steps, val_b = run["n_steps"], run["val_batches"]
+    depth = len(model.vision.layers)
+    lm = model.llm_cfg
+    hybrid = sorted({int(n.split("/")[1].split("_")[1])
+                     for n in state.params if n.startswith("llm/")})
+    _check(hybrid == list(range(0, lm.n_layers, model.cross_every)),
+           f"trainable LLM layers {hybrid}")
+    _check(all(p.dtype == torch.float32 for n, p in state.params.items()
+               if n.startswith("llm/")), "a trainable LLM tensor is not fp32")
+    _check(all(p.dtype == lm.dtype for n, p in state.frozen.items()
+               if n.startswith("llm/layers_") and n.endswith("/kernel")),
+           f"a frozen LLM kernel is not {lm.dtype}")
+    _fused_reckoning(run, "train_emrrg", depth, n_steps + val_b, n_steps,
+                     f"{depth} layers x ({n_steps} steps + {val_b} val "
+                     f"batches) forward, x {n_steps} steps backward (no "
+                     f"remat)")
+    g = run["cfg"]["generate"]
+    _phase("train_emrrg", preset=EMRRG_PRESET.name,
+           arm=f"{model.vision.norm_f.normalized_shape[0]}x{depth}",
+           llm=f"{lm.dim}x{lm.n_layers}", hybrid_layers=_compact(hybrid),
+           params=sum(p.numel() for p in model.parameters()),
+           gen=f"beam{g['num_beams']}_{g['min_new_tokens']}to"
+               f"{g['max_new_tokens']}", **run["fields"])
+    return run
+
+
+@contextmanager
+def _llm_compute(lm, dtype):
+    """The LM computing in ``dtype`` for the block (every ``Dense``'s
+    compute dtype and every config's ``dtype``), then as before."""
+    from medical_image_analysis_tpu_torch.models.llm import Dense
+
+    dense = [(m, m.compute_dtype) for m in lm.modules()
+             if isinstance(m, Dense)]
+    cfgs = [(m, m.cfg) for m in lm.modules() if hasattr(m, "cfg")]
+    try:
+        for m, _ in dense:
+            m.compute_dtype = dtype
+        for m, c in cfgs:
+            m.cfg = dataclasses.replace(c, dtype=dtype)
+        yield
+    finally:
+        for m, dt in dense:
+            m.compute_dtype = dt
+        for m, c in cfgs:
+            m.cfg = c
+
+
+def _grads_vs_plain(names, grads, phase: str) -> dict:
+    """The kernel path's gradients against the plain path's: the largest
+    relative error over ``names`` within TOWER_RTOL of each tensor's
+    largest, and those of 0 in exact arithmetic (``ZERO_GRAD``) within
+    TOWER_RTOL of the largest gradient. Returns the fields to print."""
+    zero = [i for i, n in enumerate(names) if ZERO_GRAD.search(n)]
+    rest = [i for i in range(len(names)) if i not in zero]
+    rel, at = _worst_rel([names[i] for i in rest],
+                         [grads["kernel"][i] for i in rest],
+                         [grads["plain"][i] for i in rest])
+    largest = max(g.abs().max().item() for g in grads["plain"])
+    noise = max((grads[k][i].abs().max().item() for k in grads
+                 for i in zero), default=0.0) / largest
+    _check(rel <= TOWER_RTOL,
+           f"{phase}: grad of {at}: max rel err {rel:.3e} > {TOWER_RTOL}")
+    _check(noise <= TOWER_RTOL,
+           f"{phase}: zero-gradient tensors at {noise:.3e} of the largest")
+    return dict(tensors=len(names), zero_grad=len(zero),
+                max_rel_err=f"{rel:.3e}", at=at, bound=TOWER_RTOL,
+                zero_grad_rel=f"{noise:.3e}")
+
+
+def _first_batch(preset: Path, sets, dev) -> dict:
+    """The first training batch of the preset's synthetic data, on
+    ``dev``."""
+    from medical_image_analysis_tpu_torch.configs.config import load_config
+    from medical_image_analysis_tpu_torch.train.loop import (
+        _device_batch,
+        build_data,
+    )
+
+    cfg = load_config(str(preset), [*sets, "data.num_workers=1"])
+    _, _, batcher, _ = build_data(cfg)
+    train_b = batcher("train")
+    try:
+        return _device_batch(next(train_b.batches(shuffle=False)), dev)
+    finally:
+        train_b.close()
+
+
+def phase_train_emrrg_grads(model, state, sets) -> None:
+    """One batch of EMRRG's data at full width (6 studies x 2 views): the
+    loss's gradient of every trainable tensor (ARM-B, ``proj_norm``,
+    ``proj``, ``fast_proj``, the hybrid layers) through the kernels against
+    ``scan_backend="plain"`` (``_grads_vs_plain``). For the check the LLM
+    computes in fp32: in bf16 it would round the two paths' 1e-6 gap in
+    the vision tokens into a few percent of every gradient."""
+    from medical_image_analysis_tpu_torch.models.mamba import set_scan_backend
+    from medical_image_analysis_tpu_torch.ops import mamba_fused as mf
+
+    dev = next(model.parameters()).device
+    b = _first_batch(EMRRG_PRESET, sets, dev)
+    names = list(state.params)
+    tensors = [state.params[n] for n in names]
+    depth = len(model.vision.layers)
+    grads, secs = {}, {}
+    with _llm_compute(model.llm, torch.float32):
+        for path, backend in (("kernel", "auto"), ("plain", "plain")):
+            set_scan_backend(model, backend)
+            mf.reset_launches()
+            t0 = time.perf_counter()
+            loss = model(b["images"], b["before_ids"], b["after_ids"],
+                         b["target_ids"], b["target_mask"])
+            grads[path] = torch.autograd.grad(loss, tensors)
+            _sync(dev)
+            secs[path] = time.perf_counter() - t0
+            del loss
+            if path == "kernel" and dev.type == "cuda":
+                _check(mf.launches == dict.fromkeys(mf.launches, depth),
+                       f"train_emrrg_grads launches {mf.launches}")
+    set_scan_backend(model, "auto")
+    fields = _grads_vs_plain(names, grads, "train_emrrg_grads")
+    _phase("train_emrrg_grads", **fields,
+           hybrid=sum(n.startswith("llm/") for n in names),
+           images=b["images"].shape[0] * b["images"].shape[1],
+           kernel_s=f"{secs['kernel']:.3f}", plain_s=f"{secs['plain']:.3f}")
+
+
+def phase_train_r2gen(save_dir: Path, device: str = "cuda",
+                      overrides=()) -> dict:
+    """The r2gen_iu preset at full width (ViT-B/16 at 224^2; R2Gen of
+    d_model 512, 3 layers, 8 heads, a relational memory of 3 slots; 16
+    studies x 2 views, fp32) through the CLI: 2 steps and one validation
+    at the preset's beam 3 and 60 new tokens, each step of which re-decodes
+    the prefix. Launches: each ViT block's two forward kernels once a step
+    and once a validation batch, its two backward kernels once a step."""
+    run = _mrg_through_cli(R2GEN_PRESET, None, save_dir, device, overrides,
+                           gen=())
+    model, n_steps, val_b = run["model"], run["n_steps"], run["val_batches"]
+    blocks = len(model.vision.vit.blocks)
+    _check_launches(
+        run, {**dict.fromkeys(("vit_attn_fwd", "vit_mlp_fwd"),
+                              (n_steps + val_b) * blocks),
+              **dict.fromkeys(("vit_attn_bwd", "vit_mlp_bwd"),
+                              n_steps * blocks)}, "train_r2gen",
+        f"{blocks} ViT blocks x ({n_steps} steps + {val_b} val batches) "
+        f"forward, x {n_steps} steps backward")
+    r, g = model.r2gen, run["cfg"]["generate"]
+    _phase("train_r2gen", preset=R2GEN_PRESET.name,
+           vit=f"{model.vision.out_dim}x{blocks}",
+           r2gen=f"{r.d_model}x{r.num_layers}", slots=r.rm.num_slots,
+           params=sum(p.numel() for p in model.parameters()),
+           gen=f"beam{g['num_beams']}_{g['max_new_tokens']}",
+           **run["fields"])
+    return run
+
+
+def phase_train_r2gen_grads(model, sets) -> None:
+    """One batch of R2Gen's data at full width (16 studies x 2 views): the
+    ViT's gradients through its kernels against the plain versions
+    (``set_fused(model, False)``), both driven by one cotangent at the
+    averaged patch tokens (``_grads_vs_plain``); the two paths' tokens and
+    losses within TOWER_RTOL as well.
+
+    That cotangent is the loss's gradient w.r.t. the tokens, taken once
+    (plain path), as ``train_grads`` takes it. Taken through the whole
+    model instead, the two paths' gradients differ by up to a few 1e-3 of
+    a tensor's largest: a ReLU of R2Gen (``enc_ff<i>a``, ``dec_ff<i>a``)
+    switches where its input lies within the tokens' 1e-6 gap of 0, and
+    each switch moves that layer's gradient by one token's share. A 1e-6
+    perturbation of the tokens does the same with no kernel in the way.
+    R2Gen is plain PyTorch on both paths; its whole-model gap is printed
+    (``e2e_``), not bounded."""
+    from medical_image_analysis_tpu_torch.ckpt.from_jax import (
+        flax_named_parameters,
+    )
+    from medical_image_analysis_tpu_torch.models.common import set_fused
+    from medical_image_analysis_tpu_torch.ops import vit_block as vb
+
+    dev = next(model.parameters()).device
+    b = _first_batch(R2GEN_PRESET, sets, dev)
+    named = flax_named_parameters(model)
+    names = [n for n in named if n.startswith("vision/")]
+    tensors = [named[n] for n in names]
+    everything = [n for n in named if not ZERO_GRAD.search(n)]
+    blocks = len(model.vision.vit.blocks)
+
+    def loss_of(att):
+        return model.report_loss(att, b["target_ids"], b["target_mask"])
+
+    set_fused(model, False)
+    att = model.att_feats(b["images"]).detach().requires_grad_()
+    (cotangent,) = torch.autograd.grad(loss_of(att), att)
+    del att
+    grads, feats, losses, e2e, secs = {}, {}, {}, {}, {}
+    for path, fused in (("kernel", True), ("plain", False)):
+        set_fused(model, fused)
+        vb.reset_launches()
+        t0 = time.perf_counter()
+        out = model.att_feats(b["images"])
+        grads[path] = torch.autograd.grad(out, tensors, cotangent)
+        _sync(dev)
+        secs[path] = time.perf_counter() - t0
+        if fused and dev.type == "cuda":
+            _check(vb.launches == dict.fromkeys(vb.launches, blocks),
+                   f"train_r2gen_grads launches {vb.launches}")
+        feats[path] = out.detach()
+        del out
+        loss = model(b["images"], b["target_ids"], b["target_mask"])
+        e2e[path] = torch.autograd.grad(loss, [named[n] for n in everything])
+        losses[path] = loss.item()
+        del loss
+    set_fused(model, True)
+    feat_rel = ((feats["kernel"] - feats["plain"]).abs().max()
+                / feats["plain"].abs().max()).item()
+    _check(feat_rel <= TOWER_RTOL,
+           f"train_r2gen_grads: tokens rel err {feat_rel:.3e} > {TOWER_RTOL}")
+    loss_rel = abs(losses["kernel"] - losses["plain"]) / abs(losses["plain"])
+    _check(loss_rel <= TOWER_RTOL,
+           f"train_r2gen_grads: loss rel err {loss_rel:.3e} > {TOWER_RTOL}")
+    fields = _grads_vs_plain(names, grads, "train_r2gen_grads")
+    e2e_rel, e2e_at = _worst_rel(everything, e2e["kernel"], e2e["plain"])
+    _phase("train_r2gen_grads", **fields,
+           images=b["images"].shape[0] * b["images"].shape[1],
+           tokens_rel_err=f"{feat_rel:.3e}",
+           loss=f"{losses['kernel']:.6f}", loss_rel_err=f"{loss_rel:.3e}",
+           e2e_max_rel_err=f"{e2e_rel:.3e}", e2e_at=e2e_at,
+           kernel_s=f"{secs['kernel']:.3f}", plain_s=f"{secs['plain']:.3f}")
 
 
 def main() -> None:
@@ -3250,7 +3551,23 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_kg_") as tmp:
         runs.append(phase_train_r2genkg(VOCAB, Path(tmp))["launches"])
 
-    # launches: the main paths' runs (serving, the thirteen trainings, the
+    # EMRRG and R2Gen
+    torch.cuda.empty_cache()
+    measured.update(phase_kernels_emrrg(dev, gen))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_emrrg_") as tmp:
+        em = phase_train_emrrg(VOCAB, Path(tmp))
+    phase_train_emrrg_grads(em["model"], em["state"], em["sets"])
+    runs.append(em["launches"])
+    del em
+    torch.cuda.empty_cache()
+    measured.update(phase_kernels_r2gen(dev, gen))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_r2gen_") as tmp:
+        r2 = phase_train_r2gen(Path(tmp))
+    phase_train_r2gen_grads(r2["model"], r2["sets"])
+    runs.append(r2["launches"])
+    del r2
+
+    # launches: the main paths' runs (serving, the fifteen trainings, the
     # ARM tower on scan_backend=pallas, the Attention module), each read
     # just after it was driven with the counts at 0
     main_runs = {name: sum(run.get(name, 0) for run in runs)
@@ -3259,8 +3576,10 @@ def main() -> None:
                for k in m.launches}
     kernels = []
     vit = ("vit_attn_fwd", "vit_mlp_fwd", "vit_attn_bwd", "vit_mlp_bwd")
-    cases = {**{name: list(VIT_ROWS.values()) for name in vit},
-             **{name: [("", None), ("_arm_l", ARM_L_CASE)] for name in (
+    cases = {**{name: [*VIT_ROWS.values(), *R2GEN_ROWS.values()]
+                for name in vit},
+             **{name: [("", None), ("_arm_l", ARM_L_CASE),
+                       ("_emrrg", EMRRG_CASE)] for name in (
                  "mamba_xdbl", "mamba_scan", "mamba_scan_bwd")}}
     for name in REPLACES:
         for suffix, case in cases.get(name, [("", None)]):

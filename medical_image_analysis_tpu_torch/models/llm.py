@@ -5,9 +5,12 @@ package has no kernel here; this is plain PyTorch.
 
 Numerics follow the flax modules: dense layers compute in ``cfg.dtype``
 (bf16 by default) and store their weights in it, which equals flax's
-cast of fp32 weights at every call; RMSNorm statistics and outputs are
-fp32; attention scores and softmax are fp32 (bf16 q.k products are exact
-in fp32); ``lm_head`` is fp32.
+cast of fp32 weights at every call while a weight is frozen. A tensor
+that trains keeps an fp32 master instead (``train.loop.fp32_masters``
+converts it), cast to ``cfg.dtype`` at each use as flax casts its fp32
+parameters: a bf16-stored weight would round most AdamW updates away.
+RMSNorm statistics and outputs are fp32; attention scores and softmax are
+fp32 (bf16 q.k products are exact in fp32); ``lm_head`` is fp32.
 
 KV caches are lists of per-layer tuples, as in the JAX package:
 ``(k, v, cur)`` for the joint cache and ``(kp, vp, kg, vg, cur)`` for the
@@ -74,10 +77,18 @@ def _rope(q, k, positions, theta: float):
 
 
 class Dense(nn.Linear):
-    """flax ``nn.Dense(dtype=...)``: input cast to the weight's dtype."""
+    """flax ``nn.Dense(dtype=...)``: the input, weight and bias cast to the
+    compute dtype, the dtype the layer was built in (an fp32 master of a
+    bf16 layer computes in bf16)."""
+
+    def __init__(self, *args, dtype=None, **kwargs):
+        super().__init__(*args, dtype=dtype, **kwargs)
+        self.compute_dtype = self.weight.dtype
 
     def forward(self, x):
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 def _dense(cfg: LLMConfig, d_in: int, d_out: int, bias: bool = False,
@@ -96,6 +107,12 @@ class LlamaAttention(nn.Module):
         self.o_proj = _dense(cfg, nh * hd, cfg.dim, False, device)
 
     def forward(self, x, positions, mask, layer_cache=None, beam=None):
+        _, out, new_cache = self.attend(x, positions, mask, layer_cache, beam)
+        return self.o_proj(out), new_cache
+
+    def attend(self, x, positions, mask, layer_cache=None, beam=None):
+        """(the un-rotated queries (B, L, nh, hd), the attention's output
+        before ``o_proj`` (B, L, nh * hd), the new layer cache)."""
         cfg = self.cfg
         b, l, _ = x.shape
         nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -103,7 +120,7 @@ class LlamaAttention(nn.Module):
         q = self.q_proj(x).reshape(b, l, nh, hd)
         k = self.k_proj(x).reshape(b, l, nkv, hd)
         v = self.v_proj(x).reshape(b, l, nkv, hd)
-        q, k = _rope(q, k, positions, cfg.rope_theta)
+        q_rot, k = _rope(q, k, positions, cfg.rope_theta)
 
         if layer_cache is not None and len(layer_cache) == 5:
             # Split beam cache: group-shared prompt segment + per-beam
@@ -118,9 +135,9 @@ class LlamaAttention(nn.Module):
                 )
             mask_p, mask_g = mask
             out = _split_ancestry_decode_attn(
-                q, kp, vp, kg, vg, mask_p, mask_g, beam, hd
-            ).reshape(b, l, nh * hd)
-            return self.o_proj(out), new_cache
+                q_rot, kp, vp, kg, vg, mask_p, mask_g, beam, hd
+            )
+            return q, out.reshape(b, l, nh * hd), new_cache
 
         if layer_cache is not None:
             ck, cv, cur = layer_cache  # (B, max_len, nkv, hd) x2, int
@@ -137,8 +154,14 @@ class LlamaAttention(nn.Module):
             v_all = v_all.repeat_interleave(rep, dim=2)
 
         if beam is not None and l == 1:
-            out = _ancestry_decode_attn(q, k_all, v_all, mask, beam, hd)
-            return self.o_proj(out.reshape(b, l, nh * hd)), new_cache
+            out = _ancestry_decode_attn(q_rot, k_all, v_all, mask, beam, hd)
+            return q, out.reshape(b, l, nh * hd), new_cache
+
+        attn = torch.einsum("blhd,bshd->bhls", q_rot.float(),
+                            k_all.float()) * hd**-0.5
+        attn = torch.softmax(attn + mask, dim=-1)
+        out = torch.einsum("bhls,bshd->blhd", attn.to(v_all.dtype), v_all)
+        return q, out.reshape(b, l, nh * hd), new_cache
 
         attn = torch.einsum("blhd,bshd->bhls", q.float(),
                             k_all.float()) * hd**-0.5
@@ -220,18 +243,24 @@ class LlamaMLP(nn.Module):
 
 
 class LlamaBlock(nn.Module):
-    def __init__(self, cfg: LLMConfig, device=None):
+    """Pre-norm decoder block. ``attn`` replaces ``LlamaAttention``
+    (EMRRG's hybrid layers); ``forward``'s extra keyword arguments go to
+    it."""
+
+    def __init__(self, cfg: LLMConfig, device=None, attn=None):
         super().__init__()
         self.input_layernorm = RMSNorm(cfg.dim, cfg.norm_eps, device=device)
-        self.self_attn = LlamaAttention(cfg, device=device)
+        self.self_attn = (attn if attn is not None
+                          else LlamaAttention(cfg, device=device))
         self.post_attention_layernorm = RMSNorm(cfg.dim, cfg.norm_eps,
                                                 device=device)
         self.mlp = LlamaMLP(cfg, device=device)
 
-    def forward(self, x, positions, mask, layer_cache=None, beam=None):
+    def forward(self, x, positions, mask, layer_cache=None, beam=None,
+                **cross):
         h = self.input_layernorm(x)
         attn_out, new_cache = self.self_attn(h, positions, mask, layer_cache,
-                                             beam)
+                                             beam, **cross)
         x = x + attn_out
         h = self.post_attention_layernorm(x)
         return x + self.mlp(h), new_cache
@@ -242,7 +271,11 @@ def _neg_inf_where_not(ok):
 
 
 class TransformerLM(nn.Module):
-    """Decoder-only LM. Accepts token ids or ``inputs_embeds``."""
+    """Decoder-only LM. Accepts token ids or ``inputs_embeds``.
+
+    ``make_layer(i)`` builds layer ``i`` (a ``LlamaBlock``); a subclass
+    may build others, and ``forward`` hands its extra keyword arguments to
+    the layers whose ``cross`` is true (``models/hybrid_decoder.py``)."""
 
     def __init__(self, cfg: LLMConfig, device=None):
         super().__init__()
@@ -250,7 +283,7 @@ class TransformerLM(nn.Module):
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.dim,
                                          device=device, dtype=cfg.dtype)
         self.layers = nn.ModuleList(
-            LlamaBlock(cfg, device=device) for _ in range(cfg.n_layers)
+            self.make_layer(i, device) for i in range(cfg.n_layers)
         )
         self.norm = RMSNorm(cfg.dim, cfg.norm_eps, device=device)
         self.lm_head = (
@@ -259,8 +292,11 @@ class TransformerLM(nn.Module):
                        dtype=torch.float32)
         )
 
+    def make_layer(self, i: int, device=None) -> nn.Module:
+        return LlamaBlock(self.cfg, device=device)
+
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
-        return self.embed_tokens(input_ids)
+        return self.embed_tokens(input_ids).to(self.cfg.dtype)
 
     def forward(
         self,
@@ -271,10 +307,11 @@ class TransformerLM(nn.Module):
         cache: list | None = None,
         cache_mask=None,  # (B, max_len) 1=valid slot
         beam=None,  # (B, nb, max_len) int ancestry
+        **cross,  # the hybrid layers' inputs (vision, text_mask)
     ):
         cfg = self.cfg
         if inputs_embeds is None:
-            inputs_embeds = self.embed_tokens(input_ids)
+            inputs_embeds = self.embed(input_ids)
         x = inputs_embeds.to(cfg.dtype)
         b, l, _ = x.shape
         dev = x.device
@@ -319,17 +356,19 @@ class TransformerLM(nn.Module):
         remat = cfg.remat and cache is None and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
             layer_cache = cache[i] if cache is not None else None
+            kw = cross if getattr(layer, "cross", False) else {}
             if remat:  # flax nn.remat(LlamaBlock)
-                x, lc = checkpoint(layer, x, positions, mask,
-                                   use_reentrant=False)
+                x, lc = checkpoint(layer, x, positions, mask, None, None,
+                                   **kw, use_reentrant=False)
             else:
-                x, lc = layer(x, positions, mask, layer_cache, beam)
+                x, lc = layer(x, positions, mask, layer_cache, beam, **kw)
             if new_cache is not None:
                 new_cache.append(lc)
 
         x = self.norm(x)
         if cfg.tie_embeddings:
-            logits = x.to(cfg.dtype) @ self.embed_tokens.weight.T
+            table = self.embed_tokens.weight.to(cfg.dtype)
+            logits = x.to(cfg.dtype) @ table.T
         else:
             logits = self.lm_head(x.float())
         logits = logits.float()

@@ -1,19 +1,25 @@
 """The training recipes on one device: ``fit_mrg`` for R2GenGPT,
-R2GenCSR, AM-MRG and R2GenKG (R2GenGPT and R2GenCSR on the ARM, VSSM, Swin
-or ViT tower; AM-MRG on the ARM; R2GenKG on any of them), ``fit_mae`` for MAE
-pretraining, ``fit_ar`` and ``fit_clip`` for MambaXray-VL's stages 1 and 2
-(AR pretraining, CLIP alignment), and ``fit_classify`` for SwinCheX, the
-VSSM classifier and the DP ViT classifier.
+R2GenCSR, AM-MRG, R2GenKG and EMRRG (R2GenGPT and R2GenCSR on the ARM,
+VSSM, Swin or ViT tower; AM-MRG and EMRRG on the ARM; R2GenKG on any of
+them), ``fit_r2gen`` for R2Gen (a tower and the relational-memory
+decoder), ``fit_mae`` for MAE pretraining, ``fit_ar`` and ``fit_clip`` for
+MambaXray-VL's stages 1 and 2 (AR pretraining, CLIP alignment), and
+``fit_classify`` for SwinCheX, the VSSM classifier and the DP ViT
+classifier.
 
 Counterpart of ``medical_image_analysis_tpu/train/loop.py`` (``vision_preset``,
-``build_mrg_model``, ``build_data``, ``trainable_mask``, the r2gengpt,
-r2gencsr, am_mrg and r2gen_kg branches of ``make_task_adapter``,
-``fit_mrg``, ``evaluate_mrg``,
-``fit_mae``, ``fit_ar``, ``fit_clip``, ``fit_classify``, ``fit``):
-build the data and the model from a seed, freeze the LLM and/or the tower,
-put LoRA on the LLM's q/v projections, train with accumulation and remat,
-validate by beam search with NLG and clinical-efficacy scores, and save
+``build_mrg_model``, ``build_data``, ``trainable_mask``,
+``unfreeze_hybrid_layers``, the r2gengpt, r2gencsr, emrrg, am_mrg and
+r2gen_kg branches of ``make_task_adapter``, ``fit_mrg``, ``evaluate_mrg``,
+``fit_r2gen``, ``fit_mae``, ``fit_ar``, ``fit_clip``, ``fit_classify``,
+``fit``):
+build the data and the model from a seed, freeze the LLM and/or the tower
+(EMRRG's hybrid layers stay trainable in a frozen LLM), put LoRA on the
+LLM's q/v projections, train with accumulation and remat, validate by
+beam search with NLG and clinical-efficacy scores, and save
 trainable-only deltas, the best one, and full train states for resume.
+A trainable LLM tensor keeps an fp32 master (``fp32_masters``); the
+frozen ones stay in the LLM's dtype.
 AM-MRG's memory banks and R2GenKG's graph tensors are built before the
 model (``data/side_inputs.py``), on the run's device, and closed over by
 the task adapter as device tensors.
@@ -21,9 +27,10 @@ The pretraining recipes (MAE, AR, CLIP) train every parameter and save
 full train states; so does classification, with labels extracted from the
 reports, mixup/cutmix, EMA, and a validation of AUC and accuracy.
 ``model.vision_init`` grafts a tower from an earlier stage's artifact
-(``ckpt/bridge.py``) into ``fit_clip``, ``fit_mrg`` (AM-MRG's bare ARM
-at ``vision``, the other tasks' tower at ``vision/<family>``) and
-``fit_classify`` (``vit``, ``vssm``).
+(``ckpt/bridge.py``) into ``fit_clip``, ``fit_mrg`` (AM-MRG's and EMRRG's
+bare ARM at ``vision``, the other tasks' tower at ``vision/<family>``),
+``fit_r2gen`` (``vision/<family>``) and ``fit_classify`` (``vit``,
+``vssm``).
 
 The other tasks, towers and options raise ``NotImplementedError`` naming
 their ROADMAP.md item. Beyond the JAX recipe, each step's loss, grad norm,
@@ -35,6 +42,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import shutil
 import time
 from contextlib import contextmanager
@@ -87,10 +95,12 @@ from ..models.classifiers import (
     weighted_bce_loss,
 )
 from ..models.common import init_params
+from ..models.emrrg import EMRRG
 from ..models.llm import LLM_CONFIGS
 from ..models.mamba import ARM_CONFIGS
 from ..models.mambaxray_vl import MambaXrayVLCLIP
 from ..models.mrg import R2GenCSR, R2GenGPT
+from ..models.r2gen import R2GenPipeline
 from ..models.r2gen_kg import R2GenKG
 from ..models.swin import SWIN_CONFIGS, SwinCheX, SwinTransformer
 from ..models.vision_mamba_ar import VisionMambaAR
@@ -103,9 +113,7 @@ from .train_state import TrainState, make_train_step
 
 # ROADMAP.md, queue 1: where each task the JAX package trains is ported.
 _NOT_PORTED = {
-    "emrrg": "slice 5, item 16",
     "mac_rrg": "slice 5, item 16",
-    "r2gen": "slice 5, item 16",
     "mamba_lm_sft": "slice 5, item 16",
 }
 
@@ -131,7 +139,8 @@ def vision_preset(family: str, size: str, extra: dict | None = None) -> dict:
 def build_mrg_model(cfg: RunConfig, vocab_size: int, device=None,
                     side_dims: dict | None = None):
     """R2GenGPT or R2GenCSR with an ARM, VSSM, Swin or ViT tower, AM-MRG
-    with an ARM, or R2GenKG, and a ``cfg.model.llm`` decoder.
+    or EMRRG with an ARM, or R2GenKG, and a ``cfg.model.llm`` decoder
+    (EMRRG's with its hybrid layers).
 
     Parameters are allocated on ``device`` and left uninitialised by
     this function: call ``models.common.init_params`` with a seeded
@@ -167,6 +176,8 @@ def build_mrg_model(cfg: RunConfig, vocab_size: int, device=None,
     tkw = {**(m.task_kwargs or {}), **(side_dims or {})}
     if m.task == "am_mrg":
         return AMMRG(llm_cfg=llm_cfg, arm_kwargs=vk, device=device, **tkw)
+    if m.task == "emrrg":
+        return EMRRG(llm_cfg=llm_cfg, arm_kwargs=vk, device=device, **tkw)
     cls = {"r2gencsr": R2GenCSR, "r2gen_kg": R2GenKG}.get(m.task, R2GenGPT)
     return cls(llm_cfg=llm_cfg, chosen=m.vision, vision_kwargs=vk,
                device=device, **tkw)
@@ -240,6 +251,31 @@ def trainable_mask(names, freeze_llm: bool,
         {"vision", "visual_encoder"} if freeze_vision else set()
     )
     return {n: n.split("/", 1)[0] not in frozen for n in names}
+
+
+def unfreeze_hybrid_layers(mask: dict[str, bool],
+                           cross_every: int) -> dict[str, bool]:
+    """EMRRG: every tensor of the hybrid layers (``llm/layers_<i>/`` with
+    ``i % cross_every == 0``: the inherited weights and the gated
+    cross-attention) trainable, the rest of the mask as it is. The
+    reference builds those layers after its blanket LLM freeze."""
+    out = dict(mask)
+    for n in mask:
+        m = re.match(r"llm/layers_(\d+)/", n)
+        if m and int(m.group(1)) % cross_every == 0:
+            out[n] = True
+    return out
+
+
+@torch.no_grad()
+def fp32_masters(named: dict[str, torch.Tensor], mask: dict[str, bool]):
+    """Convert every trainable tensor of the LLM (``llm/...``) to fp32 in
+    place: the JAX package keeps fp32 parameters and casts them at use,
+    and a bf16-stored weight would round most updates away (``Dense``
+    still computes in the LLM's dtype). Frozen tensors keep theirs."""
+    for n, p in named.items():
+        if mask[n] and n.startswith("llm/") and p.dtype != torch.float32:
+            p.data = p.data.float()
 
 
 @dataclasses.dataclass
@@ -390,7 +426,7 @@ def evaluate_mrg(batcher: MRGBatcher, tok, gen_fn, device,
 
 
 def fit_mrg(cfg: RunConfig, device="cuda", on_start=None) -> dict:
-    """SFT of R2GenGPT, R2GenCSR, AM-MRG or R2GenKG: returns the last
+    """SFT of R2GenGPT, R2GenCSR, AM-MRG, R2GenKG or EMRRG: returns the last
     validation's scores (and ``val_score``), or the scores of an eval-only
     run. Where the task has side inputs, ``log.txt`` gets their shapes and
     the seconds that building them took (``side_s``).
@@ -426,8 +462,9 @@ def fit_mrg(cfg: RunConfig, device="cuda", on_start=None) -> dict:
     init_params(model, torch.Generator(device).manual_seed(t.seed))
     if cfg.model.vision_init:
         # the stage-1/2 pretrain -> SFT tower graft (ckpt/bridge.py):
-        # AM-MRG holds a bare ARM at "vision", the others a VisionEncoder
-        bare = cfg.model.task == "am_mrg"
+        # AM-MRG and EMRRG hold a bare ARM at "vision", the others a
+        # VisionEncoder
+        bare = cfg.model.task in ("am_mrg", "emrrg")
         apply_vision_init(flax_named_parameters(model), cfg.model.vision_init,
                           "arm" if bare else cfg.model.vision,
                           ("vision",) if bare else ("vision",
@@ -443,6 +480,9 @@ def fit_mrg(cfg: RunConfig, device="cuda", on_start=None) -> dict:
     named = flax_named_parameters(model)
     mask = trainable_mask(named, t.freeze_llm,
                           t.freeze_vision or t.lora_vision)
+    if cfg.model.task == "emrrg" and t.freeze_llm:
+        mask = unfreeze_hybrid_layers(mask, model.cross_every)
+    fp32_masters(named, mask)
     for n, p in named.items():
         p.requires_grad_(mask[n])
     if rules:
@@ -594,6 +634,124 @@ def _maybe_resume(state: TrainState, t) -> int:
     state.load_state_dict(saved)
     print(f"[resume] restored {path} (epoch {epoch})")
     return epoch + 1
+
+
+def build_r2gen_model(cfg: RunConfig, tok, device=None) -> R2GenPipeline:
+    """``R2GenPipeline`` as the JAX ``fit_r2gen`` builds it: the tower of
+    ``vision_preset`` (images of ``data.input_size``), the tokenizer's
+    vocabulary, BOS and EOS, and ``model.task_kwargs`` (``r2gen_kwargs``).
+    Parameters are left uninitialised."""
+    m = cfg.model
+    _check_ported(m.task)
+    vk = vision_preset(m.vision, m.vision_size, m.vision_kwargs)
+    if m.vision in _IMAGE_SIZED:
+        vk.setdefault("img_size", cfg.data.input_size)
+    return R2GenPipeline(vocab_size=tok.vocab_size, chosen=m.vision,
+                         vision_kwargs=vk, bos_id=tok.BOS, eos_id=tok.EOS,
+                         device=device, **(m.task_kwargs or {}))
+
+
+def fit_r2gen(cfg: RunConfig, device="cuda", on_start=None) -> dict:
+    """R2Gen: a tower (``model.vision``, grafted by ``model.vision_init``)
+    and the relational-memory transformer trained with the report
+    cross-entropy, every tensor at ``train.lr`` (AdamW, warmup cosine; the
+    decay mask reads flax names, so R2Gen's norms, ``gamma``/``beta``,
+    decay), and validated by beam search (``generate.num_beams``,
+    ``max_new_tokens``) with NLG and clinical-efficacy scores and a delta
+    saved after each validation. Returns the last validation's scores, or
+    those of an eval-only run. ``on_start`` as in :func:`fit_mrg`."""
+    t, m = cfg.train, cfg.model
+    device = torch.device(device)
+    os.makedirs(t.save_dir, exist_ok=True)
+    logger = JsonlLogger(t.save_dir)
+    ann, tok, batcher, _ = build_data(cfg)
+    model = build_r2gen_model(cfg, tok, device).eval()
+    init_params(model, torch.Generator(device).manual_seed(t.seed))
+    params = flax_named_parameters(model)
+    if m.vision_init:
+        # the MAE pretrain -> report generation encoder graft
+        apply_vision_init(params, m.vision_init, m.vision,
+                          ("vision", m.vision))
+    print(f"[fit_r2gen] data ready, "
+          f"{sum(p.numel() for p in params.values())} params initialized",
+          flush=True)
+    bs = cfg.data.batch_size
+    steps_per_epoch = max(len(ann["train"]) // bs, 1)
+    tx = make_adamw(params, warmup_cosine(t.lr, t.warmup_steps,
+                                          steps_per_epoch * t.epochs),
+                    weight_decay=t.weight_decay, grad_clip=t.grad_clip)
+    state = TrainState(params, tx, ema=t.ema_decay > 0)
+    start_epoch = _maybe_resume(state, t)
+    if on_start is not None:
+        on_start(model, state)
+    g = cfg.generate
+
+    def gen_fn(batch):
+        return model.generate(batch["images"], g.max_new_tokens, g.num_beams)
+
+    def score(split: str, weights=None, dump_path: str = "") -> dict:
+        vb = batcher(split)
+        try:
+            with _swapped(state.params, weights):
+                return evaluate_mrg(
+                    vb, tok, gen_fn, device,
+                    max_batches=t.val_max_batches or 10**9,
+                    chinese=cfg.data.dataset == "chinese",
+                    dump_path=dump_path)
+        finally:
+            vb.close()
+
+    if t.eval_only:
+        _load_eval_only_weights(state, t)
+        scores = score(t.eval_split, dump_path=os.path.join(
+            t.save_dir, f"result_{t.eval_split}.json"))
+        logger.write({"eval_only": t.eval_split, **scores})
+        return scores
+
+    step = make_train_step(
+        lambda b: model(b["images"], b["target_ids"], b["target_mask"]),
+        t.accum_steps, t.ema_decay)
+    keys = ("images", "target_ids", "target_mask")
+    train_b = batcher("train")
+    ema = state.ema_params if t.ema_decay > 0 else None
+    ml = MetricLogger()
+    results: dict = {}
+    try:
+        for epoch in range(start_epoch, t.epochs):
+            it = prefetch(train_b.batches(epoch=epoch))
+            t_prev = time.perf_counter()
+            for batch in ml.log_every(it, t.log_every, f"r2gen epoch {epoch}",
+                                      total=steps_per_epoch):
+                metrics = step(state, _device_batch(
+                    {k: batch[k] for k in keys}, device))
+                loss = float(metrics["loss"])  # waits for the step's loss
+                now = time.perf_counter()
+                logger.write({"epoch": epoch, "step": state.step,
+                              "loss": loss,
+                              "grad_norm": float(metrics["grad_norm"]),
+                              "lr": metrics["lr"], "step_s": now - t_prev})
+                t_prev = now
+                ml.update(loss=loss)
+            logger.write({"epoch": epoch,
+                          "loss": ml.meters["loss"].global_avg})
+            if (epoch + 1) % t.save_state_every_epochs == 0:
+                save_train_state(t.save_dir, state.state_dict(), epoch,
+                                 keep=t.keep_states)
+            if (epoch + 1) % t.val_every_epochs == 0:
+                t0 = time.perf_counter()
+                results = score("val", ema)
+                logger.write({"epoch": epoch,
+                              "val_s": time.perf_counter() - t0, **results})
+                save_delta(os.path.join(t.save_dir, delta_filename(
+                    epoch, state.step, results)), state.params,
+                    config={"task": "r2gen"}, epoch=epoch, step=state.step)
+            if t.max_epochs_this_run and (
+                epoch - start_epoch + 1 >= t.max_epochs_this_run
+            ):
+                break
+    finally:
+        train_b.close()
+    return results
 
 
 def build_mae_model(cfg: RunConfig, device=None) -> MAE:
@@ -921,11 +1079,12 @@ def fit_classify(cfg: RunConfig, device="cuda", on_start=None) -> dict:
 def fit(cfg: RunConfig, device="cuda", on_start=None) -> dict:
     """The JAX package's dispatch by ``model.task``: ``mae`` to
     :func:`fit_mae`; ``ar`` to :func:`fit_ar`; ``clip`` to
-    :func:`fit_clip`; ``swinchex`` and ``dp`` to :func:`fit_classify`;
-    r2gengpt, r2gencsr, am_mrg and r2gen_kg to :func:`fit_mrg`, which
-    raises for the tasks not ported yet (``emrrg``, ``mac_rrg``, ``r2gen``,
-    ``mamba_lm_sft``)."""
-    recipes = {"mae": fit_mae, "ar": fit_ar, "clip": fit_clip}
+    :func:`fit_clip`; ``r2gen`` to :func:`fit_r2gen`; ``swinchex`` and
+    ``dp`` to :func:`fit_classify`; r2gengpt, r2gencsr, am_mrg, r2gen_kg
+    and emrrg to :func:`fit_mrg`, which raises for the tasks not ported
+    yet (``mac_rrg``, ``mamba_lm_sft``)."""
+    recipes = {"mae": fit_mae, "ar": fit_ar, "clip": fit_clip,
+               "r2gen": fit_r2gen}
     if cfg.model.task in recipes:
         return recipes[cfg.model.task](cfg, device, on_start)
     if cfg.model.task in ("swinchex", "dp"):

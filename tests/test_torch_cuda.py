@@ -1703,3 +1703,112 @@ def test_attention_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="heads and head dims contiguous"):
         att.attention_fwd(q, q.transpose(2, 3).contiguous().transpose(2, 3),
                           q)
+
+
+def _step_grads(model, loss_fn):
+    """The loss and every parameter's gradient, by name."""
+    named = dict(model.named_parameters())
+    loss = loss_fn()
+    grads = torch.autograd.grad(loss, list(named.values()))
+    return loss.item(), dict(zip(named, grads))
+
+
+def _micro_step_close(got, want, zero=r"$^"):
+    """Loss within 1e-5 relative; each gradient within GRAD_RTOL of its
+    tensor's largest, those of 0 in exact arithmetic (``zero``) within
+    GRAD_RTOL of the largest gradient."""
+    assert abs(got[0] - want[0]) <= 1e-5 * abs(want[0]), (got[0], want[0])
+    largest = max(g.abs().max().item() for g in want[1].values())
+    for name, w in want[1].items():
+        g = got[1][name]
+        assert torch.isfinite(g).all(), name
+        if re.search(zero, name):
+            assert max(g.abs().max().item(), w.abs().max().item()) <= (
+                GRAD_RTOL * largest), name
+            continue
+        err = (g - w).abs().max().item()
+        assert err <= GRAD_RTOL * w.abs().max().item(), (name, err)
+
+
+@pytest.mark.cuda
+def test_emrrg_micro_step_through_kernels_matches_plain(cuda):
+    """A small EMRRG (ARM of 64 wide, 3 layers, 64^2 images; a 3-layer
+    fp32 LLM of 64 wide with hybrid layers 0 and 2) on 2 studies x 2 views:
+    the loss and every gradient through the fused kernels, each of the
+    three launched once a layer, against ``scan_backend="plain"``."""
+    from medical_image_analysis_tpu_torch.models.emrrg import EMRRG
+    from medical_image_analysis_tpu_torch.models.llm import LLMConfig
+
+    gen = torch.Generator(cuda).manual_seed(5)
+    cfg = LLMConfig(vocab_size=64, dim=64, n_layers=3, n_heads=4,
+                    n_kv_heads=2, hidden_dim=128, dtype=torch.float32)
+    model = EMRRG(cfg, arm_kwargs=dict(patch_size=16, embed_dim=64, depth=3,
+                                       img_size=64),
+                  cross_every=2, device=cuda)
+    init_params(model, gen)
+    imgs = torch.randn(2, 2, 64, 64, 3, device=cuda, generator=gen)
+    ids = [torch.randint(4, 64, (2, n), device=cuda, generator=gen)
+           for n in (3, 2, 6)]
+    mask = torch.ones(2, 6, device=cuda)
+    mask[1, 4:] = 0.0
+
+    def loss_fn():
+        return model(imgs, *ids, mask)
+
+    mf.reset_launches()
+    got = _step_grads(model, loss_fn)
+    torch.cuda.synchronize()
+    assert mf.launches == {"mamba_xdbl": 3, "mamba_scan": 3,
+                           "mamba_scan_bwd": 3}
+    set_scan_backend(model, "plain")
+    want = _step_grads(model, loss_fn)
+    assert mf.launches["mamba_scan_bwd"] == 3
+    _micro_step_close(got, want)
+
+
+@pytest.mark.cuda
+def test_r2gen_pipeline_micro_step_through_vit_kernels_matches_plain(cuda):
+    """A small R2GenPipeline (a ViT of 64 wide, 2 blocks of 2 heads at
+    64^2; R2Gen of 32, 2 layers, 3 memory slots) on 2 studies x 2 views,
+    through the four ViT kernels, each launched once a block, against
+    ``set_fused(model, False)``: the averaged patch tokens and the loss
+    within 1e-5, and the ViT's gradients, driven by one cotangent at the
+    tokens, within GRAD_RTOL. R2Gen is plain PyTorch on both paths, and
+    its ReLUs switch on the tokens' rounding gap, so its gradients are not
+    compared here."""
+    from medical_image_analysis_tpu_torch.models.r2gen import R2GenPipeline
+    from medical_image_analysis_tpu_torch.ops import vit_block as vb
+
+    gen = torch.Generator(cuda).manual_seed(6)
+    model = R2GenPipeline(
+        48, "vit", dict(patch_size=16, embed_dim=64, depth=2, num_heads=2,
+                        img_size=64),
+        dict(d_model=32, d_ff=48, num_layers=2, num_heads=4, rm_num_slots=3,
+             rm_num_heads=4), device=cuda)
+    init_params(model, gen)
+    imgs = torch.randn(2, 2, 64, 64, 3, device=cuda, generator=gen)
+    tgt = torch.randint(3, 48, (2, 7), device=cuda, generator=gen)
+    mask = torch.ones(2, 7, device=cuda)
+    mask[0, 5:] = 0.0
+    vit_named = dict(model.vision.named_parameters())
+
+    set_fused(model, False)
+    tokens = model.att_feats(imgs).detach().requires_grad_()
+    (cotangent,) = torch.autograd.grad(model.report_loss(tokens, tgt, mask),
+                                       tokens)
+    got, want = {}, {}
+    for fused, out in ((True, got), (False, want)):
+        set_fused(model, fused)
+        vb.reset_launches()
+        feats = model.att_feats(imgs)
+        grads = torch.autograd.grad(feats, list(vit_named.values()),
+                                    cotangent)
+        torch.cuda.synchronize()
+        assert vb.launches == dict.fromkeys(vb.launches, 2 if fused else 0)
+        out["feats"] = feats.detach()
+        out["loss"] = model.report_loss(out["feats"], tgt, mask).item()
+        out["grads"] = dict(zip(vit_named, grads))
+    feat_err = (got["feats"] - want["feats"]).abs().max().item()
+    assert feat_err <= 1e-5 * want["feats"].abs().max().item(), feat_err
+    _micro_step_close((got["loss"], got["grads"]),
+                      (want["loss"], want["grads"]))
