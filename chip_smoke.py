@@ -281,6 +281,33 @@ raises (exit code 1):
                ``train_r2gen_grads``: one batch's tokens, loss and ViT
                gradients (one cotangent at the tokens) through the ViT
                kernels against ``set_fused(model, False)``.
+33. kernels_lm -- the fused layer's three kernels against their plain
+               versions at the Mamba LM's training shape (K=1, B=16, L=128,
+               D=1536, N=16, R=48, taps 4, fp32), as ``kernels_ar`` prints
+               them (rows in the kernels line with a ``case`` key).
+34. train_lm_sft -- the ``mamba_lm_sft`` preset at full width (d_model
+               768, 12 blocks) through ``cli.train.main``: 2 epochs (4
+               steps) and one validation; losses, ``val_loss`` and
+               ``val_ppl`` finite, every tensor moved, launches reckoned
+               (12 of each kernel a step, 12 forwards a val batch). Then
+               ``train_lm_sft_grads`` (one batch: every gradient through
+               the kernels against ``scan_backend="plain"``) and
+               ``lm_decode`` (32 positions of a val batch token by token
+               through ``init_states``/``step`` against the full forward
+               through the kernels; seconds a token).
+35. train_mac_rrg -- the ``mac_rrg_mimic`` preset at full width (Swin-B,
+               the frozen 1.8B LLM at Qwen1.5's vocabulary with LoRA r16,
+               the agents' rows 768 wide, 32 chunks and 32 entities)
+               through ``cli.train.main``: 5 steps and one validation at
+               ``MRG_GEN``; the checks of ``train``, the agent context's
+               sizes and seconds, 24 Swin launches a val batch, none in a
+               step. Then ``tower_mac_rrg`` (``encode_img`` with the agents'
+               arrays through the Swin kernel against the unfused route;
+               the agents' seconds for a batch) and ``refine_mac_rrg``
+               (``cli.mac_refine.main`` on the run's delta: every tensor as
+               trained, 48 Swin launches; again at the tokenizer's
+               vocabulary, where the refined round's agent arrays are not
+               all zero).
 
 Bounds: the largest of the bytes at the HBM rate, the matrix products at
 the tensor-core rate of their operand type (fp32 in 3xTF32, 165 TFLOP/s;
@@ -1116,8 +1143,9 @@ def _train_through_cli(argv: list[str], save_dir: Path, device: str,
                for v in scores.values()), "non-finite scores")
     if validated:
         _check(len(vals) == 1, "validation missing")
-    if validated and not classify:
-        # fit_r2gen, as the JAX recipe, keeps no best copy
+    if validated and not classify and cfg["model"]["task"] != "mamba_lm_sft":
+        # fit_r2gen, as the JAX recipe, keeps no best copy; fit_lm_sft
+        # writes no delta
         deltas = sorted(save_dir.glob("checkpoint_epoch0_*.pt"))
         _check(len(deltas) == 1
                and (cfg["model"]["task"] == "r2gen"
@@ -2059,13 +2087,15 @@ def swin_attn_library(x, wqkv, bqkv, wo, bo, g, b, bias, mask, heads):
     return x + F.linear(o.reshape(bn, l, d), wo.t(), bo)
 
 
-def phase_kernels_swin(dev, gen) -> tuple:
+def phase_kernels_swin(dev, gen) -> dict:
     """The Swin kernel against its plain version at ``_swin_cases``;
-    returns the JSON row: swin_large's stage 2 (18 of its 24 blocks) at
-    B=64, shifted, fp32."""
+    returns the JSON rows: swin_large's stage 2 (18 of its 24 blocks) at
+    B=64, shifted, fp32 (``""``), and swin_base's stage 2 at 12 images,
+    shifted, fp32 (``"_swin_b"``: r2gencsr_iu's, r2genkg_mimic's and
+    mac_rrg_mimic's 6 studies x 2 views)."""
     from medical_image_analysis_tpu_torch.ops import swin_block as sb
 
-    row = None
+    rows = {}
     for name, stage, bn, d, heads, nw, dtype, ws in _swin_cases():
         x, w, bias, mask = _swin_inputs(bn, d, heads, nw, dtype, dev, gen, ws)
         args = (x, *w, bias, mask, heads)
@@ -2093,10 +2123,11 @@ def phase_kernels_swin(dev, gen) -> tuple:
                bound_ms=f"{bound[0]:.4f}", bound_by=bound[1],
                bound_on=bound[2],
                tflops=f"{ops / t['kernel'] / 1e9:.2f}")
-        if (name, stage, nw, dtype) == ("swin_large", 2, 4, torch.float32):
-            row = (err, t["kernel"], t["plain"], *bound[:2], lib_ms)
+        if (stage, nw, dtype) == (2, 4, torch.float32):
+            key = "" if name == "swin_large" else "_swin_b"
+            rows[key] = (err, t["kernel"], t["plain"], *bound[:2], lib_ms)
         del got
-    return row
+    return rows
 
 
 def _cls_through_cli(preset: str, save_dir: Path, device: str, overrides=()):
@@ -2658,16 +2689,17 @@ CHAIN_BATCH = 12
 
 
 def _pretrain_layer(dev, gen, k_dirs: int, b: int, seq_len: int,
-                    dim: int = 768):
-    """An initialised one- or four-direction ARM mixer (ARM-B's D=768, N=16,
-    R=48, expand 1, or ARM-L's D=1024, R=64) and N(0, 1) sources and
+                    dim: int = 768, expand: int = 1):
+    """An initialised one- or four-direction mixer of width ``dim`` (ARM-B's
+    D=768, N=16, R=48, expand 1; ARM-L's D=1024, R=64; the Mamba LM's
+    d_model 768 at expand 2, so d_inner 1536) and N(0, 1) sources and
     cotangent of its shape: (xdbl args, scan args, backward args, the
     mixer)."""
     from medical_image_analysis_tpu_torch.models.common import init_params
     from medical_image_analysis_tpu_torch.models.mamba import MambaMixer
     from medical_image_analysis_tpu_torch.ops import mamba_fused as mf
 
-    mixer = MambaMixer(dim, d_state=16, expand=1,
+    mixer = MambaMixer(dim, d_state=16, expand=expand,
                        bimamba_type="none" if k_dirs == 1 else "v3",
                        device=dev)
     init_params(mixer, gen)
@@ -2701,19 +2733,21 @@ def phase_kernels_am(dev, gen) -> dict:
     return {f"{k}_arm_l": v for k, v in rows[AM_SHAPES[0][0]].items()}
 
 
-def _fused_cases(dev, gen, phase: str, shapes, dim: int = 768) -> dict:
+def _fused_cases(dev, gen, phase: str, shapes, dim: int = 768,
+                 expand: int = 1) -> dict:
     """The fused layer's three kernels against their plain versions at
-    each ``(name, K, B, L)`` of ``shapes`` (an ARM mixer of width ``dim``,
-    fp32): max errors within XDBL_RTOL, Y_RTOL and BWD_RTOL; the device ms
-    of each beside its plain version's (in turns) and its bound; x_dbl's
-    tile, and each kernel's grid blocks and resident blocks an SM. Returns
+    each ``(name, K, B, L)`` of ``shapes`` (a mixer of width ``dim`` and
+    ``expand``, fp32): max errors within XDBL_RTOL, Y_RTOL and BWD_RTOL;
+    the device ms of each beside its plain version's (in turns) and its
+    bound; x_dbl's tile, and each kernel's grid blocks and resident blocks
+    an SM. Returns
     ``{name: {kernel: (err, ms, plain_ms, bound_ms, bound_by)}}``."""
     from medical_image_analysis_tpu_torch.ops import mamba_fused as mf
 
     rows = {}
     for name, k_dirs, b, seq_len in shapes:
         xargs, sargs, bargs, mixer = _pretrain_layer(dev, gen, k_dirs, b,
-                                                     seq_len, dim)
+                                                     seq_len, dim, expand)
         n, rank, d_in = mixer.n, mixer.rank, mixer.d_inner
         got_x, want_x = mf.xdbl_fwd(*xargs), sargs[2]
         got_y, want_y = mf.scan_fwd(*sargs), mf.scan_plain(*sargs)
@@ -3431,6 +3465,380 @@ def phase_train_r2gen_grads(model, sets) -> None:
            kernel_s=f"{secs['kernel']:.3f}", plain_s=f"{secs['plain']:.3f}")
 
 
+LM_PRESET = PRESET.parent / "mamba_lm_sft.yaml"
+MAC_PRESET = PRESET.parent / "mac_rrg_mimic.yaml"
+# The Mamba LM's fused layer: one direction, d_model 768 at expand 2
+# (d_inner 1536, R=48, C=80), 16 reports of 128 tokens a training step
+LM_SHAPES = (("mamba_lm_sft", 1, 16, 128),)
+LM_CASE = "mamba_lm_sft d_inner 1536 B=16 L=128"
+SWIN_B_CASE = "swin_base stage 2 B=12 (mac_rrg_mimic, r2genkg, r2gencsr)"
+LM_EPOCHS = 2  # 2 steps an epoch of the synthetic train split at batch 16
+LM_DECODE = 32  # positions of a val batch decoded one token at a time
+# The decode step (plain fp32 PyTorch) against the full forward through the
+# kernels: 1e-3 of the largest logit
+DECODE_RTOL = 1e-3
+
+
+def phase_kernels_lm(dev, gen) -> dict:
+    """The fused layer's three kernels at the Mamba LM's training shape
+    (K=1, B=16, L=128, D=1536, N=16, R=48, taps 4, fp32) against their plain
+    versions, timed in turns (``_fused_cases``, which prints the tile, the
+    chunk, the grid blocks and the resident blocks an SM); returns the rows
+    for the kernels line."""
+    rows = _fused_cases(dev, gen, "kernels_lm", LM_SHAPES, dim=768, expand=2)
+    return {f"{k}_lm": v for k, v in rows[LM_SHAPES[0][0]].items()}
+
+
+def phase_train_lm_sft(save_dir: Path, device: str = "cuda",
+                       overrides=()) -> dict:
+    """The mamba_lm_sft preset at full width (d_model 768, 12 one-direction
+    blocks, d_state 16, the synthetic vocabulary; 16 reports of 128 tokens,
+    fp32) through the CLI: ``LM_EPOCHS`` epochs (4 steps) and one
+    validation (the 8 val reports, one batch). Launches: each block's two
+    forward kernels once a step and once a validation batch, its backward
+    once a step (no remat)."""
+    sets = ("data.dataset=synthetic", f"train.epochs={LM_EPOCHS}",
+            f"train.val_every_epochs={LM_EPOCHS}",
+            f"train.save_state_every_epochs={LM_EPOCHS + 1}",
+            "train.log_every=1", f"train.save_dir={save_dir}", *overrides)
+    argv = ["--config", str(LM_PRESET)]
+    for item in sets:
+        argv += ["--set", item]
+    run = _train_through_cli(argv, save_dir, device, epochs=LM_EPOCHS)
+    model, n_steps = run["model"], run["n_steps"]
+    depth = len(model.layers)
+    val_b = -(-VAL_SAMPLES // run["cfg"]["data"]["batch_size"])
+    _check(all(layer.mixer.k == 1 for layer in model.layers),
+           "the LM's mixers are not one-direction")
+    _fused_reckoning(run, "train_lm_sft", depth, n_steps + val_b, n_steps,
+                     f"{depth} blocks x ({n_steps} steps + {val_b} val "
+                     f"batch) forward, x {n_steps} steps backward (no remat)")
+    with open(save_dir / "log.txt") as f:
+        val = next(r for r in map(json.loads, f) if "val_loss" in r)
+    _check(np.isfinite(val["val_loss"]) and np.isfinite(val["val_ppl"]),
+           "non-finite val_loss or val_ppl")
+    _phase("train_lm_sft", preset=LM_PRESET.name,
+           lm=f"{model.d_model}x{depth}", d_inner=model.d_inner,
+           vocab=model.embed_tokens.num_embeddings,
+           params=sum(p.numel() for p in model.parameters()),
+           val_loss=f"{val['val_loss']:.4f}", val_ppl=f"{val['val_ppl']:.2f}",
+           **run["fields"])
+    return {**run, "sets": sets}
+
+
+def _lm_batch(sets, split: str, dev) -> dict:
+    """The first ``split`` batch of the LM recipe's data (``lm_ids``,
+    ``lm_mask``) on ``dev``."""
+    from medical_image_analysis_tpu_torch.configs.config import load_config
+    from medical_image_analysis_tpu_torch.train.loop import (
+        _device_batch,
+        build_data,
+        lm_sft_extra,
+    )
+
+    cfg = load_config(str(LM_PRESET), [*sets, "data.num_workers=1"])
+    _, tok, batcher, _ = build_data(cfg)
+    b = batcher(split, extra_fn=lm_sft_extra(tok, cfg.data.max_len))
+    try:
+        host = next(b.batches(shuffle=False, drop_last=False))
+    finally:
+        b.close()
+    return _device_batch({k: host[k] for k in ("lm_ids", "lm_mask")}, dev)
+
+
+def phase_train_lm_sft_grads(model, sets) -> None:
+    """One batch of the LM's data at full width (16 reports of 128 tokens):
+    the loss's gradient of every tensor through the kernels against
+    ``scan_backend="plain"`` (``_grads_vs_plain``: within TOWER_RTOL of
+    each tensor's largest)."""
+    from medical_image_analysis_tpu_torch.ckpt.from_jax import (
+        flax_named_parameters,
+    )
+    from medical_image_analysis_tpu_torch.models.mamba import set_scan_backend
+    from medical_image_analysis_tpu_torch.models.mamba_lm import lm_loss
+    from medical_image_analysis_tpu_torch.ops import mamba_fused as mf
+
+    dev = next(model.parameters()).device
+    b = _lm_batch(sets, "train", dev)
+    named = flax_named_parameters(model)
+    names = list(named)
+    tensors = [named[n] for n in names]
+    depth = len(model.layers)
+    grads, secs, losses = {}, {}, {}
+    for path, backend in (("kernel", "auto"), ("plain", "plain")):
+        set_scan_backend(model, backend)
+        mf.reset_launches()
+        t0 = time.perf_counter()
+        loss = lm_loss(model(b["lm_ids"]), b["lm_ids"], b["lm_mask"])
+        grads[path] = torch.autograd.grad(loss, tensors)
+        _sync(dev)
+        secs[path] = time.perf_counter() - t0
+        losses[path] = loss.item()
+        del loss
+        if path == "kernel" and dev.type == "cuda":
+            _check(mf.launches == dict.fromkeys(mf.launches, depth),
+                   f"train_lm_sft_grads launches {mf.launches}")
+    set_scan_backend(model, "auto")
+    loss_rel = abs(losses["kernel"] - losses["plain"]) / abs(losses["plain"])
+    _check(loss_rel <= TOWER_RTOL,
+           f"train_lm_sft_grads: loss rel err {loss_rel:.3e}")
+    _phase("train_lm_sft_grads", **_grads_vs_plain(names, grads,
+                                                   "train_lm_sft_grads"),
+           rows=b["lm_ids"].shape[0], tokens=b["lm_ids"].shape[1],
+           loss=f"{losses['kernel']:.6f}", loss_rel_err=f"{loss_rel:.3e}",
+           kernel_s=f"{secs['kernel']:.3f}", plain_s=f"{secs['plain']:.3f}")
+
+
+def phase_lm_decode(model, sets) -> None:
+    """The first ``LM_DECODE`` positions of the first val batch (its 8 real
+    rows) fed token by token through ``init_states``/``step`` (plain fp32
+    PyTorch, no kernel), against the full forward over those positions
+    through the kernels: the logits within DECODE_RTOL of the largest.
+    Prints the step's seconds a token (synchronised each token)."""
+    from medical_image_analysis_tpu_torch.ops import mamba_fused as mf
+
+    dev = next(model.parameters()).device
+    ids = _lm_batch(sets, "val", dev)["lm_ids"][:VAL_SAMPLES, :LM_DECODE]
+    depth = len(model.layers)
+    with torch.no_grad():
+        mf.reset_launches()
+        full = model(ids)
+        _sync(dev)
+        if dev.type == "cuda":
+            _check(mf.launches == {"mamba_xdbl": depth, "mamba_scan": depth,
+                                   "mamba_scan_bwd": 0},
+                   f"lm_decode: the full forward's launches {mf.launches}")
+        states = model.init_states(ids.shape[0])
+        steps, secs = [], []
+        for t in range(ids.shape[1]):
+            t0 = time.perf_counter()
+            logits, states = model.step(ids[:, t], states)
+            _sync(dev)
+            secs.append(time.perf_counter() - t0)
+            steps.append(logits)
+        inc = torch.stack(steps, dim=1)
+    _check(bool(torch.isfinite(inc).all()), "lm_decode: non-finite logits")
+    err, scale = ((inc - full).abs().max().item(),
+                  full.abs().max().item())
+    _check(err <= DECODE_RTOL * scale,
+           f"lm_decode: max abs err {err:.3e} > {DECODE_RTOL} x {scale:.3f}")
+    _phase("lm_decode", rows=ids.shape[0], positions=ids.shape[1],
+           max_abs_err=f"{err:.3e}", rel_err=f"{err / scale:.3e}",
+           bound=DECODE_RTOL, first_token_s=f"{secs[0]:.4f}",
+           s_per_token=f"{sum(secs[1:]) / (len(secs) - 1):.5f}")
+
+
+def phase_train_mac_rrg(vocab: int, save_dir: Path, device: str = "cuda",
+                        overrides=()) -> dict:
+    """The mac_rrg_mimic preset at full width (Swin-B; the 1.8B-parameter
+    LLM at Qwen1.5's vocabulary, frozen with LoRA r16; the agents' rag and
+    concept rows 768 wide, 32 chunks and 32 entities; 6 studies x 2 views)
+    through the CLI: 5 steps and one validation at ``MRG_GEN``, the agents'
+    context (alias dictionary, relations, chunk corpus and its embeddings)
+    built on the card first. The Swin kernel launches once a block a
+    validation batch and never in a training step (the tower trains, so
+    its blocks take the unfused route)."""
+    run = _mrg_through_cli(MAC_PRESET, vocab, save_dir, device, overrides)
+    model, val_b = run["model"], run["val_batches"]
+    blocks = sum(model.vision.swin.depths)
+    _check_launches(run, {"swin_attn_fwd": blocks * val_b}, "train_mac_rrg",
+                    f"{blocks} Swin blocks x {val_b} val batches, none in "
+                    f"the {run['n_steps']} steps (a gradient)")
+    si = run["cfg"]["model"]["side_inputs"]
+    _phase("train_mac_rrg", preset=MAC_PRESET.name,
+           swin=f"{model.vision.out_dim}x{blocks}",
+           llm=f"{model.llm_cfg.dim}x{model.llm_cfg.n_layers}",
+           params=sum(p.numel() for p in model.parameters()),
+           agents=f"dim{si['dim']}_chunks{si['max_chunks']}_entities"
+                  f"{si['max_entities']}",
+           context=_compact(run["side"]["side_inputs"]),
+           side_s=f"{run['side']['side_s']:.2f}", **run["fields"])
+    return run
+
+
+def _mac_val_batch(sets, dev):
+    """The first val batch of mac_rrg_mimic's data with the agents' arrays,
+    on ``dev``, and the seconds the agents took for its 6 drafts (a fresh
+    context on ``dev``, nothing cached)."""
+    from medical_image_analysis_tpu_torch.configs.config import load_config
+    from medical_image_analysis_tpu_torch.train.loop import (
+        _device_batch,
+        build_data,
+        make_task_adapter,
+    )
+
+    cfg = load_config(str(MAC_PRESET), [*sets, "data.num_workers=1"])
+    ann, tok, batcher, loader = build_data(cfg)
+    ad = make_task_adapter(cfg, ann, tok, loader, dev)
+    vb = batcher("val", extra_fn=ad.extra_fn)
+    try:
+        t0 = time.perf_counter()
+        for sample in vb.samples[: vb.batch_size]:
+            ad.extra_fn(sample)
+        agents_s = time.perf_counter() - t0
+        host = next(vb.batches(shuffle=False, drop_last=False))
+    finally:
+        vb.close()
+    return _device_batch(host, dev), agents_s
+
+
+def phase_tower_mac_rrg(model, sets) -> dict:
+    """The first val batch (6 studies x 2 views, the agents' arrays of a
+    fresh context): ``encode_img`` through the Swin kernel, once a block,
+    against the unfused route (``set_fused(model, False)``) within
+    TOWER_RTOL of the largest value. Prints the agents' seconds for the
+    batch's drafts. Returns the batch."""
+    from medical_image_analysis_tpu_torch.models.common import set_fused
+    from medical_image_analysis_tpu_torch.ops import swin_block as sb
+
+    dev = next(model.parameters()).device
+    b, agents_s = _mac_val_batch(sets, dev)
+    blocks = sum(model.vision.swin.depths)
+    out, secs = {}, {}
+    for fused in (True, False):
+        set_fused(model, fused)
+        sb.reset_launches()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out[fused] = model.encode_img(b["images"], b["rag_embeds"],
+                                          b["concept_embeds"])
+        _sync(dev)
+        secs[fused] = time.perf_counter() - t0
+        if dev.type == "cuda":
+            _check(sb.launches["swin_attn_fwd"] == (blocks if fused else 0),
+                   f"tower_mac_rrg launches {sb.launches}")
+    set_fused(model, True)
+    want = out[False]
+    rel = ((out[True] - want).abs().max() / want.abs().max()).item()
+    _check(bool(torch.isfinite(out[True]).all()) and rel <= TOWER_RTOL,
+           f"tower_mac_rrg: max rel err {rel:.3e} > {TOWER_RTOL}")
+    rows = [int(b[k].shape[1]) for k in ("rag_embeds", "concept_embeds")]
+    _phase("tower_mac_rrg", images=b["images"].shape[0] * b["images"].shape[1],
+           prompt_rows=_compact({"image": want.shape[1] - sum(rows),
+                                 "rag": rows[0], "concept": rows[1]}),
+           rag_rows_used=int(b["rag_embeds"].abs().sum(-1).gt(0).sum()),
+           concept_rows_used=int(b["concept_embeds"].abs().sum(-1).gt(0)
+                                 .sum()),
+           max_rel_err=f"{rel:.3e}", bound=TOWER_RTOL,
+           fused_s=f"{secs[True]:.3f}", unfused_s=f"{secs[False]:.3f}",
+           agents_batch_s=f"{agents_s:.3f}")
+    return b
+
+
+def _refine_through_cli(run: dict, delta: Path, device: str, sets=(),
+                        check_start=None) -> dict:
+    """``cli.mac_refine.main`` in-process on ``delta`` (``--rounds 1
+    --max-batches 1``, the training run's ``--set`` items, then ``sets``),
+    with the kernels' counts at 0 just before and read just after; every
+    draft's agent arrays are recorded. ``check_start(model, named)`` runs
+    once the weights are in place. Returns the scores, the counts, the
+    arrays, the Swin blocks and the seconds."""
+    from medical_image_analysis_tpu_torch.cli import mac_refine
+
+    seen = {"agents": []}
+
+    def on_start(model, named, ctx):
+        if check_start is not None:
+            check_start(model, named)
+        seen["blocks"] = sum(model.vision.swin.depths)
+        seen["tensors"] = len(named)
+        agent_embeds = ctx.agent_embeds
+
+        def recorded(draft):
+            out = agent_embeds(draft)
+            seen["agents"].append(out)
+            return out
+
+        ctx.agent_embeds = recorded
+        _sync(torch.device(device))
+        seen["setup_s"] = time.perf_counter() - t0
+
+    argv = ["--config", str(MAC_PRESET), "--delta", str(delta),
+            "--rounds", "1", "--max-batches", "1", "--device", device]
+    for item in (*run["sets"], *sets):
+        argv += ["--set", item]
+    _reset_launches()
+    t0 = time.perf_counter()
+    out = mac_refine.main(argv, on_start=on_start)
+    _sync(torch.device(device))
+    seen["total_s"] = time.perf_counter() - t0
+    seen["launches"] = _all_launches()
+    for key in ("draft", "refined"):
+        _check(all(np.isfinite(v) for v in out[key].values()),
+               f"refine_mac_rrg: non-finite {key} scores")
+    reckon = {"launches": seen["launches"],
+              "cuda": torch.device(device).type == "cuda"}
+    _check_launches(reckon, {"swin_attn_fwd": 2 * seen["blocks"]},
+                    "refine_mac_rrg",
+                    f"{seen['blocks']} Swin blocks x 2 generations (the "
+                    f"draft and one refinement) of one batch")
+    seen["rag"] = np.stack([r for r, _ in seen["agents"]])
+    seen["concept"] = np.stack([c for _, c in seen["agents"]])
+    return {**seen, "scores": out}
+
+
+def phase_refine_mac_rrg(run: dict, save_dir: Path,
+                         device: str = "cuda") -> list:
+    """``cli.mac_refine.main`` in-process on ``train_mac_rrg``'s delta, twice
+    (``_refine_through_cli``; ``MRG_GEN``): the Swin kernel launches once a
+    block a generation (the draft and one refinement), and the scores of
+    the drafts and the refined reports are finite.
+
+    - At the run's vocabulary (Qwen1.5's): once merged, every tensor of the
+      model equals the trained model's, in its dtype.
+    - At the tokenizer's vocabulary (the same delta: it holds no tensor of
+      the vocabulary's size; the frozen LLM is drawn again): the random LLM
+      then drafts in report words, where the agents find entities, so the
+      refined round's rag and concept arrays are not all zero. At Qwen1.5's
+      151,936 ids the random LLM drafts ids past the tokenizer's, which
+      decode to ``<unk>``: no entity, so zero arrays there.
+
+    Returns the two runs' launches."""
+    from medical_image_analysis_tpu_torch.configs.config import load_config
+    from medical_image_analysis_tpu_torch.train.loop import build_data
+
+    state = run["state"]
+    trained = {**state.params, **state.frozen}
+    delta = save_dir / "checkpoint_best.pt"
+
+    def same_as_trained(model, named):
+        _check(set(named) == set(trained),
+               "refine_mac_rrg: the model's tensors are not the run's")
+        differ = [n for n, p in named.items()
+                  if p.dtype != trained[n].dtype
+                  or not torch.equal(p, trained[n])]
+        _check(not differ, f"refine_mac_rrg: {len(differ)} tensors differ "
+                           f"from the trained model's, e.g. {differ[:3]}")
+
+    full = _refine_through_cli(run, delta, device,
+                               check_start=same_as_trained)
+    _, tok, _, _ = build_data(load_config(str(MAC_PRESET), list(run["sets"])))
+    small = _refine_through_cli(
+        run, delta, device,
+        (f"model.llm_kwargs.vocab_size={tok.vocab_size}",))
+    _check(small["rag"].any() and small["concept"].any(),
+           "refine_mac_rrg: the refined round's rag or concept arrays are "
+           "all zero at the tokenizer's vocabulary")
+
+    def rows_used(a):
+        return int((np.abs(a).sum(-1) > 0).sum())
+
+    fields = {}
+    for tag, r in (("", full), ("tokvocab_", small)):
+        fields.update({
+            f"{tag}rag_rows_used": rows_used(r["rag"]),
+            f"{tag}concept_rows_used": rows_used(r["concept"]),
+            **{f"{tag}{k}_{m}": f"{r['scores'][k][m]:.4f}"
+               for k in ("draft", "refined")
+               for m in ("Bleu_4", "CIDEr", "ce_f1")},
+            f"{tag}setup_s": f"{r['setup_s']:.2f}",
+            f"{tag}total_s": f"{r['total_s']:.2f}"})
+    _phase("refine_mac_rrg", tensors=full["tensors"], tensors_equal=True,
+           drafts=len(full["agents"]), tokenizer_vocab=tok.vocab_size,
+           **fields, launches=json.dumps(full["launches"],
+                                         separators=(",", ":")))
+    return [full["launches"], small["launches"]]
+
 def main() -> None:
     phase_device()
     dev = torch.device("cuda")
@@ -3502,7 +3910,8 @@ def main() -> None:
     del mae
     torch.cuda.empty_cache()
 
-    measured["swin_attn_fwd"] = phase_kernels_swin(dev, gen)
+    measured.update({f"swin_attn_fwd{k}": v
+                     for k, v in phase_kernels_swin(dev, gen).items()})
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cls_") as tmp:
         cls = phase_train_cls(Path(tmp))
@@ -3567,9 +3976,26 @@ def main() -> None:
     runs.append(r2["launches"])
     del r2
 
-    # launches: the main paths' runs (serving, the fifteen trainings, the
-    # ARM tower on scan_backend=pallas, the Attention module), each read
-    # just after it was driven with the counts at 0
+    # The Mamba LM's SFT, and MAC-RRG trained and refined
+    torch.cuda.empty_cache()
+    measured.update(phase_kernels_lm(dev, gen))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_") as tmp:
+        lm = phase_train_lm_sft(Path(tmp))
+    phase_train_lm_sft_grads(lm["model"], lm["sets"])
+    phase_lm_decode(lm["model"], lm["sets"])
+    runs.append(lm["launches"])
+    del lm
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mac_") as tmp:
+        mac = phase_train_mac_rrg(VOCAB, Path(tmp))
+        runs.append(mac["launches"])
+        phase_tower_mac_rrg(mac["model"], mac["sets"])
+        runs += phase_refine_mac_rrg(mac, Path(tmp))
+    del mac
+
+    # launches: the main paths' runs (serving, the seventeen trainings, the
+    # ARM tower on scan_backend=pallas, the Attention module, the MAC-RRG
+    # refinement), each read just after it was driven with the counts at 0
     main_runs = {name: sum(run.get(name, 0) for run in runs)
                  for name in REPLACES}
     sources = {k: m.KERNEL_SOURCE for m in _kernel_modules()
@@ -3579,8 +4005,9 @@ def main() -> None:
     cases = {**{name: [*VIT_ROWS.values(), *R2GEN_ROWS.values()]
                 for name in vit},
              **{name: [("", None), ("_arm_l", ARM_L_CASE),
-                       ("_emrrg", EMRRG_CASE)] for name in (
-                 "mamba_xdbl", "mamba_scan", "mamba_scan_bwd")}}
+                       ("_emrrg", EMRRG_CASE), ("_lm", LM_CASE)]
+                for name in ("mamba_xdbl", "mamba_scan", "mamba_scan_bwd")},
+             "swin_attn_fwd": [("", None), ("_swin_b", SWIN_B_CASE)]}
     for name in REPLACES:
         for suffix, case in cases.get(name, [("", None)]):
             err, ms, plain_ms, bound_ms, bound_by, *lib = measured[

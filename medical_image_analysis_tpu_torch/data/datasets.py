@@ -189,6 +189,9 @@ class MRGBatcher:
     holds ``context_images`` (B, 2 n_context, H, W, 3): the first view of
     ``n_context`` positive, then ``n_context`` negative samples of the
     batcher's own split, drawn per study after the batch's order.
+    ``extra_fn(sample) -> {name: array}``, where given, adds per-sample side
+    inputs (MAC-RRG's agent embeddings, the LM recipe's token ids), each
+    stacked over the batch under its name.
     """
 
     def __init__(
@@ -208,8 +211,10 @@ class MRGBatcher:
         num_workers: int = 8,
         seed: int = 0,
         regroup_views: bool = False,
+        extra_fn=None,
     ):
         self.samples = samples
+        self.extra_fn = extra_fn
         self.n_context = n_context
         # the O(dataset) split (the rule labeler in chexbert mode), once
         self._context_split = (
@@ -302,6 +307,10 @@ class MRGBatcher:
                                 ids)
                 batch["context_images"] = np.stack(ctx).reshape(
                     bs, 2 * self.n_context, *ctx[0].shape).astype(np.float32)
+            if self.extra_fn is not None:
+                extras = [self.extra_fn(s) for s in chunk]
+                for k in extras[0]:
+                    batch[k] = np.stack([e[k] for e in extras])
             yield batch
 
 

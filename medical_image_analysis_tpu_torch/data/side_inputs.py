@@ -1,9 +1,11 @@
-"""Side inputs of AM-MRG and R2GenKG: memory banks and knowledge-graph
-tensors, loaded from files or synthesized from the training split.
+"""Side inputs of AM-MRG, R2GenKG and MAC-RRG: memory banks,
+knowledge-graph tensors and the agents' context, loaded from files or
+synthesized from the training split.
 
 Counterpart of ``medical_image_analysis_tpu/data/side_inputs.py``
 (``make_text_embedder``, ``build_am_banks``, ``_project``,
-``_load_array``, ``synthesize_graph_artifacts``, ``load_graph_npz``).
+``_load_array``, ``synthesize_graph_artifacts``, ``load_graph_npz``,
+``build_alias_dict``, ``build_relations``, ``MACContext``).
 Where no artifact path is given, the chain of the reference's offline
 scripts runs on the training split with towers initialised from a seed:
 
@@ -20,9 +22,13 @@ scripts runs on the training split with towers initialised from a seed:
 The JAX package pins this chain to the host CPU; here it runs on the
 run's ``device`` (the card, unless the caller asks for the CPU), and
 what it returns is numpy. The numpy steps, and their ``default_rng``
-draws, are the JAX package's. The MAC-RRG context (``build_alias_dict``,
-``build_relations``, ``MACContext``) is not ported yet (ROADMAP.md,
-queue 1, item 16).
+draws, are the JAX package's.
+
+MAC-RRG's context is an alias dictionary (CheXpert keywords to their
+label, frequent words to themselves), co-occurrence triples, a chunk
+corpus of the train reports' sentences and its searcher; its agents
+(``agents/``) run in numpy on the host, over embeddings that the embedder
+computes on its device and returns as numpy.
 """
 
 from __future__ import annotations
@@ -33,6 +39,8 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from ..agents.kg_agent import encode_concepts
+from ..agents.rag_agent import EntityWiseSearcher, encode_rag
 from ..evalx.chexbert import CHEXPERT_LABELS, _KEYWORDS, extract_labels
 from ..utils.cam import (
     build_report_memory,
@@ -271,3 +279,93 @@ def load_graph_npz(path: str, num_scales: int = 5) -> dict:
         "edge_types": [z[f"edge_type_{s}"] for s in range(num_scales)],
         "disease_bank": z["disease_bank"],
     }
+
+
+# ---------------------------------------------------------------------------
+# MAC-RRG's agent context
+# ---------------------------------------------------------------------------
+
+
+def build_alias_dict(reports: Sequence[str], max_terms: int = 200) -> dict:
+    """alias -> canonical entity: each CheXpert keyword maps to its label,
+    and the ``max_terms`` most frequent words longer than 3 letters to
+    themselves (where no keyword took them)."""
+    alias = {}
+    for label in CHEXPERT_LABELS[:-1]:
+        for kw in _KEYWORDS[label]:
+            alias[kw] = label
+    counter = Counter()
+    for r in reports:
+        counter.update(w for w in r.split() if len(w) > 3)
+    for w, _ in counter.most_common(max_terms):
+        alias.setdefault(w, w)
+    return alias
+
+
+def build_relations(reports: Sequence[str], alias_dict: dict,
+                    max_relations: int = 500) -> list[tuple[str, str, str]]:
+    """``(head, "co_occurs", tail)`` triples of the canonical entities that
+    occur together in a report, in first-seen order. An alias occurs where
+    it is a substring of the report (``a in text``, no word boundary)."""
+    rels: list[tuple[str, str, str]] = []
+    seen = set()
+    aliases = sorted(alias_dict, key=len, reverse=True)
+    for r in reports:
+        text = " " + r.lower() + " "
+        ents = list(dict.fromkeys(alias_dict[a] for a in aliases if a in text))
+        for i in range(len(ents)):
+            for j in range(i + 1, len(ents)):
+                key = (ents[i], "co_occurs", ents[j])
+                if key not in seen:
+                    seen.add(key)
+                    rels.append(key)
+                if len(rels) >= max_relations:
+                    return rels
+    return rels
+
+
+class MACContext:
+    """What MAC-RRG's agents need, built once a run from the train reports:
+    the alias dictionary, the relations, the chunk corpus (the reports'
+    unique ``"."``-split sentences, at most 512) and its searcher, and the
+    embedder; plus a cache of each draft's (rag, concept) arrays."""
+
+    def __init__(
+        self,
+        reports: Sequence[str],
+        embed_texts: Callable[[Sequence[str]], np.ndarray],
+        max_chunks: int = 8,
+        max_entities: int = 8,
+        topk: int = 3,
+    ):
+        self.embed_texts = embed_texts
+        self.alias_dict = build_alias_dict(reports)
+        self.relations = build_relations(reports, self.alias_dict)
+        chunks = dict.fromkeys(
+            sent.strip() for r in reports for sent in r.split("."))
+        chunks.pop("", None)
+        self.chunks = list(chunks)[:512] or ["none"]
+        self.searcher = EntityWiseSearcher(self.chunks, embed_texts)
+        self.max_chunks = max_chunks
+        self.max_entities = max_entities
+        self.topk = topk
+        self._cache: dict[str, tuple[np.ndarray, np.ndarray]] = {}
+
+    def agent_embeds(self, draft: str) -> tuple[np.ndarray, np.ndarray]:
+        """Draft text -> (rag (max_chunks, D), concept (max_entities, D));
+        the rag mask is dropped."""
+        if draft not in self._cache:
+            rag, _ = encode_rag(
+                draft, self.alias_dict, self.searcher, self.embed_texts,
+                topk=self.topk, max_chunks=self.max_chunks)
+            concept = encode_concepts(
+                draft, self.alias_dict, self.relations, self.embed_texts,
+                max_entities=self.max_entities)
+            self._cache[draft] = (rag, concept)
+        return self._cache[draft]
+
+    def extra_fn(self, sample) -> dict:
+        """``MRGBatcher``'s ``extra_fn``: the agents over the sample's draft
+        (its report where it has none)."""
+        rag, concept = self.agent_embeds(sample.draft or sample.report)
+        return {"rag_embeds": rag, "concept_embeds": concept}

@@ -25,6 +25,9 @@ names and layouts follow the flax modules (``conv_w (K, d_conv, d_inner)``,
 
 No preset picks ``"pallas"``; ``--set model.vision_kwargs={scan_backend:
 pallas}`` does, as in the JAX package.
+
+``MambaMixer.step`` and ``MambaBlock.step`` are the one-direction decode
+step of ``models/mamba_lm.py`` (conv and SSM states), in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.causal_conv import causal_conv1d
+from ..ops.causal_conv import causal_conv1d, causal_conv1d_update
 from ..ops.mamba_fused import mamba_fused_dirs
 from ..ops.selective_scan import selective_scan_ref
 from ..ops.selective_scan_pallas import selective_scan_dirs
@@ -219,6 +222,34 @@ class MambaMixer(nn.Module):
             ys.append(y.flip(1) if i % 2 else y)  # back to source order
         return self._merge(torch.stack(ys, dim=1), z, cls_pos)
 
+    def step(self, x_t: torch.Tensor, conv_state: torch.Tensor,
+             ssm_state: torch.Tensor):
+        """Single-token decode, one direction only: x_t (B, d_model),
+        conv_state (B, d_conv-1, d_inner), ssm_state (B, d_inner, N) fp32
+        -> (y_t, conv_state, ssm_state). The softplus, ``exp(dt A)`` and the
+        state update run in fp32; ``y`` is cast back before ``silu(z)``.
+        Plain PyTorch, as the JAX package computes the step outside any
+        Pallas kernel."""
+        assert self.k == 1, "decode step is 1-directional"
+        rank, n = self.rank, self.n
+        xi, z = self.in_proj(x_t).chunk(2, dim=-1)
+        h, conv_state = causal_conv1d_update(
+            xi, conv_state, self.conv_w[0],
+            None if self.conv_b is None else self.conv_b[0], "silu")
+        x_dbl = h @ self.x_proj_w[0].T
+        dt = x_dbl[:, :rank] @ self.dt_proj_w[0].T
+        bmat = x_dbl[:, rank : rank + n].float()
+        cmat = x_dbl[:, rank + n :].float()
+        dt = F.softplus(dt.float() + self.dt_bias[0][None, :])
+        a = -torch.exp(self.A_log[0].float())  # (d_inner, N)
+        da = torch.exp(dt[:, :, None] * a[None])
+        hf = h.float()
+        ssm_state = ssm_state * da + (dt * hf)[:, :, None] * bmat[:, None, :]
+        y = (torch.einsum("bdn,bn->bd", ssm_state, cmat)
+             + self.D[0][None, :] * hf)
+        y = y.to(x_t.dtype) * F.silu(z)
+        return self.out_proj(y), conv_state, ssm_state
+
 
 class MambaBlock(nn.Module):
     """Pre-norm residual Mamba block with an fp32 residual."""
@@ -257,6 +288,15 @@ class MambaBlock(nn.Module):
         y = self.drop_path(y, deterministic)
         out = residual + y.to(residual.dtype)
         return out.to(x.dtype)
+
+    def step(self, x_t, conv_state, ssm_state):
+        """Single-token decode through the norm, the mixer's ``step`` and
+        the residual."""
+        residual = x_t.float() if self.residual_in_fp32 else x_t
+        y, conv_state, ssm_state = self.mixer.step(self.norm(x_t), conv_state,
+                                                   ssm_state)
+        out = (residual + y.to(residual.dtype)).to(x_t.dtype)
+        return out, conv_state, ssm_state
 
 
 class ARM(nn.Module):

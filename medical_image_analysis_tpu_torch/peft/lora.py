@@ -141,3 +141,11 @@ def vision_qv_rules(rank: int = 16, alpha: float = 16.0) -> list[LoRARule]:
         LoRARule(r"vision/.*mixer/in_proj/kernel", rank, alpha,
                  out_frac=(0, 0.5)),
     ]
+
+
+def mamba_partial_x_rules(d_inner: int, rank: int = 8,
+                          alpha: float = 16.0) -> list[LoRARule]:
+    """EMRRG's partial LoRA on the X half of a mixer's joint ``in_proj``:
+    its first ``d_inner`` output columns (the gate Z is the second half)."""
+    return [LoRARule(r"mixer/in_proj/kernel", rank, alpha,
+                     out_slice=(0, d_inner))]

@@ -1,18 +1,18 @@
 """The training recipes on one device: ``fit_mrg`` for R2GenGPT,
-R2GenCSR, AM-MRG, R2GenKG and EMRRG (R2GenGPT and R2GenCSR on the ARM,
-VSSM, Swin or ViT tower; AM-MRG and EMRRG on the ARM; R2GenKG on any of
-them), ``fit_r2gen`` for R2Gen (a tower and the relational-memory
-decoder), ``fit_mae`` for MAE pretraining, ``fit_ar`` and ``fit_clip`` for
-MambaXray-VL's stages 1 and 2 (AR pretraining, CLIP alignment), and
-``fit_classify`` for SwinCheX, the VSSM classifier and the DP ViT
-classifier.
+R2GenCSR, AM-MRG, R2GenKG, EMRRG and MAC-RRG (R2GenGPT and R2GenCSR on the
+ARM, VSSM, Swin or ViT tower; AM-MRG and EMRRG on the ARM; R2GenKG and
+MAC-RRG on any of them), ``fit_r2gen`` for R2Gen (a tower and the
+relational-memory decoder), ``fit_mae`` for MAE pretraining, ``fit_ar`` and
+``fit_clip`` for MambaXray-VL's stages 1 and 2 (AR pretraining, CLIP
+alignment), ``fit_classify`` for SwinCheX, the VSSM classifier and the DP
+ViT classifier, and ``fit_lm_sft`` for EMRRG's text finetune of the Mamba
+LM. Every task of the JAX package trains here.
 
 Counterpart of ``medical_image_analysis_tpu/train/loop.py`` (``vision_preset``,
 ``build_mrg_model``, ``build_data``, ``trainable_mask``,
-``unfreeze_hybrid_layers``, the r2gengpt, r2gencsr, emrrg, am_mrg and
-r2gen_kg branches of ``make_task_adapter``, ``fit_mrg``, ``evaluate_mrg``,
-``fit_r2gen``, ``fit_mae``, ``fit_ar``, ``fit_clip``, ``fit_classify``,
-``fit``):
+``unfreeze_hybrid_layers``, ``make_task_adapter``, ``fit_mrg``,
+``evaluate_mrg``, ``fit_r2gen``, ``fit_mae``, ``fit_ar``, ``fit_clip``,
+``fit_classify``, ``fit_lm_sft``, ``fit``):
 build the data and the model from a seed, freeze the LLM and/or the tower
 (EMRRG's hybrid layers stay trainable in a frozen LLM), put LoRA on the
 LLM's q/v projections, train with accumulation and remat, validate by
@@ -22,7 +22,8 @@ A trainable LLM tensor keeps an fp32 master (``fp32_masters``); the
 frozen ones stay in the LLM's dtype.
 AM-MRG's memory banks and R2GenKG's graph tensors are built before the
 model (``data/side_inputs.py``), on the run's device, and closed over by
-the task adapter as device tensors.
+the task adapter as device tensors; MAC-RRG's agents embed each sample's
+draft in the batcher (``extra_fn``) with an embedder on the run's device.
 The pretraining recipes (MAE, AR, CLIP) train every parameter and save
 full train states; so does classification, with labels extracted from the
 reports, mixup/cutmix, EMA, and a validation of AUC and accuracy.
@@ -32,8 +33,8 @@ bare ARM at ``vision``, the other tasks' tower at ``vision/<family>``),
 ``fit_r2gen`` (``vision/<family>``) and ``fit_classify`` (``vit``,
 ``vssm``).
 
-The other tasks, towers and options raise ``NotImplementedError`` naming
-their ROADMAP.md item. Beyond the JAX recipe, each step's loss, grad norm,
+The options not ported raise ``NotImplementedError`` naming their
+ROADMAP.md item. Beyond the JAX recipe, each step's loss, grad norm,
 learning rate and wall seconds are written to ``log.txt``.
 """
 
@@ -97,7 +98,9 @@ from ..models.classifiers import (
 from ..models.common import init_params
 from ..models.emrrg import EMRRG
 from ..models.llm import LLM_CONFIGS
+from ..models.mac_rrg import MACRRG
 from ..models.mamba import ARM_CONFIGS
+from ..models.mamba_lm import MambaLM, alpaca_prompt, lm_loss
 from ..models.mambaxray_vl import MambaXrayVLCLIP
 from ..models.mrg import R2GenCSR, R2GenGPT
 from ..models.r2gen import R2GenPipeline
@@ -107,15 +110,10 @@ from ..models.vision_mamba_ar import VisionMambaAR
 from ..models.vit import MAE, VIT_CONFIGS
 from ..models.vmamba import VSSM_CONFIGS
 from ..peft.lora import apply_lora, init_lora, llama_qv_rules, vision_qv_rules
+from ..peft.mamba_peft import MambaPEFTConfig, weight_space_fields
 from ..utils.logging import JsonlLogger, MetricLogger
 from .optim import make_adamw, scaled_lr, warmup_cosine
 from .train_state import TrainState, make_train_step
-
-# ROADMAP.md, queue 1: where each task the JAX package trains is ported.
-_NOT_PORTED = {
-    "mac_rrg": "slice 5, item 16",
-    "mamba_lm_sft": "slice 5, item 16",
-}
 
 _IMAGE_SIZED = ("arm", "swin", "vit")  # towers that take ``img_size``
 
@@ -139,8 +137,8 @@ def vision_preset(family: str, size: str, extra: dict | None = None) -> dict:
 def build_mrg_model(cfg: RunConfig, vocab_size: int, device=None,
                     side_dims: dict | None = None):
     """R2GenGPT or R2GenCSR with an ARM, VSSM, Swin or ViT tower, AM-MRG
-    or EMRRG with an ARM, or R2GenKG, and a ``cfg.model.llm`` decoder
-    (EMRRG's with its hybrid layers).
+    or EMRRG with an ARM, or R2GenKG or MAC-RRG, and a ``cfg.model.llm``
+    decoder (EMRRG's with its hybrid layers).
 
     Parameters are allocated on ``device`` and left uninitialised by
     this function: call ``models.common.init_params`` with a seeded
@@ -151,8 +149,8 @@ def build_mrg_model(cfg: RunConfig, vocab_size: int, device=None,
     the tokenizer's ``vocab_size`` (ids past the tokenizer decode as
     ``<unk>``). ``side_dims`` are the side inputs' widths that the heads
     read (``TaskAdapter.side_dims``: AM-MRG's banks, R2GenKG's node
-    features and disease bank); without them the heads take their own
-    widths.
+    features and disease bank, MAC-RRG's rag and concept embeddings);
+    without them the heads take their own widths.
     """
     m = cfg.model
     if m.llm_weights_dir:
@@ -160,7 +158,6 @@ def build_mrg_model(cfg: RunConfig, vocab_size: int, device=None,
             "loading LLM checkpoints (model.llm_weights_dir) is not ported "
             "yet (ROADMAP.md, queue 1, item 9)"
         )
-    _check_ported(m.task)
     llm_kw = {"vocab_size": vocab_size, **(m.llm_kwargs or {})}
     llm_cfg = dataclasses.replace(LLM_CONFIGS[m.llm], **llm_kw)
     if llm_cfg.vocab_size < vocab_size:
@@ -178,16 +175,10 @@ def build_mrg_model(cfg: RunConfig, vocab_size: int, device=None,
         return AMMRG(llm_cfg=llm_cfg, arm_kwargs=vk, device=device, **tkw)
     if m.task == "emrrg":
         return EMRRG(llm_cfg=llm_cfg, arm_kwargs=vk, device=device, **tkw)
-    cls = {"r2gencsr": R2GenCSR, "r2gen_kg": R2GenKG}.get(m.task, R2GenGPT)
+    cls = {"r2gencsr": R2GenCSR, "r2gen_kg": R2GenKG,
+           "mac_rrg": MACRRG}.get(m.task, R2GenGPT)
     return cls(llm_cfg=llm_cfg, chosen=m.vision, vision_kwargs=vk,
                device=device, **tkw)
-
-
-def _check_ported(task: str) -> None:
-    if task in _NOT_PORTED:
-        raise NotImplementedError(
-            f"task {task!r} is not ported yet (ROADMAP.md, queue 1, "
-            f"{_NOT_PORTED[task]})")
 
 
 def build_data(cfg: RunConfig):
@@ -223,7 +214,7 @@ def build_data(cfg: RunConfig):
     )
     chexbert = load_chexbert_csv(d.chexbert_csv) if d.chexbert_csv else None
 
-    def batcher(split, n_context=0):
+    def batcher(split, n_context=0, extra_fn=None):
         bs = (
             d.val_batch_size
             if split != "train" and d.val_batch_size > 0
@@ -236,7 +227,7 @@ def build_data(cfg: RunConfig):
             context_mode=d.context_retrieval_mode,
             context_keyword=d.context_keyword, chexbert_labels=chexbert,
             num_workers=d.num_workers,
-            regroup_views=two_view and split == "train",
+            regroup_views=two_view and split == "train", extra_fn=extra_fn,
         )
 
     return ann, tok, batcher, loader
@@ -283,14 +274,18 @@ class TaskAdapter:
     """Batch -> positional arguments of the model's loss and generate, the
     context exemplars per study that the batchers draw, and the task's
     side inputs: device tensors closed over by the two functions
-    (``side``, by name) and the widths the model's heads read of them
-    (``side_dims``, keyword arguments of the model)."""
+    (``side``, by name), the widths the model's heads read of them
+    (``side_dims``, keyword arguments of the model), and the per-sample
+    ones that the batchers add (``extra_fn``; MAC-RRG's agents, whose
+    context is ``mac_ctx``)."""
 
     loss_args: Any
     gen_args: Any
     n_context: int = 0
     side: dict = dataclasses.field(default_factory=dict)
     side_dims: dict = dataclasses.field(default_factory=dict)
+    extra_fn: Any = None
+    mac_ctx: Any = None
 
 
 def make_task_adapter(cfg: RunConfig, ann, tok, loader,
@@ -298,10 +293,11 @@ def make_task_adapter(cfg: RunConfig, ann, tok, loader,
     """The task's batch mapping, and its side inputs built on ``device``:
     AM-MRG's memory banks (``side_inputs.build_am_banks``) and R2GenKG's
     graph tensors (``side_inputs.synthesize_graph_artifacts``, or
-    ``load_graph_npz`` where ``model.side_inputs.graph`` names a file),
-    from ``build_data``'s annotations, tokenizer and image loader."""
+    ``load_graph_npz`` where ``model.side_inputs.graph`` names a file), and
+    MAC-RRG's agent context (``side_inputs.MACContext``, its embedder on
+    ``device``), from ``build_data``'s annotations, tokenizer and image
+    loader."""
     task = cfg.model.task
-    _check_ported(task)
     si = dict(cfg.model.side_inputs or {})
     seed = cfg.train.seed
 
@@ -367,6 +363,25 @@ def make_task_adapter(cfg: RunConfig, ann, tok, loader,
             side_dims={"node_dim": nf[0].shape[1],
                        "bank_dim": bank.shape[1]},
         )
+    if task == "mac_rrg":
+        dim = si.get("dim", 64)
+        embed = side.make_text_embedder(tok, dim=dim, seed=seed,
+                                        device=device)
+        ctx = side.MACContext(
+            [s.report for s in ann["train"]], embed,
+            max_chunks=si.get("max_chunks", 8),
+            max_entities=si.get("max_entities", 8),
+        )
+
+        def agents(b):
+            return (b["images"], b["rag_embeds"], b["concept_embeds"])
+
+        return TaskAdapter(
+            loss_args=lambda b: (*agents(b), *base(b), *tgt(b)),
+            gen_args=lambda b: (*agents(b), *base(b)),
+            side_dims={"rag_dim": dim, "concept_dim": dim},
+            extra_fn=ctx.extra_fn, mac_ctx=ctx,
+        )
     return TaskAdapter(
         loss_args=lambda b: (b["images"], *base(b), *tgt(b)),
         gen_args=lambda b: (b["images"], *base(b)),
@@ -425,11 +440,70 @@ def evaluate_mrg(batcher: MRGBatcher, tok, gen_fn, device,
     return scores
 
 
+def init_mrg_model(cfg: RunConfig, vocab_size: int, side_dims: dict, device,
+                   init_device=None):
+    """``build_mrg_model`` in eval mode, initialised from ``train.seed`` on
+    ``init_device`` (``device`` where None; a CUDA and a CPU generator draw
+    different numbers), grafted by ``model.vision_init``, on ``device``."""
+    device = torch.device(device)
+    init_device = torch.device(init_device or device)
+    model = build_mrg_model(cfg, vocab_size, device=init_device,
+                            side_dims=side_dims).eval()
+    init_params(model, torch.Generator(init_device).manual_seed(
+        cfg.train.seed))
+    if cfg.model.vision_init:
+        # the stage-1/2 pretrain -> SFT tower graft (ckpt/bridge.py):
+        # AM-MRG and EMRRG hold a bare ARM at "vision", the others a
+        # VisionEncoder
+        bare = cfg.model.task in ("am_mrg", "emrrg")
+        apply_vision_init(flax_named_parameters(model), cfg.model.vision_init,
+                          "arm" if bare else cfg.model.vision,
+                          ("vision",) if bare else ("vision",
+                                                    cfg.model.vision))
+    return model.to(device)
+
+
+def mrg_trainables(cfg: RunConfig, model) -> tuple[dict, dict]:
+    """The run's tensors by name and their trainable mask: the freezes of
+    ``train`` (EMRRG's hybrid layers trainable in a frozen LLM), fp32
+    masters for the trainable LLM tensors, and LoRA on the LLM q/v
+    projections and/or the vision q/v (or the mixers' in_proj X half),
+    its adapters drawn from ``train.seed + 2`` and named
+    ``lora/<kernel>/{a,b}`` beside the ``base/`` tensors."""
+    t = cfg.train
+    rules = ((llama_qv_rules(t.lora_rank) if t.lora_llm else [])
+             + (vision_qv_rules(t.lora_vision_rank) if t.lora_vision
+                else []))
+    named = flax_named_parameters(model)
+    mask = trainable_mask(named, t.freeze_llm,
+                          t.freeze_vision or t.lora_vision)
+    if cfg.model.task == "emrrg" and t.freeze_llm:
+        mask = unfreeze_hybrid_layers(mask, model.cross_every)
+    fp32_masters(named, mask)
+    for n, p in named.items():
+        p.requires_grad_(mask[n])
+    if rules:
+        device = next(model.parameters()).device
+        lora = init_lora(model, rules,
+                         torch.Generator(device).manual_seed(t.seed + 2))
+        apply_lora(model, lora, rules)
+        named = {f"base/{n}": p for n, p in named.items()}
+        mask = {f"base/{n}": m for n, m in mask.items()}
+        for key, ab in lora.items():
+            for part, tensor in ab.items():
+                named[f"lora/{key}/{part}"] = tensor
+                mask[f"lora/{key}/{part}"] = True
+    return named, mask
+
+
 def fit_mrg(cfg: RunConfig, device="cuda", on_start=None) -> dict:
-    """SFT of R2GenGPT, R2GenCSR, AM-MRG, R2GenKG or EMRRG: returns the last
-    validation's scores (and ``val_score``), or the scores of an eval-only
-    run. Where the task has side inputs, ``log.txt`` gets their shapes and
-    the seconds that building them took (``side_s``).
+    """SFT of R2GenGPT, R2GenCSR, AM-MRG, R2GenKG, EMRRG or MAC-RRG: returns
+    the last validation's scores (and ``val_score``), or the scores of an
+    eval-only run. Where the task has side inputs, ``log.txt`` gets their
+    shapes and the seconds that building them took (``side_s``; MAC-RRG's
+    are the agent context's sizes). A delta's ``config`` names the task and
+    the device type the run initialised on (``init_device``: the frozen
+    tensors a delta leaves out are that device's draws from the seed).
 
     ``on_start(model, state)``, when given, is called once the model and
     the train state are built, before the first step, so that a caller
@@ -446,7 +520,6 @@ def fit_mrg(cfg: RunConfig, device="cuda", on_start=None) -> dict:
             "train.mesh_model > 1: tensor parallelism is not ported yet "
             "(ROADMAP.md, queue 1, slice 6, item 18)"
         )
-    _check_ported(cfg.model.task)
     device = torch.device(device)
     os.makedirs(t.save_dir, exist_ok=True)
     logger = JsonlLogger(t.save_dir)
@@ -457,44 +530,16 @@ def fit_mrg(cfg: RunConfig, device="cuda", on_start=None) -> dict:
         logger.write({"side_inputs": {k: list(v.shape)
                                       for k, v in ad.side.items()},
                       "side_s": time.perf_counter() - t0})
-    model = build_mrg_model(cfg, tok.vocab_size, device=device,
-                            side_dims=ad.side_dims).eval()
-    init_params(model, torch.Generator(device).manual_seed(t.seed))
-    if cfg.model.vision_init:
-        # the stage-1/2 pretrain -> SFT tower graft (ckpt/bridge.py):
-        # AM-MRG and EMRRG hold a bare ARM at "vision", the others a
-        # VisionEncoder
-        bare = cfg.model.task in ("am_mrg", "emrrg")
-        apply_vision_init(flax_named_parameters(model), cfg.model.vision_init,
-                          "arm" if bare else cfg.model.vision,
-                          ("vision",) if bare else ("vision",
-                                                    cfg.model.vision))
+    elif ad.mac_ctx is not None:
+        ctx = ad.mac_ctx
+        logger.write({"side_inputs": {"aliases": len(ctx.alias_dict),
+                                      "relations": len(ctx.relations),
+                                      "chunks": len(ctx.chunks)},
+                      "side_s": time.perf_counter() - t0})
+    model = init_mrg_model(cfg, tok.vocab_size, ad.side_dims, device)
     gcfg = dataclasses.replace(cfg.generate, eos_id=tok.EOS)
     print("[fit_mrg] data ready, params initialized", flush=True)
-
-    # LoRA on the LLM q/v projections and/or the vision q/v (or the
-    # mixers' in_proj X half), trained beside the unfrozen towers.
-    rules = ((llama_qv_rules(t.lora_rank) if t.lora_llm else [])
-             + (vision_qv_rules(t.lora_vision_rank) if t.lora_vision
-                else []))
-    named = flax_named_parameters(model)
-    mask = trainable_mask(named, t.freeze_llm,
-                          t.freeze_vision or t.lora_vision)
-    if cfg.model.task == "emrrg" and t.freeze_llm:
-        mask = unfreeze_hybrid_layers(mask, model.cross_every)
-    fp32_masters(named, mask)
-    for n, p in named.items():
-        p.requires_grad_(mask[n])
-    if rules:
-        lora = init_lora(model, rules,
-                         torch.Generator(device).manual_seed(t.seed + 2))
-        apply_lora(model, lora, rules)
-        named = {f"base/{n}": p for n, p in named.items()}
-        mask = {f"base/{n}": m for n, m in mask.items()}
-        for key, ab in lora.items():
-            for part, tensor in ab.items():
-                named[f"lora/{key}/{part}"] = tensor
-                mask[f"lora/{key}/{part}"] = True
+    named, mask = mrg_trainables(cfg, model)
     trainable = {n: p for n, p in named.items() if mask[n]}
     frozen = {n: p for n, p in named.items() if not mask[n]}
 
@@ -524,7 +569,7 @@ def fit_mrg(cfg: RunConfig, device="cuda", on_start=None) -> dict:
     ema = state.ema_params if t.ema_decay > 0 else None
 
     def score(split: str, dump_name: str, weights=None) -> dict:
-        vb = batcher(split, n_context=ad.n_context)
+        vb = batcher(split, n_context=ad.n_context, extra_fn=ad.extra_fn)
         try:
             with _swapped(state.params, weights):
                 return evaluate_mrg(
@@ -543,7 +588,7 @@ def fit_mrg(cfg: RunConfig, device="cuda", on_start=None) -> dict:
         return scores
 
     step = make_train_step(loss_fn, t.accum_steps, t.ema_decay)
-    train_b = batcher("train", n_context=ad.n_context)
+    train_b = batcher("train", n_context=ad.n_context, extra_fn=ad.extra_fn)
     ml = MetricLogger()
     results: dict = {}
     best_score = float("-inf")
@@ -587,8 +632,9 @@ def fit_mrg(cfg: RunConfig, device="cuda", on_start=None) -> dict:
                 path = os.path.join(
                     t.save_dir, delta_filename(epoch, state.step, scores))
                 save_delta(path, state.params,
-                           config={"task": cfg.model.task}, epoch=epoch,
-                           step=state.step)
+                           config={"task": cfg.model.task,
+                                   "init_device": device.type},
+                           epoch=epoch, step=state.step)
                 if val_score > best_score:
                     best_score = val_score
                     shutil.copyfile(
@@ -642,7 +688,6 @@ def build_r2gen_model(cfg: RunConfig, tok, device=None) -> R2GenPipeline:
     vocabulary, BOS and EOS, and ``model.task_kwargs`` (``r2gen_kwargs``).
     Parameters are left uninitialised."""
     m = cfg.model
-    _check_ported(m.task)
     vk = vision_preset(m.vision, m.vision_size, m.vision_kwargs)
     if m.vision in _IMAGE_SIZED:
         vk.setdefault("img_size", cfg.data.input_size)
@@ -1076,15 +1121,156 @@ def fit_classify(cfg: RunConfig, device="cuda", on_start=None) -> dict:
     return {"loss": ml.meters["loss"].global_avg, **results}
 
 
+LM_INSTRUCTION = "generate a comprehensive diagnosis report for this study"
+
+
+def lm_sft_extra(tok, max_len: int):
+    """The LM recipe's ``extra_fn``: each sample's report in the alpaca
+    prompt, encoded at ``max_len - 1`` with EOS and padded to ``max_len``
+    (``lm_ids``, ``lm_mask``; the prompt's words out of the report
+    vocabulary encode as ``<unk>``, as in the JAX package)."""
+
+    def lm_extra(sample) -> dict:
+        ids = tok.encode(alpaca_prompt(LM_INSTRUCTION, "", sample.report),
+                         max_len=max_len - 1, add_eos=True)
+        ids, mask = tok.pad(ids, max_len)
+        return {"lm_ids": np.asarray(ids, np.int32),
+                "lm_mask": np.asarray(mask, np.int32)}
+
+    return lm_extra
+
+
+def build_lm_model(cfg: RunConfig, vocab_size: int, device=None) -> MambaLM:
+    """``MambaLM(vocab_size, **model.lm_kwargs)``, its parameters left
+    uninitialised. A ``peft_cfg`` mapping (as YAML gives it) becomes a
+    ``MambaPEFTConfig``; its weight-space fields are refused (ROADMAP.md,
+    queue 1, item 15b)."""
+    kw = dict(cfg.model.lm_kwargs or {})
+    pc = kw.get("peft_cfg")
+    if isinstance(pc, dict):
+        pc = kw["peft_cfg"] = MambaPEFTConfig(**pc)
+    if pc is not None and weight_space_fields(pc):
+        raise NotImplementedError(
+            f"peft_cfg {weight_space_fields(pc)}: the weight-space MambaPEFT "
+            "family is not ported yet (ROADMAP.md, queue 1, item 15b)")
+    return MambaLM(vocab_size=vocab_size, **kw, device=device)
+
+
+def fit_lm_sft(cfg: RunConfig, device="cuda", on_start=None) -> dict:
+    """EMRRG's text finetune: the Mamba LM (``build_lm_model``) trained on
+    the reports in alpaca prompts (``lm_sft_extra``) with the next-token
+    cross-entropy, every tensor at ``train.lr`` (AdamW, warmup cosine,
+    decay masked by flax name: ``A_log``, ``D``, the norms and the
+    embedding take none). A validation every ``train.val_every_epochs``
+    gives the mean loss over the split's real rows (the padded last batch
+    sliced back) and its perplexity; ``eval_only`` scores
+    ``train.eval_split`` alone. Returns the last validation's
+    ``{val_loss, val_ppl}``. ``on_start`` as in :func:`fit_mrg`."""
+    t, d = cfg.train, cfg.data
+    device = torch.device(device)
+    os.makedirs(t.save_dir, exist_ok=True)
+    logger = JsonlLogger(t.save_dir)
+    ann, tok, batcher, _ = build_data(cfg)
+    lm_extra = lm_sft_extra(tok, d.max_len)
+    model = build_lm_model(cfg, tok.vocab_size, device)
+    init_params(model, torch.Generator(device).manual_seed(t.seed))
+    params = flax_named_parameters(model)
+    print(f"[fit_lm_sft] data ready, "
+          f"{sum(p.numel() for p in params.values())} params initialized",
+          flush=True)
+    steps_per_epoch = max(len(ann["train"]) // d.batch_size, 1)
+    tx = make_adamw(params, warmup_cosine(t.lr, t.warmup_steps,
+                                          steps_per_epoch * t.epochs),
+                    weight_decay=t.weight_decay, grad_clip=t.grad_clip)
+    state = TrainState(params, tx, ema=t.ema_decay > 0)
+    start_epoch = _maybe_resume(state, t)
+    if on_start is not None:
+        on_start(model, state)
+    keys = ("lm_ids", "lm_mask")
+
+    def loss_fn(batch):
+        return lm_loss(model(batch["lm_ids"]), batch["lm_ids"],
+                       batch["lm_mask"])
+
+    def run_eval(split: str) -> dict:
+        vb = batcher(split, extra_fn=lm_extra)
+        n_val = len(vb.samples)
+        losses, seen = [], 0
+        try:
+            with torch.no_grad():
+                for b in vb.batches(shuffle=False, drop_last=False):
+                    bsz = b["lm_ids"].shape[0]
+                    real = min(bsz, n_val - seen)
+                    seen += bsz
+                    if real <= 0:
+                        break
+                    # the last batch repeats its tail row: keep the real
+                    # rows, for an exact mean
+                    batch = _device_batch({k: b[k][:real] for k in keys},
+                                          device)
+                    losses.append((float(loss_fn(batch)), real))
+        finally:
+            vb.close()
+        val_loss = (sum(v * w for v, w in losses)
+                    / max(sum(w for _, w in losses), 1)
+                    if losses else float("nan"))
+        return {"val_loss": val_loss,
+                "val_ppl": float(np.exp(min(val_loss, 20.0)))}
+
+    if t.eval_only:
+        _load_eval_only_weights(state, t)
+        scores = run_eval(t.eval_split)
+        logger.write({"eval_only": t.eval_split, **scores})
+        return scores
+
+    step = make_train_step(loss_fn, t.accum_steps, t.ema_decay)
+    train_b = batcher("train", extra_fn=lm_extra)
+    ml = MetricLogger()
+    results: dict = {}
+    try:
+        for epoch in range(start_epoch, t.epochs):
+            it = prefetch(train_b.batches(epoch=epoch))
+            t_prev = time.perf_counter()
+            for batch in ml.log_every(it, t.log_every, f"lm epoch {epoch}",
+                                      total=steps_per_epoch):
+                metrics = step(state, _device_batch(
+                    {k: batch[k] for k in keys}, device))
+                loss = float(metrics["loss"])  # waits for the step's loss
+                now = time.perf_counter()
+                logger.write({"epoch": epoch, "step": state.step,
+                              "loss": loss,
+                              "grad_norm": float(metrics["grad_norm"]),
+                              "lr": metrics["lr"], "step_s": now - t_prev})
+                t_prev = now
+                ml.update(loss=loss)
+            logger.write({"epoch": epoch,
+                          "loss": ml.meters["loss"].global_avg})
+            if (epoch + 1) % t.save_state_every_epochs == 0:
+                save_train_state(t.save_dir, state.state_dict(), epoch,
+                                 keep=t.keep_states)
+            if (epoch + 1) % t.val_every_epochs == 0:
+                t0 = time.perf_counter()
+                results = run_eval("val")
+                logger.write({"epoch": epoch,
+                              "val_s": time.perf_counter() - t0, **results})
+            if t.max_epochs_this_run and (
+                epoch - start_epoch + 1 >= t.max_epochs_this_run
+            ):
+                break
+    finally:
+        train_b.close()
+    return results
+
+
 def fit(cfg: RunConfig, device="cuda", on_start=None) -> dict:
     """The JAX package's dispatch by ``model.task``: ``mae`` to
     :func:`fit_mae`; ``ar`` to :func:`fit_ar`; ``clip`` to
     :func:`fit_clip`; ``r2gen`` to :func:`fit_r2gen`; ``swinchex`` and
-    ``dp`` to :func:`fit_classify`; r2gengpt, r2gencsr, am_mrg, r2gen_kg
-    and emrrg to :func:`fit_mrg`, which raises for the tasks not ported
-    yet (``mac_rrg``, ``mamba_lm_sft``)."""
+    ``dp`` to :func:`fit_classify`; ``mamba_lm_sft`` to
+    :func:`fit_lm_sft`; r2gengpt, r2gencsr, am_mrg, r2gen_kg, emrrg and
+    mac_rrg to :func:`fit_mrg`."""
     recipes = {"mae": fit_mae, "ar": fit_ar, "clip": fit_clip,
-               "r2gen": fit_r2gen}
+               "r2gen": fit_r2gen, "mamba_lm_sft": fit_lm_sft}
     if cfg.model.task in recipes:
         return recipes[cfg.model.task](cfg, device, on_start)
     if cfg.model.task in ("swinchex", "dp"):

@@ -99,9 +99,13 @@ def _err(got, want):
     (2, 3, 70, 40, 4, 3, True),
     # AR pretraining's one direction at full width (8 clusters of 16)
     (1, 2, 128, 768, 16, 48, True),
+    # the Mamba LM's (mamba_lm_sft: d_model 768, expand 2) training step
+    # and its validation of 8
+    (1, 16, 128, 1536, 16, 48, True),
+    (1, 8, 128, 1536, 16, 48, True),
 ], ids=["k1", "k2", "k4", "k4-noconv", "arm-b", "vssm-tiny-s0", "ragged",
         "s3-single", "s3-chunks", "arm-b-b1", "ragged-b1", "n4-chunks",
-        "k1-full"])
+        "k1-full", "lm-sft", "lm-sft-val"])
 def test_kernels_match_plain(cuda, dtype, k_dirs, b, l, d, n, r, use_conv):
     xr, xc, w = _inputs(cuda, dtype, k_dirs, b, l, d, n, r, seed=k_dirs + l)
     xargs = (xr, xc, w["conv_w"], w["conv_b"], w["x_proj_w"], use_conv)
@@ -135,8 +139,9 @@ def test_kernels_match_plain(cuda, dtype, k_dirs, b, l, d, n, r, use_conv):
     (4, 2, 3136, 192, 16, 6, False),  # vssm_tiny stage 0 at a small batch
     (2, 3, 197, 70, 16, 8, True),  # a ragged last chunk; D not a multiple
     (1, 2, 128, 768, 16, 48, True),  # AR pretraining's one direction
+    (1, 16, 128, 1536, 16, 48, True),  # the Mamba LM's training step
 ], ids=["k1", "k2", "k4", "k4-noconv", "arm-b", "vssm-tiny-s0", "ragged",
-        "k1-full"])
+        "k1-full", "lm-sft"])
 def test_scan_bwd_matches_plain(cuda, dtype, k_dirs, b, l, d, n, r,
                                 use_conv):
     xr, xc, w = _inputs(cuda, dtype, k_dirs, b, l, d, n, r, seed=k_dirs + l)
@@ -1812,3 +1817,66 @@ def test_r2gen_pipeline_micro_step_through_vit_kernels_matches_plain(cuda):
     assert feat_err <= 1e-5 * want["feats"].abs().max().item(), feat_err
     _micro_step_close((got["loss"], got["grads"]),
                       (want["loss"], want["grads"]))
+
+
+@pytest.mark.cuda
+def test_mamba_lm_step_decode_matches_the_kernel_forward(cuda):
+    """A Mamba LM of 2 blocks (d_model 64, d_state 16) decoding 12 tokens
+    one at a time through ``init_states``/``step`` (plain PyTorch) against
+    its full forward through the fused kernels, each launched once a block,
+    within 1e-4 of the largest logit, fp32."""
+    from medical_image_analysis_tpu_torch.models.mamba_lm import MambaLM
+
+    gen = torch.Generator(cuda).manual_seed(7)
+    model = MambaLM(50, d_model=64, depth=2, device=cuda)
+    init_params(model, gen)
+    ids = torch.randint(1, 50, (3, 12), device=cuda, generator=gen)
+    mf.reset_launches()
+    with torch.no_grad():
+        full = model(ids)
+        torch.cuda.synchronize()
+        assert mf.launches == {"mamba_xdbl": 2, "mamba_scan": 2,
+                               "mamba_scan_bwd": 0}
+        states = model.init_states(3)
+        steps = []
+        for t in range(ids.shape[1]):
+            logits, states = model.step(ids[:, t], states)
+            steps.append(logits)
+    inc = torch.stack(steps, dim=1)
+    assert mf.launches["mamba_scan"] == 2  # the step launches no kernel
+    err = (inc - full).abs().max().item()
+    assert err <= 1e-4 * full.abs().max().item(), err
+
+
+@pytest.mark.cuda
+def test_mac_rrg_encode_img_through_the_swin_kernel_matches_unfused(cuda):
+    """A small MAC-RRG (a Swin of 64 wide, 2 stages of heads 2 and 4 at
+    112^2; rag and concept rows 24 wide) on 2 studies x 2 views:
+    ``encode_img`` through the Swin kernel, launched once a block, against
+    ``set_fused(model, False)`` within 1e-4 of the largest value."""
+    from medical_image_analysis_tpu_torch.models.llm import LLMConfig
+    from medical_image_analysis_tpu_torch.models.mac_rrg import MACRRG
+    from medical_image_analysis_tpu_torch.ops import swin_block as sb
+
+    gen = torch.Generator(cuda).manual_seed(8)
+    cfg = LLMConfig(vocab_size=64, dim=64, n_layers=1, n_heads=4,
+                    n_kv_heads=2, hidden_dim=128, dtype=torch.float32)
+    model = MACRRG(cfg, vision_kwargs=dict(embed_dim=64, depths=(2, 2),
+                                           num_heads=(2, 4), img_size=112),
+                   rag_dim=24, concept_dim=24, device=cuda)
+    init_params(model, gen)
+    imgs = torch.randn(2, 2, 112, 112, 3, device=cuda, generator=gen)
+    rag = torch.randn(2, 5, 24, device=cuda, generator=gen)
+    rag[1, 3:] = 0.0
+    concept = torch.randn(2, 4, 24, device=cuda, generator=gen)
+    out = {}
+    for fused in (True, False):
+        set_fused(model, fused)
+        sb.reset_launches()
+        with torch.no_grad():
+            out[fused] = model.encode_img(imgs, rag, concept)
+        torch.cuda.synchronize()
+        assert sb.launches["swin_attn_fwd"] == (4 if fused else 0)
+    assert out[True].shape == (2, 196 + 5 + 4, 64)
+    err = (out[True] - out[False]).abs().max().item()
+    assert err <= 1e-4 * out[False].abs().max().item(), err

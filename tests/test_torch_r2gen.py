@@ -332,12 +332,16 @@ def test_fit_r2gen_matches_jax(tmp_path, fixed_pixels):
 
 
 def test_fit_routes_r2gen_and_refuses_the_rest(monkeypatch, tmp_path):
-    monkeypatch.setattr(loop, "fit_r2gen", lambda cfg, device, on_start: (
-        "fit_r2gen", cfg.model.task))
+    """``fit`` routes every task: r2gen to ``fit_r2gen``, mac_rrg to
+    ``fit_mrg`` and mamba_lm_sft to ``fit_lm_sft``; none is refused."""
+    for name in ("fit_r2gen", "fit_mrg", "fit_lm_sft"):
+        monkeypatch.setattr(loop, name, lambda cfg, device, on_start, n=name:
+                            (n, cfg.model.task))
     assert loop.fit(_task_cfg(tmp_path), "cpu") == ("fit_r2gen", "r2gen")
-    for task in ("mac_rrg", "mamba_lm_sft"):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            loop.fit(_task_cfg(tmp_path, f"model.task={task}"), "cpu")
+    for task, recipe in (("mac_rrg", "fit_mrg"),
+                         ("mamba_lm_sft", "fit_lm_sft")):
+        assert loop.fit(_task_cfg(tmp_path, f"model.task={task}"),
+                        "cpu") == (recipe, task)
 
 
 # --------------------------------------------------------------------------
