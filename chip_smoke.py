@@ -54,6 +54,41 @@ raises (exit code 1):
                projector's gradients through the kernels against those
                through the plain versions, from one cotangent at the
                projector's output, within a relative bound.
+7a. Real checkpoint files (checkpoint loading, tokenizer, preprocessing):
+   hf_ckpt  -- an HF directory of Qwen/Qwen1.5-1.8B's public shape
+               (``QWEN_1_8B``: Qwen2, 2048 x 24, 16 heads and KV heads,
+               5504, vocabulary 151,936, untied, q/k/v biases) written in a
+               temporary directory by ``write_hf_checkpoint``: bf16 tensors
+               random from ``SEED``, two safetensors shards with
+               ``model.safetensors.index.json``, ``config.json`` and the
+               report tokenizer (``tests/data/report_bpe_tokenizer.json``);
+               about 3.7 GB. The free disk is read first and the phase
+               refuses to write where it is short. Bytes, seconds, free GiB.
+   serve_hf -- ``r2gengpt_mimic`` with ``model.llm_weights_dir`` and
+               ``data.tokenizer_dir`` set to it, through
+               ``cli.demo.build_pipeline`` and ``make_server``: every LLM
+               tensor on the card equal to the file's, 3 POSTs (beam 3, 120
+               tokens), each reply decoded by the port's tokenizer, the ARM
+               kernels once per layer per request. Load and request
+               seconds, the LLM's tensor bytes, the head's transient bytes,
+               peak memory.
+   serve_hf_int8 -- the same with ``model.llm_int8: true``: ``kernel_q``
+               and ``scale`` of q/k/v/o and gate/up/down at layers 0, 11
+               and 23 and of ``lm_head`` equal ``_quantize`` of the file's
+               tensor on the host; the LLM's tensor bytes at least 1.4 GiB
+               below ``serve_hf``'s; the first decode step's largest logit
+               gap to ``serve_hf``'s on the same request (printed, not
+               bounded).
+   train_hf -- ``fit_mrg`` of the preset on the checkpoint and its
+               tokenizer through ``cli.train.main``: LoRA r16 on the frozen
+               LLM, 3 steps of 10 studies, one validation at the preset's
+               decode length; the checks of ``train``, every frozen LLM
+               tensor still equal to the file's, launches reckoned.
+   prep_dev -- ``device_preprocess`` of 16 uint8 images of 1024^2 (the
+               first a JPEG-Lossless DICOM through ``decode_scaled``) and
+               of 16 of 128^2 to 224^2 on the card against the CPU, fp32,
+               within ``PREP_ATOL``; its time in bf16 beside its bytes
+               bound.
 7b. MambaXray-VL's pipeline, stage 1 -> stage 2 -> the SFT of 6:
    kernels_ar -- the fused layer's three kernels (``xdbl_fwd``,
                ``scan_fwd``, ``scan_bwd``) against their plain versions at
@@ -3839,6 +3874,408 @@ def phase_refine_mac_rrg(run: dict, save_dir: Path,
                                          separators=(",", ":")))
     return [full["launches"], small["launches"]]
 
+# Real checkpoint files (the checkpoint loading / tokenizer / preprocessing
+# layer): an HF directory of Qwen1.5-1.8B's public shape written from the
+# seed, served in bf16 and int8, trained on; the on-device preprocessing.
+
+# Qwen/Qwen1.5-1.8B's config.json (the fields the loader reads)
+QWEN_1_8B = {
+    "architectures": ["Qwen2ForCausalLM"], "hidden_size": 2048,
+    "intermediate_size": 5504, "num_hidden_layers": 24,
+    "num_attention_heads": 16, "num_key_value_heads": 16,
+    "vocab_size": 151936, "rope_theta": 1000000.0, "rms_norm_eps": 1e-06,
+    "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+}
+HF_TOKENIZER = Path(__file__).resolve().parent / "tests" / "data" / \
+    "report_bpe_tokenizer.json"
+HF_SHARDS = 2
+HF_INT8_SAVING = 1.4 * 2**30  # int8 holds at least this much less
+HF_TRAIN_BATCH = 10  # 3 steps of the 32 synthetic studies, accumulation 2
+HF_QUANT_LAYERS = (0, 11, 23)  # kernels held against _quantize
+PREP_BATCH = 16
+PREP_CASES = ((1024, 224), (128, 224))  # source side -> 224
+PREP_DICOM = 256  # the JPEG-Lossless DICOM's side before decode_scaled
+PREP_ATOL = 1e-4  # card against CPU, fp32, normalised values
+
+
+def hf_tensors(hc: dict) -> list[tuple[str, tuple, float]]:
+    """(HF name, shape, init scale) of every tensor of a Qwen2 checkpoint;
+    a scale of -1 marks a norm (1 + 0.05 N(0, 1))."""
+    d, h, v = hc["hidden_size"], hc["intermediate_size"], hc["vocab_size"]
+    kv = d // hc["num_attention_heads"] * hc["num_key_value_heads"]
+    out = [("model.embed_tokens.weight", (v, d), 0.02)]
+    for i in range(hc["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        out += [(f"{p}input_layernorm.weight", (d,), -1.0),
+                (f"{p}self_attn.q_proj.weight", (d, d), 0.02),
+                (f"{p}self_attn.q_proj.bias", (d,), 0.02),
+                (f"{p}self_attn.k_proj.weight", (kv, d), 0.02),
+                (f"{p}self_attn.k_proj.bias", (kv,), 0.02),
+                (f"{p}self_attn.v_proj.weight", (kv, d), 0.02),
+                (f"{p}self_attn.v_proj.bias", (kv,), 0.02),
+                (f"{p}self_attn.o_proj.weight", (d, d), 0.02),
+                (f"{p}post_attention_layernorm.weight", (d,), -1.0),
+                (f"{p}mlp.gate_proj.weight", (h, d), 0.02),
+                (f"{p}mlp.up_proj.weight", (h, d), 0.02),
+                (f"{p}mlp.down_proj.weight", (d, h), 0.02)]
+    out += [("model.norm.weight", (d,), -1.0), ("lm_head.weight", (v, d), 0.02)]
+    return out
+
+
+def write_hf_checkpoint(out: Path, hc: dict, dev, seed: int = SEED) -> dict:
+    """Write ``hc``'s tensors in bf16, random from ``seed`` (drawn on
+    ``dev``), as ``HF_SHARDS`` safetensors shards with
+    ``model.safetensors.index.json``, beside ``config.json`` and the report
+    tokenizer. Refuses to start where the disk is short. Returns the bytes
+    written, the seconds and the free bytes before."""
+    import shutil
+
+    tensors = hf_tensors(hc)
+    sizes = [int(np.prod(shape)) * 2 for _, shape, _ in tensors]
+    need = sum(sizes)
+    free = shutil.disk_usage(out).free
+    _check(free >= need + 2**30,
+           f"hf_ckpt: {free / 2**30:.2f} GiB free under {out}, the checkpoint "
+           f"needs {need / 2**30:.2f} GiB (+1 GiB); refusing to write it")
+    t0 = time.perf_counter()
+    gen = torch.Generator(dev).manual_seed(seed)
+    bounds = np.searchsorted(np.cumsum(sizes), need * np.arange(1, HF_SHARDS)
+                             / HF_SHARDS)
+    groups = np.split(np.arange(len(tensors)), bounds)
+    weight_map, written = {}, 0
+    for k, idx in enumerate(groups):
+        name = f"model-{k + 1:05d}-of-{HF_SHARDS:05d}.safetensors"
+        header, off = {}, 0
+        for i in idx:
+            tname, shape, _ = tensors[i]
+            header[tname] = {"dtype": "BF16", "shape": list(shape),
+                             "data_offsets": [off, off + sizes[i]]}
+            weight_map[tname] = name
+            off += sizes[i]
+        head = json.dumps(header).encode()
+        head += b" " * (-len(head) % 8)
+        with open(out / name, "wb") as f:
+            f.write(len(head).to_bytes(8, "little") + head)
+            for i in idx:
+                _, shape, scale = tensors[i]
+                t = torch.randn(shape, device=dev, generator=gen)
+                t = (1.0 + 0.05 * t) if scale < 0 else t * scale
+                f.write(t.bfloat16().cpu().view(torch.int16).numpy().data)
+        written += 8 + len(head) + off
+    (out / "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": need}, "weight_map": weight_map}))
+    (out / "config.json").write_text(json.dumps(hc))
+    (out / "tokenizer.json").write_bytes(HF_TOKENIZER.read_bytes())
+    return {"bytes": written, "write_s": time.perf_counter() - t0,
+            "free_before": free, "tensors": len(tensors)}
+
+
+def phase_hf_ckpt(out: Path, dev, hc: dict = QWEN_1_8B) -> dict:
+    info = write_hf_checkpoint(out, hc, dev)
+    _phase("hf_ckpt", shape=f"{hc['hidden_size']}x{hc['num_hidden_layers']}",
+           vocab=hc["vocab_size"], tensors=info["tensors"], shards=HF_SHARDS,
+           bytes=info["bytes"], write_s=f"{info['write_s']:.2f}",
+           free_gib_before=f"{info['free_before'] / 2**30:.2f}")
+    return info
+
+
+def _hf_config(out: Path, ckpt: Path, int8: bool, overrides=()) -> Path:
+    """The preset with the checkpoint (and its tokenizer), as a YAML file
+    for ``cli.demo --config``; ``overrides`` are ``key=value`` items."""
+    import yaml
+
+    raw = yaml.safe_load(PRESET.read_text())
+    items = (f"model.llm_weights_dir={ckpt}", f"data.tokenizer_dir={ckpt}",
+             f"model.llm_int8={str(int8).lower()}", *overrides)
+    for item in items:
+        key, value = item.split("=", 1)
+        sect, name = key.split(".", 1)
+        raw.setdefault(sect, {})[name] = yaml.safe_load(value)
+    path = out / f"serve_hf{'_int8' if int8 else ''}.yaml"
+    path.write_text(yaml.safe_dump(raw))
+    return path
+
+
+def _llm_bytes(lm) -> int:
+    return sum(p.numel() * p.element_size() for p in lm.parameters())
+
+
+def _llm_equals_file(lm, ckpt: Path) -> int:
+    """Every tensor of ``lm`` that the checkpoint maps equals the file's
+    (in the tensor's dtype: bf16 bit for bit, norms widened to fp32);
+    returns how many were held."""
+    from medical_image_analysis_tpu_torch.ckpt.from_jax import (
+        flax_named_parameters,
+    )
+    from medical_image_analysis_tpu_torch.ckpt.hf_load import llm_key_map
+    from medical_image_analysis_tpu_torch.ckpt.safetensors import (
+        SafetensorsIndex,
+    )
+
+    named = flax_named_parameters(lm)
+    sd = SafetensorsIndex(str(ckpt))
+    n = 0
+    for path, (hf, kind) in llm_key_map(lm.cfg, sd).items():
+        name = f"{path}/kernel" if kind == "kernel" else path
+        p = named[name]
+        t = sd.tensor(hf, p.device)
+        _check(torch.equal(p.detach(), t.to(p.dtype)),
+               f"LLM tensor {name} differs from {hf} in the file")
+        n += 1
+    sd.close()
+    return n
+
+
+def _int8_equals_quantize(lm, ckpt: Path) -> int:
+    """``kernel_q`` and ``scale`` of q/k/v/o and gate/up/down at
+    ``HF_QUANT_LAYERS`` and of ``lm_head`` equal ``_quantize`` of the
+    file's tensor, computed on the host; returns how many were held."""
+    from medical_image_analysis_tpu_torch.ckpt.from_jax import (
+        flax_named_parameters,
+    )
+    from medical_image_analysis_tpu_torch.ckpt.hf_load import _quantize
+    from medical_image_analysis_tpu_torch.ckpt.safetensors import (
+        SafetensorsIndex,
+    )
+
+    named = flax_named_parameters(lm)
+    sd = SafetensorsIndex(str(ckpt))
+    pairs = [("lm_head", "lm_head.weight")]
+    for i in HF_QUANT_LAYERS:
+        if i >= lm.cfg.n_layers:
+            continue
+        pairs += [(f"layers_{i}/self_attn/{p}",
+                   f"model.layers.{i}.self_attn.{p}.weight")
+                  for p in ("q_proj", "k_proj", "v_proj", "o_proj")]
+        pairs += [(f"layers_{i}/mlp/{p}", f"model.layers.{i}.mlp.{p}.weight")
+                  for p in ("gate_proj", "up_proj", "down_proj")]
+    for path, hf in pairs:
+        qs = _quantize(sd[hf].T)  # on the host, from the mapped bytes
+        _check(torch.equal(named[f"{path}/kernel_q"].cpu(), qs["kernel_q"].T)
+               and torch.equal(named[f"{path}/scale"].cpu(), qs["scale"]),
+               f"{path}: kernel_q/scale differ from _quantize of {hf}")
+    sd.close()
+    return len(pairs)
+
+
+def phase_serve_hf(ckpt: Path, work: Path, device: str = "cuda",
+                   int8: bool = False, ref: dict | None = None,
+                   overrides=(), requests: int = REQUESTS) -> dict:
+    """``cli.demo.build_pipeline`` on the preset with the checkpoint and its
+    tokenizer (``int8``: ``model.llm_int8``) behind ``make_server``: the
+    LLM held against the file, ``requests`` POSTs (beam 3, the preset's
+    decode length), each reply decoded by the port's tokenizer, the ARM
+    kernels once per layer per request. ``ref`` (the bf16 run's result)
+    gives the first decode step's logit gap and the saving in bytes."""
+    from medical_image_analysis_tpu_torch.cli import demo
+    from medical_image_analysis_tpu_torch.models.llm import transient_bytes
+
+    phase = "serve_hf_int8" if int8 else "serve_hf"
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    load = {}
+    splice = demo.splice_llm_weights
+
+    def timed_splice(model, cfg):
+        _sync(dev)
+        t = time.perf_counter()
+        out = splice(model, cfg)
+        _sync(dev)
+        load["s"] = time.perf_counter() - t
+        return out
+
+    demo.splice_llm_weights = timed_splice
+    try:
+        t0 = time.perf_counter()
+        pipe = demo.build_pipeline(argparse.Namespace(
+            config=str(_hf_config(work, ckpt, int8, overrides)), vocab=None,
+            vocab_size=None, delta=None, device=device, seed=SEED))
+        _sync(dev)
+        build_s = time.perf_counter() - t0
+    finally:
+        demo.splice_llm_weights = splice
+    model, tok, gcfg = pipe.model, pipe.tok, pipe.gcfg
+    lm = model.llm
+    held = _llm_equals_file(lm, ckpt) if not int8 else 0
+    quant = _int8_equals_quantize(lm, ckpt) if int8 else 0
+    nbytes = _llm_bytes(lm)
+    head = lm.lm_head  # fp32 compute over int8 or bf16 weights
+    head_transient = transient_bytes(lm.cfg.vocab_size, lm.cfg.dim,
+                                     torch.float32)
+    first = {}
+
+    def grab(_mod, _args, out):
+        if "logits" not in first:
+            first["logits"] = out.float().reshape(-1, out.shape[-1])[-1].cpu()
+
+    depth = len(model.vision.arm.layers)
+    rng = np.random.default_rng(SEED)
+    pngs = [_png(rng, 224) for _ in range(requests)]
+    server = demo.make_server(pipe, 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    secs, words = [], []
+    hook = head.register_forward_hook(grab)
+    try:
+        _reset_launches()
+        for png in pngs:
+            t = time.perf_counter()
+            status, out = _post(server.server_address[1], png)
+            secs.append(time.perf_counter() - t)
+            hook.remove()
+            ids = out["ids"]
+            _check(status == 200, f"{phase}: HTTP status {status}")
+            _check(len(ids) == gcfg.max_new_tokens,
+                   f"{phase}: {len(ids)} ids, expected {gcfg.max_new_tokens}")
+            _check(all(0 <= i < lm.cfg.vocab_size for i in ids),
+                   f"{phase}: token id out of range")
+            _check(out["report"] == tok.decode(ids),
+                   f"{phase}: the reply does not decode through the port's "
+                   "tokenizer")
+            words.append(len(out["report"].split()))
+        launches = _all_launches()
+    finally:
+        hook.remove()
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    _check(not thread.is_alive(), f"{phase}: server thread did not stop")
+    want = {"mamba_xdbl": depth * requests, "mamba_scan": depth * requests}
+    if cuda:
+        for name, n in want.items():
+            _check(launches.get(name, 0) == n,
+                   f"{phase}: {name} launched {launches.get(name, 0)} times; "
+                   f"expected {depth} layers x {requests} requests")
+        _check(launches.get("mamba_scan_bwd", 0) == 0,
+               f"{phase}: the backward kernel launched while serving")
+    fields = dict(
+        preset=PRESET.name, llm=f"{lm.cfg.dim}x{lm.cfg.n_layers}",
+        vocab=lm.cfg.vocab_size, tokenizer_vocab=tok.vocab_size,
+        beams=gcfg.num_beams, new_tokens=gcfg.max_new_tokens,
+        load_s=f"{load['s']:.2f}", build_s=f"{build_s:.2f}",
+        llm_tensor_bytes=nbytes, llm_tensor_gib=f"{nbytes / 2**30:.3f}",
+        lm_head_transient_bytes=head_transient,
+        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}"
+        if cuda else "n/a",
+        request_s=",".join(f"{s:.3f}" for s in secs),
+        report_words=",".join(map(str, words)),
+        launches=_compact(launches))
+    if held:
+        fields["tensors_equal_file"] = held
+    if quant:
+        fields["int8_kernels_equal_quantize"] = quant
+    if ref is not None:
+        want = ref["first_logits"]
+        gap = (first["logits"] - want).abs().max().item()
+        same_top = bool(first["logits"].argmax() == want.argmax())
+        saved = ref["llm_bytes"] - nbytes
+        _check(saved >= HF_INT8_SAVING,
+               f"{phase}: int8 holds {saved / 2**30:.3f} GiB less in LLM "
+               f"tensors than bf16; expected at least "
+               f"{HF_INT8_SAVING / 2**30:.1f}")
+        fields.update(first_step_max_logit_gap=f"{gap:.4f}",
+                      bf16_max_abs_logit=f"{want.abs().max().item():.4f}",
+                      same_first_token=same_top,
+                      saved_gib=f"{saved / 2**30:.3f}",
+                      bf16_request_s=ref["request_s"])
+    _phase(phase, **fields)
+    result = {"first_logits": first["logits"], "llm_bytes": nbytes,
+              "request_s": fields["request_s"], "launches": launches}
+    del pipe, model, lm, head
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return result
+
+
+def phase_train_hf(ckpt: Path, save_dir: Path, device: str = "cuda",
+                   overrides=()) -> dict:
+    """``fit_mrg`` of the preset with ``model.llm_weights_dir`` and
+    ``data.tokenizer_dir`` set, through ``cli.train.main``: LoRA r16, 3
+    steps and one validation at the preset's decode length; the checks of
+    ``train``, every frozen LLM tensor equal to the file after training,
+    launches reckoned as ``train``'s."""
+    argv = ["--config", str(PRESET)]
+    for item in ("data.dataset=synthetic", f"data.batch_size={HF_TRAIN_BATCH}",
+                 f"model.llm_weights_dir={ckpt}", f"data.tokenizer_dir={ckpt}",
+                 "train.epochs=1", "train.save_state_every_epochs=2",
+                 "train.log_every=1", f"train.save_dir={save_dir}",
+                 *overrides):
+        argv += ["--set", item]
+    run = _train_through_cli(argv, save_dir, device)
+    model, n_steps = run["model"], run["n_steps"]
+    accum = run["cfg"]["train"]["accum_steps"]
+    _check(run["cfg"]["train"]["lora_llm"] and not any(
+        n.startswith("base/llm/") for n in run["state"].params),
+        "train_hf: expected LoRA on a frozen LLM")
+    held = _llm_equals_file(model.llm, ckpt)
+    depth = len(model.vision.arm.layers)
+    val_batches = run["val_batches"]
+    fwd_step, bwd_step = depth * accum * 2, depth * accum
+    fwd = n_steps * fwd_step + val_batches * depth
+    _check_launches(
+        run, {"mamba_xdbl": fwd, "mamba_scan": fwd,
+              "mamba_scan_bwd": n_steps * bwd_step}, "train_hf",
+        f"per step {depth} layers x {accum} micro-batches x 2 forwards = "
+        f"{fwd_step} of each forward kernel and {depth} x {accum} = "
+        f"{bwd_step} backward; {n_steps} steps + {val_batches} val batches "
+        f"x {depth} layers")
+    _phase("train_hf", preset=PRESET.name, accum=accum,
+           llm_tensors_equal_file=held, **run["fields"])
+    launches = run["launches"]
+    del run, model
+    gc.collect()
+    return launches
+
+
+def phase_prep_dev(dev, work: Path, batch: int = PREP_BATCH,
+                   cases=PREP_CASES, dicom_side: int = PREP_DICOM) -> None:
+    """``device_preprocess`` on the card against the same function on the
+    CPU (fp32, ``PREP_ATOL``): a batch of ``batch`` uint8 images of each
+    source side resized to 224, the first of the large batch a
+    JPEG-Lossless DICOM decoded by ``decode_scaled``; the card's time."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import dicom_files
+
+    from medical_image_analysis_tpu_torch.data.preprocessing import (
+        decode_scaled,
+        device_preprocess,
+    )
+
+    rng = np.random.default_rng(SEED)
+    yy, xx = np.mgrid[0:dicom_side, 0:dicom_side] / dicom_side
+    pix = (3000 * np.exp(-((xx - 0.5) ** 2 + (yy - 0.45) ** 2) * 4)
+           + rng.normal(0, 80, xx.shape)).clip(0, 4095).astype(np.uint16)
+    dcm = work / "study.dcm"
+    dcm.write_bytes(dicom_files.make_dicom_jll(pix, wc=1800, ww=3200))
+    for side, size in cases:
+        raw = rng.integers(0, 256, (batch, side, side, 3), dtype=np.uint8)
+        if side == cases[0][0]:
+            t0 = time.perf_counter()
+            raw[0] = decode_scaled(str(dcm), side)
+            dicom_s = time.perf_counter() - t0
+        host = torch.from_numpy(raw)
+        want = device_preprocess(host, size, torch.float32)
+        x = host.to(dev)
+        got = device_preprocess(x, size, torch.float32)
+        err = (got.cpu() - want).abs().max().item()
+        _check(bool(torch.isfinite(got).all()) and err <= PREP_ATOL,
+               f"prep_dev: {side}->{size} max abs err {err:.3e} > {PREP_ATOL}")
+        ms = (device_ms(lambda: device_preprocess(x, size), 20)
+              if dev.type == "cuda" else float("nan"))
+        bound_ms = (x.numel() + batch * size * size * 3 * 2) / HBM_BYTES_S * 1e3
+        fields = dict(source=f"{batch}x{side}x{side}x3", size=size,
+                      max_abs_err=f"{err:.3e}", bound=PREP_ATOL,
+                      ms_bf16=f"{ms:.4f}", bytes_bound_ms=f"{bound_ms:.4f}")
+        if side == cases[0][0]:
+            fields.update(dicom=f"jpeg_lossless_sv1 {dicom_side}^2 -> {side}",
+                          dicom_decode_s=f"{dicom_s:.3f}")
+        _phase("prep_dev", **fields)
+
+
 def main() -> None:
     phase_device()
     dev = torch.device("cuda")
@@ -3871,6 +4308,20 @@ def main() -> None:
     train_launches = run["launches"]
     del run
     torch.cuda.empty_cache()
+    # real checkpoint files: an HF directory of Qwen1.5-1.8B's shape,
+    # served in bf16 and in int8 and trained on; the on-device preprocessing
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_hf_") as tmp:
+        ckpt = Path(tmp) / "qwen1_5_1_8b"
+        ckpt.mkdir()
+        phase_hf_ckpt(ckpt, dev)
+        bf16 = phase_serve_hf(ckpt, Path(tmp))
+        int8 = phase_serve_hf(ckpt, Path(tmp), int8=True, ref=bf16)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as run_dir:
+            hf_runs = [bf16["launches"], int8["launches"],
+                       phase_train_hf(ckpt, Path(run_dir))]
+        del bf16, int8
+        torch.cuda.empty_cache()
+        phase_prep_dev(dev, Path(tmp))
     # MambaXray-VL: AR pretraining -> CLIP alignment -> the SFT above
     phase_kernels_ar(dev, gen)
     pretrain_launches = []
@@ -3905,8 +4356,8 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mae_") as tmp:
         mae = phase_train_mae(Path(tmp))
     phase_train_mae_grads(mae["model"], mae["overrides"])
-    runs = [launches, train_launches, *pretrain_launches, csr_launches,
-            mae["launches"]]
+    runs = [launches, train_launches, *hf_runs, *pretrain_launches,
+            csr_launches, mae["launches"]]
     del mae
     torch.cuda.empty_cache()
 
@@ -3993,7 +4444,8 @@ def main() -> None:
         runs += phase_refine_mac_rrg(mac, Path(tmp))
     del mac
 
-    # launches: the main paths' runs (serving, the seventeen trainings, the
+    # launches: the main paths' runs (serving in bf16 and int8 from the HF
+    # checkpoint, the eighteen trainings with train_hf, the
     # ARM tower on scan_backend=pallas, the Attention module, the MAC-RRG
     # refinement), each read just after it was driven with the counts at 0
     main_runs = {name: sum(run.get(name, 0) for run in runs)

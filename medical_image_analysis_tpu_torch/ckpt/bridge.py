@@ -11,8 +11,8 @@ chains its stages by checkpoint surgery at load time:
 
 Here the artifacts are the port's own (``ckpt/checkpoint.py``): a full
 train state (``save_train_state``) or a trainable-only delta
-(``save_delta``), ``torch.save`` of tensors named by flax path. Reading
-the JAX package's msgpack files is ROADMAP.md, queue 1, item 9. Trees are
+(``save_delta``), ``torch.save`` of tensors named by flax path; the JAX
+package's msgpack artifacts are ROADMAP.md, queue 1, item 9. Trees are
 nested dicts of tensors keyed by the flax path's parts, in the port's
 layouts (so a tower's overlay fits the port's tower of the same names).
 Set ``model.vision_init=<state_epoch*.pt>`` on ``fit_clip``, ``fit_mrg``
@@ -59,6 +59,12 @@ def load_pretrain_params(path: str) -> dict:
     """The model's parameter tree from a recipe artifact: a full train
     state (trainable and frozen tensors together) or a delta; the
     structure tells them apart."""
+    from .checkpoint import is_torch_file
+
+    if not is_torch_file(path):
+        raise NotImplementedError(
+            f"{path}: the JAX package's msgpack artifacts are not read by "
+            "model.vision_init yet (ROADMAP.md, queue 1, item 9)")
     obj = torch.load(path, map_location="cpu", weights_only=True)
     if "state" in obj:  # save_train_state blob
         flat = {**obj["state"].get("frozen", {}), **obj["state"]["params"]}

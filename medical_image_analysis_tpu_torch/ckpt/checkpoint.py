@@ -1,12 +1,23 @@
 """Checkpoint files of the port: trainable-only deltas and full train states.
 
 Counterpart of ``medical_image_analysis_tpu/ckpt/checkpoint.py`` in the
-port's own format, ``torch.save`` of dicts of tensors named by flax path
-(the JAX package writes msgpack; reading those is ROADMAP.md, queue 1,
-item 9):
+port's own format, ``torch.save`` of dicts of tensors named by flax path:
 
 - a delta holds the trainable tensors and ``{config, epoch, step}``;
-  :func:`merge_delta` copies its tensors over the named ones it finds;
+  :func:`merge_delta` copies its tensors over the named ones it finds.
+  :func:`load_delta` also reads the JAX package's msgpack deltas (told
+  apart by their first bytes: a torch zip starts ``PK``), through the
+  port's own decoder (``ckpt/msgpack.py``): the tree is flattened to flax
+  names (``ckpt/bridge.py:flatten``) without the ``params`` level, so
+  ``base/params/...`` and ``lora/params/...`` of a LoRA run become the
+  port's ``base/...`` and ``lora/...``, and every leaf is put in the
+  port's layout (``ckpt/from_jax.py:to_port_layout``). Its frozen leaves
+  are empty arrays, which :func:`merge_delta` skips. A JAX delta carries
+  only the trainable tensors: the frozen ones are the run's, which the
+  port reproduces only where they come from files (``model.
+  llm_weights_dir``), not from JAX's random draws. JAX train states
+  (``state_epoch*.msgpack``, optax's layout) are ROADMAP.md, queue 1,
+  item 9;
 - a train state (``state_epoch<NNNNN>.pt``) holds every tensor of the run
   (frozen and trainable, LoRA adapters included), the optimizer state,
   the step and the EMA shadow; it is written atomically, and only the
@@ -18,10 +29,15 @@ strings and containers only.
 
 from __future__ import annotations
 
+import json
 import os
 import re
 
 import torch
+
+from .bridge import flatten
+from .from_jax import to_port_layout
+from .msgpack import msgpack_restore
 
 _STATE_RE = re.compile(r"state_epoch(\d+)\.pt$")
 
@@ -54,8 +70,41 @@ def save_delta(path: str, params: dict[str, torch.Tensor],
                            "step": int(step)}}, path)
 
 
+def _port_name(name: str) -> str:
+    """A JAX delta's flat name without its ``params`` level."""
+    parts = name.split("/")
+    if parts[0] in ("base", "lora") and parts[1:2] == ["params"]:
+        del parts[1]
+    elif parts[0] == "params":
+        del parts[0]
+    return "/".join(parts)
+
+
+def _load_jax_delta(path: str) -> tuple[dict, dict]:
+    with open(path, "rb") as f:
+        obj = msgpack_restore(f.read())
+    meta = obj["meta"]
+    config = json.loads(bytes(meta["config"].tolist()).decode() or "{}")
+    delta = {}
+    for name, t in flatten(obj["model"]).items():
+        if isinstance(t, torch.Tensor) and t.numel():
+            t = to_port_layout(name.split("/"), t)
+        delta[_port_name(name)] = t
+    return delta, {"config": config, "epoch": int(meta["epoch"]),
+                   "step": int(meta["step"])}
+
+
+def is_torch_file(path: str) -> bool:
+    """A ``torch.save`` zip (it starts ``PK``), not a msgpack map."""
+    with open(path, "rb") as f:
+        return f.read(2) == b"PK"
+
+
 def load_delta(path: str) -> tuple[dict, dict]:
-    """Returns (tensors by name, meta {config, epoch, step})."""
+    """Returns (tensors by name, meta {config, epoch, step}), from the
+    port's own delta or a JAX package's msgpack one."""
+    if not is_torch_file(path):
+        return _load_jax_delta(path)
     obj = torch.load(path, map_location="cpu", weights_only=True)
     return obj["model"], obj["meta"]
 
@@ -64,7 +113,9 @@ def load_delta(path: str) -> tuple[dict, dict]:
 def merge_delta(params: dict[str, torch.Tensor], delta: dict) -> dict:
     """Copy every delta tensor into the tensor of the same name (in
     place, in its dtype and device); names absent from ``params`` are an
-    error, names absent from ``delta`` keep their values."""
+    error, names absent from ``delta`` keep their values, and zero-size
+    leaves (a JAX delta's frozen tensors) are skipped."""
+    delta = {n: v for n, v in delta.items() if v.numel()}
     unknown = sorted(set(delta) - set(params))
     if unknown:
         raise KeyError(f"merge_delta: unknown names {unknown[:5]}")
@@ -104,5 +155,10 @@ def auto_resume_helper(save_dir: str) -> str | None:
 
 def restore_train_state(path: str) -> tuple[dict, int]:
     """Returns (state, epoch), tensors on the CPU."""
+    if not is_torch_file(path):
+        raise NotImplementedError(
+            f"{path}: the JAX package's train states (state_epoch*.msgpack, "
+            "optax's layout) are not ported yet (ROADMAP.md, queue 1, "
+            "item 9); resume from the port's state_epoch*.pt")
     obj = torch.load(path, map_location="cpu", weights_only=True)
     return obj["state"], int(obj["epoch"])

@@ -11,6 +11,9 @@ name, with these conversions:
   fusion) -> Linear ``weight``: ``query``/``key``/``value`` (D, H, hd)
   with biases (H, hd) flattened over the heads, ``out`` (H, hd, D);
 - norm ``scale`` and Embed ``embedding`` -> ``weight``;
+- ``QuantDense`` (``LLMConfig.quant_int8``): ``kernel_q`` (in, out) int8 ->
+  ``kernel_q`` (out, in), transposed like a Dense kernel; its ``scale``
+  keeps its name and layout;
 - ``A_log``, ``D``, ``dt_bias``, ``conv_w``, ``conv_b``, ``x_proj_w``,
   ``dt_proj_w``, ``cls_token``, ``pos_embed``, ``pos_marker``,
   ``neg_marker``, and the heads' raw parameters (``query_tokens``,
@@ -64,38 +67,43 @@ def _key(path: list[str]) -> str:
     return ".".join(re.sub(r"^layers_(\d+)$", r"layers.\1", p) for p in path)
 
 
+def to_port_layout(path: list[str], t: torch.Tensor) -> torch.Tensor:
+    """A flax leaf at ``path`` in the port's layout (a view where it can
+    be): Dense kernels (and ``QuantDense``'s ``kernel_q``) transposed, conv
+    kernels HWIO -> OIHW, DenseGeneral kernels and biases flattened over
+    the heads; every other leaf as it is."""
+    leaf = path[-1]
+    if leaf in ("kernel", "kernel_q"):
+        if t.dim() == 2:
+            return t.T
+        if t.dim() == 4:
+            return t.permute(3, 2, 0, 1)
+        if t.dim() == 3 and path[-2] in _QKV:
+            return t.reshape(t.shape[0], -1).T
+        if t.dim() == 3 and path[-2] == "out":
+            return t.reshape(-1, t.shape[-1]).T
+        raise ValueError(f"unexpected kernel rank at {path}")
+    if leaf == "bias" and t.dim() == 2 and path[-2] in _QKV:
+        return t.reshape(-1)
+    return t
+
+
 def state_dict_from_jax(params) -> dict[str, torch.Tensor]:
     """flax ``params`` (nested mapping of arrays) -> port state dict."""
     if "params" in params and len(params) == 1:
         params = params["params"]
     out: dict[str, torch.Tensor] = {}
 
-    def walk(node, path):
+    def walk(node, path, quant=False):
         if hasattr(node, "items"):
             for name, child in node.items():
-                walk(child, path + [name])
+                walk(child, path + [name], "kernel_q" in node)
             return
-        arr = np.array(node, dtype=np.float32)  # a writable copy
+        arr = torch.from_numpy(np.array(node, dtype=np.float32))  # a copy
         leaf = path[-1]
-        if leaf == "kernel":
-            if arr.ndim == 2:
-                arr = arr.T
-            elif arr.ndim == 4:
-                arr = arr.transpose(3, 2, 0, 1)
-            elif arr.ndim == 3 and path[-2] in _QKV:
-                arr = arr.reshape(arr.shape[0], -1).T
-            elif arr.ndim == 3 and path[-2] == "out":
-                arr = arr.reshape(-1, arr.shape[-1]).T
-            else:
-                raise ValueError(f"unexpected kernel rank at {path}")
-            leaf = "weight"
-        elif leaf == "bias" and arr.ndim == 2 and path[-2] in _QKV:
-            arr = arr.reshape(-1)
-        elif leaf in ("scale", "embedding"):
-            leaf = "weight"
-        out[_key(path[:-1] + [leaf])] = torch.from_numpy(
-            np.ascontiguousarray(arr)
-        )
+        if leaf == "kernel" or (leaf in ("scale", "embedding") and not quant):
+            leaf = "weight"  # QuantDense keeps kernel_q and scale
+        out[_key(path[:-1] + [leaf])] = to_port_layout(path, arr).contiguous()
 
     walk(params, [])
     return out

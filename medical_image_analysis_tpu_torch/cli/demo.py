@@ -4,9 +4,17 @@ Counterpart of ``medical_image_analysis_tpu/cli/demo.py``. Modes:
   one-shot:  python -m medical_image_analysis_tpu_torch.cli.demo --image x.png
   server:    ... --serve 8080   (JSON API: POST /generate {"image": b64})
 
-Weights are random, drawn from ``--seed``; loading checkpoints is not
-ported yet. ``--device`` defaults to ``cuda`` and nothing falls back to
-the CPU: pass ``--device cpu`` to run there.
+The weights are drawn from ``--seed``; then, as the JAX demo does, the
+config's ``model.llm_weights_dir`` (an HF Llama/Qwen2 directory of
+safetensors shards, ``model.llm_int8`` to serve int8 kernels) is streamed
+over the LLM, and ``--delta`` (the port's ``.pt`` or the JAX package's
+``.msgpack``, told apart by their bytes) over the trained tensors. A delta
+of a LoRA run (``base/`` and ``lora/`` names) gets the run's adapters,
+built from the config's ``train`` section as ``fit_mrg`` builds them. The
+tokenizer is ``--vocab`` (a word vocabulary), else the ``tokenizer.json``
+of ``data.tokenizer_dir`` or, failing that, of ``model.llm_weights_dir``
+(``data/hf_tokenizer.py``). ``--device`` defaults to ``cuda`` and nothing
+falls back to the CPU: pass ``--device cpu`` to run there.
 """
 
 from __future__ import annotations
@@ -16,15 +24,20 @@ import base64
 import dataclasses
 import io
 import json
+import os
 
 import numpy as np
 import torch
+from torch.nn.utils import parametrize
 
+from ..ckpt.checkpoint import load_delta, merge_delta
+from ..ckpt.from_jax import flax_named_parameters
 from ..configs.config import load_config, make_config
+from ..data.hf_tokenizer import HFTokenizer
 from ..data.preprocessing import host_preprocess
 from ..data.tokenizer import WordTokenizer
 from ..models.common import init_params
-from ..train.loop import build_mrg_model
+from ..train.loop import build_mrg_model, mrg_trainables, splice_llm_weights
 
 
 class Pipeline:
@@ -43,8 +56,9 @@ class Pipeline:
         return torch.from_numpy(x).to(self.device)
 
     def __call__(self, img_u8: np.ndarray) -> dict:
-        out = self.model.generate(self.preprocess(img_u8), self.before,
-                                  self.after, self.gcfg)
+        with parametrize.cached():  # LoRA-merged weights, once a request
+            out = self.model.generate(self.preprocess(img_u8), self.before,
+                                      self.after, self.gcfg)
         ids = out[0].tolist()
         return {"report": self.tok.decode(ids), "ids": ids}
 
@@ -52,25 +66,21 @@ class Pipeline:
 def _tokenizer(args, cfg):
     if args.vocab:
         return WordTokenizer.load(args.vocab)
-    if cfg.data.tokenizer_dir:
-        raise NotImplementedError(
-            "HF tokenizer files (data.tokenizer_dir) are not ported yet "
-            "(ROADMAP.md, queue 1, item 9)"
-        )
+    tok_dir = cfg.data.tokenizer_dir or cfg.model.llm_weights_dir
+    if tok_dir:
+        return HFTokenizer.from_file(os.path.join(tok_dir, "tokenizer.json"))
     return WordTokenizer(["the", "lungs", "are", "clear", "."])
 
 
 def build_pipeline(args) -> Pipeline:
-    """Build the model on ``args.device`` with weights from ``args.seed``.
+    """Build the model on ``args.device``: weights from ``args.seed``, the
+    LLM from ``model.llm_weights_dir`` where set, then ``args.delta``.
 
-    ``args.vocab_size`` (optional) sizes the LM vocabulary; by default it
-    is the tokenizer's. Ids past the tokenizer decode as "<unk>".
+    ``args.vocab_size`` (optional) sizes the LM vocabulary where no
+    checkpoint does; by default it is the tokenizer's. Ids past the
+    tokenizer decode as "<unk>" (a word vocabulary) or as nothing (an HF
+    tokenizer, as its runtime decodes them).
     """
-    if args.delta:
-        raise NotImplementedError(
-            "delta checkpoints are not ported yet (ROADMAP.md, queue 1, "
-            "item 9)"
-        )
     cfg = load_config(args.config) if args.config else make_config({})
     if cfg.model.task != "r2gengpt":
         raise NotImplementedError(
@@ -85,6 +95,18 @@ def build_pipeline(args) -> Pipeline:
     model = build_mrg_model(cfg, vocab_size, device=device)
     init_params(model, torch.Generator(device).manual_seed(args.seed))
     model.eval()
+    if cfg.model.llm_weights_dir:
+        # serve the real streamed LLM weights (int8 too): the splice the
+        # training recipes use
+        splice_llm_weights(model, cfg)
+    if args.delta:
+        delta, meta = load_delta(args.delta)
+        lora_run = any(n.startswith(("base/", "lora/")) for n in delta)
+        named = (mrg_trainables(cfg, model)[0] if lora_run
+                 else flax_named_parameters(model))
+        merge_delta(named, delta)
+        print(f"[demo] merged delta {args.delta} (epoch {meta['epoch']}, "
+              f"{sum(v.numel() > 0 for v in delta.values())} tensors)")
     gcfg = dataclasses.replace(cfg.generate, eos_id=tok.EOS, num_beams=3)
 
     def ids(text, **kw):

@@ -6,7 +6,8 @@ Usage:
       [--rounds 1] [--split val] [--max-batches 20] [--set key=value]
 
 Counterpart of ``medical_image_analysis_tpu/cli/mac_refine.py``; the
-delta is one that ``cli.train`` wrote for the preset. ``--device``
+delta is one that ``cli.train`` wrote for the preset, or one that the JAX
+package's ``cli.train`` wrote (``.msgpack``). ``--device``
 defaults to ``cuda``, and the CLI raises when there is no CUDA device: it
 does not fall back to the CPU (pass ``--device cpu`` to refine there).
 Prints one JSON line of the draft's and the refined reports' scores.

@@ -1,4 +1,4 @@
-"""Autoregressive generation: greedy and beam search, in PyTorch.
+"""Autoregressive generation: greedy, sampling and beam search, in PyTorch.
 
 Counterpart of ``medical_image_analysis_tpu/models/generation.py``, with
 the same HF ``generate`` semantics (repetition penalty over generated
@@ -112,6 +112,72 @@ def greedy_generate(
         logits = _ban_repeated_ngrams(logits, seq, t, no_repeat_ngram_size)
         logits = _ban_eos_before_min(logits, t, eos_id, min_new_tokens)
         return torch.argmax(logits, dim=-1).to(torch.int32)
+
+    tok = pick(first_logits, 0)
+    seq[:, 0] = tok
+    seen = _mark_seen(seen, tok)
+    done = tok == eos_id
+    for t in range(1, max_new_tokens):
+        logits, cache = decode_step(tok[:, None], cache, t)
+        tok = torch.where(done, eos_id, pick(logits, t)).to(torch.int32)
+        seq[:, t] = tok
+        seen = _mark_seen(seen, tok)
+        done = done | (tok == eos_id)
+    return torch.where(seq < 0, eos_id, seq)
+
+
+def sample_filter(logits, seq, seen, t: int, eos_id: int,
+                  temperature: float = 1.0, top_p: float = 1.0,
+                  min_new_tokens: int = 0, repetition_penalty: float = 1.0,
+                  no_repeat_ngram_size: int = 0):
+    """The logits that :func:`sample_generate` draws slot ``t`` from: the
+    repetition penalty over ``seen``, the n-gram ban over ``seq``, EOS
+    banned before ``min_new_tokens``, the temperature, then the nucleus
+    cut (every logit below the one at which the sorted softmax's running
+    sum first reaches ``top_p`` set to ``NEG_INF``; ties kept)."""
+    logits = _penalize_seen(logits, seen, repetition_penalty)
+    logits = _ban_repeated_ngrams(logits, seq, t, no_repeat_ngram_size)
+    logits = _ban_eos_before_min(logits, t, eos_id, min_new_tokens)
+    logits = logits / max(temperature, 1e-6)
+    if top_p < 1.0:
+        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+        cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
+        cutoff_idx = torch.sum(cum < top_p, dim=-1)
+        cutoff = torch.gather(sorted_logits, 1, cutoff_idx[:, None])
+        logits = torch.where(logits < cutoff, NEG_INF, logits)
+    return logits
+
+
+def sample_generate(
+    decode_step: DecodeStep,
+    cache,
+    generator: torch.Generator,
+    first_logits: torch.Tensor,  # (B, V) from the prefill call
+    max_new_tokens: int,
+    eos_id: int,
+    temperature: float = 1.0,
+    top_p: float = 1.0,
+    min_new_tokens: int = 0,
+    repetition_penalty: float = 1.0,
+    no_repeat_ngram_size: int = 0,
+):
+    """Temperature / nucleus sampling (JAX ``sample_generate``), each slot
+    drawn from the softmax of :func:`sample_filter`'s logits with
+    ``generator`` (on the logits' device). JAX draws with
+    ``jax.random.categorical``; the same seed gives other draws here.
+    Returns (B, max_new_tokens), EOS-padded after a row stops."""
+    b, v = first_logits.shape
+    dev = first_logits.device
+    seq = torch.full((b, max_new_tokens), -1, dtype=torch.int32, device=dev)
+    seen = torch.zeros(b, v, dtype=torch.bool, device=dev)
+
+    def pick(logits, t):
+        logits = sample_filter(logits.float(), seq, seen, t, eos_id,
+                               temperature, top_p, min_new_tokens,
+                               repetition_penalty, no_repeat_ngram_size)
+        probs = torch.softmax(logits, dim=-1)
+        return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
+            torch.int32)
 
     tok = pick(first_logits, 0)
     seq[:, 0] = tok

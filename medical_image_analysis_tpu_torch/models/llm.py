@@ -12,6 +12,15 @@ parameters: a bf16-stored weight would round most AdamW updates away.
 RMSNorm statistics and outputs are fp32; attention scores and softmax are
 fp32 (bf16 q.k products are exact in fp32); ``lm_head`` is fp32.
 
+``LLMConfig.quant_int8`` builds every dense layer as :class:`QuantDense`
+(JAX ``QuantDense``, the serving path of ``model.llm_int8``): an int8
+``kernel_q`` and an fp32 per-output-column ``scale``, dequantised to the
+compute dtype element by element before the product, as the JAX package
+computes it (outside any Pallas kernel). A weight whose dequantised or
+cast copy would be large (``lm_head``: 151,936 x 2,048, 1.24 GB in fp32)
+is expanded in pieces of output columns (:func:`chunked_linear`), so no
+step holds that copy whole.
+
 KV caches are lists of per-layer tuples, as in the JAX package:
 ``(k, v, cur)`` for the joint cache and ``(kp, vp, kg, vg, cur)`` for the
 split beam cache, with ``cur`` a Python int. Unlike JAX's functional
@@ -42,6 +51,7 @@ class LLMConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     attn_bias: bool = False  # Qwen2 q/k/v biases
+    quant_int8: bool = False  # int8 weights + per-column scales
     remat: bool = False  # checkpoint each block under a gradient
     dtype: torch.dtype = torch.bfloat16
 
@@ -76,10 +86,36 @@ def _rope(q, k, positions, theta: float):
     return rot(q), rot(k)
 
 
+# Weight elements expanded at once where a layer's weight is dequantised or
+# cast for its product (128 MiB of fp32): lm_head's 311 M take 10 pieces.
+CHUNK_ELEMS = 1 << 25
+
+
+def chunked_linear(x, rows, n_out: int, d_in: int, bias=None):
+    """``F.linear(x, rows(0, n_out), bias)``, the weight's rows (output
+    columns) taken ``CHUNK_ELEMS // d_in`` at a time: ``rows(i, j)`` returns
+    rows ``i:j`` in the compute dtype. Each output element is the same dot
+    product as in one call."""
+    step = max(1, CHUNK_ELEMS // d_in)
+    if n_out <= step:
+        return F.linear(x, rows(0, n_out), bias)
+    return torch.cat([
+        F.linear(x, rows(i, min(i + step, n_out)),
+                 None if bias is None else bias[i:i + step])
+        for i in range(0, n_out, step)], dim=-1)
+
+
+def transient_bytes(n_out: int, d_in: int, dtype: torch.dtype) -> int:
+    """Bytes of the largest weight piece :func:`chunked_linear` expands."""
+    step = max(1, CHUNK_ELEMS // d_in)
+    return min(step, n_out) * d_in * torch.empty((), dtype=dtype).element_size()
+
+
 class Dense(nn.Linear):
     """flax ``nn.Dense(dtype=...)``: the input, weight and bias cast to the
     compute dtype, the dtype the layer was built in (an fp32 master of a
-    bf16 layer computes in bf16)."""
+    bf16 layer computes in bf16; a bf16 weight loaded into fp32
+    ``lm_head`` computes in fp32, cast a piece at a time)."""
 
     def __init__(self, *args, dtype=None, **kwargs):
         super().__init__(*args, dtype=dtype, **kwargs)
@@ -88,11 +124,58 @@ class Dense(nn.Linear):
     def forward(self, x):
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+        w = self.weight
+        if w.dtype == dt:
+            return F.linear(x.to(dt), w, bias)
+        return chunked_linear(x.to(dt), lambda i, j: w[i:j].to(dt),
+                              self.out_features, self.in_features, bias)
+
+
+class QuantDense(nn.Module):
+    """JAX ``QuantDense``: ``kernel_q`` int8 (out, in), the Linear layout
+    of the flax (in, out) kernel; ``scale`` fp32 (out,); ``bias`` fp32. The
+    weight is ``kernel_q.to(dtype) * scale.to(dtype)``, rounded to the
+    compute dtype element by element, then ``x.to(dtype) @ w.T``. Neither
+    ``kernel_q`` nor ``scale`` takes a gradient: int8 is a serving format
+    (``train.loop`` refuses LoRA on it)."""
+
+    def __init__(self, d_in: int, d_out: int, bias: bool = False,
+                 dtype=torch.bfloat16, device=None):
+        super().__init__()
+        self.in_features, self.out_features = d_in, d_out
+        self.compute_dtype = dtype
+        self.kernel_q = nn.Parameter(
+            torch.zeros(d_out, d_in, dtype=torch.int8, device=device),
+            requires_grad=False)
+        self.scale = nn.Parameter(torch.ones(d_out, device=device),
+                                  requires_grad=False)
+        self.bias = (nn.Parameter(torch.zeros(d_out, device=device))
+                     if bias else None)
+
+    @torch.no_grad()
+    def init_own_params(self, gen=None) -> None:
+        """flax's initialisers: ``kernel_q`` zeros, ``scale`` ones."""
+        self.kernel_q.zero_()
+        self.scale.fill_(1.0)
+        if self.bias is not None:
+            self.bias.zero_()
+
+    def dequantized(self, i: int = 0, j: int | None = None) -> torch.Tensor:
+        """Rows ``i:j`` of the weight in the compute dtype."""
+        dt = self.compute_dtype
+        return self.kernel_q[i:j].to(dt) * self.scale[i:j].to(dt)[:, None]
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return chunked_linear(x.to(dt), self.dequantized, self.out_features,
+                              self.in_features, bias)
 
 
 def _dense(cfg: LLMConfig, d_in: int, d_out: int, bias: bool = False,
            device=None):
+    if cfg.quant_int8:
+        return QuantDense(d_in, d_out, bias, dtype=cfg.dtype, device=device)
     return Dense(d_in, d_out, bias=bias, device=device, dtype=cfg.dtype)
 
 
@@ -286,11 +369,14 @@ class TransformerLM(nn.Module):
             self.make_layer(i, device) for i in range(cfg.n_layers)
         )
         self.norm = RMSNorm(cfg.dim, cfg.norm_eps, device=device)
-        self.lm_head = (
-            None if cfg.tie_embeddings
-            else Dense(cfg.dim, cfg.vocab_size, bias=False, device=device,
-                       dtype=torch.float32)
-        )
+        if cfg.tie_embeddings:
+            self.lm_head = None
+        elif cfg.quant_int8:  # fp32 compute, as JAX (:322-325)
+            self.lm_head = QuantDense(cfg.dim, cfg.vocab_size,
+                                      dtype=torch.float32, device=device)
+        else:
+            self.lm_head = Dense(cfg.dim, cfg.vocab_size, bias=False,
+                                 device=device, dtype=torch.float32)
 
     def make_layer(self, i: int, device=None) -> nn.Module:
         return LlamaBlock(self.cfg, device=device)

@@ -64,6 +64,7 @@ from ..ckpt.checkpoint import (
     save_train_state,
 )
 from ..ckpt.from_jax import flax_named_parameters
+from ..ckpt.hf_load import load_llm_params, read_hf_config
 from ..configs.config import RunConfig
 from ..data import side_inputs as side
 from ..data.datasets import (
@@ -80,6 +81,7 @@ from ..data.datasets import (
     synthetic_annotations,
     synthetic_image_loader,
 )
+from ..data.hf_tokenizer import HFTokenizer
 from ..data.tokenizer import WordTokenizer
 from ..evalx.chexbert import clinical_efficacy, extract_labels
 from ..evalx.classification import (
@@ -154,15 +156,23 @@ def build_mrg_model(cfg: RunConfig, vocab_size: int, device=None,
     """
     m = cfg.model
     if m.llm_weights_dir:
-        raise NotImplementedError(
-            "loading LLM checkpoints (model.llm_weights_dir) is not ported "
-            "yet (ROADMAP.md, queue 1, item 9)"
-        )
-    llm_kw = {"vocab_size": vocab_size, **(m.llm_kwargs or {})}
-    llm_cfg = dataclasses.replace(LLM_CONFIGS[m.llm], **llm_kw)
-    if llm_cfg.vocab_size < vocab_size:
-        raise ValueError(f"model.llm_kwargs vocab_size {llm_cfg.vocab_size} "
-                         f"is below the tokenizer's {vocab_size}")
+        # the architecture and vocabulary come from the checkpoint; the
+        # data tokenizer must fit inside its embedding table
+        llm_cfg = read_hf_config(m.llm_weights_dir, **(m.llm_kwargs or {}))
+        if vocab_size > llm_cfg.vocab_size:
+            raise ValueError(
+                f"tokenizer vocab ({vocab_size}) exceeds the checkpoint "
+                f"vocab ({llm_cfg.vocab_size}); set data.tokenizer_dir to "
+                "the checkpoint's tokenizer")
+        if m.llm_int8:
+            llm_cfg = dataclasses.replace(llm_cfg, quant_int8=True)
+    else:
+        llm_kw = {"vocab_size": vocab_size, **(m.llm_kwargs or {})}
+        llm_cfg = dataclasses.replace(LLM_CONFIGS[m.llm], **llm_kw)
+        if llm_cfg.vocab_size < vocab_size:
+            raise ValueError(f"model.llm_kwargs vocab_size "
+                             f"{llm_cfg.vocab_size} is below the "
+                             f"tokenizer's {vocab_size}")
     vk = vision_preset(m.vision, m.vision_size, m.vision_kwargs)
     if m.vision in _IMAGE_SIZED:
         vk.setdefault("img_size", cfg.data.input_size)
@@ -179,6 +189,21 @@ def build_mrg_model(cfg: RunConfig, vocab_size: int, device=None,
            "mac_rrg": MACRRG}.get(m.task, R2GenGPT)
     return cls(llm_cfg=llm_cfg, chosen=m.vision, vision_kwargs=vk,
                device=device, **tkw)
+
+
+def hf_tokenizer_of(cfg: RunConfig) -> HFTokenizer | None:
+    """The HF tokenizer of ``data.tokenizer_dir``, falling back to
+    ``model.llm_weights_dir``: its ``tokenizer.json``, or None where the
+    fallback directory has none (a set ``data.tokenizer_dir`` without one
+    raises)."""
+    tok_dir = cfg.data.tokenizer_dir or cfg.model.llm_weights_dir
+    tok_file = os.path.join(tok_dir, "tokenizer.json") if tok_dir else ""
+    if tok_file and os.path.exists(tok_file):
+        return HFTokenizer.from_file(tok_file)
+    if cfg.data.tokenizer_dir:
+        raise FileNotFoundError(
+            f"data.tokenizer_dir set but no tokenizer.json at {tok_file}")
+    return None
 
 
 def build_data(cfg: RunConfig):
@@ -204,14 +229,11 @@ def build_data(cfg: RunConfig):
         # re-samples the pooled extra view per epoch.
         for split in ("val", "test"):
             ann[split] = group_study_two_views(ann[split])
-    if d.tokenizer_dir or cfg.model.llm_weights_dir:
-        raise NotImplementedError(
-            "HF tokenizer files (data.tokenizer_dir) are not ported yet "
-            "(ROADMAP.md, queue 1, item 9)"
+    tok = hf_tokenizer_of(cfg)
+    if tok is None:
+        tok = WordTokenizer.from_corpus(
+            (s.report for s in ann["train"]), min_freq=d.vocab_min_freq
         )
-    tok = WordTokenizer.from_corpus(
-        (s.report for s in ann["train"]), min_freq=d.vocab_min_freq
-    )
     chexbert = load_chexbert_csv(d.chexbert_csv) if d.chexbert_csv else None
 
     def batcher(split, n_context=0, extra_fn=None):
@@ -460,7 +482,36 @@ def init_mrg_model(cfg: RunConfig, vocab_size: int, side_dims: dict, device,
                           "arm" if bare else cfg.model.vision,
                           ("vision",) if bare else ("vision",
                                                     cfg.model.vision))
-    return model.to(device)
+    model = model.to(device)
+    if cfg.model.llm_weights_dir:
+        if cfg.train.lora_llm and cfg.model.llm_int8:
+            raise ValueError(
+                "train.lora_llm with model.llm_int8 is unsupported: int8 "
+                "is a serving format; train LoRA against bf16 weights")
+        splice_llm_weights(model, cfg)
+    return model
+
+
+def splice_llm_weights(model, cfg: RunConfig) -> list[str]:
+    """Stream the real Llama/Qwen weights of ``model.llm_weights_dir`` over
+    the model's LLM in place, on its device (``ckpt/hf_load.py``); the
+    tower and projector keep their values. EMRRG's hybrid decoder keeps
+    the Llama names and adds ``cross_attn_{kv,gate}_proj`` inside every
+    ``cross_every``-th layer: the file's tensors are grafted in and the
+    hybrid-only ones keep theirs (JAX ``splice_llm_weights``). Returns the
+    LLM's names written."""
+    t0 = time.perf_counter()
+    emrrg = cfg.model.task == "emrrg"
+    if emrrg and cfg.model.llm_int8:
+        raise ValueError(
+            "model.llm_int8 is unsupported for emrrg (the hybrid layers use "
+            "plain Dense kernels)")
+    written = load_llm_params(cfg.model.llm_weights_dir, model.llm,
+                              int8=cfg.model.llm_int8, strict=not emrrg)
+    print(f"[splice_llm_weights] {len(written)} LLM tensors from "
+          f"{cfg.model.llm_weights_dir} in {time.perf_counter() - t0:.2f} s"
+          f"{' (int8)' if cfg.model.llm_int8 else ''}", flush=True)
+    return written
 
 
 def mrg_trainables(cfg: RunConfig, model) -> tuple[dict, dict]:
@@ -518,7 +569,7 @@ def fit_mrg(cfg: RunConfig, device="cuda", on_start=None) -> dict:
     if t.mesh_model > 1:
         raise NotImplementedError(
             "train.mesh_model > 1: tensor parallelism is not ported yet "
-            "(ROADMAP.md, queue 1, slice 6, item 18)"
+            "(ROADMAP.md, queue 1, item 18)"
         )
     device = torch.device(device)
     os.makedirs(t.save_dir, exist_ok=True)

@@ -45,13 +45,17 @@ def refine_mac_rrg(
     "refined": scores, "reports": {id: [refined text]}}``.
 
     The model is built as ``fit_mrg`` builds it (its LoRA included) and
-    initialised from ``train.seed``; then ``params`` (tensors by the
+    initialised from ``train.seed`` (its LLM streamed from
+    ``model.llm_weights_dir`` where set); then ``params`` (tensors by the
     run's names, as a delta holds them) or the delta of ``delta_file``
-    (``fit_mrg``'s) is merged over it, else it stays at its random
-    initialisation (a plumbing check). A delta's frozen tensors are the
+    (``fit_mrg``'s, the port's ``.pt`` or the JAX package's ``.msgpack``)
+    is merged over it, else it stays at its random initialisation (a
+    plumbing check). A port delta's frozen tensors are the
     initialisation's, so the model is initialised on the device type the
     delta's run initialised on (its ``init_device``) and then moved to
-    ``device``. ``on_start(model, named, ctx)``, when given, is called once
+    ``device``. A JAX delta's frozen tensors are JAX's random draws, which
+    the port does not reproduce: they match where they come from files
+    (``model.llm_weights_dir``). ``on_start(model, named, ctx)``, when given, is called once
     the weights are in place (``named``: the tensors by the run's names),
     before the first generation.
     """

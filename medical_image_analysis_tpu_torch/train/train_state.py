@@ -1,7 +1,7 @@
 """The training step on one device: accumulation, AdamW, optional EMA.
 
 Counterpart of ``medical_image_analysis_tpu/train/train_state.py`` without
-the mesh, tensor parallelism and ZeRO (ROADMAP.md, queue 1, slice 6).
+the mesh, tensor parallelism and ZeRO (ROADMAP.md, queue 1, item 18).
 
 - The trainable tensors are named (flax paths) and owned by the
   :class:`TrainState`; frozen tensors stay in the model with

@@ -1880,3 +1880,98 @@ def test_mac_rrg_encode_img_through_the_swin_kernel_matches_unfused(cuda):
     assert out[True].shape == (2, 196 + 5 + 4, 64)
     err = (out[True] - out[False]).abs().max().item()
     assert err <= 1e-4 * out[False].abs().max().item(), err
+
+
+# Real checkpoint files: the safetensors reader, QuantDense and the
+# on-device preprocessing on the card against their CPU results.
+
+def _write_safetensors(path, tensors):
+    """A safetensors file written by hand (the card machine has no
+    ``safetensors`` package): header length, JSON header, raw bytes."""
+    import json
+    import struct
+
+    names = {torch.bfloat16: "BF16", torch.int8: "I8",
+             torch.float32: "F32"}
+    header, blobs, off = {}, [], 0
+    for name, t in tensors.items():
+        raw = t.contiguous().view(torch.uint8).numpy().tobytes()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [off, off + len(raw)]}
+        blobs.append(raw)
+        off += len(raw)
+    head = json.dumps(header).encode()
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)) + head + b"".join(blobs))
+
+
+@pytest.mark.cuda
+def test_safetensors_reader_straight_to_the_card(cuda, tmp_path):
+    from medical_image_analysis_tpu_torch.ckpt.safetensors import (
+        SafetensorsIndex,
+    )
+
+    gen = torch.Generator().manual_seed(0)
+    want = {"w_bf16": torch.randn(257, 33, generator=gen).bfloat16(),
+            "q_int8": torch.randint(-127, 128, (64, 48), generator=gen,
+                                    dtype=torch.int8),
+            "s_f32": torch.rand(48, generator=gen)}
+    _write_safetensors(tmp_path / "model.safetensors", want)
+    sd = SafetensorsIndex(str(tmp_path))
+    for name, t in want.items():
+        got = sd.tensor(name, cuda)
+        assert got.device.type == cuda.type and got.dtype == t.dtype
+        assert torch.equal(got.cpu(), t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_dense_on_the_card_matches_cpu(cuda, dtype, monkeypatch):
+    """fp32: 1e-5 of the largest output (the sums' order); bf16: one bf16
+    step of it. The head's chunks (7 rows a piece here) likewise."""
+    from medical_image_analysis_tpu_torch.models import llm
+
+    gen = torch.Generator().manual_seed(1)
+    q = llm.QuantDense(96, 200, bias=True, dtype=dtype)
+    with torch.no_grad():
+        q.kernel_q.copy_(torch.randint(-127, 128, (200, 96), generator=gen))
+        q.scale.copy_(torch.rand(200, generator=gen) * 0.01)
+        q.bias.copy_(torch.randn(200, generator=gen))
+    x = torch.randn(5, 96, generator=gen)
+    monkeypatch.setattr(llm, "CHUNK_ELEMS", 96 * 7)
+    want = q(x).float()
+    got = q.to(cuda)(x.to(cuda)).float().cpu()
+    tol = (1e-5 if dtype == torch.float32 else 2.0**-7) * want.abs().max()
+    assert (got - want).abs().max() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,size", [((1024, 1024), 224),
+                                        ((128, 128), 224)])
+def test_device_preprocess_on_the_card_matches_cpu(cuda, shape, size):
+    """fp32 on both sides: 1e-4 of the normalised values (the bound of
+    the JAX parity test and of chip_smoke's prep_dev)."""
+    from medical_image_analysis_tpu_torch.data.preprocessing import (
+        device_preprocess,
+    )
+
+    raw = torch.randint(0, 256, (4, *shape, 3), dtype=torch.uint8,
+                        generator=torch.Generator().manual_seed(2))
+    want = device_preprocess(raw, size, torch.float32)
+    got = device_preprocess(raw.to(cuda), size, torch.float32).cpu()
+    assert (got - want).abs().max() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_quantize_on_the_card_is_bit_equal_to_the_host(cuda):
+    """``_quantize`` on the card: ``kernel_q`` and ``scale`` bit for bit
+    the host's (the JAX package's numpy, by the CPU tests)."""
+    from medical_image_analysis_tpu_torch.ckpt.hf_load import _quantize
+
+    gen = torch.Generator().manual_seed(3)
+    w = (torch.randn(512, 384, generator=gen)
+         * torch.rand(384, generator=gen) * 3).bfloat16().float()
+    want = _quantize(w)
+    got = _quantize(w.to(cuda))
+    assert torch.equal(got["kernel_q"].cpu(), want["kernel_q"])
+    assert torch.equal(got["scale"].cpu(), want["scale"])
