@@ -68,17 +68,20 @@ raises (exit code 1):
                ``data.tokenizer_dir`` set to it, through
                ``cli.demo.build_pipeline`` and ``make_server``: every LLM
                tensor on the card equal to the file's, 3 POSTs (beam 3, 120
-               tokens), each reply decoded by the port's tokenizer, the ARM
-               kernels once per layer per request. Load and request
+               tokens), each reply equal to its ids decoded by the
+               checkpoint's ``tokenizer.json`` read anew (which also
+               round-trips the synthetic reports), the ARM kernels once per
+               layer per request. Load and request
                seconds, the LLM's tensor bytes, the head's transient bytes,
                peak memory.
    serve_hf_int8 -- the same with ``model.llm_int8: true``: ``kernel_q``
                and ``scale`` of q/k/v/o and gate/up/down at layers 0, 11
                and 23 and of ``lm_head`` equal ``_quantize`` of the file's
                tensor on the host; the LLM's tensor bytes at least 1.4 GiB
-               below ``serve_hf``'s; the first decode step's largest logit
-               gap to ``serve_hf``'s on the same request (printed, not
-               bounded).
+               below ``serve_hf``'s; with ``serve_hf``'s tower and
+               projector copied in (so both feed the LLM the same image
+               tokens), the first decode step's largest logit gap to
+               ``serve_hf``'s on the same request (printed, not bounded).
    train_hf -- ``fit_mrg`` of the preset on the checkpoint and its
                tokenizer through ``cli.train.main``: LoRA r16 on the frozen
                LLM, 3 steps of 10 studies, one validation at the preset's
@@ -4058,6 +4061,31 @@ def _int8_equals_quantize(lm, ckpt: Path) -> int:
     return len(pairs)
 
 
+def _fresh_tokenizer(ckpt: Path):
+    """The checkpoint's ``tokenizer.json`` read anew by the port's reader,
+    apart from the served pipeline's copy; its round trip of the synthetic
+    reports checked. Returns it and the reports' ids and token counts."""
+    from medical_image_analysis_tpu_torch.data.datasets import (
+        synthetic_annotations,
+    )
+    from medical_image_analysis_tpu_torch.data.hf_tokenizer import HFTokenizer
+
+    tok = HFTokenizer.from_file(str(ckpt / "tokenizer.json"))
+    reports = [s.report for split in synthetic_annotations().values()
+               for s in split]
+    n_ids = 0
+    for text in reports:
+        ids = tok.encode(text)
+        _check(all(0 <= i < tok.vocab_size for i in ids),
+               "tokenizer: an id past the vocabulary")
+        _check(len(ids) < len(text.encode()),
+               f"tokenizer: no merge applied to {text!r}")
+        _check(tok.decode(ids) == text,
+               f"tokenizer: {text!r} does not survive encode and decode")
+        n_ids += len(ids)
+    return tok, len(reports), n_ids
+
+
 def phase_serve_hf(ckpt: Path, work: Path, device: str = "cuda",
                    int8: bool = False, ref: dict | None = None,
                    overrides=(), requests: int = REQUESTS) -> dict:
@@ -4065,8 +4093,12 @@ def phase_serve_hf(ckpt: Path, work: Path, device: str = "cuda",
     tokenizer (``int8``: ``model.llm_int8``) behind ``make_server``: the
     LLM held against the file, ``requests`` POSTs (beam 3, the preset's
     decode length), each reply decoded by the port's tokenizer, the ARM
-    kernels once per layer per request. ``ref`` (the bf16 run's result)
-    gives the first decode step's logit gap and the saving in bytes."""
+    kernels once per layer per request. The replies are decoded again by
+    a tokenizer read anew from the file, which also round-trips the
+    synthetic reports. ``ref`` (the bf16 run's result) gives its tower
+    and projector, copied over this run's so that both runs feed the LLM
+    the same image tokens, the first decode step's logit gap and the
+    saving in bytes."""
     from medical_image_analysis_tpu_torch.cli import demo
     from medical_image_analysis_tpu_torch.models.llm import transient_bytes
 
@@ -4099,6 +4131,26 @@ def phase_serve_hf(ckpt: Path, work: Path, device: str = "cuda",
         demo.splice_llm_weights = splice
     model, tok, gcfg = pipe.model, pipe.tok, pipe.gcfg
     lm = model.llm
+    # the seed draws the LLM's tensors before the projector's, and int8
+    # layers draw none: without this copy the two runs would differ in
+    # the image tokens too, and the logit gap would not be int8's alone
+    rest = {n: t for n, t in model.state_dict().items()
+            if not n.startswith("llm.")}
+    rest_differing = None
+    if ref is not None:
+        _check(set(ref["rest"]) == set(rest),
+               f"{phase}: the tower and projector differ in names from "
+               "serve_hf's")
+        rest_differing = 0
+        with torch.no_grad():
+            for n, t in ref["rest"].items():
+                rest_differing += not torch.equal(rest[n].cpu(), t)
+                rest[n].copy_(t)
+        _check(all(torch.equal(rest[n].cpu(), t)
+                   for n, t in ref["rest"].items()),
+               f"{phase}: the tower and projector differ from serve_hf's "
+               "after the copy")
+    fresh_tok, n_reports, n_report_ids = _fresh_tokenizer(ckpt)
     held = _llm_equals_file(lm, ckpt) if not int8 else 0
     quant = _int8_equals_quantize(lm, ckpt) if int8 else 0
     nbytes = _llm_bytes(lm)
@@ -4132,9 +4184,9 @@ def phase_serve_hf(ckpt: Path, work: Path, device: str = "cuda",
                    f"{phase}: {len(ids)} ids, expected {gcfg.max_new_tokens}")
             _check(all(0 <= i < lm.cfg.vocab_size for i in ids),
                    f"{phase}: token id out of range")
-            _check(out["report"] == tok.decode(ids),
-                   f"{phase}: the reply does not decode through the port's "
-                   "tokenizer")
+            _check(out["report"] == fresh_tok.decode(ids),
+                   f"{phase}: the reply differs from its ids decoded by the "
+                   "checkpoint's tokenizer.json read anew")
             words.append(len(out["report"].split()))
         launches = _all_launches()
     finally:
@@ -4162,6 +4214,7 @@ def phase_serve_hf(ckpt: Path, work: Path, device: str = "cuda",
         if cuda else "n/a",
         request_s=",".join(f"{s:.3f}" for s in secs),
         report_words=",".join(map(str, words)),
+        reports_round_tripped=n_reports, report_ids=n_report_ids,
         launches=_compact(launches))
     if held:
         fields["tensors_equal_file"] = held
@@ -4176,14 +4229,19 @@ def phase_serve_hf(ckpt: Path, work: Path, device: str = "cuda",
                f"{phase}: int8 holds {saved / 2**30:.3f} GiB less in LLM "
                f"tensors than bf16; expected at least "
                f"{HF_INT8_SAVING / 2**30:.1f}")
-        fields.update(first_step_max_logit_gap=f"{gap:.4f}",
+        fields.update(tower_proj_tensors=len(rest),
+                      tower_proj_differing_before_copy=rest_differing,
+                      first_step_max_logit_gap=f"{gap:.4f}",
                       bf16_max_abs_logit=f"{want.abs().max().item():.4f}",
                       same_first_token=same_top,
                       saved_gib=f"{saved / 2**30:.3f}",
                       bf16_request_s=ref["request_s"])
     _phase(phase, **fields)
     result = {"first_logits": first["logits"], "llm_bytes": nbytes,
-              "request_s": fields["request_s"], "launches": launches}
+              "request_s": fields["request_s"], "launches": launches,
+              "rest": None if ref is not None else
+              {n: t.detach().cpu().clone() for n, t in rest.items()}}
+    del rest
     del pipe, model, lm, head
     gc.collect()
     if cuda:

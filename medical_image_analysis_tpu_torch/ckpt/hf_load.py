@@ -10,9 +10,9 @@ Counterpart of ``medical_image_analysis_tpu/ckpt/hf_load.py``:
   shards (``ckpt/safetensors.py``, the port's own reader) into a built
   ``TransformerLM``'s own parameters, on the model's device, in place: no
   second copy of the LLM and no state dict in host RAM. The key map is
-  :func:`llm_key_map`, the JAX loader's (``ckpt.torch_import
-  .llama_hf_to_flax`` plus Qwen2's biases; ``lm_head`` only when untied
-  and present in the files).
+  :func:`llm_key_map`, the JAX loader's (the JAX package's
+  ``ckpt.torch_import.llama_hf_to_flax`` plus Qwen2's biases; ``lm_head``
+  only when untied and present in the files).
 
 The stored dtypes are the JAX loader's: kernels and the embedding in the
 model dtype (``lm_head`` too: a bf16 weight in the fp32 head, cast a piece
@@ -110,16 +110,14 @@ def _put(named: dict, name: str, value: torch.Tensor, dtype) -> None:
     p.copy_(value)
 
 
-def load_llm_params(model_dir: str, lm, int8: bool | None = None,
-                    dtype: torch.dtype | None = None, mesh=None,
+def load_llm_params(model_dir: str, lm, mesh=None,
                     strict: bool = True) -> list[str]:
     """Stream an HF Llama/Qwen2 checkpoint into ``lm`` (a ``TransformerLM``
     or EMRRG's hybrid one) in place; returns the flax names written.
 
-    ``int8`` (default ``lm.cfg.quant_int8``) quantises every Dense kernel
-    into the model's ``QuantDense`` layers; ``dtype`` (default
-    ``lm.cfg.dtype``) is the stored dtype of the kernels, the embedding
-    and (without int8) the biases. ``strict``: every tensor of ``lm`` must
+    ``lm.cfg.quant_int8`` quantises every Dense kernel into the model's
+    ``QuantDense`` layers; ``lm.cfg.dtype`` is the stored dtype of the
+    kernels, the embedding and (without int8) the biases. ``strict``: every tensor of ``lm`` must
     be written (the JAX splice replaces the whole LLM subtree); EMRRG's
     graft passes False and its hybrid-only tensors keep their values.
     """
@@ -130,8 +128,7 @@ def load_llm_params(model_dir: str, lm, int8: bool | None = None,
     from .from_jax import flax_named_parameters
 
     cfg = lm.cfg
-    int8 = cfg.quant_int8 if int8 is None else int8
-    dtype = dtype or cfg.dtype
+    int8, dtype = cfg.quant_int8, cfg.dtype
     named = flax_named_parameters(lm)
     device = next(iter(named.values())).device
     sd = SafetensorsIndex(model_dir)

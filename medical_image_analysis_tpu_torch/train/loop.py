@@ -507,7 +507,7 @@ def splice_llm_weights(model, cfg: RunConfig) -> list[str]:
             "model.llm_int8 is unsupported for emrrg (the hybrid layers use "
             "plain Dense kernels)")
     written = load_llm_params(cfg.model.llm_weights_dir, model.llm,
-                              int8=cfg.model.llm_int8, strict=not emrrg)
+                              strict=not emrrg)
     print(f"[splice_llm_weights] {len(written)} LLM tensors from "
           f"{cfg.model.llm_weights_dir} in {time.perf_counter() - t0:.2f} s"
           f"{' (int8)' if cfg.model.llm_int8 else ''}", flush=True)

@@ -11,8 +11,8 @@ embeddings, one shard) are saved by ``save_pretrained`` once per module.
 (b) JAX ``load_llm_params`` and the port's loader give equal tensors and
     dtypes, in the model dtype and in int8 (``kernel_q`` and ``scale``
     bit-equal; ``_quantize`` bit-equal to JAX's numpy on a random
-    matrix), and the key map equals the numpy ``llama_hf_to_flax``'s and
-    JAX's.
+    matrix), and the key map covers what the JAX ``llama_hf_to_flax``
+    maps, plus Qwen2's biases.
 (c) The port's ``TransformerLM`` and the JAX one give the same logits in
     fp32 from the same files, int8 included (1e-5 relative to the largest
     logit); the JAX tree, int8 too, loads strictly into the port through
@@ -50,7 +50,6 @@ from medical_image_analysis_tpu_torch.ckpt.safetensors import (
     SafetensorsIndex,
     shard_files,
 )
-from medical_image_analysis_tpu_torch.ckpt.torch_import import llama_hf_to_flax
 from medical_image_analysis_tpu_torch.configs import config as port_config
 from medical_image_analysis_tpu_torch.data.hf_tokenizer import HFTokenizer
 from medical_image_analysis_tpu_torch.models import llm
@@ -116,7 +115,7 @@ _DT = {jnp.dtype(jnp.bfloat16): torch.bfloat16,
 def _port_lm(d, int8, dtype):
     cfg = hf_load.read_hf_config(d, dtype=dtype, quant_int8=int8)
     lm = llm.TransformerLM(cfg)
-    hf_load.load_llm_params(d, lm, int8=int8)
+    hf_load.load_llm_params(d, lm)
     return lm
 
 
@@ -180,17 +179,13 @@ def test_key_map_matches_llama_hf_to_flax(ckpts):
     d = ckpts["qwen"]
     sd = SafetensorsIndex(d)
     np_sd = {k: sd[k].float().numpy() for k in sd}
-    port = _jax_named(llama_hf_to_flax(np_sd, 2)["params"])
     ref = _jax_named(jax_import.llama_hf_to_flax(np_sd, 2)["params"])
-    assert set(port) == set(ref)
-    for n in ref:
-        assert np.array_equal(port[n], np.asarray(ref[n])), n
     cfg = hf_load.read_hf_config(d)
     km = hf_load.llm_key_map(cfg, sd)
     mapped = {(p + "/kernel" if kind == "kernel" else p)
               for p, (_, kind) in km.items()}
     biases = {p for p, (_, kind) in km.items() if kind == "bias"}
-    assert mapped - biases == set(port) and len(biases) == 6
+    assert mapped - biases == set(ref) and len(biases) == 6
 
 
 @pytest.mark.parametrize("int8", [False, True])
