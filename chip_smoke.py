@@ -346,6 +346,43 @@ raises (exit code 1):
                trained, 48 Swin launches; again at the tokenizer's
                vocabulary, where the refined round's agent arrays are not
                all zero).
+36. ref_ckpt -- each layout of the reference's released checkpoints,
+               written from ``SEED`` (``tests/ref_ckpt_files.py``): ARM-B
+               (four directions; and a one-direction stage-1 file through
+               ``replicate_dir_weights``), vssm1_base, HF ``SwinModel``
+               Swin-B, timm ViT-B/16 (inside MAE's ``{"model", "args",
+               ...}`` wrapper), CheXbert (``module.``-prefixed, inside
+               ``model_state_dict``), AM-MRG's BLIP-2 Q-Former (LAVIS
+               names) and Hopfield memory, R2GenKG's cross block and
+               R2Gen at 512 x 3; each read with ``weights_only``, mapped by
+               ``ckpt/torch_import.py`` and loaded strictly onto the card,
+               every tensor equal to the mapped file's; each tower at its
+               preset's batch through its kernels against its plain
+               version (``TOWER_RTOL``), each head once; bytes, write and
+               load seconds.
+37. chexbert -- the 48 synthetic reports labelled by that CheXbert on the
+               card and on the CPU, one a call: labels equal, logit gap
+               within ``CHEXBERT_ATOL``; seconds a report, and the P/R/F1
+               of ``clinical_efficacy`` with the learned labeler.
+38. resume_jax -- ``dp_finetune`` (ViT-B/16, B=64) for 2 steps; its state
+               written in the JAX package's msgpack layout
+               (``tests/jax_state_files.py``) and read back equal; the run
+               resumed from the ``.pt`` and from the ``.msgpack`` through
+               the CLI: every tensor, count and step equal after the load,
+               the next epoch's losses equal.
+   vision_init_jax (after ``stage_chain``) -- ``clip_align``'s state as a
+               JAX ``.msgpack``: the same ARM overlay as from the ``.pt``,
+               and ``r2gengpt_mimic``'s initialisation grafts every tensor
+               that ``stage_chain`` grafted (``grafted=``).
+39. throughput -- ``cli.train --throughput`` on swinchex (swin_large,
+               B=64), vssm_classify (vssm_tiny, B=128), r2gencsr_iu on
+               vssm1_base and r2gengpt_mimic (ARM-B): each JSON, and the
+               tower's kernels launched.
+40. debug_nans -- ``train``'s run again with ``train.debug_nans=true``
+               (its validation's greedy decoding included): the same
+               losses and scores, bit for bit; then with a
+               NaN put into the ARM's final norm: ``FloatingPointError``
+               naming ``vision.arm.norm_f``.
 
 Bounds: the largest of the bytes at the HBM rate, the matrix products at
 the tensor-core rate of their operand type (fp32 in 3xTF32, 165 TFLOP/s;
@@ -1220,7 +1257,8 @@ def _train_through_cli(argv: list[str], save_dir: Path, device: str,
                           cfg["train"]["val_max_batches"] or val_batches)
     return {"model": model, "state": state, "cfg": cfg, "cuda": cuda,
             "n_steps": n_steps, "val_batches": val_batches,
-            "launches": launches, "fields": fields}
+            "launches": launches, "fields": fields, "scores": scores,
+            "losses": [r["loss"] for r in steps]}
 
 
 def _check_launches(run: dict, reckoned: dict, phase: str, how: str) -> None:
@@ -1266,7 +1304,8 @@ def phase_train(config: str, vocab: int, save_dir: Path,
     _phase("train", preset=Path(config).name, accum=accum, **run["fields"])
     return {"model": model, "state": run["state"],
             "batch": run["cfg"]["data"]["batch_size"], "accum": accum,
-            "launches": run["launches"]}
+            "launches": run["launches"], "losses": run["losses"],
+            "scores": run["scores"]}
 
 
 def _worst_rel(names, got, want) -> tuple[float, str]:
@@ -1488,26 +1527,27 @@ def _compact(d: dict) -> str:
 
 
 def _kernel_modules():
-    from medical_image_analysis_tpu_torch.ops import (
-        attention,
-        mamba_fused,
-        scan_n1,
-        selective_scan_pallas,
-        swin_block,
-        vit_block,
+    from medical_image_analysis_tpu_torch.utils.profiling import (
+        kernel_modules,
     )
 
-    return (mamba_fused, scan_n1, vit_block, swin_block,
-            selective_scan_pallas, attention)
+    return kernel_modules()
 
 
 def _all_launches() -> dict:
-    return {k: v for m in _kernel_modules() for k, v in m.launches.items()}
+    from medical_image_analysis_tpu_torch.utils.profiling import (
+        kernel_launches,
+    )
+
+    return kernel_launches()
 
 
 def _reset_launches() -> None:
-    for m in _kernel_modules():
-        m.reset_launches()
+    from medical_image_analysis_tpu_torch.utils.profiling import (
+        reset_kernel_launches,
+    )
+
+    reset_kernel_launches()
 
 
 def phase_train_csr(vocab: int, save_dir: Path, device: str = "cuda",
@@ -4334,6 +4374,553 @@ def phase_prep_dev(dev, work: Path, batch: int = PREP_BATCH,
         _phase("prep_dev", **fields)
 
 
+# --------------------------------------------------------------------------
+# The reference's checkpoints, the learned CheXbert labeler, JAX train
+# states and artifacts, --throughput and train.debug_nans
+# --------------------------------------------------------------------------
+
+TESTS_DIR = Path(__file__).resolve().parent / "tests"
+# The towers' batches on their main paths: r2gengpt_mimic's and r2gencsr_iu's
+# and R2GenKG's 6 studies x 2 views (ARM-B, vssm1_base, Swin-B),
+# dp_finetune's 64 images (ViT-B/16); the heads at 12 rows.
+REF_BATCH = {"arm": 12, "vssm": 12, "swin": 12, "vit": 64, "head": 12}
+# tests/test_torch_chexbert.py's bound on the heads' logits (fp32), times
+# max(1, the largest |logit|): here the card's against the CPU's
+CHEXBERT_ATOL = 2e-5
+CHEXBERT_LEN = 128  # tokens a report, as the JAX labeler's default
+THROUGHPUT_PRESETS = (("swinchex.yaml", ()), ("vssm_classify.yaml", ()),
+                      ("r2gencsr_iu.yaml", VSSM1_OVERRIDES),
+                      ("r2gengpt_mimic.yaml", ()))
+THROUGHPUT_KERNELS = {"swin": ("swin_attn_fwd",),
+                      "vssm": ("mamba_xdbl", "mamba_scan"),
+                      "vssm1": ("scan_n1_fwd",),
+                      "arm": ("mamba_xdbl", "mamba_scan")}
+
+
+def _tests_module(name: str):
+    """A maker module of ``tests/`` (no pytest, no JAX)."""
+    import importlib
+
+    if str(TESTS_DIR) not in sys.path:
+        sys.path.insert(0, str(TESTS_DIR))
+    return importlib.import_module(name)
+
+
+def _scan_switch(model, fused: bool) -> None:
+    from medical_image_analysis_tpu_torch.models.mamba import set_scan_backend
+
+    set_scan_backend(model, "auto" if fused else "plain")
+
+
+def _block_switch(model, fused: bool) -> None:
+    from medical_image_analysis_tpu_torch.models.common import set_fused
+
+    set_fused(model, fused)
+
+
+def _ref_cases():
+    """(name, state dict maker, released wrapper, map, module constructor,
+    inputs maker, kernel switch, kernels) of every reference layout, at the
+    presets' full widths: ARM-B (four directions, and a one-direction
+    stage-1 file through ``replicate_dir_weights``), vssm1_base, HF Swin-B,
+    timm ViT-B/16, CheXbert, and AM-MRG's Q-Former and Hopfield memory,
+    R2GenKG's cross block and R2Gen at 512 x 3."""
+    from medical_image_analysis_tpu_torch.ckpt import torch_import as ti
+    from medical_image_analysis_tpu_torch.evalx.chexbert_model import (
+        CheXbert,
+        chexbert_torch_to_flax,
+    )
+    from medical_image_analysis_tpu_torch.models.bert import (
+        BertConfig,
+        Blip2QFormer,
+    )
+    from medical_image_analysis_tpu_torch.models.hopfield import Hopfield
+    from medical_image_analysis_tpu_torch.models.mamba import ARM, ARM_CONFIGS
+    from medical_image_analysis_tpu_torch.models.r2gen import R2Gen
+    from medical_image_analysis_tpu_torch.models.rgcn import (
+        ResidualCrossAttentionBlock,
+    )
+    from medical_image_analysis_tpu_torch.models.swin import (
+        SWIN_CONFIGS,
+        SwinTransformer,
+    )
+    from medical_image_analysis_tpu_torch.models.vit import VIT_CONFIGS, ViT
+    from medical_image_analysis_tpu_torch.models.vmamba import (
+        VSSM,
+        VSSM_CONFIGS,
+    )
+
+    ref = _tests_module("ref_ckpt_files")
+    arm_b = ARM_CONFIGS["arm_base_pz16"]
+    swin_b = SWIN_CONFIGS["swin_base"]
+    vssm1 = dict(VSSM_CONFIGS["vssm_base"], d_state=1, disable_z=True,
+                 conv_bias=False, patch_embed_version="v2")
+
+    def images(key):
+        return lambda dev, gen: (torch.randn(
+            REF_BATCH[key], 224, 224, 3, device=dev, generator=gen),)
+
+    def rows(*shapes):
+        return lambda dev, gen: tuple(
+            torch.randn(REF_BATCH["head"], *s, device=dev, generator=gen)
+            for s in shapes)
+
+    def qformer_map(sd):
+        return {"query_tokens": sd["query_tokens"],
+                "bert": ti.blip2_qformer_to_flax(sd, 12)["params"]}
+
+    return [
+        ("arm_b", ref.arm_sd, None, lambda sd: ti.arm_torch_to_flax(sd, 12),
+         lambda d: ARM(**arm_b, device=d), images("arm"), _scan_switch,
+         ("mamba_xdbl", "mamba_scan")),
+        ("arm_b_stage1", lambda r: ref.arm_sd(r, dirs=1), None,
+         lambda sd: ti.arm_torch_to_flax(ti.replicate_dir_weights(sd), 12),
+         lambda d: ARM(**arm_b, device=d), images("arm"), _scan_switch,
+         ("mamba_xdbl", "mamba_scan")),
+        ("vssm1_base", ref.vssm_sd, None,
+         lambda sd: ti.vssm_torch_to_flax(sd, list(vssm1["depths"])),
+         lambda d: VSSM(**vssm1, device=d), images("vssm"), _scan_switch,
+         ("scan_n1_fwd",)),
+        ("swin_b_hf", ref.swin_hf_sd, None,
+         lambda sd: ti.swin_hf_to_flax(sd, list(swin_b["depths"])),
+         lambda d: SwinTransformer(**swin_b, device=d), images("swin"),
+         _block_switch, ("swin_attn_fwd",)),
+        ("vit_b_timm", ref.vit_timm_sd, "model",
+         lambda sd: ti.vit_torch_to_flax(sd, 12, final_norm=True),
+         lambda d: ViT(**VIT_CONFIGS["vit_base"], fixed_sincos_pos=False,
+                       device=d), images("vit"), _block_switch,
+         ("vit_attn_fwd", "vit_mlp_fwd")),
+        ("chexbert", ref.chexbert_sd, "model_state_dict",
+         chexbert_torch_to_flax,
+         lambda d: CheXbert(BertConfig(), device=d), None, None,
+         ()),
+        ("qformer_am_mrg", ref.qformer_lavis_sd, None, qformer_map,
+         lambda d: Blip2QFormer(enc_dim=1408, text_ffn=True, device=d),
+         rows((197, 1408)), None, ()),
+        ("hopfield_am_mrg", ref.hopfield_sd, None, ti.hopfield_torch_to_flax,
+         lambda d: Hopfield(768, 1024, num_heads=6, pattern_dim=768,
+                            scaling=4.0, device=d),
+         rows((14, 768), (200, 768)), None, ()),
+        ("cross_block_r2genkg", ref.cross_block_sd, None,
+         ti.cross_block_torch_to_flax,
+         lambda d: ResidualCrossAttentionBlock(768, 8, device=d),
+         rows((14, 768), (49, 768)), None, ()),
+        ("r2gen", ref.r2gen_sd, None, lambda sd: ti.r2gen_torch_to_flax(sd, 3),
+         lambda d: R2Gen(761, 768, device=d),
+         lambda dev, gen: (torch.randn(REF_BATCH["head"], 197, 768,
+                                       device=dev, generator=gen),
+                           torch.randint(0, 761, (REF_BATCH["head"], 60),
+                                         device=dev, generator=gen)),
+         None, ()),
+    ]
+
+
+def _equal_to_tree(module, tree) -> tuple[int, int]:
+    """(tensors of ``module`` equal to the mapped tree's leaves in the
+    port's layout, tensors of the tree)."""
+    from medical_image_analysis_tpu_torch.ckpt.from_jax import (
+        state_dict_from_jax,
+    )
+
+    want = state_dict_from_jax(tree)
+    got = module.state_dict()
+    return sum(torch.equal(got[k].detach().cpu(), v)
+               for k, v in want.items()), len(want)
+
+
+def _fused_vs_plain(model, inputs, switch, kernels, what: str) -> dict:
+    """The module's output through its kernels and through the plain
+    versions on the card, in turns; the kernels must launch, the relative
+    gap stay within ``TOWER_RTOL``."""
+    out, ms = {}, {}
+    dev = inputs[0].device
+    with torch.no_grad():
+        for fused in (False, True, True, False):
+            switch(model, fused)
+            _reset_launches()
+            _sync(dev)
+            t0 = time.perf_counter()
+            out[fused] = model(*inputs).float()
+            _sync(dev)
+            ms[fused] = ms.get(fused, 0.0) + (time.perf_counter() - t0) * 5e2
+            if fused:
+                launches = {k: _all_launches()[k] for k in kernels}
+    switch(model, True)
+    got, want = out[True], out[False]
+    _check(bool(torch.isfinite(got).all()) and got.shape == want.shape,
+           f"{what}: output {tuple(got.shape)} not finite or not "
+           f"{tuple(want.shape)}")
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    _check(rel <= TOWER_RTOL, f"{what}: max rel err {rel:.3e} > {TOWER_RTOL}")
+    if dev.type == "cuda":
+        _check(all(launches.values()), f"{what}: launches {launches}")
+    return {"shape": tuple(got.shape), "max_rel_err": f"{rel:.3e}",
+            "launches": _compact(launches), "kernel_ms": f"{ms[True]:.3f}",
+            "plain_ms": f"{ms[False]:.3f}"}
+
+
+def phase_ref_ckpt(work: Path, dev, gen, cases=None) -> dict:
+    """Every reference layout (``_ref_cases``) written from ``SEED`` as its
+    released file (``tests/ref_ckpt_files.py:save_pth``), read back by
+    ``load_torch_state_dict`` (``weights_only``), mapped by its
+    ``ckpt/torch_import.py`` function and loaded strictly onto the card;
+    every tensor must equal the mapped file's. Each tower then runs at its
+    preset's batch through its kernels and through the plain versions on
+    the card (``TOWER_RTOL``), each head once. Prints the file's bytes and
+    the load seconds (read, map, copy to the card). Returns the loaded
+    CheXbert and its mapped tree."""
+    import shutil
+
+    from medical_image_analysis_tpu_torch.ckpt.from_jax import load_jax_params
+    from medical_image_analysis_tpu_torch.ckpt.torch_import import (
+        load_torch_state_dict,
+    )
+
+    ref = _tests_module("ref_ckpt_files")
+    rng = np.random.default_rng(SEED)
+    kept = {}
+    for name, make, wrap, mapper, build, inputs, switch, kernels in (
+            cases or _ref_cases()):
+        path = work / f"{name}.pth"
+        sd = make(rng)
+        need = sum(v.nbytes for v in sd.values())
+        free = shutil.disk_usage(work).free
+        _check(free >= need + 2**30,
+               f"ref_ckpt: {free / 2**30:.2f} GiB free under {work}, "
+               f"{name} needs {need / 2**30:.2f} GiB (+1 GiB)")
+        t0 = time.perf_counter()
+        nbytes = ref.save_pth(path, sd, wrap)
+        write_s = time.perf_counter() - t0
+        del sd
+        t0 = time.perf_counter()
+        tree = mapper(load_torch_state_dict(str(path)))
+        model = load_jax_params(build(dev).eval(), tree)
+        _sync(dev)
+        load_s = time.perf_counter() - t0
+        equal, total = _equal_to_tree(model, tree)
+        _check(equal == total, f"ref_ckpt {name}: {total - equal} of {total} "
+               "tensors differ from the file")
+        fields = dict(file=name, bytes=nbytes,
+                      file_bytes=path.stat().st_size, tensors=total,
+                      equal=equal, write_s=f"{write_s:.2f}",
+                      load_s=f"{load_s:.2f}")
+        path.unlink()
+        if switch is not None:
+            fields.update(_fused_vs_plain(model, inputs(dev, gen), switch,
+                                          kernels, f"ref_ckpt {name}"))
+        elif inputs is not None:
+            with torch.no_grad():
+                out = model(*inputs(dev, gen))
+            _check(bool(torch.isfinite(out).all()),
+                   f"ref_ckpt {name}: non-finite output")
+            fields.update(shape=tuple(out.shape))
+        _phase("ref_ckpt", **fields)
+        if name == "chexbert":
+            kept = {"model": model, "tree": tree}
+        else:
+            del model
+        del tree
+        torch.cuda.empty_cache()
+    return kept
+
+
+def phase_chexbert(model, tree) -> None:
+    """The 48 synthetic reports (train, val and test) labelled by the
+    CheXbert of ``ref_ckpt`` on the card and by the same weights on the
+    CPU, one report a call as the JAX labeler: labels equal, the heads'
+    logits within ``CHEXBERT_ATOL`` x max(1, largest); seconds a report on
+    each, and the P/R/F1 that ``clinical_efficacy`` gives with the learned
+    labeler (each report against the next)."""
+    from medical_image_analysis_tpu_torch.ckpt.from_jax import load_jax_params
+    from medical_image_analysis_tpu_torch.data.datasets import (
+        synthetic_annotations,
+    )
+    from medical_image_analysis_tpu_torch.data.tokenizer import WordTokenizer
+    from medical_image_analysis_tpu_torch.evalx.chexbert import (
+        clinical_efficacy,
+    )
+    from medical_image_analysis_tpu_torch.evalx.chexbert_model import (
+        CheXbert,
+        make_learned_labeler,
+    )
+    from medical_image_analysis_tpu_torch.models.bert import BertConfig
+
+    reports = [s.report for split in synthetic_annotations().values()
+               for s in split]
+    tok = WordTokenizer(sorted({w for r in reports for w in r.split()}))
+    dev = next(model.parameters()).device
+    cpu = load_jax_params(CheXbert(BertConfig()).eval(), tree)
+    gap, scale = 0.0, 1.0
+    with torch.no_grad():
+        for r in reports:
+            ids, mask = tok.pad(tok.encode(r, max_len=CHEXBERT_LEN),
+                                CHEXBERT_LEN)
+            ids, mask = torch.tensor([ids]), torch.tensor([mask])
+            for a, b in zip(model(ids.to(dev), mask.to(dev)),
+                            cpu(ids, mask)):
+                gap = max(gap, (a.cpu() - b).abs().max().item())
+                scale = max(scale, b.abs().max().item())
+    _check(gap <= CHEXBERT_ATOL * scale,
+           f"chexbert: logit gap {gap:.3e} > {CHEXBERT_ATOL} x {scale:.3f}")
+    secs, labels = {}, {}
+    for where, m in (("card", model), ("cpu", cpu)):
+        labeler = make_learned_labeler(m, tok, max_len=CHEXBERT_LEN)
+        _sync(dev)
+        t0 = time.perf_counter()
+        labels[where] = np.stack([labeler(r) for r in reports])
+        _sync(dev)
+        secs[where] = (time.perf_counter() - t0) / len(reports)
+    _check(np.array_equal(labels["card"], labels["cpu"]),
+           "chexbert: the card's labels differ from the CPU's")
+    labeler = make_learned_labeler(model, tok, max_len=CHEXBERT_LEN)
+    gts = {str(i): [r] for i, r in enumerate(reports)}
+    res = {str(i): [reports[(i + 1) % len(reports)]]
+           for i in range(len(reports))}
+    ce = clinical_efficacy(gts, res, labeler=labeler)
+    _phase("chexbert", reports=len(reports), max_len=CHEXBERT_LEN,
+           logit_gap=f"{gap:.3e}", bound=f"{CHEXBERT_ATOL * scale:.3e}",
+           positives=int(labels["card"].sum()),
+           s_per_report=f"{secs['card']:.4f}",
+           cpu_s_per_report=f"{secs['cpu']:.4f}",
+           **{k: f"{v:.4f}" for k, v in ce.items()})
+
+
+def _state_snapshot(state) -> dict:
+    """Every tensor and number of a ``TrainState``, copied to the CPU."""
+    sd = state.state_dict()
+
+    def cpu(tree):
+        if isinstance(tree, dict):
+            return {k: cpu(v) for k, v in tree.items()}
+        return tree.detach().cpu().clone() if isinstance(
+            tree, torch.Tensor) else tree
+
+    return cpu(sd)
+
+
+def _same_state(a: dict, b: dict, what: str) -> int:
+    """Checks two snapshots equal, bit for bit; returns the tensors."""
+    n = 0
+    for key in ("params", "frozen", "ema"):
+        if a[key] is None or b[key] is None:
+            _check(a[key] is b[key], f"{what}: {key} present in one only")
+            continue
+        _check(a[key].keys() == b[key].keys(), f"{what}: {key} names differ")
+        for name, t in a[key].items():
+            _check(torch.equal(t, b[key][name]), f"{what}: {key}/{name}")
+            n += 1
+    for key in ("mu", "nu"):
+        for name, t in a["opt"][key].items():
+            _check(torch.equal(t, b["opt"][key][name]),
+                   f"{what}: {key}/{name}")
+            n += 1
+    _check(a["opt"]["count"] == b["opt"]["count"] and a["step"] == b["step"],
+           f"{what}: count {a['opt']['count']} / {b['opt']['count']}, step "
+           f"{a['step']} / {b['step']}")
+    return n
+
+
+def phase_resume_jax(save_dir: Path, device: str = "cuda",
+                     overrides=()) -> list:
+    """``dp_finetune`` (ViT-B/16, B=64, EMA) for one epoch of 2 steps; its
+    state written in the JAX package's msgpack layout
+    (``tests/jax_state_files.py``, optax's tree included), which
+    ``restore_train_state`` must read back equal to the ``.pt``; then the
+    run resumed once from the ``.pt`` and once from the ``.msgpack``
+    through the CLI (``train.resume``): after the load every parameter,
+    moment, EMA tensor, the count and the step equal the saved state's,
+    and the next epoch's losses are equal. Returns the runs' counts."""
+    from medical_image_analysis_tpu_torch.ckpt.checkpoint import (
+        restore_train_state,
+    )
+
+    jsf = _tests_module("jax_state_files")
+    first = _cls_through_cli("dp_finetune.yaml", save_dir / "first", device,
+                             ("train.save_state_every_epochs=1",
+                              *overrides))
+    pt = save_dir / "first" / "state_epoch00000.pt"
+    saved = torch.load(pt, map_location="cpu", weights_only=True)["state"]
+    t0 = time.perf_counter()
+    msgpack = Path(jsf.write_jax_state(str(save_dir / "jax"), saved, 0))
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back, epoch = restore_train_state(str(msgpack))
+    read_s = time.perf_counter() - t0
+    _check(epoch == 0, f"resume_jax: epoch {epoch}")
+    n = _same_state(saved, back, "resume_jax: msgpack read back")
+    runs, seen, losses = [first["launches"]], {}, {}
+    for kind, path in (("pt", pt), ("msgpack", msgpack)):
+        run_dir = save_dir / kind
+        sets = ("data.dataset=synthetic_learnable",
+                f"data.synthetic_train_size={CLS_TRAIN['dp_finetune.yaml']}",
+                "train.epochs=2", f"train.resume={path}",
+                "train.save_state_every_epochs=2", "train.log_every=1",
+                f"train.save_dir={run_dir}", *overrides)
+        argv = ["--config", str(PRESET.parent / "dp_finetune.yaml")]
+        for item in sets:
+            argv += ["--set", item]
+
+        def snapshot(model, state, kind=kind):
+            seen[kind] = _state_snapshot(state)
+            return {}
+
+        run = _train_through_cli(argv, run_dir, device, check_start=snapshot)
+        runs.append(run["launches"])
+        losses[kind] = run["losses"]
+        del run
+    _same_state(saved, seen["pt"], "resume_jax: resumed from .pt")
+    _same_state(seen["pt"], seen["msgpack"], "resume_jax: .msgpack vs .pt")
+    _check(losses["pt"] == losses["msgpack"],
+           f"resume_jax: losses {losses['pt']} vs {losses['msgpack']}")
+    _phase("resume_jax", preset="dp_finetune.yaml", tensors=n,
+           count=saved["opt"]["count"], step=saved["step"],
+           msgpack_bytes=msgpack.stat().st_size, pt_bytes=pt.stat().st_size,
+           write_s=f"{write_s:.2f}", read_s=f"{read_s:.2f}",
+           losses_pt=",".join(f"{x:.6f}" for x in losses["pt"]),
+           losses_msgpack=",".join(f"{x:.6f}" for x in losses["msgpack"]))
+    return runs
+
+
+def phase_vision_init_jax(vocab: int, clip_artifact: Path, work: Path,
+                          device: str = "cuda", overrides=()) -> None:
+    """``clip_align``'s state (phase ``train_clip``) written as the JAX
+    package writes one; ``model.vision_init`` at that ``.msgpack`` must
+    resolve the same ARM overlay as at the ``.pt`` (names and tensors), and
+    ``r2gengpt_mimic``'s initialisation (``init_mrg_model``, as ``fit_mrg``
+    calls it) must graft every tensor that ``stage_chain`` grafted from the
+    ``.pt``."""
+    from medical_image_analysis_tpu_torch.ckpt.bridge import (
+        flatten,
+        load_pretrain_params,
+        resolve_vision_overlay,
+    )
+    from medical_image_analysis_tpu_torch.configs.config import load_config
+    from medical_image_analysis_tpu_torch.train.loop import init_mrg_model
+
+    jsf = _tests_module("jax_state_files")
+    blob = torch.load(clip_artifact, map_location="cpu", weights_only=True)
+    t0 = time.perf_counter()
+    jpath = Path(jsf.write_jax_state(str(work), blob["state"],
+                                     blob["epoch"]))
+    write_s = time.perf_counter() - t0
+    del blob
+    overlay = {}
+    for kind, path in (("pt", clip_artifact), ("msgpack", jpath)):
+        t0 = time.perf_counter()
+        overlay[kind] = flatten(resolve_vision_overlay(
+            load_pretrain_params(str(path)), "arm"))
+        overlay[f"{kind}_s"] = time.perf_counter() - t0
+    _check(overlay["pt"].keys() == overlay["msgpack"].keys()
+           and all(torch.equal(t, overlay["msgpack"][n])
+                   for n, t in overlay["pt"].items()),
+           "vision_init_jax: the .msgpack's overlay differs from the .pt's")
+    clip = _flat_state(clip_artifact)
+    tower = {n.split("/", 1)[1]: t for n, t in clip.items()
+             if n.startswith("visual_encoder/")}
+    cfg = load_config(str(PRESET), ["data.dataset=synthetic",
+                                    f"model.llm_kwargs.vocab_size={vocab}",
+                                    f"model.vision_init={jpath}", *overrides])
+    t0 = time.perf_counter()
+    model = init_mrg_model(cfg, vocab, {}, device)
+    _sync(torch.device(device))
+    init_s = time.perf_counter() - t0
+    grafted = _grafted_check("vision/arm", tower, 1)(model, None)["grafted"]
+    _check(grafted == len(overlay["pt"]),
+           f"vision_init_jax: {grafted} grafted, the overlay has "
+           f"{len(overlay['pt'])}")
+    del model
+    _phase("vision_init_jax", artifact=jpath.name,
+           msgpack_bytes=jpath.stat().st_size, write_s=f"{write_s:.2f}",
+           overlay_pt_s=f"{overlay['pt_s']:.2f}",
+           overlay_msgpack_s=f"{overlay['msgpack_s']:.2f}",
+           grafted=grafted, init_s=f"{init_s:.2f}")
+
+
+def phase_throughput(device: str = "cuda", presets=THROUGHPUT_PRESETS,
+                     overrides=()) -> list:
+    """``cli.train --throughput`` on swinchex (swin_large, B=64),
+    vssm_classify (vssm_tiny, B=128), r2gencsr_iu on vssm1_base and
+    r2gengpt_mimic (ARM-B): prints each JSON, and the tower's kernels must
+    have launched. Returns the runs' counts."""
+    from medical_image_analysis_tpu_torch.cli import train as cli_train
+
+    runs = []
+    for preset, sets in presets:
+        argv = ["--config", str(PRESET.parent / preset), "--throughput",
+                "--device", device]
+        for item in (*sets, *overrides):
+            argv += ["--set", item]
+        _reset_launches()
+        t0 = time.perf_counter()
+        stats = cli_train.main(argv)
+        wall_s = time.perf_counter() - t0
+        launches = _all_launches()
+        runs.append(launches)
+        tower = stats["vision"]
+        if tower == "vssm" and any("d_state: 1" in s for s in sets):
+            tower = "vssm1"
+        elif tower not in ("swin", "vssm"):
+            tower = "arm"  # as the JAX function, every other tower an ARM
+        if torch.device(device).type == "cuda":
+            _check(all(launches[k] > 0 for k in THROUGHPUT_KERNELS[tower]),
+                   f"throughput {preset}: launches {launches}")
+        _check(np.isfinite(stats["ms_per_iter"]) and stats["ms_per_iter"] > 0,
+               f"throughput {preset}: {stats}")
+        _phase("throughput", preset=preset, tower=tower,
+               **{k: (f"{v:.3f}" if isinstance(v, float) else v)
+                  for k, v in stats.items()},
+               wall_s=f"{wall_s:.2f}",
+               launches=_compact({k: v for k, v in launches.items() if v}))
+    return runs
+
+
+def phase_debug_nans(config: str, vocab: int, save_dir: Path,
+                     plain: dict, device: str = "cuda",
+                     overrides=()) -> dict:
+    """``train``'s run again with ``train.debug_nans=true``, its validation
+    (greedy decoding) included: its losses and scores must equal
+    ``train``'s (``plain``, the losses and scores of that run), exactly.
+    Then the same with a NaN put into the ARM's final norm before the first
+    step: ``FloatingPointError`` naming that module. Returns the clean
+    run's counts."""
+    from medical_image_analysis_tpu_torch.cli import train as cli_train
+
+    sets = ("data.dataset=synthetic", f"model.llm_kwargs.vocab_size={vocab}",
+            "train.epochs=1", "train.save_state_every_epochs=2",
+            "train.log_every=1", "train.debug_nans=true", *overrides)
+    argv = ["--config", config]
+    for item in (*sets, f"train.save_dir={save_dir / 'clean'}"):
+        argv += ["--set", item]
+    run = _train_through_cli(argv, save_dir / "clean", device)
+    _check(run["losses"] == plain["losses"],
+           f"debug_nans: losses {run['losses']} with the flag, "
+           f"{plain['losses']} without")
+    _check(run["scores"] == plain["scores"],
+           f"debug_nans: scores {run['scores']} with the flag, "
+           f"{plain['scores']} without")
+    launches, fields = run["launches"], run["fields"]
+    del run
+
+    def poison(model, state):
+        with torch.no_grad():
+            model.vision.arm.norm_f.weight[0] = float("nan")
+
+    argv = ["--config", config, "--device", device]
+    for item in (*sets, f"train.save_dir={save_dir / 'nan'}"):
+        argv += ["--set", item]
+    message = ""
+    try:
+        cli_train.main(argv, on_start=poison)
+    except FloatingPointError as e:
+        message = str(e)
+    _check("module vision.arm.norm_f output" in message,
+           f"debug_nans: the injected NaN raised {message!r}")
+    _phase("debug_nans", preset=Path(config).name, raised=repr(message),
+           losses=fields["losses"], step_s=fields["step_s"],
+           setup_s=fields["setup_s"], val_s=fields["val_s"])
+    return launches
+
+
 def main() -> None:
     phase_device()
     dev = torch.device("cuda")
@@ -4364,6 +4951,7 @@ def main() -> None:
     phase_train_grads(run["model"], run["state"], str(PRESET), run["batch"],
                       run["accum"])
     train_launches = run["launches"]
+    train_plain = {"losses": run["losses"], "scores": run["scores"]}
     del run
     torch.cuda.empty_cache()
     # real checkpoint files: an HF directory of Qwen1.5-1.8B's shape,
@@ -4399,6 +4987,7 @@ def main() -> None:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_chain_") as tmp:
             pretrain_launches.append(phase_stage_chain(
                 VOCAB, clip_artifact, Path(tmp))["launches"])
+            phase_vision_init_jax(VOCAB, clip_artifact, Path(tmp))
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_csr_") as tmp:
         csr = phase_train_csr(VOCAB, Path(tmp))
@@ -4502,10 +5091,29 @@ def main() -> None:
         runs += phase_refine_mac_rrg(mac, Path(tmp))
     del mac
 
+    # The reference's checkpoints and the learned labeler; JAX train states
+    # resumed; --throughput; train.debug_nans
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ref_") as tmp:
+        chex = phase_ref_ckpt(Path(tmp), dev, gen)
+    phase_chexbert(chex["model"], chex["tree"])
+    del chex
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as tmp:
+        runs += phase_resume_jax(Path(tmp))
+    torch.cuda.empty_cache()
+    runs += phase_throughput()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nans_") as tmp:
+        runs.append(phase_debug_nans(str(PRESET), VOCAB, Path(tmp),
+                                     train_plain))
+
     # launches: the main paths' runs (serving in bf16 and int8 from the HF
     # checkpoint, the eighteen trainings with train_hf, the
     # ARM tower on scan_backend=pallas, the Attention module, the MAC-RRG
-    # refinement), each read just after it was driven with the counts at 0
+    # refinement, the dp_finetune runs resumed from a .pt and a JAX
+    # .msgpack, the four --throughput towers, the debug_nans run), each
+    # read just after it was driven with the counts at 0
     main_runs = {name: sum(run.get(name, 0) for run in runs)
                  for name in REPLACES}
     sources = {k: m.KERNEL_SOURCE for m in _kernel_modules()

@@ -9,10 +9,12 @@ chains its stages by checkpoint surgery at load time:
   ``strict=False`` so that downstream-only parameters keep their init;
 - HD MAE pretrain -> DP / RG finetunes: the encoder subtree.
 
-Here the artifacts are the port's own (``ckpt/checkpoint.py``): a full
-train state (``save_train_state``) or a trainable-only delta
-(``save_delta``), ``torch.save`` of tensors named by flax path; the JAX
-package's msgpack artifacts are ROADMAP.md, queue 1, item 9. Trees are
+The artifacts are the port's own (``ckpt/checkpoint.py``): a full train
+state (``save_train_state``) or a trainable-only delta (``save_delta``),
+``torch.save`` of tensors named by flax path; or the JAX package's msgpack
+ones, a train state or a delta (a pretraining run on the TPU feeding a
+fine-tune here), renamed and put in the port's layouts by
+``checkpoint.from_jax_tree``. Trees are
 nested dicts of tensors keyed by the flax path's parts, in the port's
 layouts (so a tower's overlay fits the port's tower of the same names).
 Set ``model.vision_init=<state_epoch*.pt>`` on ``fit_clip``, ``fit_mrg``
@@ -57,14 +59,22 @@ def flatten(tree: dict, prefix: str = "") -> dict:
 
 def load_pretrain_params(path: str) -> dict:
     """The model's parameter tree from a recipe artifact: a full train
-    state (trainable and frozen tensors together) or a delta; the
-    structure tells them apart."""
-    from .checkpoint import is_torch_file
+    state (trainable and frozen tensors together) or a delta, the port's
+    or the JAX package's; the structure tells them apart. A JAX tree loses
+    its flax ``{"params": ...}`` levels, as the JAX function unwraps them,
+    and a JAX delta's frozen (empty) leaves are dropped."""
+    from .checkpoint import from_jax_tree, is_torch_file, read_jax_file
 
     if not is_torch_file(path):
-        raise NotImplementedError(
-            f"{path}: the JAX package's msgpack artifacts are not read by "
-            "model.vision_init yet (ROADMAP.md, queue 1, item 9)")
+        obj = read_jax_file(path)
+        if "state" in obj:  # save_train_state blob
+            tree = obj["state"]["params"]
+        elif "model" in obj:  # save_delta blob
+            tree = obj["model"]
+        else:
+            tree = obj
+        return nest({n: t for n, t in from_jax_tree(tree).items()
+                     if t.numel()})
     obj = torch.load(path, map_location="cpu", weights_only=True)
     if "state" in obj:  # save_train_state blob
         flat = {**obj["state"].get("frozen", {}), **obj["state"]["params"]}

@@ -15,13 +15,14 @@ port's own format, ``torch.save`` of dicts of tensors named by flax path:
   are empty arrays, which :func:`merge_delta` skips. A JAX delta carries
   only the trainable tensors: the frozen ones are the run's, which the
   port reproduces only where they come from files (``model.
-  llm_weights_dir``), not from JAX's random draws. JAX train states
-  (``state_epoch*.msgpack``, optax's layout) are ROADMAP.md, queue 1,
-  item 9;
+  llm_weights_dir``), not from JAX's random draws;
 - a train state (``state_epoch<NNNNN>.pt``) holds every tensor of the run
   (frozen and trainable, LoRA adapters included), the optimizer state,
   the step and the EMA shadow; it is written atomically, and only the
-  ``keep`` newest are kept. :func:`auto_resume_helper` finds the newest.
+  ``keep`` newest are kept. :func:`restore_train_state` also reads the JAX
+  package's train states (``state_epoch<NNNNN>.msgpack``, :func:`
+  _restore_jax_state`), and :func:`auto_resume_helper` finds the newest
+  epoch among both kinds. The port writes only ``.pt``.
 
 Files are loaded with ``weights_only=True``: they hold tensors, numbers,
 strings and containers only.
@@ -40,6 +41,7 @@ from .from_jax import to_port_layout
 from .msgpack import msgpack_restore
 
 _STATE_RE = re.compile(r"state_epoch(\d+)\.pt$")
+_ANY_STATE_RE = re.compile(r"state_epoch(\d+)\.(pt|msgpack)$")
 
 
 def _cpu(tree):
@@ -80,18 +82,33 @@ def _port_name(name: str) -> str:
     return "/".join(parts)
 
 
-def _load_jax_delta(path: str) -> tuple[dict, dict]:
-    with open(path, "rb") as f:
-        obj = msgpack_restore(f.read())
-    meta = obj["meta"]
-    config = json.loads(bytes(meta["config"].tolist()).decode() or "{}")
-    delta = {}
-    for name, t in flatten(obj["model"]).items():
+def from_jax_tree(tree: dict) -> dict:
+    """A JAX tree of parameters (or of optimizer moments, which have the
+    parameters' structure) as the port's tensors by name: flax names
+    without the ``params`` level (:func:`_port_name`), each non-empty leaf
+    in the port's layout (``to_port_layout``: a Dense kernel's moment is
+    transposed as its kernel is). Empty dicts (optax's masked nodes)
+    vanish; empty arrays (a delta's frozen leaves) stay empty."""
+    out = {}
+    for name, t in flatten(tree).items():
         if isinstance(t, torch.Tensor) and t.numel():
             t = to_port_layout(name.split("/"), t)
-        delta[_port_name(name)] = t
-    return delta, {"config": config, "epoch": int(meta["epoch"]),
-                   "step": int(meta["step"])}
+        out[_port_name(name)] = t
+    return out
+
+
+def read_jax_file(path: str):
+    """A JAX package's msgpack file, decoded by the port's own reader."""
+    with open(path, "rb") as f:
+        return msgpack_restore(f.read())
+
+
+def _load_jax_delta(path: str) -> tuple[dict, dict]:
+    meta = (obj := read_jax_file(path))["meta"]
+    config = json.loads(bytes(meta["config"].tolist()).decode() or "{}")
+    return from_jax_tree(obj["model"]), {
+        "config": config, "epoch": int(meta["epoch"]),
+        "step": int(meta["step"])}
 
 
 def is_torch_file(path: str) -> bool:
@@ -146,19 +163,74 @@ def save_train_state(save_dir: str, state: dict, epoch: int,
 
 
 def auto_resume_helper(save_dir: str) -> str | None:
-    """The newest train state in ``save_dir``, or None."""
+    """The train state of the newest epoch in ``save_dir``, the port's
+    ``.pt`` or the JAX package's ``.msgpack`` (the port's where both hold
+    that epoch), or None."""
     if not os.path.isdir(save_dir):
         return None
-    states = sorted(f for f in os.listdir(save_dir) if _STATE_RE.search(f))
-    return os.path.join(save_dir, states[-1]) if states else None
+    states = [(int(m.group(1)), m.group(2) == "pt", f)
+              for f in os.listdir(save_dir)
+              if (m := _ANY_STATE_RE.search(f))]
+    return os.path.join(save_dir, max(states)[2]) if states else None
+
+
+def _optax_nodes(tree, adam: list, counts: list) -> None:
+    """Collect optax's ``ScaleByAdamState`` nodes (``count``, ``mu``,
+    ``nu``) and the other ``count``-only states (the schedule's) of a
+    serialised optimizer state, whatever chain, ``masked`` or
+    ``set_to_zero`` wraps them (namedtuples and tuples serialise as dicts
+    keyed by field name or ``"0"``, ``"1"``, ...)."""
+    if not isinstance(tree, dict):
+        return
+    if {"count", "mu", "nu"} <= set(tree):
+        adam.append(tree)
+    elif set(tree) == {"count"}:
+        counts.append(int(tree["count"]))
+    else:
+        for v in tree.values():
+            _optax_nodes(v, adam, counts)
+
+
+def _restore_jax_state(obj: dict) -> dict:
+    """A JAX ``save_train_state`` blob (``{"state": {step, params,
+    opt_state, ema_params}, "epoch"}``) as the port's train state: the
+    trainable tensors are those with Adam moments (optax's ``masked``
+    leaves none for the frozen ones), the others are ``frozen``; ``mu``,
+    ``nu`` and the EMA shadow take their parameters' layouts; ``count`` is
+    carried exactly (Adam's bias correction and the schedule read it)."""
+    st = obj["state"]
+    params = from_jax_tree(st["params"])
+    adam, counts = [], []
+    _optax_nodes(st["opt_state"], adam, counts)
+    if len(adam) != 1:
+        raise ValueError(f"JAX train state: {len(adam)} Adam states in "
+                         "opt_state, expected 1")
+    count = int(adam[0]["count"])
+    if any(c != count for c in counts):
+        raise ValueError(f"JAX train state: schedule counts {counts} differ "
+                         f"from Adam's count {count}")
+    mu, nu = from_jax_tree(adam[0]["mu"]), from_jax_tree(adam[0]["nu"])
+    unknown = sorted(set(mu) - set(params))
+    if unknown or mu.keys() != nu.keys():
+        raise ValueError(f"JAX train state: moments without a parameter "
+                         f"{unknown[:5]}")
+    ema = st.get("ema_params")
+    if isinstance(ema, dict):
+        ema = {n: t for n, t in from_jax_tree(ema).items() if n in mu}
+    return {
+        "step": int(st["step"]),
+        "params": {n: params[n] for n in mu},
+        "frozen": {n: t for n, t in params.items() if n not in mu},
+        "opt": {"count": count, "mu": mu, "nu": nu},
+        "ema": ema,
+    }
 
 
 def restore_train_state(path: str) -> tuple[dict, int]:
-    """Returns (state, epoch), tensors on the CPU."""
+    """Returns (state, epoch), tensors on the CPU, from the port's ``.pt``
+    or the JAX package's ``.msgpack`` (:func:`_restore_jax_state`)."""
     if not is_torch_file(path):
-        raise NotImplementedError(
-            f"{path}: the JAX package's train states (state_epoch*.msgpack, "
-            "optax's layout) are not ported yet (ROADMAP.md, queue 1, "
-            "item 9); resume from the port's state_epoch*.pt")
+        obj = read_jax_file(path)
+        return _restore_jax_state(obj), int(obj["epoch"])
     obj = torch.load(path, map_location="cpu", weights_only=True)
     return obj["state"], int(obj["epoch"])

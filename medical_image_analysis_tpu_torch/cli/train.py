@@ -3,9 +3,11 @@
 Usage:
   python -m medical_image_analysis_tpu_torch.cli.train --config cfg.yaml \\
       [--set train.lr=3e-4 --set data.dataset=synthetic] [--test|--validate]
+      [--throughput]
 
-Counterpart of ``medical_image_analysis_tpu/cli/train.py`` without
-``--throughput`` (ROADMAP.md, queue 1, item 17). ``--device`` defaults to
+Counterpart of ``medical_image_analysis_tpu/cli/train.py``; ``--throughput``
+times the tower's forward passes (``cli/throughput.py``) and prints their
+JSON instead of training. ``--device`` defaults to
 ``cuda``, and the CLI raises when there is no CUDA device: it does not
 fall back to the CPU (pass ``--device cpu`` to train there).
 """
@@ -23,7 +25,8 @@ from ..train.loop import fit
 
 
 def main(argv=None, on_start=None) -> dict:
-    """Parse ``argv``, train (or evaluate), print and return the scores.
+    """Parse ``argv``, train (or evaluate), print and return the scores (or
+    the ``--throughput`` timings).
 
     ``on_start`` is handed to ``train.loop.fit`` (see ``fit_mrg``).
     """
@@ -33,6 +36,8 @@ def main(argv=None, on_start=None) -> dict:
         "--set", action="append", default=[], dest="overrides",
         help="dotted override, e.g. train.lr=3e-4",
     )
+    ap.add_argument("--throughput", action="store_true",
+                    help="timed forward passes instead of training")
     ap.add_argument("--test", action="store_true",
                     help="eval-only on the test split")
     ap.add_argument("--validate", action="store_true",
@@ -53,6 +58,13 @@ def main(argv=None, on_start=None) -> dict:
         cfg.train.eval_split = "test" if args.test else "val"
         if not (cfg.train.resume or cfg.train.init_delta):
             cfg.train.resume = "auto"
+
+    if args.throughput:
+        from .throughput import run_throughput
+
+        stats = run_throughput(cfg, device)
+        print(json.dumps(stats))
+        return stats
 
     os.makedirs(cfg.train.save_dir, exist_ok=True)
     save_config(cfg, os.path.join(cfg.train.save_dir, "config.yaml"))

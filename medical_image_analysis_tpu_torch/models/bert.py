@@ -18,8 +18,12 @@ key/value input): ``crossattention`` in every ``cross_attention_freq``-th
 layer, ``ffn_query`` when ``query_ffn``, the embeddings when
 ``use_embeddings``, and ``ffn`` unless only query tokens reach it
 (``query_ffn`` without embeddings). A JAX ``init`` that reached all of
-them loads strictly. The tanh pooler (the JAX ``pool='cls'``), which no
-recipe calls, is not ported (ROADMAP.md, queue 1, item 15).
+them loads strictly. A reference checkpoint may hold what a JAX ``init``
+of the recipes never reaches: the tanh pooler (JAX ``pool='cls'``; HF
+``pooler.dense``) is built with ``pooler=True`` and read by
+``forward(pool="cls")``, and the full Q-Former's text FFN beside the query
+FFN with ``text_ffn=True`` (read only by text positions, which the
+query-only Q-Former has none of).
 """
 
 from __future__ import annotations
@@ -93,7 +97,7 @@ class BertFFN(nn.Module):
 
 class BertLayer(nn.Module):
     def __init__(self, cfg: BertConfig, has_cross: bool, device=None,
-                 enc_dim: int | None = None):
+                 enc_dim: int | None = None, text_ffn: bool = False):
         super().__init__()
         c = self.cfg = cfg
         self.attention = BertAttention(c.dim, c.n_heads, c.eps, device)
@@ -102,7 +106,8 @@ class BertLayer(nn.Module):
             if has_cross else None)
         # with query_ffn, the text FFN serves only text positions
         self.ffn = (BertFFN(c.dim, c.intermediate, c.eps, device)
-                    if c.use_embeddings or not c.query_ffn else None)
+                    if c.use_embeddings or not c.query_ffn or text_ffn
+                    else None)
         self.ffn_query = (BertFFN(c.dim, c.intermediate, c.eps, device)
                           if c.query_ffn else None)
 
@@ -128,11 +133,13 @@ class BertLayer(nn.Module):
 
 class BertModel(nn.Module):
     """Post-LN BERT; optionally with query tokens and cross-attention.
-    ``forward`` returns the last hidden state (B, L', D). ``enc_dim`` is the
+    ``forward`` returns the last hidden state (B, L', D), or with
+    ``pool="cls"`` the tanh pooler at position 0 (B, D). ``enc_dim`` is the
     width of ``encoder_hidden_states`` (``cfg.dim`` when None)."""
 
     def __init__(self, cfg: BertConfig, device=None,
-                 enc_dim: int | None = None):
+                 enc_dim: int | None = None, pooler: bool = False,
+                 text_ffn: bool = False):
         super().__init__()
         c = self.cfg = cfg
         if c.use_embeddings:
@@ -147,7 +154,9 @@ class BertModel(nn.Module):
             has_cross = (c.cross_attention_freq > 0
                          and i % c.cross_attention_freq == 0)
             self.add_module(f"layer_{i}",
-                            BertLayer(c, has_cross, device, enc_dim))
+                            BertLayer(c, has_cross, device, enc_dim, text_ffn))
+        self.pooler = (nn.Linear(c.dim, c.dim, device=device) if pooler
+                       else None)
 
     @torch.no_grad()
     def init_own_params(self, gen: torch.Generator):
@@ -159,7 +168,8 @@ class BertModel(nn.Module):
 
     def forward(self, input_ids=None, attention_mask=None,
                 token_type_ids=None, query_embeds=None,
-                encoder_hidden_states=None, encoder_attention_mask=None):
+                encoder_hidden_states=None, encoder_attention_mask=None,
+                pool: str | None = None):
         c = self.cfg
         parts = []
         if query_embeds is not None:
@@ -190,6 +200,10 @@ class BertModel(nn.Module):
             x = getattr(self, f"layer_{i}")(
                 x, self_bias, encoder_hidden_states, enc_bias,
                 query_length=ql)
+        if pool == "cls":
+            if self.pooler is None:
+                raise ValueError("BertModel: pool='cls' needs pooler=True")
+            return torch.tanh(self.pooler(x[:, 0]))
         return x
 
 
@@ -199,8 +213,9 @@ class Blip2QFormer(nn.Module):
     cross-attention into the image features every ``cross_attention_freq``
     layers, under an all-ones encoder mask. ``enc_dim`` is the image
     features' width. The JAX module's text path (``input_ids``), which no
-    recipe calls, is not ported: the encoder has no embeddings and no text
-    FFN, as the JAX ``init`` of a query-only call has none.
+    recipe calls, is not ported: the encoder has no embeddings, and no text
+    FFN unless ``text_ffn`` (to load a full Q-Former checkpoint), as the
+    JAX ``init`` of a query-only call has none.
 
     ``forward(image_embeds (B, L, enc_dim))`` -> (B, num_queries, dim).
     """
@@ -208,7 +223,8 @@ class Blip2QFormer(nn.Module):
     def __init__(self, num_queries: int = 32, dim: int = 768,
                  n_layers: int = 12, n_heads: int = 12,
                  intermediate: int = 3072, cross_attention_freq: int = 2,
-                 enc_dim: int | None = None, device=None):
+                 enc_dim: int | None = None, text_ffn: bool = False,
+                 device=None):
         super().__init__()
         cfg = BertConfig(dim=dim, n_layers=n_layers, n_heads=n_heads,
                          intermediate=intermediate,
@@ -216,7 +232,7 @@ class Blip2QFormer(nn.Module):
                          query_ffn=True, use_embeddings=False)
         self.query_tokens = nn.Parameter(
             torch.empty(1, num_queries, dim, device=device))
-        self.bert = BertModel(cfg, device, enc_dim)
+        self.bert = BertModel(cfg, device, enc_dim, text_ffn=text_ffn)
 
     @torch.no_grad()
     def init_own_params(self, gen: torch.Generator):

@@ -59,27 +59,39 @@ class Hopfield(nn.Module):
     patterns' (``in_dim`` when None: the JAX ``Dense`` infers it);
     ``hidden`` is the per-head association width, ``pattern_dim`` the
     per-head value width (``hidden`` when None), ``out_dim`` the output's
-    (``in_dim`` when None). The JAX module's switches for the norms and
-    biases (all on by default) and its separate ``values`` input, which no
-    recipe sets, are not ported."""
+    (``in_dim`` when None). ``norm_state``, ``norm_stored`` and
+    ``norm_pattern`` switch the input LayerNorms and ``use_bias`` the q, k
+    and v projections' biases (all on, as in the JAX module and the
+    library; a reference checkpoint without a norm is loaded with it off).
+    The JAX module's separate ``values`` input, which no recipe sets, is
+    not ported."""
 
     def __init__(self, in_dim: int, hidden: int, num_heads: int = 1,
                  pattern_dim: int | None = None, out_dim: int | None = None,
                  update_steps_max: int = 0, scaling: float | None = None,
-                 stored_dim: int | None = None, device=None):
+                 stored_dim: int | None = None, norm_stored: bool = True,
+                 norm_state: bool = True, norm_pattern: bool = True,
+                 use_bias: bool = True, device=None):
         super().__init__()
         stored_dim = stored_dim or in_dim
         self.hidden, self.num_heads = hidden, num_heads
         self.pattern_dim = pattern_dim or hidden
         self.update_steps_max, self.scaling = update_steps_max, scaling
         nh = num_heads
-        self.norm_state = nn.LayerNorm(in_dim, eps=_EPS, device=device)
-        self.norm_stored = nn.LayerNorm(stored_dim, eps=_EPS, device=device)
-        self.norm_pattern = nn.LayerNorm(stored_dim, eps=_EPS, device=device)
-        self.q_proj = nn.Linear(in_dim, nh * hidden, device=device)
-        self.k_proj = nn.Linear(stored_dim, nh * hidden, device=device)
-        self.v_proj = nn.Linear(stored_dim, nh * self.pattern_dim,
+
+        def norm(on, dim):
+            return nn.LayerNorm(dim, eps=_EPS, device=device) if on \
+                else nn.Identity()
+
+        self.norm_state = norm(norm_state, in_dim)
+        self.norm_stored = norm(norm_stored, stored_dim)
+        self.norm_pattern = norm(norm_pattern, stored_dim)
+        self.q_proj = nn.Linear(in_dim, nh * hidden, bias=use_bias,
                                 device=device)
+        self.k_proj = nn.Linear(stored_dim, nh * hidden, bias=use_bias,
+                                device=device)
+        self.v_proj = nn.Linear(stored_dim, nh * self.pattern_dim,
+                                bias=use_bias, device=device)
         self.out_proj = nn.Linear(nh * self.pattern_dim, out_dim or in_dim,
                                   device=device)
 

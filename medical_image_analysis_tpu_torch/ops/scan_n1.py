@@ -496,10 +496,12 @@ class ScanN1Fn(torch.autograd.Function):
 
 def _x_dbl(xr, xc, x_proj_w):
     """(4, B, L, R+2) fp32 in source order: x_proj in the source dtype's
-    rounding of the weight, summed in fp32 (``scan_n1.py:724-737``)."""
+    rounding of the weight, summed in fp32 (``scan_n1.py:724-737``), also
+    under autocast (which would run the products in its own dtype)."""
     wx = x_proj_w.to(xr.dtype).float()
-    rows = torch.einsum("bld,jcd->jblc", xr.float(), wx[0::2])  # k = 0, 2
-    cols = torch.einsum("bld,jcd->jblc", xc.float(), wx[1::2])  # k = 1, 3
+    with torch.autocast(xr.device.type, enabled=False):
+        rows = torch.einsum("bld,jcd->jblc", xr.float(), wx[0::2])  # k = 0, 2
+        cols = torch.einsum("bld,jcd->jblc", xc.float(), wx[1::2])  # k = 1, 3
     return torch.stack([rows[0], cols[0], rows[1], cols[1]])
 
 

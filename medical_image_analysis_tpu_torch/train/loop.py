@@ -33,6 +33,9 @@ bare ARM at ``vision``, the other tasks' tower at ``vision/<family>``),
 ``fit_r2gen`` (``vision/<family>``) and ``fit_classify`` (``vit``,
 ``vssm``).
 
+``train.debug_nans`` (``fit_mrg``, as in the JAX package) checks every
+module's output, the loss and every gradient and raises
+``FloatingPointError`` at the first NaN (:func:`debug_nans`).
 The options not ported raise ``NotImplementedError`` naming their
 ROADMAP.md item. Beyond the JAX recipe, each step's loss, grad norm,
 learning rate and wall seconds are written to ``log.txt``.
@@ -114,6 +117,7 @@ from ..models.vmamba import VSSM_CONFIGS
 from ..peft.lora import apply_lora, init_lora, llama_qv_rules, vision_qv_rules
 from ..peft.mamba_peft import MambaPEFTConfig, weight_space_fields
 from ..utils.logging import JsonlLogger, MetricLogger
+from ..utils.profiling import check_nan, enable_debug_nans
 from .optim import make_adamw, scaled_lr, warmup_cosine
 from .train_state import TrainState, make_train_step
 
@@ -561,11 +565,6 @@ def fit_mrg(cfg: RunConfig, device="cuda", on_start=None) -> dict:
     can observe them (``chip_smoke.py`` checks what moved).
     """
     t = cfg.train
-    if t.debug_nans:
-        raise NotImplementedError(
-            "train.debug_nans: utils/profiling.py is not ported yet "
-            "(ROADMAP.md, queue 1, item 17)"
-        )
     if t.mesh_model > 1:
         raise NotImplementedError(
             "train.mesh_model > 1: tensor parallelism is not ported yet "
@@ -638,7 +637,8 @@ def fit_mrg(cfg: RunConfig, device="cuda", on_start=None) -> dict:
         logger.write({"eval_only": t.eval_split, **scores})
         return scores
 
-    step = make_train_step(loss_fn, t.accum_steps, t.ema_decay)
+    step = make_train_step(loss_fn, t.accum_steps, t.ema_decay,
+                           debug_nans(model) if t.debug_nans else None)
     train_b = batcher("train", n_context=ad.n_context, extra_fn=ad.extra_fn)
     ml = MetricLogger()
     results: dict = {}
@@ -702,6 +702,21 @@ def fit_mrg(cfg: RunConfig, device="cuda", on_start=None) -> dict:
     finally:
         train_b.close()
     return results
+
+
+def debug_nans(model):
+    """``train.debug_nans``: every module's output checked after its
+    forward (``utils/profiling.py:enable_debug_nans``); returns the train
+    step's ``check``, which checks the loss and every gradient. Each
+    raises ``FloatingPointError`` naming the module or tensor."""
+    enable_debug_nans(model)
+
+    def check(loss, grads):
+        check_nan("loss", loss)
+        for name, g in grads.items():
+            check_nan(f"gradient of {name}", g)
+
+    return check
 
 
 def _load_eval_only_weights(state: TrainState, t) -> None:

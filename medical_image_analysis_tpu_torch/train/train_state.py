@@ -55,6 +55,13 @@ class TrainState:
 
     @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
+        """Copy a saved state in; the trainable and frozen names must be
+        the saved ones (``KeyError``)."""
+        for part, mine in (("params", self.params), ("frozen", self.frozen)):
+            if state[part].keys() != mine.keys():
+                diff = sorted(set(state[part]) ^ set(mine))
+                raise KeyError(f"TrainState.load_state_dict: {part} differ "
+                               f"from the saved state's: {diff[:5]}")
         self.step = int(state["step"])
         for n, p in self.params.items():
             p.copy_(state["params"][n])
@@ -97,14 +104,19 @@ def accum_value_and_grad(loss_fn: Callable, params: dict[str, torch.Tensor],
 
 
 def make_train_step(loss_fn: Callable, accum_steps: int = 1,
-                    ema_decay: float = 0.0):
+                    ema_decay: float = 0.0,
+                    check: Callable | None = None):
     """``step(state, batch) -> {"loss", "grad_norm", "lr"}``, updating
     ``state`` in place. ``loss_fn(batch)`` is a scalar tensor; ``batch``
-    maps names to tensors on the device."""
+    maps names to tensors on the device. ``check(loss, grads)``, when
+    given, sees the loss and the gradients before the update
+    (``train.debug_nans``)."""
 
     def step(state: TrainState, batch: dict) -> dict:
         loss, grads = accum_value_and_grad(loss_fn, state.params, batch,
                                            accum_steps)
+        if check is not None:
+            check(loss, grads)
         gnorm = global_norm(grads.values())
         lr = state.tx.step(grads)
         if state.ema_params is not None and ema_decay > 0.0:

@@ -1975,3 +1975,102 @@ def test_quantize_on_the_card_is_bit_equal_to_the_host(cuda):
     got = _quantize(w.to(cuda))
     assert torch.equal(got["kernel_q"].cpu(), want["kernel_q"])
     assert torch.equal(got["scale"].cpu(), want["scale"])
+
+
+# --------------------------------------------------------------------------
+# The reference's checkpoints and the JAX train states at full width
+# --------------------------------------------------------------------------
+
+REF_FILES = ("arm_b", "arm_b_stage1", "vssm1_base", "swin_b_hf",
+             "vit_b_timm", "chexbert", "qformer_am_mrg", "hopfield_am_mrg",
+             "cross_block_r2genkg", "r2gen")
+
+
+def _chip_smoke():
+    import importlib
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    return importlib.import_module("chip_smoke")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", REF_FILES)
+def test_reference_file_loads_onto_the_card(cuda, tmp_path, name):
+    """Each reference layout at its preset's full width (``chip_smoke.py:
+    _ref_cases``): written as its released file, read with
+    ``weights_only``, mapped and loaded strictly onto the card, every
+    tensor equal to the mapped file's; a tower through its kernels within
+    1e-3 of its plain version on the card (``TOWER_RTOL``), a head
+    finite."""
+    from medical_image_analysis_tpu_torch.ckpt.from_jax import load_jax_params
+    from medical_image_analysis_tpu_torch.ckpt.torch_import import (
+        load_torch_state_dict,
+    )
+
+    cs = _chip_smoke()
+    ref = cs._tests_module("ref_ckpt_files")
+    case = {c[0]: c for c in cs._ref_cases()}[name]
+    _, make, wrap, mapper, build, inputs, switch, kernels = case
+    path = tmp_path / f"{name}.pth"
+    ref.save_pth(path, make(np.random.default_rng(0)), wrap)
+    tree = mapper(load_torch_state_dict(str(path)))
+    model = load_jax_params(build(cuda).eval(), tree)
+    equal, total = cs._equal_to_tree(model, tree)
+    assert equal == total
+    gen = torch.Generator(cuda).manual_seed(0)
+    if switch is not None:
+        cs._fused_vs_plain(model, inputs(cuda, gen), switch, kernels, name)
+    elif inputs is not None:
+        with torch.no_grad():
+            assert torch.isfinite(model(*inputs(cuda, gen))).all()
+
+
+@pytest.mark.cuda
+def test_jax_layout_state_round_trips_at_full_width(cuda, tmp_path):
+    """dp_finetune's ViT-B/16 classifier after one AdamW step on the card:
+    its state written in the JAX package's msgpack layout
+    (``tests/jax_state_files.py``) and read back by ``restore_train_state``
+    equals the port's state, bit for bit (parameters, moments, EMA, count,
+    step)."""
+    from medical_image_analysis_tpu_torch.ckpt.checkpoint import (
+        restore_train_state,
+    )
+    from medical_image_analysis_tpu_torch.ckpt.from_jax import (
+        flax_named_parameters,
+    )
+    from medical_image_analysis_tpu_torch.models.classifiers import (
+        DPClassifier,
+        weighted_bce_loss,
+    )
+    from medical_image_analysis_tpu_torch.models.vit import VIT_CONFIGS
+    from medical_image_analysis_tpu_torch.train.optim import (
+        make_adamw,
+        warmup_cosine,
+    )
+    from medical_image_analysis_tpu_torch.train.train_state import (
+        TrainState,
+        make_train_step,
+    )
+
+    cs = _chip_smoke()
+    jsf = cs._tests_module("jax_state_files")
+    gen = torch.Generator(cuda).manual_seed(0)
+    model = DPClassifier(14, vit_kwargs=dict(VIT_CONFIGS["vit_base"],
+                                             img_size=224), device=cuda)
+    init_params(model, gen)
+    params = flax_named_parameters(model)
+    state = TrainState(params, make_adamw(params, warmup_cosine(1e-3, 1, 4)),
+                       ema=True)
+    x = torch.randn(8, 224, 224, 3, device=cuda, generator=gen)
+    y = (torch.rand(8, 14, device=cuda, generator=gen) > 0.5).float()
+    make_train_step(lambda b: weighted_bce_loss(model(b["x"]), b["y"]),
+                    ema_decay=0.999)(state, {"x": x, "y": y})
+    saved = cs._state_snapshot(state)
+    path = jsf.write_jax_state(str(tmp_path), saved, 3)
+    back, epoch = restore_train_state(path)
+    assert epoch == 3
+    assert cs._same_state(saved, back, "round trip") == 4 * len(params)
