@@ -280,9 +280,13 @@ raises (exit code 1):
                tokens: ``MRG_GEN``); the checks of ``train``, the banks'
                shapes and build seconds, launches reckoned.
 26. train_am_mrg_grads -- one batch at full width: every trainable
-               tensor before the LLM through the kernels against
-               ``scan_backend="plain"``, from one cotangent at
-               ``encode_img``'s output.
+               tensor before the LLM through the kernels, from one
+               cotangent at ``encode_img``'s output, held against a
+               float64 pass of the plain path (the same modules in fp64):
+               within TOWER_RTOL of each tensor's largest, or no farther
+               from fp64 than twice the fp32 plain path is (a nearly
+               cancelling gradient, where fp32 itself misses); the worst
+               tensor's two gaps and its kernel-to-plain gap printed.
 27. train_r2genkg -- the ``r2genkg_mimic`` preset at full width (Swin-B,
                the 2-layer Q-Former, the disease-bank lookup, 5 R-GCNs,
                the fusion, the cross blocks, the frozen 1.8B LLM with LoRA
@@ -333,6 +337,26 @@ raises (exit code 1):
                ``lm_decode`` (32 positions of a val batch token by token
                through ``init_states``/``step`` against the full forward
                through the kernels; seconds a token).
+34a. The weight-space MambaPEFT family at d_state 17 (``additional_scan``'s
+               default width on 16, an exact instantiation of the scan
+               kernels):
+   kernels_peft17 -- the fused layer's three kernels at the LM's training
+               shape with N=17 (K=1, B=16, L=128, D=1536, R=48, so C=82),
+               as ``kernels_lm`` (rows ``_peft17`` in the kernels line).
+   peft_lm  -- ``train_lm_sft``'s trained LM as the base, with
+               ``additional_scan`` (16 -> 17), ``lora_X``, ``lora_dt`` and
+               ``learnable_D_v2`` merged (``peft.mamba_peft``) into a model
+               built at d_state 17: 3 AdamW steps of the adapter tree alone
+               on the preset's synthetic batches (16 x 128), each through
+               the kernels (12 launches of each a step); the first step's
+               adapter gradients against ``scan_backend="plain"``; losses
+               finite, every adapter moved, the base unchanged.
+   peft_arm -- ``r2gengpt_mimic``'s ARM-B tower (12 layers, K=4) with
+               ``additional_scan``, ``lora_patch_embed`` and
+               ``learnable_cls_token_v2`` merged, at the training step's
+               12 images: the tokens and every adapter's gradient (one
+               random cotangent) through the kernels against the plain
+               path.
 35. train_mac_rrg -- the ``mac_rrg_mimic`` preset at full width (Swin-B,
                the frozen 1.8B LLM at Qwen1.5's vocabulary with LoRA r16,
                the agents' rows 768 wide, 32 chunks and 32 entities)
@@ -399,6 +423,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import copy
 import dataclasses
 import gc
 import io
@@ -2767,17 +2792,17 @@ CHAIN_BATCH = 12
 
 
 def _pretrain_layer(dev, gen, k_dirs: int, b: int, seq_len: int,
-                    dim: int = 768, expand: int = 1):
+                    dim: int = 768, expand: int = 1, d_state: int = 16):
     """An initialised one- or four-direction mixer of width ``dim`` (ARM-B's
     D=768, N=16, R=48, expand 1; ARM-L's D=1024, R=64; the Mamba LM's
-    d_model 768 at expand 2, so d_inner 1536) and N(0, 1) sources and
-    cotangent of its shape: (xdbl args, scan args, backward args, the
-    mixer)."""
+    d_model 768 at expand 2, so d_inner 1536) and ``d_state``, and N(0, 1)
+    sources and cotangent of its shape: (xdbl args, scan args, backward
+    args, the mixer)."""
     from medical_image_analysis_tpu_torch.models.common import init_params
     from medical_image_analysis_tpu_torch.models.mamba import MambaMixer
     from medical_image_analysis_tpu_torch.ops import mamba_fused as mf
 
-    mixer = MambaMixer(dim, d_state=16, expand=expand,
+    mixer = MambaMixer(dim, d_state=d_state, expand=expand,
                        bimamba_type="none" if k_dirs == 1 else "v3",
                        device=dev)
     init_params(mixer, gen)
@@ -2812,10 +2837,11 @@ def phase_kernels_am(dev, gen) -> dict:
 
 
 def _fused_cases(dev, gen, phase: str, shapes, dim: int = 768,
-                 expand: int = 1) -> dict:
+                 expand: int = 1, d_state: int = 16) -> dict:
     """The fused layer's three kernels against their plain versions at
-    each ``(name, K, B, L)`` of ``shapes`` (a mixer of width ``dim`` and
-    ``expand``, fp32): max errors within XDBL_RTOL, Y_RTOL and BWD_RTOL;
+    each ``(name, K, B, L)`` of ``shapes`` (a mixer of width ``dim``,
+    ``expand`` and ``d_state``, fp32): max errors within XDBL_RTOL, Y_RTOL
+    and BWD_RTOL;
     the device ms of each beside its plain version's (in turns) and its
     bound; x_dbl's tile, and each kernel's grid blocks and resident blocks
     an SM. Returns
@@ -2824,8 +2850,8 @@ def _fused_cases(dev, gen, phase: str, shapes, dim: int = 768,
 
     rows = {}
     for name, k_dirs, b, seq_len in shapes:
-        xargs, sargs, bargs, mixer = _pretrain_layer(dev, gen, k_dirs, b,
-                                                     seq_len, dim, expand)
+        xargs, sargs, bargs, mixer = _pretrain_layer(
+            dev, gen, k_dirs, b, seq_len, dim, expand, d_state)
         n, rank, d_in = mixer.n, mixer.rank, mixer.d_inner
         got_x, want_x = mf.xdbl_fwd(*xargs), sargs[2]
         got_y, want_y = mf.scan_fwd(*sargs), mf.scan_plain(*sargs)
@@ -3183,13 +3209,28 @@ def phase_train_am_mrg(vocab: int, save_dir: Path, device: str = "cuda",
     return run
 
 
+# The modules AMMRG.encode_img reads, copied to float64 for the yardstick
+# of train_am_mrg_grads
+AM_ENCODE = ("vision", "qformer_proj", "qformer", "visual_memory",
+             "report_memory", "visual_proj", "query_proj", "dmem_proj",
+             "rmem_proj")
+
+
 def phase_train_am_mrg_grads(model, state, sets) -> None:
     """One batch of AM-MRG's data at full width (6 studies x 2 views): the
     gradients of every trainable tensor before the LLM (ARM-L, the
     Q-Former and its projection, both memories, the four projections)
-    through the kernels against ``scan_backend="plain"``, from one
-    cotangent at ``encode_img``'s output (as ``train_grads``), within
-    TOWER_RTOL of each tensor's largest; the tensors of 0 gradient in exact
+    through the kernels, through ``scan_backend="plain"`` and through the
+    plain path in float64 (``AM_ENCODE`` copied to fp64, the batch, banks
+    and cotangent cast), from one cotangent at ``encode_img``'s output (as
+    ``train_grads``). Each tensor is held to fp64 (``_grads_vs_plain``):
+    the kernel path within TOWER_RTOL of each tensor's largest, or no
+    farther than twice the fp32 plain path. The plain path's own gap to
+    fp64 passes 1e-3 on nearly cancelling gradients (PERF.md §6: at
+    ``PYTHONHASHSEED=98``, 1.079e-3 on
+    ``visual_memory/assoc/norm_state/bias``, the kernel path 6.48e-4); the
+    data follow Python's salted ``hash``, so each process reads other
+    images. The tensors of 0 gradient in exact
     arithmetic (``ZERO_GRAD``) within TOWER_RTOL of the largest gradient.
     The banks are built again from the run's seed."""
     from medical_image_analysis_tpu_torch.configs.config import load_config
@@ -3241,10 +3282,27 @@ def phase_train_am_mrg_grads(model, state, sets) -> None:
                                    "mamba_scan_bwd": depth},
                    f"train_am_mrg_grads launches {mf.launches}")
     set_scan_backend(model, "auto")
+    # the yardstick: the plain path in float64 on the same batch
+    m64 = copy.copy(model)
+    m64._modules = dict(model._modules)
+    for name in AM_ENCODE:
+        m64._modules[name] = copy.deepcopy(model._modules[name]).double()
+    set_scan_backend(m64.vision, "plain")
+    by_name = dict(m64.named_parameters())
+    torch_name = {id(p): n for n, p in model.named_parameters()}
+    t0 = time.perf_counter()
+    grads["fp64"] = torch.autograd.grad(
+        m64.encode_img(b["images"].double(), banks["visual_bank"].double(),
+                       banks["report_bank"].double()),
+        [by_name[torch_name[id(t)]] for t in tensors], cotangent.double())
+    _sync(dev)
+    secs["fp64"] = time.perf_counter() - t0
+    del m64, by_name
     _phase("train_am_mrg_grads",
            **_grads_vs_plain(names, grads, "train_am_mrg_grads"),
            images=b["images"].shape[0] * b["images"].shape[1],
-           kernel_s=f"{secs['kernel']:.3f}", plain_s=f"{secs['plain']:.3f}")
+           kernel_s=f"{secs['kernel']:.3f}", plain_s=f"{secs['plain']:.3f}",
+           fp64_s=f"{secs['fp64']:.3f}")
 
 
 def phase_train_r2genkg(vocab: int, save_dir: Path, device: str = "cuda",
@@ -3367,22 +3425,56 @@ def _grads_vs_plain(names, grads, phase: str) -> dict:
     """The kernel path's gradients against the plain path's: the largest
     relative error over ``names`` within TOWER_RTOL of each tensor's
     largest, and those of 0 in exact arithmetic (``ZERO_GRAD``) within
-    TOWER_RTOL of the largest gradient. Returns the fields to print."""
+    TOWER_RTOL of the largest gradient. With ``grads["fp64"]``, the plain
+    path's gradients in float64, each tensor but the ``ZERO_GRAD`` ones is
+    held to fp64 instead: the kernel path within TOWER_RTOL of fp64
+    (relative to fp64's largest of the tensor), or no farther from fp64
+    than twice the fp32 plain path is (``_fp64_gaps``). Returns the fields
+    to print."""
     zero = [i for i, n in enumerate(names) if ZERO_GRAD.search(n)]
     rest = [i for i in range(len(names)) if i not in zero]
     rel, at = _worst_rel([names[i] for i in rest],
                          [grads["kernel"][i] for i in rest],
                          [grads["plain"][i] for i in rest])
     largest = max(g.abs().max().item() for g in grads["plain"])
-    noise = max((grads[k][i].abs().max().item() for k in grads
+    noise = max((grads[k][i].abs().max().item() for k in ("kernel", "plain")
                  for i in zero), default=0.0) / largest
-    _check(rel <= TOWER_RTOL,
-           f"{phase}: grad of {at}: max rel err {rel:.3e} > {TOWER_RTOL}")
+    fields = dict(tensors=len(names), zero_grad=len(zero),
+                  max_rel_err=f"{rel:.3e}", at=at, bound=TOWER_RTOL)
+    if "fp64" in grads:
+        fields.update(_fp64_gaps(names, grads, rest, phase))
+    else:
+        _check(rel <= TOWER_RTOL,
+               f"{phase}: grad of {at}: max rel err {rel:.3e} > {TOWER_RTOL}")
     _check(noise <= TOWER_RTOL,
            f"{phase}: zero-gradient tensors at {noise:.3e} of the largest")
-    return dict(tensors=len(names), zero_grad=len(zero),
-                max_rel_err=f"{rel:.3e}", at=at, bound=TOWER_RTOL,
-                zero_grad_rel=f"{noise:.3e}")
+    return dict(fields, zero_grad_rel=f"{noise:.3e}")
+
+
+def _fp64_gaps(names, grads, rest, phase: str) -> dict:
+    """Each tensor of ``rest`` held to the float64 plain path: its kernel
+    gap max |g_kernel - g_fp64| / max |g_fp64| within the larger of
+    TOWER_RTOL and twice its plain gap (the same for the fp32 plain path).
+    A nearly cancelling gradient is one that fp32 itself cannot give to
+    TOWER_RTOL; there the kernel path passes when it is as near fp64 as
+    fp32 can be. Returns the worst tensor (by kernel gap over its bound)
+    with both gaps."""
+    worst = (-1.0, "", 0.0, 0.0)
+    for i in rest:
+        want = grads["fp64"][i]
+        scale = want.abs().max().clamp_min(1e-300)
+        _check(bool(torch.isfinite(want).all()),
+               f"non-finite fp64 grad of {names[i]}")
+        k_gap, p_gap = (((grads[k][i].double() - want).abs().max()
+                         / scale).item() for k in ("kernel", "plain"))
+        margin = k_gap / max(TOWER_RTOL, 2.0 * p_gap)
+        worst = max(worst, (margin, names[i], k_gap, p_gap))
+    margin, at, k_gap, p_gap = worst
+    _check(margin <= 1.0,
+           f"{phase}: grad of {at}: the kernel path {k_gap:.3e} from fp64, "
+           f"past {TOWER_RTOL} and twice the fp32 plain path's {p_gap:.3e}")
+    return dict(fp64_at=at, kernel_vs_fp64=f"{k_gap:.3e}",
+                plain_vs_fp64=f"{p_gap:.3e}", fp64_margin=f"{margin:.3f}")
 
 
 def _first_batch(preset: Path, sets, dev) -> dict:
@@ -3704,6 +3796,233 @@ def phase_lm_decode(model, sets) -> None:
            max_abs_err=f"{err:.3e}", rel_err=f"{err / scale:.3e}",
            bound=DECODE_RTOL, first_token_s=f"{secs[0]:.4f}",
            s_per_token=f"{sum(secs[1:]) / (len(secs) - 1):.5f}")
+
+
+# The weight-space MambaPEFT family: additional_scan widens d_state 16 to
+# 17 (its default scan_addition_num of 1), the scan kernels' exact
+# instantiation; the LM at its training shape, and the adapters of each run
+PEFT17_SHAPES = (("mamba_lm_sft_n17", 1, 16, 128),)
+PEFT17_CASE = "mamba_lm_sft d_inner 1536 B=16 L=128 d_state 17 (C=82)"
+PEFT_LM = dict(additional_scan=True, lora_X=True, lora_dt=True,
+               learnable_D_v2=True)
+PEFT_ARM = dict(additional_scan=True, lora_patch_embed=True,
+                learnable_cls_token_v2=True)
+PEFT_STEPS = 3
+# A LoRA's B factor starts at 0 (so its A gets no gradient): the runs start
+# the adapters at B ~ N(0, PEFT_B_STD^2) from the seed, so that every
+# adapter tensor has a gradient to hold against the plain path
+PEFT_B_STD = 0.01
+
+
+def phase_kernels_peft17(dev, gen) -> dict:
+    """The fused layer's three kernels at the Mamba LM's training shape with
+    d_state 17 (``_fused_cases``): returns the rows for the kernels
+    line."""
+    rows = _fused_cases(dev, gen, "kernels_peft17", PEFT17_SHAPES, dim=768,
+                        expand=2, d_state=17)
+    return {f"{k}_peft17": v for k, v in rows[PEFT17_SHAPES[0][0]].items()}
+
+
+def _peft_tree(base: dict, fields: dict, dev):
+    """The adapter tree of ``fields`` over the flat base parameters, drawn
+    from ``SEED`` on ``dev`` (LoRA B factors at N(0, PEFT_B_STD^2)), and its
+    leaves by ``'<key>/<part>'``."""
+    from medical_image_analysis_tpu_torch.peft import mamba_peft
+
+    gen = torch.Generator(dev).manual_seed(SEED)
+    cfg = mamba_peft.MambaPEFTConfig(**fields)
+    tree = mamba_peft.init_mamba_peft(gen, base, cfg)
+    leaves = {}
+    for key, val in tree.items():
+        for part, t in (val.items() if isinstance(val, dict)
+                        else [("", val)]):
+            if part == "b":
+                with torch.no_grad():
+                    t.normal_(0.0, PEFT_B_STD, generator=gen)
+            leaves[f"{key}/{part}" if part else key] = t
+    return cfg, tree, leaves
+
+
+def _wide_launches(phase: str, depth: int, backward: bool = True) -> dict:
+    """The fused kernels' counts of one pass through ``depth`` mixers
+    (forward and, with ``backward``, backward) checked and returned."""
+    from medical_image_analysis_tpu_torch.ops import mamba_fused as mf
+
+    want = {"mamba_xdbl": depth, "mamba_scan": depth,
+            "mamba_scan_bwd": depth if backward else 0}
+    _check(mf.launches == want, f"{phase} launches {mf.launches}, "
+           f"expected {want}")
+    return dict(mf.launches)
+
+
+def phase_peft_lm(model, sets) -> dict:
+    """``train_lm_sft``'s LM (full width) as the frozen base of
+    ``PEFT_LM``'s adapters, merged into a model built at
+    ``effective_d_state`` (17): ``PEFT_STEPS`` AdamW steps (the preset's
+    learning rate, constant) of the adapter tree alone on the preset's
+    synthetic batches through the kernels, the first step's adapter
+    gradients held against ``scan_backend="plain"`` (``_grads_vs_plain``).
+    Returns the kernel steps' launches."""
+    from medical_image_analysis_tpu_torch.ckpt.from_jax import (
+        flax_named_parameters,
+    )
+    from medical_image_analysis_tpu_torch.configs.config import load_config
+    from medical_image_analysis_tpu_torch.models.mamba import set_scan_backend
+    from medical_image_analysis_tpu_torch.models.mamba_lm import (
+        MambaLM,
+        lm_loss,
+    )
+    from medical_image_analysis_tpu_torch.ops import mamba_fused as mf
+    from medical_image_analysis_tpu_torch.peft import mamba_peft
+    from medical_image_analysis_tpu_torch.train.loop import (
+        _device_batch,
+        build_data,
+        lm_sft_extra,
+    )
+    from medical_image_analysis_tpu_torch.train.optim import make_adamw
+
+    dev = next(model.parameters()).device
+    base = {k: v.detach() for k, v in flax_named_parameters(model).items()}
+    before = {k: v.clone() for k, v in base.items()}
+    cfg, tree, leaves = _peft_tree(base, PEFT_LM, dev)
+    start = {k: v.detach().clone() for k, v in leaves.items()}
+    n = mamba_peft.effective_d_state(cfg, model.d_state)
+    _check(n == 17 and mf.state_width(n) == n,
+           f"peft_lm: d_state {n} is not the exact instantiation 17")
+    wide = MambaLM(model.embed_tokens.num_embeddings, d_model=model.d_model,
+                   depth=model.depth, d_state=n,
+                   expand=model.d_inner // model.d_model, device="meta")
+    lcfg = load_config(str(LM_PRESET), [*sets, "data.num_workers=1"])
+    _, tok, batcher, _ = build_data(lcfg)
+    train_b = batcher("train", extra_fn=lm_sft_extra(tok, lcfg.data.max_len))
+    try:
+        batches = [_device_batch({k: h[k] for k in ("lm_ids", "lm_mask")},
+                                 dev)
+                   for epoch in range(PEFT_STEPS)
+                   for h in train_b.batches(epoch=epoch)][:PEFT_STEPS]
+    finally:
+        train_b.close()
+    opt = make_adamw(leaves, lambda _: lcfg.train.lr,
+                     weight_decay=lcfg.train.weight_decay,
+                     grad_clip=lcfg.train.grad_clip)
+    names = list(leaves)
+
+    def grads_of(b):
+        logits = mamba_peft.apply_merged(
+            wide, mamba_peft.merge_mamba_peft(base, tree, cfg), b["lm_ids"])
+        loss = lm_loss(logits, b["lm_ids"], b["lm_mask"])
+        return loss, torch.autograd.grad(loss, [leaves[k] for k in names])
+
+    launches, losses, step_s, check = [], [], [], {}
+    for step, b in enumerate(batches):
+        mf.reset_launches()
+        t0 = time.perf_counter()
+        loss, grads = grads_of(b)
+        _sync(dev)
+        secs = time.perf_counter() - t0
+        if dev.type == "cuda":
+            launches.append(_wide_launches("peft_lm", model.depth))
+        if step == 0:  # the same step through the plain path
+            set_scan_backend(wide, "plain")
+            plain_loss, plain = grads_of(b)
+            set_scan_backend(wide, "auto")
+            loss_rel = abs(loss.item() - plain_loss.item()) / abs(
+                plain_loss.item())
+            _check(loss_rel <= TOWER_RTOL,
+                   f"peft_lm: loss rel err {loss_rel:.3e}")
+            check = dict(_grads_vs_plain(names, {"kernel": grads,
+                                                 "plain": plain}, "peft_lm"),
+                         loss_rel_err=f"{loss_rel:.3e}")
+            del plain
+        t0 = time.perf_counter()
+        opt.step(dict(zip(names, grads)))
+        _sync(dev)
+        step_s.append(secs + time.perf_counter() - t0)
+        losses.append(loss.item())
+        del loss, grads
+    _check(all(np.isfinite(losses)), f"peft_lm: losses {losses}")
+    moved = sum(not torch.equal(start[k], v.detach())
+                for k, v in leaves.items())
+    _check(moved == len(leaves), f"peft_lm: {len(leaves) - moved} adapter "
+           "tensors did not move")
+    _check(all(torch.equal(before[k], v) for k, v in base.items()),
+           "peft_lm: a base tensor changed")
+    total = {k: sum(run[k] for run in launches) for k in mf.launches}
+    adapters = sorted({k.split("|")[1] for k in tree})
+    _phase("peft_lm", d_state=f"{model.d_state}->{n}",
+           adapters=",".join(adapters), adapter_tensors=len(leaves),
+           adapter_params=sum(v.numel() for v in leaves.values()),
+           rows=batches[0]["lm_ids"].shape[0],
+           tokens=batches[0]["lm_ids"].shape[1],
+           losses=",".join(f"{x:.5f}" for x in losses), **check,
+           step_s=",".join(f"{x:.3f}" for x in step_s),
+           launches=_compact(total))
+    return total
+
+
+def phase_peft_arm(dev, gen, overrides=()) -> dict:
+    """``r2gengpt_mimic``'s ARM-B tower (12 layers, four directions, no
+    remat; random weights from the seed) as the base of ``PEFT_ARM``'s
+    adapters, merged into a tower built at d_state 17, at the training
+    step's 12 images: the tokens within TOWER_RTOL of the plain path's
+    largest, and every adapter's gradient from one random cotangent
+    (``_grads_vs_plain``). ``overrides`` are ``--set`` items of the
+    preset. Returns the kernel pass's launches."""
+    from medical_image_analysis_tpu_torch.ckpt.from_jax import (
+        flax_named_parameters,
+    )
+    from medical_image_analysis_tpu_torch.configs.config import load_config
+    from medical_image_analysis_tpu_torch.models.common import init_params
+    from medical_image_analysis_tpu_torch.models.mamba import (
+        ARM,
+        set_scan_backend,
+    )
+    from medical_image_analysis_tpu_torch.ops import mamba_fused as mf
+    from medical_image_analysis_tpu_torch.peft import mamba_peft
+    from medical_image_analysis_tpu_torch.train.loop import vision_preset
+
+    cfg = load_config(str(PRESET), list(overrides))
+    vk = dict(vision_preset(cfg.model.vision, cfg.model.vision_size,
+                            cfg.model.vision_kwargs), remat=False)
+    size = cfg.data.input_size
+    images = cfg.data.batch_size * cfg.data.num_views
+    arm = ARM(**vk, img_size=size, device=dev)
+    init_params(arm, gen)
+    base = {k: v.detach() for k, v in flax_named_parameters(arm).items()}
+    pcfg, tree, leaves = _peft_tree(base, PEFT_ARM, dev)
+    n0 = arm.layers[0].mixer.n
+    n = mamba_peft.effective_d_state(pcfg, n0)
+    wide = ARM(**dict(vk, d_state=n), img_size=size, device="meta")
+    del arm
+    x = torch.randn(images, size, size, 3, device=dev, generator=gen)
+    names = list(leaves)
+    out, grads, secs = {}, {}, {}
+    cot = None
+    for path, backend in (("kernel", "auto"), ("plain", "plain")):
+        set_scan_backend(wide, backend)
+        mf.reset_launches()
+        t0 = time.perf_counter()
+        y = mamba_peft.apply_merged(
+            wide, mamba_peft.merge_mamba_peft(base, tree, pcfg), x)
+        if cot is None:
+            cot = torch.randn(y.shape, device=dev, generator=gen)
+        grads[path] = torch.autograd.grad(y, [leaves[k] for k in names], cot)
+        _sync(dev)
+        secs[path] = time.perf_counter() - t0
+        out[path] = y.detach()
+        del y
+        if path == "kernel" and dev.type == "cuda":
+            launches = _wide_launches("peft_arm", len(wide.layers))
+    err, scale = _max_err(out["kernel"], out["plain"])
+    _check(err <= TOWER_RTOL * scale,
+           f"peft_arm: tokens max abs err {err:.3e} > {TOWER_RTOL} x "
+           f"{scale:.3f}")
+    _phase("peft_arm", images=images, d_state=f"{n0}->{n}",
+           adapters=",".join(sorted({k.split("|")[1] for k in tree})),
+           adapter_tensors=len(leaves), tokens_err=f"{err:.3e}",
+           **_grads_vs_plain(names, grads, "peft_arm"),
+           kernel_s=f"{secs['kernel']:.3f}", plain_s=f"{secs['plain']:.3f}")
+    return launches if dev.type == "cuda" else {}
 
 
 def phase_train_mac_rrg(vocab: int, save_dir: Path, device: str = "cuda",
@@ -5077,12 +5396,17 @@ def main() -> None:
     # The Mamba LM's SFT, and MAC-RRG trained and refined
     torch.cuda.empty_cache()
     measured.update(phase_kernels_lm(dev, gen))
+    measured.update(phase_kernels_peft17(dev, gen))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_") as tmp:
         lm = phase_train_lm_sft(Path(tmp))
     phase_train_lm_sft_grads(lm["model"], lm["sets"])
     phase_lm_decode(lm["model"], lm["sets"])
     runs.append(lm["launches"])
+    # the weight-space MambaPEFT family at d_state 17
+    runs.append(phase_peft_lm(lm["model"], lm["sets"]))
     del lm
+    torch.cuda.empty_cache()
+    runs.append(phase_peft_arm(dev, gen))
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mac_") as tmp:
         mac = phase_train_mac_rrg(VOCAB, Path(tmp))
@@ -5112,8 +5436,9 @@ def main() -> None:
     # checkpoint, the eighteen trainings with train_hf, the
     # ARM tower on scan_backend=pallas, the Attention module, the MAC-RRG
     # refinement, the dp_finetune runs resumed from a .pt and a JAX
-    # .msgpack, the four --throughput towers, the debug_nans run), each
-    # read just after it was driven with the counts at 0
+    # .msgpack, the four --throughput towers, the debug_nans run, the
+    # MambaPEFT LM's steps and ARM tower at d_state 17), each read just
+    # after it was driven with the counts at 0
     main_runs = {name: sum(run.get(name, 0) for run in runs)
                  for name in REPLACES}
     sources = {k: m.KERNEL_SOURCE for m in _kernel_modules()
@@ -5123,7 +5448,8 @@ def main() -> None:
     cases = {**{name: [*VIT_ROWS.values(), *R2GEN_ROWS.values()]
                 for name in vit},
              **{name: [("", None), ("_arm_l", ARM_L_CASE),
-                       ("_emrrg", EMRRG_CASE), ("_lm", LM_CASE)]
+                       ("_emrrg", EMRRG_CASE), ("_lm", LM_CASE),
+                       ("_peft17", PEFT17_CASE)]
                 for name in ("mamba_xdbl", "mamba_scan", "mamba_scan_bwd")},
              "swin_attn_fwd": [("", None), ("_swin_b", SWIN_B_CASE)]}
     for name in REPLACES:

@@ -45,7 +45,8 @@ One function serves ``ARM``, ``VSSM`` (and its ``SS2D`` and ``VSSBlock``),
 ``R2GenKG`` and ``MAE``: pass the
 ``params`` subtree whose root matches the port module's root.
 :func:`flax_named_parameters` names the port's parameters the other way
-round, and :func:`lora_from_jax` carries a JAX LoRA tree.
+round, :func:`lora_from_jax` carries a JAX LoRA tree and
+:func:`mamba_peft_from_jax` a JAX MambaPEFT adapter tree.
 """
 
 from __future__ import annotations
@@ -161,4 +162,23 @@ def lora_from_jax(lora, device=None) -> dict[str, dict[str, torch.Tensor]]:
                                device=device).requires_grad_()
             for name in ("a", "b")
         }
+    return out
+
+
+def mamba_peft_from_jax(peft, device=None) -> dict:
+    """A MambaPEFT adapter tree of the JAX package's ``init_mamba_peft``
+    (numpy or JAX leaves), ``{"params/<path>|<adapter>": leaf or {name:
+    leaf}}``, as the port's (``peft.mamba_peft``): the same keys without
+    the leading ``params/``, the same layouts, fp32 tensors that require
+    grad."""
+
+    def leaf(x):
+        return torch.tensor(np.array(x, dtype=np.float32),
+                            device=device).requires_grad_()
+
+    out = {}
+    for key, val in peft.items():
+        key = key[len("params/"):] if key.startswith("params/") else key
+        out[key] = ({name: leaf(x) for name, x in val.items()}
+                    if hasattr(val, "items") else leaf(val))
     return out

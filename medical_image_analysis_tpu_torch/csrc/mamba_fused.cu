@@ -28,6 +28,11 @@
 //   xdbl     (B*K, L, C) fp32, scan order
 //   y        (B*K, L, D) in the source dtype, SOURCE order
 //
+// d_state: the scan kernels are built for N = 4, 16, 17 and 32 (17 is
+// MambaPEFT's additional_scan width on 16, an odd N: see lane_states); the
+// wrapper runs any other N up to 32 at the next of these with zero B, C and
+// A in the extra states, and raises past 32. x_dbl takes any C.
+//
 // Direction k reads source (k >= 2 ? xc : xr); odd k scans it back to front,
 // so scan row t is source row L-1-t. The TPU version flipped rows in VMEM with
 // anti-identity matmuls and padded L to its chunk; here the flip is index
@@ -645,6 +650,25 @@ __host__ __device__ constexpr int log2i(int x) {
 
 __host__ __device__ constexpr int pad4(int n) { return (n + 3) / 4 * 4; }
 
+// The scan kernels are built for d_state 4, 16, 17 and 32 (MIA_DISPATCH;
+// the wrapper runs any other N up to 32 at the next of these, its extra
+// states zero in A, B and C). A lane holds lane_states<N>() states of its
+// channel, N / kLanes rounded up: at odd N (17, additional_scan's default
+// width on 16) the last lane's last state is a pad, which has_state masks
+// (A, B, C and the carried state and adjoint read as 0, its sums and
+// gradients not written), so it stays 0 and adds nothing. At even N every
+// state exists and has_state is a constant true: the code of those widths
+// is as before.
+template <int N>
+__host__ __device__ constexpr int lane_states() {
+  return (N + kLanes - 1) / kLanes;
+}
+
+template <int N>
+__device__ __forceinline__ bool has_state(int n) {
+  return N % kLanes == 0 || n < N;
+}
+
 // 2^x by the special-function unit (relative error under 2^-22; results
 // below 2^-126 flush to 0, which forgets a state as an underflow does).
 // The walks take their decays as exp2(dt A log2 e): one multiply and this,
@@ -665,14 +689,14 @@ __device__ __forceinline__ float exp2_approx(float x) {
 // and kernel 3's
 //   dwdt_s (R, 32)          dW_dt of the chunk so far
 //   sum_s (2 warps, kBwdSub, 2N)   each warp's sums of dB and dC
-//   ck_s (kBwdSubs, N / kLanes, kBwdThreads)   the state entering each
-//                           sub-chunk, a column per thread
+//   ck_s (kBwdSubs, ceil(N / kLanes), kBwdThreads)   the state entering
+//                           each sub-chunk, a column per thread
 __host__ __device__ constexpr int bwd_smem_floats(int R, int C, int N,
                                                   bool grad) {
   return kBwdSub * pad4(C) + kBwdSub * kDLd + R * kWLd +
          (kBwdSub + kMaxTaps - 1) * kBwdChannels + 5 * kBwdSub * kBwdChannels +
          (grad ? R * kBwdChannels + kBwdThreads / 32 * kBwdSub * 2 * N +
-                     kBwdSubs * (N / kLanes) * kBwdThreads
+                     kBwdSubs * ((N + kLanes - 1) / kLanes) * kBwdThreads
                : 0);
 }
 
@@ -879,7 +903,7 @@ __device__ __forceinline__ void chunk_sums(
     const float* conv_w, const float* conv_b, const float* dtw,
     const float* dt_bias, const float* A, const T* dy, float* sums, int K,
     int L, int D, int R, int taps, int use_conv, int delta_softplus) {
-  constexpr int NL = N / kLanes;
+  constexpr int NL = lane_states<N>();
   constexpr int kSlot = kAdj ? 1 + 2 * N : 1 + N;
   const int C = R + 2 * N;
   const int Cp = pad4(C);
@@ -896,8 +920,9 @@ __device__ __forceinline__ void chunk_sums(
   float a2[NL], P[NL], H[NL], G[NL];  // a2: A log2(e)
 #pragma unroll
   for (int i = 0; i < NL; ++i) {
-    a2[i] = in ? A[(static_cast<size_t>(p.k) * D + d) * N + n0 + i] * kLog2e
-               : 0.0f;
+    a2[i] = in && has_state<N>(n0 + i)
+                ? A[(static_cast<size_t>(p.k) * D + d) * N + n0 + i] * kLog2e
+                : 0.0f;
     P[i] = 1.0f;
     H[i] = 0.0f;
     G[i] = 0.0f;
@@ -921,10 +946,12 @@ __device__ __forceinline__ void chunk_sums(
       S += dt;
 #pragma unroll
       for (int i = 0; i < NL; ++i) {
+        const bool ok = has_state<N>(n0 + i);
         const float an = exp2_approx(dt * a2[i]);
         if constexpr (kAdj) P[i] *= an;
-        H[i] = an * H[i] + bx * row[R + n0 + i];
-        if constexpr (kAdj) G[i] += P[i] * (row[R + N + n0 + i] * dyv);
+        H[i] = an * H[i] + bx * (ok ? row[R + n0 + i] : 0.0f);
+        if constexpr (kAdj)
+          G[i] += P[i] * ((ok ? row[R + N + n0 + i] : 0.0f) * dyv);
       }
     }
   }
@@ -934,6 +961,7 @@ __device__ __forceinline__ void chunk_sums(
     if (n0 == 0) out[0] = S;
 #pragma unroll
     for (int i = 0; i < NL; ++i) {
+      if (!has_state<N>(n0 + i)) continue;
       out[static_cast<size_t>(1 + n0 + i) * D] = H[i];
       if constexpr (kAdj) out[static_cast<size_t>(1 + N + n0 + i) * D] = G[i];
     }
@@ -1069,6 +1097,7 @@ __device__ __forceinline__ float element(const float4& v, int e) {
 __device__ __forceinline__ float element(const float2& v, int e) {
   return e == 0 ? v.x : v.y;
 }
+__device__ __forceinline__ float element(float v, int) { return v; }
 
 // Shared memory of the forward scan, in floats: dtw_s (R, kWLd), padded
 // to 16 bytes; two buffers of a sub-chunk's x_dbl rows (kFwdSub, pad4(C)),
@@ -1138,10 +1167,14 @@ __global__ void __launch_bounds__(kBwdThreads, kFwdBlocks) mamba_scan_kernel(
     const float* __restrict__ Dv, const float* __restrict__ sums,
     T* __restrict__ y, int K, int L, int D, int R, int taps, int use_conv,
     int delta_softplus, int chunk) {
-  constexpr int NL = N / kLanes;
-  constexpr int kVec = NL % 4 == 0 ? 4 : 2;  // floats a vector read of B, C
-  using Vec = typename std::conditional<kVec == 4, float4, float2>::type;
-  static_assert(NL % kVec == 0 && kVec % 2 == 0, "whole vectors");
+  constexpr int NL = lane_states<N>();
+  // floats a read of B and C: vectors where a lane's states and C start on
+  // their size (N a multiple of 8: float4; of 4: float2), else one float
+  constexpr int kVec = N % 8 == 0 ? 4 : N % 4 == 0 ? 2 : 1;
+  using Vec = typename std::conditional<
+      kVec == 4, float4,
+      typename std::conditional<kVec == 2, float2, float>::type>::type;
+  static_assert(NL % kVec == 0, "whole vectors");
   extern __shared__ float4 smem4[];  // 16-byte aligned
   const int C = R + 2 * N;
   const int Cp = pad4(C);
@@ -1167,9 +1200,10 @@ __global__ void __launch_bounds__(kBwdThreads, kFwdBlocks) mamba_scan_kernel(
   float a2[NL], h[NL];  // a2: A log2(e)
 #pragma unroll
   for (int i = 0; i < NL; ++i) {
-    a2[i] = in ? A[(static_cast<size_t>(p.k) * D + d) * N + n0 + i] * kLog2e
+    const bool ok = in && has_state<N>(n0 + i);
+    a2[i] = ok ? A[(static_cast<size_t>(p.k) * D + d) * N + n0 + i] * kLog2e
                : 0.0f;
-    h[i] = in && sums != nullptr
+    h[i] = ok && sums != nullptr
                ? sums[(slot * (1 + N) + 1 + n0 + i) * D + d]
                : 0.0f;
   }
@@ -1204,13 +1238,15 @@ __global__ void __launch_bounds__(kBwdThreads, kFwdBlocks) mamba_scan_kernel(
       float acc[2] = {0.0f, 0.0f};
 #pragma unroll
       for (int v = 0; v < NL; v += kVec) {
-        const Vec bv = *reinterpret_cast<const Vec*>(row + v);
-        const Vec cv = *reinterpret_cast<const Vec*>(row + N + v);
+        // a pad state (odd N) reads B = C = 0 and no float past its row
+        const bool ok = kVec > 1 || has_state<N>(n0 + v);
+        const Vec bv = ok ? *reinterpret_cast<const Vec*>(row + v) : Vec{};
+        const Vec cv = ok ? *reinterpret_cast<const Vec*>(row + N + v) : Vec{};
 #pragma unroll
         for (int e = 0; e < kVec; ++e) {
           const int i = v + e;
           h[i] = exp2_approx(dt * a2[i]) * h[i] + bx * element(bv, e);
-          acc[e & 1] += element(cv, e) * h[i];
+          acc[i & 1] += element(cv, e) * h[i];
         }
       }
       float out = acc[0] + acc[1];
@@ -1261,11 +1297,48 @@ __device__ __forceinline__ float lane_sums(float (&v)[M], int lane) {
   return sum;
 }
 
+// A row's dB and dC terms of a lane (terms[i]: state n0 + i's dB, terms[NL
+// + i] its dC), each summed over the warp's lanes that hold the same
+// states, into the warp's row of sum_s (dB at column n, dC at N + n): in
+// groups of the binary digits of 2 NL, 16 values at most (lane_sums takes
+// a power of two up to 32 / kLanes), starting at term O; a pad state's
+// sums are dropped. At N = 4, 8 and 16 this is one lane_sums of all 2 NL.
+template <int N, int O = 0>
+__device__ __forceinline__ void row_sums(
+    const float (&terms)[2 * lane_states<N>()], int lane, float* sum_row) {
+  constexpr int NL = lane_states<N>();
+  if constexpr (O < 2 * NL) {
+    constexpr int rest = 2 * NL - O;
+    constexpr int G = 1 << log2i(rest < 32 / kLanes ? rest : 32 / kLanes);
+    float v[G];
+#pragma unroll
+    for (int j = 0; j < G; ++j) v[j] = terms[O + j];
+    const float sum = lane_sums<G>(v, lane);
+    // lane l holds value l >> shift of the states of lane l % kLanes
+    constexpr int shift = 5 - log2i(G);
+    if (((lane >> log2i(kLanes)) & ((1 << (shift - log2i(kLanes))) - 1)) ==
+        0) {
+      const int vi = O + (lane >> shift);
+      const int n = (lane % kLanes) * NL + (vi < NL ? vi : vi - NL);
+      if (has_state<N>(n)) sum_row[vi < NL ? n : N + n] = sum;
+    }
+    row_sums<N, O + G>(terms, lane, sum_row);
+  }
+}
+
+// The gradients kernel's resident blocks an SM by its register cap: 6 up
+// to N = 16 (168 registers; 16 bytes of spill at 16); past it a lane's
+// sub-chunk of states (kBwdSub x ceil(N / kLanes) registers) takes more,
+// so 4 (255 registers, the most a thread has).
+template <int N>
+constexpr int kBwdMinBlocks = N <= 16 ? kBwdBlocks : 4;
+
 // 3. Gradients. grid and block as kernel 1's, dynamic smem
-// bwd_smem_floats(R, C, N, true) floats; registers capped for kBwdBlocks
-// resident blocks an SM. A lane holds N/kLanes states of one channel.
+// bwd_smem_floats(R, C, N, true) floats; registers capped for
+// kBwdMinBlocks<N> resident blocks an SM. A lane holds
+// lane_states<N>() states of one channel.
 template <typename T, int N>
-__global__ void __launch_bounds__(kBwdThreads, kBwdBlocks)
+__global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks<N>)
 mamba_scan_bwd_grad_kernel(
     const T* __restrict__ xr, const T* __restrict__ xc,
     const float* __restrict__ xdbl, const float* __restrict__ conv_w,
@@ -1278,7 +1351,7 @@ mamba_scan_bwd_grad_kernel(
     float* __restrict__ dD_out, float* __restrict__ ddb_out,
     float* __restrict__ ddtw_out, int K, int L, int D, int R, int taps,
     int use_conv, int delta_softplus) {
-  constexpr int NL = N / kLanes;
+  constexpr int NL = lane_states<N>();
   constexpr int M = 2 * NL;  // a lane's dB and dC terms of a row
   extern __shared__ float4 smem4[];  // 16-byte aligned
   const int C = R + 2 * N;
@@ -1308,12 +1381,20 @@ mamba_scan_bwd_grad_kernel(
 #pragma unroll
   for (int i = 0; i < NL; ++i) {
     const int n = n0 + i;
-    a2[i] = in ? A[(static_cast<size_t>(p.k) * D + d) * N + n] * kLog2e
+    const bool ok = in && has_state<N>(n);
+    a2[i] = ok ? A[(static_cast<size_t>(p.k) * D + d) * N + n] * kLog2e
                : 0.0f;
-    h[i] = in ? sums[(slot * (1 + 2 * N) + 1 + n) * D + d] : 0.0f;
-    g[i] = in ? sums[(slot * (1 + 2 * N) + 1 + N + n) * D + d] : 0.0f;
+    h[i] = ok ? sums[(slot * (1 + 2 * N) + 1 + n) * D + d] : 0.0f;
+    g[i] = ok ? sums[(slot * (1 + 2 * N) + 1 + N + n) * D + d] : 0.0f;
     dA[i] = 0.0f;
   }
+  // B and C of state n0 + i in a staged x_dbl row, 0 for a pad state
+  auto b_of = [&](const float* row, int i) {
+    return has_state<N>(n0 + i) ? row[R + n0 + i] : 0.0f;
+  };
+  auto c_of = [&](const float* row, int i) {
+    return has_state<N>(n0 + i) ? row[R + N + n0 + i] : 0.0f;
+  };
   const float dskip = in ? Dv[p.k * D + d] : 0.0f;
   stage_dtw(dtw, p.k, D, R, p.d0, s.dtw);
   for (int i = tid; i < R * kBwdChannels; i += kBwdThreads) s.dwdt[i] = 0.0f;
@@ -1337,7 +1418,7 @@ mamba_scan_bwd_grad_kernel(
       const float bx = s.dtu[r * kBwdChannels + ch];
 #pragma unroll
       for (int i = 0; i < NL; ++i)
-        h[i] = exp2_approx(dt * a2[i]) * h[i] + bx * s.xd[r * Cp + R + n0 + i];
+        h[i] = exp2_approx(dt * a2[i]) * h[i] + bx * b_of(s.xd + r * Cp, i);
     }
   }
 
@@ -1367,7 +1448,7 @@ mamba_scan_bwd_grad_kernel(
         for (int i = 0; i < NL; ++i) {
           const float prev = r > 0 ? hv[r - 1][i] : ck[i * kBwdThreads];
           hv[r][i] = exp2_approx(dt * a2[i]) * prev +
-                     bx * s.xd[r * Cp + R + n0 + i];
+                     bx * b_of(s.xd + r * Cp, i);
         }
       }
     }
@@ -1382,13 +1463,13 @@ mamba_scan_bwd_grad_kernel(
         float gb = 0.0f, ddt_a = 0.0f;
 #pragma unroll
         for (int i = 0; i < NL; ++i) {
-          const float pv = row[R + N + n0 + i] * dyv + g[i];
+          const float pv = c_of(row, i) * dyv + g[i];
           const float hp = r > 0 ? hv[r - 1][i] : ck[i * kBwdThreads];
           const float an = exp2_approx(dt * a2[i]);
           const float dloga = pv * hp * an;  // the gradient w.r.t. dt A
           dA[i] += dloga * dt;
           ddt_a += dloga * a2[i];
-          gb += pv * row[R + n0 + i];
+          gb += pv * b_of(row, i);
           g[i] = an * pv;
           terms[i] = pv * dtu;
           terms[NL + i] = hv[r][i] * dyv;
@@ -1407,16 +1488,7 @@ mamba_scan_bwd_grad_kernel(
             du[(static_cast<size_t>(p.bk) * L + t0 + r) * D + d] =
                 dt * gb + dyv * dskip;
         }
-        const float sum = lane_sums<M>(terms, lane);
-        // lane l holds value vi of the states of lane l % kLanes
-        constexpr int shift = 5 - log2i(M);
-        if (((lane >> log2i(kLanes)) & ((1 << (shift - log2i(kLanes))) - 1)) ==
-            0) {
-          const int vi = lane >> shift;
-          const int first = (lane % kLanes) * NL;
-          const int col = vi < NL ? first + vi : N + first + vi - NL;
-          s.sum[(warp * kBwdSub + r) * 2 * N + col] = sum;
-        }
+        row_sums<N>(terms, lane, s.sum + (warp * kBwdSub + r) * 2 * N);
       }
     }
     __syncthreads();
@@ -1489,7 +1561,7 @@ mamba_scan_bwd_grad_kernel(
   if (in) {
 #pragma unroll
     for (int i = 0; i < NL; ++i)
-      dA_out[(slot * D + d) * N + n0 + i] = dA[i];
+      if (has_state<N>(n0 + i)) dA_out[(slot * D + d) * N + n0 + i] = dA[i];
     if (n0 == 0) {
       dD_out[slot * D + d] = dD;
       ddb_out[slot * D + d] = ddb;
@@ -1784,26 +1856,29 @@ bool xdbl_ok(int B, int K, int L, int D, int C, int taps, int rows, int nt,
          K % dirs == 0 && splits >= 1 && splits <= 64 &&
          static_cast<long long>(B) * K / dirs <= 65535 &&
          static_cast<long long>(B) * K * L * C <= 0x7fffffffLL &&
-         static_cast<long long>(ceil_div(C, 8)) * splits <= 65535;
+         static_cast<long long>(ceil_div(C, xdbl_block_cols(nt, dirs))) *
+                 splits <= 65535;
 }
 
 bool aligned16(const void* ptr) {
   return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
 }
 
-// Runs fn<T, N>(args...) for the source type and d_state of a call.
-#define MIA_DISPATCH(fn, ...)                                          \
-  switch (N * 2 + (is_bf16 ? 1 : 0)) {                                 \
-    case 8:                                                            \
-      return fn<float, 4>(__VA_ARGS__);                                \
-    case 9:                                                            \
-      return fn<__nv_bfloat16, 4>(__VA_ARGS__);                        \
-    case 32:                                                           \
-      return fn<float, 16>(__VA_ARGS__);                               \
-    case 33:                                                           \
-      return fn<__nv_bfloat16, 16>(__VA_ARGS__);                       \
-    default:                                                           \
-      return cudaErrorInvalidValue;                                    \
+// Runs fn<T, N>(args...) for the source type and d_state of a call: the
+// widths the scan kernels are built for (the wrapper's _STATE_WIDTHS; it
+// pads any other N up to 32 to the next of them).
+#define MIA_STATE(n, fn, ...)                                       \
+  case n:                                                           \
+    return is_bf16 ? fn<__nv_bfloat16, n>(__VA_ARGS__)              \
+                   : fn<float, n>(__VA_ARGS__);
+#define MIA_DISPATCH(fn, ...)                                       \
+  switch (N) {                                                      \
+    MIA_STATE(4, fn, __VA_ARGS__)                                   \
+    MIA_STATE(16, fn, __VA_ARGS__)                                  \
+    MIA_STATE(17, fn, __VA_ARGS__)                                  \
+    MIA_STATE(32, fn, __VA_ARGS__)                                  \
+    default:                                                        \
+      return cudaErrorInvalidValue;                                 \
   }
 
 // A call's sizes fit its grids and int indices: B*K in grid.y, the B*K*N*D
@@ -1949,6 +2024,7 @@ int mia_mamba_scan_bwd_blocks_per_sm(int kernel, int N, int R, int is_bf16,
 }
 
 #undef MIA_DISPATCH
+#undef MIA_STATE
 #undef MIA_XDBL_DISPATCH
 
 }  // extern "C"

@@ -8,8 +8,8 @@ names are the flax modules' (``word_embeddings``, ``position_embeddings``,
 ``token_type_embeddings``, ``embeddings_norm``, ``layer_<i>`` with
 ``attention``, ``crossattention``, ``ffn``, ``ffn_query``), and
 ``Blip2QFormer`` (``query_tokens`` beside its ``bert``): the BLIP-2
-Q-Former of AM-MRG and R2GenKG, query-only. LayerNorms at ``cfg.eps``, the erf GELU,
-padded keys at an additive -1e9.
+Q-Former of AM-MRG and R2GenKG (query-only there), with its text path.
+LayerNorms at ``cfg.eps``, the erf GELU, padded keys at an additive -1e9.
 
 Flax creates a parameter when a call first reaches it, and its ``Dense``
 takes the width of whatever it is given; here the modules are built from
@@ -208,28 +208,34 @@ class BertModel(nn.Module):
 
 
 class Blip2QFormer(nn.Module):
-    """BLIP-2 Q-Former in query-only mode: learnable ``query_tokens`` (1, Q,
-    dim) over a BERT encoder (``bert``) with the query FFN and
-    cross-attention into the image features every ``cross_attention_freq``
-    layers, under an all-ones encoder mask. ``enc_dim`` is the image
-    features' width. The JAX module's text path (``input_ids``), which no
-    recipe calls, is not ported: the encoder has no embeddings, and no text
-    FFN unless ``text_ffn`` (to load a full Q-Former checkpoint), as the
-    JAX ``init`` of a query-only call has none.
+    """BLIP-2 Q-Former: learnable ``query_tokens`` (1, Q, dim) over a BERT
+    encoder (``bert``) with the query FFN and cross-attention into the
+    image features every ``cross_attention_freq`` layers, under an
+    all-ones encoder mask. ``enc_dim`` is the image features' width.
 
-    ``forward(image_embeds (B, L, enc_dim))`` -> (B, num_queries, dim).
+    With ``text`` the text path is built as well (the JAX module's
+    ``input_ids``): word, position and token-type embeddings, whose tokens
+    follow the queries through the self-attention (``attention_mask`` over
+    the text; the queries always attend) and take the text FFN, while only
+    the queries cross-attend. Without it the encoder has no embeddings and
+    no text FFN unless ``text_ffn`` (to load a full Q-Former checkpoint),
+    as the JAX ``init`` of a query-only call has none.
+
+    ``forward(image_embeds (B, L, enc_dim), input_ids=None,
+    attention_mask=None)`` -> (B, num_queries [+ L_text], dim).
     """
 
     def __init__(self, num_queries: int = 32, dim: int = 768,
                  n_layers: int = 12, n_heads: int = 12,
                  intermediate: int = 3072, cross_attention_freq: int = 2,
                  enc_dim: int | None = None, text_ffn: bool = False,
+                 text: bool = False, vocab_size: int = 30522,
                  device=None):
         super().__init__()
-        cfg = BertConfig(dim=dim, n_layers=n_layers, n_heads=n_heads,
-                         intermediate=intermediate,
+        cfg = BertConfig(vocab_size=vocab_size, dim=dim, n_layers=n_layers,
+                         n_heads=n_heads, intermediate=intermediate,
                          cross_attention_freq=cross_attention_freq,
-                         query_ffn=True, use_embeddings=False)
+                         query_ffn=True, use_embeddings=text)
         self.query_tokens = nn.Parameter(
             torch.empty(1, num_queries, dim, device=device))
         self.bert = BertModel(cfg, device, enc_dim, text_ffn=text_ffn)
@@ -240,10 +246,15 @@ class Blip2QFormer(nn.Module):
                           device=self.query_tokens.device)
         self.query_tokens.copy_(tmp.normal_(0.0, 0.02, generator=gen))
 
-    def forward(self, image_embeds: torch.Tensor) -> torch.Tensor:
+    def forward(self, image_embeds: torch.Tensor,
+                input_ids: torch.Tensor | None = None,
+                attention_mask: torch.Tensor | None = None) -> torch.Tensor:
+        if input_ids is not None and not self.bert.cfg.use_embeddings:
+            raise ValueError("Blip2QFormer: input_ids need text=True")
         b = image_embeds.shape[0]
         q = self.query_tokens.expand(b, -1, -1).to(image_embeds.dtype)
         enc_mask = torch.ones(image_embeds.shape[:2], dtype=torch.int32,
                               device=image_embeds.device)
-        return self.bert(query_embeds=q, encoder_hidden_states=image_embeds,
+        return self.bert(input_ids=input_ids, attention_mask=attention_mask,
+                         query_embeds=q, encoder_hidden_states=image_embeds,
                          encoder_attention_mask=enc_mask)

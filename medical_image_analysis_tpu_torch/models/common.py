@@ -61,7 +61,8 @@ def init_params(model: nn.Module, gen: torch.Generator) -> nn.Module:
 
 
 class RMSNorm(nn.Module):
-    """flax ``nn.RMSNorm``: fp32 statistics, output promoted to fp32."""
+    """flax ``nn.RMSNorm``: fp32 statistics, output promoted to fp32 (fp64
+    stays fp64)."""
 
     def __init__(self, dim: int, eps: float = 1e-6, device=None):
         super().__init__()
@@ -69,7 +70,7 @@ class RMSNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(dim, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         var = torch.mean(xf * xf, dim=-1, keepdim=True)
         return xf * (torch.rsqrt(var + self.eps) * self.weight)
 

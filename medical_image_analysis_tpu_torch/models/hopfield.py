@@ -54,26 +54,29 @@ def hopfield_retrieve(query: torch.Tensor, keys: torch.Tensor,
 
 class Hopfield(nn.Module):
     """Per-head query, stored-pattern and value projections around
-    :func:`hopfield_retrieve`, the stored patterns serving as the values
-    too. ``in_dim`` is the query's width and ``stored_dim`` the stored
-    patterns' (``in_dim`` when None: the JAX ``Dense`` infers it);
+    :func:`hopfield_retrieve`; the values are the stored patterns unless
+    ``forward`` is given ``values`` of their own. ``in_dim`` is the query's
+    width, ``stored_dim`` the stored patterns' (``in_dim`` when None: the
+    JAX ``Dense`` infers it) and ``value_dim`` the values' (``stored_dim``
+    when None; ``norm_pattern`` normalizes the values at that width);
     ``hidden`` is the per-head association width, ``pattern_dim`` the
     per-head value width (``hidden`` when None), ``out_dim`` the output's
     (``in_dim`` when None). ``norm_state``, ``norm_stored`` and
     ``norm_pattern`` switch the input LayerNorms and ``use_bias`` the q, k
     and v projections' biases (all on, as in the JAX module and the
-    library; a reference checkpoint without a norm is loaded with it off).
-    The JAX module's separate ``values`` input, which no recipe sets, is
-    not ported."""
+    library; a reference checkpoint without a norm is loaded with it
+    off)."""
 
     def __init__(self, in_dim: int, hidden: int, num_heads: int = 1,
                  pattern_dim: int | None = None, out_dim: int | None = None,
                  update_steps_max: int = 0, scaling: float | None = None,
                  stored_dim: int | None = None, norm_stored: bool = True,
                  norm_state: bool = True, norm_pattern: bool = True,
-                 use_bias: bool = True, device=None):
+                 use_bias: bool = True, value_dim: int | None = None,
+                 device=None):
         super().__init__()
         stored_dim = stored_dim or in_dim
+        value_dim = value_dim or stored_dim
         self.hidden, self.num_heads = hidden, num_heads
         self.pattern_dim = pattern_dim or hidden
         self.update_steps_max, self.scaling = update_steps_max, scaling
@@ -85,27 +88,29 @@ class Hopfield(nn.Module):
 
         self.norm_state = norm(norm_state, in_dim)
         self.norm_stored = norm(norm_stored, stored_dim)
-        self.norm_pattern = norm(norm_pattern, stored_dim)
+        self.norm_pattern = norm(norm_pattern, value_dim)
         self.q_proj = nn.Linear(in_dim, nh * hidden, bias=use_bias,
                                 device=device)
         self.k_proj = nn.Linear(stored_dim, nh * hidden, bias=use_bias,
                                 device=device)
-        self.v_proj = nn.Linear(stored_dim, nh * self.pattern_dim,
+        self.v_proj = nn.Linear(value_dim, nh * self.pattern_dim,
                                 bias=use_bias, device=device)
         self.out_proj = nn.Linear(nh * self.pattern_dim, out_dim or in_dim,
                                   device=device)
 
-    def forward(self, query: torch.Tensor,
-                stored: torch.Tensor) -> torch.Tensor:
+    def forward(self, query: torch.Tensor, stored: torch.Tensor,
+                values: torch.Tensor | None = None) -> torch.Tensor:
         """query (B, L, in_dim); stored (B, M, stored_dim) or (M,
-        stored_dim), the stored patterns and the values."""
+        stored_dim), the stored patterns; values of the same leading shape
+        and ``value_dim``, or None (the stored patterns)."""
+        values = stored if values is None else values
         nh, hd, pd = self.num_heads, self.hidden, self.pattern_dim
         b, l, _ = query.shape
         q = self.q_proj(self.norm_state(query)).reshape(b, l, nh, hd)
         k = self.k_proj(self.norm_stored(stored)).reshape(
             *stored.shape[:-1], nh, hd)
-        v = self.v_proj(self.norm_pattern(stored)).reshape(
-            *stored.shape[:-1], nh, pd)
+        v = self.v_proj(self.norm_pattern(values)).reshape(
+            *values.shape[:-1], nh, pd)
         beta = self.scaling or hd**-0.5
         out = hopfield_retrieve(q, k, v, beta, self.update_steps_max)
         return self.out_proj(out.reshape(b, l, nh * pd))

@@ -40,7 +40,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.causal_conv import causal_conv1d, causal_conv1d_update
-from ..ops.mamba_fused import mamba_fused_dirs
+from ..ops.mamba_fused import compute_dtype, mamba_fused_dirs
 from ..ops.selective_scan import selective_scan_ref
 from ..ops.selective_scan_pallas import selective_scan_dirs
 from .common import (
@@ -188,7 +188,7 @@ class MambaMixer(nn.Module):
 
     def forward(self, x: torch.Tensor, cls_pos: int | None = None):
         xi, z = self.in_proj(x).chunk(2, dim=-1)
-        a = -torch.exp(self.A_log.float())
+        a = -torch.exp(self.A_log.to(compute_dtype(self.A_log.dtype)))
         if self.scan_backend in ("pallas", "pallas_plain"):
             return self._merge(self._pallas_dirs(xi, a, cls_pos), z, cls_pos)
         if self.scan_backend != "ref":
@@ -283,7 +283,8 @@ class MambaBlock(nn.Module):
 
     def forward(self, x, cls_pos: int | None = None,
                 deterministic: bool = True):
-        residual = x.float() if self.residual_in_fp32 else x
+        residual = (x.to(compute_dtype(x.dtype)) if self.residual_in_fp32
+                    else x)
         y = self.mixer(self.norm(x), cls_pos)
         y = self.drop_path(y, deterministic)
         out = residual + y.to(residual.dtype)

@@ -14,7 +14,9 @@ activation-space adapters: an AdaptFormer bottleneck beside each block
 tuning (``prompt_encoder`` (1, P, d_model) before the tokens) and prefix
 tuning (``prefix_encoder`` (depth, 1, V, d_model): V virtual tokens put
 before each block's input and stripped after it). LoRA on the X half of
-``in_proj`` applies through ``peft.lora.mamba_partial_x_rules``.
+``in_proj`` applies through ``peft.lora.mamba_partial_x_rules``; the
+weight-space family merges through ``peft.mamba_peft`` (a model built at
+``effective_d_state`` runs the merged parameters, ``step`` included).
 
 ``init_states`` and ``step`` decode one token at a time through the
 blocks' conv and SSM states, in plain PyTorch (the adapters play no part

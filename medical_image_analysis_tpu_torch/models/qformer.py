@@ -3,10 +3,10 @@ mini Q-Former projector of R2GenGPT's ``projector: qformer``.
 
 Counterpart of ``medical_image_analysis_tpu/models/qformer.py``, with its
 parameter names (``blip2/query_tokens``, ``blip2/bert/...``;
-``qformer/...`` and ``linear`` in the projector). Query-only mode, the
-only one the recipes run (the JAX text path is not ported): learnable
-queries self-attend and cross-attend into the image features every
-``cross_attention_freq`` layers (post-LN BERT blocks, ``models/bert.py``).
+``qformer/...`` and ``linear`` in the projector). The recipes run
+query-only mode: learnable queries self-attend and cross-attend into the
+image features every ``cross_attention_freq`` layers (post-LN BERT blocks,
+``models/bert.py``). ``Blip2QFormer(text=True)`` provides the text path.
 """
 
 from __future__ import annotations

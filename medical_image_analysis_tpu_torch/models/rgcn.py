@@ -180,9 +180,8 @@ class ResidualCrossAttentionBlock(nn.Module):
 
 class CrossAttentionLookup(nn.Module):
     """Single-head cross-attention from the queries (B, L, dim) into a
-    token bank (M, bank_dim) shared by the batch (the JAX module's
-    per-item banks, which no recipe passes, are not ported). ``bank_dim``
-    defaults to ``dim``."""
+    token bank: (M, bank_dim) shared by the batch, or (B, M, bank_dim) one
+    a row. ``bank_dim`` defaults to ``dim``."""
 
     def __init__(self, dim: int, bank_dim: int | None = None, device=None):
         super().__init__()
@@ -194,6 +193,8 @@ class CrossAttentionLookup(nn.Module):
     def forward(self, query: torch.Tensor, bank: torch.Tensor) -> torch.Tensor:
         bank = bank.to(query.dtype)
         q, k, v = self.q(query), self.k(bank), self.v(bank)
+        bank_spec = "bmd" if bank.dim() == 3 else "md"
         a = torch.softmax(
-            torch.einsum("bld,md->blm", q, k) * self.dim**-0.5, dim=-1)
-        return torch.einsum("blm,md->bld", a, v)
+            torch.einsum(f"bld,{bank_spec}->blm", q, k) * self.dim**-0.5,
+            dim=-1)
+        return torch.einsum(f"blm,{bank_spec}->bld", a, v)

@@ -41,6 +41,13 @@ each on the H100 and how its design answers that. Directions are
 [row, row-rev, col, col-rev]: direction k reads ``xc`` when k >= 2 and
 scans it back to front when k is odd.
 
+The scan kernels are built for d_state 4, 16, 17 and 32
+(``_STATE_WIDTHS``; 17 is MambaPEFT's ``additional_scan`` width on 16).
+Every N from 1 to 32 runs through them: :func:`state_width` names the
+width a call runs at, and the scan wrappers pad x_dbl's B and C columns
+and A with zero states up to it and drop the padded states' gradients
+(all 0). Past 32 every wrapper raises.
+
 Each wrapper runs its kernel on a CUDA tensor and its plain version
 (``xdbl_plain``, ``scan_plain``, ``scan_bwd_plain``) on a CPU tensor;
 there is no fallback between the two. ``launches`` counts calls of a
@@ -60,7 +67,12 @@ from .selective_scan import softplus
 KERNEL_SOURCE = "medical_image_analysis_tpu_torch/csrc/mamba_fused.cu"
 launches = {"mamba_xdbl": 0, "mamba_scan": 0, "mamba_scan_bwd": 0}
 
-_SCAN_STATES = (4, 16)  # d_state values the scan kernel is built for
+# d_state widths the scan kernels are built for (csrc/mamba_fused.cu's
+# MIA_DISPATCH): 17 is additional_scan's default width on 16; any other N
+# up to _MAX_STATE runs at the next of them (state_width), its extra states
+# zero in A, B and C.
+_STATE_WIDTHS = (4, 16, 17, 32)
+_MAX_STATE = 32
 _MAX_TAPS = 4
 # x_dbl's tiles: source rows a tile (xdbl_rows: 64 MW for MW = 1, 2), the
 # n8 tiles of C a warp takes that the kernel is built for at 64 rows
@@ -139,13 +151,21 @@ def build() -> tuple[ctypes.CDLL, str]:
 # --------------------------------------------------------------------------
 
 
+def compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The plain versions' compute dtype for sources of ``dtype``: fp32,
+    or fp64 for fp64 sources (a float64 yardstick of the fp32 paths; the
+    kernels take fp32 and bf16 only)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def _scan_order(xr, xc, k_dirs):
-    """(B, K, L, D) fp32 sources in each direction's scan order."""
+    """(B, K, L, D) sources in each direction's scan order, in
+    :func:`compute_dtype`."""
     seqs = []
     for k in range(k_dirs):
         src = xc if xc is not None and k >= 2 else xr
         seqs.append(src.flip(1) if k % 2 else src)
-    return torch.stack(seqs, dim=1).float()
+    return torch.stack(seqs, dim=1).to(compute_dtype(xr.dtype))
 
 
 def _conv_silu(x, conv_w, conv_b):
@@ -231,7 +251,7 @@ def _bwd_rows(xr, xc, xdbl, conv_w, conv_b, dt_proj_w, dt_bias, A, dy,
         dt, sg = dt_raw, torch.ones_like(dt_raw)
     bmat = x_dbl[..., rank : rank + n]
     cmat = x_dbl[..., rank + n : rank + 2 * n]
-    return u, dsilu, dt, sg, x_dbl, bmat, cmat, _flip_reversed(dy.float())
+    return u, dsilu, dt, sg, x_dbl, bmat, cmat, _flip_reversed(dy.to(u.dtype))
 
 
 def _walk_states(A, dt, dtu, bmat):
@@ -339,6 +359,47 @@ def mamba_carries_plain(xr, xc, xdbl, conv_w, conv_b, dt_proj_w, dt_bias, A,
 # --------------------------------------------------------------------------
 # Kernel wrappers
 # --------------------------------------------------------------------------
+
+
+def state_width(n: int) -> int:
+    """The d_state the scan kernels run d_state ``n`` at: ``n`` where they
+    are built for it (``_STATE_WIDTHS``), else the next width they are
+    built for. Raises outside 1 to ``_MAX_STATE``."""
+    if not 1 <= n <= _MAX_STATE:
+        raise ValueError(f"mamba_fused: d_state={n} unsupported "
+                         f"(1 <= d_state <= {_MAX_STATE})")
+    return next(w for w in _STATE_WIDTHS if w >= n)
+
+
+def widen_states(t, rank: int, n: int, width: int):
+    """x_dbl's columns ``[dt | B | C]`` at d_state ``n`` -> ``width``: B
+    and C each followed by ``width - n`` zeros. A padded state has B = C =
+    0, so its h stays 0 and adds nothing to y, whatever its A."""
+    if width == n:
+        return t
+    dt, bm, cm = torch.split(t, [rank, n, n], dim=-1)
+    z = t.new_zeros(*t.shape[:-1], width - n)
+    return torch.cat([dt, bm, z, cm, z], dim=-1)
+
+
+def narrow_states(t, rank: int, n: int, width: int):
+    """The inverse of :func:`widen_states`: the padded states' columns
+    dropped (their gradients are 0)."""
+    if width == n:
+        return t
+    return torch.cat([t[..., : rank + n],
+                      t[..., rank + width : rank + width + n]], dim=-1)
+
+
+def _pad_a(A, width: int):
+    """A (K, D, N) -> (K, D, width), the padded states' A 0."""
+    return A if A.shape[-1] == width else F.pad(A, (0, width - A.shape[-1]))
+
+
+def _check_widths(name: str, n: int, taps: int) -> None:
+    if not 1 <= n <= _MAX_STATE or not 1 <= taps <= _MAX_TAPS:
+        raise ValueError(f"{name}: d_state={n}, taps={taps} unsupported "
+                         f"(1 <= d_state <= {_MAX_STATE}, taps <= {_MAX_TAPS})")
 
 
 def _on_cpu(xr):
@@ -554,7 +615,9 @@ def scan_fwd(xr, xc, xdbl, conv_w, conv_b, dt_proj_w, dt_bias, A, D,
     xdbl (B*K, L, R+2N) from :func:`xdbl_fwd`; conv_w (K, taps, D),
     conv_b (K, D), dt_proj_w (K, D, R), dt_bias (K, D), A (K, D, N) and
     D (K, D) are fp32. The output has the sources' dtype. The scan runs in
-    chunks of :func:`fwd_chunk`'s choice for the card.
+    chunks of :func:`fwd_chunk`'s choice for the card, at
+    :func:`state_width`'s width (x_dbl and A padded here where that is
+    wider than N).
     """
     if _on_cpu(xr):
         return scan_plain(xr, xc, xdbl, conv_w, conv_b, dt_proj_w, dt_bias,
@@ -564,9 +627,7 @@ def scan_fwd(xr, xc, xdbl, conv_w, conv_b, dt_proj_w, dt_bias, A, D,
     taps = conv_w.shape[1]
     _check_sources(xr, xc, k_dirs, d_in)
     b, seq_len, _ = xr.shape
-    if n not in _SCAN_STATES or not 1 <= taps <= _MAX_TAPS:
-        raise ValueError(f"mamba_scan: d_state={n}, taps={taps} unsupported "
-                         f"(d_state in {_SCAN_STATES}, taps <= {_MAX_TAPS})")
+    _check_widths("mamba_scan", n, taps)
     _check_f32(
         xr.device, xdbl=(xdbl, (b * k_dirs, seq_len, rank + 2 * n)),
         conv_w=(conv_w, (k_dirs, taps, d_in)), conv_b=(conv_b, (k_dirs, d_in)),
@@ -574,6 +635,9 @@ def scan_fwd(xr, xc, xdbl, conv_w, conv_b, dt_proj_w, dt_bias, A, D,
         dt_bias=(dt_bias, (k_dirs, d_in)), A=(A, (k_dirs, d_in, n)),
         D=(D, (k_dirs, d_in)),
     )
+    width = state_width(n)
+    xdbl = widen_states(xdbl, rank, n, width)
+    A, n = _pad_a(A, width), width
     sms = torch.cuda.get_device_properties(xr.device).multi_processor_count
     chunk = fwd_chunk(b, k_dirs, seq_len, d_in, sms)
     sums = _fwd_workspace(xr.device, b * k_dirs, seq_len, d_in, n, chunk)
@@ -596,24 +660,26 @@ def scan_fwd(xr, xc, xdbl, conv_w, conv_b, dt_proj_w, dt_bias, A, D,
 def fwd_grid_blocks(b: int, k_dirs: int, seq_len: int, d_in: int, n: int,
                     chunk: int) -> dict:
     """Blocks of each forward kernel's grid for (B, K, L, D, N) in chunks
-    of ``chunk`` scan rows (0 for a kernel that one chunk does not run)."""
+    of ``chunk`` scan rows (0 for a kernel that one chunk does not run), at
+    :func:`state_width`'s width."""
     nchunks = -(-seq_len // min(chunk, seq_len))
     blocks = nchunks * -(-d_in // _BWD_CHANNELS) * b * k_dirs
     cut = nchunks > 1
+    chains = b * k_dirs * state_width(n) * d_in
     return dict(zip(FWD_KERNELS, (
         blocks if cut else 0,
-        -(-b * k_dirs * n * d_in // _CARRY_THREADS) if cut else 0, blocks)))
+        -(-chains // _CARRY_THREADS) if cut else 0, blocks)))
 
 
 def fwd_occupancy(n: int, rank: int, dtype: torch.dtype) -> dict:
     """Each forward kernel's resident blocks an SM on the current card and
     its shared memory a block in bytes, ``{name: (blocks, bytes)}``, for
-    d_state ``n``, dt rank ``rank`` and source dtype ``dtype``
+    d_state ``n`` (run at :func:`state_width`'s width), dt rank ``rank``
+    and source dtype ``dtype``
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"mamba_fused: source dtype {dtype} is not f32/bf16")
-    if n not in _SCAN_STATES:
-        raise ValueError(f"mamba_fused: d_state={n} not in {_SCAN_STATES}")
+    n = state_width(n)
     lib, _ = build()
     out = {}
     for i, name in enumerate(FWD_KERNELS):
@@ -635,9 +701,7 @@ def _check_bwd(xr, xc, xdbl, conv_w, conv_b, dt_proj_w, dt_bias, A, D, dy,
     taps = conv_w.shape[1]
     _check_sources(xr, xc, k_dirs, d_in)
     b, seq_len, _ = xr.shape
-    if n not in _SCAN_STATES or not 1 <= taps <= _MAX_TAPS:
-        raise ValueError(f"{name}: d_state={n}, taps={taps} unsupported "
-                         f"(d_state in {_SCAN_STATES}, taps <= {_MAX_TAPS})")
+    _check_widths(name, n, taps)
     _check_f32(
         xr.device, xdbl=(xdbl, (b * k_dirs, seq_len, rank + 2 * n)),
         conv_w=(conv_w, (k_dirs, taps, d_in)), conv_b=(conv_b, (k_dirs, d_in)),
@@ -684,14 +748,18 @@ def scan_bwd(xr, xc, xdbl, conv_w, conv_b, dt_proj_w, dt_bias, A, D, dy,
 
     dy (B, K, L, D) in source order and the sources' dtype. The kernels
     write per-block partials of dxdbl and per-(b*k, chunk) ones of the
-    weight gradients, summed here in a fixed order.
+    weight gradients, summed here in a fixed order. They run at
+    :func:`state_width`'s width; the padded states' columns of dxdbl and
+    dA (all 0) are dropped.
     """
     if _on_cpu(xr):
         return scan_bwd_plain(xr, xc, xdbl, conv_w, conv_b, dt_proj_w,
                               dt_bias, A, D, dy, delta_softplus, use_conv)
-    b, k_dirs, seq_len, d_in, n, rank, taps = _check_bwd(
+    b, k_dirs, seq_len, d_in, n0, rank, taps = _check_bwd(
         xr, xc, xdbl, conv_w, conv_b, dt_proj_w, dt_bias, A, D, dy,
         "mamba_scan_bwd")
+    n = state_width(n0)
+    xdbl, A = widen_states(xdbl, rank, n0, n), _pad_a(A, n)
     bk = b * k_dirs
     nblk = -(-d_in // _BWD_CHANNELS)
     w = _bwd_workspaces(xr.device, bk, seq_len, d_in, n, rank)
@@ -715,10 +783,11 @@ def scan_bwd(xr, xc, xdbl, conv_w, conv_b, dt_proj_w, dt_bias, A, D, dy,
     # each workspace is freed before the next sum is allocated, so that the
     # call holds no more than while its kernels ran
     del w["sums"]
-    dxdbl = part.sum(dim=1)
+    dxdbl = narrow_states(part.sum(dim=1), rank, n0, n)
     del part
-    return (du, u, ds, dxdbl,
-            *(w.pop(name).sum(dim=1) for name in ("dA", "dD", "ddb", "ddtw")))
+    d_a = w.pop("dA").sum(dim=1)[..., :n0]
+    return (du, u, ds, dxdbl, d_a,
+            *(w.pop(name).sum(dim=1) for name in ("dD", "ddb", "ddtw")))
 
 
 def scan_bwd_carries(xr, xc, xdbl, conv_w, conv_b, dt_proj_w, dt_bias, A, D,
@@ -731,9 +800,11 @@ def scan_bwd_carries(xr, xc, xdbl, conv_w, conv_b, dt_proj_w, dt_bias, A, D,
         return mamba_carries_plain(xr, xc, xdbl, conv_w, conv_b, dt_proj_w,
                                    dt_bias, A, D, dy, delta_softplus,
                                    use_conv)
-    b, k_dirs, seq_len, d_in, n, rank, taps = _check_bwd(
+    b, k_dirs, seq_len, d_in, n0, rank, taps = _check_bwd(
         xr, xc, xdbl, conv_w, conv_b, dt_proj_w, dt_bias, A, D, dy,
         "mamba_scan_bwd_carries")
+    n = state_width(n0)
+    xdbl, A = widen_states(xdbl, rank, n0, n), _pad_a(A, n)
     sums = _bwd_workspaces(xr.device, b * k_dirs, seq_len, d_in, n,
                            rank)["sums"]
     lib, _ = build()
@@ -744,26 +815,28 @@ def scan_bwd_carries(xr, xc, xdbl, conv_w, conv_b, dt_proj_w, dt_bias, A, D,
         torch.cuda.current_stream(xr.device).cuda_stream,
     )
     _raise_on(err, "mamba_scan_bwd_carries")
-    return sums[:, :, 1 : 1 + n], sums[:, :, 1 + n :]
+    return sums[:, :, 1 : 1 + n0], sums[:, :, 1 + n : 1 + n + n0]
 
 
 def bwd_grid_blocks(b: int, k_dirs: int, seq_len: int, d_in: int,
                     n: int) -> dict:
-    """Blocks of each backward kernel's grid for (B, K, L, D, N)."""
+    """Blocks of each backward kernel's grid for (B, K, L, D, N), at
+    :func:`state_width`'s width."""
     blocks = -(-seq_len // _BWD_CHUNK) * -(-d_in // _BWD_CHANNELS) * b * k_dirs
+    chains = b * k_dirs * state_width(n) * d_in
     return dict(zip(BWD_KERNELS, (
-        blocks, -(-b * k_dirs * n * d_in // _CARRY_THREADS), blocks)))
+        blocks, -(-chains // _CARRY_THREADS), blocks)))
 
 
 def bwd_occupancy(n: int, rank: int, dtype: torch.dtype) -> dict:
     """Each backward kernel's resident blocks an SM on the current card and
     its shared memory a block in bytes, ``{name: (blocks, bytes)}``, for
-    d_state ``n``, dt rank ``rank`` and source dtype ``dtype``
+    d_state ``n`` (run at :func:`state_width`'s width), dt rank ``rank``
+    and source dtype ``dtype``
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"mamba_fused: source dtype {dtype} is not f32/bf16")
-    if n not in _SCAN_STATES:
-        raise ValueError(f"mamba_fused: d_state={n} not in {_SCAN_STATES}")
+    n = state_width(n)
     lib, _ = build()
     out = {}
     for i, name in enumerate(BWD_KERNELS):
@@ -811,7 +884,8 @@ def _close_bwd(xr, xc, conv_w, x_proj_w, use_conv, du, u, dsilu, dxdbl,
     else:
         dx = du_total
         dconv_w = torch.zeros_like(conv_w)
-        dconv_b = torch.zeros(k_dirs, d_in, device=xr.device)
+        dconv_b = torch.zeros(k_dirs, d_in, device=xr.device,
+                              dtype=conv_w.dtype)
     dwx = torch.einsum("bklc,bkld->kcd", dxdbl, u)
     dx = _flip_reversed(dx)  # source order
     dxr = dx[:, : min(k_dirs, 2)].sum(dim=1).to(xr.dtype)
@@ -883,19 +957,22 @@ def mamba_fused_dirs(
     Returns:
       y_dirs (B, K, L, D) in **source** order for every direction, in
       the sources' dtype.
+
+    The weights are taken in fp32, or in fp64 with fp64 sources (which
+    only the plain versions take).
     """
     k_dirs, _, d_in = x_proj_w.shape
     xr = xr.contiguous()
     xc = None if xc is None else xc.contiguous()
-    f32 = dict(device=xr.device, dtype=torch.float32)
+    wd = dict(device=xr.device, dtype=compute_dtype(xr.dtype))
     if conv_w is None:
         use_conv = False
-        conv_w = torch.zeros(k_dirs, _MAX_TAPS, d_in, **f32)
+        conv_w = torch.zeros(k_dirs, _MAX_TAPS, d_in, **wd)
     if conv_b is None:
-        conv_b = torch.zeros(k_dirs, d_in, **f32)
+        conv_b = torch.zeros(k_dirs, d_in, **wd)
 
     def prep(t):
-        return t.to(torch.float32).contiguous()
+        return t.to(wd["dtype"]).contiguous()
 
     conv_w, conv_b, x_proj_w, dt_proj_w, dt_bias, A, D = map(
         prep, (conv_w, conv_b, x_proj_w, dt_proj_w, dt_bias, A, D)

@@ -1209,16 +1209,19 @@ def lm_sft_extra(tok, max_len: int):
 def build_lm_model(cfg: RunConfig, vocab_size: int, device=None) -> MambaLM:
     """``MambaLM(vocab_size, **model.lm_kwargs)``, its parameters left
     uninitialised. A ``peft_cfg`` mapping (as YAML gives it) becomes a
-    ``MambaPEFTConfig``; its weight-space fields are refused (ROADMAP.md,
-    queue 1, item 15b)."""
+    ``MambaPEFTConfig``; its weight-space fields are refused, as the JAX
+    ``fit_lm_sft`` merges no adapter: the family is applied by
+    ``peft.mamba_peft``'s functions around a model of one's own."""
     kw = dict(cfg.model.lm_kwargs or {})
     pc = kw.get("peft_cfg")
     if isinstance(pc, dict):
         pc = kw["peft_cfg"] = MambaPEFTConfig(**pc)
     if pc is not None and weight_space_fields(pc):
         raise NotImplementedError(
-            f"peft_cfg {weight_space_fields(pc)}: the weight-space MambaPEFT "
-            "family is not ported yet (ROADMAP.md, queue 1, item 15b)")
+            f"peft_cfg {weight_space_fields(pc)}: fit_lm_sft merges no "
+            "weight-space adapter (nor does the JAX recipe); apply them with "
+            "peft.mamba_peft.init_mamba_peft, merge_mamba_peft and "
+            "apply_merged on a MambaLM built at effective_d_state")
     return MambaLM(vocab_size=vocab_size, **kw, device=device)
 
 

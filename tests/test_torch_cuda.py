@@ -482,12 +482,127 @@ def test_scan_bwd_refuses_what_the_kernel_does_not_take(cuda):
         mf.scan_bwd(xr, xc, x_dbl, *rest, dy[:, :2])
     with pytest.raises(ValueError, match="fp32 tensor"):
         mf.scan_bwd(xr, xc, x_dbl[:, :5], *rest, dy)
-    with pytest.raises(ValueError, match="d_state"):
-        a3 = w["A"][..., :3].contiguous()
-        x3 = x_dbl[..., :10].contiguous()
-        mf.scan_bwd(xr, xc, x3, *rest[:4], a3, w["D"], dy)
+    with pytest.raises(ValueError, match="d_state"):  # past 32
+        a33 = w["A"][..., :1].repeat(1, 1, 33).contiguous()
+        x33 = torch.zeros(8, 10, 4 + 66, device=cuda)
+        mf.scan_bwd(xr, xc, x33, *rest[:4], a33, w["D"], dy)
     with pytest.raises(TypeError, match="not f32/bf16"):
         mf.scan_bwd(xr.half(), xc.half(), x_dbl, *rest, dy.half())
+
+
+# Every d_state from 1 to 32 runs through the kernels: 4, 16, 17 and 32 as
+# they are built, the others padded to the next of them (1 -> 4, 5 and 8 ->
+# 16, 24 -> 32); 17 is additional_scan's default width on 16.
+STATE_WIDTHS = [1, 5, 8, 17, 24, 32]
+# (K, B, L, D, R): four directions with a ragged last chunk, where
+# fwd_chunk cuts L (8 blocks); and one direction at 9 images of D = 512,
+# where the forward runs in one pass (144 blocks)
+STATE_SHAPES = [(4, 1, 70, 40, 3), (1, 9, 64, 512, 8)]
+STATE_IDS = ["k4-chunks", "k1-one-pass"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("k_dirs,b,l,d,r", STATE_SHAPES, ids=STATE_IDS)
+@pytest.mark.parametrize("n", STATE_WIDTHS)
+def test_kernels_at_every_state_width_match_plain(cuda, dtype, n, k_dirs, b,
+                                                  l, d, r):
+    """``xdbl_fwd``, ``scan_fwd``, ``scan_bwd`` and ``scan_bwd_carries``
+    against their plain versions at d_state ``n``, within the bounds of
+    the other shapes (x_dbl 1e-4, y ``Y_RTOL``, the backward 1e-4, the
+    carries 1e-5); each launches its kernels once."""
+    xr, xc, w = _inputs(cuda, dtype, k_dirs, b, l, d, n, r, seed=n + l)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert (mf.fwd_chunk(b, k_dirs, l, d, sms) < l) == (k_dirs == 4)
+    xargs = (xr, xc, w["conv_w"], w["conv_b"], w["x_proj_w"])
+    before = dict(mf.launches)
+    want_x = mf.xdbl_plain(*xargs)
+    got_x = mf.xdbl_fwd(*xargs)
+    sargs = (xr, xc, want_x, w["conv_w"], w["conv_b"], w["dt_proj_w"],
+             w["dt_bias"], w["A"], w["D"])
+    want_y, got_y = mf.scan_plain(*sargs), mf.scan_fwd(*sargs)
+    dy = torch.randn(b, k_dirs, l, d, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(n)).to(dtype)
+    want_b, got_b = mf.scan_bwd_plain(*sargs, dy), mf.scan_bwd(*sargs, dy)
+    want_c = mf.mamba_carries_plain(*sargs, dy)
+    got_c = mf.scan_bwd_carries(*sargs, dy)
+    torch.cuda.synchronize()
+    assert {k: mf.launches[k] - before[k] for k in before} == dict.fromkeys(
+        before, 1)
+    err, scale = _err(got_x, want_x)
+    assert got_x.shape == (b * k_dirs, l, r + 2 * n) and err <= 1e-4 * scale
+    err, scale = _err(got_y, want_y)
+    assert got_y.dtype == dtype and err <= Y_RTOL[dtype] * scale
+    for name, g, wv in zip(BWD_OUTPUTS, got_b, want_b):
+        assert g.shape == wv.shape and g.dtype == torch.float32, name
+        err, scale = _err(g, wv)
+        assert err <= BWD_RTOL * scale, (name, err, scale)
+    for name, g, wv in zip(("h_in", "g_in"), got_c, want_c):
+        assert g.shape == wv.shape, name
+        err, scale = _err(g, wv)
+        assert err <= 1e-5 * scale, (name, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", STATE_WIDTHS)
+def test_mixer_grads_at_every_state_width_match_plain(cuda, n):
+    """A four-direction mixer at d_state ``n``: y and every parameter's
+    gradient through the kernels (the scan wrappers pad x_dbl and A and
+    narrow their gradients) against the plain path's, fp32,
+    within ``GRAD_RTOL``; the kernels launch once each."""
+    gen = torch.Generator(cuda).manual_seed(n)
+    arm = ARM(patch_size=16, embed_dim=64, depth=1, d_state=n, img_size=64,
+              device=cuda)
+    init_params(arm, gen)
+    mixer = arm.layers[0].mixer
+    x = torch.randn(2, 17, 64, device=cuda, generator=gen)
+    w = torch.randn(2, 17, 64, device=cuda, generator=gen)
+
+    def loss():
+        return (mixer(x, 8) * w).sum()
+
+    mf.reset_launches()
+    got = _grads(mixer, loss)
+    torch.cuda.synchronize()
+    assert mf.launches == dict.fromkeys(mf.launches, 1)
+    assert got["x_proj_w"].shape == (4, mixer.rank + 2 * n, 64)
+    assert got["A_log"].shape == (4, 64, n)
+    set_scan_backend(mixer, "plain")
+    want = _grads(mixer, loss)
+    _assert_grads_close(got, want)
+
+
+@pytest.mark.cuda
+def test_state_widths_past_32_raise(cuda):
+    """d_state 33 raises in every wrapper and report: no plain fallback."""
+    xr, xc, w = _inputs(cuda, torch.float32, 4, 2, 10, 8, 33, 4, seed=0)
+    x_dbl = torch.zeros(8, 10, 4 + 66, device=cuda)
+    sargs = (xr, xc, x_dbl, w["conv_w"], w["conv_b"], w["dt_proj_w"],
+             w["dt_bias"], w["A"], w["D"])
+    dy = torch.zeros(2, 4, 10, 8, device=cuda)
+    for call in (lambda: mf.scan_fwd(*sargs), lambda: mf.scan_bwd(*sargs, dy),
+                 lambda: mf.scan_bwd_carries(*sargs, dy),
+                 lambda: mf.fwd_occupancy(33, 4, torch.float32),
+                 lambda: mf.bwd_occupancy(33, 4, torch.float32),
+                 lambda: mf.mamba_fused_dirs(xr, xc, w["conv_w"],
+                                             w["conv_b"], w["x_proj_w"],
+                                             w["dt_proj_w"], w["dt_bias"],
+                                             w["A"], w["D"])):
+        with pytest.raises(ValueError, match="1 <= d_state <= 32"):
+            call()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [17, 32])
+def test_occupancy_at_the_new_state_widths(cuda, n):
+    """The scan kernels built for 17 and 32 states launch at ARM-B's
+    rank: at least one block an SM each, the gradients kernel's shared
+    memory within the 227 KB a block may have."""
+    fwd, bwd = (mf.fwd_occupancy(n, 48, torch.float32),
+                mf.bwd_occupancy(n, 48, torch.float32))
+    assert all(blocks >= 1 for blocks, _ in (*fwd.values(), *bwd.values()))
+    assert bwd["mamba_scan_bwd_grad_kernel"][1] <= 227 * 1024
 
 
 # --------------------------------------------------------------------------

@@ -4,7 +4,8 @@ CPU, at tiny widths: the BLIP-2 Q-Former (``Blip2QFormer``, ``QFormer``,
 ``Hopfield``, ``HopfieldLayer``, ``HopfieldPooling``), the R-GCN modules
 (``rgcn_conv``, ``RGCN``, ``MultiScaleSelfAttentionFusion``,
 ``ResidualCrossAttentionBlock``, ``CrossAttentionLookup``), and R2GenGPT's
-``projector: qformer``.
+``projector: qformer``; the Q-Former's text path, Hopfield's separate
+``values`` and the lookup's per-item banks too.
 
 Each module gets parameters of its JAX ``init``'s shapes, random from
 numpy, loaded strictly into the port (``ckpt/from_jax.py``), and the same
@@ -179,6 +180,24 @@ def test_blip2_qformer_with_a_wider_encoder_matches_jax():
         is None
 
 
+def test_blip2_qformer_text_path_matches_jax():
+    """The text path: 5 token ids (a padded tail in one row) through the
+    word, position and token-type embeddings after 3 queries, the text
+    FFN beside the query FFN, and cross-attention of the queries alone
+    into 20-wide image features."""
+    ids = np.random.default_rng(40).integers(0, 50, (2, 5)).astype(np.int32)
+    mask = np.array([[1] * 5, [1] * 3 + [0] * 2], np.int32)
+    kw = dict(num_queries=3, n_layers=2, cross_attention_freq=1, **QF)
+    jm = jax_bert.Blip2QFormer(vocab_size=50, **kw)
+    port = bert.Blip2QFormer(enc_dim=20, text=True, vocab_size=50, **kw)
+    port = check_module(jm, port, [_normal(41, 2, 6, 20), ids, mask], 42)
+    assert port.bert.layer_1.ffn is not None
+    assert port.bert.word_embeddings.weight.shape == (50, 16)
+    with pytest.raises(ValueError, match="text=True"):
+        bert.Blip2QFormer(enc_dim=20, **kw)(
+            torch.zeros(2, 6, 20), torch.from_numpy(ids))
+
+
 @pytest.mark.parametrize("which", ["qformer", "projector"])
 def test_qformer_and_projector_match_jax(which):
     args = [_normal(2, 2, 9, 20)]
@@ -223,6 +242,21 @@ def test_hopfield_matches_jax():
     check_module(jax_hop.Hopfield(**kw),
                  hopfield.Hopfield(12, stored_dim=10, **kw),
                  args, 10, zero_grads=None)  # an update step reads K
+
+
+@pytest.mark.parametrize("steps", [0, 1])
+def test_hopfield_with_separate_values_matches_jax(steps):
+    """``values`` of their own width (6) beside the stored patterns (10),
+    normalized by ``norm_pattern`` at that width; without an update step
+    a shift of every key leaves the softmax, so the key-side biases have
+    a gradient of 0."""
+    args = [_normal(43, 2, 5, 12), _normal(44, 2, 9, 10),
+            _normal(45, 2, 9, 6)]
+    kw = dict(hidden=8, num_heads=2, pattern_dim=4, update_steps_max=steps)
+    port = hopfield.Hopfield(12, stored_dim=10, value_dim=6, **kw)
+    check_module(jax_hop.Hopfield(**kw), port, args, 46,
+                 zero_grads=None if steps else r"(k_proj|norm_stored)\.bias$")
+    assert port.norm_pattern.weight.shape == (6,)
 
 
 @pytest.mark.parametrize("bank", ["given-2d", "own"])
@@ -303,6 +337,13 @@ def test_lookup_into_a_shared_bank_matches_jax():
     check_module(jax_rgcn.CrossAttentionLookup(dim=16),
                  rgcn.CrossAttentionLookup(16, bank_dim=12),
                  [_normal(29, 3, 4, 16), _normal(30, 10, 12)], 31)
+
+
+def test_lookup_into_per_item_banks_matches_jax():
+    """A (B, M, bank_dim) bank, one a row, taken as it is."""
+    check_module(jax_rgcn.CrossAttentionLookup(dim=16),
+                 rgcn.CrossAttentionLookup(16, bank_dim=12),
+                 [_normal(47, 3, 4, 16), _normal(48, 3, 10, 12)], 49)
 
 
 # --------------------------------------------------------------------------

@@ -345,7 +345,7 @@ def test_build_lm_model_reads_peft_cfg_and_refuses_the_weight_space():
     pc = mamba_peft.MambaPEFTConfig(lora_X=True, additional_scan=True)
     assert mamba_peft.weight_space_fields(pc) == ["lora_X", "additional_scan"]
     assert mamba_peft.effective_d_state(pc, 16) == 17
-    with pytest.raises(NotImplementedError, match="item 15b"):
+    with pytest.raises(NotImplementedError, match="merge_mamba_peft"):
         loop.build_lm_model(_cfg("unused", "model.lm_kwargs=" + json.dumps(
             dict(LM_KW, peft_cfg={"lora_X": True}))), VOCAB, device="meta")
 
