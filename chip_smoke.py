@@ -407,6 +407,36 @@ raises (exit code 1):
                losses and scores, bit for bit; then with a
                NaN put into the ARM's final norm: ``FloatingPointError``
                naming ``vision.arm.norm_f``.
+41. ss_widths (after ``kernels_ss_bwd``) -- the general scan's wrappers at
+               d_state 2, 5, 12, 17, 32, 40 and 64 (built for 1, 4, 8, 16,
+               32: padded up, or 32-state groups past 32) against the plain
+               versions in fp32 and bf16, forward and backward; ptxas's
+               registers and spills of the N = 32 kernels; both timed at
+               vssm_tiny stage 0, B=128, N=32 (the kernels line's ``_n32``
+               rows); the fused Mamba layer at N=40 and at 5 taps, forward
+               and gradients, against its plain version.
+42. hf_tp_load (after ``hf_ckpt``) -- ``load_llm_params(mesh=)`` of that
+               checkpoint at model=2 in bf16 and int8: each rank's tensors
+               equal its slices of the full load's; the bytes each read.
+43. multi_gpu -- the preset at full width (ARM-B + the Qwen1.5-1.8B-shaped
+               LLM in fp32, ``model.llm_kwargs.dtype``) through
+               ``cli.train.main`` in 4 processes on a (data 2, model 2)
+               grid, ZeRO on, accumulation 2, 2 steps, against one
+               process's same steps: the losses and the post-step norm of
+               the trained tensors within 1e-5 relative, every tensor
+               within 1e-5 of its largest plus 5e-2 of lr. Per rank: the
+               fused kernels' launches, step seconds (gloo on one card:
+               the processes share the H100, not a multi-GPU speed), the
+               bytes all-reduced and gathered a step.
+44. multi_gpu_nccl1 -- the same steps through the sharded step over an
+               NCCL group of world size 1: the one process's losses and
+               tensors.
+45. tp_serve -- ``cli.demo``'s pipeline (LLM in fp32, 40 new tokens,
+               beam 3) on 2 processes at model=2: rank 0's tokens for 2
+               images equal one process's.
+46. sp_scan  -- ``selective_scan_sp`` over 2 and 4 processes (softplus on
+               and off) against the CUDA selective-scan kernel on the whole
+               sequence (B=2, L=2048, D=256, N=16).
 
 Bounds: the largest of the bytes at the HBM rate, the matrix products at
 the tensor-core rate of their operand type (fp32 in 3xTF32, 165 TFLOP/s;
@@ -5240,6 +5270,654 @@ def phase_debug_nans(config: str, vocab: int, save_dir: Path,
     return launches
 
 
+# The last slice: the general scan at every d_state and the fused layer past
+# its kernels' widths; training and serving over several processes. The card
+# machine has one H100 and NCCL puts no two ranks on one device, so the
+# multi-process phases run their ranks as processes that share the card over
+# gloo (CUDA tensors; every collective copies through the host): their step
+# seconds are not a multi-GPU speed. The NCCL code path runs as a group of
+# world size 1 (multi_gpu_nccl1).
+
+SS_WIDTHS = (2, 5, 12, 17, 32, 40, 64)
+SS_WIDTH_SHAPE = (2, 4, 197, 192)  # batch, K, L, D: ARM-B's L
+SS_N32_CASE = "vssm_tiny stage 0 B=128 N=32"
+FUSED_WIDE = ((40, 4), (12, 5))  # (d_state, taps): past 32 states, 4 taps
+MULTI_GRID = (2, 2)  # (data, model)
+MULTI_SETS = ("data.dataset=synthetic", f"model.llm_kwargs.vocab_size={VOCAB}",
+              "model.llm_kwargs.dtype=float32", "data.batch_size=16",
+              "train.accum_steps=2", "train.zero_opt=true",
+              "train.warmup_steps=1", "train.epochs=1",
+              "train.val_every_epochs=2", "train.save_state_every_epochs=2",
+              "train.log_every=1")  # 2 steps of the 32 synthetic studies
+MULTI_RTOL = 1e-5  # loss and post-step norm (JAX dryrun_multichip's bound)
+TP_SERVE_SETS = ("model.llm_kwargs.dtype=float32",
+                 "generate.max_new_tokens=40", "generate.min_new_tokens=20")
+TP_SERVE_REQUESTS = 2
+SP_SHAPE = (2, 2048, 256, 16)  # batch, L, D, N
+SP_RTOL = 1e-4  # plain fp32 loop against the kernel's fp32 walk
+CHILD_TIMEOUT = 900.0
+
+
+def _ptxas(log: str, keys=("selective_scan", "Li32E")) -> dict:
+    """{kernel: "registers/spill stores/spill loads"} of the entries whose
+    mangled names hold every one of ``keys``, from nvcc's ptxas log."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = m.group(1) if all(k in m.group(1) for k in keys) else None
+            if cur:
+                out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[cur].update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m[1])
+    short = {}
+    for name, v in out.items():
+        kind = "fwd" if "fwd" in name else "bwd"
+        src = "bf16" if "bfloat16" in name else "fp32"
+        short[f"{kind}_{src}"] = (f"{v.get('registers', '?')}reg/"
+                                  f"{v.get('spill_stores', '?')}st/"
+                                  f"{v.get('spill_loads', '?')}ld")
+    return short
+
+
+def phase_ss_widths(dev, gen) -> dict:
+    """The general scan's wrappers at every d_state of ``SS_WIDTHS`` (the
+    kernels are built for 1, 4, 8, 16 and 32: the others pad up, past 32
+    run in groups) against the plain versions, fp32 and bf16, forward and
+    backward, a launch per state group and call; ptxas's registers and
+    spills of the N = 32 kernels; both kernels timed at vssm_tiny's stage
+    0, B=128, N=32 beside their bounds (the kernels line's ``_n32`` rows);
+    then the fused Mamba layer past its kernels' 32 states and 4 taps,
+    forward and every gradient, against its plain version."""
+    from medical_image_analysis_tpu_torch.ops import mamba_fused as mf
+    from medical_image_analysis_tpu_torch.ops import selective_scan_pallas as ssp
+
+    b, k, l, d = SS_WIDTH_SHAPE
+    names = ("du", "ddelta", "dA", "dB", "dC", "dD", "ddelta_bias")
+    for n in SS_WIDTHS:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = _ss_case(dev, gen, b, k, l, d, n, dtype)
+            dy = torch.randn(b * k, l, d, device=dev, generator=gen).to(dtype)
+            before = dict(ssp.launches)
+            y = ssp.selective_scan_fwd(*args, True)
+            got = ssp.selective_scan_bwd(*args, dy, True)
+            _sync(dev)
+            groups = len(ssp.state_groups(n))
+            _check({key: ssp.launches[key] - before[key] for key in before}
+                   == dict.fromkeys(before, groups),
+                   f"ss_widths N={n}: launches {ssp.launches} from {before}")
+            errs = {}
+            for name, g, w in zip(("y", *names),
+                                  (y, *got),
+                                  (ssp.selective_scan_fwd_plain(*args, True),
+                                   *ssp.selective_scan_bwd_plain(*args, dy,
+                                                                 True))):
+                _check(g.shape == w.shape and g.dtype == w.dtype
+                       and bool(torch.isfinite(g).all()),
+                       f"ss_widths N={n} {name}: shape, dtype or finiteness")
+                err, scale = _max_err(g, w)
+                tol = (Y_RTOL[g.dtype] if g.dtype == torch.bfloat16
+                       else BWD_RTOL)
+                _check(err <= tol * scale,
+                       f"ss_widths N={n} {dtype} {name}: max abs err "
+                       f"{err:.3e} > {tol} x {scale:.3f}")
+                errs[name] = f"{err:.2e}"
+            _phase("ss_widths", N=n, src=_dtype_name(dtype), B=b, K=k, L=l,
+                   D=d, launches_a_call=groups, width=ssp.state_width(
+                       min(n, 32)), errs=json.dumps(errs, separators=(",",
+                                                                      ":")))
+            del args, dy, y, got
+    _, log = ssp.build()
+    _phase("ss_widths_ptxas", n=32, kernels=json.dumps(
+        _ptxas(log) if log != "cached" else "not read (a cached build)",
+        separators=(",", ":")))
+    rows = {}
+    l0, d0 = SS_VSSM_STAGES[0]
+    for kind in ("fwd", "bwd"):
+        args = _ss_case(dev, gen, SS_VSSM_BATCH, 4, l0, d0, 32, torch.float32)
+        extra = []
+        if kind == "fwd":
+            def plain():
+                return (ssp.selective_scan_fwd_plain(*args, True),)
+
+            def kernel():
+                return (ssp.selective_scan_fwd(*args, True),)
+        else:
+            dy = torch.randn(SS_VSSM_BATCH * 4, l0, d0, device=dev,
+                             generator=gen)
+            extra = [dy]
+
+            def plain():
+                return ssp.selective_scan_bwd_plain(*args, dy, True)
+
+            def kernel():
+                return ssp.selective_scan_bwd(*args, dy, True)
+        want, got = plain(), kernel()
+        err = max(_max_err(g, w)[0] for g, w in zip(got, want))
+        scale = max(_max_err(g, w)[1] for g, w in zip(got, want))
+        _check(err <= BWD_RTOL * scale,
+               f"ss_widths {SS_N32_CASE} {kind}: max abs err {err:.3e}")
+        del want
+        t = _in_turns(plain, kernel, 1, 3)
+        bound = _bound([*args, *extra, *got], ssp.flops(
+            kind, SS_VSSM_BATCH * 4, l0, d0, 32))
+        occ = (ssp.fwd_occupancy if kind == "fwd" else ssp.bwd_occupancy)(
+            32, torch.float32)
+        _phase("ss_widths_n32", kind=kind, case=SS_N32_CASE,
+               err=f"{err:.3e}", ms=f"{t['kernel']:.4f}",
+               plain_ms=f"{t['plain']:.4f}", bound_ms=f"{bound[0]:.4f}",
+               bound_by=bound[1], blocks_per_sm=occ[0], smem_bytes=occ[1])
+        rows[f"selective_scan_{kind}_n32"] = (err, t["kernel"], t["plain"],
+                                              *bound[:2])
+        del args, got, extra
+        torch.cuda.empty_cache()
+    k_dirs, fb, fl, fd, fr = 4, 2, 197, 192, 6
+    for n, taps in FUSED_WIDE:
+        rng = np.random.default_rng(n + taps)
+
+        def t_(*shape, scale=0.5):
+            return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                    .astype(np.float32)).to(dev)
+
+        leaves0 = [t_(fb, fl, fd), t_(fb, fl, fd), t_(k_dirs, taps, fd),
+                   t_(k_dirs, fd), t_(k_dirs, fr + 2 * n, fd),
+                   t_(k_dirs, fd, fr), t_(k_dirs, fd),
+                   -torch.exp(t_(k_dirs, fd, n, scale=0.3)), t_(k_dirs, fd)]
+        cot = t_(fb, k_dirs, fl, fd, scale=1.0)
+
+        def run(plain):
+            leaves = [x.clone().requires_grad_() for x in leaves0]
+            y = mf.mamba_fused_dirs(*leaves, plain=plain)
+            (y * cot).sum().backward()
+            return y.detach(), [x.grad for x in leaves]
+
+        mf.reset_launches()
+        got_y, got_g = run(False)
+        _sync(dev)
+        launched = dict(mf.launches)
+        want_y, want_g = run(True)
+        _check(all(v > 0 for v in launched.values()),
+               f"fused N={n} taps={taps}: launches {launched}")
+        err_y, scale = _max_err(got_y, want_y)
+        _check(err_y <= Y_RTOL[torch.float32] * scale,
+               f"fused N={n} taps={taps}: y err {err_y:.3e}")
+        worst = 0.0
+        for g, w in zip(got_g, want_g):
+            rel = ((g - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+            worst = max(worst, rel)
+        _check(worst <= BWD_RTOL,
+               f"fused N={n} taps={taps}: gradient rel err {worst:.3e}")
+        _phase("ss_widths_fused", N=n, taps=taps, K=k_dirs, B=fb, L=fl, D=fd,
+               y_err=f"{err_y:.3e}", grad_rel_err=f"{worst:.3e}",
+               launches=json.dumps(launched, separators=(",", ":")))
+    return rows
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _child(fn, rank, world, port, args, out):
+    import os
+    import traceback
+
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      WORLD_SIZE=str(world), RANK=str(rank),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    try:
+        torch.set_num_threads(2)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        out.put((rank, "ok", fn(rank, world, *args)))
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        out.put((rank, "error", traceback.format_exc()))
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _spawn(fn, world: int, *args, timeout: float = CHILD_TIMEOUT) -> list:
+    """``fn(rank, world, *args)`` in ``world`` processes (the ``spawn``
+    method, one hash seed for all: the synthetic images follow it), joined
+    by torchrun's variables on a free port; their results in rank order.
+    A rank that raises, dies or outlives ``timeout`` fails the phase, and
+    every process is then killed."""
+    import multiprocessing as mp
+    import os
+    import queue
+
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_child, args=(fn, r, world, port, args, out),
+                         daemon=True) for r in range(world)]
+    saved = os.environ.get("PYTHONHASHSEED")
+    os.environ["PYTHONHASHSEED"] = "0"
+    try:
+        for p in procs:
+            p.start()
+    finally:
+        if saved is None:
+            del os.environ["PYTHONHASHSEED"]
+        else:
+            os.environ["PYTHONHASHSEED"] = saved
+    results: dict = {}
+    deadline = time.monotonic() + timeout
+    try:
+        while len(results) < world:
+            left = deadline - time.monotonic()
+            try:
+                rank, status, value = out.get(timeout=max(left, 1.0))
+            except queue.Empty:
+                raise RuntimeError(
+                    f"chip_smoke: ranks {sorted(set(range(world)) - set(results))}"
+                    f" of {fn.__name__} gave no result in {timeout} s") from None
+            _check(status == "ok", f"{fn.__name__} rank {rank} failed:\n{value}")
+            results[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    return [results[r] for r in range(world)]
+
+
+def _train_ranks(sets, save_dir: str, out_path: str, mesh=None) -> dict:
+    """``cli.train.main`` of the preset with ``sets`` in this process (a
+    rank of the job, or its only process), the counts at 0 just before the
+    first step and read just after the last; every rank times its steps
+    (synchronised) and counts the collectives' bytes. Rank 0 saves the
+    trained tensors (gathered whole) to ``out_path``. ``mesh``, when given,
+    is the grid the run takes instead of ``_mesh_for``'s."""
+    import torch.distributed as dist
+
+    from medical_image_analysis_tpu_torch.cli import train as cli_train
+    from medical_image_analysis_tpu_torch.parallel import mesh as pm
+    from medical_image_analysis_tpu_torch.train import loop
+
+    seen, step_s = {}, []
+    real_step, real_mesh = loop.make_train_step, loop._mesh_for
+
+    def timed_step(*a, **kw):
+        step = real_step(*a, **kw)
+
+        def timed(state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step(state, batch)
+            float(m["loss"])
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            return m
+        return timed
+
+    def on_start(model, state):
+        seen["model"], seen["state"] = model, state
+        torch.cuda.synchronize()
+        _reset_launches()
+        pm.reset_traffic()
+
+    loop.make_train_step = timed_step
+    if mesh is not None:
+        loop._mesh_for = lambda *a, **kw: mesh
+    try:
+        argv = ["--config", str(PRESET), "--device", "cuda"]
+        for item in (*sets, f"train.save_dir={save_dir}"):
+            argv += ["--set", item]
+        cli_train.main(argv, on_start=on_start)
+    finally:
+        loop.make_train_step, loop._mesh_for = real_step, real_mesh
+    torch.cuda.synchronize()
+    launches, traffic = _all_launches(), dict(pm.traffic)
+    state = seen["state"]
+    plan = state.plan
+    whole = state.whole_params()
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    res = {"launches": launches, "traffic": traffic, "step_s": step_s,
+           "zero": 0 if plan is None else len(plan.zero),
+           "cut": 0 if plan is None else len(plan.tp),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if rank == 0:
+        torch.save({n: t.detach().cpu() for n, t in whole.items()}, out_path)
+        with open(Path(save_dir) / "log.txt") as f:
+            steps = [r for r in map(json.loads, f) if "step" in r]
+        res.update(losses=[r["loss"] for r in steps],
+                   grad_norms=[r["grad_norm"] for r in steps],
+                   lr=max(r["lr"] for r in steps),
+                   norm=float(torch.sqrt(sum(
+                       (t.double() ** 2).sum() for t in whole.values()))))
+    del seen, state, whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _serve_ranks(pngs, config: str) -> list | None:
+    """``cli.demo``'s pipeline of ``config`` (tensor-parallel over the job's
+    processes, or whole in one): rank 0 generates for each PNG and returns
+    the tokens; the other ranks follow."""
+    from medical_image_analysis_tpu_torch.cli.demo import build_pipeline
+    from medical_image_analysis_tpu_torch.parallel.mesh import world_and_rank
+
+    pipe = build_pipeline(argparse.Namespace(
+        config=config, vocab=None, vocab_size=VOCAB, delta=None,
+        device="cuda", seed=SEED))
+    if world_and_rank()[1] != 0:
+        pipe.follow()
+        return None
+    import PIL.Image
+
+    try:
+        tokens = []
+        for png in pngs:
+            with PIL.Image.open(io.BytesIO(png)) as pil:
+                img = np.asarray(pil.convert("RGB"), np.uint8)
+            tokens.append(pipe(img)["ids"])
+    finally:
+        pipe.stop()
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return tokens
+
+
+def _sp_ranks(rank, world, inputs, softplus) -> np.ndarray:
+    from medical_image_analysis_tpu_torch.parallel.mesh import make_mesh
+    from medical_image_analysis_tpu_torch.parallel.sp_scan import (
+        selective_scan_sp,
+    )
+
+    mesh = make_mesh(world, 1)
+    t = {k: torch.from_numpy(v).cuda() for k, v in _sp_case(inputs,
+                                                            softplus).items()}
+    rows = t["u"].shape[1] // world
+    sl = slice(rank * rows, (rank + 1) * rows)
+    y = selective_scan_sp(t["u"][:, sl], t["delta"][:, sl], t["A"],
+                          t["B"][:, sl], t["C"][:, sl], t["D"],
+                          t["delta_bias"], softplus, mesh)
+    torch.cuda.synchronize()
+    return y.cpu().numpy()
+
+
+def _sp_case(inputs: dict, softplus: bool) -> dict:
+    """Without softplus, dt = |delta| + |bias|: the states keep decaying
+    over the 2,048 rows (a negative dt grows them past fp32)."""
+    if softplus:
+        return inputs
+    return {**inputs, "delta": np.abs(inputs["delta"]),
+            "delta_bias": np.abs(inputs["delta_bias"])}
+
+
+def _sp_inputs() -> dict:
+    b, l, d, n = SP_SHAPE
+    rng = np.random.default_rng(SEED)
+
+    def t(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    return dict(u=t(b, l, d), delta=t(b, l, d, scale=0.5),
+                A=-np.exp(t(d, n, scale=0.3)), B=t(b, l, n), C=t(b, l, n),
+                D=t(d), delta_bias=t(d, scale=0.2))
+
+
+def _one_child(rank, world, work: str, serve_cfg: str, pngs):
+    """The one-process side: the preset's 2 steps (plain, no grid), the
+    same 2 steps through an NCCL group of world size 1 (every collective
+    of the sharded step over it), and the served tokens."""
+    import torch.distributed as dist
+
+    from medical_image_analysis_tpu_torch.parallel.mesh import Mesh
+
+    plain = _train_ranks(MULTI_SETS, f"{work}/one", f"{work}/one.pt")
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{_free_port()}", world_size=1,
+        rank=0)
+    mesh = Mesh(1, 1, 0)
+    mesh.groups = {"data": dist.group.WORLD, "model": dist.group.WORLD}
+    nccl = _train_ranks(MULTI_SETS, f"{work}/nccl1", f"{work}/nccl1.pt",
+                        mesh)
+    dist.destroy_process_group()
+    tokens = _serve_ranks(pngs, serve_cfg)
+    return {"plain": plain, "nccl": nccl, "tokens": tokens}
+
+
+def _pair_child(rank, world, serve_cfg: str, pngs, sp):
+    from medical_image_analysis_tpu_torch.parallel.mesh import (
+        init_distributed,
+    )
+
+    init_distributed()
+    tokens = _serve_ranks(pngs, serve_cfg)
+    from medical_image_analysis_tpu_torch.ops import mamba_fused as mf
+
+    serve_launches = dict(mf.launches)
+    ys = [_sp_ranks(rank, world, sp, s) for s in (True, False)]
+    return {"tokens": tokens, "serve_launches": serve_launches, "sp": ys}
+
+
+def _quad_child(rank, world, work: str, sp):
+    res = _train_ranks(
+        (*MULTI_SETS, f"train.mesh_data={MULTI_GRID[0]}",
+         f"train.mesh_model={MULTI_GRID[1]}"), f"{work}/quad",
+        f"{work}/quad.pt")
+    res["sp"] = [_sp_ranks(rank, world, sp, s) for s in (True, False)]
+    return res
+
+
+def _serve_config(work: Path) -> str:
+    import yaml
+
+    raw = yaml.safe_load(PRESET.read_text())
+    for item in TP_SERVE_SETS:
+        key, value = item.split("=", 1)
+        sect, *path = key.split(".")
+        node = raw.setdefault(sect, {})
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = yaml.safe_load(value)
+    out = work / "serve_tp.yaml"
+    out.write_text(yaml.safe_dump(raw))
+    return str(out)
+
+
+def _tensors_close(one: dict, other: dict, lr: float, what: str) -> float:
+    """Every trained tensor of ``other`` within MULTI_RTOL of the
+    one-process tensor's largest value plus 5e-2 of the learning rate (Adam
+    divides each element's gradient by its own running RMS: a reordered sum
+    moves an element whose gradient is near the others' rounding by a
+    fraction of lr); returns the largest gap over that bound's first
+    term."""
+    _check(one.keys() == other.keys(), f"{what}: other tensors")
+    worst = 0.0
+    for n, a in one.items():
+        b = other[n]
+        _check(a.shape == b.shape, f"{what}: {n} shape")
+        gap = (a.double() - b.double()).abs().max().item()
+        scale = a.double().abs().max().item()
+        _check(gap <= MULTI_RTOL * scale + 5e-2 * lr,
+               f"{what}: {n} differs by {gap:.3e} (max {scale:.3e})")
+        worst = max(worst, gap / max(scale, 1e-30))
+    return worst
+
+
+def phase_multi_gpu(work: Path) -> list:
+    """multi_gpu, multi_gpu_nccl1, tp_serve and sp_scan (see the module's
+    docstring); returns the launches of the 4-process run's rank 0 for the
+    kernels line."""
+    from medical_image_analysis_tpu_torch.ops import selective_scan_pallas as ssp
+
+    rng = np.random.default_rng(SEED)
+    pngs = [_png(rng, 224) for _ in range(TP_SERVE_REQUESTS)]
+    serve_cfg = _serve_config(work)
+    sp = _sp_inputs()
+    t0 = time.perf_counter()
+    one = _spawn(_one_child, 1, str(work), serve_cfg, pngs)[0]
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    quad = _spawn(_quad_child, 4, str(work), sp)
+    quad_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pair = _spawn(_pair_child, 2, serve_cfg, pngs, sp)
+    pair_s = time.perf_counter() - t0
+
+    # multi_gpu: (2, 2) against one process
+    ref = one["plain"]
+    want = torch.load(work / "one.pt", weights_only=True)
+    got = torch.load(work / "quad.pt", weights_only=True)
+    lead = quad[0]
+    for i, (a, b) in enumerate(zip(ref["losses"], lead["losses"])):
+        _check(abs(a - b) <= MULTI_RTOL * abs(a),
+               f"multi_gpu: step {i} loss {b} against {a}")
+    _check(len(lead["losses"]) == len(ref["losses"]) == 2, "multi_gpu: steps")
+    _check(abs(lead["norm"] - ref["norm"]) <= MULTI_RTOL * ref["norm"],
+           f"multi_gpu: post-step norm {lead['norm']} against {ref['norm']}")
+    worst = _tensors_close(want, got, ref["lr"], "multi_gpu")
+    steps = len(ref["losses"])
+    for r, res in enumerate(quad):
+        fused = {k: v for k, v in res["launches"].items()
+                 if k.startswith("mamba_")}
+        _check(all(v > 0 for v in fused.values()),
+               f"multi_gpu rank {r}: fused kernels {fused}")
+        _phase("multi_gpu_rank", rank=r, grid="x".join(map(str, MULTI_GRID)),
+               backend="gloo, CUDA tensors, 4 processes on one card",
+               launches=json.dumps(fused, separators=(",", ":")),
+               step_s_gloo_one_card=",".join(f"{s:.3f}"
+                                             for s in res["step_s"]),
+               all_reduce_bytes_a_step=res["traffic"]["all_reduce"] // steps,
+               all_gather_bytes_a_step=res["traffic"]["all_gather"] // steps,
+               broadcast_bytes_a_step=res["traffic"]["broadcast"] // steps,
+               zero_slices=res["zero"], tp_cut=res["cut"],
+               peak_mem_gib=f"{res['peak_gib']:.2f}")
+    _phase("multi_gpu", preset=PRESET.name,
+           grid="x".join(map(str, MULTI_GRID)),
+           losses=",".join(f"{x:.6f}" for x in lead["losses"]),
+           losses_one=",".join(f"{x:.6f}" for x in ref["losses"]),
+           norm=f"{lead['norm']:.6f}", norm_one=f"{ref['norm']:.6f}",
+           tensors=len(want), worst_rel_gap=f"{worst:.2e}",
+           step_s_one=",".join(f"{s:.3f}" for s in ref["step_s"]),
+           one_process_s=f"{one_s:.1f}", four_process_s=f"{quad_s:.1f}")
+
+    # multi_gpu_nccl1: the sharded step through NCCL at world size 1
+    nccl = one["nccl"]
+    got1 = torch.load(work / "nccl1.pt", weights_only=True)
+    _check(all(abs(a - b) <= 1e-6 * abs(a)
+               for a, b in zip(ref["losses"], nccl["losses"]))
+           and len(nccl["losses"]) == len(ref["losses"]),
+           f"multi_gpu_nccl1: losses {nccl['losses']} against {ref['losses']}")
+    worst1 = _tensors_close(want, got1, ref["lr"], "multi_gpu_nccl1")
+    _check(nccl["traffic"]["all_reduce"] > 0, "multi_gpu_nccl1: no NCCL")
+    _phase("multi_gpu_nccl1", backend="nccl", world=1,
+           losses=",".join(f"{x:.6f}" for x in nccl["losses"]),
+           worst_rel_gap=f"{worst1:.2e}",
+           all_reduce_bytes_a_step=nccl["traffic"]["all_reduce"] // steps,
+           step_s=",".join(f"{s:.3f}" for s in nccl["step_s"]))
+
+    # tp_serve: model=2 on 2 processes, beam 3, the one process's tokens
+    _check(pair[0]["tokens"] == one["tokens"],
+           f"tp_serve: tokens differ from the one process's")
+    _check(pair[1]["tokens"] is None, "tp_serve: rank 1 served")
+    fwd = {k: v for k, v in pair[0]["serve_launches"].items()
+           if k in ("mamba_xdbl", "mamba_scan")}
+    _check(all(v > 0 for v in fwd.values())
+           and pair[0]["serve_launches"].get("mamba_scan_bwd") == 0,
+           f"tp_serve: fused kernels {pair[0]['serve_launches']}")
+    _phase("tp_serve", grid="1x2", backend="gloo, CUDA tensors, one card",
+           requests=len(pngs), tokens=len(one["tokens"][0]),
+           equal=True, launches=json.dumps(fwd, separators=(",", ":")),
+           pair_s=f"{pair_s:.1f}")
+
+    # sp_scan against the CUDA selective-scan kernel on the whole sequence
+    for i, softplus in enumerate((True, False)):
+        t = {k: torch.from_numpy(v).cuda()
+             for k, v in _sp_case(sp, softplus).items()}
+        before = ssp.launches["selective_scan_fwd"]
+        whole = ssp.selective_scan_pallas(
+            t["u"], t["delta"], t["A"], t["B"], t["C"], t["D"],
+            t["delta_bias"], softplus)
+        torch.cuda.synchronize()
+        _check(ssp.launches["selective_scan_fwd"] == before + 1,
+               "sp_scan: the kernel did not launch")
+        want_y = whole.cpu().numpy()
+        scale = max(1.0, float(np.abs(want_y).max()))
+        for world, res in ((2, pair), (4, quad)):
+            got_y = np.concatenate([r["sp"][i] for r in res], axis=1)
+            err = float(np.abs(got_y - want_y).max())
+            _check(err <= SP_RTOL * scale,
+                   f"sp_scan {world} ranks softplus={softplus}: err {err:.3e}")
+            _phase("sp_scan", ranks=world, softplus=softplus,
+                   shape="x".join(map(str, SP_SHAPE)), err=f"{err:.3e}",
+                   bound=f"{SP_RTOL * scale:.3e}",
+                   exchange_bytes=2 * SP_SHAPE[0] * SP_SHAPE[2]
+                   * SP_SHAPE[3] * 4 * world)
+    return [lead["launches"]]
+
+
+def phase_hf_tp_load(ckpt: Path, dev) -> None:
+    """``load_llm_params(mesh=)`` of the hf_ckpt checkpoint at model=2, bf16
+    and int8: each rank's tensors equal its slices of the full load's; the
+    bytes each read."""
+    from medical_image_analysis_tpu_torch.ckpt.from_jax import (
+        flax_named_parameters,
+    )
+    from medical_image_analysis_tpu_torch.ckpt.hf_load import (
+        load_llm_params,
+        read_hf_config,
+    )
+    from medical_image_analysis_tpu_torch.models.llm import TransformerLM
+    from medical_image_analysis_tpu_torch.parallel.mesh import Mesh
+    from medical_image_analysis_tpu_torch.parallel.tp import tp_slice
+
+    for int8 in (False, True):
+        cfg = read_hf_config(str(ckpt), quant_int8=int8)
+        full = TransformerLM(cfg, device=dev)
+        t0 = time.perf_counter()
+        load_llm_params(str(ckpt), full)
+        full_s = time.perf_counter() - t0
+        whole = flax_named_parameters(full)
+        read, secs = [], []
+        for rank in range(2):
+            part = TransformerLM(cfg, device=dev)
+            t0 = time.perf_counter()
+            load_llm_params(str(ckpt), part, mesh=Mesh(1, 2, rank,
+                                                       groups=False))
+            secs.append(time.perf_counter() - t0)
+            got = flax_named_parameters(part)
+            _check(got.keys() == whole.keys(), "hf_tp_load: names")
+            for n, w in whole.items():
+                how = part.tp_cut.get(n)
+                want = w if how is None else tp_slice(w, how[0], 2, rank,
+                                                      how[1])
+                _check(torch.equal(got[n].detach(), want.detach()),
+                       f"hf_tp_load int8={int8} rank {rank}: {n}")
+            read.append(part.bytes_read)
+            _check(part.bytes_read < full.bytes_read,
+                   "hf_tp_load: a rank read the whole checkpoint")
+            del part, got
+        _phase("hf_tp_load", int8=int8, grid="1x2", tensors=len(whole),
+               full_bytes=full.bytes_read,
+               rank_bytes=",".join(map(str, read)),
+               full_s=f"{full_s:.2f}",
+               rank_s=",".join(f"{s:.2f}" for s in secs))
+        del full, whole
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     phase_device()
     dev = torch.device("cuda")
@@ -5279,6 +5957,7 @@ def main() -> None:
         ckpt = Path(tmp) / "qwen1_5_1_8b"
         ckpt.mkdir()
         phase_hf_ckpt(ckpt, dev)
+        phase_hf_tp_load(ckpt, dev)
         bf16 = phase_serve_hf(ckpt, Path(tmp))
         int8 = phase_serve_hf(ckpt, Path(tmp), int8=True, ref=bf16)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as run_dir:
@@ -5350,6 +6029,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     measured["selective_scan_fwd"] = phase_kernels_ss(dev, gen, "fwd")
     measured["selective_scan_bwd"] = phase_kernels_ss(dev, gen, "bwd")
+    measured.update(phase_ss_widths(dev, gen))
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cls_") as tmp:
         pallas = phase_train_cls_other("vssm_classify.yaml", Path(tmp),
                                        overrides=(VSSM_PALLAS,))
@@ -5432,13 +6113,19 @@ def main() -> None:
         runs.append(phase_debug_nans(str(PRESET), VOCAB, Path(tmp),
                                      train_plain))
 
+    # several processes: (data 2, model 2) training, NCCL at world size 1,
+    # tensor-parallel serving, the sequence-parallel scan
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_multi_") as tmp:
+        runs += phase_multi_gpu(Path(tmp))
+
     # launches: the main paths' runs (serving in bf16 and int8 from the HF
     # checkpoint, the eighteen trainings with train_hf, the
     # ARM tower on scan_backend=pallas, the Attention module, the MAC-RRG
     # refinement, the dp_finetune runs resumed from a .pt and a JAX
     # .msgpack, the four --throughput towers, the debug_nans run, the
-    # MambaPEFT LM's steps and ARM tower at d_state 17), each read just
-    # after it was driven with the counts at 0
+    # MambaPEFT LM's steps and ARM tower at d_state 17, rank 0 of the
+    # (2, 2) run), each read just after it was driven with the counts at 0
     main_runs = {name: sum(run.get(name, 0) for run in runs)
                  for name in REPLACES}
     sources = {k: m.KERNEL_SOURCE for m in _kernel_modules()
@@ -5451,7 +6138,9 @@ def main() -> None:
                        ("_emrrg", EMRRG_CASE), ("_lm", LM_CASE),
                        ("_peft17", PEFT17_CASE)]
                 for name in ("mamba_xdbl", "mamba_scan", "mamba_scan_bwd")},
-             "swin_attn_fwd": [("", None), ("_swin_b", SWIN_B_CASE)]}
+             "swin_attn_fwd": [("", None), ("_swin_b", SWIN_B_CASE)],
+             **{name: [("", None), ("_n32", SS_N32_CASE)]
+                for name in ("selective_scan_fwd", "selective_scan_bwd")}}
     for name in REPLACES:
         for suffix, case in cases.get(name, [("", None)]):
             err, ms, plain_ms, bound_ms, bound_by, *lib = measured[

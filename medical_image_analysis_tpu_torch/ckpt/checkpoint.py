@@ -24,6 +24,12 @@ port's own format, ``torch.save`` of dicts of tensors named by flax path:
   _restore_jax_state`), and :func:`auto_resume_helper` finds the newest
   epoch among both kinds. The port writes only ``.pt``.
 
+- a full checkpoint (:func:`save_full`, :func:`restore_full`: the JAX
+  package's orbax ``StandardCheckpointer`` pair, here one ``torch.save``
+  file that the port alone reads) holds a train state at any path. A
+  state sharded over ranks is gathered first, so every grid saves the
+  one-process file, and it restores onto any grid.
+
 Files are loaded with ``weights_only=True``: they hold tensors, numbers,
 strings and containers only.
 """
@@ -56,6 +62,31 @@ def _save_atomic(obj, path: str) -> None:
     tmp = path + ".tmp"
     torch.save(obj, tmp)
     os.replace(tmp, path)
+
+
+def save_full(path: str, state, step: int | None = None) -> None:
+    """Write ``state`` (a ``train.train_state.TrainState``, gathered where
+    it is sharded: every rank must call this; or a dict of its
+    ``state_dict``) to ``path`` atomically; rank 0 writes."""
+    import torch.distributed as dist
+
+    sd = state.state_dict() if hasattr(state, "state_dict") else state
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    _save_atomic({"state": _cpu(sd), "step": None if step is None
+                  else int(step)}, path)
+
+
+def restore_full(path: str, target=None):
+    """The state :func:`save_full` wrote: copied into ``target`` (a
+    ``TrainState``, on any grid: each rank takes its parts) and returned,
+    or as a dict of CPU tensors without one."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if target is None:
+        return obj["state"]
+    target.load_state_dict(obj["state"])
+    return target
 
 
 def save_delta(path: str, params: dict[str, torch.Tensor],

@@ -12,7 +12,15 @@ Counterpart of ``medical_image_analysis_tpu/ckpt/hf_load.py``:
   second copy of the LLM and no state dict in host RAM. The key map is
   :func:`llm_key_map`, the JAX loader's (the JAX package's
   ``ckpt.torch_import.llama_hf_to_flax`` plus Qwen2's biases; ``lm_head``
-  only when untied and present in the files).
+  only when untied and present in the files). With ``mesh``, the LLM is
+  cut for tensor parallelism first (``parallel.tp.shard_llm``) and each
+  rank reads only its slices of the files: the column-parallel kernels'
+  rows (their biases, and under int8 their ``kernel_q`` rows and
+  ``scale``, quantised from those rows alone: a row's scale needs only the
+  row), the row-parallel kernels' columns, the embedding's feature
+  columns. A row-parallel int8 kernel is read whole: its per-output
+  ``scale`` takes the maximum over every input column; the rank then keeps
+  its columns of ``kernel_q``.
 
 The stored dtypes are the JAX loader's: kernels and the embedding in the
 model dtype (``lm_head`` too: a bf16 weight in the fp32 head, cast a piece
@@ -32,6 +40,7 @@ from typing import Any
 import torch
 
 from ..models.llm import LLMConfig
+from ..parallel.tp import shard_llm, tp_slice
 from .safetensors import SafetensorsIndex
 
 
@@ -113,7 +122,10 @@ def _put(named: dict, name: str, value: torch.Tensor, dtype) -> None:
 def load_llm_params(model_dir: str, lm, mesh=None,
                     strict: bool = True) -> list[str]:
     """Stream an HF Llama/Qwen2 checkpoint into ``lm`` (a ``TransformerLM``
-    or EMRRG's hybrid one) in place; returns the flax names written.
+    or EMRRG's hybrid one) in place; returns the flax names written. With
+    ``mesh`` (a (data, model) grid), ``lm`` is cut over the model axis
+    (where :func:`..parallel.tp.shard_llm` has not cut it yet) and this
+    rank reads its slices alone; ``lm.bytes_read`` is the bytes read.
 
     ``lm.cfg.quant_int8`` quantises every Dense kernel into the model's
     ``QuantDense`` layers; ``lm.cfg.dtype`` is the stored dtype of the
@@ -121,11 +133,19 @@ def load_llm_params(model_dir: str, lm, mesh=None,
     be written (the JAX splice replaces the whole LLM subtree); EMRRG's
     graft passes False and its hybrid-only tensors keep their values.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "load_llm_params(mesh=...): tensor-parallel placement is not "
-            "ported yet (ROADMAP.md, queue 1, item 18)")
     from .from_jax import flax_named_parameters
+
+    cut = {}
+    if mesh is not None:
+        cut = getattr(lm, "tp_cut", None)
+        if cut is None:
+            cut = shard_llm(lm, mesh)
+    m = 1 if mesh is None else mesh.size("model")
+    i = 0 if mesh is None else mesh.index("model")
+
+    def part(name):
+        how = cut.get(name)
+        return None if how is None else (how[0], m, i, how[1])
 
     cfg = lm.cfg
     int8, dtype = cfg.quant_int8, cfg.dtype
@@ -135,10 +155,16 @@ def load_llm_params(model_dir: str, lm, mesh=None,
     written = []
     try:
         for path, (hf, kind) in llm_key_map(cfg, sd).items():
-            t = sd.tensor(hf, device)
             if kind == "kernel" and int8:
+                how = part(f"{path}/kernel_q")
+                row_cut = how is not None and how[0] == 1
+                # a row-parallel layer's scale needs every input column
+                t = sd.tensor(hf, device, None if row_cut else how)
                 qs = _quantize(t.T)
-                _put(named, f"{path}/kernel_q", qs["kernel_q"].T, torch.int8)
+                q = qs["kernel_q"].T
+                if row_cut:
+                    q = tp_slice(q, *how)
+                _put(named, f"{path}/kernel_q", q, torch.int8)
                 _put(named, f"{path}/scale", qs["scale"], torch.float32)
                 written += [f"{path}/kernel_q", f"{path}/scale"]
                 continue
@@ -148,10 +174,10 @@ def load_llm_params(model_dir: str, lm, mesh=None,
                 to = torch.float32 if int8 else dtype
             else:
                 to = dtype if kind == "embedding" else torch.float32
-            _put(named, path, t, to)
+            _put(named, path, sd.tensor(hf, device, part(path)), to)
             written.append(path)
-            del t
     finally:
+        lm.bytes_read = sd.bytes_read
         sd.close()
     missing = sorted(set(named) - set(written))
     if strict and missing:

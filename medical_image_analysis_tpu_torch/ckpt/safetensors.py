@@ -13,7 +13,9 @@ of a checkpoint directory: the shards named by
 an ``mmap`` of its shard and returns a CPU tensor made by
 ``torch.frombuffer`` over that map (read-only, in the file's dtype: bf16
 stays bf16); nothing builds a whole state dict in host RAM. Pass ``device``
-to copy a tensor straight onto a card.
+to copy a tensor straight onto a card, and ``part`` to read only a
+tensor-parallel rank's slice of it (``parallel.tp.tp_slice``'s arguments);
+``bytes_read`` counts the bytes of the tensors and slices copied out.
 """
 
 from __future__ import annotations
@@ -64,6 +66,7 @@ class SafetensorsIndex(Mapping):
     """Lazy name -> tensor view over one or more safetensors shards."""
 
     def __init__(self, model_dir: str):
+        self.bytes_read = 0
         self._where: dict[str, tuple[str, dict, int]] = {}
         self._maps: dict[str, mmap.mmap] = {}
         for path in shard_files(model_dir):
@@ -82,9 +85,10 @@ class SafetensorsIndex(Mapping):
                                              access=mmap.ACCESS_READ)
         return self._maps[path]
 
-    def tensor(self, key: str, device=None) -> torch.Tensor:
+    def tensor(self, key: str, device=None, part=None) -> torch.Tensor:
         """The tensor ``key``: a read-only view of the map on the CPU, or a
-        copy on ``device``."""
+        copy on ``device``; with ``part`` = (axis, size, index, parts), that
+        slice of it alone, copied out of the map."""
         path, info, start = self._where[key]
         dtype, shape = DTYPES[info["dtype"]], info["shape"]
         lo, hi = info["data_offsets"]
@@ -97,7 +101,17 @@ class SafetensorsIndex(Mapping):
                 warnings.simplefilter("ignore", UserWarning)
                 t = torch.frombuffer(buf, dtype=dtype, count=count)
             t = t.reshape(shape)
+        if part is not None:
+            axis, size, index, parts = part
+            blocks = t.chunk(parts, dim=axis)
+            k = blocks[0].shape[axis] // size
+            t = torch.cat([b.narrow(axis, index * k, k) for b in blocks],
+                          dim=axis)
+        self.bytes_read += t.numel() * t.element_size()
         return t if device is None else t.to(device)
+
+    def __contains__(self, key) -> bool:  # without mapping the tensor
+        return key in self._where
 
     def __getitem__(self, key: str) -> torch.Tensor:
         if key not in self._where:

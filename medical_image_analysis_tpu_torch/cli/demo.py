@@ -15,6 +15,13 @@ tokenizer is ``--vocab`` (a word vocabulary), else the ``tokenizer.json``
 of ``data.tokenizer_dir`` or, failing that, of ``model.llm_weights_dir``
 (``data/hf_tokenizer.py``). ``--device`` defaults to ``cuda`` and nothing
 falls back to the CPU: pass ``--device cpu`` to run there.
+
+Started by torchrun on N processes, the demo serves the LLM tensor-parallel
+over all of them (``parallel.tp.shard_llm``, a (1, N) grid; each rank on
+``cuda:LOCAL_RANK``, or sharing the host's card over gloo where the ranks
+outnumber the cards): rank 0 reads the image and serves HTTP, and hands
+each preprocessed image to the other ranks (a broadcast), which generate
+with it and wait for the next.
 """
 
 from __future__ import annotations
@@ -37,15 +44,24 @@ from ..data.hf_tokenizer import HFTokenizer
 from ..data.preprocessing import host_preprocess
 from ..data.tokenizer import WordTokenizer
 from ..models.common import init_params
+from ..parallel.mesh import (
+    broadcast,
+    init_distributed,
+    make_mesh,
+    rank_device,
+    world_and_rank,
+)
+from ..parallel.tp import shard_llm
 from ..train.loop import build_mrg_model, mrg_trainables, splice_llm_weights
 
 
 class Pipeline:
     """``report_for``: uint8 (H, W, 3) image -> {"report", "ids"}."""
 
-    def __init__(self, model, tok, gcfg, before, after, size):
+    def __init__(self, model, tok, gcfg, before, after, size, mesh=None):
         self.model, self.tok, self.gcfg = model, tok, gcfg
         self.before, self.after, self.size = before, after, size
+        self.mesh = mesh  # the tensor-parallel grid, or None
 
     @property
     def device(self) -> torch.device:
@@ -56,11 +72,35 @@ class Pipeline:
         return torch.from_numpy(x).to(self.device)
 
     def __call__(self, img_u8: np.ndarray) -> dict:
-        with parametrize.cached():  # LoRA-merged weights, once a request
-            out = self.model.generate(self.preprocess(img_u8), self.before,
-                                      self.after, self.gcfg)
-        ids = out[0].tolist()
+        x = self.preprocess(img_u8)
+        if self.mesh is not None:  # the followers' next image
+            broadcast(torch.ones(1, device=self.device), self.mesh)
+            broadcast(x, self.mesh)
+        ids = self._generate(x)
         return {"report": self.tok.decode(ids), "ids": ids}
+
+    def _generate(self, x: torch.Tensor) -> list[int]:
+        with parametrize.cached():  # LoRA-merged weights, once a request
+            out = self.model.generate(x, self.before, self.after, self.gcfg)
+        return out[0].tolist()
+
+    def follow(self) -> int:
+        """A rank other than 0: generate with each image rank 0 hands over
+        until it stops; returns the images served."""
+        n = 0
+        while True:
+            flag = broadcast(torch.zeros(1, device=self.device), self.mesh)
+            if flag.item() == 0:
+                return n
+            x = broadcast(torch.zeros(1, 1, self.size, self.size, 3,
+                                      device=self.device), self.mesh)
+            self._generate(x)
+            n += 1
+
+    def stop(self) -> None:
+        """Rank 0: release the followers."""
+        if self.mesh is not None:
+            broadcast(torch.zeros(1, device=self.device), self.mesh)
 
 
 def _tokenizer(args, cfg):
@@ -91,7 +131,7 @@ def build_pipeline(args) -> Pipeline:
     if vocab_size < tok.vocab_size:
         raise ValueError(f"vocab_size {vocab_size} < tokenizer vocab "
                          f"{tok.vocab_size}")
-    device = torch.device(args.device)
+    device = rank_device(args.device)
     model = build_mrg_model(cfg, vocab_size, device=device)
     init_params(model, torch.Generator(device).manual_seed(args.seed))
     model.eval()
@@ -108,13 +148,18 @@ def build_pipeline(args) -> Pipeline:
         print(f"[demo] merged delta {args.delta} (epoch {meta['epoch']}, "
               f"{sum(v.numel() > 0 for v in delta.values())} tensors)")
     gcfg = dataclasses.replace(cfg.generate, eos_id=tok.EOS, num_beams=3)
+    world, _ = world_and_rank()
+    mesh = None
+    if world > 1:
+        mesh = make_mesh(data=1, model=world)
+        shard_llm(model.llm, mesh)
 
     def ids(text, **kw):
         return torch.tensor([tok.encode(text, **kw)], device=device)
 
     return Pipeline(
         model, tok, gcfg, ids(cfg.data.prompt, add_bos=True),
-        ids(cfg.data.prompt_after), cfg.data.input_size,
+        ids(cfg.data.prompt_after), cfg.data.input_size, mesh,
     )
 
 
@@ -158,24 +203,31 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights")
     args = ap.parse_args(argv)
+    init_distributed()
 
     report_for = build_pipeline(args)
-
-    if args.image:
-        import PIL.Image
-
-        with PIL.Image.open(args.image) as pil:
-            img = np.asarray(pil.convert("RGB"), np.uint8)
-        print(report_for(img)["report"])
+    if world_and_rank()[1] != 0:
+        report_for.follow()
         return
 
-    if args.serve:
-        server = make_server(report_for, args.serve)
-        print(f"serving on :{server.server_address[1]}")
-        try:
-            server.serve_forever()
-        finally:
-            server.server_close()
+    try:
+        if args.image:
+            import PIL.Image
+
+            with PIL.Image.open(args.image) as pil:
+                img = np.asarray(pil.convert("RGB"), np.uint8)
+            print(report_for(img)["report"])
+            return
+
+        if args.serve:
+            server = make_server(report_for, args.serve)
+            print(f"serving on :{server.server_address[1]}")
+            try:
+                server.serve_forever()
+            finally:
+                server.server_close()
+    finally:
+        report_for.stop()
 
 
 if __name__ == "__main__":

@@ -10,6 +10,17 @@ times the tower's forward passes (``cli/throughput.py``) and prints their
 JSON instead of training. ``--device`` defaults to
 ``cuda``, and the CLI raises when there is no CUDA device: it does not
 fall back to the CPU (pass ``--device cpu`` to train there).
+
+Multi-process (the JAX package's ``train.mesh_data`` / ``train.mesh_model``
+meshes)::
+
+  torchrun --nproc_per_node=4 -m medical_image_analysis_tpu_torch.cli.train \
+      --config cfg.yaml --set train.mesh_data=2 --set train.mesh_model=2
+
+Each rank joins the process group (``parallel.mesh.init_distributed``:
+NCCL with a card a rank, on ``cuda:LOCAL_RANK``; gloo where the ranks share
+a card, or on the CPU) and trains its part of the (data, model) grid;
+rank 0 writes the files and prints the result.
 """
 
 from __future__ import annotations
@@ -21,6 +32,7 @@ import os
 import torch
 
 from ..configs.config import load_config, make_config, save_config
+from ..parallel.mesh import init_distributed, rank_device, world_and_rank
 from ..train.loop import fit
 
 
@@ -49,6 +61,9 @@ def main(argv=None, on_start=None) -> dict:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("cli.train: --device cuda but no CUDA device is "
                          "available; pass --device cpu to train on the CPU")
+    init_distributed()
+    device = rank_device(device)
+    main_rank = world_and_rank()[1] == 0
     if args.config:
         cfg = load_config(args.config, args.overrides)
     else:
@@ -67,9 +82,11 @@ def main(argv=None, on_start=None) -> dict:
         return stats
 
     os.makedirs(cfg.train.save_dir, exist_ok=True)
-    save_config(cfg, os.path.join(cfg.train.save_dir, "config.yaml"))
+    if main_rank:
+        save_config(cfg, os.path.join(cfg.train.save_dir, "config.yaml"))
     results = fit(cfg, device, on_start)
-    print(json.dumps(results))
+    if main_rank:
+        print(json.dumps(results))
     return results
 
 

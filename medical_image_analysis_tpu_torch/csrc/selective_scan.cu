@@ -491,6 +491,8 @@ constexpr int kBwdBlocks = 6;
 static_assert(bwd_smem_floats(16) * 4 <= 48 * 1024, "no opt-in needed");
 static_assert(kBwdBlocks * (bwd_smem_floats(16) * 4 + 1024) <= 228 * 1024,
               "kBwdBlocks blocks of the backward fit an SM");
+static_assert(bwd_smem_floats(32) * 4 <= 227 * 1024,
+              "N = 32 fits a block's opt-in shared memory");
 
 // One step of a transposing reduction over a warp, of the first 2 * Half
 // of a lane's values: the lane keeps one half, sends the other to the lane
@@ -514,7 +516,7 @@ __device__ __forceinline__ void transpose_steps(float (&v)[M], int lane) {
 }
 
 // The sums over a warp's 32 lanes of each of M values v[0..M-1] (M a power
-// of two, at most 32): log2 M transposing steps (31 shuffles sum 32
+// of two, at most 32; the backward takes 2N = 64 as two 32s): log2 M transposing steps (31 shuffles sum 32
 // values), then butterflies for what is left when M < 32. Returns, in lane
 // l, the sum of value l >> (5 - log2 M). The order of the additions is
 // fixed.
@@ -701,9 +703,20 @@ selective_scan_bwd_kernel(
         du[o] = from_float<T>(dt * gb + dyr * dskip);
         ddelta[o] = from_float<T>(ddt);
       }
-      const float sum = warp_sums<M>(terms, lane);
-      if ((lane & ((32 / M) - 1)) == 0)
-        sum_s[(warp * kChunk + rr) * M + (lane >> (5 - log2i(M)))] = sum;
+      if constexpr (M <= 32) {
+        const float sum = warp_sums<M>(terms, lane);
+        if ((lane & ((32 / M) - 1)) == 0)
+          sum_s[(warp * kChunk + rr) * M + (lane >> (5 - log2i(M)))] = sum;
+      } else {
+        // N = 32: the sums of each 32 of the 2N terms in turn; lane l
+        // holds term 32 q + l of part q.
+#pragma unroll
+        for (int q = 0; q < M / 32; ++q) {
+          float(&part)[32] = *reinterpret_cast<float(*)[32]>(terms + 32 * q);
+          sum_s[(warp * kChunk + rr) * M + 32 * q + lane] =
+              warp_sums<32>(part, lane);
+        }
+      }
     }
     __syncthreads();
 
@@ -809,8 +822,17 @@ struct BwdOut {
 template <typename T, int N>
 cudaError_t configure_bwd() {
   static std::atomic<unsigned> done{0};
-  return max_carveout(
-      reinterpret_cast<const void*>(selective_scan_bwd_kernel<T, N>), done);
+  const void* kernel =
+      reinterpret_cast<const void*>(selective_scan_bwd_kernel<T, N>);
+  // Past 48 KB (N = 32: 71,680 bytes) a block's dynamic shared memory
+  // needs the opt-in; it is set with the carveout, once a device.
+  constexpr int smem = bwd_smem_floats(N) * static_cast<int>(sizeof(float));
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  return max_carveout(kernel, done);
 }
 
 template <typename T, int N>
@@ -839,8 +861,9 @@ cudaError_t occupancy_bwd(int* blocks, int* smem_bytes) {
       blocks, selective_scan_bwd_kernel<T, N>, kThreads, *smem_bytes);
 }
 
-// The d_state values the presets and tests use; any other is refused.
-#define MIA_SS_STATES(X) X(1) X(4) X(8) X(16)
+// The d_state widths the kernels are built for; the wrapper pads any
+// other N up to the next of them and splits N past 32 into groups.
+#define MIA_SS_STATES(X) X(1) X(4) X(8) X(16) X(32)
 
 template <typename T>
 cudaError_t dispatch_fwd(int N, const Args& p, void* y, cudaStream_t s) {

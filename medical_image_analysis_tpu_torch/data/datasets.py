@@ -565,3 +565,43 @@ def mixup_cutmix(
         mixed = lam * images + (1.0 - lam) * images[perm]
     soft = lam * labels + (1.0 - lam) * labels[perm]
     return mixed.astype(images.dtype), soft
+
+
+def zip_image_loader(zip_path: str, input_size: int,
+                     fast_decode: bool = True):
+    """Images read straight out of a zip archive (the JAX package's
+    ``zip_image_loader``, SwinCheX's cached image folder): a ``zipfile``
+    handle a thread, each of a sample's image paths decoded by
+    ``decode_scaled`` and normalised by ``host_preprocess`` into float32
+    ``(V, S, S, 3)``. ``load.close()`` releases every handle."""
+    import io
+    import zipfile
+
+    local = threading.local()
+    handles: list[zipfile.ZipFile] = []
+    lock = threading.Lock()
+
+    def handle() -> zipfile.ZipFile:
+        if not hasattr(local, "zf"):
+            local.zf = zipfile.ZipFile(zip_path)
+            with lock:
+                handles.append(local.zf)
+        return local.zf
+
+    def load(sample: Sample) -> np.ndarray:
+        views = []
+        for p in sample.image_paths:
+            with handle().open(p) as f:
+                arr = decode_scaled(io.BytesIO(f.read()), input_size,
+                                    fast=fast_decode)
+            views.append(host_preprocess(arr, input_size))
+        return np.stack(views)
+
+    def close():
+        with lock:
+            for zf in handles:
+                zf.close()
+            handles.clear()
+
+    load.close = close
+    return load

@@ -27,14 +27,20 @@ The regexes of the GPT-2 and Qwen2 pre-tokenizers use ``\\p{L}`` and
 ``\\p{N}``, which Python's ``re`` lacks: they are rewritten into classes
 built from ``unicodedata`` categories (``[^\\W\\d_]`` is not ``\\p{L}``:
 it also takes ``No`` and ``Nl`` characters such as ``½`` and ``Ⅻ``), and
-``\\s`` into the Unicode White_Space set. ``train_bpe`` is not ported
-(ROADMAP.md, queue 1, item 9): train with the JAX package and read its
-file here.
+``\\s`` into the Unicode White_Space set.
+
+:meth:`HFTokenizer.train_bpe` trains the JAX ``train_bpe``'s byte-level BPE
+in pure Python (the card's machine has no ``tokenizers``), computing what
+``tokenizers``' ``BpeTrainer`` computes for its settings (:func:`train_bpe_spec`);
+:meth:`HFTokenizer.save` writes the ``tokenizer.json`` that both this reader
+and ``tokenizers`` read.
 """
 
 from __future__ import annotations
 
+import collections
 import functools
+import heapq
 import json
 import re
 import sys
@@ -412,11 +418,119 @@ class _BPE:
         return [i for _, i in syms]
 
 
+# training -----------------------------------------------------------------
+
+_BYTE_LEVEL = {"type": "ByteLevel", "add_prefix_space": True,
+               "trim_offsets": True, "use_regex": True}
+_SPECIALS = ("<unk>", "<s>", "</s>")
+
+
+def _merge_word(word: list[int], a: int, b: int, new: int) -> list:
+    """Merge every (a, b) of ``word`` (token ids) into ``new``, left to
+    right, in place; returns the pair count changes, ``((x, y), +-1)``, as
+    ``tokenizers``' ``Word::merge`` lists them."""
+    changes = []
+    i = 0
+    while i < len(word):
+        if word[i] == a and i + 1 < len(word) and word[i + 1] == b:
+            if i > 0:
+                changes += [((word[i - 1], a), -1), ((word[i - 1], new), 1)]
+            word[i:i + 2] = [new]
+            if i < len(word) - 1:
+                changes += [((b, word[i + 1]), -1), ((new, word[i + 1]), 1)]
+        i += 1
+    return changes
+
+
+def train_bpe_spec(texts: Iterable[str], vocab_size: int) -> dict:
+    """The ``tokenizer.json`` of the JAX ``HFTokenizer.train_bpe``: BPE with
+    ``unk_token`` ``<unk>``, ByteLevel pre-tokenizer (``add_prefix_space``)
+    and decoder, trained by ``BpeTrainer(vocab_size, special_tokens=[<unk>,
+    <s>, </s>], initial_alphabet=ByteLevel.alphabet())``. As the trainer:
+    words counted after pre-tokenization; the special tokens, then the
+    alphabet sorted by code point; then merges of the most frequent pair,
+    ties to the smaller pair of ids, each new token the next id, until the
+    vocabulary holds ``vocab_size`` tokens or no pair is left."""
+    pre = _pre_tokenizer(_BYTE_LEVEL)
+    counts: collections.Counter = collections.Counter()
+    for text in texts:
+        counts.update(w for w, _ in pre([(text, True)]))
+    w2id: dict[str, int] = {}
+    id2w: list[str] = []
+
+    def add(token: str) -> int:
+        if token not in w2id:
+            w2id[token] = len(id2w)
+            id2w.append(token)
+        return w2id[token]
+
+    for t in _SPECIALS:
+        add(t)
+    alphabet = set(_bytes_to_unicode().values())
+    for w in counts:
+        alphabet.update(w)
+    for c in sorted(alphabet):
+        add(c)
+    words = [[w2id[c] for c in w] for w in counts]
+    freq = list(counts.values())
+    pair_counts: collections.Counter = collections.Counter()
+    where: dict = collections.defaultdict(set)
+    for i, w in enumerate(words):
+        for pair in zip(w, w[1:]):
+            pair_counts[pair] += freq[i]
+            where[pair].add(i)
+    # the trainer's max-heap of (count, pair, positions): the largest count
+    # first, then the smaller pair; n orders equal entries by arrival
+    heap, n = [], 0
+    for pair, pos in where.items():
+        heap.append((-pair_counts[pair], pair, n, pos))
+        n += 1
+    heapq.heapify(heap)
+    merges = []
+    while len(w2id) < vocab_size and heap:
+        neg, pair, _, pos = heapq.heappop(heap)
+        count = pair_counts[pair]
+        if -neg != count:  # a stale count: back in with the current one
+            heapq.heappush(heap, (-count, pair, n, pos))
+            n += 1
+            continue
+        if count < 1:
+            break
+        new = add(id2w[pair[0]] + id2w[pair[1]])
+        merges.append(pair)
+        where = collections.defaultdict(set)
+        for i in pos:
+            for p, change in _merge_word(words[i], pair[0], pair[1], new):
+                pair_counts[p] += change * freq[i]
+                if change > 0:
+                    where[p].add(i)
+        for p, ps in where.items():
+            if pair_counts[p] > 0:
+                heapq.heappush(heap, (-pair_counts[p], p, n, ps))
+                n += 1
+    added = [{"id": w2id[t], "content": t, "single_word": False,
+              "lstrip": False, "rstrip": False, "normalized": False,
+              "special": True} for t in _SPECIALS]
+    return {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": added, "normalizer": None,
+        "pre_tokenizer": dict(_BYTE_LEVEL), "post_processor": None,
+        "decoder": dict(_BYTE_LEVEL),
+        "model": {"type": "BPE", "dropout": None, "unk_token": "<unk>",
+                  "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": False,
+                  "byte_fallback": False, "ignore_merges": False,
+                  "vocab": w2id,
+                  "merges": [[id2w[a], id2w[b]] for a, b in merges]},
+    }
+
+
 class HFTokenizer:
     """A ``tokenizer.json`` behind the framework's tokenizer interface."""
 
     def __init__(self, spec: dict, bos: str = "<s>", eos: str = "</s>",
                  pad: str | None = None, unk: str = "<unk>"):
+        self.spec = spec
         post = (spec.get("post_processor") or {}).get("type")
         if post not in (None, "ByteLevel", "TemplateProcessing"):
             # encode never adds special tokens, so these two change no id
@@ -466,6 +580,20 @@ class HFTokenizer:
         """Load an HF ``tokenizer.json`` (Llama-2, Qwen1.5, ...)."""
         with open(path, encoding="utf-8") as f:
             return cls(json.load(f), **kw)
+
+    load = from_file
+
+    @classmethod
+    def train_bpe(cls, texts: Iterable[str],
+                  vocab_size: int = 8192) -> "HFTokenizer":
+        """A byte-level BPE trained on the corpus (:func:`train_bpe_spec`),
+        as the JAX package's ``train_bpe`` trains it with ``tokenizers``."""
+        return cls(train_bpe_spec(texts, vocab_size))
+
+    def save(self, path: str) -> None:
+        """Write the ``tokenizer.json`` (``tokenizers`` reads it too)."""
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump(self.spec, f, ensure_ascii=False)
 
     # interface ------------------------------------------------------------
 

@@ -13,6 +13,8 @@ import math
 import torch
 import torch.nn as nn
 
+from ..parallel.mesh import gather_rows
+
 
 class CLIPHead(nn.Module):
     """``forward(image_feats, text_feats)`` -> (v, t, scale): both
@@ -42,7 +44,10 @@ class CLIPHead(nn.Module):
 def clip_loss(v: torch.Tensor, t: torch.Tensor,
               scale: torch.Tensor) -> torch.Tensor:
     """Symmetric InfoNCE over the batch: the mean of the image-to-text and
-    text-to-image cross-entropies, row i's match at column i."""
+    text-to-image cross-entropies, row i's match at column i. In a
+    data-parallel step the batch is the global one: every rank's rows of
+    ``v`` and ``t`` are gathered (``parallel.mesh.gather_rows``)."""
+    v, t = gather_rows(v), gather_rows(t)
     logits = scale * v @ t.T  # (B, B)
     li = -torch.diagonal(torch.log_softmax(logits, dim=1)).mean()
     lt = -torch.diagonal(torch.log_softmax(logits, dim=0)).mean()

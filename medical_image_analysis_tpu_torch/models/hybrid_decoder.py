@@ -24,6 +24,7 @@ import dataclasses
 import torch
 import torch.nn as nn
 
+from ..parallel.tp import copy_to_model, reduce_from_model
 from .llm import LlamaAttention, LlamaBlock, LLMConfig, TransformerLM, _dense
 
 
@@ -52,9 +53,11 @@ class HybridAttention(LlamaAttention):
             raise ValueError("a hybrid decoder layer needs the vision tokens")
         q, self_out, new_cache = self.attend(x, positions, mask, layer_cache,
                                              beam)
-        cfg = self.cfg
         b, l, nh, hd = q.shape
-        nkv, rep = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+        nkv = self.heads[1]  # this rank's, as nh (parallel.tp)
+        rep = nh // nkv
+        vision = copy_to_model(vision, self.tp)
+        x = copy_to_model(x, self.tp)
         kv = self.cross_attn_kv_proj(vision).reshape(b, -1, 2 * nkv, hd)
         ck, cv = kv.chunk(2, dim=2)
         if rep > 1:
@@ -71,7 +74,8 @@ class HybridAttention(LlamaAttention):
             gate)
         if self.text_only_cross and text_mask is not None:
             gate = gate * text_mask[..., None].to(gate.dtype)
-        return self.o_proj(self_out + gate * cross_out), new_cache
+        return reduce_from_model(self.o_proj(self_out + gate * cross_out),
+                                 self.tp), new_cache
 
 
 class HybridDecoderLayer(LlamaBlock):

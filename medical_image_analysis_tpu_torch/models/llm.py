@@ -36,6 +36,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.tp import copy_to_model, gather_from_model, reduce_from_model
 from .common import RMSNorm
 
 
@@ -188,18 +189,25 @@ class LlamaAttention(nn.Module):
         self.k_proj = _dense(cfg, cfg.dim, nkv * hd, cfg.attn_bias, device)
         self.v_proj = _dense(cfg, cfg.dim, nkv * hd, cfg.attn_bias, device)
         self.o_proj = _dense(cfg, nh * hd, cfg.dim, False, device)
+        # this rank's (query, kv) heads and the mesh whose model axis
+        # shards them (parallel.tp.shard_llm); all of them and None
+        # otherwise
+        self.heads = (nh, nkv)
+        self.tp = None
 
     def forward(self, x, positions, mask, layer_cache=None, beam=None):
         _, out, new_cache = self.attend(x, positions, mask, layer_cache, beam)
-        return self.o_proj(out), new_cache
+        return reduce_from_model(self.o_proj(out), self.tp), new_cache
 
     def attend(self, x, positions, mask, layer_cache=None, beam=None):
         """(the un-rotated queries (B, L, nh, hd), the attention's output
-        before ``o_proj`` (B, L, nh * hd), the new layer cache)."""
+        before ``o_proj`` (B, L, nh * hd), the new layer cache); nh is this
+        rank's heads under tensor parallelism."""
         cfg = self.cfg
         b, l, _ = x.shape
-        nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        (nh, nkv), hd = self.heads, cfg.head_dim
         rep = nh // nkv
+        x = copy_to_model(x, self.tp)
         q = self.q_proj(x).reshape(b, l, nh, hd)
         k = self.k_proj(x).reshape(b, l, nkv, hd)
         v = self.v_proj(x).reshape(b, l, nkv, hd)
@@ -245,12 +253,6 @@ class LlamaAttention(nn.Module):
         attn = torch.softmax(attn + mask, dim=-1)
         out = torch.einsum("bhls,bshd->blhd", attn.to(v_all.dtype), v_all)
         return q, out.reshape(b, l, nh * hd), new_cache
-
-        attn = torch.einsum("blhd,bshd->bhls", q.float(),
-                            k_all.float()) * hd**-0.5
-        attn = torch.softmax(attn + mask, dim=-1)
-        out = torch.einsum("bhls,bshd->blhd", attn.to(v_all.dtype), v_all)
-        return self.o_proj(out.reshape(b, l, nh * hd)), new_cache
 
 
 def _select(anc, nb):
@@ -320,9 +322,12 @@ class LlamaMLP(nn.Module):
         self.gate_proj = _dense(cfg, cfg.dim, cfg.hidden_dim, device=device)
         self.up_proj = _dense(cfg, cfg.dim, cfg.hidden_dim, device=device)
         self.down_proj = _dense(cfg, cfg.hidden_dim, cfg.dim, device=device)
+        self.tp = None  # the mesh whose model axis shards hidden_dim
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        x = copy_to_model(x, self.tp)
+        y = self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        return reduce_from_model(y, self.tp)
 
 
 class LlamaBlock(nn.Module):
@@ -378,11 +383,22 @@ class TransformerLM(nn.Module):
             self.lm_head = Dense(cfg.dim, cfg.vocab_size, bias=False,
                                  device=device, dtype=torch.float32)
 
+        # meshes whose model axis shards the embedding's features and
+        # lm_head's vocabulary (parallel.tp.shard_llm)
+        self.embed_tp = None
+        self.head_tp = None
+
     def make_layer(self, i: int, device=None) -> nn.Module:
         return LlamaBlock(self.cfg, device=device)
 
+    @property
+    def kv_heads(self) -> int:
+        """The KV heads this rank's cache holds."""
+        return self.layers[0].self_attn.heads[1]
+
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
-        return self.embed_tokens(input_ids).to(self.cfg.dtype)
+        x = self.embed_tokens(input_ids).to(self.cfg.dtype)
+        return gather_from_model(x, self.embed_tp)
 
     def forward(
         self,
@@ -454,9 +470,17 @@ class TransformerLM(nn.Module):
         x = self.norm(x)
         if cfg.tie_embeddings:
             table = self.embed_tokens.weight.to(cfg.dtype)
-            logits = x.to(cfg.dtype) @ table.T
+            x = x.to(cfg.dtype)
+            if self.embed_tp is not None:  # the rank's features' share
+                w, i = table.shape[1], self.embed_tp.index("model")
+                x = copy_to_model(x, self.embed_tp)[..., i * w : (i + 1) * w]
+                logits = reduce_from_model(x @ table.T, self.embed_tp)
+            else:
+                logits = x @ table.T
         else:
-            logits = self.lm_head(x.float())
+            logits = gather_from_model(
+                self.lm_head(copy_to_model(x.float(), self.head_tp)),
+                self.head_tp)
         logits = logits.float()
         if cache is not None:
             return logits, new_cache
@@ -464,10 +488,12 @@ class TransformerLM(nn.Module):
 
 
 def init_cache(cfg: LLMConfig, batch: int, max_len: int, dtype=None,
-               device=None):
-    """Empty KV cache: list of (k, v, cur_index) per layer."""
+               device=None, n_kv_heads: int | None = None):
+    """Empty KV cache: list of (k, v, cur_index) per layer, of
+    ``n_kv_heads`` (this rank's, ``TransformerLM.kv_heads``; all of them
+    by default)."""
     dtype = dtype or cfg.dtype
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    shape = (batch, max_len, n_kv_heads or cfg.n_kv_heads, cfg.head_dim)
     return [
         (torch.zeros(shape, dtype=dtype, device=device),
          torch.zeros(shape, dtype=dtype, device=device), 0)

@@ -29,6 +29,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.mesh import loss_denominator
 from .common import layer_norm
 from .mamba import MambaBlock
 
@@ -133,7 +134,7 @@ def lm_loss(logits: torch.Tensor, input_ids: torch.Tensor,
     lp = torch.log_softmax(logits[:, :-1], dim=-1)
     ll = torch.gather(lp, -1, input_ids[:, 1:, None].long())[..., 0]
     m = mask[:, 1:].float()
-    return -torch.sum(ll * m) / torch.clamp(torch.sum(m), min=1.0)
+    return -torch.sum(ll * m) / loss_denominator(torch.sum(m), 1.0)
 
 
 def alpaca_prompt(instruction: str, inp: str = "", response: str = "") -> str:

@@ -21,6 +21,7 @@ from typing import Any
 import torch
 import torch.nn as nn
 
+from ..parallel.mesh import loss_denominator
 from .common import layer_norm
 from .generation import beam_generate, greedy_generate
 from .llm import (
@@ -62,7 +63,7 @@ def lm_cross_entropy(logits, labels, mask):
     mask = mask[:, 1:]
     lp = torch.log_softmax(logits, dim=-1)
     ll = torch.gather(lp, -1, labels[..., None].long())[..., 0]
-    return -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return -torch.sum(ll * mask) / loss_denominator(torch.sum(mask), 1.0)
 
 
 def _encode_views(vision_fn, images, use_feature_mean=True):
@@ -161,11 +162,13 @@ class MRGMixin:
         if use_split:
             # shared-prompt prefill on B rows, promoted to the split cache
             prefill_rows = b
-            cache = init_cache(self.llm_cfg, b, lp, device=dev)
+            cache = init_cache(self.llm_cfg, b, lp, device=dev,
+                               n_kv_heads=self.llm.kv_heads)
         else:
             prefill_rows = b * max(nb, 1)
             cache = init_cache(self.llm_cfg, prefill_rows,
-                               gcfg.max_cache_len, device=dev)
+                               gcfg.max_cache_len, device=dev,
+                               n_kv_heads=self.llm.kv_heads)
         positions = torch.arange(lp, device=dev).expand(prefill_rows, lp)
         first, cache = self.llm(inputs_embeds=prompt_emb,
                                 positions=positions, cache=cache,

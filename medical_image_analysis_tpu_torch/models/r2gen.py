@@ -25,6 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.mesh import loss_denominator
 from .generation import beam_generate, greedy_generate
 from .mrg import VisionEncoder, _encode_views
 
@@ -300,7 +301,7 @@ class R2GenPipeline(nn.Module):
         lp = torch.log_softmax(self.r2gen(att, seq_in), dim=-1)
         ll = torch.gather(lp, -1, target_ids[..., None].long())[..., 0]
         m = target_mask.float()
-        return -torch.sum(ll * m) / torch.clamp(torch.sum(m), min=1.0)
+        return -torch.sum(ll * m) / loss_denominator(torch.sum(m), 1.0)
 
     @torch.no_grad()
     def generate(self, images, max_new_tokens: int = 60,

@@ -29,6 +29,7 @@ import torch.nn as nn
 from ..ops.attention import fused_attention
 from ..ops.gather import perm_gather, subset_gather, take_rows
 from ..ops.vit_block import fused_attn_block, fused_mlp_block
+from ..parallel.mesh import loss_denominator
 from .common import (
     DropPath,
     PatchEmbed,
@@ -377,8 +378,8 @@ class MAE(nn.Module):
             var = target.var(dim=-1, keepdim=True, correction=0)  # jnp.var
             target = (target - mean) / torch.sqrt(var + 1e-6)
         per_patch = torch.mean((pred - target) ** 2, dim=-1)
-        return torch.sum(per_patch * mask) / torch.clamp(torch.sum(mask),
-                                                         min=1.0)
+        return torch.sum(per_patch * mask) / loss_denominator(
+            torch.sum(mask), 1.0)
 
     def forward(self, imgs, noise=None, mask_type="random", mask_ratio=0.75,
                 mask_ratio_inner=0.75, deterministic=True):

@@ -1,4 +1,5 @@
-"""2D cross scan / merge: the four directional sequences of VMamba.
+"""2D cross scan / merge: the four directional sequences of VMamba, and
+the bidirectional 1D pair.
 
 Counterpart of ``medical_image_analysis_tpu/ops/cross_scan.py``. Images
 are channels-last ``(B, H, W, C)`` and sequences ``(B, K, L, C)``, with
@@ -29,3 +30,14 @@ def cross_merge(ys: torch.Tensor, h: int, w: int) -> torch.Tensor:
     col = ys[:, 1] + ys[:, 3].flip(1)
     col = col.reshape(b, w, h, c).transpose(1, 2).reshape(b, l, c)
     return row + col
+
+
+def cross_scan_1d(x: torch.Tensor) -> torch.Tensor:
+    """(B, L, C) -> (B, 2, L, C): the sequence forward and reversed."""
+    return torch.stack([x, x.flip(1)], dim=1)
+
+
+def cross_merge_1d(ys: torch.Tensor) -> torch.Tensor:
+    """(B, 2, L, C) -> (B, L, C): the forward sequence plus the reversed
+    one flipped back."""
+    return ys[:, 0] + ys[:, 1].flip(1)

@@ -42,11 +42,15 @@ each on the H100 and how its design answers that. Directions are
 scans it back to front when k is odd.
 
 The scan kernels are built for d_state 4, 16, 17 and 32
-(``_STATE_WIDTHS``; 17 is MambaPEFT's ``additional_scan`` width on 16).
-Every N from 1 to 32 runs through them: :func:`state_width` names the
-width a call runs at, and the scan wrappers pad x_dbl's B and C columns
-and A with zero states up to it and drop the padded states' gradients
-(all 0). Past 32 every wrapper raises.
+(``_STATE_WIDTHS``; 17 is MambaPEFT's ``additional_scan`` width on 16) and
+the kernels' conv for 1 to 4 taps. Every N from 1 to 32 runs through them:
+:func:`state_width` names the width a call runs at, and the scan wrappers
+pad x_dbl's B and C columns and A with zero states up to it and drop the
+padded states' gradients (all 0); each wrapper raises past 32 states or 4
+taps. :func:`mamba_fused_dirs` takes any d_state and any number of taps,
+as the JAX function does: past 32 states it runs groups of at most 32 and
+adds their y, and past 4 taps it runs the conv + SiLU in PyTorch ahead of
+the kernels' no-conv mode (:func:`_wide_dirs`).
 
 Each wrapper runs its kernel on a CUDA tensor and its plain version
 (``xdbl_plain``, ``scan_plain``, ``scan_bwd_plain``) on a CPU tensor;
@@ -70,7 +74,8 @@ launches = {"mamba_xdbl": 0, "mamba_scan": 0, "mamba_scan_bwd": 0}
 # d_state widths the scan kernels are built for (csrc/mamba_fused.cu's
 # MIA_DISPATCH): 17 is additional_scan's default width on 16; any other N
 # up to _MAX_STATE runs at the next of them (state_width), its extra states
-# zero in A, B and C.
+# zero in A, B and C. A launch takes at most _MAX_STATE states and
+# _MAX_TAPS taps; mamba_fused_dirs runs wider layers in pieces.
 _STATE_WIDTHS = (4, 16, 17, 32)
 _MAX_STATE = 32
 _MAX_TAPS = 4
@@ -359,6 +364,12 @@ def mamba_carries_plain(xr, xc, xdbl, conv_w, conv_b, dt_proj_w, dt_bias, A,
 # --------------------------------------------------------------------------
 # Kernel wrappers
 # --------------------------------------------------------------------------
+
+
+def state_groups(n: int) -> list[tuple[int, int]]:
+    """The state ranges ``[s0, s1)`` that :func:`mamba_fused_dirs` runs
+    d_state ``n`` in: 32 at a time, the last range the rest."""
+    return [(s0, min(s0 + _MAX_STATE, n)) for s0 in range(0, n, _MAX_STATE)]
 
 
 def state_width(n: int) -> int:
@@ -977,5 +988,55 @@ def mamba_fused_dirs(
     conv_w, conv_b, x_proj_w, dt_proj_w, dt_bias, A, D = map(
         prep, (conv_w, conv_b, x_proj_w, dt_proj_w, dt_bias, A, D)
     )
+    wide = (A.shape[-1] > _MAX_STATE
+            or (use_conv and conv_w.shape[1] > _MAX_TAPS))
+    if wide and not plain:
+        return _wide_dirs(xr, xc, conv_w, conv_b, x_proj_w, dt_proj_w,
+                          dt_bias, A, D, delta_softplus, use_conv)
     return MambaFusedFn.apply(xr, xc, conv_w, conv_b, x_proj_w, dt_proj_w,
                               dt_bias, A, D, delta_softplus, use_conv, plain)
+
+
+def _wide_dirs(xr, xc, conv_w, conv_b, x_proj_w, dt_proj_w, dt_bias, A, D,
+               delta_softplus, use_conv):
+    """The layer past the kernels' widths, through the same kernels (and
+    their autograd), in fp32 (bf16 sources are widened exactly and y is
+    rounded once, at the end):
+
+    - more than ``_MAX_TAPS`` taps: the causal conv + SiLU of each
+      direction in plain PyTorch (:func:`_conv_silu`), then each direction
+      alone (K = 1, its scan order) in the kernels' no-conv mode, its y
+      flipped back to source order where it scans back to front;
+    - more than ``_MAX_STATE`` states: groups of at most 32
+      (:func:`state_groups`), each with its x_proj rows ``[dt | B_g |
+      C_g]``, its A and the D skip in the first group alone; their y are
+      added. Autograd adds the dt rows' gradients over the groups and puts
+      each group's B and C rows' back in place.
+    """
+    k_dirs, c, _ = x_proj_w.shape
+    n = A.shape[-1]
+    out_dtype = xr.dtype
+    xr = xr.float()
+    xc = None if xc is None else xc.float()
+    if use_conv and conv_w.shape[1] > _MAX_TAPS:
+        u = _conv_silu(_scan_order(xr, xc, k_dirs), conv_w, conv_b)
+        ys = []
+        for k in range(k_dirs):
+            y = mamba_fused_dirs(u[:, k], None, None, None,
+                                 x_proj_w[k : k + 1], dt_proj_w[k : k + 1],
+                                 dt_bias[k : k + 1], A[k : k + 1],
+                                 D[k : k + 1], delta_softplus,
+                                 use_conv=False)
+            ys.append(y.flip(2) if k % 2 else y)
+        return torch.cat(ys, dim=1).to(out_dtype)
+    rank = c - 2 * n
+    y = None
+    for i, (s0, s1) in enumerate(state_groups(n)):
+        w = torch.cat([x_proj_w[:, :rank], x_proj_w[:, rank + s0 : rank + s1],
+                       x_proj_w[:, rank + n + s0 : rank + n + s1]], dim=1)
+        y_g = MambaFusedFn.apply(
+            xr, xc, conv_w, conv_b, w.contiguous(), dt_proj_w, dt_bias,
+            A[..., s0:s1].contiguous(), D if i == 0 else torch.zeros_like(D),
+            delta_softplus, use_conv, False)
+        y = y_g if y is None else y + y_g
+    return y.to(out_dtype)

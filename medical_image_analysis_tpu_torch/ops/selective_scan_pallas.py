@@ -19,8 +19,17 @@ says what bounds them on the H100 and how their design answers that. The
 TPU's chunk and block tiling (``chunk``, ``block_d``, ``interpret``,
 ``scan_impl``) has no counterpart here.
 
+The kernels are built for d_state 1, 4, 8, 16 and 32 (:data:`STATES`); the
+wrappers take any other: a d_state below 32 is padded up to the next built
+width with zero states (A, B and C 0), whose gradients are dropped, and one
+past 32 runs in groups of at most 32 states (:func:`state_groups`), whose
+``y`` are added (the D skip in the first group alone); in the backward du,
+ddelta and ddelta_bias add over the groups, and dA, dB and dC are each
+group's own. The groups run the fp32 kernels (bf16 sources widen exactly)
+and round their sums once. Like the JAX module, no d_state is refused.
+
 Each wrapper launches its kernel on a CUDA tensor, or raises (dtype, shape,
-layout, d_state, or a launch error), and runs its plain version
+layout, or a launch error), and runs its plain version
 (``ops/selective_scan.py``: ``selective_scan_fwd_plain``,
 ``selective_scan_bwd_plain``) on a CPU tensor; there is no fallback between
 the two. ``launches`` counts kernel launches per wrapper.
@@ -38,7 +47,8 @@ from .selective_scan import selective_scan_bwd_plain, selective_scan_fwd_plain
 KERNEL_SOURCE = "medical_image_analysis_tpu_torch/csrc/selective_scan.cu"
 launches = {"selective_scan_fwd": 0, "selective_scan_bwd": 0}
 
-STATES = (1, 4, 8, 16)  # the d_state values the kernels are built for
+STATES = (1, 4, 8, 16, 32)  # the d_state widths the kernels are built for
+_MAX_STATE = STATES[-1]  # states a launch takes; more run in groups
 _THREADS = 64  # channels per block of the forward's scans and the backward
 _CHUNK = 8  # rows per chunk of the backward kernel (its carries)
 _FWD_BLOCKS = 12  # the forward's resident blocks an SM (its cap)
@@ -107,8 +117,8 @@ def _check(u, delta, A, B, C, D, delta_bias, dy=None):
                          f"{tuple(A.shape)}")
     groups, _, n = A.shape
     if n not in STATES:
-        raise ValueError(f"selective_scan: d_state={n} unsupported "
-                         f"(the kernels take {STATES})")
+        raise ValueError(f"selective_scan: a launch takes d_state in "
+                         f"{STATES}, not {n} (state_groups pads and splits)")
     if rows % groups:
         raise ValueError(f"selective_scan: {rows} rows for {groups} groups")
     for name, t, shape in (("A", A, (groups, d_in, n)),
@@ -159,6 +169,63 @@ def selective_scan_fwd(u, delta, A, B, C, D, delta_bias, delta_softplus=False):
     if _on_cpu(u):
         return selective_scan_fwd_plain(u, delta, A, B, C, D, delta_bias,
                                         delta_softplus)
+    n = A.shape[-1]
+    if n in STATES:
+        return _fwd_launch(u, delta, A, B, C, D, delta_bias, delta_softplus)
+    if n <= _MAX_STATE:
+        a, b, c, _ = _state_groups(A, B, C)[0]
+        return _fwd_launch(u, delta, a, b, c, D, delta_bias, delta_softplus)
+    # groups of states: the fp32 kernels on the (exactly widened) sources,
+    # y added in fp32 and rounded once, as the plain version rounds it
+    u32, dt32, b32, c32 = (x.float() for x in (u, delta, B, C))
+    y = None
+    for i, (a, b, c, _) in enumerate(_state_groups(A, b32, c32)):
+        y_g = _fwd_launch(u32, dt32, a, b, c, D if i == 0 else
+                          torch.zeros_like(D), delta_bias, delta_softplus)
+        y = y_g if y is None else y + y_g
+    return y.to(u.dtype)
+
+
+def state_width(n: int) -> int:
+    """The built width a group of ``n`` <= 32 states runs at: the next of
+    :data:`STATES`."""
+    for w in STATES:
+        if n <= w:
+            return w
+    raise ValueError(f"selective_scan: a group holds at most {_MAX_STATE} "
+                     f"states, not {n}")
+
+
+def state_groups(n: int) -> list[tuple[int, int]]:
+    """The state ranges ``[s0, s1)`` that launches take for d_state ``n``:
+    32 at a time, the last range the rest (``n`` = 40: 0-32, 32-40)."""
+    return [(s0, min(s0 + _MAX_STATE, n)) for s0 in range(0, n, _MAX_STATE)]
+
+
+def _widen(x, w):
+    """``x`` (..., k) with zero states appended up to ``w``; a slice of
+    unit stride over its last axis as it is where ``k == w``."""
+    k = x.shape[-1]
+    if k == w:
+        return x
+    return torch.nn.functional.pad(x, (0, w - k))
+
+
+def _state_groups(A, B, C):
+    """(A, B, C) of each state group of :func:`state_groups`, widened to
+    :func:`state_width` with zero states (A 0, B 0, C 0: a pad state stays
+    0 and adds nothing to y), and the group's width before widening."""
+    out = []
+    for s0, s1 in state_groups(A.shape[-1]):
+        w = state_width(s1 - s0)
+        out.append((_widen(A[..., s0:s1], w).contiguous(),
+                    _widen(B[..., s0:s1], w), _widen(C[..., s0:s1], w),
+                    s1 - s0))
+    return out
+
+
+def _fwd_launch(u, delta, A, B, C, D, delta_bias, delta_softplus):
+    """One launch of the forward kernel at a built width."""
     rows, seq_len, d_in, n, groups, st = _check(u, delta, A, B, C, D,
                                                 delta_bias)
     y = torch.empty_like(u)
@@ -192,6 +259,38 @@ def selective_scan_bwd(u, delta, A, B, C, D, delta_bias, dy,
     if _on_cpu(u):
         return selective_scan_bwd_plain(u, delta, A, B, C, D, delta_bias, dy,
                                         delta_softplus)
+    n = A.shape[-1]
+    if n in STATES:
+        return _bwd_launch(u, delta, A, B, C, D, delta_bias, dy,
+                           delta_softplus)
+    if n <= _MAX_STATE:  # the pad states' gradients dropped
+        a, b, c, k = _state_groups(A, B, C)[0]
+        g = _bwd_launch(u, delta, a, b, c, D, delta_bias, dy, delta_softplus)
+        return (g[0], g[1], g[2][..., :k], g[3][..., :k], g[4][..., :k],
+                g[5], g[6])
+    # per group (the fp32 kernels, as the forward): dA, dB and dC its own
+    # states; du, ddelta and ddelta_bias summed over the groups; dD from
+    # the group that adds the D skip
+    u32, dt32, b32, c32, dy32 = (x.float() for x in (u, delta, B, C, dy))
+    du = ddelta = ddb = None
+    d_a, d_b, d_c = [], [], []
+    for i, (a, b, c, k) in enumerate(_state_groups(A, b32, c32)):
+        g = _bwd_launch(u32, dt32, a, b, c, D if i == 0 else
+                        torch.zeros_like(D), delta_bias, dy32, delta_softplus)
+        if i == 0:
+            du, ddelta, d_d, ddb = g[0], g[1], g[5], g[6]
+        else:
+            du, ddelta, ddb = du + g[0], ddelta + g[1], ddb + g[6]
+        d_a.append(g[2][..., :k])
+        d_b.append(g[3][..., :k])
+        d_c.append(g[4][..., :k])
+    return (du.to(u.dtype), ddelta.to(u.dtype), torch.cat(d_a, -1),
+            torch.cat(d_b, -1).to(B.dtype), torch.cat(d_c, -1).to(C.dtype),
+            d_d, ddb)
+
+
+def _bwd_launch(u, delta, A, B, C, D, delta_bias, dy, delta_softplus):
+    """One launch of the backward kernel at a built width."""
     rows, seq_len, d_in, n, groups, st = _check(u, delta, A, B, C, D,
                                                 delta_bias, dy)
     nblk = -(-d_in // _THREADS)
@@ -227,9 +326,9 @@ def bwd_occupancy(n: int, dtype: torch.dtype) -> tuple[int, int]:
     """The backward kernel's resident blocks an SM on the current card, and
     its shared memory a block in bytes, for d_state ``n`` and source dtype
     ``dtype`` (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
-    if n not in STATES or dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"selective_scan: no backward kernel for d_state={n}"
-                         f", {dtype}")
+    n = state_width(min(n, _MAX_STATE))
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"selective_scan: no backward kernel for {dtype}")
     blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
     lib, _ = build()
     err = lib.mia_selective_scan_bwd_blocks_per_sm(
@@ -243,9 +342,9 @@ def fwd_occupancy(n: int, dtype: torch.dtype) -> tuple[int, int]:
     """The forward kernel's resident blocks an SM on the current card, and
     its shared memory a block in bytes, for d_state ``n`` and source dtype
     ``dtype`` (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
-    if n not in STATES or dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"selective_scan: no forward kernel for d_state={n}"
-                         f", {dtype}")
+    n = state_width(min(n, _MAX_STATE))
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"selective_scan: no forward kernel for {dtype}")
     blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
     lib, _ = build()
     err = lib.mia_selective_scan_fwd_blocks_per_sm(

@@ -25,6 +25,8 @@ import torch
 import torch.nn as nn
 from torch.nn.utils import parametrize
 
+from ..parallel.tp import tp_slice
+
 
 @dataclasses.dataclass(frozen=True)
 class LoRARule:
@@ -88,17 +90,28 @@ class _LoRADelta(nn.Module):
     """weight -> weight + (alpha/r) * (a @ b).to(weight.dtype), transposed
     into the Linear layout, optionally into a row range of the weight."""
 
-    def __init__(self, a, b, scale: float, rows: tuple[int, int] | None):
+    def __init__(self, a, b, scale: float, rows: tuple[int, int] | None,
+                 full_out: int = 0):
         super().__init__()
         # A tuple keeps the adapters out of the module's parameters: the
         # trainer owns them, as the JAX package keeps them in their own tree.
         self.ab = (a, b)
         self.scale = scale
         self.rows = rows
+        self.full_out = full_out
+        # (axis, size, index, parts) of a tensor-parallel weight's slice
+        # (parallel.tp.shard_llm): the merge adds that slice of the delta
+        self.local = None
 
     def forward(self, weight):
         a, b = self.ab
         delta = self.scale * (a @ b).to(weight.dtype)
+        if self.local is not None:
+            d = delta.T
+            if self.rows is not None:
+                r0, r1 = self.rows
+                d = torch.nn.functional.pad(d, (0, 0, r0, self.full_out - r1))
+            return weight + tp_slice(d, *self.local)
         if self.rows is None:
             return weight + delta.T
         r0, r1 = self.rows
@@ -118,7 +131,7 @@ def apply_lora(model: nn.Module, lora: dict, rules: list[LoRARule]) -> None:
         parametrize.register_parametrization(
             lin, "weight", _LoRADelta(
                 lora[key]["a"], lora[key]["b"], rule.alpha / rule.rank,
-                _cols(rule, lin.out_features),
+                _cols(rule, lin.out_features), lin.out_features,
             ),
         )
 

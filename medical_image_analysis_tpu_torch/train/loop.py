@@ -36,9 +36,23 @@ bare ARM at ``vision``, the other tasks' tower at ``vision/<family>``),
 ``train.debug_nans`` (``fit_mrg``, as in the JAX package) checks every
 module's output, the loss and every gradient and raises
 ``FloatingPointError`` at the first NaN (:func:`debug_nans`).
-The options not ported raise ``NotImplementedError`` naming their
-ROADMAP.md item. Beyond the JAX recipe, each step's loss, grad norm,
-learning rate and wall seconds are written to ``log.txt``.
+Beyond the JAX recipe, each step's loss, grad norm, learning rate and wall
+seconds are written to ``log.txt``.
+
+Under ``torch.distributed`` (``cli.train`` started by torchrun) every
+recipe trains over a (data, model) grid of the processes
+(:func:`_mesh_for`, JAX's clamping): ``train.mesh_data`` data
+parallelism with ZeRO-1 (``train.zero_opt``) in every recipe, and
+``train.mesh_model`` tensor parallelism of the LLM in ``fit_mrg``
+(``parallel.tp.shard_llm``). Every rank takes rank 0's global batch
+(``parallel.mesh.broadcast_batch``: the synthetic images follow each
+process's hash seed) and keeps its rows (``parallel.mesh.shard_batch``), so
+that mixup, MAE's mask noise and the micro-batches are the one-process
+run's; the side inputs are rank 0's too; every rank validates the whole
+split (``fit_mrg`` generates from rank 0's batches), so the scores are the
+one-process run's; only rank 0 writes
+``log.txt``, the dumps, deltas and train states (gathered by every rank:
+the one-process files).
 """
 
 from __future__ import annotations
@@ -114,14 +128,84 @@ from ..models.swin import SWIN_CONFIGS, SwinCheX, SwinTransformer
 from ..models.vision_mamba_ar import VisionMambaAR
 from ..models.vit import MAE, VIT_CONFIGS
 from ..models.vmamba import VSSM_CONFIGS
+from ..parallel.mesh import (
+    broadcast_batch,
+    make_mesh,
+    shard_batch,
+    world_and_rank,
+)
+from ..parallel.tp import partial_names, shard_llm
 from ..peft.lora import apply_lora, init_lora, llama_qv_rules, vision_qv_rules
 from ..peft.mamba_peft import MambaPEFTConfig, weight_space_fields
 from ..utils.logging import JsonlLogger, MetricLogger
 from ..utils.profiling import check_nan, enable_debug_nans
 from .optim import make_adamw, scaled_lr, warmup_cosine
-from .train_state import TrainState, make_train_step
+from .train_state import TrainState, make_train_step, shard_state
 
 _IMAGE_SIZED = ("arm", "swin", "vit")  # towers that take ``img_size``
+
+
+def _mesh_for(batch_size: int, mesh_data: int = -1, mesh_model: int = 1):
+    """(data, model) grid of the job's processes, as the JAX function lays
+    its mesh over devices: the model axis as requested (clamped to divide
+    the processes), the data axis over the rest as divides ``batch_size``
+    (the micro-batch); None for one process. Every process must be on the
+    grid."""
+    n, _ = world_and_rank()
+    model = max(1, min(mesh_model, n))
+    while n % model != 0:
+        model -= 1
+    if model != max(1, mesh_model):
+        print(f"[mesh] requested mesh_model={mesh_model} does not divide "
+              f"{n} processes; using model={model}")
+    avail = n // model
+    d = avail if mesh_data in (-1, 0) else min(mesh_data, avail)
+    while d > 1 and batch_size % d != 0:
+        d -= 1
+    if d <= 1 and model <= 1:
+        if n > 1:
+            raise ValueError(f"[mesh] {n} processes but a (1, 1) mesh: "
+                             "set train.mesh_data or train.mesh_model")
+        return None
+    if d * model != n:
+        raise ValueError(f"[mesh] a ({d}, {model}) mesh leaves "
+                         f"{n - d * model} of {n} processes idle; start "
+                         f"{d * model}")
+    return make_mesh(data=d, model=model)
+
+
+def is_main() -> bool:
+    """Whether this is the process that writes (rank 0, or the only one)."""
+    return world_and_rank()[1] == 0
+
+
+class _Quiet:
+    """The logger of a rank that does not write."""
+
+    def write(self, record: dict) -> None:
+        pass
+
+
+def _logger(save_dir: str):
+    return JsonlLogger(save_dir) if is_main() else _Quiet()
+
+
+def _save_state(t, state: TrainState, epoch: int) -> None:
+    """Every rank gathers the state (collectives), rank 0 writes it."""
+    sd = state.state_dict()
+    if is_main():
+        save_train_state(t.save_dir, sd, epoch, keep=t.keep_states)
+
+
+def _save_delta(path: str, state: TrainState, **meta) -> None:
+    params = state.whole_params()
+    if is_main():
+        save_delta(path, params, **meta)
+
+
+def _place(state: TrainState, mesh, t, tp=None, partial=None) -> None:
+    if mesh is not None:
+        shard_state(state, mesh, tp, t.zero_opt, partial)
 
 
 def vision_preset(family: str, size: str, extra: dict | None = None) -> dict:
@@ -159,10 +243,13 @@ def build_mrg_model(cfg: RunConfig, vocab_size: int, device=None,
     without them the heads take their own widths.
     """
     m = cfg.model
+    llm_kwargs = dict(m.llm_kwargs or {})
+    if isinstance(llm_kwargs.get("dtype"), str):  # "float32", as flax reads it
+        llm_kwargs["dtype"] = getattr(torch, llm_kwargs["dtype"])
     if m.llm_weights_dir:
         # the architecture and vocabulary come from the checkpoint; the
         # data tokenizer must fit inside its embedding table
-        llm_cfg = read_hf_config(m.llm_weights_dir, **(m.llm_kwargs or {}))
+        llm_cfg = read_hf_config(m.llm_weights_dir, **llm_kwargs)
         if vocab_size > llm_cfg.vocab_size:
             raise ValueError(
                 f"tokenizer vocab ({vocab_size}) exceeds the checkpoint "
@@ -171,7 +258,7 @@ def build_mrg_model(cfg: RunConfig, vocab_size: int, device=None,
         if m.llm_int8:
             llm_cfg = dataclasses.replace(llm_cfg, quant_int8=True)
     else:
-        llm_kw = {"vocab_size": vocab_size, **(m.llm_kwargs or {})}
+        llm_kw = {"vocab_size": vocab_size, **llm_kwargs}
         llm_cfg = dataclasses.replace(LLM_CONFIGS[m.llm], **llm_kw)
         if llm_cfg.vocab_size < vocab_size:
             raise ValueError(f"model.llm_kwargs vocab_size "
@@ -419,6 +506,14 @@ def _device_batch(batch: dict, device) -> dict:
             for k, v in batch.items() if isinstance(v, np.ndarray)}
 
 
+def _step_batch(mesh, batch: dict, device, accum_steps: int) -> dict:
+    """A host batch as a train step takes it: on the device, rank 0's
+    values on every rank, and this data rank's rows of it."""
+    return shard_batch(mesh, broadcast_batch(mesh, _device_batch(batch,
+                                                                 device)),
+                       accum_steps)
+
+
 @contextmanager
 def _swapped(params: dict[str, torch.Tensor], values: dict | None):
     """Copy ``values`` into ``params`` for the block, then restore."""
@@ -439,8 +534,10 @@ def _swapped(params: dict[str, torch.Tensor], values: dict | None):
 
 def evaluate_mrg(batcher: MRGBatcher, tok, gen_fn, device,
                  max_batches: int = 50, dump_path: str = "",
-                 chinese: bool = False) -> dict:
-    """Generate a report per sample and score them against the references."""
+                 chinese: bool = False, mesh=None) -> dict:
+    """Generate a report per sample and score them against the references.
+    With ``mesh``, every rank generates from rank 0's batches (their
+    tensor-parallel collectives need the same inputs)."""
     gts, res = {}, {}
     n_total = -(-len(batcher.samples) // batcher.batch_size)
     if n_total > max_batches:
@@ -450,7 +547,8 @@ def evaluate_mrg(batcher: MRGBatcher, tok, gen_fn, device,
                                                drop_last=False)):
         if bi >= max_batches:
             break
-        out = gen_fn(_device_batch(batch, device)).cpu().numpy()
+        out = gen_fn(broadcast_batch(mesh, _device_batch(batch, device)))
+        out = out.cpu().numpy()
         for i, sid in enumerate(batch["ids"]):
             res[sid] = [tok.decode(out[i])]
             gts[sid] = [batch["reports"][i]]
@@ -565,17 +663,18 @@ def fit_mrg(cfg: RunConfig, device="cuda", on_start=None) -> dict:
     can observe them (``chip_smoke.py`` checks what moved).
     """
     t = cfg.train
-    if t.mesh_model > 1:
-        raise NotImplementedError(
-            "train.mesh_model > 1: tensor parallelism is not ported yet "
-            "(ROADMAP.md, queue 1, item 18)"
-        )
     device = torch.device(device)
     os.makedirs(t.save_dir, exist_ok=True)
-    logger = JsonlLogger(t.save_dir)
+    logger = _logger(t.save_dir)
     ann, tok, batcher, loader = build_data(cfg)
+    bs = cfg.data.batch_size
+    if bs % max(t.accum_steps, 1):
+        raise ValueError("data.batch_size must be divisible by "
+                         "train.accum_steps")
+    mesh = _mesh_for(bs // max(t.accum_steps, 1), t.mesh_data, t.mesh_model)
     t0 = time.perf_counter()
     ad = make_task_adapter(cfg, ann, tok, loader, device)
+    broadcast_batch(mesh, ad.side)  # rank 0's banks and graph on every rank
     if ad.side:
         logger.write({"side_inputs": {k: list(v.shape)
                                       for k, v in ad.side.items()},
@@ -593,10 +692,6 @@ def fit_mrg(cfg: RunConfig, device="cuda", on_start=None) -> dict:
     trainable = {n: p for n, p in named.items() if mask[n]}
     frozen = {n: p for n, p in named.items() if not mask[n]}
 
-    bs = cfg.data.batch_size
-    if bs % max(t.accum_steps, 1):
-        raise ValueError("data.batch_size must be divisible by "
-                         "train.accum_steps")
     steps_per_epoch = max(len(ann["train"]) // bs, 1)
     lr = t.lr if t.blr <= 0 else scaled_lr(t.blr, bs)
     tx = make_adamw(trainable,
@@ -605,6 +700,15 @@ def fit_mrg(cfg: RunConfig, device="cuda", on_start=None) -> dict:
                     weight_decay=t.weight_decay, grad_clip=t.grad_clip)
     state = TrainState(trainable, tx, ema=t.ema_decay > 0, frozen=frozen)
     start_epoch = _maybe_resume(state, t)
+    if t.eval_only:
+        _load_eval_only_weights(state, t)
+    if mesh is not None:
+        # the LLM cut over the model axis, then the state placed
+        cut = shard_llm(model.llm, mesh)
+        pre = "base/llm/" if any(n.startswith("base/") for n in named) \
+            else "llm/"
+        _place(state, mesh, t, {pre + p: how for p, how in cut.items()},
+               partial_names(named, cut, "llm"))
     if on_start is not None:
         on_start(model, state)
 
@@ -626,19 +730,20 @@ def fit_mrg(cfg: RunConfig, device="cuda", on_start=None) -> dict:
                     vb, tok, gen_fn, device,
                     max_batches=t.val_max_batches or 10**9,
                     chinese=cfg.data.dataset == "chinese",
-                    dump_path=os.path.join(t.save_dir, dump_name),
+                    dump_path=(os.path.join(t.save_dir, dump_name)
+                               if is_main() else ""), mesh=mesh,
                 )
         finally:
             vb.close()
 
     if t.eval_only:
-        _load_eval_only_weights(state, t)
         scores = score(t.eval_split, f"result_{t.eval_split}.json")
         logger.write({"eval_only": t.eval_split, **scores})
         return scores
 
     step = make_train_step(loss_fn, t.accum_steps, t.ema_decay,
-                           debug_nans(model) if t.debug_nans else None)
+                           debug_nans(model) if t.debug_nans else None,
+                           mesh=mesh)
     train_b = batcher("train", n_context=ad.n_context, extra_fn=ad.extra_fn)
     ml = MetricLogger()
     results: dict = {}
@@ -653,7 +758,8 @@ def fit_mrg(cfg: RunConfig, device="cuda", on_start=None) -> dict:
             t_prev = time.perf_counter()
             for batch in ml.log_every(it, t.log_every, f"epoch {epoch}",
                                       total=steps_per_epoch):
-                metrics = step(state, _device_batch(batch, device))
+                metrics = step(state, _step_batch(mesh, batch, device,
+                                                  t.accum_steps))
                 loss = float(metrics["loss"])  # waits for the step's loss
                 now = time.perf_counter()
                 logger.write({"epoch": epoch, "step": state.step,
@@ -665,8 +771,7 @@ def fit_mrg(cfg: RunConfig, device="cuda", on_start=None) -> dict:
             logger.write({"epoch": epoch,
                           "loss": ml.meters["loss"].global_avg})
             if (epoch + 1) % t.save_state_every_epochs == 0:
-                save_train_state(t.save_dir, state.state_dict(), epoch,
-                                 keep=t.keep_states)
+                _save_state(t, state, epoch)
 
             if (epoch + 1) % t.val_every_epochs == 0:
                 t0 = time.perf_counter()
@@ -682,11 +787,11 @@ def fit_mrg(cfg: RunConfig, device="cuda", on_start=None) -> dict:
                 results = {**scores, "val_score": val_score}
                 path = os.path.join(
                     t.save_dir, delta_filename(epoch, state.step, scores))
-                save_delta(path, state.params,
-                           config={"task": cfg.model.task,
-                                   "init_device": device.type},
-                           epoch=epoch, step=state.step)
-                if val_score > best_score:
+                _save_delta(path, state,
+                            config={"task": cfg.model.task,
+                                    "init_device": device.type},
+                            epoch=epoch, step=state.step)
+                if val_score > best_score and is_main():
                     best_score = val_score
                     shutil.copyfile(
                         path, os.path.join(t.save_dir, "checkpoint_best.pt"))
@@ -774,8 +879,10 @@ def fit_r2gen(cfg: RunConfig, device="cuda", on_start=None) -> dict:
     t, m = cfg.train, cfg.model
     device = torch.device(device)
     os.makedirs(t.save_dir, exist_ok=True)
-    logger = JsonlLogger(t.save_dir)
+    logger = _logger(t.save_dir)
     ann, tok, batcher, _ = build_data(cfg)
+    mesh = _mesh_for(cfg.data.batch_size // max(t.accum_steps, 1),
+                     t.mesh_data)
     model = build_r2gen_model(cfg, tok, device).eval()
     init_params(model, torch.Generator(device).manual_seed(t.seed))
     params = flax_named_parameters(model)
@@ -793,6 +900,9 @@ def fit_r2gen(cfg: RunConfig, device="cuda", on_start=None) -> dict:
                     weight_decay=t.weight_decay, grad_clip=t.grad_clip)
     state = TrainState(params, tx, ema=t.ema_decay > 0)
     start_epoch = _maybe_resume(state, t)
+    if t.eval_only:
+        _load_eval_only_weights(state, t)
+    _place(state, mesh, t)
     if on_start is not None:
         on_start(model, state)
     g = cfg.generate
@@ -813,15 +923,14 @@ def fit_r2gen(cfg: RunConfig, device="cuda", on_start=None) -> dict:
             vb.close()
 
     if t.eval_only:
-        _load_eval_only_weights(state, t)
         scores = score(t.eval_split, dump_path=os.path.join(
-            t.save_dir, f"result_{t.eval_split}.json"))
+            t.save_dir, f"result_{t.eval_split}.json") if is_main() else "")
         logger.write({"eval_only": t.eval_split, **scores})
         return scores
 
     step = make_train_step(
         lambda b: model(b["images"], b["target_ids"], b["target_mask"]),
-        t.accum_steps, t.ema_decay)
+        t.accum_steps, t.ema_decay, mesh=mesh)
     keys = ("images", "target_ids", "target_mask")
     train_b = batcher("train")
     ema = state.ema_params if t.ema_decay > 0 else None
@@ -833,8 +942,9 @@ def fit_r2gen(cfg: RunConfig, device="cuda", on_start=None) -> dict:
             t_prev = time.perf_counter()
             for batch in ml.log_every(it, t.log_every, f"r2gen epoch {epoch}",
                                       total=steps_per_epoch):
-                metrics = step(state, _device_batch(
-                    {k: batch[k] for k in keys}, device))
+                metrics = step(state, _step_batch(
+                    mesh, {k: batch[k] for k in keys}, device,
+                    t.accum_steps))
                 loss = float(metrics["loss"])  # waits for the step's loss
                 now = time.perf_counter()
                 logger.write({"epoch": epoch, "step": state.step,
@@ -846,15 +956,14 @@ def fit_r2gen(cfg: RunConfig, device="cuda", on_start=None) -> dict:
             logger.write({"epoch": epoch,
                           "loss": ml.meters["loss"].global_avg})
             if (epoch + 1) % t.save_state_every_epochs == 0:
-                save_train_state(t.save_dir, state.state_dict(), epoch,
-                                 keep=t.keep_states)
+                _save_state(t, state, epoch)
             if (epoch + 1) % t.val_every_epochs == 0:
                 t0 = time.perf_counter()
                 results = score("val", ema)
                 logger.write({"epoch": epoch,
                               "val_s": time.perf_counter() - t0, **results})
-                save_delta(os.path.join(t.save_dir, delta_filename(
-                    epoch, state.step, results)), state.params,
+                _save_delta(os.path.join(t.save_dir, delta_filename(
+                    epoch, state.step, results)), state,
                     config={"task": "r2gen"}, epoch=epoch, step=state.step)
             if t.max_epochs_this_run and (
                 epoch - start_epoch + 1 >= t.max_epochs_this_run
@@ -925,7 +1034,9 @@ def _fit_pretrain(cfg: RunConfig, tag: str, model, loss_fn, to_device,
     validation. Returns the mean loss of the run's steps."""
     t = cfg.train
     os.makedirs(t.save_dir, exist_ok=True)
-    logger = JsonlLogger(t.save_dir)
+    logger = _logger(t.save_dir)
+    mesh = _mesh_for(cfg.data.batch_size // max(t.accum_steps, 1),
+                     t.mesh_data)
     params = flax_named_parameters(model)
     n_params = sum(p.numel() for p in params.values())
     print(f"[fit_{tag}] data ready, {n_params} params initialized",
@@ -936,10 +1047,11 @@ def _fit_pretrain(cfg: RunConfig, tag: str, model, loss_fn, to_device,
                     weight_decay=t.weight_decay, grad_clip=t.grad_clip)
     state = TrainState(params, tx, ema=t.ema_decay > 0)
     start_epoch = _maybe_resume(state, t)
+    _place(state, mesh, t)
     if on_start is not None:
         on_start(model, state)
 
-    step = make_train_step(loss_fn, t.accum_steps, t.ema_decay)
+    step = make_train_step(loss_fn, t.accum_steps, t.ema_decay, mesh=mesh)
     train_b = batcher("train")
     ml = MetricLogger()
     try:
@@ -948,7 +1060,8 @@ def _fit_pretrain(cfg: RunConfig, tag: str, model, loss_fn, to_device,
             t_prev = time.perf_counter()
             for batch in ml.log_every(it, t.log_every, f"{tag} epoch {epoch}",
                                       total=steps_per_epoch):
-                metrics = step(state, to_device(batch, state.step))
+                metrics = step(state, shard_batch(mesh, broadcast_batch(
+                    mesh, to_device(batch, state.step)), t.accum_steps))
                 loss = float(metrics["loss"])  # waits for the step's loss
                 now = time.perf_counter()
                 logger.write({"epoch": epoch, "step": state.step,
@@ -958,8 +1071,7 @@ def _fit_pretrain(cfg: RunConfig, tag: str, model, loss_fn, to_device,
                 t_prev = now
                 ml.update(loss=loss)
             if (epoch + 1) % t.save_state_every_epochs == 0:
-                save_train_state(t.save_dir, state.state_dict(), epoch,
-                                 keep=t.keep_states)
+                _save_state(t, state, epoch)
             if t.max_epochs_this_run and (
                 epoch - start_epoch + 1 >= t.max_epochs_this_run
             ):
@@ -1089,9 +1201,10 @@ def fit_classify(cfg: RunConfig, device="cuda", on_start=None) -> dict:
     t = cfg.train
     device = torch.device(device)
     os.makedirs(t.save_dir, exist_ok=True)
-    logger = JsonlLogger(t.save_dir)
+    logger = _logger(t.save_dir)
     ann, _, batcher, _ = build_data(cfg)
     bs = cfg.data.batch_size
+    mesh = _mesh_for(bs // max(t.accum_steps, 1), t.mesh_data)
     if len(ann["train"]) < bs:
         raise ValueError(f"{len(ann['train'])} train samples, fewer than a "
                          f"batch of {bs}")
@@ -1112,6 +1225,9 @@ def fit_classify(cfg: RunConfig, device="cuda", on_start=None) -> dict:
                     weight_decay=t.weight_decay, grad_clip=t.grad_clip)
     state = TrainState(params, tx, ema=t.ema_decay > 0)
     start_epoch = _maybe_resume(state, t)
+    if t.eval_only:
+        _load_eval_only_weights(state, t)
+    _place(state, mesh, t)
     if on_start is not None:
         on_start(model, state)
 
@@ -1137,12 +1253,11 @@ def fit_classify(cfg: RunConfig, device="cuda", on_start=None) -> dict:
                                 head_kind)
 
     if t.eval_only:
-        _load_eval_only_weights(state, t)
         scores = run_eval(t.eval_split)
         logger.write({"eval_only": t.eval_split, **scores})
         return scores
 
-    step = make_train_step(loss_fn, t.accum_steps, t.ema_decay)
+    step = make_train_step(loss_fn, t.accum_steps, t.ema_decay, mesh=mesh)
     train_b = batcher("train")
     ema = state.ema_params if t.ema_decay > 0 else None
     ml = MetricLogger()
@@ -1160,8 +1275,9 @@ def fit_classify(cfg: RunConfig, device="cuda", on_start=None) -> dict:
                     images, labels = mixup_cutmix(
                         np.random.default_rng((t.seed, epoch, i)), images,
                         labels, mixup_alpha=t.mixup, cutmix_alpha=t.cutmix)
-                metrics = step(state, _device_batch(
-                    {"images": images, "labels": labels}, device))
+                metrics = step(state, _step_batch(
+                    mesh, {"images": images, "labels": labels}, device,
+                    t.accum_steps))
                 loss = float(metrics["loss"])  # waits for the step's loss
                 now = time.perf_counter()
                 logger.write({"epoch": epoch, "step": state.step,
@@ -1171,8 +1287,7 @@ def fit_classify(cfg: RunConfig, device="cuda", on_start=None) -> dict:
                 t_prev = now
                 ml.update(loss=loss)
             if (epoch + 1) % t.save_state_every_epochs == 0:
-                save_train_state(t.save_dir, state.state_dict(), epoch,
-                                 keep=t.keep_states)
+                _save_state(t, state, epoch)
             if (epoch + 1) % t.val_every_epochs == 0:
                 t0 = time.perf_counter()
                 results = run_eval("val", ema)
@@ -1238,7 +1353,8 @@ def fit_lm_sft(cfg: RunConfig, device="cuda", on_start=None) -> dict:
     t, d = cfg.train, cfg.data
     device = torch.device(device)
     os.makedirs(t.save_dir, exist_ok=True)
-    logger = JsonlLogger(t.save_dir)
+    logger = _logger(t.save_dir)
+    mesh = _mesh_for(d.batch_size // max(t.accum_steps, 1), t.mesh_data)
     ann, tok, batcher, _ = build_data(cfg)
     lm_extra = lm_sft_extra(tok, d.max_len)
     model = build_lm_model(cfg, tok.vocab_size, device)
@@ -1253,6 +1369,9 @@ def fit_lm_sft(cfg: RunConfig, device="cuda", on_start=None) -> dict:
                     weight_decay=t.weight_decay, grad_clip=t.grad_clip)
     state = TrainState(params, tx, ema=t.ema_decay > 0)
     start_epoch = _maybe_resume(state, t)
+    if t.eval_only:
+        _load_eval_only_weights(state, t)
+    _place(state, mesh, t)
     if on_start is not None:
         on_start(model, state)
     keys = ("lm_ids", "lm_mask")
@@ -1287,12 +1406,11 @@ def fit_lm_sft(cfg: RunConfig, device="cuda", on_start=None) -> dict:
                 "val_ppl": float(np.exp(min(val_loss, 20.0)))}
 
     if t.eval_only:
-        _load_eval_only_weights(state, t)
         scores = run_eval(t.eval_split)
         logger.write({"eval_only": t.eval_split, **scores})
         return scores
 
-    step = make_train_step(loss_fn, t.accum_steps, t.ema_decay)
+    step = make_train_step(loss_fn, t.accum_steps, t.ema_decay, mesh=mesh)
     train_b = batcher("train", extra_fn=lm_extra)
     ml = MetricLogger()
     results: dict = {}
@@ -1302,8 +1420,9 @@ def fit_lm_sft(cfg: RunConfig, device="cuda", on_start=None) -> dict:
             t_prev = time.perf_counter()
             for batch in ml.log_every(it, t.log_every, f"lm epoch {epoch}",
                                       total=steps_per_epoch):
-                metrics = step(state, _device_batch(
-                    {k: batch[k] for k in keys}, device))
+                metrics = step(state, _step_batch(
+                    mesh, {k: batch[k] for k in keys}, device,
+                    t.accum_steps))
                 loss = float(metrics["loss"])  # waits for the step's loss
                 now = time.perf_counter()
                 logger.write({"epoch": epoch, "step": state.step,
@@ -1315,8 +1434,7 @@ def fit_lm_sft(cfg: RunConfig, device="cuda", on_start=None) -> dict:
             logger.write({"epoch": epoch,
                           "loss": ml.meters["loss"].global_avg})
             if (epoch + 1) % t.save_state_every_epochs == 0:
-                save_train_state(t.save_dir, state.state_dict(), epoch,
-                                 keep=t.keep_states)
+                _save_state(t, state, epoch)
             if (epoch + 1) % t.val_every_epochs == 0:
                 t0 = time.perf_counter()
                 results = run_eval("val")

@@ -575,7 +575,9 @@ def test_mixer_grads_at_every_state_width_match_plain(cuda, n):
 
 @pytest.mark.cuda
 def test_state_widths_past_32_raise(cuda):
-    """d_state 33 raises in every wrapper and report: no plain fallback."""
+    """d_state 33 raises in every kernel wrapper and report: no plain
+    fallback. (The layer, ``mamba_fused_dirs``, runs it in state groups:
+    ``test_fused_layer_past_32_states_and_4_taps_matches_plain``.)"""
     xr, xc, w = _inputs(cuda, torch.float32, 4, 2, 10, 8, 33, 4, seed=0)
     x_dbl = torch.zeros(8, 10, 4 + 66, device=cuda)
     sargs = (xr, xc, x_dbl, w["conv_w"], w["conv_b"], w["dt_proj_w"],
@@ -584,11 +586,7 @@ def test_state_widths_past_32_raise(cuda):
     for call in (lambda: mf.scan_fwd(*sargs), lambda: mf.scan_bwd(*sargs, dy),
                  lambda: mf.scan_bwd_carries(*sargs, dy),
                  lambda: mf.fwd_occupancy(33, 4, torch.float32),
-                 lambda: mf.bwd_occupancy(33, 4, torch.float32),
-                 lambda: mf.mamba_fused_dirs(xr, xc, w["conv_w"],
-                                             w["conv_b"], w["x_proj_w"],
-                                             w["dt_proj_w"], w["dt_bias"],
-                                             w["A"], w["D"])):
+                 lambda: mf.bwd_occupancy(33, 4, torch.float32)):
         with pytest.raises(ValueError, match="1 <= d_state <= 32"):
             call()
 
@@ -1721,10 +1719,10 @@ def test_selective_scan_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                                cm.half(), dv, db)
     with pytest.raises(ValueError, match="delta must match"):
         ssp.selective_scan_fwd(u, delta[:, :5], a, bm, cm, dv, db)
-    with pytest.raises(ValueError, match="d_state=3"):
-        ssp.selective_scan_fwd(u, delta, a[..., :3].contiguous(),
-                               bm[..., :3].contiguous(),
-                               cm[..., :3].contiguous(), dv, db)
+    with pytest.raises(ValueError, match="not 3"):  # a launch; the wrapper pads
+        ssp._fwd_launch(u, delta, a[..., :3].contiguous(),
+                        bm[..., :3].contiguous(), cm[..., :3].contiguous(),
+                        dv, db, False)
     with pytest.raises(ValueError, match="unit stride over N"):
         ssp.selective_scan_fwd(u, delta, a, bm.transpose(1, 2).contiguous()
                                .transpose(1, 2), cm, dv, db)
@@ -2189,3 +2187,81 @@ def test_jax_layout_state_round_trips_at_full_width(cuda, tmp_path):
     back, epoch = restore_train_state(path)
     assert epoch == 3
     assert cs._same_state(saved, back, "round trip") == 4 * len(params)
+
+
+# d_state past the kernels' built widths (1, 4, 8, 16, 32): padded up to the
+# next, or in groups of 32 past 32
+SS_WIDTHS = [2, 5, 12, 17, 32, 40, 64]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("n", SS_WIDTHS)
+def test_selective_scan_every_d_state_matches_plain(cuda, dtype, n):
+    """The general scan's wrappers at d_state ``n`` (B and C read from a
+    wider x_dbl, 2 groups) against their plain versions, within the
+    bounds of the built widths; a launch per state group and call."""
+    args = _ss_inputs(cuda, dtype, 8, 37, 24, n, 2, True, seed=3 * n)
+    dy = torch.randn(8, 37, 24, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(n)).to(dtype)
+    groups = len(ssp.state_groups(n))
+    before = dict(ssp.launches)
+    want_y = ssp.selective_scan_fwd_plain(*args, delta_softplus=True)
+    got_y = ssp.selective_scan_fwd(*args, delta_softplus=True)
+    want = ssp.selective_scan_bwd_plain(*args, dy, delta_softplus=True)
+    got = ssp.selective_scan_bwd(*args, dy, delta_softplus=True)
+    torch.cuda.synchronize()
+    assert {k: ssp.launches[k] - before[k] for k in before} == dict.fromkeys(
+        before, groups)
+    assert got_y.dtype == dtype and got_y.shape == want_y.shape
+    err, scale = _err(got_y, want_y)
+    assert err <= _ss_tol(dtype, dtype) * scale, (err, scale)
+    for name, gv, wv in zip(SS_NAMES, got, want):
+        assert gv.shape == wv.shape and gv.dtype == wv.dtype, name
+        err, scale = _err(gv, wv)
+        assert err <= _ss_tol(dtype, gv.dtype) * scale, (name, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("n,taps", [(40, 4), (12, 5), (40, 5)],
+                         ids=["n40", "taps5", "n40-taps5"])
+def test_fused_layer_past_32_states_and_4_taps_matches_plain(cuda, dtype, n,
+                                                             taps):
+    """``mamba_fused_dirs`` past the kernels' 32 states (state groups) and
+    4 taps (the conv + SiLU in PyTorch, then the no-conv kernels a
+    direction) against ``plain=True``: y within ``Y_RTOL`` and every
+    gradient within ``GRAD_RTOL`` of its largest (bf16: the bf16 bound);
+    the fused kernels launch."""
+    k_dirs, b, l, d, r = 4, 2, 70, 40, 3
+    xr, xc, w = _inputs(cuda, dtype, k_dirs, b, l, d, n, r, seed=n + taps)
+    w["conv_w"] = torch.randn(k_dirs, taps, d, device=cuda,
+                              generator=torch.Generator(cuda).manual_seed(taps)
+                              ) * 0.5
+    cot = torch.randn(b, k_dirs, l, d, device=cuda,
+                      generator=torch.Generator(cuda).manual_seed(1))
+
+    def run(plain):
+        leaves = [t.detach().clone().requires_grad_()
+                  for t in (xr, xc, *w.values())]
+        y = mf.mamba_fused_dirs(*leaves, plain=plain)
+        (y.float() * cot).sum().backward()
+        return y.detach(), [t.grad for t in leaves]
+
+    mf.reset_launches()
+    got_y, got_g = run(False)
+    torch.cuda.synchronize()
+    launched = dict(mf.launches)
+    want_y, want_g = run(True)
+    assert all(v > 0 for v in launched.values()), launched
+    err, scale = _err(got_y, want_y)
+    assert got_y.dtype == dtype and err <= Y_RTOL[dtype] * scale, err
+    bound = GRAD_RTOL if dtype == torch.float32 else 2.0**-7
+    for name, g, wv in zip(["xr", "xc", *w], got_g, want_g):
+        assert g.shape == wv.shape, name
+        err = (g.float() - wv.float()).abs().max().item()
+        assert err <= bound * max(wv.float().abs().max().item(), 1e-30), (
+            name, err)
+

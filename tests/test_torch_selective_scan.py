@@ -246,3 +246,151 @@ def test_fwd_grid_blocks():
     assert ssp.fwd_grid_blocks(24, 768) == 288
     assert ssp.fwd_grid_blocks(512, 192) == 1536
     assert ssp.fwd_grid_blocks(6, 70) == 12
+
+
+WIDTHS = (2, 5, 12, 17, 32, 40, 64)
+
+
+def _launch_as_plain(monkeypatch):
+    """Route the CUDA wrappers' launches to the plain versions on the CPU,
+    checking that every launch is at a built width: the padding and the
+    state groups run as they do on the card."""
+    seen = []
+
+    def fwd(u, delta, A, B, C, D, db, sp):
+        assert A.shape[-1] in ssp.STATES and B.shape[-1] == A.shape[-1]
+        seen.append(A.shape[-1])
+        return ss.selective_scan_fwd_plain(u, delta, A, B, C, D, db, sp)
+
+    def bwd(u, delta, A, B, C, D, db, dy, sp):
+        assert A.shape[-1] in ssp.STATES and C.shape[-1] == A.shape[-1]
+        seen.append(A.shape[-1])
+        return ss.selective_scan_bwd_plain(u, delta, A, B, C, D, db, dy, sp)
+
+    monkeypatch.setattr(ssp, "_on_cpu", lambda u: False)
+    monkeypatch.setattr(ssp, "_fwd_launch", fwd)
+    monkeypatch.setattr(ssp, "_bwd_launch", bwd)
+    return seen
+
+
+@pytest.mark.parametrize("n", WIDTHS)
+def test_every_d_state_matches_jax(monkeypatch, n):
+    """The K-direction scan at d_state ``n`` through the wrappers' padding
+    and state groups (launches at the built widths, run by the plain
+    versions here) against JAX ``selective_scan_dirs`` in interpret mode:
+    y and all seven gradients (batch 2, K 2, L 12, D 8)."""
+    x = _inputs("dirs", seed=n, n=n, k=2)
+    dy = np.random.default_rng(n + 1).standard_normal(x["u"].shape).astype(
+        np.float32)
+
+    @jax.jit
+    def jax_vjp(*args):
+        y, pull = jax.vjp(lambda *a: jss.selective_scan_dirs(
+            *a, True, chunk=8, block_d=8, interpret=True), *args)
+        return y, pull(jnp.asarray(dy))
+
+    y_want, g_want = jax_vjp(*(jnp.asarray(v) for v in x.values()))
+    seen = _launch_as_plain(monkeypatch)
+    leaves = [torch.tensor(v, requires_grad=True) for v in x.values()]
+    y = ssp.selective_scan_dirs(*leaves, delta_softplus=True)
+    y.backward(torch.from_numpy(dy))
+    want_launches = 2 * len(ssp.state_groups(n))
+    assert len(seen) == want_launches
+    assert all(w == ssp.state_width(min(n - s0, 32))
+               for w, s0 in zip(seen, [s for s, _ in ssp.state_groups(n)] * 2))
+    err, scale = _err(y.detach(), y_want)
+    assert err <= Y_RTOL["fp32"] * scale, (err, scale)
+    for name, leaf, w in zip(NAMES, leaves, g_want):
+        w = np.asarray(w)
+        assert leaf.grad.shape == w.shape, name
+        err = np.abs(leaf.grad.numpy() - w).max()
+        assert err <= GRAD_RTOL * np.abs(w).max(), (name, err)
+
+
+@pytest.mark.parametrize("n", (5, 40))
+def test_every_d_state_bf16_forward(monkeypatch, n):
+    """bf16 sources at a padded (5) and a grouped (40) d_state: y against
+    the JAX kernel within the bf16 bound (the groups run in fp32, their y
+    added and rounded once)."""
+    x = _inputs("dirs", seed=3 * n, n=n, k=2)
+    jx = {k: jnp.asarray(v) for k, v in x.items()}
+    tx = {k: torch.from_numpy(v) for k, v in x.items()}
+    for name in ("u", "delta", "B", "C"):
+        jx[name] = jx[name].astype(jnp.bfloat16)
+        tx[name] = tx[name].to(torch.bfloat16)
+    want = _jax_fn("dirs")(*jx.values(), True)
+    _launch_as_plain(monkeypatch)
+    got = ssp.selective_scan_dirs(*tx.values(), delta_softplus=True)
+    assert got.dtype == torch.bfloat16
+    err, scale = _err(got.float(), want)
+    assert err <= Y_RTOL["bf16"] * scale, (err, scale)
+
+
+def test_state_groups():
+    assert ssp.state_groups(40) == [(0, 32), (32, 40)]
+    assert ssp.state_groups(64) == [(0, 32), (32, 64)]
+    assert ssp.state_groups(17) == [(0, 17)]
+    assert [ssp.state_width(k) for k in (1, 2, 5, 12, 17, 32)] == [
+        1, 4, 8, 16, 32, 32]
+
+
+@pytest.mark.parametrize("n,taps", [(40, 4), (12, 5), (40, 5)],
+                         ids=["n40", "taps5", "n40-taps5"])
+def test_fused_layer_past_the_kernel_widths_matches_jax(monkeypatch, n, taps):
+    """The fused Mamba layer past 32 states and past 4 taps (K = 4, B 2,
+    L 10, D 8, R 3) against the JAX ``mamba_fused_dirs`` in interpret mode:
+    y within 1e-5 of max(1, max |y|), every gradient within 1e-4 of its
+    largest. Each launch of the pieces stays within the kernels' widths
+    (at most 32 states and 4 taps; a wider conv runs in PyTorch first)."""
+    from medical_image_analysis_tpu.ops.mamba_fused import (
+        mamba_fused_dirs as jax_mamba_fused_dirs)
+    from medical_image_analysis_tpu_torch.ops import mamba_fused
+
+    k_dirs, b, l, d, r = 4, 2, 10, 8, 3
+    rng = np.random.default_rng(n + taps)
+
+    def rand(*shape, scale=0.5):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    xr, xc = rand(b, l, d), rand(b, l, d)
+    p = dict(conv_w=rand(k_dirs, taps, d), conv_b=rand(k_dirs, d),
+             x_proj_w=rand(k_dirs, r + 2 * n, d), dt_proj_w=rand(k_dirs, d, r),
+             dt_bias=rand(k_dirs, d),
+             A=-np.exp(rand(k_dirs, d, n, scale=0.3)), D=rand(k_dirs, d))
+    cot = rand(b, k_dirs, l, d, scale=1.0)
+
+    def objective(*args):
+        y = jax_mamba_fused_dirs(*args, chunk=4, block_d=8, interpret=True)
+        return jnp.sum(y * cot), y
+
+    (_, want), grads = jax.jit(jax.value_and_grad(
+        objective, argnums=tuple(range(9)), has_aux=True))(
+        jnp.asarray(xr), jnp.asarray(xc), *map(jnp.asarray, p.values()))
+
+    seen = []
+    xdbl_fwd, scan_fwd = mamba_fused.xdbl_fwd, mamba_fused.scan_fwd
+
+    def spy_xdbl(xr_, xc_, conv_w, conv_b, x_proj_w, use_conv=True):
+        assert conv_w.shape[1] <= mamba_fused._MAX_TAPS or not use_conv
+        return xdbl_fwd(xr_, xc_, conv_w, conv_b, x_proj_w, use_conv)
+
+    def spy_scan(*args, **kw):
+        seen.append(args[7].shape[-1])
+        assert args[7].shape[-1] <= mamba_fused._MAX_STATE
+        return scan_fwd(*args, **kw)
+
+    monkeypatch.setattr(mamba_fused, "xdbl_fwd", spy_xdbl)
+    monkeypatch.setattr(mamba_fused, "scan_fwd", spy_scan)
+    t = [torch.from_numpy(a).requires_grad_() for a in (xr, xc, *p.values())]
+    got = mamba_fused.mamba_fused_dirs(*t)
+    groups = len(mamba_fused.state_groups(n))
+    assert len(seen) == groups * (k_dirs if taps > 4 else 1)
+    want = np.asarray(want)
+    err = float(np.abs(got.detach().numpy() - want).max())
+    assert err <= 1e-5 * max(1.0, float(np.abs(want).max())), err
+    (got * torch.from_numpy(cot)).sum().backward()
+    for name, tt, g in zip(["xr", "xc", *p], t, grads):
+        g = np.asarray(g)
+        assert tt.grad.shape == g.shape, name
+        err = float(np.abs(tt.grad.numpy() - g).max())
+        assert err <= 1e-4 * float(np.abs(g).max()), (name, err)
